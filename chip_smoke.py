@@ -4,24 +4,36 @@
     python3 chip_smoke.py
 
 Drives one worker's main path end to end on the card, through the entry
-points a user calls, at the size of the USA-road-d.NY stand-in
-(``synth_road_network(264_000, seed=0)``, partitioned ``mod`` over 32
-workers; worker 0 owns 8,250 targets, a 2.18 GB int8 first-move table):
+points a user calls, then the compressed-residency path:
 
-1. print the card (``nvidia-smi``) and build the CUDA walk kernel from
-   ``distributed_oracle_search_tpu_torch/csrc`` with ``nvcc``;
-2. build worker 0's CPD shard on the card (``build_worker_shard``,
-   512-row chunks) into block files plus an ``index.json`` manifest;
-3. load it into a ``ShardEngine`` on the card and answer three rounds of
-   20,000 queries: free flow, one congestion diff, and ``k_moves=8``
-   with path extraction; the walk's launch counter is zeroed before the
-   rounds and read after them;
-4. call the kernel and its plain torch version on each round's exact
-   kernel inputs on the card: ``(cost, plen, finished)`` must be equal
-   element by element; both are timed with CUDA events;
-5. golden check: free-flow costs equal reverse-Dijkstra distances for 4
-   seeded targets, and 16 diff-round answers equal the CPU reference walk;
-6. print the kernel table as one JSON line, then, as the last line,
+1. print the card (``nvidia-smi``) and build the CUDA walk kernels (raw
+   and pack4, one source) from ``distributed_oracle_search_tpu_torch/csrc``
+   with ``nvcc``;
+2. road path, at the size of the USA-road-d.NY stand-in
+   (``synth_road_network(264_000, seed=0)``, ``mod`` over 32 workers;
+   worker 0 owns 8,250 targets, a 2.18 GB int8 first-move table): build
+   worker 0's shard on the card (``build_worker_shard``, 512-row chunks)
+   into block files plus an ``index.json``; load it into a ``ShardEngine``
+   and answer three rounds of 20,000 queries — free flow, one congestion
+   diff, ``k_moves=8`` with extraction — with the launch counters zeroed
+   before the rounds and read after them; hold the raw kernel against its
+   plain torch version on each round's exact inputs (equal element by
+   element, both timed with CUDA events); golden checks against
+   reverse-Dijkstra and the CPU reference walk;
+3. compressed path (``[compressed]`` lines), on
+   ``synth_city_graph(514, 514, seed=0, shortcut_frac=0.0)`` (264,196
+   nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 32
+   workers: build worker 0's 8,257 rows on the card with
+   ``codec="pack4"`` (the blocks must be pack4 containers); load three
+   engines from that one index with ``DOS_CPD_RESIDENT`` raw, pack4 and
+   rle (each must keep its codec; a degrade to raw fails); answer the same
+   three rounds on each (pack4 and rle answers must equal raw, paths
+   included; the pack4 kernel must launch in the free-flow and diff
+   rounds, the extract round inflates rows instead); hold the pack4
+   kernel against its plain version on those two rounds' exact inputs;
+   time ``decompress_rows`` of a batch's distinct rows under pack4 and
+   rle; free-flow costs must equal reverse-Dijkstra;
+4. print the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a GPU, or without the package
@@ -31,6 +43,7 @@ writes goes under ``build/`` beside this script and is removed at exit.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -44,7 +57,7 @@ import numpy as np
 import torch
 
 from distributed_oracle_search_tpu_torch.data import (
-    synth_diff, synth_road_network, write_diff,
+    synth_city_graph, synth_diff, synth_road_network, write_diff,
 )
 from distributed_oracle_search_tpu_torch.models import (
     dist_to_target, table_search_walk,
@@ -54,7 +67,7 @@ from distributed_oracle_search_tpu_torch.models.cpd import (
 )
 from distributed_oracle_search_tpu_torch.ops import cuda_walk as cw
 from distributed_oracle_search_tpu_torch.ops.table_search import (
-    table_search_batch,
+    fm_slot, table_search_batch, walk_budget, walk_pairs,
 )
 from distributed_oracle_search_tpu_torch.parallel import (
     DistributionController,
@@ -66,6 +79,7 @@ from distributed_oracle_search_tpu_torch.worker import engine as eng
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 N_NODES = 264_000
+GRID_SIDE = 514
 MAXWORKER = 32
 WID = 0
 CHUNK = 512
@@ -74,11 +88,13 @@ N_DUPS = 200
 N_SELF = 50
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+DECOMPRESS_REPS = 3
 #: H100 SXM published device-memory rate and non-tensor 32-bit rate
 #: (used for the int32 walk arithmetic); the bound is the larger time
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 SECTOR = 32
+ROUND_NAMES = ("free-flow", "diff", "k8-extract")
 
 
 def log(msg: str) -> None:
@@ -123,61 +139,31 @@ def make_queries(dc, n: int) -> np.ndarray:
     return q
 
 
-def run() -> dict:
-    # ---- 1. card + kernel build
-    log(card_line())
-    t0 = time.perf_counter()
-    cuda_build.load_library(cw.KERNEL_NAME)
-    info = cuda_build.build_info[cw.KERNEL_NAME]
-    log(f"[build] {cw.KERNEL_NAME}: nvcc {info['seconds']:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s)")
-    for line in info["ptxas"].splitlines():
-        log(f"[build]   {line.strip()}")
-
-    # ---- 2. graph + worker 0's shard build on the card
-    t0 = time.perf_counter()
-    g = synth_road_network(N_NODES, seed=SEED)
-    dc = DistributionController("mod", MAXWORKER, MAXWORKER, g.n)
-    log(f"[graph] n={g.n} m={g.m} K={g.max_out_degree} "
-        f"({time.perf_counter() - t0:.2f} s); worker {WID} owns "
-        f"{dc.n_owned(WID)} targets")
-    work = os.path.join(ROOT, "build")
-    os.makedirs(work, exist_ok=True)
-    outdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=work)
-    try:
-        return _run_in(g, dc, outdir)
-    finally:
-        shutil.rmtree(outdir, ignore_errors=True)
+def zero_launches() -> None:
+    cw.cuda_walk_batch.launches = 0
+    cw.cuda_walk_batch.launches_pack4 = 0
 
 
-def _run_in(g, dc, outdir) -> dict:
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    written = build_worker_shard(g, dc, WID, outdir, chunk=CHUNK,
-                                 device="cuda")
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    rows = dc.n_owned(WID)
-    log(f"[build-shard] rows={rows} chunk={CHUNK} blocks={len(written)} "
-        f"seconds={build_s:.3f} rows/s={rows / build_s:.2f} peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    write_index_manifest(outdir, dc, workers=[WID])
+def read_launches() -> tuple[int, int]:
+    """(raw, pack4) kernel launches since the last zero_launches()."""
+    return cw.cuda_walk_batch.launches, cw.cuda_walk_batch.launches_pack4
 
-    # ---- 3. engine on the card, three rounds through answer()
-    t0 = time.perf_counter()
-    engine = eng.ShardEngine(g, dc, WID, outdir, device="cuda")
-    torch.cuda.synchronize()
-    log(f"[engine] loaded {tuple(engine.fm.shape)} {engine.fm.dtype} fm "
-        f"({engine.fm.numel() / 1e9:.2f} GB) in "
-        f"{time.perf_counter() - t0:.2f} s")
-    queries = make_queries(dc, g.n)
+
+def rounds_for(g, outdir: str):
     diff_path = os.path.join(outdir, "congestion.diff")
     write_diff(diff_path, *synth_diff(g, frac=0.1, seed=2))
-    rounds = [("free-flow", RuntimeConfig(), "-"),
-              ("diff", RuntimeConfig(), diff_path),
-              ("k8-extract", RuntimeConfig(k_moves=8, extract=True), "-")]
-    # record the kernel calls answer() makes, to replay their exact
-    # inputs in phase 4 (the recorder calls the real wrapper)
+    return diff_path, [
+        ("free-flow", RuntimeConfig(), "-"),
+        ("diff", RuntimeConfig(), diff_path),
+        ("k8-extract", RuntimeConfig(k_moves=8, extract=True), "-")]
+
+
+def drive_rounds(engine, queries, rounds, tag: str) -> dict:
+    """Answer each round twice (warm, then timed on the host clock)
+    through ``engine.answer``, recording the walk calls it makes so
+    their exact inputs can be replayed; returns per round ``(cost, plen,
+    fin, stats, last_paths, last walk call, launches)``, ``launches``
+    being the (raw, pack4) kernel launches of that round's two calls."""
     captured: list = []
     real_walk = eng.cuda_walk_batch
 
@@ -187,81 +173,226 @@ def _run_in(g, dc, outdir) -> dict:
 
     eng.cuda_walk_batch = recording_walk
     answers = {}
-    cw.cuda_walk_batch.launches = 0
     try:
         for name, cfg, diff in rounds:
+            before = read_launches()
             engine.answer(queries, cfg, diff)              # warm
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cost, plen, fin, stats = engine.answer(queries, cfg, diff)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
+            after = read_launches()
             answers[name] = (cost, plen, fin, stats, engine.last_paths,
-                             captured[-1])
-            log(f"[answer] {name}: {len(queries)} queries in {dt:.4f} s "
+                             captured[-1],
+                             (after[0] - before[0], after[1] - before[1]))
+            log(f"{tag} {name}: {len(queries)} queries in {dt:.4f} s "
                 f"= {len(queries) / dt:.1f} q/s; finished "
                 f"{stats.finished}/{stats.n_touched}, sum plen "
                 f"{stats.plen}, max plen {int(plen.max())}")
     finally:
         eng.cuda_walk_batch = real_walk
-    launches = cw.cuda_walk_batch.launches
+    return answers
+
+
+def touched_sectors(call, plen_kernel) -> tuple[int, int]:
+    """Distinct 32-byte sectors of the fm table and of the ``(next, w)``
+    pair table that the walk on one recorded call's inputs must read.
+
+    Replays the walk one move at a time: a live lane reads its fm byte
+    (birth and after each move, none after its move budget runs out) and
+    each move reads one pair. Offsets are global byte offsets within each
+    table, so lanes that share a target row, and moves to a neighbouring
+    column, share sectors. The replay's ``plen`` must equal the kernel's."""
+    (dg, fm, t_rows, s, _t, w_query_pad), kw = call
+    packed4 = bool(kw.get("packed4", False))
+    steps, budget = walk_budget(dg.n, int(kw.get("k_moves", -1)),
+                                int(kw.get("max_steps", 0)),
+                                int(kw.get("unroll", 8)))
+    valid = kw["valid"]
+    pair = walk_pairs(dg, w_query_pad)
+    rows = t_rows.long()
+    row_base = rows * fm.shape[1]                # 1-byte elements
+    x = s.long()
+    plen = torch.zeros_like(x)
+    live = valid.clone()
+    fm_sec, pair_sec = [], []
+    for _ in range(steps):
+        if not bool(live.any()):
+            break
+        col = x >> 1 if packed4 else x
+        fm_sec.append(((row_base + col) // SECTOR)[live])
+        slot = fm_slot(fm, rows, x, packed4).long()
+        can = live & (slot >= 0)
+        if budget is not None:
+            can &= plen < budget
+        slot = slot.clamp_min(0)
+        pair_sec.append(((x * dg.k + slot) * 8 // SECTOR)[can])
+        x = torch.where(can, pair[x, slot, 0].long(), x)
+        plen += can.long()
+        live = can if budget is None else can & (plen < budget)
+    if not torch.equal(plen[valid], plen_kernel[valid].long()):
+        raise AssertionError("sector replay disagrees with the kernel plen")
+
+    def distinct(parts):
+        return int(torch.unique(torch.cat(parts)).numel()) if parts else 0
+
+    return distinct(fm_sec), distinct(pair_sec)
+
+
+def kernel_vs_plain(name: str, call, tag: str) -> dict:
+    """Run the kernel and the plain walk on one recorded call's exact
+    inputs: equal element by element or raise; both timed with CUDA
+    events; the bound from this run's data."""
+    a, kw = call
+    ker = cw.cuda_walk_batch(*a, **kw)
+    plain = table_search_batch(*a, **kw)
+    torch.cuda.synchronize()
+    err = 0
+    for x, y, label in zip(ker, plain, ("cost", "plen", "fin")):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            bad = int((x != y).sum())
+            raise AssertionError(f"{name}: kernel {label} differs from "
+                                 f"the plain walk on {bad} lanes")
+        err = max(err, int((x.long() - y.long()).abs().max())
+                  if x.numel() else 0)
+    ms = time_cuda(lambda: cw.cuda_walk_batch(*a, **kw), KERNEL_REPS)
+    plain_ms = time_cuda(lambda: table_search_batch(*a, **kw), PLAIN_REPS)
+    valid = kw["valid"]
+    q = int(valid.numel())
+    sum_plen = int(ker[1][valid].long().sum())
+    n_valid = int(valid.sum())
+    # least bytes: each distinct fm and (next, w) pair sector the walk
+    # touches, read once; lane inputs (rows, s, t int32 + valid) read
+    # once, outputs (cost, plen int32 + fin) written once
+    fm_sec, pair_sec = touched_sectors(call, ker[1])
+    nbytes = (fm_sec + pair_sec) * SECTOR + q * 13 + q * 9
+    # the earlier, looser count: one fm sector per lane's birth and per
+    # move, one pair sector per move, as if no sector were ever shared
+    per_move_bytes = ((n_valid + sum_plen) * SECTOR + sum_plen * SECTOR
+                      + q * 13 + q * 9)
+    ops = 6 * sum_plen + 4 * q       # compare/add/select per move
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+    per_move_ms = max(per_move_bytes / HBM_BYTES_PER_S,
+                      ops / INT32_OPS_PER_S) * 1e3
+    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                >= ops / INT32_OPS_PER_S else "operations")
+    log(f"{tag} {name}: lanes={q} valid={n_valid} sum_plen={sum_plen} "
+        f"max_plen={int(ker[1].max())} kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+        f"({nbytes} B: {fm_sec} fm + {pair_sec} pair sectors; per-move "
+        f"count {per_move_bytes} B = {per_move_ms:.5f} ms) — bit-identical")
+    return {"round": name, "lanes": q, "valid": n_valid,
+            "sum_plen": sum_plen, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "fm_sectors": fm_sec, "pair_sectors": pair_sec,
+            "bound_ms_per_move": per_move_ms,
+            "bytes_per_move": per_move_bytes, "max_abs_err": err}
+
+
+def golden_dijkstra(g, queries, cost, fin, tag: str) -> None:
+    """Free-flow costs equal reverse-Dijkstra distances for 4 seeded
+    targets; every query of a strongly connected graph finishes."""
+    if not fin.all():
+        raise AssertionError("free-flow round left queries unfinished on a "
+                             "strongly connected graph")
+    rng = np.random.default_rng(SEED + 1)
+    for tgt in rng.choice(np.unique(queries[:, 1]), 4, replace=False):
+        ref = dist_to_target(g, int(tgt))
+        sel = queries[:, 1] == tgt
+        got, want = cost[sel], ref[queries[sel, 0]]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"target {tgt}: costs {got} != Dijkstra "
+                                 f"{want}")
+        log(f"{tag} target {tgt}: {int(sel.sum())} free-flow costs equal "
+            "Dijkstra")
+
+
+def build_index(g, dc, outdir: str, tag: str, codec: str | None = None):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    written = build_worker_shard(g, dc, WID, outdir, chunk=CHUNK,
+                                 device="cuda", codec=codec)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rows = dc.n_owned(WID)
+    log(f"{tag} rows={rows} chunk={CHUNK} blocks={len(written)} "
+        f"seconds={build_s:.3f} rows/s={rows / build_s:.2f} peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return write_index_manifest(outdir, dc, workers=[WID])
+
+
+def run() -> list[dict]:
+    # ---- 1. card + kernel build (one source, raw and pack4 entries)
+    log(card_line())
+    t0 = time.perf_counter()
+    cuda_build.load_library(cw.KERNEL_NAME)
+    info = cuda_build.build_info[cw.KERNEL_NAME]
+    log(f"[build] {cw.KERNEL_NAME}: nvcc {info['seconds']:.2f} s "
+        f"(load {time.perf_counter() - t0:.2f} s)")
+    for line in info["ptxas"].splitlines():
+        log(f"[build]   {line.strip()}")
+    work = os.path.join(ROOT, "build")
+    os.makedirs(work, exist_ok=True)
+
+    # ---- 2. road path
+    t0 = time.perf_counter()
+    g = synth_road_network(N_NODES, seed=SEED)
+    dc = DistributionController("mod", MAXWORKER, MAXWORKER, g.n)
+    log(f"[graph] n={g.n} m={g.m} K={g.max_out_degree} "
+        f"({time.perf_counter() - t0:.2f} s); worker {WID} owns "
+        f"{dc.n_owned(WID)} targets")
+    outdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=work)
+    try:
+        raw_kernel = road_path(g, dc, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    # release the road engine's tables before the compressed phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[road] done at {time.perf_counter() - T_START:.1f} s")
+
+    # ---- 3. compressed path
+    t0 = time.perf_counter()
+    g = synth_city_graph(GRID_SIDE, GRID_SIDE, seed=SEED, shortcut_frac=0.0)
+    dc = DistributionController("mod", MAXWORKER, MAXWORKER, g.n)
+    log(f"[compressed] graph n={g.n} m={g.m} K={g.max_out_degree} "
+        f"({time.perf_counter() - t0:.2f} s); worker {WID} owns "
+        f"{dc.n_owned(WID)} targets")
+    outdir = tempfile.mkdtemp(prefix="chip-smoke-grid-", dir=work)
+    try:
+        pack4_kernel = compressed_path(g, dc, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    return [raw_kernel, pack4_kernel]
+
+
+def road_path(g, dc, outdir) -> dict:
+    build_index(g, dc, outdir, "[build-shard]")
+
+    # engine on the card, three rounds through answer()
+    t0 = time.perf_counter()
+    engine = eng.ShardEngine(g, dc, WID, outdir, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[engine] loaded {tuple(engine.fm.shape)} {engine.fm.dtype} fm "
+        f"({engine.fm.numel() / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    queries = make_queries(dc, g.n)
+    diff_path, rounds = rounds_for(g, outdir)
+    zero_launches()
+    answers = drive_rounds(engine, queries, rounds, "[answer]")
+    launches = read_launches()[0]
     log(f"[answer] walk kernel launches in the three rounds: {launches}")
     if launches <= 0:
         raise AssertionError("the main path never launched the walk kernel")
 
-    # ---- 4. kernel vs plain torch on each round's kernel inputs
-    per_round = []
-    for name, *_rest in rounds:
-        a, kw = answers[name][5]
-        ker = cw.cuda_walk_batch(*a, **kw)
-        plain = table_search_batch(*a, **kw)
-        torch.cuda.synchronize()
-        err = 0
-        for x, y, label in zip(ker, plain, ("cost", "plen", "fin")):
-            if x.dtype != y.dtype or not torch.equal(x, y):
-                bad = int((x != y).sum())
-                raise AssertionError(f"{name}: kernel {label} differs from "
-                                     f"the plain walk on {bad} lanes")
-            err = max(err, int((x.long() - y.long()).abs().max())
-                      if x.numel() else 0)
-        ms = time_cuda(lambda: cw.cuda_walk_batch(*a, **kw),
-                       KERNEL_REPS)
-        plain_ms = time_cuda(
-            lambda: table_search_batch(*a, **kw), PLAIN_REPS)
-        valid = kw["valid"]
-        q = int(valid.numel())
-        sum_plen = int(ker[1][valid].long().sum())
-        n_valid = int(valid.sum())
-        # least bytes: per valid lane its birth fm sector, then per move
-        # one fm sector + one (next, w) pair sector; lane inputs
-        # (rows, s, t int32 + valid) read once, outputs written once
-        nbytes = ((n_valid + sum_plen) * SECTOR + sum_plen * SECTOR
-                  + q * 13 + q * 9)
-        ops = 6 * sum_plen + 4 * q       # compare/add/select per move
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-        per_round.append({"round": name, "lanes": q, "valid": n_valid,
-                          "sum_plen": sum_plen, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bytes": nbytes, "max_abs_err": err})
-        log(f"[kernel] {name}: lanes={q} valid={n_valid} sum_plen="
-            f"{sum_plen} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.5f} ms ({nbytes} B) — bit-identical")
+    # kernel vs plain torch on each round's kernel inputs
+    per_round = [kernel_vs_plain(name, answers[name][5], "[kernel]")
+                 for name in ROUND_NAMES]
 
-    # ---- 5. golden checks against the CPU reference oracle
-    rng = np.random.default_rng(SEED + 1)
-    cost_ff, plen_ff, fin_ff = answers["free-flow"][:3]
-    if not fin_ff.all():
-        raise AssertionError("free-flow round left queries unfinished on a "
-                             "strongly connected graph")
-    for tgt in rng.choice(np.unique(queries[:, 1]), 4, replace=False):
-        ref = dist_to_target(g, int(tgt))
-        sel = queries[:, 1] == tgt
-        got, want = cost_ff[sel], ref[queries[sel, 0]]
-        if not np.array_equal(got, want):
-            raise AssertionError(f"target {tgt}: costs {got} != Dijkstra "
-                                 f"{want}")
-        log(f"[golden] target {tgt}: {int(sel.sum())} free-flow costs equal "
-            "Dijkstra")
+    # golden checks against the CPU reference oracle
+    golden_dijkstra(g, queries, answers["free-flow"][0],
+                    answers["free-flow"][2], "[golden]")
     w_diff = g.weights_with_diff(diff_path)
     cost_d, plen_d, fin_d = answers["diff"][:3]
     fm_rows: dict[int, np.ndarray] = {}
@@ -272,17 +403,17 @@ def _run_in(g, dc, outdir) -> dict:
             fm_rows[tt] = engine.fm[r].cpu().numpy()
         return fm_rows[tt][x]
 
+    rng = np.random.default_rng(SEED + 2)
     for i in rng.choice(len(queries), 16, replace=False):
         s, t = (int(v) for v in queries[i])
-        c, p, f, _ = table_search_walk(g, fm_of, s, t,
-                                               w_query=w_diff)
+        c, p, f, _ = table_search_walk(g, fm_of, s, t, w_query=w_diff)
         if (int(cost_d[i]), int(plen_d[i]), bool(fin_d[i])) != (c, p, f):
             raise AssertionError(
                 f"diff query {s}->{t}: engine "
                 f"{(cost_d[i], plen_d[i], fin_d[i])} != reference "
                 f"{(c, p, f)}")
     log("[golden] 16 diff-round answers equal the reference walk")
-    _, plen_k, _, _, paths, _ = answers["k8-extract"]
+    _, plen_k, _, _, paths, _, _ = answers["k8-extract"]
     nodes, moves = paths
     if (nodes.shape != (len(queries), 9)
             or not np.array_equal(nodes[:, 0], queries[:, 0])
@@ -302,25 +433,147 @@ def _run_in(g, dc, outdir) -> dict:
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": main["bound_by"],
         "library_ms": None,
         "parity": "bit-identical",
         "rounds": per_round,
     }
 
 
+def compressed_path(g, dc, outdir) -> dict:
+    tag = "[compressed]"
+    r, n = dc.n_owned(WID), g.n
+    man = build_index(g, dc, outdir, f"{tag} build-shard", codec="pack4")
+    codecs = [m.get("codec") for m in man["blocks"].values()]
+    disk = sum(os.path.getsize(os.path.join(outdir, f))
+               for f in man["files"])
+    log(f"{tag} index: {len(man['files'])} block(s), {disk} B on disk "
+        f"(raw table {r * n} B), manifest codecs {codecs}")
+    if not codecs or any(c != "pack4" for c in codecs):
+        raise AssertionError(f"blocks are not pack4 containers: {codecs}")
+
+    # three engines from the one index, one per resident codec
+    engines = {}
+    prior = os.environ.get("DOS_CPD_RESIDENT")
+    try:
+        for codec in ("raw", "pack4", "rle"):
+            os.environ["DOS_CPD_RESIDENT"] = codec
+            t0 = time.perf_counter()
+            e = eng.ShardEngine(g, dc, WID, outdir, device="cuda")
+            torch.cuda.synchronize()
+            if e.resident_codec != codec:
+                raise AssertionError(f"engine asked for {codec} resides "
+                                     f"{e.resident_codec}")
+            log(f"{tag} engine {codec}: resident_bytes={e.resident_bytes} "
+                f"({e.resident_bytes / (r * n):.4f} of raw), loaded in "
+                f"{time.perf_counter() - t0:.2f} s")
+            engines[codec] = e
+    finally:
+        if prior is None:
+            os.environ.pop("DOS_CPD_RESIDENT", None)
+        else:
+            os.environ["DOS_CPD_RESIDENT"] = prior
+    if engines["pack4"].resident_bytes != r * ((n + 1) // 2):
+        raise AssertionError("pack4 resident bytes are not half a row each")
+
+    # the same three rounds on each engine
+    queries = make_queries(dc, g.n)
+    _, rounds = rounds_for(g, outdir)
+    zero_launches()
+    answers = {codec: drive_rounds(e, queries, rounds, f"{tag} {codec}")
+               for codec, e in engines.items()}
+    launches_raw, launches_pack4 = read_launches()
+    log(f"{tag} kernel launches in the nine rounds: raw {launches_raw}, "
+        f"pack4 {launches_pack4}")
+    for codec in ("pack4", "rle"):
+        for name in ROUND_NAMES:
+            want, got = answers["raw"][name], answers[codec][name]
+            for x, y, label in zip(want[:3], got[:3],
+                                   ("cost", "plen", "fin")):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"{codec} {name}: {label} differs "
+                                         "from the raw engine")
+            if name == "k8-extract":
+                for x, y in zip(want[4], got[4]):
+                    if not np.array_equal(x, y):
+                        raise AssertionError(f"{codec} {name}: paths "
+                                             "differ from the raw engine")
+            p4 = got[6][1]
+            if (p4 > 0) != (codec == "pack4" and name != "k8-extract"):
+                raise AssertionError(f"{codec} {name}: {p4} pack4 kernel "
+                                     "launches")
+        log(f"{tag} {codec} answers equal raw in all three rounds, paths "
+            "included")
+
+    # the pack4 kernel against its plain version on its recorded inputs
+    per_round = []
+    for name in ("free-flow", "diff"):
+        call = answers["pack4"][name][5]
+        if not call[1].get("packed4"):
+            raise AssertionError(f"pack4 {name} did not walk packed rows")
+        per_round.append(kernel_vs_plain(name, call, f"{tag} kernel"))
+    # the raw kernel on the same lanes over the raw table, for scale
+    a, kw = answers["pack4"]["free-flow"][5]
+    a = (a[0], engines["raw"].fm, *a[2:])
+    kw = {k: v for k, v in kw.items() if k != "packed4"}
+    raw_same_ms = time_cuda(lambda: cw.cuda_walk_batch(*a, **kw),
+                            KERNEL_REPS)
+    log(f"{tag} raw kernel on the same free-flow lanes: {raw_same_ms:.4f} "
+        f"ms (pack4 {per_round[0]['ms']:.4f} ms)")
+
+    # decompress-at-use of one batch's distinct target rows
+    urows = np.unique(dc.owned_index_of(queries[:, 1]))
+    rows_u = np.zeros(1 << (len(urows) - 1).bit_length(), np.int32)
+    rows_u[:len(urows)] = urows
+    rows_dev = torch.from_numpy(rows_u).cuda()
+    dense_raw = engines["raw"].fm[rows_dev.long()]
+    for codec in ("pack4", "rle"):
+        fm = engines[codec].fm
+        if not torch.equal(fm.decompress_rows(rows_dev), dense_raw):
+            raise AssertionError(f"{codec} decompress_rows != raw rows")
+        ms = time_cuda(lambda: fm.decompress_rows(rows_dev),
+                       DECOMPRESS_REPS)
+        log(f"{tag} decompress_rows {codec}: {len(rows_u)} rows "
+            f"({len(urows)} distinct) x {n} in {ms:.3f} ms")
+    del dense_raw
+
+    golden_dijkstra(g, queries, answers["raw"]["free-flow"][0],
+                    answers["raw"]["free-flow"][2], f"{tag} golden")
+    main = per_round[0]
+    return {
+        "name": cw.KERNEL_NAME_PACK4,
+        "route": "cuda",
+        "source": "distributed_oracle_search_tpu_torch/csrc/"
+                  "table_search_walk.cu",
+        "replaces": "distributed_oracle_search_tpu/ops/pallas_walk.py:380 "
+                    "(packed4=True)",
+        "launches": launches_pack4,
+        "max_abs_err": max(x["max_abs_err"] for x in per_round),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "parity": "bit-identical",
+        "rounds": per_round,
+        "raw_kernel_same_lanes_ms": raw_same_ms,
+    }
+
+
+T_START = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
     try:
-        kernel = run()
+        kernels = run()
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
         traceback.print_exc()
         return 1
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    log(f"[done] {time.perf_counter() - T_START:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,6 +22,15 @@
 // lane returns as soon as it halts. A faster design (warp per bucket,
 // cp.async-staged pair rows, the pack4 nibble tile) is later work.
 //
+// The pack4 variant (kPacked4, entry table_search_walk_pack4) replaces the
+// same kernel's packed4=True body (widen, ops/pallas_walk.py:233-244): the
+// table is models/resident.py's pack4 layout, uint8 [R, (n + 1) / 2], two
+// slots a byte, low nibble first, 15 meaning -1. The TPU stages the packed
+// row tile and unpacks it on chip; here each slot read is one __ldg byte
+// of the lane's packed row, then a shift and a mask. A packed row is half
+// a raw one, so the table the walk touches is half the bytes; the walk is
+// still bound by its dependent loads, not by bytes.
+//
 // Parity traps kept from the TPU kernel:
 // * the row offset is int64 (8,250 rows x 264,000 nodes is past 2^31);
 // * birth rule: x0 = valid ? s : t, halted0 = fm[row, x0] < 0 || !valid;
@@ -38,8 +47,22 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// Slot x of one lane's row: a raw int8 entry, or a pack4 nibble.
+template <bool kPacked4>
+__device__ __forceinline__ int load_slot(const uint8_t* __restrict__ row,
+                                         int x) {
+  if constexpr (kPacked4) {
+    const int v = (__ldg(row + (x >> 1)) >> ((x & 1) * 4)) & 0xF;
+    return v == 15 ? -1 : v;
+  } else {
+    return static_cast<int>(
+        __ldg(reinterpret_cast<const int8_t*>(row) + x));
+  }
+}
+
+template <bool kPacked4>
 __global__ void __launch_bounds__(kThreads)
-table_search_walk_kernel(const int8_t* __restrict__ fm, long long n,
+table_search_walk_kernel(const uint8_t* __restrict__ fm, long long n,
                          const int* __restrict__ rows,
                          const int* __restrict__ s,
                          const int* __restrict__ t,
@@ -53,10 +76,12 @@ table_search_walk_kernel(const int8_t* __restrict__ fm, long long n,
   const bool v = valid[i] != 0;
   const int tt = t[i];
   int x = v ? s[i] : tt;
-  const int8_t* row = fm + static_cast<long long>(rows[i]) * n;
+  // row width in bytes: n raw, (n + 1) / 2 packed; int64 offset
+  const long long width = kPacked4 ? (n + 1) / 2 : n;
+  const uint8_t* row = fm + static_cast<long long>(rows[i]) * width;
   unsigned int c = 0;
   int p = 0;
-  int slot = static_cast<int>(__ldg(row + x));
+  int slot = load_slot<kPacked4>(row, x);
   if (v && slot >= 0) {
     for (long long step = 0; step < steps; ++step) {
       if (budget >= 0 && p >= budget) break;
@@ -64,7 +89,7 @@ table_search_walk_kernel(const int8_t* __restrict__ fm, long long n,
       c += static_cast<unsigned int>(nw.y);
       p += 1;
       x = nw.x;
-      slot = static_cast<int>(__ldg(row + x));
+      slot = load_slot<kPacked4>(row, x);
       if (slot < 0) break;
     }
   }
@@ -73,25 +98,46 @@ table_search_walk_kernel(const int8_t* __restrict__ fm, long long n,
   fin[i] = (v && x == tt) ? 1 : 0;
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes. Launches on `stream` without
-// synchronising; returns cudaGetLastError() so a refused launch is seen.
-extern "C" int table_search_walk(const void* fm, long long n,
-                                 const void* rows, const void* s,
-                                 const void* t, const void* valid,
-                                 const void* pair, int k, long long steps,
-                                 int budget, void* cost, void* plen,
-                                 void* fin, int q, void* stream) {
+template <bool kPacked4>
+int launch(const void* fm, long long n, const void* rows, const void* s,
+           const void* t, const void* valid, const void* pair, int k,
+           long long steps, int budget, void* cost, void* plen, void* fin,
+           int q, void* stream) {
   if (q > 0) {
     const int blocks = (q + kThreads - 1) / kThreads;
-    table_search_walk_kernel<<<blocks, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(fm), n, static_cast<const int*>(rows),
+    table_search_walk_kernel<kPacked4><<<blocks, kThreads, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(fm), n, static_cast<const int*>(rows),
         static_cast<const int*>(s), static_cast<const int*>(t),
         static_cast<const uint8_t*>(valid), static_cast<const int2*>(pair),
         k, steps, budget, static_cast<int*>(cost), static_cast<int*>(plen),
         static_cast<uint8_t*>(fin), q);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes. Each launches on `stream` without
+// synchronising and returns cudaGetLastError() so a refused launch is
+// seen. `fm` is int8 [R, n] raw, or uint8 [R, (n + 1) / 2] pack4.
+extern "C" int table_search_walk(const void* fm, long long n,
+                                 const void* rows, const void* s,
+                                 const void* t, const void* valid,
+                                 const void* pair, int k, long long steps,
+                                 int budget, void* cost, void* plen,
+                                 void* fin, int q, void* stream) {
+  return launch<false>(fm, n, rows, s, t, valid, pair, k, steps, budget,
+                       cost, plen, fin, q, stream);
+}
+
+extern "C" int table_search_walk_pack4(const void* fm, long long n,
+                                       const void* rows, const void* s,
+                                       const void* t, const void* valid,
+                                       const void* pair, int k,
+                                       long long steps, int budget,
+                                       void* cost, void* plen, void* fin,
+                                       int q, void* stream) {
+  return launch<true>(fm, n, rows, s, t, valid, pair, k, steps, budget,
+                      cost, plen, fin, q, stream);
 }

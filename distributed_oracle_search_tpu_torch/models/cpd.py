@@ -9,17 +9,17 @@ the JAX package's ``models/cpd.py``:
   ``chunk``-row batches through the ELL Bellman-Ford build
   (``ops.bellman_ford.build_fm_columns``) on one device, one ``.npy``
   file per controller block, each written atomically and journaled with
-  its crc32 digest in the per-worker build ledger. The loop is serial:
-  no background stager, lane mesh, RLE fetch, replica, epoch or codec.
+  its crc32 digest in the per-worker build ledger. A ``codec`` persists
+  each block as a compressed container (``models.resident``). The loop
+  is serial: no background stager, lane mesh, RLE fetch, replica or
+  epoch.
 * :func:`write_index_manifest` / :func:`read_manifest` /
   :func:`validate_manifest` / :func:`check_manifest_version` /
   :func:`load_verified_block` — the ``index.json`` manifest (schema v2,
   per-block digests) and digest-checked block loads. File names,
-  digests and the manifest schema are the JAX package's, so an index
-  built by either package loads under the other.
-
-Compressed block containers (the JAX package's ``models/resident.py``)
-are not ported yet: loading one raises.
+  digests, the manifest schema and the compressed containers are the
+  JAX package's, so an index built by either package loads under the
+  other.
 """
 
 from __future__ import annotations
@@ -43,6 +43,9 @@ from ..utils.atomicio import (
 )
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
+from .resident import (
+    block_codec, encode_block, is_container, resident_choice,
+)
 
 log = get_logger(__name__)
 
@@ -51,10 +54,6 @@ log = get_logger(__name__)
 #: bump is MAJOR only when existing keys change meaning — v1 indexes
 #: load under v2 code, v(N+1) indexes are rejected by vN code.
 INDEX_VERSION = 2
-
-#: leading bytes of a compressed block container (JAX package
-#: ``models/resident.py``), which this port cannot decode yet
-BLOCK_MAGIC = b"DOSCPDC1"
 
 
 def shard_block_name(wid: int, bid: int) -> str:
@@ -96,10 +95,16 @@ class BuildLedger:
             pass
         return out
 
-    def record(self, fname: str, digest: str, shape, dtype: str) -> None:
-        """Journal one completed block."""
-        line = json.dumps({"file": fname, "digest": digest,
-                           "shape": list(shape), "dtype": dtype})
+    def record(self, fname: str, digest: str, shape, dtype: str,
+               codec: str | None = None) -> None:
+        """Journal one completed block. ``codec`` records a compressed
+        block's encoding so the manifest harvest can carry it; raw blocks
+        omit the key, keeping their ledger lines unchanged."""
+        ent = {"file": fname, "digest": digest,
+               "shape": list(shape), "dtype": dtype}
+        if codec is not None:
+            ent["codec"] = str(codec)
+        line = json.dumps(ent)
         with open(self.path, "a") as f:
             f.write(line + "\n")
             f.flush()
@@ -136,7 +141,7 @@ def length_estimate(graph: Graph, s: np.ndarray, t: np.ndarray):
 
 def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
                        outdir: str, chunk: int = 0,
-                       device=None) -> list[str]:
+                       device=None, codec: str | None = None) -> list[str]:
     """Build and persist ONE worker's CPD block files on one device.
 
     The owned targets run through the ELL build in ``chunk``-row batches
@@ -146,7 +151,10 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
     through an atomic write, journaled with its digest in the build
     ledger. A re-run resumes: blocks the ledger records as complete
     with a matching on-disk digest are skipped. ``device``: None →
-    ``cuda`` (raises without a GPU unless ``device="cpu"``). Returns the
+    ``cuda`` (raises without a GPU unless ``device="cpu"``). ``codec``
+    (``raw``/``pack4``/``rle``/``auto``; None → ``DOS_CPD_RESIDENT``)
+    writes each block as a compressed container (``encode_block``); a
+    block whose rows the codec cannot take is written raw. Returns the
     file names written.
     """
     dev = resolve_device(device)
@@ -177,6 +185,7 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
         return []
     dg = DeviceGraph.from_graph(graph, device=dev)
     chunk = chunk if chunk > 0 else max(len(owned), 1)
+    codec_req = resident_choice() if codec is None else codec
     written = []
     for bid in missing:
         blk = owned[bid * bs: min((bid + 1) * bs, len(owned))]
@@ -188,6 +197,10 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
             fm = build_fm_columns(dg, torch.from_numpy(pad).to(dev))
             parts.append(fm[:len(part)].cpu().numpy())
         arr = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        # the container goes through the same atomic writer: digest and
+        # ledger cover the container bytes
+        enc = encode_block(arr, codec_req)
+        arr, blk_codec = enc if enc is not None else (arr, None)
         fname = shard_block_name(wid, bid)
         writer = AtomicNpyWriter(os.path.join(outdir, fname))
         try:
@@ -197,26 +210,36 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
             raise
         # a kill between the commit and the ledger line leaves a complete
         # un-journaled file, which the resume check accepts if it parses
-        ledger.record(fname, digest, arr.shape, str(arr.dtype))
+        ledger.record(fname, digest, arr.shape, str(arr.dtype),
+                      codec=blk_codec)
         written.append(fname)
     return written
 
 
 def _block_meta_for(outdir: str, fname: str,
                     ledgers: dict[int, dict]) -> dict:
-    """Digest/shape/dtype for one block file, cheapest source first:
-    the worker's build ledger, else read the file once."""
+    """Digest/shape/dtype (and a compressed block's codec) for one block
+    file, cheapest source first: the worker's build ledger, else read the
+    file once."""
     wid = int(fname.split("-")[1][1:])
     if wid not in ledgers:
         ledgers[wid] = BuildLedger(outdir, wid).entries()
     ent = ledgers[wid].get(fname)
     if ent is not None and "digest" in ent:
-        return {"digest": ent["digest"], "shape": list(ent["shape"]),
+        meta = {"digest": ent["digest"], "shape": list(ent["shape"]),
                 "dtype": ent["dtype"]}
+        if ent.get("codec"):
+            meta["codec"] = ent["codec"]
+        return meta
     path = os.path.join(outdir, fname)
     arr = np.load(path, mmap_mode="r")
-    return {"digest": digest_file(path), "shape": list(arr.shape),
+    meta = {"digest": digest_file(path), "shape": list(arr.shape),
             "dtype": str(arr.dtype)}
+    # containers are self-describing: an un-ledgered one still gets its
+    # codec into the manifest
+    if is_container(arr):
+        meta["codec"] = block_codec(arr)
+    return meta
 
 
 def write_index_manifest(outdir: str, dc: DistributionController,
@@ -295,22 +318,14 @@ def validate_manifest(manifest: dict, dc: DistributionController,
                 f"controller has {mine}")
 
 
-def _is_container(arr: np.ndarray) -> bool:
-    return (arr.ndim == 1 and arr.dtype == np.uint8
-            and arr.shape[0] > len(BLOCK_MAGIC) + 4
-            and bytes(arr[:len(BLOCK_MAGIC)]) == BLOCK_MAGIC)
-
-
 def load_verified_block(path: str, meta: dict | None):
-    """Load one block's rows with verification in a SINGLE file read;
-    returns ``(rows | None, status, reason)`` with status ``ok``
+    """Load one block with verification in a SINGLE file read; returns
+    ``(block | None, status, reason)`` with status ``ok``
     (digest-verified), ``unverified`` (parses, no digest to check — v1
-    manifest), ``missing`` or ``corrupt``; rows is None for the last two.
-    Raises ``NotImplementedError`` on a compressed block container."""
-    if meta and meta.get("codec"):
-        raise NotImplementedError(
-            f"{path}: compressed CPD block ({meta['codec']}) — codec "
-            "containers are not ported yet; rebuild the index raw")
+    manifest), ``missing`` or ``corrupt``; the block is None for the last
+    two. A compressed container comes back as it is (``maybe_decode_rows``
+    inflates it); when the manifest names a codec, the container's header
+    must parse and name the same one, else the block is ``corrupt``."""
     if not os.path.exists(path):
         return None, "missing", "file absent"
     need_digest = bool(meta and meta.get("digest"))
@@ -319,21 +334,26 @@ def load_verified_block(path: str, meta: dict | None):
             data = f.read()
         got = digest_bytes(data) if need_digest else None
         arr = np.load(io.BytesIO(data))
+        if need_digest and got != meta["digest"]:
+            return None, "corrupt", (f"digest {got} != manifest "
+                                     f"{meta['digest']}")
+        if meta:
+            if "shape" in meta and list(arr.shape) != list(meta["shape"]):
+                return None, "corrupt", (
+                    f"shape {list(arr.shape)} != manifest "
+                    f"{list(meta['shape'])}")
+            if "dtype" in meta and str(arr.dtype) != meta["dtype"]:
+                return None, "corrupt", (f"dtype {arr.dtype} != "
+                                         f"manifest {meta['dtype']}")
+            if meta.get("codec"):
+                # a payload that digests clean but is not a container of
+                # the manifest's codec (or whose header is torn) is
+                # corrupt, not servable
+                got_codec = block_codec(arr) if is_container(arr) else None
+                if got_codec != meta["codec"]:
+                    return None, "corrupt", (
+                        f"codec {got_codec!r} != manifest "
+                        f"{meta['codec']!r}")
     except (OSError, ValueError, EOFError) as e:
         return None, "corrupt", f"unreadable: {type(e).__name__}: {e}"
-    if need_digest and got != meta["digest"]:
-        return None, "corrupt", (f"digest {got} != manifest "
-                                 f"{meta['digest']}")
-    if meta:
-        if "shape" in meta and list(arr.shape) != list(meta["shape"]):
-            return None, "corrupt", (
-                f"shape {list(arr.shape)} != manifest "
-                f"{list(meta['shape'])}")
-        if "dtype" in meta and str(arr.dtype) != meta["dtype"]:
-            return None, "corrupt", (f"dtype {arr.dtype} != "
-                                     f"manifest {meta['dtype']}")
-    if _is_container(arr):
-        raise NotImplementedError(
-            f"{path}: compressed CPD block container — codec containers "
-            "are not ported yet; rebuild the index raw")
     return arr, ("ok" if need_digest else "unverified"), ""

@@ -6,7 +6,10 @@ Port of the JAX package's one TPU kernel, the Pallas-fused walk
 straight from device memory, packed ``(next, w)`` pairs per out-slot —
 see the note at the top of the source for its design and what bounds it.
 It is built with ``nvcc`` at first use (``utils.cuda_build``) and called
-through a plain C entry point with ``ctypes``.
+through a plain C entry point with ``ctypes``. The same source holds the
+pack4 variant (``packed4=True``, the TPU kernel's ``packed4`` body): the
+fm table is the pack4-resident shard (``models.resident``) and each slot
+is a nibble of the lane's packed row.
 
 :func:`cuda_walk_batch` picks the walk by the device its tensors lie on:
 CPU tensors walk through the plain :func:`.table_search.table_search_batch`
@@ -24,23 +27,25 @@ import torch
 from .device_graph import DeviceGraph
 from .table_search import table_search_batch, walk_budget, walk_pairs
 
+#: the CUDA source (``csrc/<KERNEL_NAME>.cu``) and its raw entry point
 KERNEL_NAME = "table_search_walk"
+#: the pack4 entry point of the same source
+KERNEL_NAME_PACK4 = "table_search_walk_pack4"
 
-_fn = None
+_fns: dict[str, object] = {}
 
 
-def _kernel():
-    """The loaded C entry point (built on first call)."""
-    global _fn
-    if _fn is None:
+def _kernel(entry: str):
+    """The loaded C entry point ``entry`` (built on first call)."""
+    if entry not in _fns:
         from ..utils.cuda_build import load_library
 
-        fn = load_library(KERNEL_NAME).table_search_walk
+        fn = getattr(load_library(KERNEL_NAME), entry)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, ll, p, p, p, p, p, i, ll, i, p, p, p, i, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[entry] = fn
+    return _fns[entry]
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape,
@@ -61,19 +66,22 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
                     w_query_pad: torch.Tensor,
                     valid: torch.Tensor | None = None, k_moves: int = -1,
                     max_steps: int = 0, unroll: int = 8,
-                    n_buckets: int = 0):
+                    n_buckets: int = 0, packed4: bool = False):
     """Kernel drop-in for :func:`.table_search.table_search_batch` — same
     parameters, same ``(cost int32, plen int32, finished bool)``
     contract, bit-identical answers. ``n_buckets`` is accepted for
     signature parity (results are bucket-invariant); ``unroll`` is only
-    the step-bound quantum (``walk_budget``).
+    the step-bound quantum (``walk_budget``). ``packed4``: ``fm`` is the
+    pack4 nibble table, uint8 ``[R, (N + 1) // 2]`` (the JAX package's
+    ``pallas_walk_batch(packed4=True)``).
 
-    Each kernel launch adds one to ``cuda_walk_batch.launches``."""
+    Each raw kernel launch adds one to ``cuda_walk_batch.launches``, each
+    pack4 launch one to ``cuda_walk_batch.launches_pack4``."""
     if s.device.type == "cpu":
         return table_search_batch(dg, fm, t_rows, s, t, w_query_pad,
                                   valid=valid, k_moves=k_moves,
                                   max_steps=max_steps, unroll=unroll,
-                                  n_buckets=n_buckets)
+                                  n_buckets=n_buckets, packed4=packed4)
     if s.device.type != "cuda":
         raise ValueError(f"no walk for tensors on {s.device}")
     dev = s.device
@@ -81,9 +89,11 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
     if valid is None:
         valid = torch.ones(q, dtype=torch.bool, device=dev)
     n, k = dg.n, dg.k
-    if fm.dim() != 2 or fm.shape[1] != n:
-        raise ValueError(f"fm must be [R, {n}], got {tuple(fm.shape)}")
-    _check("fm", fm, torch.int8, fm.shape, dev)
+    width, fm_dtype = ((n + 1) // 2, torch.uint8) if packed4 \
+        else (n, torch.int8)
+    if fm.dim() != 2 or fm.shape[1] != width:
+        raise ValueError(f"fm must be [R, {width}], got {tuple(fm.shape)}")
+    _check("fm", fm, fm_dtype, fm.shape, dev)
     for name, x in (("t_rows", t_rows), ("s", s), ("t", t)):
         _check(name, x, torch.int32, (q,), dev)
     _check("valid", valid, torch.bool, (q,), dev)
@@ -96,7 +106,7 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
     fin = torch.empty(q, dtype=torch.bool, device=dev)
     if q == 0:
         return cost, plen, fin
-    fn = _kernel()
+    fn = _kernel(KERNEL_NAME_PACK4 if packed4 else KERNEL_NAME)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(fm.data_ptr(), n, t_rows.data_ptr(), s.data_ptr(),
@@ -104,9 +114,15 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
                  -1 if budget is None else int(budget), cost.data_ptr(),
                  plen.data_ptr(), fin.data_ptr(), q, stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL_NAME} launch failed: CUDA error {err}")
-    cuda_walk_batch.launches += 1
+        raise RuntimeError(
+            f"{KERNEL_NAME_PACK4 if packed4 else KERNEL_NAME} launch "
+            f"failed: CUDA error {err}")
+    if packed4:
+        cuda_walk_batch.launches_pack4 += 1
+    else:
+        cuda_walk_batch.launches += 1
     return cost, plen, fin
 
 
 cuda_walk_batch.launches = 0
+cuda_walk_batch.launches_pack4 = 0

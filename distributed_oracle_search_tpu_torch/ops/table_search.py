@@ -21,6 +21,10 @@ exactly (and which must match ``models.reference.table_search_walk``):
 * the loop steps ``unroll`` moves per iteration while ``it < limit``, so
   a lane that never halts (a corrupted, cyclic row) takes exactly
   ``ceil(limit / unroll) * unroll`` steps.
+
+With ``packed4=True`` the walk reads a pack4-resident table
+(``models.resident``), one nibble per slot: the plain version of the
+kernel's pack4 entry.
 """
 
 from __future__ import annotations
@@ -75,17 +79,33 @@ def walk_pairs(dg: DeviceGraph, w_query_pad: torch.Tensor) -> torch.Tensor:
                        dim=-1).contiguous()
 
 
+def fm_slot(fm: torch.Tensor, rows: torch.Tensor, x: torch.Tensor,
+            packed4: bool = False) -> torch.Tensor:
+    """int32 first-move slot ``fm[rows, x]`` per lane. ``packed4``: ``fm``
+    holds pack4 nibble rows (``models.resident``), slot ``x`` is nibble
+    ``x & 1`` of byte ``x >> 1``, and the marker 15 reads as -1."""
+    x = x.long()
+    if not packed4:
+        return fm[rows, x].to(torch.int32)
+    byte = fm[rows, x >> 1].to(torch.int32)
+    v = (byte >> ((x & 1) * 4).to(torch.int32)) & 0xF
+    return torch.where(v == 15, -1, v)
+
+
 def table_search_batch(dg: DeviceGraph, fm: torch.Tensor,
                        t_rows: torch.Tensor, s: torch.Tensor,
                        t: torch.Tensor, w_query_pad: torch.Tensor,
                        valid: torch.Tensor | None = None,
                        k_moves: int = -1, max_steps: int = 0,
-                       unroll: int = 8, n_buckets: int = 0):
+                       unroll: int = 8, n_buckets: int = 0,
+                       packed4: bool = False):
     """Answer a batch of queries against a first-move shard.
 
     Parameters
     ----------
-    fm          : int8 [R, N] first-move rows (R = targets owned by this shard)
+    fm          : int8 [R, N] first-move rows (R = targets owned by this
+                  shard), or with ``packed4`` uint8 [R, ceil(N/2)] pack4
+                  nibble rows (``models.resident.encode_pack4``)
     t_rows      : int32 [Q] row index of each query's target within ``fm``
     s, t        : int32 [Q] global source / target node ids
     w_query_pad : int32 [M+1] query-time weights (diff applied; last = INF)
@@ -95,6 +115,7 @@ def table_search_batch(dg: DeviceGraph, fm: torch.Tensor,
     unroll      : moves per loop iteration — the step-bound quantum above
     n_buckets   : accepted for signature parity; results are
                   bucket-invariant and the batch walks as one
+    packed4     : read each slot from a nibble row (see ``fm``)
 
     Returns
     -------
@@ -112,7 +133,7 @@ def table_search_batch(dg: DeviceGraph, fm: torch.Tensor,
     pair = walk_pairs(dg, w_query_pad)
 
     def slot_at(x):
-        return fm[rows, x.long()].to(torch.int32)
+        return fm_slot(fm, rows, x, packed4)
 
     # birth rule: pad lanes start at t (zero-length) and halted; real
     # lanes halt on a -1 first move
@@ -157,7 +178,7 @@ def extract_paths(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
     nodes = [x]
     plen = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
     for _ in range(int(k)):
-        slot = fm[rows, x.long()].to(torch.int32)
+        slot = fm_slot(fm, rows, x)
         can = (slot >= 0) & (x != t32)
         nxt = dg.out_nbr[x.long(), slot.clamp_min(0).long()]
         x = torch.where(can, nxt, x)

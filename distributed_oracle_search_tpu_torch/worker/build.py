@@ -6,13 +6,14 @@ at reference ``make_cpds.py:20``)::
     python -m distributed_oracle_search_tpu_torch.worker.build \\
         --input <xy> --partmethod <div|mod|alloc|tpu> --partkey <int...> \\
         --workerid <int> --maxworker <int> [--outdir <dir>] [--chunk N] \\
-        [--block-size N] [--device cuda|cpu]
+        [--block-size N] [--codec raw|pack4|rle|auto] [--device cuda|cpu]
 
 Computes the first-move rows for the node subset owned by ``workerid``
 with the batched min-plus build on one device (the card unless
 ``--device cpu``) and writes one ``.npy`` per block (``bid``/``bidx``
-scheme of the distribution controller). Re-running resumes at block
-granularity.
+scheme of the distribution controller). ``--codec`` persists each block
+as a compressed container (``models.resident``; a block the codec cannot
+take is written raw). Re-running resumes at block granularity.
 """
 
 from __future__ import annotations
@@ -45,6 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-size", type=int, default=0,
                    help="rows per block FILE (0 = the controller default, "
                         "which is what the serving side expects)")
+    p.add_argument("--codec", default=None,
+                   choices=["raw", "pack4", "rle", "auto"],
+                   help="persist blocks compressed (RLE/pack4 containers; "
+                        "per-block degrade to raw when not viable). "
+                        "Default: the DOS_CPD_RESIDENT knob (raw)")
     p.add_argument("--device", default="cuda",
                    help="torch device to build on (default: cuda)")
     p.add_argument("-v", "--verbose", action="count", default=0)
@@ -62,7 +68,8 @@ def main(argv=None) -> int:
     dc = DistributionController(args.partmethod, partkey, args.maxworker,
                                 graph.n, **dc_kw)
     written = build_worker_shard(graph, dc, args.workerid, outdir,
-                                 chunk=args.chunk, device=args.device)
+                                 chunk=args.chunk, device=args.device,
+                                 codec=args.codec)
     log.info("worker %d: wrote %d block(s) to %s", args.workerid,
              len(written), outdir)
     print(f"worker {args.workerid}: {len(written)} block(s) -> {outdir}")

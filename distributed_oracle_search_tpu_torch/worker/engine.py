@@ -5,8 +5,13 @@ graph and THIS worker's CPD shard onto one device, then answer query
 batches for targets this shard owns with the table-search walk — on the
 card through the hand-written CUDA kernel (``ops.cuda_walk``), on the CPU
 through the plain torch walk. Port of the JAX package's
-``worker/engine.py`` for ``alg="table-search"`` with raw residency on one
-device.
+``worker/engine.py`` for ``alg="table-search"`` on one device.
+
+Residency follows ``DOS_CPD_RESIDENT`` (``models.resident``): the shard
+lives on the card raw, pack4 or rle. A pack4 batch that does not extract
+walks the packed table through the pack4 kernel; every other compressed
+batch (rle, or pack4 with ``extract``) inflates the batch's distinct
+target rows once into a dense block and walks and extracts from that.
 
 Runtime knobs honored per batch (reference ``process_query.py:149-160``):
 ``k_moves`` (move budget), ``itrs`` (repeat count; last result wins),
@@ -20,9 +25,9 @@ at or below one chunk stay all-or-nothing. Extraction still covers every
 query of a truncated batch, so ``last_paths`` holds prefixes for queries
 reported unfinished — the same asymmetry as the JAX engine.
 
-Not ported: A*, worker lane meshes, compressed residency, path
-signatures (``sig_k``), index promotion, observability hooks and
-self-healing (a corrupt block raises instead of being rebuilt).
+Not ported: A*, worker lane meshes, path signatures (``sig_k``), index
+promotion, observability hooks and self-healing (a corrupt block raises
+instead of being rebuilt).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..models.cpd import (
     check_manifest_version, length_estimate, load_verified_block,
     read_manifest, shard_block_name,
 )
+from ..models.resident import CompressedFM, make_resident, maybe_decode_rows
 from ..ops.cuda_walk import cuda_walk_batch
 from ..ops.device_graph import DeviceGraph
 from ..ops.table_search import extract_paths
@@ -65,7 +71,9 @@ def load_shard_rows(outdir: str, wid: int) -> np.ndarray:
 
     When the manifest is present its per-block digests are verified as
     the rows load; a corrupt or missing block raises ``ValueError`` with
-    the per-block diagnostic instead of serving garbage answers."""
+    the per-block diagnostic instead of serving garbage answers.
+    Compressed containers inflate to dense rows here; whether the
+    resident table re-compresses is ``ShardEngine``'s policy."""
     manifest: dict | None = None
     try:
         manifest = read_manifest(outdir)
@@ -91,14 +99,20 @@ def load_shard_rows(outdir: str, wid: int) -> np.ndarray:
         if rows is None:
             raise ValueError(f"CPD block {fname} in {outdir} is {status}: "
                              f"{reason} (rebuild the shard to heal it)")
-        parts.append(rows)
+        try:
+            parts.append(maybe_decode_rows(rows))
+        except ValueError as e:        # torn container, no manifest codec
+            raise ValueError(f"CPD block {fname} in {outdir} is corrupt: "
+                             f"{e} (rebuild the shard to heal it)") from e
     return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
 
 
 class ShardEngine:
     """One worker's resident shard on one device, answering
     ``table-search`` batches. ``device``: None → ``cuda`` (raises
-    without a GPU unless ``device="cpu"``)."""
+    without a GPU unless ``device="cpu"``). The table is kept raw, pack4
+    or rle under ``DOS_CPD_RESIDENT``; ``resident_codec`` says what it
+    resolved to and ``resident_bytes`` what it occupies."""
 
     def __init__(self, graph: Graph, dc: DistributionController, wid: int,
                  outdir: str, alg: str = "table-search", device=None):
@@ -117,7 +131,7 @@ class ShardEngine:
             raise ValueError(
                 f"shard w{self.wid}: {rows.shape[0]} CPD rows but "
                 f"controller owns {len(owned)} nodes — partition mismatch")
-        self.fm = torch.from_numpy(rows).to(self.device)
+        self.fm = self._make_resident(rows)
         self.dg = DeviceGraph.from_graph(graph, device=self.device)
         #: per-diff device weight buffers, LRU-bounded (≥ 2: the double
         #: buffer an epoch swap needs); a re-upload after eviction is a
@@ -129,6 +143,15 @@ class ShardEngine:
         self.time_chunk = 1024
         #: path prefixes of the most recent extract batch (see answer())
         self.last_paths: tuple[np.ndarray, np.ndarray] | None = None
+
+    def _make_resident(self, rows: np.ndarray):
+        """The resident table under ``DOS_CPD_RESIDENT``: the raw int8
+        tensor, or a :class:`CompressedFM` whose arrays live compressed
+        on the device and inflate per batch at the point of use."""
+        fm, codec = make_resident(rows, device=self.device)
+        self.resident_codec = codec
+        self.resident_bytes = int(fm.nbytes)
+        return fm
 
     # ------------------------------------------------------------ weights
     def _weights_for(self, difffile: str, no_cache: bool) -> torch.Tensor:
@@ -206,12 +229,30 @@ class ShardEngine:
         rows = np.zeros(qpad, np.int32)
         rows[:nu] = self.dc.owned_index_of(qsorted[:, 1])
         t1 = time.perf_counter()
+        # compressed residency: a pack4 table feeds the pack4 kernel
+        # directly; every other compressed batch (rle, or pack4 with
+        # extraction) inflates exactly the batch's distinct target rows
+        # once and remaps the row ids onto that dense block — bounded by
+        # the batch, freed with it, bit-identical to the raw table
+        fm_walk = self.fm
+        packed4 = False
+        if isinstance(self.fm, CompressedFM):
+            if self.fm.codec == "pack4" and not extracting:
+                fm_walk, packed4 = self.fm.packed, True
+            else:
+                urows, rinv = np.unique(rows[:nu], return_inverse=True)
+                rpad = 1 << (len(urows) - 1).bit_length()
+                rows_u = np.zeros(rpad, np.int32)
+                rows_u[:len(urows)] = urows
+                fm_walk = self.fm.decompress_rows(self._dev(rows_u))
+                rows = np.zeros(qpad, np.int32)
+                rows[:nu] = rinv.reshape(-1)
 
         def run_walk(sl: slice):
             return cuda_walk_batch(
-                self.dg, self.fm, self._dev(rows[sl]), self._dev(s[sl]),
+                self.dg, fm_walk, self._dev(rows[sl]), self._dev(s[sl]),
                 self._dev(t[sl]), w_pad, valid=self._dev(valid[sl]),
-                k_moves=config.k_moves)
+                k_moves=config.k_moves, packed4=packed4)
 
         deadline = t1 + config.time / 1e9 if config.time else None
         for _ in range(max(config.itrs, 1)):
@@ -248,7 +289,7 @@ class ShardEngine:
                 break
         if extracting:
             nodes, moves = extract_paths(
-                self.dg, self.fm, self._dev(rows), self._dev(s),
+                self.dg, fm_walk, self._dev(rows), self._dev(s),
                 self._dev(t), k=config.k_moves)
             nodes = nodes.cpu().numpy()[:nu].astype(np.int64)[unsort]
             moves = moves.cpu().numpy()[:nu].astype(np.int64)[unsort]

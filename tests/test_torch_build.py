@@ -24,7 +24,7 @@ from distributed_oracle_search_tpu.parallel.partition import (  # noqa: E402
 )
 from distributed_oracle_search_tpu.worker import engine as jengine  # noqa: E402
 from distributed_oracle_search_tpu_torch.data.graph import Graph  # noqa: E402
-from distributed_oracle_search_tpu_torch.models import cpd  # noqa: E402
+from distributed_oracle_search_tpu_torch.models import cpd, resident  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import (  # noqa: E402
     DeviceGraph, bellman_ford,
 )
@@ -170,24 +170,34 @@ def test_resume_skips_digest_valid_blocks(both_indexes):
 
 
 def test_corrupt_and_compressed_blocks_raise(tmp_path):
+    """A torn raw block, a codec the block does not carry and a torn
+    container are all ``corrupt``; loading the shard raises on each."""
     g = synth_city_graph(4, 3, seed=1)
     tg = Graph(g.xs, g.ys, g.src, g.dst, g.w)
     dc = DistributionController("mod", 2, 2, g.n)
     out = str(tmp_path)
     cpd.build_worker_shard(tg, dc, 0, out, device="cpu")
-    cpd.write_index_manifest(out, dc, workers=[0])
-    path = os.path.join(out, cpd.shard_block_name(0, 0))
+    man = cpd.write_index_manifest(out, dc, workers=[0])
+    fname = cpd.shard_block_name(0, 0)
+    path = os.path.join(out, fname)
+    meta = dict(man["blocks"][fname])
+    # codec mismatch: the digest is right, but the raw block is no pack4
+    # container
+    _, status, reason = cpd.load_verified_block(path, {**meta,
+                                                       "codec": "pack4"})
+    assert status == "corrupt" and "codec" in reason
     with open(path, "r+b") as f:
         f.seek(-1, os.SEEK_END)
         f.write(b"\x05")
     with pytest.raises(ValueError, match="corrupt"):
         engine.load_shard_rows(out, 0)
-    meta = {"digest": "crc32:00000000", "codec": "pack4"}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cpd.load_verified_block(path, meta)
-    container = np.frombuffer(cpd.BLOCK_MAGIC + bytes(16), np.uint8)
-    np.save(path, container)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cpd.load_verified_block(path, None)
-    with open(os.path.join(out, "index.json")) as f:
+    # torn container: magic, then a zero header length
+    np.save(path, np.frombuffer(resident.BLOCK_MAGIC + bytes(16), np.uint8))
+    _, status, reason = cpd.load_verified_block(path, {"codec": "pack4"})
+    assert status == "corrupt" and "header" in reason
+    index_path = os.path.join(out, "index.json")
+    with open(index_path) as f:
         assert json.load(f)["version"] == cpd.INDEX_VERSION
+    os.remove(index_path)
+    with pytest.raises(ValueError, match="corrupt"):
+        engine.load_shard_rows(out, 0)
