@@ -16,10 +16,14 @@ points a user calls, then the compressed-residency path:
    into block files plus an ``index.json``; load it into a ``ShardEngine``
    and answer three rounds of 20,000 queries — free flow, one congestion
    diff, ``k_moves=8`` with extraction — with the launch counters zeroed
-   before the rounds and read after them; hold the raw kernel against its
-   plain torch version on each round's exact inputs (equal element by
-   element, both timed with CUDA events); golden checks against
-   reverse-Dijkstra and the CPU reference walk;
+   before the rounds and read after them, and the engine's pair-table
+   builds counted (one per weight set, or the smoke fails); hold the raw
+   kernel against its plain torch version on each round's exact inputs
+   (equal element by element) and time, by CUDA events, the bare launch
+   on the engine's pair table (warm, and after an L2 flush; µs a move of
+   the longest lane), the wrapper as the engine calls it, the wrapper
+   building its own pairs, the pair build and the plain walk; golden
+   checks against reverse-Dijkstra and the CPU reference walk;
 3. compressed path (``[compressed]`` lines), on
    ``synth_city_graph(514, 514, seed=0, shortcut_frac=0.0)`` (264,196
    nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 32
@@ -88,6 +92,12 @@ N_DUPS = 200
 N_SELF = 50
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+#: spin cycles queued ahead of a timed run of bare launches (~10 ms at the
+#: H100's 1.98 GHz boost clock), so the card is still busy while the host
+#: queues every launch and the events time the kernels back to back
+SLEEP_CYCLES = 20_000_000
+#: bytes written between cold launches: twice the 50 MB L2
+FLUSH_BYTES = 100 << 20
 DECOMPRESS_REPS = 3
 #: H100 SXM published device-memory rate and non-tensor 32-bit rate
 #: (used for the int32 walk arithmetic); the bound is the larger time
@@ -122,6 +132,43 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_bare(launch, reps: int) -> float:
+    """Mean ms of ``launch()`` (one kernel launch) over ``reps`` launches
+    back to back, by CUDA events, after one warm-up launch: a spin kernel
+    queued first keeps the card busy while the host queues the launches,
+    so host time per launch is hidden and the events time the kernels."""
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_cold(launch, reps: int) -> float:
+    """Mean ms of one ``launch()`` after the L2 was overwritten: each
+    launch follows a write of ``FLUSH_BYTES`` (which also keeps the card
+    busy while the host queues the launch) and is timed by its own pair
+    of CUDA events."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    launch()
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        flush.zero_()
+        start.record()
+        launch()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def make_queries(dc, n: int) -> np.ndarray:
@@ -163,18 +210,31 @@ def drive_rounds(engine, queries, rounds, tag: str) -> dict:
     through ``engine.answer``, recording the walk calls it makes so
     their exact inputs can be replayed; returns per round ``(cost, plen,
     fin, stats, last_paths, last walk call, launches)``, ``launches``
-    being the (raw, pack4) kernel launches of that round's two calls."""
+    being the (raw, pack4) kernel launches of that round's two calls.
+
+    The engine builds its walk pair table once per weight set (one per
+    diff file); every call into ``walk_pairs`` is counted, and a round
+    that builds more than one, or a weight set built twice, fails."""
     captured: list = []
-    real_walk = eng.cuda_walk_batch
+    built: list[str] = []
+    real_walk, real_pairs = eng.cuda_walk_batch, eng.walk_pairs
+    current = [""]
 
     def recording_walk(*a, **kw):
         captured.append((a, kw))
         return real_walk(*a, **kw)
 
+    def counting_pairs(*a, **kw):
+        built.append(current[0])
+        return real_pairs(*a, **kw)
+
     eng.cuda_walk_batch = recording_walk
+    eng.walk_pairs = counting_pairs
     answers = {}
     try:
         for name, cfg, diff in rounds:
+            current[0] = diff
+            n_built = len(built)
             before = read_launches()
             engine.answer(queries, cfg, diff)              # warm
             torch.cuda.synchronize()
@@ -189,9 +249,15 @@ def drive_rounds(engine, queries, rounds, tag: str) -> dict:
             log(f"{tag} {name}: {len(queries)} queries in {dt:.4f} s "
                 f"= {len(queries) / dt:.1f} q/s; finished "
                 f"{stats.finished}/{stats.n_touched}, sum plen "
-                f"{stats.plen}, max plen {int(plen.max())}")
+                f"{stats.plen}, max plen {int(plen.max())}; pair tables "
+                f"built in its two calls: {len(built) - n_built}")
     finally:
-        eng.cuda_walk_batch = real_walk
+        eng.cuda_walk_batch, eng.walk_pairs = real_walk, real_pairs
+    if sorted(built) != sorted(set(built)):
+        raise AssertionError(f"{tag}: a weight set's pair table was built "
+                             f"more than once: {built}")
+    log(f"{tag} pair tables built in all rounds: {len(built)}, one per "
+        f"weight set ({len(set(d for _, _, d in rounds))} distinct)")
     return answers
 
 
@@ -201,16 +267,18 @@ def touched_sectors(call, plen_kernel) -> tuple[int, int]:
 
     Replays the walk one move at a time: a live lane reads its fm byte
     (birth and after each move, none after its move budget runs out) and
-    each move reads one pair. Offsets are global byte offsets within each
-    table, so lanes that share a target row, and moves to a neighbouring
-    column, share sectors. The replay's ``plen`` must equal the kernel's."""
-    (dg, fm, t_rows, s, _t, w_query_pad), kw = call
+    each move reads one 8-byte ``(next, w)`` pair, counted in the dense
+    interleaved ``[N, K, 2]`` layout whatever layout the kernel reads, so
+    the bound is the work's and not the layout's. Offsets are global byte
+    offsets within each table, so lanes that share a target row, and moves
+    to a neighbouring column, share sectors. The replay's ``plen`` must
+    equal the kernel's."""
+    (dg, fm, t_rows, s, _t, _w), kw = call
     packed4 = bool(kw.get("packed4", False))
     steps, budget = walk_budget(dg.n, int(kw.get("k_moves", -1)),
                                 int(kw.get("max_steps", 0)),
                                 int(kw.get("unroll", 8)))
     valid = kw["valid"]
-    pair = walk_pairs(dg, w_query_pad)
     rows = t_rows.long()
     row_base = rows * fm.shape[1]                # 1-byte elements
     x = s.long()
@@ -228,7 +296,7 @@ def touched_sectors(call, plen_kernel) -> tuple[int, int]:
             can &= plen < budget
         slot = slot.clamp_min(0)
         pair_sec.append(((x * dg.k + slot) * 8 // SECTOR)[can])
-        x = torch.where(can, pair[x, slot, 0].long(), x)
+        x = torch.where(can, dg.out_nbr[x, slot].long(), x)
         plen += can.long()
         live = can if budget is None else can & (plen < budget)
     if not torch.equal(plen[valid], plen_kernel[valid].long()):
@@ -240,27 +308,65 @@ def touched_sectors(call, plen_kernel) -> tuple[int, int]:
     return distinct(fm_sec), distinct(pair_sec)
 
 
+def bare_launch(call):
+    """``(launch, outputs)``: a closure that makes the bare kernel launch
+    of one recorded call (``cuda_walk.launch_walk``) on the call's own
+    pair table into preallocated outputs."""
+    (dg, fm, t_rows, s, t, _w), kw = call
+    steps, budget = walk_budget(dg.n, int(kw.get("k_moves", -1)),
+                                int(kw.get("max_steps", 0)),
+                                int(kw.get("unroll", 8)))
+    out = (torch.empty_like(s), torch.empty_like(s),
+           torch.empty(s.shape[0], dtype=torch.bool, device=s.device))
+
+    def launch():
+        cw.launch_walk(fm, dg.n, t_rows, s, t, kw["valid"], kw["pair"],
+                       steps, budget, *out, bool(kw.get("packed4", False)))
+
+    return launch, out
+
+
 def kernel_vs_plain(name: str, call, tag: str) -> dict:
     """Run the kernel and the plain walk on one recorded call's exact
-    inputs: equal element by element or raise; both timed with CUDA
-    events; the bound from this run's data."""
+    inputs: equal element by element or raise; time the bare kernel
+    launch (``kernel_ms``, on the engine's pair table, warm and after an
+    L2 flush), the wrapper as the engine calls it (``call_ms``), the
+    wrapper building its own pair table (``rebuild_call_ms``, the call
+    before the engine kept its pairs), the pair-table build and the plain
+    walk; the bound from this run's data."""
     a, kw = call
+    dg, w_query_pad = a[0], a[5]
+    own_kw = {k: v for k, v in kw.items() if k != "pair"}
+    if kw.get("pair") is None:
+        raise AssertionError(f"{name}: the engine passed no pair table")
+    valid = kw["valid"]
     ker = cw.cuda_walk_batch(*a, **kw)
-    plain = table_search_batch(*a, **kw)
+    own = cw.cuda_walk_batch(*a, **own_kw)
+    plain = table_search_batch(*a, **own_kw)
+    launch, out = bare_launch(call)
+    launch()
     torch.cuda.synchronize()
     err = 0
-    for x, y, label in zip(ker, plain, ("cost", "plen", "fin")):
-        if x.dtype != y.dtype or not torch.equal(x, y):
-            bad = int((x != y).sum())
-            raise AssertionError(f"{name}: kernel {label} differs from "
-                                 f"the plain walk on {bad} lanes")
+    for x, y, z, b, label in zip(ker, plain, own, out,
+                                 ("cost", "plen", "fin")):
+        for got, what in ((x, "kernel"), (z, "kernel on its own pairs"),
+                          (b, "bare launch")):
+            if got.dtype != y.dtype or not torch.equal(got, y):
+                bad = int((got != y).sum())
+                raise AssertionError(f"{name}: {what} {label} differs from "
+                                     f"the plain walk on {bad} lanes")
         err = max(err, int((x.long() - y.long()).abs().max())
                   if x.numel() else 0)
-    ms = time_cuda(lambda: cw.cuda_walk_batch(*a, **kw), KERNEL_REPS)
+    kernel_ms = time_bare(launch, KERNEL_REPS)
+    cold_ms = time_cold(launch, KERNEL_REPS)
+    call_ms = time_cuda(lambda: cw.cuda_walk_batch(*a, **kw), KERNEL_REPS)
+    rebuild_ms = time_cuda(lambda: cw.cuda_walk_batch(*a, **own_kw),
+                           KERNEL_REPS)
+    pair_ms = time_cuda(lambda: walk_pairs(dg, w_query_pad), KERNEL_REPS)
     plain_ms = time_cuda(lambda: table_search_batch(*a, **kw), PLAIN_REPS)
-    valid = kw["valid"]
     q = int(valid.numel())
     sum_plen = int(ker[1][valid].long().sum())
+    max_plen = int(ker[1].max()) if q else 0
     n_valid = int(valid.sum())
     # least bytes: each distinct fm and (next, w) pair sector the walk
     # touches, read once; lane inputs (rows, s, t int32 + valid) read
@@ -277,17 +383,32 @@ def kernel_vs_plain(name: str, call, tag: str) -> dict:
                       ops / INT32_OPS_PER_S) * 1e3
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / INT32_OPS_PER_S else "operations")
+    us_per_move = kernel_ms * 1e3 / max(max_plen, 1)
     log(f"{tag} {name}: lanes={q} valid={n_valid} sum_plen={sum_plen} "
-        f"max_plen={int(ker[1].max())} kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-        f"({nbytes} B: {fm_sec} fm + {pair_sec} pair sectors; per-move "
-        f"count {per_move_bytes} B = {per_move_ms:.5f} ms) — bit-identical")
+        f"max_plen={max_plen} kernel {kernel_ms:.4f} ms "
+        f"({us_per_move:.4f} us/move; cold {cold_ms:.4f} ms), call "
+        f"{call_ms:.4f} ms, call building its own pairs {rebuild_ms:.4f} "
+        f"ms, pair build {pair_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B: {fm_sec} fm + "
+        f"{pair_sec} pair sectors; per-move count {per_move_bytes} B = "
+        f"{per_move_ms:.5f} ms) — bit-identical")
     return {"round": name, "lanes": q, "valid": n_valid,
-            "sum_plen": sum_plen, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "fm_sectors": fm_sec, "pair_sectors": pair_sec,
+            "sum_plen": sum_plen, "max_plen": max_plen, "ms": kernel_ms,
+            "kernel_ms": kernel_ms, "cold_kernel_ms": cold_ms,
+            "us_per_move": us_per_move, "call_ms": call_ms,
+            "rebuild_call_ms": rebuild_ms, "pair_build_ms": pair_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "fm_sectors": fm_sec, "pair_sectors": pair_sec,
             "bound_ms_per_move": per_move_ms,
             "bytes_per_move": per_move_bytes, "max_abs_err": err}
+
+
+def headline(main: dict) -> dict:
+    """A kernel entry's timing keys, from its free-flow round."""
+    keys = ("ms", "kernel_ms", "cold_kernel_ms", "us_per_move", "call_ms",
+            "rebuild_call_ms", "pair_build_ms", "plain_ms", "bound_ms",
+            "bound_by")
+    return {**{k: main[k] for k in keys}, "library_ms": None}
 
 
 def golden_dijkstra(g, queries, cost, fin, tag: str) -> None:
@@ -430,11 +551,7 @@ def road_path(g, dc, outdir) -> dict:
         "replaces": "distributed_oracle_search_tpu/ops/pallas_walk.py:380",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in per_round),
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
+        **headline(main),
         "parity": "bit-identical",
         "rounds": per_round,
     }
@@ -516,8 +633,7 @@ def compressed_path(g, dc, outdir) -> dict:
     a, kw = answers["pack4"]["free-flow"][5]
     a = (a[0], engines["raw"].fm, *a[2:])
     kw = {k: v for k, v in kw.items() if k != "packed4"}
-    raw_same_ms = time_cuda(lambda: cw.cuda_walk_batch(*a, **kw),
-                            KERNEL_REPS)
+    raw_same_ms = time_bare(bare_launch((a, kw))[0], KERNEL_REPS)
     log(f"{tag} raw kernel on the same free-flow lanes: {raw_same_ms:.4f} "
         f"ms (pack4 {per_round[0]['ms']:.4f} ms)")
 
@@ -549,11 +665,7 @@ def compressed_path(g, dc, outdir) -> dict:
                     "(packed4=True)",
         "launches": launches_pack4,
         "max_abs_err": max(x["max_abs_err"] for x in per_round),
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
+        **headline(main),
         "parity": "bit-identical",
         "rounds": per_round,
         "raw_kernel_same_lanes_ms": raw_same_ms,

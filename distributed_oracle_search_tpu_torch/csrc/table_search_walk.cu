@@ -7,29 +7,56 @@
 // (cost, plen, x == t) with pad lanes zeroed, bit-identical to the plain
 // walk ops/table_search.py::table_search_batch.
 //
-// What bounds it: each step is two dependent random reads per lane — the
-// fm byte of the lane's own row, then the packed (next, w) pair of the
-// chosen out-slot — each a separate 32-byte sector, and the next step's
-// fm address depends on the pair just read. So the kernel is latency- and
-// sector-bound, not bandwidth-bound: at ~360 steps a lane and tens of
-// thousands of lanes it moves a few tens of MB in sectors while the card
-// spends most of its time waiting on dependent loads.
+// What bounds it on this card: the longest lane's chain of dependent
+// reads. Every lane of a batch is resident at once, so the kernel lasts
+// as long as its longest lane, and a lane's move cannot start before the
+// previous move's reads have returned. Bytes are not the limit: a batch
+// touches 70-100 MB of distinct sectors, a few hundredths of a
+// millisecond of HBM time, against a chain of hundreds of moves at a
+// memory latency each. And a warp moves on only when the slowest of its
+// lanes' scattered reads has returned, so a move costs the worst latency
+// among the warp's active lanes and among the reads each issues.
 //
-// This first version is simple on purpose: one lane per thread, a 1-D
-// grid over Q, fm bytes read straight from device memory through the
-// read-only path (a 264k-node row is 264 KB, past one SM's 227 KB of
-// shared memory, so the TPU's VMEM row tile does not transfer), and a
-// lane returns as soon as it halts. A faster design (warp per bucket,
-// cp.async-staged pair rows, the pack4 nibble tile) is later work.
+// What the design does about it:
+// * one memory round trip a move, where the first version made two (the
+//   fm byte, then the pair its slot names): at node x a lane issues the
+//   read of x's fm byte together with the read of the head of x's
+//   next-node row — its first kHead out-slots, two 16-byte loads — and
+//   picks the chosen slot's next node in registers. Only a slot past the
+//   head (out-degree > kHead: a few percent of a road graph's nodes,
+//   none of a grid's) costs a second, dependent read. The weight of the
+//   move is read off the chain: nothing waits for it but the cost sum.
+//   So the pair table is planar, [2, n, k] (next nodes, then weights),
+//   with k a multiple of 4 so each row starts on 16 bytes;
+// * few lanes a warp: blocks are as small as keeps every lane resident
+//   (8 lanes on 32,768 lanes and 132 SMs), so a warp waits on the worst
+//   of 8 reads, not of 32;
+// * lanes are dealt to blocks round-robin (lane = thread * blocks +
+//   block): the engine sorts lanes by expected length, and this spreads
+//   the longest ones over every block instead of packing them into the
+//   last few, so the tail of the batch runs in warps with one or two
+//   active lanes.
+//
+// Tried on the card and not kept: prefetching the out-neighbours' fm
+// bytes into L2 one move ahead, or loading them into registers (slower
+// on both shards, even when started only after a lane's first hundred
+// moves: every extra scattered read lengthens the wait of its warp); L2
+// evict-first / evict-last policies on fm and pair reads (slightly
+// slower); interleaved (next, w) pairs read as 16-byte loads (a few
+// percent slower than the planar rows: more reads on the chain).
+// Staging whole target rows in shared memory (the TPU's VMEM row tile)
+// was not taken: a raw 264k-node row (264 KB) is past one SM's 227 KB,
+// and a packed one (132 KB) would take a block per row with one block per
+// SM, while a batch has ~2.6 lanes a distinct row — ~1 GB of staging in
+// dozens of waves, where today every lane is in flight at once.
 //
 // The pack4 variant (kPacked4, entry table_search_walk_pack4) replaces the
 // same kernel's packed4=True body (widen, ops/pallas_walk.py:233-244): the
 // table is models/resident.py's pack4 layout, uint8 [R, (n + 1) / 2], two
-// slots a byte, low nibble first, 15 meaning -1. The TPU stages the packed
-// row tile and unpacks it on chip; here each slot read is one __ldg byte
-// of the lane's packed row, then a shift and a mask. A packed row is half
-// a raw one, so the table the walk touches is half the bytes; the walk is
-// still bound by its dependent loads, not by bytes.
+// slots a byte, low nibble first, 15 meaning -1. Each slot read is one
+// byte of the lane's packed row, then a shift and a mask; a packed row
+// is half a raw one, so horizontal moves on a grid find their byte in
+// the sector an earlier move brought into L1.
 //
 // Parity traps kept from the TPU kernel:
 // * the row offset is int64 (8,250 rows x 264,000 nodes is past 2^31);
@@ -45,52 +72,98 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// lanes a block: the fewest of 8, 16, ..., 256 that keep every lane
+// resident
+constexpr int kMinThreads = 8;
+constexpr int kMaxThreads = 256;
+// out-slots of a node read with every move, as kHead / 4 int4 loads
+constexpr int kHead = 8;
 
-// Slot x of one lane's row: a raw int8 entry, or a pack4 nibble.
+// Address of node x's entry in one lane's row: a raw int8 byte, or the
+// pack4 byte holding x's nibble.
 template <bool kPacked4>
-__device__ __forceinline__ int load_slot(const uint8_t* __restrict__ row,
-                                         int x) {
-  if constexpr (kPacked4) {
-    const int v = (__ldg(row + (x >> 1)) >> ((x & 1) * 4)) & 0xF;
-    return v == 15 ? -1 : v;
-  } else {
-    return static_cast<int>(
-        __ldg(reinterpret_cast<const int8_t*>(row) + x));
-  }
+__device__ __forceinline__ const uint8_t* fm_at(const uint8_t* row, int x) {
+  return row + (kPacked4 ? (x >> 1) : x);
 }
 
 template <bool kPacked4>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int decode_slot(unsigned int byte, int x) {
+  if constexpr (kPacked4) {
+    const int v = (byte >> ((x & 1) * 4)) & 0xF;
+    return v == 15 ? -1 : v;
+  } else {
+    return static_cast<int>(static_cast<int8_t>(byte));
+  }
+}
+
+// Visit node x: issue the read of its fm byte, then the reads of its
+// head next-node ids, and return x's slot. Head slots past the row
+// (j >= k) read as x itself; they are never chosen.
+template <bool kPacked4>
+__device__ __forceinline__ int visit(const uint8_t* row,
+                                     const int* __restrict__ next, int k,
+                                     int x, int (&head)[kHead]) {
+  const unsigned int byte = __ldg(fm_at<kPacked4>(row, x));
+  const int4* nrow =
+      reinterpret_cast<const int4*>(next + static_cast<long long>(x) * k);
+#pragma unroll
+  for (int v = 0; v < kHead / 4; ++v) {
+    if (4 * v < k) {
+      const int4 four = __ldg(nrow + v);
+      head[4 * v] = four.x;
+      head[4 * v + 1] = four.y;
+      head[4 * v + 2] = four.z;
+      head[4 * v + 3] = four.w;
+    } else {
+      head[4 * v] = head[4 * v + 1] = head[4 * v + 2] = head[4 * v + 3] = x;
+    }
+  }
+  return decode_slot<kPacked4>(byte, x);
+}
+
+template <bool kPacked4>
+__global__ void __launch_bounds__(kMaxThreads)
 table_search_walk_kernel(const uint8_t* __restrict__ fm, long long n,
                          const int* __restrict__ rows,
                          const int* __restrict__ s,
                          const int* __restrict__ t,
                          const uint8_t* __restrict__ valid,
-                         const int2* __restrict__ pair, int k,
+                         const int* __restrict__ pair, int k,
                          long long steps, int budget,
                          int* __restrict__ cost, int* __restrict__ plen,
                          uint8_t* __restrict__ fin, int q) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // lanes dealt round-robin over the blocks
+  const int i = threadIdx.x * gridDim.x + blockIdx.x;
   if (i >= q) return;
   const bool v = valid[i] != 0;
   const int tt = t[i];
   int x = v ? s[i] : tt;
-  // row width in bytes: n raw, (n + 1) / 2 packed; int64 offset
-  const long long width = kPacked4 ? (n + 1) / 2 : n;
-  const uint8_t* row = fm + static_cast<long long>(rows[i]) * width;
   unsigned int c = 0;
   int p = 0;
-  int slot = load_slot<kPacked4>(row, x);
-  if (v && slot >= 0) {
-    for (long long step = 0; step < steps; ++step) {
-      if (budget >= 0 && p >= budget) break;
-      const int2 nw = __ldg(pair + static_cast<long long>(x) * k + slot);
-      c += static_cast<unsigned int>(nw.y);
-      p += 1;
-      x = nw.x;
-      slot = load_slot<kPacked4>(row, x);
-      if (slot < 0) break;
+  if (v) {
+    // row width in bytes: n raw, (n + 1) / 2 packed; int64 offset
+    const long long width = kPacked4 ? (n + 1) / 2 : n;
+    const uint8_t* row = fm + static_cast<long long>(rows[i]) * width;
+    const int* __restrict__ next = pair;
+    const int* __restrict__ weight = pair + n * k;
+    int head[kHead];
+    int slot = visit<kPacked4>(row, next, k, x, head);
+    if (slot >= 0) {
+      for (long long step = 0; step < steps; ++step) {
+        if (budget >= 0 && p >= budget) break;
+        const long long at = static_cast<long long>(x) * k + slot;
+        int nx = head[0];
+#pragma unroll
+        for (int j = 1; j < kHead; ++j) {
+          if (slot == j) nx = head[j];
+        }
+        if (slot >= kHead) nx = __ldg(next + at);
+        c += static_cast<unsigned int>(__ldg(weight + at));
+        p += 1;
+        x = nx;
+        slot = visit<kPacked4>(row, next, k, x, head);
+        if (slot < 0) break;
+      }
     }
   }
   cost[i] = v ? static_cast<int>(c) : 0;
@@ -104,12 +177,35 @@ int launch(const void* fm, long long n, const void* rows, const void* s,
            long long steps, int budget, void* cost, void* plen, void* fin,
            int q, void* stream) {
   if (q > 0) {
-    const int blocks = (q + kThreads - 1) / kThreads;
-    table_search_walk_kernel<kPacked4><<<blocks, kThreads, 0,
+    int dev = 0, sms = 0, blocks_per_sm = 0, threads_per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(
+          &blocks_per_sm, cudaDevAttrMaxBlocksPerMultiprocessor, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(
+          &threads_per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int threads = kMinThreads;
+    auto resident = [&](int th) {
+      const long long per_sm =
+          blocks_per_sm < threads_per_sm / th ? blocks_per_sm
+                                              : threads_per_sm / th;
+      return static_cast<long long>(sms) * per_sm * th;
+    };
+    while (threads < kMaxThreads && resident(threads) < q) threads *= 2;
+    const int blocks = (q + threads - 1) / threads;
+    table_search_walk_kernel<kPacked4><<<blocks, threads, 0,
                                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(fm), n, static_cast<const int*>(rows),
         static_cast<const int*>(s), static_cast<const int*>(t),
-        static_cast<const uint8_t*>(valid), static_cast<const int2*>(pair),
+        static_cast<const uint8_t*>(valid), static_cast<const int*>(pair),
         k, steps, budget, static_cast<int*>(cost), static_cast<int*>(plen),
         static_cast<uint8_t*>(fin), q);
   }
@@ -120,7 +216,10 @@ int launch(const void* fm, long long n, const void* rows, const void* s,
 
 // Plain C entry points for ctypes. Each launches on `stream` without
 // synchronising and returns cudaGetLastError() so a refused launch is
-// seen. `fm` is int8 [R, n] raw, or uint8 [R, (n + 1) / 2] pack4.
+// seen. `fm` is int8 [R, n] raw, or uint8 [R, (n + 1) / 2] pack4; `pair`
+// is int32 [2, n, k]: the next node, then the query-time weight, per
+// out-slot, k a multiple of 4 and the table 16-byte aligned
+// (ops/table_search.py::walk_pairs).
 extern "C" int table_search_walk(const void* fm, long long n,
                                  const void* rows, const void* s,
                                  const void* t, const void* valid,

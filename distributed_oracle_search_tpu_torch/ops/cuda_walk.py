@@ -2,9 +2,13 @@
 
 Port of the JAX package's one TPU kernel, the Pallas-fused walk
 (``ops/pallas_walk.py::_pallas_walk``). The kernel is
-``csrc/table_search_walk.cu``: one thread per query lane, fm bytes read
-straight from device memory, packed ``(next, w)`` pairs per out-slot —
-see the note at the top of the source for its design and what bounds it.
+``csrc/table_search_walk.cu``: one thread per query lane, one memory
+round trip a move (the fm byte and the head of the node's next-node row
+read together, the move's weight read off the chain), small blocks and
+lanes dealt round-robin over them — see the note at the top of the
+source for its design and what bounds it. The pair table is an input: a
+caller that walks one weight set many times builds it once
+(``pair=``).
 It is built with ``nvcc`` at first use (``utils.cuda_build``) and called
 through a plain C entry point with ``ctypes``. The same source holds the
 pack4 variant (``packed4=True``, the TPU kernel's ``packed4`` body): the
@@ -66,14 +70,18 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
                     w_query_pad: torch.Tensor,
                     valid: torch.Tensor | None = None, k_moves: int = -1,
                     max_steps: int = 0, unroll: int = 8,
-                    n_buckets: int = 0, packed4: bool = False):
+                    n_buckets: int = 0, packed4: bool = False,
+                    pair: torch.Tensor | None = None):
     """Kernel drop-in for :func:`.table_search.table_search_batch` — same
     parameters, same ``(cost int32, plen int32, finished bool)``
     contract, bit-identical answers. ``n_buckets`` is accepted for
     signature parity (results are bucket-invariant); ``unroll`` is only
     the step-bound quantum (``walk_budget``). ``packed4``: ``fm`` is the
     pack4 nibble table, uint8 ``[R, (N + 1) // 2]`` (the JAX package's
-    ``pallas_walk_batch(packed4=True)``).
+    ``pallas_walk_batch(packed4=True)``). ``pair``: the int32
+    ``[2, N, K']`` table ``walk_pairs(dg, w_query_pad)``, built once by a
+    caller that walks one weight set many times (``ShardEngine`` keeps
+    one per cached weight vector); None builds it here.
 
     Each raw kernel launch adds one to ``cuda_walk_batch.launches``, each
     pack4 launch one to ``cuda_walk_batch.launches_pack4``."""
@@ -81,7 +89,8 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
         return table_search_batch(dg, fm, t_rows, s, t, w_query_pad,
                                   valid=valid, k_moves=k_moves,
                                   max_steps=max_steps, unroll=unroll,
-                                  n_buckets=n_buckets, packed4=packed4)
+                                  n_buckets=n_buckets, packed4=packed4,
+                                  pair=pair)
     if s.device.type != "cuda":
         raise ValueError(f"no walk for tensors on {s.device}")
     dev = s.device
@@ -98,30 +107,46 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
         _check(name, x, torch.int32, (q,), dev)
     _check("valid", valid, torch.bool, (q,), dev)
     _check("w_query_pad", w_query_pad, torch.int32, dg.w_pad.shape, dev)
-    pair = walk_pairs(dg, w_query_pad)
-    _check("pair", pair, torch.int32, (n, k, 2), dev)
+    if pair is None:
+        pair = walk_pairs(dg, w_query_pad)
+    _check("pair", pair, torch.int32, (2, n, k + -k % 4), dev)
+    if pair.data_ptr() % 16:
+        raise ValueError("pair must start on 16 bytes")
     steps, budget = walk_budget(n, int(k_moves), int(max_steps), unroll)
     cost = torch.empty(q, dtype=torch.int32, device=dev)
     plen = torch.empty(q, dtype=torch.int32, device=dev)
     fin = torch.empty(q, dtype=torch.bool, device=dev)
-    if q == 0:
-        return cost, plen, fin
-    fn = _kernel(KERNEL_NAME_PACK4 if packed4 else KERNEL_NAME)
+    if q:
+        launch_walk(fm, n, t_rows, s, t, valid, pair, steps, budget, cost,
+                    plen, fin, packed4)
+    return cost, plen, fin
+
+
+def launch_walk(fm: torch.Tensor, n: int, t_rows: torch.Tensor,
+                s: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
+                pair: torch.Tensor, steps: int, budget: int | None,
+                cost: torch.Tensor, plen: torch.Tensor, fin: torch.Tensor,
+                packed4: bool = False) -> None:
+    """The bare kernel launch on tensors :func:`cuda_walk_batch` has
+    checked and allocated: one launch on the current stream, no
+    synchronisation; raises if the launch is refused. Counts the launch
+    under its variant."""
+    name = KERNEL_NAME_PACK4 if packed4 else KERNEL_NAME
+    fn = _kernel(name)
+    dev = s.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(fm.data_ptr(), n, t_rows.data_ptr(), s.data_ptr(),
-                 t.data_ptr(), valid.data_ptr(), pair.data_ptr(), k, steps,
-                 -1 if budget is None else int(budget), cost.data_ptr(),
-                 plen.data_ptr(), fin.data_ptr(), q, stream)
+                 t.data_ptr(), valid.data_ptr(), pair.data_ptr(),
+                 pair.shape[2], steps, -1 if budget is None else int(budget),
+                 cost.data_ptr(), plen.data_ptr(), fin.data_ptr(),
+                 s.shape[0], stream)
     if err != 0:
-        raise RuntimeError(
-            f"{KERNEL_NAME_PACK4 if packed4 else KERNEL_NAME} launch "
-            f"failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     if packed4:
         cuda_walk_batch.launches_pack4 += 1
     else:
         cuda_walk_batch.launches += 1
-    return cost, plen, fin
 
 
 cuda_walk_batch.launches = 0

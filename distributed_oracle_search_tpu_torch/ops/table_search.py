@@ -71,12 +71,24 @@ def walk_budget(n: int, k_moves: int, max_steps: int,
 
 
 def walk_pairs(dg: DeviceGraph, w_query_pad: torch.Tensor) -> torch.Tensor:
-    """Packed ``(next-node, query-time weight)`` per out-slot: int32
-    ``[N, K, 2]`` — one gather (one 8-byte read) per walk step drives
-    both the move and the cost, as the JAX walk packs it."""
-    return torch.stack([dg.out_nbr.to(torch.int32),
-                        w_query_pad[dg.out_eid.long()].to(torch.int32)],
-                       dim=-1).contiguous()
+    """The walk's ``(next-node, query-time weight)`` per out-slot, planar:
+    int32 ``[2, N, K']`` — plane 0 the next node, plane 1 the weight —
+    so one gather per plane drives the move and the cost (the JAX walk
+    packs the same pairs interleaved). ``K'`` is ``K`` rounded up to a
+    multiple of 4, so each node's next-node row starts on 16 bytes (the
+    CUDA walk reads it as 16-byte vectors); the added slots are ELL
+    padding (the node itself, the INF weight) and no first move names
+    them."""
+    nbr, eid = dg.out_nbr, dg.out_eid
+    extra = -dg.k % 4
+    if extra:
+        self_ = torch.arange(dg.n, dtype=nbr.dtype, device=nbr.device)
+        nbr = torch.cat([nbr, self_[:, None].expand(dg.n, extra)], dim=1)
+        eid = torch.cat([eid, eid.new_full((dg.n, extra),
+                                           w_query_pad.shape[0] - 1)], dim=1)
+    return torch.stack([nbr.to(torch.int32),
+                        w_query_pad[eid.long()].to(torch.int32)]
+                       ).contiguous()
 
 
 def fm_slot(fm: torch.Tensor, rows: torch.Tensor, x: torch.Tensor,
@@ -98,7 +110,8 @@ def table_search_batch(dg: DeviceGraph, fm: torch.Tensor,
                        valid: torch.Tensor | None = None,
                        k_moves: int = -1, max_steps: int = 0,
                        unroll: int = 8, n_buckets: int = 0,
-                       packed4: bool = False):
+                       packed4: bool = False,
+                       pair: torch.Tensor | None = None):
     """Answer a batch of queries against a first-move shard.
 
     Parameters
@@ -116,6 +129,9 @@ def table_search_batch(dg: DeviceGraph, fm: torch.Tensor,
     n_buckets   : accepted for signature parity; results are
                   bucket-invariant and the batch walks as one
     packed4     : read each slot from a nibble row (see ``fm``)
+    pair        : ``walk_pairs(dg, w_query_pad)`` built beforehand (a
+                  caller that walks one weight set many times keeps it);
+                  None builds it here
 
     Returns
     -------
@@ -130,7 +146,8 @@ def table_search_batch(dg: DeviceGraph, fm: torch.Tensor,
     unroll = max(int(unroll), 1)
     rows = t_rows.long()
     t32 = t.to(torch.int32)
-    pair = walk_pairs(dg, w_query_pad)
+    if pair is None:
+        pair = walk_pairs(dg, w_query_pad)
 
     def slot_at(x):
         return fm_slot(fm, rows, x, packed4)
@@ -148,10 +165,10 @@ def table_search_batch(dg: DeviceGraph, fm: torch.Tensor,
             can = ~halted & (slot >= 0)
             if budget is not None:
                 can &= plen < budget
-            nxt_w = pair[x.long(), slot.clamp_min(0).long()]
-            cost = torch.where(can, cost + nxt_w[:, 1], cost)
+            at = (x.long(), slot.clamp_min(0).long())
+            cost = torch.where(can, cost + pair[1][at], cost)
             plen = torch.where(can, plen + 1, plen)
-            x = torch.where(can, nxt_w[:, 0], x)
+            x = torch.where(can, pair[0][at], x)
             halted = halted | ~can
         it += unroll
     fin = (x == t32) & valid

@@ -13,6 +13,10 @@ walks the packed table through the pack4 kernel; every other compressed
 batch (rle, or pack4 with ``extract``) inflates the batch's distinct
 target rows once into a dense block and walks and extracts from that.
 
+The walk's ``(next, w)`` pair table (``ops.table_search.walk_pairs``) is
+built once per weight set and cached beside its weight vector in the
+per-diff LRU, so no walk call, deadline chunk or repeat rebuilds it.
+
 Runtime knobs honored per batch (reference ``process_query.py:149-160``):
 ``k_moves`` (move budget), ``itrs`` (repeat count; last result wins),
 ``no_cache`` (drop the per-diff weight cache), ``extract`` (path
@@ -50,7 +54,7 @@ from ..models.cpd import (
 from ..models.resident import CompressedFM, make_resident, maybe_decode_rows
 from ..ops.cuda_walk import cuda_walk_batch
 from ..ops.device_graph import DeviceGraph
-from ..ops.table_search import extract_paths
+from ..ops.table_search import extract_paths, walk_pairs
 from ..parallel.partition import DistributionController
 from ..transport.wire import RuntimeConfig, StatsRow
 from ..utils.device import resolve_device
@@ -133,10 +137,12 @@ class ShardEngine:
                 f"controller owns {len(owned)} nodes — partition mismatch")
         self.fm = self._make_resident(rows)
         self.dg = DeviceGraph.from_graph(graph, device=self.device)
-        #: per-diff device weight buffers, LRU-bounded (≥ 2: the double
-        #: buffer an epoch swap needs); a re-upload after eviction is a
-        #: read + transfer, never a correctness event
-        self._weight_cache: OrderedDict[str, torch.Tensor] = OrderedDict()
+        #: per-diff device weight buffers, each with the walk's
+        #: ``(next, w)`` pair table built from it once, LRU-bounded (≥ 2:
+        #: the double buffer an epoch swap needs); a re-upload after
+        #: eviction is a read + transfer, never a correctness event
+        self._weight_cache: OrderedDict[
+            str, tuple[torch.Tensor, torch.Tensor]] = OrderedDict()
         self._weight_keep = max(
             2, env_cast("DOS_TRAFFIC_WEIGHT_EPOCHS", 4, int))
         #: device-batch rows per deadline-checked chunk
@@ -154,7 +160,11 @@ class ShardEngine:
         return fm
 
     # ------------------------------------------------------------ weights
-    def _weights_for(self, difffile: str, no_cache: bool) -> torch.Tensor:
+    def _weights_for(self, difffile: str, no_cache: bool
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(w_pad, pair)`` for ``difffile``: the padded query-time
+        weights and the walk's pair table built from them, cached together
+        (the pair table lives and is evicted with its weight vector)."""
         if difffile in self._weight_cache and not no_cache:
             self._weight_cache.move_to_end(difffile)
             return self._weight_cache[difffile]
@@ -164,13 +174,14 @@ class ShardEngine:
             w = self.graph.weights_with_diff(read_diff(difffile))
             w_pad = torch.as_tensor(self.graph.padded_weights(w),
                                     dtype=torch.int32, device=self.device)
+        entry = (w_pad, walk_pairs(self.dg, w_pad))
         if no_cache:
             self._weight_cache.clear()
         else:
-            self._weight_cache[difffile] = w_pad
+            self._weight_cache[difffile] = entry
             while len(self._weight_cache) > self._weight_keep:
                 self._weight_cache.popitem(last=False)
-        return w_pad
+        return entry
 
     # -------------------------------------------------------------- batch
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -197,7 +208,7 @@ class ShardEngine:
                 raise ValueError(
                     f"shard w{self.wid} received {bad} queries for "
                     "other workers — routing invariant violated")
-        w_pad = self._weights_for(difffile, config.no_cache)
+        w_pad, pair = self._weights_for(difffile, config.no_cache)
         nq = len(queries)
         extracting = config.extract and config.k_moves > 0
         if nq == 0:
@@ -252,7 +263,7 @@ class ShardEngine:
             return cuda_walk_batch(
                 self.dg, fm_walk, self._dev(rows[sl]), self._dev(s[sl]),
                 self._dev(t[sl]), w_pad, valid=self._dev(valid[sl]),
-                k_moves=config.k_moves, packed4=packed4)
+                k_moves=config.k_moves, packed4=packed4, pair=pair)
 
         deadline = t1 + config.time / 1e9 if config.time else None
         for _ in range(max(config.itrs, 1)):
