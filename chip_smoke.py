@@ -26,8 +26,9 @@ points a user calls, then the compressed-residency path:
    checks against reverse-Dijkstra and the CPU reference walk;
 3. compressed path (``[compressed]`` lines), on
    ``synth_city_graph(514, 514, seed=0, shortcut_frac=0.0)`` (264,196
-   nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 32
-   workers: build worker 0's 8,257 rows on the card with
+   nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 64
+   workers (half the road phase's depth, so the whole smoke stays under
+   600 s): build worker 0's 4,129 rows on the card with
    ``codec="pack4"`` (the blocks must be pack4 containers); load three
    engines from that one index with ``DOS_CPD_RESIDENT`` raw, pack4 and
    rle (each must keep its codec; a degrade to raw fails); answer the same
@@ -37,7 +38,24 @@ points a user calls, then the compressed-residency path:
    kernel against its plain version on those two rounds' exact inputs;
    time ``decompress_rows`` of a batch's distinct rows under pack4 and
    rle; free-flow costs must equal reverse-Dijkstra;
-4. print the kernel table as one JSON line, then, as the last line,
+4. campaign path (``[campaign]`` lines), the system's own pipeline on
+   a metro-scale road network whose whole index is resident on the card:
+   ``synth_road_network(65_536, seed=0)`` written as an ``.xy`` file, a
+   20,000-query ``.scen`` (uniform sources and targets over all nodes,
+   duplicates and s == t pairs mixed in) and a congestion ``.diff``; a
+   conf JSON with ``partmethod "tpu"`` over 8 workers (the fm is int8
+   ``[8, 8192, 65536]``, 4 GiB); ``make_cpds.main(["-c", conf])`` builds
+   and saves the index, then ``process_query.main`` answers the conf's
+   free-flow and diff rounds, and again with ``-k 8 --extract`` — each
+   round one walk kernel launch over every worker's rows, launch
+   counters zeroed before the campaign and read after it, pair tables
+   counted (one per oracle and weight set, or the smoke fails); checks:
+   free-flow costs equal reverse-Dijkstra and every query finishes,
+   ``parts.csv``'s per-worker ``plen``/``finished`` sums equal a direct
+   ``CPDOracle.query``, ``paths.csv`` equals ``query_paths``, and the
+   kernel equals the plain walk on the oracle's routed inputs of the
+   free-flow and diff rounds (timed as in step 2);
+5. print the kernel table as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a GPU, or without the package
@@ -47,7 +65,9 @@ writes goes under ``build/`` beside this script and is removed at exit.
 
 from __future__ import annotations
 
+import csv
 import gc
+import hashlib
 import json
 import os
 import shutil
@@ -60,11 +80,13 @@ import traceback
 import numpy as np
 import torch
 
+from distributed_oracle_search_tpu_torch.cli import make_cpds, process_query
 from distributed_oracle_search_tpu_torch.data import (
-    synth_city_graph, synth_diff, synth_road_network, write_diff,
+    Graph, synth_city_graph, synth_diff, synth_road_network, write_diff,
+    write_scen, write_xy,
 )
 from distributed_oracle_search_tpu_torch.models import (
-    dist_to_target, table_search_walk,
+    cpd, dist_to_target, table_search_walk,
 )
 from distributed_oracle_search_tpu_torch.models.cpd import (
     build_worker_shard, write_index_manifest,
@@ -74,7 +96,7 @@ from distributed_oracle_search_tpu_torch.ops.table_search import (
     fm_slot, table_search_batch, walk_budget, walk_pairs,
 )
 from distributed_oracle_search_tpu_torch.parallel import (
-    DistributionController,
+    DistributionController, sharded,
 )
 from distributed_oracle_search_tpu_torch.transport import RuntimeConfig
 from distributed_oracle_search_tpu_torch.utils import cuda_build
@@ -85,6 +107,9 @@ SEED = 0
 N_NODES = 264_000
 GRID_SIDE = 514
 MAXWORKER = 32
+#: the grid phase's workers: twice the road's, so worker 0 builds half
+#: the rows and the whole smoke, campaign included, stays under 600 s
+GRID_MAXWORKER = 64
 WID = 0
 CHUNK = 512
 N_QUERIES = 20_000
@@ -105,6 +130,10 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 SECTOR = 32
 ROUND_NAMES = ("free-flow", "diff", "k8-extract")
+#: the campaign: a metro-scale road network, every worker's rows resident
+CAMPAIGN_NODES = 65_536
+CAMPAIGN_WORKERS = 8
+CAMPAIGN_K = 8
 
 
 def log(msg: str) -> None:
@@ -171,13 +200,12 @@ def time_cold(launch, reps: int) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
-def make_queries(dc, n: int) -> np.ndarray:
-    """Uniform sources, targets uniform over worker WID's owned nodes,
-    with duplicate pairs and s == t pairs mixed in."""
+def make_queries(targets: np.ndarray, n: int) -> np.ndarray:
+    """Uniform sources, targets uniform over ``targets``, with duplicate
+    pairs and s == t pairs mixed in."""
     rng = np.random.default_rng(SEED)
-    owned = dc.owned(WID)
     s = rng.integers(0, n, N_QUERIES)
-    t = owned[rng.integers(0, len(owned), N_QUERIES)]
+    t = targets[rng.integers(0, len(targets), N_QUERIES)]
     q = np.stack([s, t], axis=1).astype(np.int64)
     dup_to = rng.choice(N_QUERIES, N_DUPS, replace=False)
     q[dup_to] = q[rng.integers(0, N_QUERIES, N_DUPS)]
@@ -476,7 +504,7 @@ def run() -> list[dict]:
     # ---- 3. compressed path
     t0 = time.perf_counter()
     g = synth_city_graph(GRID_SIDE, GRID_SIDE, seed=SEED, shortcut_frac=0.0)
-    dc = DistributionController("mod", MAXWORKER, MAXWORKER, g.n)
+    dc = DistributionController("mod", GRID_MAXWORKER, GRID_MAXWORKER, g.n)
     log(f"[compressed] graph n={g.n} m={g.m} K={g.max_out_degree} "
         f"({time.perf_counter() - t0:.2f} s); worker {WID} owns "
         f"{dc.n_owned(WID)} targets")
@@ -485,6 +513,23 @@ def run() -> list[dict]:
         pack4_kernel = compressed_path(g, dc, outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[compressed] done at {time.perf_counter() - T_START:.1f} s")
+
+    # ---- 4. campaign path: make_cpds -> process_query over all workers
+    outdir = tempfile.mkdtemp(prefix="chip-smoke-campaign-", dir=work)
+    try:
+        campaign = campaign_path(outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    log(f"[campaign] done at {time.perf_counter() - T_START:.1f} s")
+    raw_kernel["launches_by_path"] = {"road": raw_kernel["launches"],
+                                      "campaign": campaign["launches"]}
+    raw_kernel["launches"] += campaign["launches"]
+    raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
+                                    campaign["max_abs_err"])
+    raw_kernel["campaign"] = campaign
     return [raw_kernel, pack4_kernel]
 
 
@@ -498,7 +543,7 @@ def road_path(g, dc, outdir) -> dict:
     log(f"[engine] loaded {tuple(engine.fm.shape)} {engine.fm.dtype} fm "
         f"({engine.fm.numel() / 1e9:.2f} GB) in "
         f"{time.perf_counter() - t0:.2f} s")
-    queries = make_queries(dc, g.n)
+    queries = make_queries(dc.owned(WID), g.n)
     diff_path, rounds = rounds_for(g, outdir)
     zero_launches()
     answers = drive_rounds(engine, queries, rounds, "[answer]")
@@ -594,7 +639,7 @@ def compressed_path(g, dc, outdir) -> dict:
         raise AssertionError("pack4 resident bytes are not half a row each")
 
     # the same three rounds on each engine
-    queries = make_queries(dc, g.n)
+    queries = make_queries(dc.owned(WID), g.n)
     _, rounds = rounds_for(g, outdir)
     zero_launches()
     answers = {codec: drive_rounds(e, queries, rounds, f"{tag} {codec}")
@@ -670,6 +715,184 @@ def compressed_path(g, dc, outdir) -> dict:
         "rounds": per_round,
         "raw_kernel_same_lanes_ms": raw_same_ms,
     }
+
+
+def campaign_inputs(outdir: str):
+    """The campaign's files: the road network as an ``.xy`` file, the
+    scenario, the diff and the conf. Returns ``(graph as the CLIs read
+    it, queries, diff path, conf path, index dir)``."""
+    g0 = synth_road_network(CAMPAIGN_NODES, seed=SEED)
+    xy = os.path.join(outdir, "road.xy")
+    write_xy(xy, g0.xs, g0.ys, g0.src, g0.dst, g0.w)
+    g = Graph.from_xy(xy)
+    queries = make_queries(np.arange(g.n), g.n)
+    scen = os.path.join(outdir, "road.scen")
+    write_scen(scen, queries)
+    diff_path = os.path.join(outdir, "congestion.diff")
+    write_diff(diff_path, *synth_diff(g, frac=0.1, seed=2))
+    index = os.path.join(outdir, "index")
+    conf = os.path.join(outdir, "conf.json")
+    with open(conf, "w") as f:
+        json.dump({"workers": [f"tpu:{i}" for i in range(CAMPAIGN_WORKERS)],
+                   "partmethod": "tpu", "partkey": CAMPAIGN_WORKERS,
+                   "outdir": index, "xy_file": xy, "scenfile": scen,
+                   "diffs": ["-", diff_path]}, f)
+    return g, queries, diff_path, conf, index
+
+
+class CampaignProbe:
+    """Times the oracle's ``build``/``save``/``load``/``query`` calls the
+    CLIs make (host clock, synchronised), keeps the oracles they load,
+    and records every pair-table build by (oracle, weight set)."""
+
+    METHODS = ("build", "save", "load", "query")
+
+    def __init__(self):
+        self.seconds: dict[str, list[float]] = {m: [] for m in self.METHODS}
+        self.oracles: list = []
+        self.pairs: list[tuple[int, str]] = []
+        self._real = {m: getattr(cpd.CPDOracle, m) for m in self.METHODS}
+        self._real_pairs = cpd.walk_pairs
+
+    def _timed(self, name):
+        fn = self._real[name]
+
+        def wrapper(oracle, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(oracle, *a, **kw)
+            torch.cuda.synchronize()
+            self.seconds[name].append(time.perf_counter() - t0)
+            if name == "load":
+                self.oracles.append(oracle)
+            return out
+        return wrapper
+
+    def _counting_pairs(self, dg, w_pad):
+        key = hashlib.blake2b(w_pad.cpu().numpy().tobytes()).hexdigest()
+        self.pairs.append((id(dg), key))
+        return self._real_pairs(dg, w_pad)
+
+    def __enter__(self):
+        for m in self.METHODS:
+            setattr(cpd.CPDOracle, m, self._timed(m))
+        cpd.walk_pairs = self._counting_pairs
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in self._real.items():
+            setattr(cpd.CPDOracle, m, fn)
+        cpd.walk_pairs = self._real_pairs
+
+
+def campaign_path(outdir: str) -> dict:
+    tag = "[campaign]"
+    t0 = time.perf_counter()
+    g, queries, diff_path, conf, index = campaign_inputs(outdir)
+    dc = DistributionController("tpu", CAMPAIGN_WORKERS, CAMPAIGN_WORKERS,
+                                g.n)
+    w, r = CAMPAIGN_WORKERS, dc.max_owned
+    log(f"{tag} graph n={g.n} m={g.m} K={g.max_out_degree}; {w} workers x "
+        f"{r} rows: fm int8 [{w}, {r}, {g.n}] = {w * r * g.n} B; "
+        f"{len(queries)} queries; inputs written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out_rounds = os.path.join(outdir, "out-rounds")
+    out_k = os.path.join(outdir, f"out-k{CAMPAIGN_K}")
+    torch.cuda.reset_peak_memory_stats()
+    with CampaignProbe() as probe:
+        rcs = [make_cpds.main(["-c", conf])]
+        peak = torch.cuda.max_memory_allocated()
+        zero_launches()
+        rcs.append(process_query.main(["-c", conf, "-o", out_rounds]))
+        rcs.append(process_query.main(["-c", conf, "-o", out_k, "-k",
+                                       str(CAMPAIGN_K), "--extract"]))
+        launches = read_launches()[0]
+        n_pairs = len(probe.pairs)
+        oracle = probe.oracles[0]
+        del probe.oracles[1:]
+        # a direct query of every round on the first campaign's oracle,
+        # recording the walk call it makes
+        recorded: list = []
+        real_walk = sharded.cuda_walk_batch
+
+        def recording_walk(*a, **kw):
+            recorded.append((a, kw))
+            return real_walk(*a, **kw)
+
+        sharded.cuda_walk_batch = recording_walk
+        try:
+            w_diff = g.weights_with_diff(diff_path)
+            direct = {"free-flow": oracle.query(queries),
+                      "diff": oracle.query(queries, w_query=w_diff)}
+            nodes, moves = oracle.query_paths(queries, k=CAMPAIGN_K)
+        finally:
+            sharded.cuda_walk_batch = real_walk
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rcs != [0, 0, 0]:
+        raise AssertionError(f"{tag} CLI exit codes {rcs}")
+    disk = sum(os.path.getsize(os.path.join(index, f))
+               for f in os.listdir(index))
+    rows = w * r
+    build_s, save_s = probe.seconds["build"][0], probe.seconds["save"][0]
+    log(f"{tag} make_cpds: build {build_s:.3f} s = {rows / build_s:.2f} "
+        f"rows/s ({rows} rows), peak device memory {peak / 2**30:.2f} GiB; "
+        f"save {save_s:.3f} s, index {disk} B on disk in "
+        f"{len(os.listdir(index))} files")
+    log(f"{tag} process_query loads: "
+        + ", ".join(f"{x:.3f} s" for x in probe.seconds["load"])
+        + f"; resident_bytes={oracle.fm.numel() * oracle.fm.element_size()}"
+        f" ({tuple(oracle.fm.shape)} {oracle.fm.dtype} on "
+        f"{oracle.fm.device})")
+    names = ["free-flow", "diff", f"k{CAMPAIGN_K} free-flow",
+             f"k{CAMPAIGN_K} diff"]
+    for name, sec in zip(names, probe.seconds["query"]):
+        log(f"{tag} round {name}: {len(queries)} queries in {sec:.4f} s = "
+            f"{len(queries) / sec:.1f} q/s")
+    log(f"{tag} walk kernel launches in the four rounds: {launches}; pair "
+        f"tables built: {n_pairs}, one per oracle and weight set")
+    if launches != 4:
+        raise AssertionError(f"{tag} {launches} walk kernel launches in "
+                             "four rounds, not one a round")
+    if len(set(probe.pairs)) != len(probe.pairs) or n_pairs != 4:
+        raise AssertionError(f"{tag} pair tables built {probe.pairs}")
+    if len(probe.pairs) != n_pairs:
+        raise AssertionError(f"{tag} the direct queries rebuilt pairs")
+
+    # parts.csv: per-worker plen and finished sums of each round
+    owner = dc.worker_of(queries[:, 1])
+    with open(os.path.join(out_rounds, "parts.csv")) as f:
+        parts = list(csv.DictReader(f))
+    for expe, name in enumerate(("free-flow", "diff")):
+        _, plen, fin = direct[name]
+        mine = [p for p in parts if p["expe"] == str(expe)]
+        want = [(wid, int(plen[owner == wid].sum()),
+                 int(fin[owner == wid].sum())) for wid in range(w)]
+        got = [(wid, int(p["plen"]), int(p["finished"]))
+               for wid, p in enumerate(mine)]
+        if got != want:
+            raise AssertionError(f"{tag} parts.csv round {name}: {got} != "
+                                 f"direct query {want}")
+    log(f"{tag} parts.csv per-worker plen and finished sums equal a direct "
+        "CPDOracle.query in both rounds")
+    paths = np.loadtxt(os.path.join(out_k, "paths.csv"), delimiter=",",
+                       skiprows=1, dtype=np.int64)
+    if not np.array_equal(paths, np.concatenate(
+            [queries, moves[:, None], nodes], axis=1)):
+        raise AssertionError(f"{tag} paths.csv != query_paths")
+    log(f"{tag} paths.csv equals query_paths(k={CAMPAIGN_K}): "
+        f"{paths.shape[0]} rows")
+    golden_dijkstra(g, queries, direct["free-flow"][0],
+                    direct["free-flow"][2], f"{tag} golden")
+
+    per_round = [kernel_vs_plain(name, call, f"{tag} kernel")
+                 for name, call in zip(("free-flow", "diff"), recorded)]
+    return {"launches": launches, **headline(per_round[0]),
+            "max_abs_err": max(x["max_abs_err"] for x in per_round),
+            "build_s": build_s, "save_s": save_s,
+            "load_s": probe.seconds["load"],
+            "round_s": probe.seconds["query"][:4], "index_bytes": disk,
+            "resident_bytes": int(oracle.fm.numel()), "rounds": per_round}
 
 
 T_START = time.perf_counter()

@@ -1,8 +1,9 @@
-"""One worker's CPD shard: build, persist, verify, load.
+"""The CPD: one worker's shard, and the whole index on one device.
 
 The Compressed Path Database is a ``[R, N]`` int8 first-move table per
-worker (owned-target row × node). This module is the single-shard part of
-the JAX package's ``models/cpd.py``:
+worker (owned-target row × node). This module ports, from the JAX
+package's ``models/cpd.py``, the single-shard part and the in-process
+oracle:
 
 * :func:`build_worker_shard` — the per-worker build (reference
   ``make_cpd_auto``, ``make_cpds.py:20``): the owned targets in
@@ -20,15 +21,22 @@ the JAX package's ``models/cpd.py``:
   digests, the manifest schema and the compressed containers are the
   JAX package's, so an index built by either package loads under the
   other.
+* :class:`CPDOracle` — every worker's rows as one ``[W, R, N]`` tensor on
+  one device: ``build`` (ELL), ``save``, ``load``, ``route`` queries to
+  the worker owning their target, and answer a round of them in one walk
+  over all workers (``parallel.sharded``). The walk's pair table is built
+  once per weight set.
 """
 
 from __future__ import annotations
 
 import glob
+import hashlib
 import io
 import json
 import os
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -36,15 +44,21 @@ import torch
 from ..data.graph import Graph
 from ..ops.bellman_ford import build_fm_columns
 from ..ops.device_graph import DeviceGraph
+from ..ops.table_search import walk_pairs
 from ..parallel.partition import DistributionController
+from ..parallel.sharded import (
+    build_fm_sharded, pad_targets, query_paths_sharded, query_sharded,
+)
 from ..utils.atomicio import (
-    SWEEP_MIN_AGE_S, TMP_SUFFIX, AtomicNpyWriter, atomic_write_json,
-    digest_bytes, digest_file,
+    SWEEP_MIN_AGE_S, TMP_SUFFIX, AtomicNpyWriter, atomic_save_npy,
+    atomic_write_json, digest_bytes, digest_file,
 )
 from ..utils.device import resolve_device
+from ..utils.env import env_cast
 from ..utils.log import get_logger
 from .resident import (
-    block_codec, encode_block, is_container, resident_choice,
+    block_codec, encode_block, is_container, maybe_decode_rows,
+    resident_choice,
 )
 
 log = get_logger(__name__)
@@ -244,13 +258,15 @@ def _block_meta_for(outdir: str, fname: str,
 
 def write_index_manifest(outdir: str, dc: DistributionController,
                          rows_per_worker: int | None = None,
-                         workers=None) -> dict:
+                         workers=None, block_meta: dict | None = None
+                         ) -> dict:
     """Write ``index.json`` describing a per-block CPD index, atomically.
 
     Records per-block content digests, shapes and dtypes under
-    ``blocks`` (harvested from the build ledgers, else read from disk).
-    ``workers``: optional subset of worker ids — a PARTIAL index for
-    single-worker serving (the reference's ``-w`` filter)."""
+    ``blocks``: from ``block_meta`` (computed as the blocks were
+    written), else harvested from the build ledgers, else read from
+    disk. ``workers``: optional subset of worker ids — a PARTIAL index
+    for single-worker serving (the reference's ``-w`` filter)."""
     files = []
     bs = dc.block_size
     for wid in (range(dc.maxworker) if workers is None else workers):
@@ -274,7 +290,8 @@ def write_index_manifest(outdir: str, dc: DistributionController,
         "rows_per_worker": (rows_per_worker if rows_per_worker is not None
                             else max(dc.max_owned, 1)),
         "files": files,
-        "blocks": {f: _block_meta_for(outdir, f, ledgers) for f in files},
+        "blocks": {f: (block_meta or {}).get(f)
+                   or _block_meta_for(outdir, f, ledgers) for f in files},
     }
     atomic_write_json(os.path.join(outdir, "index.json"), manifest)
     return manifest
@@ -357,3 +374,250 @@ def load_verified_block(path: str, meta: dict | None):
     except (OSError, ValueError, EOFError) as e:
         return None, "corrupt", f"unreadable: {type(e).__name__}: {e}"
     return arr, ("ok" if need_digest else "unverified"), ""
+
+
+class CPDOracle:
+    """Every worker's CPD rows resident on one device, answering routed
+    query rounds in one walk.
+
+    Port of the JAX package's ``CPDOracle``, whose ``[W, R, N]`` table is
+    sharded over a mesh's ``worker`` axis: here the table is one int8
+    tensor on ``device`` (None → ``cuda``; raises without a GPU unless
+    ``device="cpu"``) and there is no mesh — the ``data`` axis of the
+    routed arrays has size 1. On the card a round's walk is the CUDA
+    kernel, on the CPU the plain torch walk.
+
+    The walk's ``(next, w)`` pair table (``ops.table_search.walk_pairs``)
+    is built once per weight set — free flow, and each distinct diffed
+    weight vector — and kept beside its padded weights in an LRU
+    (``DOS_TRAFFIC_WEIGHT_EPOCHS`` entries, at least 2), as
+    ``ShardEngine`` keeps them."""
+
+    def __init__(self, graph: Graph, controller: DistributionController,
+                 device=None):
+        self.device = resolve_device(device)
+        self.graph = graph
+        self.dc = controller
+        self.dg = DeviceGraph.from_graph(graph, device=self.device)
+        self.targets_wr = pad_targets(controller)
+        self.fm: torch.Tensor | None = None     # int8 [W, R, N]
+        #: weight-set key (None = free flow, else a digest of the weight
+        #: vector) -> (padded weights, pair table) on the device
+        self._weights: OrderedDict[
+            bytes | None, tuple[torch.Tensor, torch.Tensor]] = OrderedDict()
+        self._weight_keep = max(
+            2, env_cast("DOS_TRAFFIC_WEIGHT_EPOCHS", 4, int))
+
+    # ------------------------------------------------------------- build
+    def build(self, chunk: int = 0, max_iters: int = 0,
+              method: str = "auto") -> "CPDOracle":
+        """Precompute every worker's first-move rows on the device.
+
+        ``method``: ``"auto"`` and ``"ell"`` build with the ELL
+        Bellman-Ford build. The JAX package's other build kernels give
+        byte-identical tables and are not ported yet."""
+        if method not in ("auto", "ell"):
+            raise NotImplementedError(
+                f"build method {method!r} is not ported (ROADMAP.md A7); "
+                "'auto' and 'ell' build with ELL")
+        self.fm = build_fm_sharded(self.dg, self.targets_wr, chunk=chunk,
+                                   max_iters=max_iters)
+        return self
+
+    # ------------------------------------------------------- persistence
+    def save(self, outdir: str, codec: str | None = None) -> None:
+        """Write the CPD index: one ``.npy`` per (worker, block), each
+        written atomically, plus the manifest with their digests.
+
+        ``codec``: persist blocks compressed (``models.resident``
+        containers; None resolves ``DOS_CPD_RESIDENT``, whose ``raw``
+        default keeps the plain layout); a block the codec cannot take
+        is written raw. Blocks are byte-identical to the JAX package's."""
+        if self.fm is None:
+            raise RuntimeError("build() or load() before save()")
+        codec_req = resident_choice() if codec is None else codec
+        os.makedirs(outdir, exist_ok=True)
+        bs = self.dc.block_size
+        block_meta: dict[str, dict] = {}
+        for wid in range(self.dc.maxworker):
+            n_owned = self.dc.n_owned(wid)
+            # one device-to-host copy per worker: host memory peaks at
+            # 1/W of the table
+            rows_w = self.fm[wid, :n_owned].cpu().numpy()
+            for b0 in range(0, n_owned, bs):
+                fname = shard_block_name(wid, b0 // bs)
+                arr = np.ascontiguousarray(rows_w[b0:min(b0 + bs, n_owned)])
+                enc = encode_block(arr, codec_req)
+                blk_codec = None
+                if enc is not None:
+                    arr, blk_codec = enc
+                digest = atomic_save_npy(os.path.join(outdir, fname), arr)
+                block_meta[fname] = {"digest": digest,
+                                     "shape": list(arr.shape),
+                                     "dtype": str(arr.dtype)}
+                if blk_codec is not None:
+                    block_meta[fname]["codec"] = blk_codec
+            del rows_w
+        write_index_manifest(outdir, self.dc,
+                             rows_per_worker=int(self.targets_wr.shape[1]),
+                             block_meta=block_meta)
+
+    def load(self, outdir: str, heal: bool = True) -> "CPDOracle":
+        """Load a saved index onto the device, checking the manifest
+        against the controller's partition and every block's digest,
+        shape and codec as it loads. Compressed containers inflate: the
+        oracle is raw-resident. Rows no block covers stay ``-1``.
+
+        A missing or corrupt block raises ``ValueError`` whatever
+        ``heal`` says: rebuilding a block in place (the JAX package's
+        ``heal_block``) is not ported."""
+        manifest = read_manifest(outdir)
+        validate_manifest(manifest, self.dc, outdir)
+        blocks_meta = manifest.get("blocks", {})
+        r = self.targets_wr.shape[1]
+        fm = torch.full((self.dc.maxworker, r, self.graph.n), -1,
+                        dtype=torch.int8, device=self.device)
+        bs = self.dc.block_size
+        for fname in manifest["files"]:
+            _, wpart, bpart = fname[:-len(".npy")].split("-")
+            wid, bid = int(wpart[1:]), int(bpart[1:])
+            rows, status, reason = load_verified_block(
+                os.path.join(outdir, fname), blocks_meta.get(fname))
+            if rows is None:
+                raise ValueError(
+                    f"CPD block {fname} in {outdir} is {status}: {reason} "
+                    f"(heal={heal}: healing a block is not ported, "
+                    "ROADMAP.md A4; rebuild the index)")
+            rows = maybe_decode_rows(rows)
+            fm[wid, bid * bs: bid * bs + len(rows)] = torch.from_numpy(
+                np.ascontiguousarray(rows)).to(self.device)
+        self.fm = fm
+        return self
+
+    # ------------------------------------------------------------- query
+    def _length_estimate(self, queries: np.ndarray) -> np.ndarray:
+        return length_estimate(self.graph, queries[:, 0], queries[:, 1])
+
+    def route(self, queries: np.ndarray, active_worker: int = -1):
+        """Pack (s, t) queries into ``[D, W, Q]`` arrays, ``D`` = 1.
+
+        Returns ``(t_rows, s, t, valid, scatter)`` where ``scatter`` maps
+        each input query to its (d, w, q) slot for unpacking results.
+        Within each worker group, queries are ordered by expected walk
+        length (:meth:`_length_estimate`); ``Q`` is the largest group
+        padded to a power of two."""
+        queries = np.asarray(queries, np.int64)
+        nq = len(queries)
+        d = 1
+        w = self.dc.maxworker
+        wids = self.dc.worker_of(queries[:, 1])
+        rows = self.dc.owned_index_of(queries[:, 1])
+
+        active = np.ones(nq, bool) if active_worker == -1 \
+            else wids == active_worker
+        # round-robin each worker's queries over the data axis (vectorized):
+        # the k-th query of worker w goes to data slot k % d, column k // d
+        slot_d = np.zeros(nq, np.int64)
+        slot_q = np.zeros(nq, np.int64)
+        est = self._length_estimate(queries)
+        # sort by (worker, est): worker-major grouping; est ordering
+        # within a group makes slot_q ascend with walk length
+        idxs = np.nonzero(active)[0][np.lexsort(
+            (est[active], wids[active]))]
+        wids_sorted = wids[idxs]
+        group_sizes = np.bincount(wids_sorted, minlength=w)
+        starts = np.concatenate([[0], np.cumsum(group_sizes)[:-1]])
+        seq = np.arange(len(idxs)) - np.repeat(starts, group_sizes)
+        slot_d[idxs] = seq % d
+        slot_q[idxs] = seq // d
+        qmax = max(int(np.ceil(group_sizes.max() / d)) if len(idxs) else 0, 1)
+        # the padded length rounds up to a power of two
+        qmax = 1 << (qmax - 1).bit_length()
+
+        s_arr = np.zeros((d, w, qmax), np.int32)
+        t_arr = np.zeros((d, w, qmax), np.int32)
+        r_arr = np.zeros((d, w, qmax), np.int32)
+        valid = np.zeros((d, w, qmax), bool)
+        s_arr[slot_d[active], wids[active], slot_q[active]] = queries[active, 0]
+        t_arr[slot_d[active], wids[active], slot_q[active]] = queries[active, 1]
+        r_arr[slot_d[active], wids[active], slot_q[active]] = rows[active]
+        valid[slot_d[active], wids[active], slot_q[active]] = True
+        scatter = (active, slot_d, wids, slot_q)
+        return r_arr, s_arr, t_arr, valid, scatter
+
+    @staticmethod
+    def _unroute(scatter, nq: int, arrays):
+        """Scatter routed ``[D, W, Q, ...]`` results back to input query
+        order (the inverse of :meth:`route`'s packing). Bool arrays come
+        back bool; everything else int64. Inactive queries stay zero, the
+        reference's ``-w`` filter semantics (``process_query.py:59``)."""
+        active, sd, sw, sq = scatter
+        outs = []
+        for a in arrays:
+            a = np.asarray(a)
+            out = np.zeros((nq,) + a.shape[3:],
+                           bool if a.dtype == np.bool_ else np.int64)
+            out[active] = a[sd[active], sw[active], sq[active]]
+            outs.append(out)
+        return outs
+
+    def _weights_for(self, w_query: np.ndarray | None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(w_pad, pair)`` for one weight set: the padded query-time
+        weights on the device and the walk's pair table built from them,
+        cached together under the weights' digest."""
+        key = None if w_query is None else hashlib.blake2b(
+            np.ascontiguousarray(w_query, np.int32).tobytes(),
+            digest_size=16).digest()
+        if key in self._weights:
+            self._weights.move_to_end(key)
+            return self._weights[key]
+        w_pad = self.dg.w_pad if w_query is None else torch.as_tensor(
+            self.graph.padded_weights(w_query), dtype=torch.int32,
+            device=self.device)
+        entry = (w_pad, walk_pairs(self.dg, w_pad))
+        self._weights[key] = entry
+        while len(self._weights) > self._weight_keep:
+            self._weights.popitem(last=False)
+        return entry
+
+    def query(self, queries: np.ndarray, w_query: np.ndarray | None = None,
+              k_moves: int = -1, active_worker: int = -1,
+              max_steps: int = 0):
+        """Answer queries in input order, every worker in one walk.
+
+        ``w_query``: perturbed edge weights (file order), None = free
+        flow. Returns ``(cost, plen, finished)`` int64/bool arrays [Q];
+        queries outside ``active_worker`` (when set) come back cost 0 /
+        unfinished, like the reference's ``-w`` filter drops them
+        (``process_query.py:59``)."""
+        if self.fm is None:
+            raise RuntimeError("build() or load() before query()")
+        r_arr, s_arr, t_arr, valid, scatter = self.route(
+            queries, active_worker)
+        w_pad, pair = self._weights_for(w_query)
+        outs = query_sharded(self.dg, self.fm, r_arr, s_arr, t_arr, valid,
+                             w_pad, k_moves=k_moves, max_steps=max_steps,
+                             pair=pair)
+        return tuple(self._unroute(scatter, len(queries),
+                                   [o.cpu().numpy() for o in outs]))
+
+    def query_paths(self, queries: np.ndarray, k: int,
+                    active_worker: int = -1):
+        """Materialize each query's first ``k`` path nodes (the
+        reference's ``--k-moves`` extraction, reference ``args.py:31-36``).
+
+        Returns ``(nodes, moves)``: int64 ``[Q, k+1]`` — row q starts at
+        ``s``, the last node repeats once the path ends — and the number
+        of real moves taken (≤ k). Queries outside ``active_worker`` get
+        all-zero rows, matching :meth:`query`'s filter semantics."""
+        if self.fm is None:
+            raise RuntimeError("build() or load() before query_paths()")
+        if k <= 0:
+            raise ValueError("k must be positive")
+        r_arr, s_arr, t_arr, _valid, scatter = self.route(
+            queries, active_worker)
+        outs = query_paths_sharded(self.dg, self.fm, r_arr, s_arr, t_arr,
+                                   k=k)
+        return tuple(self._unroute(scatter, len(queries),
+                                   [o.cpu().numpy() for o in outs]))

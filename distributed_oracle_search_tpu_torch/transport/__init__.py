@@ -1,3 +1,3 @@
-from .wire import RuntimeConfig, StatsRow
+from .wire import STATS_HEADER, RuntimeConfig, StatsRow
 
-__all__ = ["RuntimeConfig", "StatsRow"]
+__all__ = ["RuntimeConfig", "STATS_HEADER", "StatsRow"]

@@ -22,6 +22,7 @@ built by either package verifies under the other.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import io
 import json
@@ -95,6 +96,30 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
 
 def atomic_write_json(path: str, obj) -> None:
     atomic_write_bytes(path, (json.dumps(obj, indent=2) + "\n").encode())
+
+
+@contextlib.contextmanager
+def atomic_writer(path: str, mode: str = "w"):
+    """Streaming form of :func:`atomic_write_bytes`: yields the open
+    temp file so large artifacts (campaign CSVs) stream row by row in
+    constant memory, then fsync+rename on clean exit. An exception
+    removes the temp file — the final name never appears."""
+    tmp = f"{path}{TMP_SUFFIX}.{os.getpid()}"
+    f = open(tmp, mode)
+    try:
+        yield f
+        f.flush()
+        os.fsync(f.fileno())
+    except BaseException:
+        f.close()
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+    f.close()
+    os.rename(tmp, path)
+    _fsync_dir(os.path.dirname(path))
 
 
 def atomic_save_npy(path: str, arr: np.ndarray) -> str:

@@ -5,7 +5,10 @@ road graphs whose walks take out-slots past the head the kernel reads
 with each move, move budgets of 0 and 1, a corrupted cyclic row that
 runs to the exact step bound, and a pair table passed in or built by the
 wrapper — each launch is counted under its variant, and the wrapper
-refuses a table of the wrong type or width.
+refuses a table of the wrong type or width. A raw table past 2^31 bytes
+is walked from rows beyond that offset, and the whole-index oracle
+(``CPDOracle``, every worker's rows in one walk) answers on the card as
+on the CPU.
 
 Needs an NVIDIA GPU and ``nvcc``; skips without them. This file imports
 the port only (no JAX), so it runs on a machine without JAX:
@@ -21,12 +24,16 @@ torch = pytest.importorskip("torch")
 from distributed_oracle_search_tpu_torch.data import (  # noqa: E402
     Graph, synth_city_graph, synth_road_network,
 )
+from distributed_oracle_search_tpu_torch.models.cpd import CPDOracle  # noqa: E402
 from distributed_oracle_search_tpu_torch.models.resident import encode_pack4  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import (  # noqa: E402
     DeviceGraph, build_fm_columns, cuda_walk_batch, table_search_batch,
 )
 from distributed_oracle_search_tpu_torch.ops.table_search import (  # noqa: E402
     walk_pairs,
+)
+from distributed_oracle_search_tpu_torch.parallel import (  # noqa: E402
+    DistributionController,
 )
 
 pytestmark = pytest.mark.cuda
@@ -199,3 +206,64 @@ def test_wrapper_refuses_wrong_pair_tables(dev):
     shifted[1:] = pair.reshape(-1)
     with pytest.raises(ValueError, match="16 bytes"):
         cuda_walk_batch(*args, pair=shifted[1:].view(pair.shape))
+
+
+def test_rows_past_two_gigabytes(dev):
+    """A raw ``[33_000, 65_536]`` table is 2.16 GB: rows from 32,768 on
+    start past byte 2^31, so a 32-bit row offset would read elsewhere.
+    Lanes walk 64 real target rows placed there; the answers equal the
+    plain walk on the same table and the kernel on the rows alone."""
+    g = synth_city_graph(256, 256, seed=3)
+    assert g.n == 65_536
+    rng = np.random.default_rng(3)
+    targets = rng.choice(g.n, 64, replace=False).astype(np.int32)
+    dg = DeviceGraph.from_graph(g, device=dev)
+    rows_fm = build_fm_columns(dg, torch.as_tensor(targets, device=dev))
+    big = torch.full((33_000, g.n), -1, dtype=torch.int8, device=dev)
+    at = 33_000 - 64 - 7                 # rows 32,929 .. 32,992
+    assert at * g.n > 2 ** 31
+    big[at:at + 64] = rows_fm
+    q = 4096
+    pick = rng.integers(0, 64, q)
+    s = torch.as_tensor(rng.integers(0, g.n, q).astype(np.int32), device=dev)
+    t = torch.as_tensor(targets[pick], device=dev)
+    valid = torch.as_tensor(rng.random(q) > 0.05, device=dev)
+    pair = walk_pairs(dg, dg.w_pad)
+    far = torch.as_tensor((pick + at).astype(np.int32), device=dev)
+    near = torch.as_tensor(pick.astype(np.int32), device=dev)
+    ker = cuda_walk_batch(dg, big, far, s, t, dg.w_pad, valid=valid,
+                          pair=pair)
+    alone = cuda_walk_batch(dg, rows_fm, near, s, t, dg.w_pad, valid=valid,
+                            pair=pair)
+    torch.cuda.synchronize()
+    plain = table_search_batch(dg, big, far, s, t, dg.w_pad, valid=valid,
+                               pair=pair)
+    for a, b, c in zip(ker, plain, alone):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert bool(ker[2][valid].all()) and int(ker[1].max()) > 100
+    assert not bool(ker[2][~valid].any()) and int(ker[0][~valid].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("k_moves", [-1, 5])
+def test_oracle_on_the_card_equals_the_cpu(dev, k_moves):
+    """``CPDOracle`` over 8 workers: the build, one round's answers (one
+    kernel launch over every worker's rows, pad lanes included) and the
+    path prefixes are the same on the card as on the CPU."""
+    g = synth_city_graph(33, 21, seed=5)
+    dc = DistributionController("tpu", 8, 8, g.n)
+    cpu = CPDOracle(g, dc, device="cpu").build(chunk=40)
+    card = CPDOracle(g, dc, device=dev).build(chunk=40)
+    assert torch.equal(card.fm.cpu(), cpu.fm)
+    rng = np.random.default_rng(5)
+    queries = rng.integers(0, g.n, (3000, 2))
+    w = (g.w * rng.uniform(1.0, 3.0, g.m)).astype(np.int32)
+    before = cuda_walk_batch.launches
+    for w_query in (None, w):
+        got = card.query(queries, w_query=w_query, k_moves=k_moves)
+        want = cpu.query(queries, w_query=w_query, k_moves=k_moves)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    assert cuda_walk_batch.launches == before + 2
+    for a, b in zip(card.query_paths(queries, k=8),
+                    cpu.query_paths(queries, k=8)):
+        np.testing.assert_array_equal(a, b)
