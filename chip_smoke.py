@@ -6,14 +6,18 @@
 Drives one worker's main path end to end on the card, through the entry
 points a user calls, then the compressed-residency path:
 
-1. print the card (``nvidia-smi``) and build the CUDA walk kernels (raw
-   and pack4, one source) from ``distributed_oracle_search_tpu_torch/csrc``
-   with ``nvcc``;
+1. print the card (``nvidia-smi``) and build the CUDA kernels from
+   ``distributed_oracle_search_tpu_torch/csrc`` with ``nvcc``, one
+   ``nvcc`` a source, started together: the walk (raw and pack4 entries)
+   and the build (``cpd_build.cu``: the Jacobi relax, the first-move
+   extraction, the grid sweep cycle);
 2. road path, at the size of the USA-road-d.NY stand-in
    (``synth_road_network(264_000, seed=0)``, ``mod`` over 32 workers;
    worker 0 owns 8,250 targets, a 2.18 GB int8 first-move table): build
-   worker 0's shard on the card (``build_worker_shard``, 512-row chunks)
-   into block files plus an ``index.json``; load it into a ``ShardEngine``
+   worker 0's shard on the card (``build_worker_shard``, 512-row chunks,
+   ``method="auto"``, which must resolve ``ellsplit``: the relax and
+   extraction kernels) into block files plus an ``index.json``; load it
+   into a ``ShardEngine``
    and answer three rounds of 20,000 queries — free flow, one congestion
    diff, ``k_moves=8`` with extraction — with the launch counters zeroed
    before the rounds and read after them, and the engine's pair-table
@@ -23,13 +27,18 @@ points a user calls, then the compressed-residency path:
    on the engine's pair table (warm, and after an L2 flush; µs a move of
    the longest lane), the wrapper as the engine calls it, the wrapper
    building its own pairs, the pair build and the plain walk; golden
-   checks against reverse-Dijkstra and the CPU reference walk;
+   checks against reverse-Dijkstra and the CPU reference walk; then hold
+   the relax kernel against the plain split relaxation on worker 0's
+   first 512 targets (after 4 steps and at convergence, equal element by
+   element) and the extraction kernel against the plain extraction
+   (byte-equal), and time a step and an extraction by CUDA events beside
+   their byte bounds;
 3. compressed path (``[compressed]`` lines), on
    ``synth_city_graph(514, 514, seed=0, shortcut_frac=0.0)`` (264,196
-   nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 64
-   workers (half the road phase's depth, so the whole smoke stays under
-   600 s): build worker 0's 4,129 rows on the card with
-   ``codec="pack4"`` (the blocks must be pack4 containers); load three
+   nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 32
+   workers: build worker 0's 8,257 rows on the card with
+   ``codec="pack4"`` (``method="auto"`` must resolve ``sweep``: the sweep
+   and extraction kernels; the blocks must be pack4 containers); load three
    engines from that one index with ``DOS_CPD_RESIDENT`` raw, pack4 and
    rle (each must keep its codec; a degrade to raw fails); answer the same
    three rounds on each (pack4 and rle answers must equal raw, paths
@@ -37,7 +46,11 @@ points a user calls, then the compressed-residency path:
    rounds, the extract round inflates rows instead); hold the pack4
    kernel against its plain version on those two rounds' exact inputs;
    time ``decompress_rows`` of a batch's distinct rows under pack4 and
-   rle; free-flow costs must equal reverse-Dijkstra;
+   rle; free-flow costs must equal reverse-Dijkstra; hold the sweep
+   kernel against the plain sweep on worker 0's first 512 targets (after
+   1 and 2 cycles and at convergence) and the extraction kernel against
+   the plain extraction, and time a cycle for each column group a block
+   may own;
 4. campaign path (``[campaign]`` lines), the system's own pipeline on
    a metro-scale road network whose whole index is resident on the card:
    ``synth_road_network(65_536, seed=0)`` written as an ``.xy`` file, a
@@ -54,9 +67,18 @@ points a user calls, then the compressed-residency path:
    ``parts.csv``'s per-worker ``plen``/``finished`` sums equal a direct
    ``CPDOracle.query``, ``paths.csv`` equals ``query_paths``, and the
    kernel equals the plain walk on the oracle's routed inputs of the
-   free-flow and diff rounds (timed as in step 2);
-5. print the kernel table as one JSON line, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+   free-flow and diff rounds (timed as in step 2); the build
+   (``method="auto"`` must resolve ``ellsplit``) and its relax and
+   extraction kernels held against their plain versions on worker 0's
+   8,192 targets, as in step 2;
+5. print the kernel table as one JSON line (both walks and the three
+   build kernels, each with its launches in the main runs), then, as the
+   last line, ``{"ok": true, "device": {...}}``.
+
+Every kernel's launch count is set to 0 at the start of each path and
+read at the end of its main run (build, load, rounds), before any
+comparison with a plain version; a path whose build kernels did not
+launch fails.
 
 Any failed phase exits non-zero. Without a GPU, or without the package
 beside this script, it exits non-zero and prints no result. Everything it
@@ -74,6 +96,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -91,7 +114,11 @@ from distributed_oracle_search_tpu_torch.models import (
 from distributed_oracle_search_tpu_torch.models.cpd import (
     build_worker_shard, write_index_manifest,
 )
+from distributed_oracle_search_tpu_torch.ops import (
+    bellman_ford, cuda_build_kernels as cbk, ell_split, grid_sweep,
+)
 from distributed_oracle_search_tpu_torch.ops import cuda_walk as cw
+from distributed_oracle_search_tpu_torch.ops.device_graph import DeviceGraph
 from distributed_oracle_search_tpu_torch.ops.table_search import (
     fm_slot, table_search_batch, walk_budget, walk_pairs,
 )
@@ -103,13 +130,15 @@ from distributed_oracle_search_tpu_torch.utils import cuda_build
 from distributed_oracle_search_tpu_torch.worker import engine as eng
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+BUILD_FNS = {"relax_jacobi": cbk.relax_jacobi,
+             "first_moves": cbk.first_moves,
+             "grid_sweep_cycle": cbk.grid_sweep}
 SEED = 0
 N_NODES = 264_000
 GRID_SIDE = 514
 MAXWORKER = 32
-#: the grid phase's workers: twice the road's, so worker 0 builds half
-#: the rows and the whole smoke, campaign included, stays under 600 s
-GRID_MAXWORKER = 64
+#: the grid phase's workers: as the road's (worker 0 builds 8,257 rows)
+GRID_MAXWORKER = 32
 WID = 0
 CHUNK = 512
 N_QUERIES = 20_000
@@ -134,6 +163,23 @@ ROUND_NAMES = ("free-flow", "diff", "k8-extract")
 CAMPAIGN_NODES = 65_536
 CAMPAIGN_WORKERS = 8
 CAMPAIGN_K = 8
+#: the build kind ``method="auto"`` must resolve to on each path
+EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit"}
+#: the cuts at which each build kernel is held against its plain version
+#: (Jacobi steps; sweep cycles), before the check at convergence
+RELAX_CUT = 4
+SWEEP_CUTS = (1, 2)
+#: batch columns a sweep block may own, timed side by side on the grid
+SWEEP_COLS = (1, 2, 4, 8, 16, 32)
+#: the three build kernels' entries in the kernel table
+BUILD_KERNELS = {
+    "relax_jacobi": "distributed_oracle_search_tpu/ops/ell_split.py:115 "
+                    "(XLA relax; also shift_relax.py:76, bellman_ford.py:39)",
+    "first_moves": "distributed_oracle_search_tpu/ops/bellman_ford.py:96 "
+                   "(XLA first_move_from_dist)",
+    "grid_sweep_cycle": "distributed_oracle_search_tpu/ops/grid_sweep.py:215 "
+                        "(XLA cycle, four quadrant scans)",
+}
 
 
 def log(msg: str) -> None:
@@ -215,8 +261,17 @@ def make_queries(targets: np.ndarray, n: int) -> np.ndarray:
 
 
 def zero_launches() -> None:
+    """Every kernel's launch count to 0: the two walks and the three
+    build kernels."""
     cw.cuda_walk_batch.launches = 0
     cw.cuda_walk_batch.launches_pack4 = 0
+    for fn in BUILD_FNS.values():
+        fn.launches = 0
+
+
+def read_build_launches() -> dict[str, int]:
+    """Build kernel launches since the last zero_launches()."""
+    return {name: fn.launches for name, fn in BUILD_FNS.items()}
 
 
 def read_launches() -> tuple[int, int]:
@@ -471,16 +526,267 @@ def build_index(g, dc, outdir: str, tag: str, codec: str | None = None):
     return write_index_manifest(outdir, dc, workers=[WID])
 
 
+class KindProbe:
+    """Records the build kind every ``pick_build_kernel`` call resolves
+    (the builds call it through ``models.cpd``), so a path can check
+    that ``method="auto"`` picked the kind expected for its graph."""
+
+    def __init__(self):
+        self.kinds: list[tuple[int, str, str]] = []
+        self._real = cpd.pick_build_kernel
+
+    def _pick(self, graph, method="auto"):
+        out = self._real(graph, method)
+        self.kinds.append((graph.n, method, out[0]))
+        return out
+
+    def __enter__(self):
+        cpd.pick_build_kernel = self._pick
+        return self
+
+    def __exit__(self, *exc):
+        cpd.pick_build_kernel = self._real
+
+    def check(self, path: str, tag: str) -> str:
+        want = EXPECTED_KIND[path]
+        got = sorted({k for _, _, k in self.kinds})
+        log(f"{tag} build kind resolved by method=auto: "
+            + ", ".join(f"n={n} {m} -> {k}" for n, m, k in self.kinds))
+        if got != [want]:
+            raise AssertionError(f"{tag} auto resolved {got}, expected "
+                                 f"{want!r}")
+        return want
+
+
+def time_restored(restore, launch, reps: int) -> float:
+    """Mean ms of one ``launch()`` on the state ``restore()`` sets up
+    (outside the timed span): each launch timed by its own pair of CUDA
+    events, after one warm-up."""
+    restore()
+    launch()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in pairs:
+        restore()
+        start.record()
+        launch()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """``(ms, "bytes" | "operations")``: the larger of the bytes over the
+    memory rate and the int32 operations over the non-tensor rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def same_dist(name: str, got_nb: torch.Tensor, want_bn: torch.Tensor,
+              tag: str) -> None:
+    """A kernel's ``[N, B]`` distances equal the plain ``[B, N]`` ones
+    element by element, or raise."""
+    if not torch.equal(got_nb.T, want_bn):
+        bad = int((got_nb.T != want_bn).sum())
+        raise AssertionError(f"{tag} {name}: {bad} distances differ from "
+                             "the plain version")
+
+
+def relax_vs_plain(tag: str, dg, csr, st, t) -> tuple[dict, torch.Tensor]:
+    """The relax kernel (``jacobi_dist`` over the full out-edge CSR)
+    against the plain split relaxation on one chunk: after RELAX_CUT
+    steps and at convergence, equal element by element; one step timed
+    (kernel by CUDA events, back to back; plain split step) beside its
+    bound. Returns the entry and the converged ``[N, B]`` distances."""
+    n, b, m = dg.n, int(t.shape[0]), int(csr.col.numel())
+    t0 = time.perf_counter()
+    d_cut, steps_cut = cbk.jacobi_dist(csr, t, RELAX_CUT)
+    same_dist("relax_jacobi", d_cut, ell_split.dist_to_targets_split(
+        st, t, RELAX_CUT), f"{tag} cut {RELAX_CUT}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    d_conv, steps = cbk.jacobi_dist(csr, t)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t1
+    same_dist("relax_jacobi", d_conv, ell_split.dist_to_targets_split(st, t),
+              f"{tag} converged")
+    out = torch.empty_like(d_cut)
+    flag = torch.zeros(1, dtype=torch.int32, device=d_cut.device)
+    ms = time_bare(lambda: cbk.relax_jacobi(csr, d_cut, out, flag),
+                   KERNEL_REPS)
+    plain_args = [torch.as_tensor(a, device=d_cut.device) for a in (
+        st.nbr0, st.w0, st.u_ov, st.v_ov, st.w_ov)]
+    for i in (0, 2, 3):
+        plain_args[i] = plain_args[i].long()
+    plain_ms = time_cuda(lambda: ell_split._split_step(d_cut, *plain_args),
+                         PLAIN_REPS)
+    nbytes = 2 * n * b * 4 + (n + 1) * 4 + 2 * m * 4
+    bound_ms, bound_by = bound(nbytes, 3 * m * b)
+    log(f"{tag} relax_jacobi: B={b} N={n} M={m}: equal to the plain split "
+        f"relaxation after {RELAX_CUT} steps and at convergence "
+        f"({steps} steps; the loop {kernel_s:.3f} s on the card); a step "
+        f"{ms:.4f} ms, plain split step {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B)")
+    log(f"{tag} comparison done in {time.perf_counter() - t0:.1f} s")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "batch": b,
+            "steps_to_convergence": steps, "loop_s": kernel_s,
+            "max_abs_err": 0}, d_conv
+
+
+def first_moves_vs_plain(tag: str, dg, csr, t, dist_nb) -> dict:
+    """The extraction kernel against the plain extraction on the same
+    converged distances: byte-equal; timed beside its bound."""
+    n, b, m = dg.n, int(t.shape[0]), int(csr.col.numel())
+    got = cbk.first_moves(dg, t, dist_nb, csr=csr)
+    want = bellman_ford.first_move_from_dist(dg, t, dist_nb.T)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{tag} first_moves: {int((got != want).sum())}"
+                             " bytes differ from the plain extraction")
+    del want
+    out = torch.empty_like(got)
+    ms = time_bare(lambda: cbk.first_moves(dg, t, dist_nb, csr=csr, out=out),
+                   KERNEL_REPS)
+    plain_ms = time_cuda(lambda: bellman_ford.first_move_from_dist(
+        dg, t, dist_nb.T), PLAIN_REPS)
+    nbytes = n * b * 4 + (n + 1) * 4 + 2 * m * 4 + b * 4 + b * n
+    bound_ms, bound_by = bound(nbytes, 4 * m * b)
+    unreach = int((got == -1).sum())
+    log(f"{tag} first_moves: B={b}: byte-equal to the plain extraction "
+        f"({unreach} cells -1); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "batch": b,
+            "max_abs_err": 0}
+
+
+def sweep_vs_plain(tag: str, gg, t) -> tuple[dict, torch.Tensor]:
+    """The sweep kernel (``sweep_dist``) against the plain sweep on one
+    chunk: after each of SWEEP_CUTS cycles and at convergence, equal
+    element by element; one cycle from the chunk's start timed per
+    column group (the default marked) beside its bound and the plain
+    cycle. Returns the entry and the converged ``[N, B]`` distances."""
+    t0 = time.perf_counter()
+    gd = gg.on(t.device)
+    n, b = gg.n, int(t.shape[0])
+    for cut in SWEEP_CUTS:
+        d_cut, cyc = cbk.sweep_dist(gd, t, cut)
+        same_dist("grid_sweep_cycle", d_cut, grid_sweep.dist_to_targets_sweep(
+            gg, t, cut), f"{tag} {cut} cycle(s)")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    d_conv, cycles = cbk.sweep_dist(gd, t)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t1
+    same_dist("grid_sweep_cycle", d_conv,
+              grid_sweep.dist_to_targets_sweep(gg, t), f"{tag} converged")
+    d0 = bellman_ford.init_dist(n, t)
+    d = torch.empty_like(d0)
+    flag = torch.zeros(1, dtype=torch.int32, device=d0.device)
+    sms = torch.cuda.get_device_properties(d0.device).multi_processor_count
+    default = cbk.sweep_cols(b, sms)
+    by_cols = {}
+    for cols in SWEEP_COLS:
+        by_cols[cols] = time_restored(
+            lambda: d.copy_(d0),
+            lambda: cbk.grid_sweep(gd, d, flag, cols=cols), KERNEL_REPS // 4)
+    log(f"{tag} grid_sweep_cycle ms a cycle by columns a block ("
+        + ", ".join(f"{c}: {ms:.4f} ms, {-(-b // c)} blocks"
+                    + (" [default]" if c == default else "")
+                    for c, ms in by_cols.items())
+        + f"; {sms} SMs, {cbk.SWEEP_THREADS} threads a block)")
+    plain_ms = time_restored(lambda: d.copy_(d0),
+                             lambda: grid_sweep.sweep_quadrants(gd, d),
+                             PLAIN_REPS)
+    nbytes = 2 * n * b * 4 + 4 * n * 4
+    bound_ms, bound_by = bound(nbytes, 20 * n * b)
+    ms = by_cols[default]
+    log(f"{tag} grid_sweep_cycle: B={b} {gg.height}x{gg.width}: equal to "
+        f"the plain sweep after {', '.join(map(str, SWEEP_CUTS))} cycle(s) "
+        f"and at convergence ({cycles} cycles; the loop {kernel_s:.3f} s on "
+        f"the card); a cycle {ms:.4f} ms ({default} columns a block, "
+        f"{-(-b // default)} blocks), plain cycle {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B)")
+    log(f"{tag} comparison done in {time.perf_counter() - t0:.1f} s")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "batch": b,
+            "cols": default, "ms_by_cols": by_cols,
+            "cycles_to_convergence": cycles, "loop_s": kernel_s,
+            "max_abs_err": 0}, d_conv
+
+
+def build_kernels_vs_plain(tag: str, g, kind: str, st, targets) -> dict:
+    """Each build kernel of ``kind``'s path against its plain version on
+    one chunk of worker 0's targets (``targets``, numpy int32)."""
+    dg = DeviceGraph.from_graph(g, device="cuda")
+    csr = cbk.csr_from_ell(dg)
+    t = torch.as_tensor(np.asarray(targets, np.int32), device="cuda")
+    out = {}
+    if kind == "sweep":
+        out["grid_sweep_cycle"], dist = sweep_vs_plain(tag, st, t)
+    else:
+        out["relax_jacobi"], dist = relax_vs_plain(tag, dg, csr, st, t)
+    out["first_moves"] = first_moves_vs_plain(tag, dg, csr, t, dist)
+    del dist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def build_kernel_entries(by_path: dict[str, dict],
+                         launches: dict[str, dict[str, int]]) -> list[dict]:
+    """The three build kernels' entries of the kernel table: launches
+    summed over the paths' main runs, the headline numbers from the first
+    path that compared each kernel, every path's under ``paths``."""
+    entries = []
+    for name, replaces in BUILD_KERNELS.items():
+        per = {p: r[name] for p, r in by_path.items() if name in r}
+        head = next(iter(per.values()))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_oracle_search_tpu_torch/csrc/"
+                      "cpd_build.cu",
+            "replaces": replaces,
+            "launches": sum(c[name] for c in launches.values()),
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in per.values()),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None, "parity": "bit-identical", "paths": per})
+    return entries
+
+
 def run() -> list[dict]:
-    # ---- 1. card + kernel build (one source, raw and pack4 entries)
+    # ---- 1. card + kernel builds: one nvcc a source, started together
     log(card_line())
     t0 = time.perf_counter()
-    cuda_build.load_library(cw.KERNEL_NAME)
-    info = cuda_build.build_info[cw.KERNEL_NAME]
-    log(f"[build] {cw.KERNEL_NAME}: nvcc {info['seconds']:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s)")
-    for line in info["ptxas"].splitlines():
-        log(f"[build]   {line.strip()}")
+    sources = (cw.KERNEL_NAME, cbk.KERNEL_NAME)
+    errors: list[BaseException] = []
+
+    def build_one(name):
+        try:
+            cuda_build.load_library(name)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build_one, args=(name,))
+               for name in sources]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    log(f"[build] {len(sources)} sources built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in sources:
+        info = cuda_build.build_info[name]
+        log(f"[build] {name}: nvcc {info['seconds']:.2f} s")
+        for line in info["ptxas"].splitlines():
+            log(f"[build]   {line.strip()}")
     work = os.path.join(ROOT, "build")
     os.makedirs(work, exist_ok=True)
 
@@ -492,8 +798,11 @@ def run() -> list[dict]:
         f"({time.perf_counter() - t0:.2f} s); worker {WID} owns "
         f"{dc.n_owned(WID)} targets")
     outdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=work)
+    cmps: dict[str, dict] = {}
+    build_launches: dict[str, dict[str, int]] = {}
     try:
-        raw_kernel = road_path(g, dc, outdir)
+        raw_kernel, cmps["road"], build_launches["road"] = road_path(
+            g, dc, outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     # release the road engine's tables before the compressed phase
@@ -510,7 +819,8 @@ def run() -> list[dict]:
         f"{dc.n_owned(WID)} targets")
     outdir = tempfile.mkdtemp(prefix="chip-smoke-grid-", dir=work)
     try:
-        pack4_kernel = compressed_path(g, dc, outdir)
+        pack4_kernel, cmps["grid"], build_launches["grid"] = \
+            compressed_path(g, dc, outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     gc.collect()
@@ -520,7 +830,8 @@ def run() -> list[dict]:
     # ---- 4. campaign path: make_cpds -> process_query over all workers
     outdir = tempfile.mkdtemp(prefix="chip-smoke-campaign-", dir=work)
     try:
-        campaign = campaign_path(outdir)
+        campaign, cmps["campaign"], build_launches["campaign"] = \
+            campaign_path(outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     log(f"[campaign] done at {time.perf_counter() - T_START:.1f} s")
@@ -530,11 +841,33 @@ def run() -> list[dict]:
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
                                     campaign["max_abs_err"])
     raw_kernel["campaign"] = campaign
-    return [raw_kernel, pack4_kernel]
+    build = build_kernel_entries(cmps, build_launches)
+    for entry in build:
+        if entry["launches"] <= 0:
+            raise AssertionError(f"the main path never launched "
+                                 f"{entry['name']}")
+    return [raw_kernel, pack4_kernel, *build]
 
 
-def road_path(g, dc, outdir) -> dict:
-    build_index(g, dc, outdir, "[build-shard]")
+def check_build_launches(path: str, tag: str) -> dict[str, int]:
+    """The build kernels' launches of a path's main run (read right
+    after it); the kernels of the path's build kind must have run."""
+    counts = read_build_launches()
+    need = (("grid_sweep_cycle", "first_moves")
+            if EXPECTED_KIND[path] == "sweep"
+            else ("relax_jacobi", "first_moves"))
+    log(f"{tag} build kernel launches in the path's run: {counts}")
+    for name in need:
+        if counts[name] <= 0:
+            raise AssertionError(f"{tag} the build never launched {name}")
+    return counts
+
+
+def road_path(g, dc, outdir):
+    zero_launches()
+    with KindProbe() as kinds:
+        build_index(g, dc, outdir, "[build-shard]")
+    kind = kinds.check("road", "[build-shard]")
 
     # engine on the card, three rounds through answer()
     t0 = time.perf_counter()
@@ -545,9 +878,9 @@ def road_path(g, dc, outdir) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
     queries = make_queries(dc.owned(WID), g.n)
     diff_path, rounds = rounds_for(g, outdir)
-    zero_launches()
     answers = drive_rounds(engine, queries, rounds, "[answer]")
     launches = read_launches()[0]
+    build_counts = check_build_launches("road", "[build-shard]")
     log(f"[answer] walk kernel launches in the three rounds: {launches}")
     if launches <= 0:
         raise AssertionError("the main path never launched the walk kernel")
@@ -588,6 +921,12 @@ def road_path(g, dc, outdir) -> dict:
     log("[golden] k_moves=8 extraction: [Q, 9] prefixes, moves == plen")
 
     main = per_round[0]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmp = build_kernels_vs_plain("[build-kernel road]", g, kind,
+                                 cpd.pick_build_kernel(g, "auto")[1],
+                                 dc.owned(WID)[:CHUNK])
     return {
         "name": cw.KERNEL_NAME,
         "route": "cuda",
@@ -599,13 +938,17 @@ def road_path(g, dc, outdir) -> dict:
         **headline(main),
         "parity": "bit-identical",
         "rounds": per_round,
-    }
+    }, cmp, build_counts
 
 
-def compressed_path(g, dc, outdir) -> dict:
+def compressed_path(g, dc, outdir):
     tag = "[compressed]"
     r, n = dc.n_owned(WID), g.n
-    man = build_index(g, dc, outdir, f"{tag} build-shard", codec="pack4")
+    zero_launches()
+    with KindProbe() as kinds:
+        man = build_index(g, dc, outdir, f"{tag} build-shard",
+                          codec="pack4")
+    kind = kinds.check("grid", tag)
     codecs = [m.get("codec") for m in man["blocks"].values()]
     disk = sum(os.path.getsize(os.path.join(outdir, f))
                for f in man["files"])
@@ -641,10 +984,10 @@ def compressed_path(g, dc, outdir) -> dict:
     # the same three rounds on each engine
     queries = make_queries(dc.owned(WID), g.n)
     _, rounds = rounds_for(g, outdir)
-    zero_launches()
     answers = {codec: drive_rounds(e, queries, rounds, f"{tag} {codec}")
                for codec, e in engines.items()}
     launches_raw, launches_pack4 = read_launches()
+    build_counts = check_build_launches("grid", tag)
     log(f"{tag} kernel launches in the nine rounds: raw {launches_raw}, "
         f"pack4 {launches_pack4}")
     for codec in ("pack4", "rle"):
@@ -701,6 +1044,12 @@ def compressed_path(g, dc, outdir) -> dict:
     golden_dijkstra(g, queries, answers["raw"]["free-flow"][0],
                     answers["raw"]["free-flow"][2], f"{tag} golden")
     main = per_round[0]
+    del engines, answers
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmp = build_kernels_vs_plain("[build-kernel grid]", g, kind,
+                                 cpd.pick_build_kernel(g, "auto")[1],
+                                 dc.owned(WID)[:CHUNK])
     return {
         "name": cw.KERNEL_NAME_PACK4,
         "route": "cuda",
@@ -714,7 +1063,7 @@ def compressed_path(g, dc, outdir) -> dict:
         "parity": "bit-identical",
         "rounds": per_round,
         "raw_kernel_same_lanes_ms": raw_same_ms,
-    }
+    }, cmp, build_counts
 
 
 def campaign_inputs(outdir: str):
@@ -799,14 +1148,16 @@ def campaign_path(outdir: str) -> dict:
     out_rounds = os.path.join(outdir, "out-rounds")
     out_k = os.path.join(outdir, f"out-k{CAMPAIGN_K}")
     torch.cuda.reset_peak_memory_stats()
+    zero_launches()
     with CampaignProbe() as probe:
-        rcs = [make_cpds.main(["-c", conf])]
+        with KindProbe() as kinds:
+            rcs = [make_cpds.main(["-c", conf])]
         peak = torch.cuda.max_memory_allocated()
-        zero_launches()
         rcs.append(process_query.main(["-c", conf, "-o", out_rounds]))
         rcs.append(process_query.main(["-c", conf, "-o", out_k, "-k",
                                        str(CAMPAIGN_K), "--extract"]))
         launches = read_launches()[0]
+        build_counts = check_build_launches("campaign", tag)
         n_pairs = len(probe.pairs)
         oracle = probe.oracles[0]
         del probe.oracles[1:]
@@ -831,6 +1182,7 @@ def campaign_path(outdir: str) -> dict:
     torch.cuda.empty_cache()
     if rcs != [0, 0, 0]:
         raise AssertionError(f"{tag} CLI exit codes {rcs}")
+    kind = kinds.check("campaign", tag)
     disk = sum(os.path.getsize(os.path.join(index, f))
                for f in os.listdir(index))
     rows = w * r
@@ -887,12 +1239,22 @@ def campaign_path(outdir: str) -> dict:
 
     per_round = [kernel_vs_plain(name, call, f"{tag} kernel")
                  for name, call in zip(("free-flow", "diff"), recorded)]
+    targets0 = oracle.targets_wr[0]
+    resident = int(oracle.fm.numel())
+    probe.oracles.clear()
+    del oracle, recorded, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmp = build_kernels_vs_plain(f"{tag} build-kernel", g, kind,
+                                 cpd.pick_build_kernel(g, "auto")[1],
+                                 targets0)
     return {"launches": launches, **headline(per_round[0]),
             "max_abs_err": max(x["max_abs_err"] for x in per_round),
             "build_s": build_s, "save_s": save_s,
             "load_s": probe.seconds["load"],
             "round_s": probe.seconds["query"][:4], "index_bytes": disk,
-            "resident_bytes": int(oracle.fm.numel()), "rounds": per_round}
+            "resident_bytes": resident, "rounds": per_round}, cmp, \
+        build_counts
 
 
 T_START = time.perf_counter()

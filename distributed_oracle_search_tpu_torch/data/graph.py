@@ -18,7 +18,8 @@ passed to ``fifo_auto`` but never to ``make_cpd_auto``: reference
 
 A copy of the JAX package's ``data/graph.py`` restricted to what the
 port's build and walk use; the ELL slot order — the first-move
-tie-break — is the same code, byte for byte.
+tie-break — and the structured edge splits the build policy reads
+(``shift_split``, ``grid_split``) are the same code, byte for byte.
 """
 
 from __future__ import annotations
@@ -28,6 +29,56 @@ import numpy as np
 from .formats import read_xy, read_diff
 
 INF = np.int32(10 ** 9)  # INF + INF < int32 max; real path costs stay far below
+
+
+def _shift_planes(src, dst, w, n: int, max_shifts: int, cap: int):
+    """Extract constant-offset edge planes: ``(shifts, w_shift, covered)``.
+
+    ``w_shift[s, u]`` = weight of edge ``u → u+shifts[s]`` (min over
+    parallels; INF absent). Offsets beyond ``±cap`` or past the
+    ``max_shifts`` most frequent stay uncovered. Shared by
+    :meth:`Graph.shift_split` and :meth:`Graph.grid_split`.
+    """
+    delta = dst - src
+    vals, counts = np.unique(delta, return_counts=True)
+    ok = np.abs(vals) <= cap
+    vals, counts = vals[ok], counts[ok]
+    keep = vals[np.argsort(-counts)[:max_shifts]]
+    shifts = tuple(int(s) for s in keep)
+    w_shift = np.full((len(shifts), n), int(INF), np.int32)
+    covered = np.zeros(len(src), bool)
+    for si, s in enumerate(shifts):
+        mask = delta == s
+        np.minimum.at(w_shift[si], src[mask], w[mask])
+        covered |= mask
+    return shifts, w_shift, covered
+
+
+def _leftover_ell(src_l, dst_l, w_l, n: int):
+    """Pack uncovered edges into a padded ELL table ``(nbr, w)`` [N, K].
+
+    Shared by :meth:`Graph.shift_split` and :meth:`Graph.grid_split`:
+    whatever edges a structured relaxation cannot serve gather-free fall
+    back to this (small) table. K may be 0 → empty arrays.
+    """
+    deg = np.bincount(src_l, minlength=n)
+    k_left = int(deg.max()) if len(src_l) else 0
+    nbr = np.repeat(np.arange(n, dtype=np.int32)[:, None],
+                    max(k_left, 1), axis=1)
+    w = np.full((n, max(k_left, 1)), int(INF), np.int32)
+    if len(src_l):
+        order = np.argsort(src_l, kind="stable")
+        starts = np.cumsum(np.concatenate([[0], deg[:-1]]))
+        slot = np.arange(len(src_l)) - np.repeat(starts, deg)
+        nbr[src_l[order], slot] = dst_l[order].astype(np.int32)
+        # parallel uncovered edges to the same dst would collide in the
+        # ELL slot only if they shared (src, slot); distinct slots keep
+        # them separate, min falls out of the relaxation itself
+        w[src_l[order], slot] = w_l[order]
+    if k_left == 0:
+        nbr = nbr[:, :0]
+        w = w[:, :0]
+    return nbr, w
 
 
 class Graph:
@@ -170,6 +221,97 @@ class Graph:
         if len(dsrc):
             w[self.edge_ids(dsrc, ddst)] = dw
         return w
+
+    # ---------------------------------------------------------------- shift
+    def shift_split(self, max_shifts: int = 64):
+        """Split edges into shift-structured + leftover sets for the
+        gather-free relaxation (``ops.shift_relax``).
+
+        Road-network node ids laid out with locality (grid row-major, or
+        RCM/BFS orderings) put most edges at a few constant id-offsets
+        ``dst - src``. For those, min-plus relaxation needs no gather at
+        all: it is a shifted add + min, elementwise work. The remaining
+        edges fall back to a (small) padded ELL gather.
+
+        Returns ``(shifts, w_shift, nbr_left, w_left)``:
+
+        * ``shifts``  tuple of ints, the kept offsets (≤ ``max_shifts``,
+          most-frequent first),
+        * ``w_shift`` int32 ``[S, N]``: weight of edge ``u → u+shifts[s]``
+          (min over parallel edges; INF where absent),
+        * ``nbr_left``/``w_left`` int32 ``[N, K_left]`` padded ELL of the
+          uncovered edges (``K_left`` may be 0 → empty arrays).
+
+        Free-flow weights only — this feeds the CPD build, which is always
+        free-flow (reference semantics).
+        """
+        # magnitude cap: the relaxation pads the distance array by
+        # max|shift| rows every iteration, so one frequent long-range
+        # offset must not be allowed to blow up the working set — beyond
+        # n/8 an offset goes to the leftover gather instead. The floor
+        # keeps small graphs (where even the full width is cheap) intact.
+        shifts, w_shift, covered = _shift_planes(
+            self.src, self.dst, self.w, self.n, max_shifts,
+            cap=max(256, self.n // 8))
+        nbr_left, w_left = _leftover_ell(
+            self.src[~covered], self.dst[~covered], self.w[~covered], self.n)
+        return shifts, w_shift, nbr_left, w_left
+
+    def grid_split(self, width: int | None = None):
+        """Split edges into 4 directional grid-lattice arrays + leftover ELL
+        for the fast-sweeping relaxation (``ops.grid_sweep``).
+
+        Row-major grid ids (``id = y*width + x``) put street edges at offsets
+        ``±1`` (same row) and ``±width``. The sweep build relaxes those with
+        sequential line scans; everything else (arterials, wrap-arounds)
+        goes to the leftover gather.
+
+        Returns ``(width, height, wl, wr, wd, wu, shifts, w_shift,
+        src_left, dst_left, w_left)`` where ``wl[u]`` is the weight of edge
+        ``u → u-1`` (same row; INF when absent), ``wr``/``wd``/``wu``
+        likewise for ``u+1`` / ``u-width`` / ``u+width``; leftover edges on
+        frequent constant offsets become shift planes ``shifts``/``w_shift``
+        (relaxed gather-free once per sweep cycle) and true stragglers stay
+        an explicit ``src_left``/``dst_left``/``w_left`` edge list for
+        scatter-min relaxation. Returns ``None`` when no grid layout fits
+        (width not inferable, or ``n`` not a multiple of it). Free-flow
+        weights only.
+        """
+        delta = self.dst - self.src
+        if width is None:
+            big = np.abs(delta[np.abs(delta) > 1])
+            if big.size == 0:
+                return None
+            vals, counts = np.unique(big, return_counts=True)
+            width = int(vals[np.argmax(counts)])
+        if width < 2 or self.n % width:
+            return None
+        height = self.n // width
+        sx = self.src % width
+        masks = {
+            "wr": (delta == 1) & (sx < width - 1),
+            "wl": (delta == -1) & (sx > 0),
+            "wu": delta == width,
+            "wd": delta == -width,
+        }
+        out = {}
+        covered = np.zeros(self.m, bool)
+        for name, mask in masks.items():
+            arr = np.full(self.n, int(INF), np.int32)
+            np.minimum.at(arr, self.src[mask], self.w[mask])
+            out[name] = arr
+            covered |= mask
+        rest = ~covered
+        shifts, w_shift, cov_s = _shift_planes(
+            self.src[rest], self.dst[rest], self.w[rest], self.n,
+            max_shifts=32, cap=max(256, self.n // 8))
+        rest_idx = np.nonzero(rest)[0][~cov_s]
+        # stragglers stay an explicit edge list (scatter-min relaxation):
+        # they are rare (clip artifacts at grid borders), so per-edge cost
+        # beats any [N, K] table
+        return (width, height, out["wl"], out["wr"], out["wd"], out["wu"],
+                shifts, w_shift, self.src[rest_idx].astype(np.int32),
+                self.dst[rest_idx].astype(np.int32), self.w[rest_idx])
 
     # ----------------------------------------------------------- ordering
     def reorder(self, perm: np.ndarray) -> "Graph":

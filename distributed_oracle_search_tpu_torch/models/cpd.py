@@ -5,15 +5,20 @@ worker (owned-target row × node). This module ports, from the JAX
 package's ``models/cpd.py``, the single-shard part and the in-process
 oracle:
 
+* :func:`pick_build_kernel` — the build policy: ``method`` (``auto`` by
+  the graph's structure) resolved to one of the five distance stages
+  (``sweep``, ``shift``, ``frontier``, ``ellsplit``, ``ell``) with its
+  host-side bundle, by the JAX package's gates;
 * :func:`build_worker_shard` — the per-worker build (reference
   ``make_cpd_auto``, ``make_cpds.py:20``): the owned targets in
-  ``chunk``-row batches through the ELL Bellman-Ford build
-  (``ops.bellman_ford.build_fm_columns``) on one device, one ``.npy``
+  ``chunk``-row batches through the resolved stage
+  (``parallel.sharded.chunk_compute``) on one device, one ``.npy``
   file per controller block, each written atomically and journaled with
   its crc32 digest in the per-worker build ledger. A ``codec`` persists
   each block as a compressed container (``models.resident``). The loop
   is serial: no background stager, lane mesh, RLE fetch, replica or
-  epoch.
+  epoch. On the card every stage runs through the hand build kernels
+  (``ops.cuda_build_kernels``).
 * :func:`write_index_manifest` / :func:`read_manifest` /
   :func:`validate_manifest` / :func:`check_manifest_version` /
   :func:`load_verified_block` — the ``index.json`` manifest (schema v2,
@@ -22,7 +27,7 @@ oracle:
   JAX package's, so an index built by either package loads under the
   other.
 * :class:`CPDOracle` — every worker's rows as one ``[W, R, N]`` tensor on
-  one device: ``build`` (ELL), ``save``, ``load``, ``route`` queries to
+  one device: ``build`` (any method), ``save``, ``load``, ``route`` queries to
   the worker owning their target, and answer a round of them in one walk
   over all workers (``parallel.sharded``). The walk's pair table is built
   once per weight set.
@@ -42,12 +47,16 @@ import numpy as np
 import torch
 
 from ..data.graph import Graph
-from ..ops.bellman_ford import build_fm_columns
-from ..ops.device_graph import DeviceGraph
+from ..ops.device_graph import TINF, DeviceGraph
+from ..ops.ell_split import ell_split_graph, split_ratio
+from ..ops.frontier_relax import frontier_graph, locality_fraction
+from ..ops.grid_sweep import GridGraph
+from ..ops.shift_relax import ShiftGraph, split_coverage
 from ..ops.table_search import walk_pairs
 from ..parallel.partition import DistributionController
 from ..parallel.sharded import (
-    build_fm_sharded, pad_targets, query_paths_sharded, query_sharded,
+    build_fm_sharded, chunk_compute, pad_targets, query_paths_sharded,
+    query_sharded,
 )
 from ..utils.atomicio import (
     SWEEP_MIN_AGE_S, TMP_SUFFIX, AtomicNpyWriter, atomic_save_npy,
@@ -153,14 +162,114 @@ def length_estimate(graph: Graph, s: np.ndarray, t: np.ndarray):
     return np.abs(xs[s] - xs[t]) + np.abs(ys[s] - ys[t])
 
 
+# ------------------------------------------------------- build policy
+
+#: shift coverage below which auto falls back to the ELL gather relaxation
+SHIFT_COVERAGE_MIN = 0.9
+
+#: lattice-edge share below which auto will not pick the fast-sweeping
+#: build (shift planes keep sweep correct on any graph, but only lattice
+#: edges benefit from the quadrant scans)
+SWEEP_COVERAGE_MIN = 0.75
+
+#: below this node count auto keeps the per-hop shift relaxation over
+#: the sweep (the JAX package's crossover: the port keeps every gate of
+#: the policy, so both packages pick the same kind on the same graph)
+SWEEP_MIN_NODES = 32_768
+
+#: modeled ELL+COO split cost ratio below which auto prefers the split
+#: over the plain padded-ELL gather (degree-skewed graphs: road networks
+#: pad K to the max degree while the mean is ~4)
+ELLSPLIT_RATIO_MAX = 0.75
+
+#: below this node count the dense kernels' full sweeps are cheap enough
+#: that the frontier queue's per-pop overhead does not pay
+FRONTIER_MIN_NODES = 32_768
+
+#: minimum edge id-locality (ops.frontier_relax.locality_fraction) for
+#: the delta-stepping frontier build: under it the union wavefront of a
+#: clustered target batch degenerates to the whole graph (measured 0.4-
+#: 0.6 after RCM/BFS reorder vs 0.02 on shuffled ids)
+FRONTIER_LOCALITY_MIN = 0.25
+
+
+def pick_build_kernel(graph: Graph, method: str = "auto"):
+    """Resolve the build-method knob to ``(kind, structure)``.
+
+    ``kind`` ∈ {"sweep", "shift", "frontier", "ellsplit", "ell"};
+    ``structure`` is the matching host-side bundle (GridGraph /
+    ShiftGraph / FrontierGraph / ELLSplitGraph / None). The coverage
+    decisions happen on host-side split arrays — graphs that fall back
+    never pay a device transfer.
+
+    ``auto`` picks the fast-sweeping build for large grid-structured
+    graphs (O(cycles) not O(hop-diameter) — the only build that scales to
+    the 100k+-node regime), the shift relaxation for smaller or
+    non-lattice-but-banded graphs, the delta-stepping frontier queue for
+    large locality-ordered irregular graphs (road networks after
+    BFS/RCM reorder — the only irregular build whose work tracks the
+    frontier instead of N x diameter), the ELL+COO split for the
+    remaining degree-skewed irregular graphs, and the padded-ELL gather
+    otherwise.
+    """
+    if method not in ("auto", "ell", "ellsplit", "frontier", "shift",
+                      "sweep"):
+        raise ValueError(f"unknown build method {method!r}")
+    if method == "ell":
+        return "ell", None
+    if method == "frontier":
+        return "frontier", frontier_graph(graph)
+    if method == "ellsplit":
+        _, k0 = split_ratio(np.diff(graph.out_ptr), graph.max_out_degree)
+        return "ellsplit", ell_split_graph(graph, k0=k0)
+    if method in ("auto", "sweep"):
+        split = graph.grid_split()
+        if split is not None:
+            if method == "sweep":
+                return "sweep", GridGraph(*split)
+            # lattice share from the HOST arrays (no device transfer for
+            # graphs the gate rejects): what the quadrant scans serve
+            _, _, wl, wr, wd, wu, _, w_shift, src_left, _, _ = split
+            on_grid = sum(int((np.asarray(a) < TINF).sum())
+                          for a in (wl, wr, wd, wu))
+            total = (on_grid + int((np.asarray(w_shift) < TINF).sum())
+                     + len(src_left))
+            if (total and on_grid / total >= SWEEP_COVERAGE_MIN
+                    and graph.n >= SWEEP_MIN_NODES):
+                return "sweep", GridGraph(*split)
+        elif method == "sweep":
+            raise ValueError("method='sweep' but no grid layout fits "
+                             "(Graph.grid_split returned None)")
+    shifts, w_shift, nbr_left, w_left = graph.shift_split()
+    if method == "auto" and split_coverage(w_shift,
+                                           w_left) < SHIFT_COVERAGE_MIN:
+        # irregular graph: the frontier queue when ids have locality
+        # (post-reorder road networks — its work tracks the wavefront,
+        # not N x diameter), else split the padded ELL when the degree
+        # skew makes it worthwhile (cost model in ops.ell_split)
+        if (graph.n >= FRONTIER_MIN_NODES
+                and locality_fraction(graph) >= FRONTIER_LOCALITY_MIN):
+            return "frontier", frontier_graph(graph)
+        ratio, k0 = split_ratio(np.diff(graph.out_ptr),
+                                graph.max_out_degree)
+        if ratio <= ELLSPLIT_RATIO_MAX:
+            return "ellsplit", ell_split_graph(graph, k0=k0)
+        return "ell", None
+    return "shift", ShiftGraph(shifts, w_shift, nbr_left, w_left, graph.n)
+
+
 def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
                        outdir: str, chunk: int = 0,
-                       device=None, codec: str | None = None) -> list[str]:
+                       device=None, codec: str | None = None,
+                       method: str = "auto",
+                       max_iters: int = 0) -> list[str]:
     """Build and persist ONE worker's CPD block files on one device.
 
-    The owned targets run through the ELL build in ``chunk``-row batches
-    (0 = the whole shard in one batch; the last batch is padded with
-    ``-1`` targets to the fixed width) and each controller block
+    The owned targets run through the build kind ``method`` resolves to
+    (:func:`pick_build_kernel`; ``auto`` by the graph's structure) in
+    ``chunk``-row batches (0 = the whole shard in one batch; the last
+    batch is padded with ``-1`` targets to the fixed width; ``max_iters``
+    cuts the distance loop, 0 = converge) and each controller block
     (``dc.block_size`` rows) is written as ``cpd-w<wid>-b<bid>.npy``
     through an atomic write, journaled with its digest in the build
     ledger. A re-run resumes: blocks the ledger records as complete
@@ -197,7 +306,10 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
                  n_blocks)
     if not missing:
         return []
+    kind, structure = pick_build_kernel(graph, method)
+    log.info("worker %d build kind: %s (method %s)", wid, kind, method)
     dg = DeviceGraph.from_graph(graph, device=dev)
+    build = chunk_compute(dg, (kind, structure), max_iters)
     chunk = chunk if chunk > 0 else max(len(owned), 1)
     codec_req = resident_choice() if codec is None else codec
     written = []
@@ -208,7 +320,7 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
             part = blk[i:i + chunk]
             pad = np.full(chunk, -1, np.int32)   # fixed batch width
             pad[:len(part)] = part
-            fm = build_fm_columns(dg, torch.from_numpy(pad).to(dev))
+            fm = build(torch.from_numpy(pad).to(dev))
             parts.append(fm[:len(part)].cpu().numpy())
         arr = parts[0] if len(parts) == 1 else np.concatenate(parts)
         # the container goes through the same atomic writer: digest and
@@ -401,6 +513,8 @@ class CPDOracle:
         self.dg = DeviceGraph.from_graph(graph, device=self.device)
         self.targets_wr = pad_targets(controller)
         self.fm: torch.Tensor | None = None     # int8 [W, R, N]
+        #: the build kind ``build`` resolved (None before a build)
+        self.build_kind: str | None = None
         #: weight-set key (None = free flow, else a digest of the weight
         #: vector) -> (padded weights, pair table) on the device
         self._weights: OrderedDict[
@@ -413,15 +527,17 @@ class CPDOracle:
               method: str = "auto") -> "CPDOracle":
         """Precompute every worker's first-move rows on the device.
 
-        ``method``: ``"auto"`` and ``"ell"`` build with the ELL
-        Bellman-Ford build. The JAX package's other build kernels give
-        byte-identical tables and are not ported yet."""
-        if method not in ("auto", "ell"):
-            raise NotImplementedError(
-                f"build method {method!r} is not ported (ROADMAP.md A7); "
-                "'auto' and 'ell' build with ELL")
+        ``method``: ``"sweep"`` forces the fast-sweeping build, ``"shift"``
+        the shift relaxation, ``"frontier"`` the delta-stepping queue,
+        ``"ell"``/``"ellsplit"`` the (split) padded-ELL relaxation;
+        ``"auto"`` resolves per :func:`pick_build_kernel`. Every method
+        gives the same table; the kind it resolved to is kept in
+        ``build_kind``."""
+        kind, structure = pick_build_kernel(self.graph, method)
+        self.build_kind = kind
         self.fm = build_fm_sharded(self.dg, self.targets_wr, chunk=chunk,
-                                   max_iters=max_iters)
+                                   max_iters=max_iters,
+                                   kernel=(kind, structure))
         return self
 
     # ------------------------------------------------------- persistence

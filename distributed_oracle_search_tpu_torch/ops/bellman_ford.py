@@ -25,6 +25,12 @@ First moves fall out in one more pass: the first minimal slot of the same
 relaxation expression (strict ``<`` in ascending slot order), matching
 the CPU oracle's tie-break (``models.reference.first_move_to_target``).
 
+This module is the plain ELL version. :func:`build_fm_columns` picks by
+device: on the card it runs the hand relax and extraction kernels of
+``cuda_build_kernels`` instead, and :func:`dist_to_targets` and
+:func:`first_move_from_dist` stay the plain versions they are held
+against.
+
 Distances are directed **node→target** costs: ``dist[x, b] =
 d(x → targets[b])``, the quantity the target-owning worker needs.
 """
@@ -81,16 +87,23 @@ def _relax_nb(dist_nb: torch.Tensor, plan) -> torch.Tensor:
     return new
 
 
-def _dist_nb(dg: DeviceGraph, targets: torch.Tensor, plan,
-             max_iters: int = 0) -> torch.Tensor:
-    n = dg.n
+def init_dist(n: int, targets: torch.Tensor) -> torch.Tensor:
+    """``[N, B]`` int32 on the targets' device: 0 at each valid target's
+    own node, INF elsewhere (pad columns, ``targets < 0``, stay all-INF)
+    — every build stage's starting iterate."""
     b = targets.shape[0]
-    limit = (n - 1) if max_iters == 0 else max_iters
     valid = targets >= 0
     t_safe = torch.where(valid, targets, 0).long()
-    dist = torch.full((n, b), TINF, dtype=torch.int32, device=dg.device)
-    dist[t_safe, torch.arange(b, device=dg.device)] = torch.where(
+    dist = torch.full((n, b), TINF, dtype=torch.int32, device=targets.device)
+    dist[t_safe, torch.arange(b, device=targets.device)] = torch.where(
         valid, 0, TINF).to(torch.int32)
+    return dist
+
+
+def _dist_nb(dg: DeviceGraph, targets: torch.Tensor, plan,
+             max_iters: int = 0) -> torch.Tensor:
+    limit = (dg.n - 1) if max_iters == 0 else max_iters
+    dist = init_dist(dg.n, targets)
     changed = bool((dist < TINF).any())
     i = 0
     while changed and i < limit:
@@ -152,12 +165,24 @@ def first_move_from_dist(dg: DeviceGraph, targets,
     return _first_move_nb(dg, targets, dist.T.contiguous(), _slot_plan(dg))
 
 
-def build_fm_columns(dg: DeviceGraph, targets,
-                     max_iters: int = 0) -> torch.Tensor:
+def build_fm_columns(dg: DeviceGraph, targets, max_iters: int = 0,
+                     csr=None, out: torch.Tensor | None = None
+                     ) -> torch.Tensor:
     """CPD shard build: first-move rows for a batch of targets —
     Bellman-Ford to convergence, then first-move extraction, all on
-    ``dg``'s device. Returns int8 [B, N]."""
+    ``dg``'s device. Returns int8 [B, N] (or ``out``, an int8 ``[R, N]``
+    row block receiving the first R rows).
+
+    Picked by device, like the walk: CPU tensors take the plain torch
+    build above; on the card the hand relax and extraction kernels
+    (``cuda_build_kernels.build_fm_jacobi``; ``csr`` is ``dg``'s full
+    out-edge CSR, built there when None) — the same Jacobi iterate, so
+    the same table — or an error, never the plain build."""
+    from . import cuda_build_kernels as cbk
+
     targets = _as_targets(dg, targets)
+    if dg.device.type != "cpu":
+        return cbk.build_fm_jacobi(dg, targets, max_iters, csr=csr, out=out)
     plan = _slot_plan(dg)
     dist_nb = _dist_nb(dg, targets, plan, max_iters)
-    return _first_move_nb(dg, targets, dist_nb, plan)
+    return cbk.write_rows(_first_move_nb(dg, targets, dist_nb, plan), out)

@@ -6,8 +6,10 @@ There, every mesh shard builds and walks its own worker's rows under
 worker axis is a loop (build) or a row offset (walk):
 
 * :func:`build_fm_sharded` — every worker's first-move rows, in
-  ``chunk``-column batches through ``ops.bellman_ford.build_fm_columns``,
-  into one int8 ``[W, R, N]`` tensor (``-1`` in the pad rows);
+  ``chunk``-column batches through the build kind the policy picked
+  (:func:`chunk_compute`, ``models.cpd.pick_build_kernel``), into one
+  int8 ``[W, R, N]`` tensor (``-1`` in the pad rows); on the card the
+  extraction kernel writes each batch's rows straight into the table;
 * :func:`query_sharded` — one round of routed ``[D, W, Q]`` queries in
   ONE walk: the table is viewed as ``[W·R, N]`` and each lane's row is
   offset by ``w·R``, so a single ``cuda_walk_batch`` call (the CUDA
@@ -27,8 +29,13 @@ import numpy as np
 import torch
 
 from ..ops.bellman_ford import build_fm_columns
+from ..ops.cuda_build_kernels import csr_from_ell
 from ..ops.cuda_walk import cuda_walk_batch
 from ..ops.device_graph import DeviceGraph
+from ..ops.ell_split import build_fm_columns_ellsplit
+from ..ops.frontier_relax import build_fm_columns_frontier
+from ..ops.grid_sweep import build_fm_columns_sweep
+from ..ops.shift_relax import build_fm_columns_shift
 from ..ops.table_search import extract_paths
 
 
@@ -43,25 +50,59 @@ def pad_targets(controller, dtype=np.int32) -> np.ndarray:
     return out
 
 
+def chunk_compute(dg: DeviceGraph, kernel=None, max_iters: int = 0):
+    """One build closure per resolved build kind (the JAX
+    ``models.cpd._make_chunk_compute``): ``fn(targets, out=None)`` takes
+    an int32 target tensor on ``dg``'s device (``-1`` = pad) and returns
+    its int8 ``[B, N]`` first-move rows, or writes the first ``len(out)``
+    of them into ``out``.
+
+    ``kernel``: ``(kind, structure)`` from ``models.cpd.pick_build_kernel``
+    (None = ``("ell", None)``). Every kind picks by device: the plain
+    torch stage on the CPU, the hand kernels on the card — ``sweep`` the
+    grid sweep (+ relax for its off-lattice edges), ``ell``/``ellsplit``/
+    ``shift`` the Jacobi relax over the full out-edge CSR, ``frontier``
+    its torch queue; every kind then the extraction kernel. The CSR is
+    built here, once per build."""
+    kind, st = kernel if kernel is not None else ("ell", None)
+    csr = None if dg.device.type == "cpu" else csr_from_ell(dg)
+    if kind == "ell":
+        return lambda t, out=None: build_fm_columns(
+            dg, t, max_iters=max_iters, csr=csr, out=out)
+    stages = {"sweep": build_fm_columns_sweep,
+              "shift": build_fm_columns_shift,
+              "frontier": build_fm_columns_frontier,
+              "ellsplit": build_fm_columns_ellsplit}
+    if kind not in stages:
+        raise ValueError(f"unknown build kind {kind!r}")
+    stage = stages[kind]
+    return lambda t, out=None: stage(dg, st, t, max_iters=max_iters,
+                                     csr=csr, out=out)
+
+
 def build_fm_sharded(dg: DeviceGraph, targets_wr: np.ndarray,
-                     chunk: int = 0, max_iters: int = 0) -> torch.Tensor:
+                     chunk: int = 0, max_iters: int = 0,
+                     kernel=None) -> torch.Tensor:
     """Build the whole CPD: int8 ``[W, R, N]`` on ``dg``'s device.
 
     ``chunk`` bounds the live distance columns (0 = a worker's R rows at
     once): each worker's targets run through the build in ``chunk``-wide
     batches, the last one padded with ``-1`` to the fixed width as the
     JAX build pads it. A row depends only on its target, so the table is
-    byte-identical whatever the chunk."""
+    byte-identical whatever the chunk. ``kernel``: ``(kind, structure)``
+    from ``models.cpd.pick_build_kernel`` selecting the distance stage
+    (default ELL), as in the JAX ``build_fm_sharded``; every kind gives
+    the same table."""
     w, r = targets_wr.shape
     chunk = r if chunk <= 0 or chunk >= r else chunk
     padded = np.full((w, -(-r // chunk) * chunk), -1, np.int32)
     padded[:, :r] = targets_wr
+    build = chunk_compute(dg, kernel, max_iters)
     fm = torch.empty((w, r, dg.n), dtype=torch.int8, device=dg.device)
     for wid in range(w):
         for i in range(0, r, chunk):
             cols = torch.from_numpy(padded[wid, i:i + chunk]).to(dg.device)
-            part = build_fm_columns(dg, cols, max_iters=max_iters)
-            fm[wid, i:i + chunk] = part[:min(chunk, r - i)]
+            build(cols, out=fm[wid, i:i + min(chunk, r - i)])
     return fm
 
 

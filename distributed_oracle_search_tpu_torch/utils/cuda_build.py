@@ -6,7 +6,8 @@ library's file name carries a hash of the source and the flags, so an
 edited source rebuilds and an unchanged one loads the cached ``.so``.
 The build directory is ``build/kernels`` beside the package (listed in
 ``.gitignore``); concurrent builds each compile to a private temp name
-and publish with an atomic rename.
+and publish with an atomic rename. Each source has its own lock, so
+threads can build different sources at once (one ``nvcc`` each).
 
 Nothing here runs at import: the CPU test suite imports every module on
 a host with no ``nvcc``.
@@ -34,7 +35,8 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 #: per-source build record: seconds spent in nvcc (0.0 on a cache hit)
 #: and the compiler's ptxas report (registers, shared memory, spills)
@@ -53,7 +55,9 @@ def find_nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (once per source hash) and load ``csrc/<name>.cu``."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")

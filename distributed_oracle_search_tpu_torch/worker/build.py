@@ -7,13 +7,16 @@ at reference ``make_cpds.py:20``)::
         --input <xy> --partmethod <div|mod|alloc|tpu> --partkey <int...> \\
         --workerid <int> --maxworker <int> [--outdir <dir>] [--chunk N] \\
         [--block-size N] [--codec raw|pack4|rle|auto] [--device cuda|cpu]
+        [--method auto|sweep|shift|frontier|ellsplit|ell]
 
 Computes the first-move rows for the node subset owned by ``workerid``
 with the batched min-plus build on one device (the card unless
-``--device cpu``) and writes one ``.npy`` per block (``bid``/``bidx``
-scheme of the distribution controller). ``--codec`` persists each block
-as a compressed container (``models.resident``; a block the codec cannot
-take is written raw). Re-running resumes at block granularity.
+``--device cpu``), through the distance stage ``--method`` names (``auto``
+picks by the graph's structure, ``models.cpd.pick_build_kernel``; every
+method writes the same blocks), and writes one ``.npy`` per block
+(``bid``/``bidx`` scheme of the distribution controller). ``--codec``
+persists each block as a compressed container (``models.resident``; a
+block the codec cannot take is written raw). Re-running resumes at block granularity.
 """
 
 from __future__ import annotations
@@ -51,6 +54,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="persist blocks compressed (RLE/pack4 containers; "
                         "per-block degrade to raw when not viable). "
                         "Default: the DOS_CPD_RESIDENT knob (raw)")
+    p.add_argument("--method", default="auto",
+                   choices=["auto", "sweep", "shift", "frontier",
+                            "ellsplit", "ell"],
+                   help="relaxation kernel: fast-sweeping grid scans, "
+                        "shift relaxation, delta-stepping frontier "
+                        "queue, ELL+COO split (degree-skewed graphs), "
+                        "padded-ELL relaxation, or auto by structure "
+                        "gates (models.cpd.pick_build_kernel)")
     p.add_argument("--device", default="cuda",
                    help="torch device to build on (default: cuda)")
     p.add_argument("-v", "--verbose", action="count", default=0)
@@ -69,7 +80,7 @@ def main(argv=None) -> int:
                                 graph.n, **dc_kw)
     written = build_worker_shard(graph, dc, args.workerid, outdir,
                                  chunk=args.chunk, device=args.device,
-                                 codec=args.codec)
+                                 codec=args.codec, method=args.method)
     log.info("worker %d: wrote %d block(s) to %s", args.workerid,
              len(written), outdir)
     print(f"worker {args.workerid}: {len(written)} block(s) -> {outdir}")

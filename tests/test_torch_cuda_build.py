@@ -1,0 +1,256 @@
+"""PyTorch port, CPD build kernels on the card (``csrc/cpd_build.cu``):
+the Jacobi relax (K1), the first-move extraction (K2) and the grid sweep
+(K3) equal their plain torch versions on the same inputs — K1 one step,
+at ``max_iters`` cuts and at convergence, and as the sweep's two-launch
+off-lattice stage (shift planes, then stragglers on the result); K2
+byte for byte with unreachable nodes, target columns and pad targets,
+and writing rows past byte 2^31 of a larger table; K3 after one and two
+cycles and at convergence. Every build method gives the CPU's table on
+the card, each launch is counted, and a kernel that fails to build or
+launch raises instead of falling back.
+
+Needs an NVIDIA GPU and ``nvcc``; skips without them. This file imports
+the port only (no JAX), so it runs on a machine without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_build.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from distributed_oracle_search_tpu_torch.data import (  # noqa: E402
+    Graph, synth_city_graph, synth_road_network,
+)
+from distributed_oracle_search_tpu_torch.models import cpd  # noqa: E402
+from distributed_oracle_search_tpu_torch.ops import (  # noqa: E402
+    DeviceGraph, bellman_ford, cuda_build_kernels as cbk, grid_sweep,
+)
+from distributed_oracle_search_tpu_torch.ops.ell_split import (  # noqa: E402
+    dist_to_targets_split, ell_split_graph,
+)
+from distributed_oracle_search_tpu_torch.parallel import (  # noqa: E402
+    DistributionController,
+)
+from distributed_oracle_search_tpu_torch.utils import cuda_build  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _two_cycles() -> Graph:
+    """Two directed 4-cycles with no edge between them: unreachable
+    pairs everywhere."""
+    return Graph(np.arange(8), np.zeros(8), np.arange(8),
+                 np.array([1, 2, 3, 0, 5, 6, 7, 4]), np.full(8, 10, np.int32))
+
+
+GRAPHS = {
+    "city": lambda: synth_city_graph(24, 17, seed=3),
+    "road": lambda: synth_road_network(1500, seed=5),
+    "unreachable": _two_cycles,
+}
+
+
+def _targets(n: int, b: int, seed: int) -> np.ndarray:
+    """``b`` targets with pad columns (-1) among them."""
+    rng = np.random.default_rng(seed)
+    t = rng.choice(n, min(b, n), replace=False).astype(np.int32)
+    t[::5] = -1
+    return t
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("cut", [1, 2, 4, 0])
+def test_relax_equals_plain_at_cuts(dev, name, cut):
+    g = GRAPHS[name]()
+    t = _targets(g.n, 70, cut)
+    want = dist_to_targets_split(ell_split_graph(g), t, cut)
+    dg = DeviceGraph.from_graph(g, device=dev)
+    before = cbk.relax_jacobi.launches
+    d, steps = cbk.jacobi_dist(cbk.csr_from_ell(dg),
+                               torch.as_tensor(t, device=dev), cut)
+    torch.cuda.synchronize()
+    assert torch.equal(d.T.cpu(), want)
+    assert cbk.relax_jacobi.launches - before == steps > 0
+    if cut:
+        assert steps <= cut
+
+
+def test_one_relax_step_equals_plain(dev):
+    g = synth_road_network(2000, seed=7)
+    rng = np.random.default_rng(7)
+    d = rng.integers(0, 10 ** 9 + 1, (g.n, 96)).astype(np.int32)
+    d[rng.random(d.shape) < 0.3] = 10 ** 9
+    csr = cbk.csr_from_ell(DeviceGraph.from_graph(g, device=dev))
+    d_dev = torch.as_tensor(d, device=dev)
+    out = torch.empty_like(d_dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    cbk.relax_jacobi(csr, d_dev, out, flag)
+    torch.cuda.synchronize()
+    csr_cpu = cbk.csr_from_ell(DeviceGraph.from_graph(g, device="cpu"))
+    want = cbk.relax_jacobi_plain(csr_cpu, torch.as_tensor(d))
+    assert torch.equal(out.cpu(), want)
+    assert int(flag.item()) == int(bool((want < torch.as_tensor(d)).any()))
+
+
+def _grid_with_stragglers():
+    """A road graph laid on a lattice it does not fit: ``grid_split``
+    gives shift planes and stragglers besides the lattice edges."""
+    g = synth_road_network(400, seed=5)
+    gg = grid_sweep.GridGraph.from_graph(g)
+    assert gg.shifts and gg.n_left
+    return g, gg
+
+
+def test_off_lattice_two_launches_equal_plain(dev):
+    g, gg = _grid_with_stragglers()
+    rng = np.random.default_rng(2)
+    d = rng.integers(0, 10 ** 9 + 1, (g.n, 40)).astype(np.int32)
+    want = grid_sweep.off_lattice(gg.on("cpu"), torch.as_tensor(d))
+    gd = gg.on(dev)
+    a = torch.as_tensor(d, device=dev)
+    b = torch.empty_like(a)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    cbk.relax_jacobi(gd.shift_csr, a, b, flag)
+    cbk.relax_jacobi(gd.left_csr, b, a, flag)
+    torch.cuda.synchronize()
+    assert torch.equal(a.cpu(), want) and int(flag.item()) == 1
+
+
+@pytest.mark.parametrize("case", ["city", "stragglers"])
+@pytest.mark.parametrize("cycles", [1, 2, 0])
+def test_sweep_equals_plain(dev, case, cycles):
+    if case == "city":
+        g = synth_city_graph(40, 33, seed=2)
+        gg = grid_sweep.GridGraph.from_graph(g)
+    else:
+        g, gg = _grid_with_stragglers()
+    t = _targets(g.n, 77, cycles)
+    want = grid_sweep.dist_to_targets_sweep(gg, t, cycles)
+    before = cbk.grid_sweep.launches
+    d, n_cyc = cbk.sweep_dist(gg.on(dev), torch.as_tensor(t, device=dev),
+                              cycles)
+    torch.cuda.synchronize()
+    assert torch.equal(d.T.cpu(), want)
+    assert cbk.grid_sweep.launches - before == n_cyc
+    if cycles:
+        assert n_cyc == cycles
+
+
+@pytest.mark.parametrize("cols", [1, 2, 4, 8, 16, 32])
+def test_sweep_cycle_any_column_group(dev, cols):
+    g = synth_city_graph(37, 29, seed=4)
+    gg = grid_sweep.GridGraph.from_graph(g)
+    t = torch.as_tensor(_targets(g.n, 45, cols))
+    d_cpu = bellman_ford.init_dist(g.n, t)
+    want = d_cpu.clone()
+    grid_sweep.sweep_quadrants(gg.on("cpu"), want)
+    d = d_cpu.to(dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    cbk.grid_sweep(gg.on(dev), d, flag, cols=cols)
+    torch.cuda.synchronize()
+    assert torch.equal(d.cpu(), want) and int(flag.item()) == 1
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_first_moves_equal_plain(dev, name):
+    g = GRAPHS[name]()
+    t = _targets(g.n, 70, 1)
+    dg_cpu = DeviceGraph.from_graph(g, device="cpu")
+    dist = bellman_ford.dist_to_targets(dg_cpu, t)
+    want = bellman_ford.first_move_from_dist(dg_cpu, t, dist)
+    assert bool((want == -1).any())
+    dg = DeviceGraph.from_graph(g, device=dev)
+    before = cbk.first_moves.launches
+    got = cbk.first_moves(dg, torch.as_tensor(t, device=dev),
+                          dist.T.contiguous().to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert cbk.first_moves.launches == before + 1
+    # pad targets' rows and each target's own column are -1
+    assert bool((got[torch.as_tensor(t < 0)] == -1).all())
+
+
+def test_first_moves_rows_past_two_gigabytes(dev):
+    """An int8 ``[33_000, 65_536]`` table is 2.16 GB: K2 writes 48 rows
+    of a 64-column batch into rows that start past byte 2^31, leaving
+    the rest of the table as it was."""
+    g = synth_city_graph(256, 256, seed=3)
+    assert g.n == 65_536
+    dg = DeviceGraph.from_graph(g, device=dev)
+    t = torch.as_tensor(_targets(g.n, 64, 9), device=dev)
+    dist, _ = cbk.jacobi_dist(cbk.csr_from_ell(dg), t)
+    alone = cbk.first_moves(dg, t, dist)
+    big = torch.full((33_000, g.n), 7, dtype=torch.int8, device=dev)
+    at = 33_000 - 48 - 5
+    assert at * g.n > 2 ** 31
+    out = cbk.first_moves(dg, t, dist, out=big[at:at + 48])
+    torch.cuda.synchronize()
+    assert out.data_ptr() == big[at].data_ptr()
+    assert torch.equal(big[at:at + 48], alone[:48])
+    assert bool((big[:at] == 7).all()) and bool((big[at + 48:] == 7).all())
+    plain = bellman_ford.first_move_from_dist(dg, t, dist.T.contiguous())
+    assert torch.equal(alone, plain)
+
+
+@pytest.mark.parametrize("method", ["auto", "sweep", "shift", "frontier",
+                                    "ellsplit", "ell"])
+def test_every_method_builds_the_cpu_table(dev, method):
+    g = synth_city_graph(33, 21, seed=5)
+    dc = DistributionController("tpu", 8, 8, g.n)
+    cpu = cpd.CPDOracle(g, dc, device="cpu").build(chunk=40, method=method)
+    counts = (cbk.relax_jacobi.launches, cbk.first_moves.launches,
+              cbk.grid_sweep.launches)
+    card = cpd.CPDOracle(g, dc, device=dev).build(chunk=40, method=method)
+    torch.cuda.synchronize()
+    assert torch.equal(card.fm.cpu(), cpu.fm)
+    relax, fms, sweeps = (a - b for a, b in zip(
+        (cbk.relax_jacobi.launches, cbk.first_moves.launches,
+         cbk.grid_sweep.launches), counts))
+    assert fms == 8 * -(-card.targets_wr.shape[1] // 40)   # one a chunk
+    assert (sweeps > 0) == (method == "sweep")
+    if method != "sweep":
+        assert (relax > 0) == (method != "frontier")
+
+
+def test_build_failure_raises(dev, tmp_path, monkeypatch):
+    """A source that does not compile raises at the first call; nothing
+    falls back to the plain version."""
+    (tmp_path / f"{cbk.KERNEL_NAME}.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    monkeypatch.setattr(cbk, "_fns", {})
+    g = synth_city_graph(8, 6, seed=1)
+    dg = DeviceGraph.from_graph(g, device=dev)
+    before = cbk.relax_jacobi.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bellman_ford.build_fm_columns(dg, torch.arange(4, dtype=torch.int32,
+                                                       device=dev))
+    assert cbk.relax_jacobi.launches == before
+
+
+def test_refused_launch_raises(dev):
+    """The sweep entry refuses a column group that does not divide its
+    block; the wrapper turns the returned error into an exception."""
+    g = synth_city_graph(8, 6, seed=1)
+    gd = grid_sweep.GridGraph.from_graph(g).on(dev)
+    d = torch.zeros((g.n, 4), dtype=torch.int32, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cbk._launch(cbk.SWEEP_ENTRY, dev, gd.wl.data_ptr(), gd.wr.data_ptr(),
+                    gd.wd.data_ptr(), gd.wu.data_ptr(), d.data_ptr(),
+                    flag.data_ptr(), gd.height, gd.width, 4, 3)
+    with pytest.raises(ValueError, match="cols must divide"):
+        cbk.grid_sweep(gd, d, flag, cols=3)
+    with pytest.raises(ValueError, match="second buffer"):
+        cbk.relax_jacobi(cbk.csr_from_ell(DeviceGraph.from_graph(
+            g, device=dev)), d, d, flag)

@@ -107,13 +107,18 @@ def test_build_max_iters_cut_equal(setup):
     np.testing.assert_array_equal(_fm(to), _fm(jo))
 
 
-def test_build_methods_not_ported_raise(setup):
+def test_build_methods_not_ported_raise(setup, built):
+    """Every JAX build method is ported and builds the same table; only
+    a method the JAX package does not have raises, before any build."""
     _, tg, _, tdc, *_ = setup
     o = CPDOracle(tg, tdc, device="cpu")
-    for method in ("sweep", "shift", "frontier", "ellsplit"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            o.build(method=method)
+    with pytest.raises(ValueError, match="unknown build method"):
+        o.build(method="bogus")
     assert o.fm is None
+    for method in ("sweep", "shift", "frontier", "ellsplit"):
+        o.build(method=method, chunk=64)
+        assert o.build_kind == method
+        np.testing.assert_array_equal(_fm(o), _fm(built[0]))
 
 
 def _digests(outdir):
