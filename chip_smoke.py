@@ -28,11 +28,18 @@ points a user calls, then the compressed-residency path:
    the longest lane), the wrapper as the engine calls it, the wrapper
    building its own pairs, the pair build and the plain walk; golden
    checks against reverse-Dijkstra and the CPU reference walk; then hold
-   the relax kernel against the plain split relaxation on worker 0's
-   first 512 targets (after 4 steps and at convergence, equal element by
-   element) and the extraction kernel against the plain extraction
-   (byte-equal), and time a step and an extraction by CUDA events beside
-   their byte bounds;
+   the relax kernel's loop (the settled-tile skip, as the build runs it)
+   against the plain split relaxation on worker 0's first 512 targets
+   (after 4 steps, at a mid cut and at convergence, equal element by
+   element, with the plain loop's step count) and the extraction kernel
+   against the plain extraction (byte-equal); time by CUDA events one
+   all-active relax step at each column group width, the nodes in the
+   CSR's visit order and by id, beside the dense byte bound; the relax
+   loop as the build runs it and with one lever changed at a time (by
+   id, one column a lane, no skip) beside its bound (the active pairs'
+   bytes and the changed map over every step), with a per-step profile
+   of the build's loop (the kernels' share of its time); and an
+   extraction beside its byte bound;
 3. compressed path (``[compressed]`` lines), on
    ``synth_city_graph(514, 514, seed=0, shortcut_frac=0.0)`` (264,196
    nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 32
@@ -69,8 +76,8 @@ points a user calls, then the compressed-residency path:
    kernel equals the plain walk on the oracle's routed inputs of the
    free-flow and diff rounds (timed as in step 2); the build
    (``method="auto"`` must resolve ``ellsplit``) and its relax and
-   extraction kernels held against their plain versions on worker 0's
-   8,192 targets, as in step 2;
+   extraction kernels held against their plain versions and timed on
+   worker 0's 8,192 targets, as in step 2;
 5. print the kernel table as one JSON line (both walks and the three
    build kernels, each with its launches in the main runs), then, as the
    last line, ``{"ok": true, "device": {...}}``.
@@ -595,45 +602,193 @@ def same_dist(name: str, got_nb: torch.Tensor, want_bn: torch.Tensor,
                              "the plain version")
 
 
-def relax_vs_plain(tag: str, dg, csr, st, t) -> tuple[dict, torch.Tensor]:
-    """The relax kernel (``jacobi_dist`` over the full out-edge CSR)
-    against the plain split relaxation on one chunk: after RELAX_CUT
-    steps and at convergence, equal element by element; one step timed
-    (kernel by CUDA events, back to back; plain split step) beside its
-    bound. Returns the entry and the converged ``[N, B]`` distances."""
-    n, b, m = dg.n, int(t.shape[0]), int(csr.col.numel())
-    t0 = time.perf_counter()
-    d_cut, steps_cut = cbk.jacobi_dist(csr, t, RELAX_CUT)
-    same_dist("relax_jacobi", d_cut, ell_split.dist_to_targets_split(
-        st, t, RELAX_CUT), f"{tag} cut {RELAX_CUT}")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    d_conv, steps = cbk.jacobi_dist(csr, t)
-    torch.cuda.synchronize()
-    kernel_s = time.perf_counter() - t1
-    same_dist("relax_jacobi", d_conv, ell_split.dist_to_targets_split(st, t),
-              f"{tag} converged")
-    out = torch.empty_like(d_cut)
-    flag = torch.zeros(1, dtype=torch.int32, device=d_cut.device)
-    ms = time_bare(lambda: cbk.relax_jacobi(csr, d_cut, out, flag),
-                   KERNEL_REPS)
-    plain_args = [torch.as_tensor(a, device=d_cut.device) for a in (
+def plain_relax_loop(st, t, cuts) -> tuple[dict, torch.Tensor, int]:
+    """The plain split relaxation's JAX loop (``while changed and i <
+    limit``) on one chunk, run once: ``({cut: [N, B] distances after
+    ``cut`` steps}, converged [N, B] distances, steps)``."""
+    args = [torch.as_tensor(a, device=t.device) for a in (
         st.nbr0, st.w0, st.u_ov, st.v_ov, st.w_ov)]
     for i in (0, 2, 3):
-        plain_args[i] = plain_args[i].long()
-    plain_ms = time_cuda(lambda: ell_split._split_step(d_cut, *plain_args),
-                         PLAIN_REPS)
+        args[i] = args[i].long()
+    d = bellman_ford.init_dist(st.n, t)
+    changed = bool((d < bellman_ford.TINF).any())
+    at, i = {}, 0
+    while changed and i < st.n - 1:
+        nd = ell_split._split_step(d, *args)
+        changed = bool((nd < d).any())
+        d = nd
+        i += 1
+        if i in cuts:
+            at[i] = d
+    return at, d, i
+
+
+def relax_loop_ms(csr, t, skip: bool, vec: int) -> dict:
+    """One ``jacobi_dist`` loop to convergence timed by CUDA events (the
+    host's read of the flag after every step included), with its steps
+    and relaxed (node, group) pairs and the loop's byte bound: over
+    every step, the active pairs' row segments read from ``d`` and
+    written to ``out`` plus the changed map read and written."""
+    stats: dict = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    _, steps = cbk.jacobi_dist(csr, t, skip=skip, vec=vec, stats=stats)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    b = int(t.shape[0])
+    groups = stats["groups"]
+    nbytes = stats["active_pairs"] * 8 * b / groups
+    if skip:
+        nbytes += steps * 2 * groups * csr.n
+    return {"skip": skip, "vec": vec, "visit_order": csr.order is not None,
+            "steps": steps, "ms": ms,
+            "ms_per_step": ms / steps,
+            "active_pairs": stats["active_pairs"],
+            "active_share": stats["active_pairs"] / (
+                steps * stats["pairs_per_step"]),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def relax_loop_profile(csr, t) -> dict:
+    """The build's loop once more with a CUDA event pair around every
+    launch and the active-pair counters summed after it (both queued on
+    the stream, no extra sync): the kernels' share of the loop's time
+    (the rest is the host reading the flag and queueing the next launch)
+    and, by tenths of the steps, the kernel ms a step and the share of
+    the pairs relaxed."""
+    real = cbk.relax_jacobi
+    marks = []
+
+    def timed(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*args, **kw)
+        e1.record()
+        marks.append((e0, e1, args[6][:, 0].sum()))
+        return out
+
+    # the wrapper counts its own launches (the name the kernel's wrapper
+    # increments now resolves to it), apart from the main runs' counts
+    timed.launches = 0
+    stats: dict = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cbk.relax_jacobi = timed
+    try:
+        torch.cuda.synchronize()
+        start.record()
+        cbk.jacobi_dist(csr, t, stats=stats)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        cbk.relax_jacobi = real
+    kernel = np.array([a.elapsed_time(b) for a, b, _ in marks])
+    pairs = np.diff([0] + [int(c) for _, _, c in marks]) / stats[
+        "pairs_per_step"]
+    tenths = np.array_split(np.arange(len(kernel)), 10)
+    return {"loop_ms": start.elapsed_time(end),
+            "kernel_ms": float(kernel.sum()),
+            "kernel_share": float(kernel.sum()) / start.elapsed_time(end),
+            "kernel_ms_by_tenth": [float(kernel[i].mean()) for i in tenths],
+            "active_share_by_tenth": [float(pairs[i].mean())
+                                      for i in tenths]}
+
+
+def relax_vs_plain(tag: str, dg, csr, st, t) -> tuple[dict, torch.Tensor]:
+    """The relax kernel (``jacobi_dist`` over the full out-edge CSR, the
+    skip loop as the build runs it) against the plain split relaxation
+    on one chunk: after RELAX_CUT steps, at a mid cut (half the steps)
+    and at convergence, equal element by element and with the plain
+    loop's step count. Timed: one all-active step (no changed map,
+    CUDA events, back to back) at each column group width, the nodes in
+    the CSR's visit order and by id, beside the dense bound; the whole
+    loop to convergence as the build runs it (the skip, the default
+    width, the visit order) and with one lever changed at a time (by id;
+    one column a lane; no skip), beside its bound; the plain split step.
+    Returns the entry and the converged ``[N, B]`` distances."""
+    n, b, m = dg.n, int(t.shape[0]), int(csr.col.numel())
+    t0 = time.perf_counter()
+    _, steps = cbk.jacobi_dist(csr, t)
+    mid = max(steps // 2, RELAX_CUT + 1)
+    plain_at, plain_conv, plain_steps = plain_relax_loop(
+        st, t, (RELAX_CUT, mid))
+    if steps != plain_steps:
+        raise AssertionError(f"{tag} relax_jacobi: {steps} steps to "
+                             f"converge, the plain loop {plain_steps}")
+    for cut in (RELAX_CUT, mid):
+        d_cut, steps_cut = cbk.jacobi_dist(csr, t, cut)
+        if steps_cut != cut:
+            raise AssertionError(f"{tag} relax_jacobi: {steps_cut} steps "
+                                 f"at cut {cut}")
+        same_dist("relax_jacobi", d_cut, plain_at[cut].T, f"{tag} cut {cut}")
+    d_conv, _ = cbk.jacobi_dist(csr, t)
+    same_dist("relax_jacobi", d_conv, plain_conv.T, f"{tag} converged")
+    del plain_at, plain_conv
+    d_cut, _ = cbk.jacobi_dist(csr, t, RELAX_CUT)
+    torch.cuda.synchronize()
+    log(f"{tag} relax_jacobi: B={b} N={n} M={m}: equal to the plain split "
+        f"relaxation after {RELAX_CUT} and {mid} steps and at convergence, "
+        f"{steps} steps as the plain loop ({time.perf_counter() - t0:.1f} s)")
+    default = cbk.relax_vec(b)
+    by_id = csr._replace(order=None, span=None)
+    vecs = [v for v in cbk.RELAX_VECS if b % v == 0]
+    out = torch.empty_like(d_cut)
+    flag = torch.zeros(1, dtype=torch.int32, device=d_cut.device)
+    step_ms = {(v, ordered): time_bare(lambda v=v, c=c: cbk.relax_jacobi(
+        c, d_cut, out, flag, vec=v), KERNEL_REPS)
+        for v in vecs for ordered, c in ((True, csr), (False, by_id))}
     nbytes = 2 * n * b * 4 + (n + 1) * 4 + 2 * m * 4
     bound_ms, bound_by = bound(nbytes, 3 * m * b)
-    log(f"{tag} relax_jacobi: B={b} N={n} M={m}: equal to the plain split "
-        f"relaxation after {RELAX_CUT} steps and at convergence "
-        f"({steps} steps; the loop {kernel_s:.3f} s on the card); a step "
-        f"{ms:.4f} ms, plain split step {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B)")
+    args = [torch.as_tensor(a, device=d_cut.device) for a in (
+        st.nbr0, st.w0, st.u_ov, st.v_ov, st.w_ov)]
+    for i in (0, 2, 3):
+        args[i] = args[i].long()
+    plain_ms = time_cuda(lambda: ell_split._split_step(d_cut, *args),
+                         PLAIN_REPS)
+    log(f"{tag} relax_jacobi all-active step (columns a lane, visit "
+        "order | by id): " + ", ".join(
+            f"{v}: {step_ms[v, True]:.4f} | {step_ms[v, False]:.4f} ms"
+            + (" [default]" if v == default else "") for v in vecs)
+        + f"; dense bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B); "
+        f"plain split step {plain_ms:.4f} ms")
+    loops = [relax_loop_ms(c, t, skip, v) for c, skip, v in (
+        (csr, True, default), (by_id, True, default), (csr, True, 1),
+        (csr, False, default))]
+    for lp in loops:
+        if lp["steps"] != steps:
+            raise AssertionError(f"{tag} relax loop {lp}: steps != {steps}")
+        log(f"{tag} relax_jacobi loop skip={lp['skip']} vec={lp['vec']} "
+            f"{'visit order' if lp['visit_order'] else 'by id'}"
+            f"{' [default]' if lp is loops[0] else ''}"
+            f": {lp['steps']} steps {lp['ms']:.3f} ms ({lp['ms_per_step']:.4f}"
+            f" ms a step), active pairs {lp['active_pairs']} "
+            f"({100 * lp['active_share']:.2f}%), loop bound "
+            f"{lp['bound_ms']:.3f} ms; steps x dense bound "
+            f"{steps * bound_ms:.3f} ms")
+    main = loops[0]
+    prof = relax_loop_profile(csr, t)
+    log(f"{tag} relax_jacobi loop profile: kernels {prof['kernel_ms']:.3f} "
+        f"of {prof['loop_ms']:.3f} ms ({100 * prof['kernel_share']:.1f}%); "
+        "by tenths of the steps, kernel ms a step / pairs relaxed: "
+        + ", ".join(f"{k:.4f}/{100 * a:.1f}%" for k, a in zip(
+            prof["kernel_ms_by_tenth"], prof["active_share_by_tenth"])))
     log(f"{tag} comparison done in {time.perf_counter() - t0:.1f} s")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes, "batch": b,
-            "steps_to_convergence": steps, "loop_s": kernel_s,
+    return {"ms": step_ms[default, True], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "batch": b, "vec": default,
+            "ms_by_vec": {f"{v} {'visit order' if o else 'by id'}": ms
+                          for (v, o), ms in step_ms.items()},
+            "steps_to_convergence": steps, "mid_cut": mid,
+            "loop_ms": main["ms"], "loop_steps": steps,
+            "loop_ms_per_step": main["ms_per_step"],
+            "loop_active_pairs": main["active_pairs"],
+            "loop_bound_ms": main["bound_ms"],
+            "loop_dense_bound_ms": steps * bound_ms, "loops": loops,
+            "loop_profile": prof,
             "max_abs_err": 0}, d_conv
 
 
@@ -755,6 +910,7 @@ def build_kernel_entries(by_path: dict[str, dict],
             "max_abs_err": max(r["max_abs_err"] for r in per.values()),
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by")},
+            **{k: v for k, v in head.items() if k.startswith("loop_")},
             "library_ms": None, "parity": "bit-identical", "paths": per})
     return entries
 

@@ -17,12 +17,32 @@
 //   shift-plane edges then its straggler edges on the result
 //   (grid_sweep.py:212-224). Sets *flag when any out < d.
 //   Bound: bytes. Each step must read d and write out (8 B a cell) and
-//   gathers one neighbour row segment per edge and column (4 B), which
-//   are L2 hits only while the column tile's rows fit in L2. Design: a
-//   warp is one node's 32 consecutive columns (one 128 B segment a
-//   gather), blocks are ordered column tile by column tile so the blocks
-//   in flight share one 32-column tile of d (N x 128 B: 34 MB at 264k
-//   nodes, 8 MB at 65k), and the edge lists are read once per warp.
+//   gathers one neighbour row segment per edge and column, which are L2
+//   hits only while the rows the blocks in flight touch stay resident.
+//   Design: a warp owns 4 nodes x one column group of 32 * V columns
+//   (V = 1, 2 or 4 consecutive columns a lane, one int/int2/int4 load a
+//   row segment), so the edge list and index math are paid once per V
+//   columns. It takes its nodes' ids and edge ranges in one load, then
+//   their edge lists laid end to end 32 edges at a time in one load
+//   (lane j takes the j-th edge), broadcasts each edge with __shfl_sync,
+//   and issues up to kUnroll neighbour-segment loads before it folds any
+//   of them, so a node costs one L2 round trip, not a chain of two per
+//   edge. The nodes are visited in the CSR's visit order (breadth first
+//   over the graph, `order` / `span`; by id without it), so the warps in
+//   flight gather from a band of rows a few hops wide that stays in L2
+//   whatever the node ids. Blocks are ordered column group by column
+//   group, and out is written with evict-first stores.
+//   Settled tiles (optional): a changed map, one byte per (column group,
+//   node), [T, N]. chg_prev says where step i-1 lowered a value; the step
+//   skips (node, group) when neither the node nor any out-neighbour
+//   changed there (then min(w + d[v]) is the step before's, which the
+//   node already holds, and with two buffers out still holds it, since
+//   the node did not change either), gathers only the out-neighbours
+//   that changed (an unchanged w + d[v] is at least the node's value
+//   already), and writes chg_cur for every node. Without chg_prev every
+//   pair is relaxed over every edge. `active`, when given, counts the
+//   relaxed (node, group) pairs into kActiveSlots counters 128 B apart,
+//   one atomic a block, so the counts do not serialise on one address.
 //
 // first_moves (K2): ops/bellman_ford.py::first_move_from_dist. For each
 //   (x, b) the first out-slot, in ascending slot order with a strict <,
@@ -56,53 +76,222 @@ namespace {
 
 constexpr int kInf = 1000000000;
 
-// K1 / K2 shape: 8 warps a block, a warp = 32 consecutive columns
+// K1 / K2 shape: 8 warps a block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// K1: nodes a warp relaxes
+constexpr unsigned kFull = 0xffffffffu;
+// K1: nodes a warp relaxes (each lane holds one of their row_ptr entries)
 constexpr int kRelaxNodesPerWarp = 4;
+// K1: counters of active (node, group) pairs, 128 B apart
+constexpr int kActiveSlots = 64;
+constexpr int kActiveStride = 16;
 // K2: nodes a warp extracts; tile = kWarps * kFmNodesPerWarp nodes
 constexpr int kFmNodesPerWarp = 8;
 constexpr int kFmTileNodes = kWarps * kFmNodesPerWarp;
 // K3 threads a block
 constexpr int kSweepThreads = 512;
 
+// V consecutive int32 columns at p (4 V-byte aligned): one load
+template <int V>
+__device__ __forceinline__ void load_cols(const int* __restrict__ p,
+                                          int (&v)[V]) {
+  if constexpr (V == 4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const int2 q = __ldg(reinterpret_cast<const int2*>(p));
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// ... and one evict-first store
+template <int V>
+__device__ __forceinline__ void store_cols(int* p, const int (&v)[V]) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<int4*>(p), make_int4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (V == 2) {
+    __stcs(reinterpret_cast<int2*>(p), make_int2(v[0], v[1]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
+// p[i] for a run-time i, without indexing a register array (which would
+// put it in local memory)
+__device__ __forceinline__ int pick(const int (&p)[kRelaxNodesPerWarp + 1],
+                                    int i) {
+  int v = p[0];
+#pragma unroll
+  for (int j = 1; j <= kRelaxNodesPerWarp; ++j) v = i == j ? p[j] : v;
+  return v;
+}
+
+template <int V>
 __global__ void __launch_bounds__(kThreads)
 relax_jacobi_kernel(const int* __restrict__ row_ptr,
                     const int* __restrict__ col, const int* __restrict__ wt,
+                    const int* __restrict__ order,
+                    const int2* __restrict__ span,
                     const int* __restrict__ d, int* __restrict__ out,
-                    int* __restrict__ flag, long long n, int b,
-                    int node_blocks) {
-  // column tile major: consecutive blocks share a column tile
-  const int tile = blockIdx.x / node_blocks;
-  const long long node_block = blockIdx.x % node_blocks;
+                    int* __restrict__ flag,
+                    const uint8_t* __restrict__ chg_prev,
+                    uint8_t* __restrict__ chg_cur,
+                    unsigned long long* __restrict__ active, long long n,
+                    int b, int node_blocks) {
+  // segment loads a warp issues before it folds them
+  constexpr int kUnroll = V == 4 ? 4 : 8;
+  // column group major: consecutive blocks share a group
+  const int group = blockIdx.x / node_blocks;
+  const long long node_block =
+      blockIdx.x - static_cast<long long>(group) * node_blocks;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int c = tile * 32 + lane;
-  const bool live = c < b;
-  bool fell = false;
-  const long long x0 =
+  const int c = (group * 32 + lane) * V;
+  const bool live = c < b;  // b % V == 0: a lane's V columns are all live
+  // the warp's nodes: visit slots s0 .. s0 + np - 1
+  const long long s0 =
       (node_block * kWarps + warp) * static_cast<long long>(kRelaxNodesPerWarp);
-#pragma unroll
-  for (int i = 0; i < kRelaxNodesPerWarp; ++i) {
-    const long long x = x0 + i;
-    if (x >= n) break;
-    const int e0 = __ldg(row_ptr + x);
-    const int e1 = __ldg(row_ptr + x + 1);
-    if (live) {
-      const long long at = x * b + c;
-      const int cur = __ldg(d + at);
-      int acc = cur;
-      for (int e = e0; e < e1; ++e) {
-        const int v = __ldg(col + e);
-        const int via = __ldg(wt + e) + __ldg(d + static_cast<long long>(v) * b + c);
-        acc = min(acc, min(via, kInf));
-      }
-      out[at] = acc;
-      fell |= acc < cur;
+  const int np = s0 >= n ? 0
+      : static_cast<int>(min(n - s0, static_cast<long long>(kRelaxNodesPerWarp)));
+  const uint8_t* __restrict__ prev = chg_prev ? chg_prev + group * n : nullptr;
+  // lane j < np: node j (its id, its edge range)
+  long long xj = 0;
+  int ej0 = 0, ej1 = 0;
+  if (lane < np) {
+    const long long s = s0 + lane;
+    if (order) {
+      xj = __ldg(order + s);
+      const int2 r = __ldg(span + s);
+      ej0 = r.x;
+      ej1 = r.y;
+    } else {
+      xj = s;
+      ej0 = __ldg(row_ptr + s);
+      ej1 = __ldg(row_ptr + s + 1);
     }
   }
-  if (__syncthreads_or(fell) && threadIdx.x == 0) *flag = 1;
+  // bit j: node j changed in the step before
+  const unsigned own_chg = __ballot_sync(
+      kFull, lane < np && (prev == nullptr || __ldg(prev + xj) != 0));
+  // the nodes' edges laid end to end: node j's are q in [p[j], p[j + 1])
+  int p[kRelaxNodesPerWarp + 1];
+  p[0] = 0;
+#pragma unroll
+  for (int j = 0; j < kRelaxNodesPerWarp; ++j) {
+    p[j + 1] = p[j] + __shfl_sync(kFull, ej1 - ej0, j);
+  }
+  const int total = p[kRelaxNodesPerWarp];
+  // the chunk q in [cb, cb + 32), one a lane: destination, weight, and
+  // (bit j of ebits) whether q = cb + j's destination changed
+  int cb = 0x7fffffff;
+  int ecol = 0, ewt = 0;
+  unsigned ebits = 0;
+  auto load_chunk = [&](int at) {
+    cb = at;
+    const int q = at + lane;
+    int i = 0;
+#pragma unroll
+    for (int j = 1; j < kRelaxNodesPerWarp; ++j) i += q >= p[j];
+    const int e = __shfl_sync(kFull, ej0, i) + q - pick(p, i);
+    bool ch = false;
+    ecol = 0;
+    ewt = 0;
+    if (q < total) {
+      ecol = __ldg(col + e);
+      ewt = __ldg(wt + e);
+      if (prev) ch = __ldg(prev + ecol) != 0;
+    }
+    ebits = __ballot_sync(kFull, ch);
+  };
+  unsigned act_nodes = 0, fell_nodes = 0;
+  for (int i = 0; i < np; ++i) {
+    const long long x = __shfl_sync(kFull, xj, i);
+    const int q0 = pick(p, i), q1 = pick(p, i + 1);
+    if (q0 < cb || q1 - cb > 32) load_chunk(q0);
+    // active: the node changed in the step before, or an out-neighbour did
+    bool act = true;
+    if (prev) {
+      const int lo = q0 - cb;
+      const int hi = min(q1 - cb, 32);
+      const unsigned bits =
+          hi > lo ? (hi - lo == 32 ? kFull : ((1u << (hi - lo)) - 1u) << lo)
+                  : 0u;
+      act = ((own_chg >> i) & 1u) || (ebits & bits);
+      // a node past 32 out-edges: the rest of its list, 32 at a time
+      const int e0 = __shfl_sync(kFull, ej0, i) - q0;
+      for (int k = cb + 32; !act && k < q1; k += 32) {
+        const int q = k + lane;
+        act = __any_sync(kFull, q < q1 && __ldg(prev + __ldg(col + e0 + q)) != 0);
+      }
+    }
+    if (!act) continue;  // out already holds this node's value
+    act_nodes |= 1u << i;
+    int own[V], acc[V];
+    if (live) {
+      load_cols<V>(d + x * b + c, own);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) own[j] = kInf;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = own[j];
+    for (int k = q0; k < q1; k += kUnroll) {
+      // past 32 out-edges (then cb == q0 and kUnroll divides 32, so a
+      // round never straddles two chunks)
+      if (k - cb >= 32) load_chunk(k);
+      int val[kUnroll][V];
+      int wv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int src = (k + u - cb) & 31;
+        const int v = __shfl_sync(kFull, ecol, src);
+        const int w = __shfl_sync(kFull, ewt, src);
+        wv[u] = 0;
+#pragma unroll
+        for (int j = 0; j < V; ++j) val[u][j] = kInf;
+        // with a map, only the neighbours that changed: an unchanged
+        // w + d[v] is at least the node's value already (the step before
+        // folded it in)
+        if (live && k + u < q1 && (prev == nullptr || ((ebits >> src) & 1u))) {
+          wv[u] = w;
+          load_cols<V>(d + static_cast<long long>(v) * b + c, val[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          acc[j] = min(acc[j], min(val[u][j] + wv[u], kInf));
+        }
+      }
+    }
+    // an active node is written even when nothing fell: the second
+    // buffer holds the iterate before the one it just had
+    bool fell = false;
+    if (live) {
+      store_cols<V>(out + x * b + c, acc);
+#pragma unroll
+      for (int j = 0; j < V; ++j) fell |= acc[j] < own[j];
+    }
+    if (__any_sync(kFull, fell)) fell_nodes |= 1u << i;
+  }
+  // lane j < np writes node j's changed byte, skipped nodes' too
+  if (chg_cur && lane < np) {
+    chg_cur[group * n + xj] = static_cast<uint8_t>((fell_nodes >> lane) & 1u);
+  }
+  const int block_fell =
+      __syncthreads_count(lane < np && ((fell_nodes >> lane) & 1u));
+  const int block_active =
+      __syncthreads_count(lane < np && ((act_nodes >> lane) & 1u));
+  if (threadIdx.x == 0) {
+    if (block_fell && *flag == 0) *flag = 1;
+    if (active && block_active) {
+      atomicAdd(active + (blockIdx.x % kActiveSlots) * kActiveStride,
+                static_cast<unsigned long long>(block_active));
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -209,20 +398,52 @@ grid_sweep_kernel(const int* __restrict__ wl, const int* __restrict__ wr,
 // synchronising and returns cudaGetLastError() so a refused launch is
 // seen. CSR arrays are int32: row_ptr [n + 1], col and wt [m].
 
+// relax_jacobi: vec (columns a lane: 1, 2 or 4) divides b; a column
+// group is 32 * vec columns. order (int32 [n], a permutation of the
+// nodes) and span (int32 [n, 2], the out-edge range of node order[s]) set
+// the visit order; null visits the nodes by id. chg_prev, chg_cur (uint8
+// [T, n], T = ceil(b / (32 vec))) and active (uint64 [kActiveSlots *
+// kActiveStride]) may each be null; d and out are 4 vec-byte aligned.
 extern "C" int relax_jacobi(const void* row_ptr, const void* col,
-                            const void* wt, const void* d, void* out,
-                            void* flag, long long n, int b, void* stream) {
+                            const void* wt, const void* order,
+                            const void* span, const void* d, void* out,
+                            void* flag, const void* chg_prev, void* chg_cur,
+                            void* active, long long n, int b, int vec,
+                            void* stream) {
+  if ((vec != 1 && vec != 2 && vec != 4) || b % vec ||
+      (order == nullptr) != (span == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0 && b > 0) {
     const long long per_block = static_cast<long long>(kWarps) * kRelaxNodesPerWarp;
     const long long node_blocks = (n + per_block - 1) / per_block;
-    const long long blocks = node_blocks * ((b + 31) / 32);
+    const long long cols = 32LL * vec;
+    const long long blocks = node_blocks * ((b + cols - 1) / cols);
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    relax_jacobi_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-        static_cast<const int*>(wt), static_cast<const int*>(d),
-        static_cast<int*>(out), static_cast<int*>(flag), n, b,
-        static_cast<int>(node_blocks));
+    const auto grid = static_cast<unsigned>(blocks);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto rp = static_cast<const int*>(row_ptr);
+    const auto cl = static_cast<const int*>(col);
+    const auto w = static_cast<const int*>(wt);
+    const auto ord = static_cast<const int*>(order);
+    const auto sp = static_cast<const int2*>(span);
+    const auto din = static_cast<const int*>(d);
+    const auto dout = static_cast<int*>(out);
+    const auto f = static_cast<int*>(flag);
+    const auto prev = static_cast<const uint8_t*>(chg_prev);
+    const auto cur = static_cast<uint8_t*>(chg_cur);
+    const auto act = static_cast<unsigned long long*>(active);
+    const auto nb = static_cast<int>(node_blocks);
+    if (vec == 4) {
+      relax_jacobi_kernel<4><<<grid, kThreads, 0, s>>>(
+          rp, cl, w, ord, sp, din, dout, f, prev, cur, act, n, b, nb);
+    } else if (vec == 2) {
+      relax_jacobi_kernel<2><<<grid, kThreads, 0, s>>>(
+          rp, cl, w, ord, sp, din, dout, f, prev, cur, act, n, b, nb);
+    } else {
+      relax_jacobi_kernel<1><<<grid, kThreads, 0, s>>>(
+          rp, cl, w, ord, sp, din, dout, f, prev, cur, act, n, b, nb);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,13 @@ Source: ``csrc/cpd_build.cu``, built with ``nvcc`` at first use
   fell. Over the graph's full out-edge CSR (:func:`csr_from_ell`) it is
   one step of the ``ell``, ``ellsplit`` and ``shift`` builds, which all
   compute this same iterate; over the grid's shift-plane and straggler
-  edge sets it is the fast sweep's off-lattice stage (two launches);
+  edge sets it is the fast sweep's off-lattice stage (two launches).
+  It visits the nodes in the CSR's breadth-first visit order
+  (:func:`visit_order`), so the rows it gathers stay in L2. Given a
+  changed map (one byte per column group and node, where the step
+  before lowered a value) it skips the settled (node, group) pairs,
+  gathers only the neighbours that changed, and writes the map of its
+  own step: the same iterate, exactly;
 * :func:`first_moves` (K2) — the first-move extraction of
   ``bellman_ford.first_move_from_dist``, from ``[N, B]`` distances into
   int8 ``[B, N]`` rows (optionally straight into a larger table);
@@ -24,8 +30,10 @@ from a failed build or launch. Each launch adds one to the wrapper's
 
 :func:`jacobi_dist` and :func:`sweep_dist` are the host loops with the
 JAX ``while_loop`` semantics (``while changed and i < limit``), reading
-the flag after every step or cycle; :func:`build_fm_jacobi` is the card's
-``ell``/``ellsplit``/``shift`` build.
+the flag after every step or cycle (:func:`jacobi_dist` skips settled
+tiles through the changed map, and its CPU branch runs the same
+bookkeeping with :func:`relax_work_set`); :func:`build_fm_jacobi` is the
+card's ``ell``/``ellsplit``/``shift`` build.
 """
 
 from __future__ import annotations
@@ -47,10 +55,18 @@ FIRST_MOVES_ENTRY = "first_moves"
 SWEEP_ENTRY = "grid_sweep_cycle"
 #: threads of a grid-sweep block (``kSweepThreads`` in the source)
 SWEEP_THREADS = 512
+#: columns a relax lane may own (``V`` in the source); a warp's column
+#: group, the changed map's tile, is ``32 * vec`` columns
+RELAX_VECS = (4, 2, 1)
+#: the relax kernel's active-pair counters (``kActiveSlots`` x
+#: ``kActiveStride`` uint64 in the source; slot s is ``[s, 0]``)
+ACTIVE_SLOTS = 64
+ACTIVE_STRIDE = 16
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    RELAX_ENTRY: [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
+    RELAX_ENTRY: [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                  _P],
     FIRST_MOVES_ENTRY: [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     SWEEP_ENTRY: [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -104,10 +120,15 @@ def _on_cuda(x: torch.Tensor, what: str) -> bool:
 
 class EdgeCSR(NamedTuple):
     """A directed edge set by source node, int32 on one device:
-    ``row_ptr [N + 1]``, ``col [M]`` (destinations), ``wt [M]``."""
+    ``row_ptr [N + 1]``, ``col [M]`` (destinations), ``wt [M]``; and
+    optionally the order K1 visits the nodes in, ``order [N]`` (a
+    permutation, :func:`visit_order`) with ``span [N, 2]``, the out-edge
+    range ``[begin, end)`` of node ``order[s]`` (None: by id)."""
     row_ptr: torch.Tensor
     col: torch.Tensor
     wt: torch.Tensor
+    order: torch.Tensor | None = None
+    span: torch.Tensor | None = None
 
     @property
     def n(self) -> int:
@@ -124,18 +145,47 @@ class EdgeCSR(NamedTuple):
             torch.arange(self.n, device=self.device), deg.long())
 
 
+def visit_order(row_ptr: np.ndarray, col: np.ndarray) -> np.ndarray:
+    """int32 ``[N]``: the nodes breadth first over the out-edges from node
+    0, then those it did not reach, by id. Consecutive nodes in this
+    order sit a few hops apart, so the relax kernel's warps in flight
+    gather from a small band of rows, whatever the node ids."""
+    n = len(row_ptr) - 1
+    seen = np.zeros(n, bool)
+    front = np.zeros(min(n, 1), np.int64)
+    seen[front] = True
+    levels = []
+    while front.size:
+        levels.append(front)
+        lo = row_ptr[front]
+        cnt = row_ptr[front + 1] - lo
+        at = np.repeat(lo - np.cumsum(cnt) + cnt, cnt) + np.arange(cnt.sum())
+        nxt = np.unique(col[at])
+        front = nxt[~seen[nxt]]
+        seen[front] = True
+    levels.append(np.flatnonzero(~seen))
+    return np.concatenate(levels).astype(np.int32)
+
+
 def csr_from_ell(dg: DeviceGraph) -> EdgeCSR:
     """The full out-edge CSR of ``dg``'s ELL tables, on its device, in
     ELL slot order (edge ``row_ptr[x] + k`` is slot ``k`` of node x, so
-    the extraction's slot numbers are the ELL's)."""
+    the extraction's slot numbers are the ELL's), with its visit order
+    (computed on the host)."""
     pad_eid = dg.w_pad.shape[0] - 1
     real = dg.out_eid != pad_eid          # real slots come first in a row
-    deg = real.sum(dim=1)
-    row_ptr = torch.zeros(dg.n + 1, dtype=torch.int64, device=dg.device)
-    torch.cumsum(deg, 0, out=row_ptr[1:])
-    return EdgeCSR(row_ptr=row_ptr.to(torch.int32),
-                   col=dg.out_nbr[real].contiguous(),
-                   wt=dg.w_pad[dg.out_eid[real].long()].contiguous())
+    col = dg.out_nbr[real].contiguous()
+    row_ptr = np.zeros(dg.n + 1, np.int64)
+    np.cumsum(real.sum(dim=1).cpu().numpy(), out=row_ptr[1:])
+    order = visit_order(row_ptr, col.cpu().numpy())
+    span = np.stack([row_ptr[order], row_ptr[order + 1]], axis=1)
+
+    def up(a):
+        return torch.as_tensor(a.astype(np.int32), device=dg.device)
+
+    return EdgeCSR(row_ptr=up(row_ptr), col=col,
+                   wt=dg.w_pad[dg.out_eid[real].long()].contiguous(),
+                   order=up(order), span=up(span))
 
 
 def csr_from_edges(src, dst, w, n: int, device) -> EdgeCSR:
@@ -166,19 +216,139 @@ def relax_jacobi_plain(csr: EdgeCSR, d: torch.Tensor) -> torch.Tensor:
     return nd
 
 
+def relax_vec(b: int) -> int:
+    """Columns a relax lane owns for ``b``-column distances: the widest of
+    :data:`RELAX_VECS` that divides ``b`` and leaves the warp's column
+    group at least half full (``b > 16 * vec``), else 1 — 4 at the
+    build's 512- and 8,192-column chunks."""
+    return next((v for v in RELAX_VECS if b % v == 0 and b > 16 * v), 1)
+
+
+def relax_groups(b: int, cols: int) -> int:
+    """Column groups (changed-map rows) of a ``b``-column step."""
+    return -(-b // cols)
+
+
+def tile_changed(fell: torch.Tensor, cols: int) -> torch.Tensor:
+    """uint8 ``[T, N]`` changed map of a bool ``[N, B]`` ``fell``: 1 where
+    any column of the node's ``cols``-column group is set."""
+    n, b = fell.shape
+    pad = relax_groups(b, cols) * cols - b
+    grouped = torch.nn.functional.pad(fell, (0, pad)).view(n, -1, cols)
+    return grouped.any(dim=2).T.to(torch.uint8).contiguous()
+
+
+def target_map(n: int, targets: torch.Tensor, cols: int) -> torch.Tensor:
+    """The changed map of the first step: each valid target's node in its
+    column's group (where the starting iterate differs from all-INF)."""
+    b = targets.shape[0]
+    chg = torch.zeros((relax_groups(b, cols), n), dtype=torch.uint8,
+                      device=targets.device)
+    valid = targets >= 0
+    at = torch.arange(b, device=targets.device)[valid]
+    chg[at // cols, targets[valid].long()] = 1
+    return chg
+
+
+def _by_column(x: torch.Tensor, cols: int, b: int) -> torch.Tensor:
+    """``[T, K]`` per column group → ``[K, B]`` per column."""
+    return x.T.repeat_interleave(cols, dim=1)[:, :b]
+
+
+def relax_work_set(csr: EdgeCSR, chg: torch.Tensor) -> torch.Tensor:
+    """bool ``[T, N]``: the (group, node) pairs a step must relax after
+    the step that wrote the changed map ``chg`` (uint8 ``[T, N]``) — the
+    node itself or one of its out-neighbours changed in that group."""
+    act = chg.to(torch.int32)
+    if csr.col.numel():
+        act.index_add_(1, csr.sources(), act[:, csr.col.long()])
+    return act > 0
+
+
+def relax_changed_plain(csr: EdgeCSR, d: torch.Tensor, chg: torch.Tensor,
+                        cols: int) -> torch.Tensor:
+    """The plain step over the edges whose destination changed in the
+    column's group (``chg``, the previous step's map): where the map
+    holds for ``d``'s step, the same iterate as :func:`relax_jacobi_plain`
+    (an unchanged ``w + d[v]`` is at least ``d[x]`` already)."""
+    nd = d.clone()
+    if csr.col.numel():
+        dst = csr.col.long()
+        via = d.index_select(0, dst).add_(csr.wt[:, None]).clamp_max_(TINF)
+        via.masked_fill_(_by_column(chg[:, dst], cols, d.shape[1]) == 0,
+                         TINF)
+        nd.scatter_reduce_(0, csr.sources()[:, None].expand_as(via), via,
+                           "amin")
+    return nd
+
+
+def _relax_cpu(csr: EdgeCSR, d: torch.Tensor, out: torch.Tensor,
+               flag: torch.Tensor, chg_prev, chg_cur, active,
+               cols: int) -> torch.Tensor:
+    """The CPU branch of :func:`relax_jacobi`, with the kernel's
+    bookkeeping: the work set is written, the rest of ``out`` kept."""
+    n, b = d.shape
+    if chg_prev is None:
+        nd = relax_jacobi_plain(csr, d)
+        act = torch.ones((relax_groups(b, cols), n), dtype=torch.bool)
+    else:
+        nd = relax_changed_plain(csr, d, chg_prev, cols)
+        act = relax_work_set(csr, chg_prev)
+    cell = _by_column(act, cols, b)
+    torch.where(cell, nd, out, out=out)
+    fell = (nd < d) & cell
+    if bool(fell.any()):
+        flag.fill_(1)
+    if chg_cur is not None:
+        chg_cur.copy_(tile_changed(fell, cols))
+    if active is not None:
+        active[0, 0] += int(act.sum())
+    return out
+
+
+def _pick_vec(d: torch.Tensor, out: torch.Tensor, vec) -> int:
+    """The caller's ``vec``, or :func:`relax_vec`'s narrowed until both
+    buffers on the card are aligned for it."""
+    b = d.shape[1] if d.dim() == 2 else -1
+    if vec is None:
+        vec = relax_vec(b)
+        while d.is_cuda and (d.data_ptr() | out.data_ptr()) % (4 * vec):
+            vec //= 2
+    if vec not in RELAX_VECS or b % vec:
+        raise ValueError(f"vec must be one of {RELAX_VECS} and divide "
+                         f"B = {b}, got {vec}")
+    return vec
+
+
 def relax_jacobi(csr: EdgeCSR, d: torch.Tensor, out: torch.Tensor,
-                 flag: torch.Tensor) -> torch.Tensor:
+                 flag: torch.Tensor, chg_prev: torch.Tensor | None = None,
+                 chg_cur: torch.Tensor | None = None,
+                 active: torch.Tensor | None = None,
+                 vec: int | None = None) -> torch.Tensor:
     """K1: ``out = min(d, min over edges (w + d[dst]))`` for int32
     ``[N, B]`` ``d`` and ``out`` (distinct buffers); sets ``flag[0] = 1``
-    (int32 ``[1]``) when any value fell. Returns ``out``."""
+    (int32 ``[1]``) when any value fell. Returns ``out``.
+
+    ``vec``: columns a lane owns (None → :func:`relax_vec`); the column
+    group is ``32 * vec`` columns. The kernel visits the nodes in
+    ``csr.order`` where it is set. ``chg_prev``: the previous step's
+    uint8 ``[T, N]`` changed map (``T = relax_groups(B, 32 * vec)``);
+    with it the step relaxes only :func:`relax_work_set`'s pairs, over
+    the edges whose destination changed (:func:`relax_changed_plain`),
+    and leaves ``out`` as it is elsewhere — exact when ``d`` is the step
+    after ``out``'s iterate and ``chg_prev`` that step's map (the loop's
+    two buffers); None relaxes every pair over every edge. ``chg_cur``:
+    receives this step's changed map. ``active``: int64
+    ``[ACTIVE_SLOTS, ACTIVE_STRIDE]`` counters; the step adds the pairs
+    it relaxed (their sum over ``[:, 0]``)."""
     n = csr.n
-    if not _on_cuda(d, "relax"):
-        nd = relax_jacobi_plain(csr, d)
-        if bool((nd < d).any()):
-            flag.fill_(1)
-        return out.copy_(nd)
-    dev = d.device
     b = d.shape[1] if d.dim() == 2 else -1
+    on_cuda = _on_cuda(d, "relax")
+    vec = _pick_vec(d, out, vec)
+    if not on_cuda:
+        return _relax_cpu(csr, d, out, flag, chg_prev, chg_cur, active,
+                          32 * vec)
+    dev = d.device
     _check("d", d, torch.int32, (n, b), dev)
     _check("out", out, torch.int32, (n, b), dev)
     _check("flag", flag, torch.int32, (1,), dev)
@@ -188,11 +358,38 @@ def relax_jacobi(csr: EdgeCSR, d: torch.Tensor, out: torch.Tensor,
     _check("wt", csr.wt, torch.int32, (m,), dev)
     if d.data_ptr() == out.data_ptr():
         raise ValueError("relax_jacobi writes a second buffer: out is d")
+    if (d.data_ptr() | out.data_ptr()) % (4 * vec):
+        raise ValueError(f"d and out must be {4 * vec}-byte aligned for "
+                         f"vec = {vec}")
+    if csr.order is not None:
+        _check("order", csr.order, torch.int32, (n,), dev)
+        _check("span", csr.span, torch.int32, (n, 2), dev)
+    groups = relax_groups(b, 32 * vec)
+    for name, chg in (("chg_prev", chg_prev), ("chg_cur", chg_cur)):
+        if chg is not None:
+            _check(name, chg, torch.uint8, (groups, n), dev)
+    if chg_prev is not None and chg_cur is not None and \
+            chg_prev.data_ptr() == chg_cur.data_ptr():
+        raise ValueError("chg_cur must be another buffer than chg_prev")
+    if active is not None:
+        _check("active", active, torch.int64, (ACTIVE_SLOTS, ACTIVE_STRIDE),
+               dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     _launch(RELAX_ENTRY, dev, csr.row_ptr.data_ptr(), csr.col.data_ptr(),
-            csr.wt.data_ptr(), d.data_ptr(), out.data_ptr(),
-            flag.data_ptr(), n, b)
+            csr.wt.data_ptr(), ptr(csr.order), ptr(csr.span), d.data_ptr(),
+            out.data_ptr(), flag.data_ptr(), ptr(chg_prev), ptr(chg_cur),
+            ptr(active), n, b, vec)
     relax_jacobi.launches += 1
     return out
+
+
+def active_counter(device) -> torch.Tensor:
+    """Zeroed counters for :func:`relax_jacobi`'s ``active``."""
+    return torch.zeros((ACTIVE_SLOTS, ACTIVE_STRIDE), dtype=torch.int64,
+                       device=device)
 
 
 def write_rows(fm: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
@@ -284,27 +481,51 @@ grid_sweep.launches = 0
 
 # ---------------------------------------------------------------- loops
 
-def jacobi_dist(csr: EdgeCSR, targets: torch.Tensor,
-                max_iters: int = 0) -> tuple[torch.Tensor, int]:
+def jacobi_dist(csr: EdgeCSR, targets: torch.Tensor, max_iters: int = 0,
+                *, skip: bool = True, vec: int | None = None,
+                stats: dict | None = None) -> tuple[torch.Tensor, int]:
     """``([N, B] distances, steps)``: Jacobi steps of :func:`relax_jacobi`
     over ``csr`` while a step lowers a distance and fewer than ``limit``
-    steps ran (``max_iters``, 0 = N-1) — the JAX loop. The flag is read
-    after every step."""
+    steps ran (``max_iters``, 0 = N-1) — the JAX loop, the same iterate
+    at every cut. The flag is read after every step.
+
+    ``skip``: pass each step the changed map of the step before (the
+    first step that of the starting iterate, :func:`target_map`), so only
+    the work set is relaxed; the second buffer then starts as a copy of
+    the starting iterate. ``vec``: columns a lane owns (None →
+    :func:`relax_vec`). ``stats``: a dict that receives ``steps``,
+    ``vec``, ``groups`` (changed-map rows of ``32 * vec`` columns),
+    ``active_pairs`` (the (node, group) pairs relaxed, summed over the
+    steps) and ``pairs_per_step`` (N x groups)."""
     n = csr.n
     limit = (n - 1) if max_iters == 0 else max_iters
     d = init_dist(n, targets)
     if not bool((targets >= 0).any()):
         return d, 0
-    spare = torch.empty_like(d)
+    spare = d.clone() if skip else torch.empty_like(d)
+    vec = _pick_vec(d, spare, vec)
+    groups = relax_groups(d.shape[1], 32 * vec)
+    if skip:
+        prev = target_map(n, targets, 32 * vec)
+        cur = torch.empty_like(prev)
+    else:
+        prev = cur = None
     flag = torch.zeros(1, dtype=torch.int32, device=d.device)
+    active = active_counter(d.device)
     i = 0
     while i < limit:
         flag.zero_()
-        relax_jacobi(csr, d, spare, flag)
+        relax_jacobi(csr, d, spare, flag, prev, cur, active, vec)
         d, spare = spare, d
+        if skip:
+            prev, cur = cur, prev
         i += 1
         if not bool(flag.item()):
             break
+    if stats is not None:
+        stats.update(steps=i, vec=vec, groups=groups,
+                     active_pairs=int(active[:, 0].sum()),
+                     pairs_per_step=n * groups)
     return d, i
 
 

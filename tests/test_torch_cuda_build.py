@@ -1,8 +1,13 @@
 """PyTorch port, CPD build kernels on the card (``csrc/cpd_build.cu``):
 the Jacobi relax (K1), the first-move extraction (K2) and the grid sweep
-(K3) equal their plain torch versions on the same inputs — K1 one step,
-at ``max_iters`` cuts and at convergence, and as the sweep's two-launch
-off-lattice stage (shift planes, then stragglers on the result); K2
+(K3) equal their plain torch versions on the same inputs — K1 one step
+at every column group width, the nodes in the CSR's visit order or by
+id (no changed map: every pair relaxed), the
+loop with its settled-tile skip at ``max_iters`` cuts, a mid cut and at
+convergence with the plain loop's step count for B from 1 to 4,096, the
+changed map, flag and relaxed-pair count equal to the CPU branch's
+step by step, and as the sweep's two-launch off-lattice stage (shift
+planes, then stragglers on the result); K2
 byte for byte with unreachable nodes, target columns and pad targets,
 and writing rows past byte 2^31 of a larger table; K3 after one and two
 cycles and at convergence. Every build method gives the CPU's table on
@@ -67,21 +72,124 @@ def _targets(n: int, b: int, seed: int) -> np.ndarray:
     return t
 
 
+def _batch(n: int, b: int, seed: int) -> np.ndarray:
+    """``b`` targets, repeats allowed (``b`` may exceed ``n``), with pad
+    columns (-1) among them."""
+    t = np.random.default_rng(seed).integers(0, n, b).astype(np.int32)
+    t[3::5] = -1
+    return t
+
+
+#: batch widths, with the columns a lane each gets: 1 at B = 1, 31 and
+#: 33, 4 at 100, 512 and 4096; ragged last groups
+RELAX_BATCHES = [1, 31, 33, 100, 512, 4096]
+
+
 @pytest.mark.parametrize("name", sorted(GRAPHS))
-@pytest.mark.parametrize("cut", [1, 2, 4, 0])
-def test_relax_equals_plain_at_cuts(dev, name, cut):
+@pytest.mark.parametrize("cut", [1, 2, 4, 7, 0])
+@pytest.mark.parametrize("b", RELAX_BATCHES)
+def test_relax_equals_plain_at_cuts(dev, name, cut, b):
+    """The skip loop on the card against the plain split relaxation, with
+    the plain loop's step count (the CPU branch, dense)."""
     g = GRAPHS[name]()
-    t = _targets(g.n, 70, cut)
+    t = _batch(g.n, b, cut)
     want = dist_to_targets_split(ell_split_graph(g), t, cut)
+    _, want_steps = cbk.jacobi_dist(cbk.csr_from_ell(DeviceGraph.from_graph(
+        g, device="cpu")), torch.as_tensor(t), cut, skip=False)
     dg = DeviceGraph.from_graph(g, device=dev)
     before = cbk.relax_jacobi.launches
     d, steps = cbk.jacobi_dist(cbk.csr_from_ell(dg),
                                torch.as_tensor(t, device=dev), cut)
     torch.cuda.synchronize()
     assert torch.equal(d.T.cpu(), want)
+    assert steps == want_steps
     assert cbk.relax_jacobi.launches - before == steps > 0
     if cut:
         assert steps <= cut
+
+
+def _csr(g, dev, by_id: bool = False):
+    """``g``'s full out-edge CSR on ``dev``: in its visit order, or with
+    the nodes visited by id."""
+    csr = cbk.csr_from_ell(DeviceGraph.from_graph(g, device=dev))
+    return csr._replace(order=None, span=None) if by_id else csr
+
+
+@pytest.mark.parametrize("vec", [1, 2, 4])
+@pytest.mark.parametrize("by_id", [False, True])
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("cut", [3, 0])
+def test_relax_loop_every_width(dev, vec, by_id, skip, cut):
+    """Each column group width, nodes in the visit order or by id, with
+    and without the skip, against the plain loop (B = 100: groups of
+    32, 64 and 128 columns)."""
+    g = GRAPHS["road"]()
+    t = _batch(g.n, 100, vec)
+    csr_cpu = cbk.csr_from_ell(DeviceGraph.from_graph(g, device="cpu"))
+    want, want_steps = cbk.jacobi_dist(csr_cpu, torch.as_tensor(t), cut,
+                                       skip=False)
+    stats = {}
+    d, steps = cbk.jacobi_dist(
+        _csr(g, dev, by_id), torch.as_tensor(t, device=dev), cut,
+        skip=skip, vec=vec, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(d.cpu(), want) and steps == want_steps
+    assert stats["vec"] == vec
+
+
+@pytest.mark.parametrize("vec", [1, 2, 4])
+@pytest.mark.parametrize("name", ["road", "city"])
+def test_changed_map_equals_plain_each_step(dev, name, vec):
+    """The kernel and the CPU branch step in lockstep with the changed
+    map: after each of the first steps the distances, the map, the flag
+    and the count of relaxed pairs are equal."""
+    g = GRAPHS[name]()
+    t = torch.as_tensor(_batch(g.n, 136, vec))
+    sides = {}
+    for where in ("cpu", dev):
+        tt = t.to(where)
+        d = bellman_ford.init_dist(g.n, tt)
+        prev = cbk.target_map(g.n, tt, 32 * vec)
+        sides[where] = [cbk.csr_from_ell(DeviceGraph.from_graph(
+            g, device=where)), d, d.clone(), prev, torch.empty_like(prev)]
+    for step in range(6):
+        seen = []
+        for where, st in sides.items():
+            csr, d, spare, prev, cur = st
+            flag = torch.zeros(1, dtype=torch.int32, device=d.device)
+            active = cbk.active_counter(d.device)
+            cbk.relax_jacobi(csr, d, spare, flag, prev, cur, active, vec)
+            st[1:] = [spare, d, cur, prev]
+            seen.append((spare.cpu(), cur.cpu(), int(flag.item()),
+                         int(active[:, 0].sum())))
+        (d_a, c_a, f_a, n_a), (d_b, c_b, f_b, n_b) = seen
+        assert torch.equal(d_a, d_b), step
+        assert torch.equal(c_a, c_b), step
+        assert (f_a, n_a) == (f_b, n_b), step
+
+
+@pytest.mark.parametrize("vec", [1, 2, 4])
+@pytest.mark.parametrize("by_id", [False, True])
+def test_one_relax_step_any_width(dev, vec, by_id):
+    """With no map the kernel is the dense plain step at every width, in
+    either visit order, whatever the second buffer held, and counts
+    every pair."""
+    g = synth_road_network(2000, seed=7)
+    rng = np.random.default_rng(vec)
+    d = rng.integers(0, 10 ** 9 + 1, (g.n, 260)).astype(np.int32)
+    d[rng.random(d.shape) < 0.3] = 10 ** 9
+    csr = _csr(g, dev, by_id)
+    d_dev = torch.as_tensor(d, device=dev)
+    out = torch.full_like(d_dev, -3)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    active = cbk.active_counter(dev)
+    cbk.relax_jacobi(csr, d_dev, out, flag, active=active, vec=vec)
+    torch.cuda.synchronize()
+    csr_cpu = cbk.csr_from_ell(DeviceGraph.from_graph(g, device="cpu"))
+    want = cbk.relax_jacobi_plain(csr_cpu, torch.as_tensor(d))
+    assert torch.equal(out.cpu(), want)
+    assert int(flag.item()) == int(bool((want < torch.as_tensor(d)).any()))
+    assert int(active[:, 0].sum()) == g.n * cbk.relax_groups(260, 32 * vec)
 
 
 def test_one_relax_step_equals_plain(dev):
@@ -251,6 +359,18 @@ def test_refused_launch_raises(dev):
                     flag.data_ptr(), gd.height, gd.width, 4, 3)
     with pytest.raises(ValueError, match="cols must divide"):
         cbk.grid_sweep(gd, d, flag, cols=3)
+    csr = cbk.csr_from_ell(DeviceGraph.from_graph(g, device=dev))
     with pytest.raises(ValueError, match="second buffer"):
-        cbk.relax_jacobi(cbk.csr_from_ell(DeviceGraph.from_graph(
-            g, device=dev)), d, d, flag)
+        cbk.relax_jacobi(csr, d, d, flag)
+    for order, span, vec in ((None, None, 3),
+                             (csr.order.data_ptr(), None, 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cbk._launch(cbk.RELAX_ENTRY, dev, csr.row_ptr.data_ptr(),
+                        csr.col.data_ptr(), csr.wt.data_ptr(), order, span,
+                        d.data_ptr(), d.clone().data_ptr(), flag.data_ptr(),
+                        None, None, None, g.n, 4, vec)
+    with pytest.raises(ValueError, match="aligned"):
+        buf = torch.zeros(g.n * 2 + 1, dtype=torch.int32, device=dev)
+        cbk.relax_jacobi(csr, buf[1:].view(g.n, 2),
+                         torch.zeros((g.n, 2), dtype=torch.int32,
+                                     device=dev), flag, vec=2)
