@@ -53,11 +53,17 @@ points a user calls, then the compressed-residency path:
    rounds, the extract round inflates rows instead); hold the pack4
    kernel against its plain version on those two rounds' exact inputs;
    time ``decompress_rows`` of a batch's distinct rows under pack4 and
-   rle; free-flow costs must equal reverse-Dijkstra; hold the sweep
+   rle; free-flow costs must equal reverse-Dijkstra; the build's sweep
+   launches must be one a chunk (the lattice has no off-lattice edges,
+   so a launch runs its chunk's cycles to convergence); hold the sweep
    kernel against the plain sweep on worker 0's first 512 targets (after
-   1 and 2 cycles and at convergence) and the extraction kernel against
-   the plain extraction, and time a cycle for each column group a block
-   may own;
+   1 and 2 cycles and at convergence, with the plain loop's cycle count)
+   and the extraction kernel against the plain extraction, and time one
+   cycle for each count of columns a block may own, beside both bounds,
+   and the build's one-launch loop, a cycle each; on a 6,000 x 6 lattice
+   (rows past a block's shared memory, swept in pieces) ``auto`` must
+   resolve ``sweep`` and the sweep must equal the plain loop at
+   convergence with its cycle count;
 4. campaign path (``[campaign]`` lines), the system's own pipeline on
    a metro-scale road network whose whole index is resident on the card:
    ``synth_road_network(65_536, seed=0)`` written as an ``.xy`` file, a
@@ -176,8 +182,11 @@ EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit"}
 #: (Jacobi steps; sweep cycles), before the check at convergence
 RELAX_CUT = 4
 SWEEP_CUTS = (1, 2)
-#: batch columns a sweep block may own, timed side by side on the grid
-SWEEP_COLS = (1, 2, 4, 8, 16, 32)
+#: a lattice (width, height) past the row a sweep block holds in shared
+#: memory (2,552 cells at one column a block), so the kernel sweeps each
+#: row in pieces; ``auto`` builds it by sweep. Its batch of targets.
+WIDE_GRID = (6000, 6)
+WIDE_BATCH = 64
 #: the three build kernels' entries in the kernel table
 BUILD_KERNELS = {
     "relax_jacobi": "distributed_oracle_search_tpu/ops/ell_split.py:115 "
@@ -818,59 +827,137 @@ def first_moves_vs_plain(tag: str, dg, csr, t, dist_nb) -> dict:
             "max_abs_err": 0}
 
 
+def plain_sweep_loop(gd, t, cuts) -> tuple[dict, torch.Tensor, int]:
+    """The plain sweep's JAX loop (``while changed and i < limit``: four
+    quadrant sweeps, then the off-lattice stage) on one chunk, run once:
+    ``({cut: [N, B] distances after cut cycles}, converged, cycles)``."""
+    d = bellman_ford.init_dist(gd.n, t)
+    changed = bool((d < bellman_ford.TINF).any())
+    at, i = {}, 0
+    while changed and i < gd.n - 1:
+        before = d.clone()
+        grid_sweep.sweep_quadrants(gd, d)
+        d = grid_sweep.off_lattice(gd, d)
+        changed = bool((d < before).any())
+        i += 1
+        if i in cuts:
+            at[i] = d.clone()
+    return at, d, i
+
+
+def wide_sweep_vs_plain(tag: str) -> dict:
+    """The sweep kernel on the WIDE_GRID lattice (rows swept in pieces)
+    against the plain sweep loop at convergence, with its cycle count;
+    one cycle timed."""
+    g = synth_city_graph(*WIDE_GRID, seed=SEED, shortcut_frac=0.0)
+    kind, gg = cpd.pick_build_kernel(g, "auto")
+    if kind != "sweep":
+        raise AssertionError(f"{tag} auto picked {kind} for the "
+                             f"{WIDE_GRID[0]}x{WIDE_GRID[1]} lattice")
+    gd = gg.on("cuda")
+    t = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, g.n, WIDE_BATCH).astype(np.int32), device="cuda")
+    _, want, want_cycles = plain_sweep_loop(gd, t, ())
+    got, cycles = cbk.sweep_dist(gd, t)
+    same_dist("grid_sweep_cycle", got, want.T,
+              f"{tag} {gg.width}x{gg.height} converged")
+    if cycles != want_cycles:
+        raise AssertionError(f"{tag} grid_sweep_cycle: {cycles} cycles on "
+                             f"the wide lattice, the plain loop "
+                             f"{want_cycles}")
+    d0 = bellman_ford.init_dist(g.n, t)
+    d = torch.empty_like(d0)
+    flag = torch.zeros(1, dtype=torch.int32, device=d0.device)
+    ms = time_restored(lambda: d.copy_(d0),
+                       lambda: cbk.grid_sweep(gd, d, flag), KERNEL_REPS // 4)
+    log(f"{tag} grid_sweep_cycle on a {gg.width}x{gg.height} lattice "
+        f"(rows swept in pieces), B={WIDE_BATCH}: equal to the plain sweep "
+        f"at convergence ({cycles} cycles as the plain loop); a cycle "
+        f"{ms:.4f} ms")
+    return {"wide_grid": list(WIDE_GRID), "wide_batch": WIDE_BATCH,
+            "wide_cycles": cycles, "wide_ms": ms}
+
+
 def sweep_vs_plain(tag: str, gg, t) -> tuple[dict, torch.Tensor]:
-    """The sweep kernel (``sweep_dist``) against the plain sweep on one
-    chunk: after each of SWEEP_CUTS cycles and at convergence, equal
-    element by element; one cycle from the chunk's start timed per
-    column group (the default marked) beside its bound and the plain
-    cycle. Returns the entry and the converged ``[N, B]`` distances."""
+    """The sweep kernel (``sweep_dist``, as the build runs it) against the
+    plain sweep loop on one chunk: after each of SWEEP_CUTS cycles and at
+    convergence, equal element by element, with the plain loop's cycle
+    count. Timed: one cycle from the chunk's start (one launch, the two
+    layout copies included) for each count of columns a block owns, the
+    default marked, beside the one-read-one-write bound and the
+    four-sweep bound; the build's loop (one launch running the chunk's
+    cycles), a cycle each; the plain cycle. Returns the entry and the
+    converged ``[N, B]`` distances."""
     t0 = time.perf_counter()
     gd = gg.on(t.device)
     n, b = gg.n, int(t.shape[0])
+    plain_at, plain_conv, plain_cycles = plain_sweep_loop(gd, t, SWEEP_CUTS)
     for cut in SWEEP_CUTS:
         d_cut, cyc = cbk.sweep_dist(gd, t, cut)
-        same_dist("grid_sweep_cycle", d_cut, grid_sweep.dist_to_targets_sweep(
-            gg, t, cut), f"{tag} {cut} cycle(s)")
+        if cyc != min(cut, plain_cycles):
+            raise AssertionError(f"{tag} grid_sweep_cycle: {cyc} cycles at "
+                                 f"cut {cut}")
+        same_dist("grid_sweep_cycle", d_cut, plain_at[cut].T,
+                  f"{tag} {cut} cycle(s)")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     d_conv, cycles = cbk.sweep_dist(gd, t)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t1
-    same_dist("grid_sweep_cycle", d_conv,
-              grid_sweep.dist_to_targets_sweep(gg, t), f"{tag} converged")
+    same_dist("grid_sweep_cycle", d_conv, plain_conv.T, f"{tag} converged")
+    if cycles != plain_cycles:
+        raise AssertionError(f"{tag} grid_sweep_cycle: {cycles} cycles to "
+                             f"converge, the plain loop {plain_cycles}")
+    del plain_at, plain_conv
     d0 = bellman_ford.init_dist(n, t)
     d = torch.empty_like(d0)
     flag = torch.zeros(1, dtype=torch.int32, device=d0.device)
-    sms = torch.cuda.get_device_properties(d0.device).multi_processor_count
-    default = cbk.sweep_cols(b, sms)
+    default = 1      # grid_sweep's columns a block
     by_cols = {}
-    for cols in SWEEP_COLS:
+    for cols in cbk.SWEEP_COLS:
         by_cols[cols] = time_restored(
             lambda: d.copy_(d0),
             lambda: cbk.grid_sweep(gd, d, flag, cols=cols), KERNEL_REPS // 4)
     log(f"{tag} grid_sweep_cycle ms a cycle by columns a block ("
-        + ", ".join(f"{c}: {ms:.4f} ms, {-(-b // c)} blocks"
+        + ", ".join(f"{c}: {ms:.4f} ms, {b // c} blocks"
                     + (" [default]" if c == default else "")
-                    for c, ms in by_cols.items())
-        + f"; {sms} SMs, {cbk.SWEEP_THREADS} threads a block)")
+                    for c, ms in by_cols.items()) + ")")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    _, cyc = cbk.sweep_dist(gd, t)
+    end.record()
+    torch.cuda.synchronize()
+    loop_ms = start.elapsed_time(end)
+    if cyc != cycles:
+        raise AssertionError(f"{tag} sweep loop: {cyc} cycles, not "
+                             f"{cycles}")
     plain_ms = time_restored(lambda: d.copy_(d0),
                              lambda: grid_sweep.sweep_quadrants(gd, d),
                              PLAIN_REPS)
     nbytes = 2 * n * b * 4 + 4 * n * 4
     bound_ms, bound_by = bound(nbytes, 20 * n * b)
+    stream_bytes = 4 * 2 * n * b * 4
+    stream_ms, _ = bound(stream_bytes, 0)
     ms = by_cols[default]
     log(f"{tag} grid_sweep_cycle: B={b} {gg.height}x{gg.width}: equal to "
         f"the plain sweep after {', '.join(map(str, SWEEP_CUTS))} cycle(s) "
-        f"and at convergence ({cycles} cycles; the loop {kernel_s:.3f} s on "
-        f"the card); a cycle {ms:.4f} ms ({default} columns a block, "
-        f"{-(-b // default)} blocks), plain cycle {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B)")
+        f"and at convergence ({cycles} cycles as the plain loop; the build's "
+        f"loop {kernel_s:.3f} s on the host clock); a cycle {ms:.4f} ms "
+        f"({default} column(s) a block), plain cycle {plain_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by} (d read and written once, "
+        f"{nbytes} B), four sweeps streaming d {stream_ms:.4f} ms "
+        f"({stream_bytes} B); the loop to convergence (one launch) "
+        f"{loop_ms:.3f} ms ({loop_ms / cycles:.4f} ms a cycle)")
     log(f"{tag} comparison done in {time.perf_counter() - t0:.1f} s")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes, "batch": b,
+            "bound_by": bound_by, "bytes": nbytes,
+            "bound_ms_four_sweeps": stream_ms, "batch": b,
             "cols": default, "ms_by_cols": by_cols,
             "cycles_to_convergence": cycles, "loop_s": kernel_s,
-            "max_abs_err": 0}, d_conv
+            "loop_ms": loop_ms, "loop_ms_per_cycle": loop_ms / cycles,
+            **wide_sweep_vs_plain(tag), "max_abs_err": 0}, d_conv
 
 
 def build_kernels_vs_plain(tag: str, g, kind: str, st, targets) -> dict:
@@ -1144,6 +1231,14 @@ def compressed_path(g, dc, outdir):
                for codec, e in engines.items()}
     launches_raw, launches_pack4 = read_launches()
     build_counts = check_build_launches("grid", tag)
+    if build_counts["grid_sweep_cycle"] != build_counts["first_moves"]:
+        raise AssertionError(f"{tag} {build_counts['grid_sweep_cycle']} "
+                             "sweep launches for "
+                             f"{build_counts['first_moves']} chunks")
+    log(f"{tag} grid_sweep_cycle: one launch a chunk "
+        f"({build_counts['grid_sweep_cycle']}): the lattice has no "
+        "off-lattice edges, so each launch runs its chunk's cycles to "
+        "convergence")
     log(f"{tag} kernel launches in the nine rounds: raw {launches_raw}, "
         f"pack4 {launches_pack4}")
     for codec in ("pack4", "rle"):

@@ -49,23 +49,72 @@
 //   minimising min(w + d[nbr, b], INF); -1 when that minimum is INF, at
 //   the target's own node and for pad targets (t < 0). The CSR keeps the
 //   ELL slot order (slot = e - row_ptr[x]). Reads [N, B], writes int8
-//   fm[B, N]: a block computes a 64-node x 32-column tile into shared
-//   memory, then writes it out row by row so the byte stores coalesce.
-//   Offsets are int64 (a whole-index table is past 2^31 bytes).
-//   Bound: bytes (d read once, neighbour segments, fm written once).
+//   fm[B, N]. Offsets are int64 (a whole-index table is past 2^31 bytes).
+//   Bound: bytes (d read once, fm written once; the neighbour segments it
+//   gathers, M x B x 4 bytes, are L2 hits only while the rows that the
+//   warps in flight touch stay resident).
+//   Design (K1's): a warp owns 8 nodes x 32 V columns (V = 1, 2 or 4 a
+//   lane, one load a row segment); it takes its nodes' edge ranges in
+//   one load, their edge lists laid end to end in one load,
+//   broadcasts each edge with __shfl_sync and issues up to kUnroll
+//   neighbour-segment loads before it folds them, in slot order. Blocks
+//   are column group major. Nodes are taken by id: a block extracts 64
+//   consecutive nodes into a shared-memory tile and writes it out row by
+//   row, so the byte stores coalesce. (Taking them in the CSR's visit
+//   order, through a slot-major scratch and a second launch that writes
+//   the rows, was measured slower on the grid and campaign graphs.)
 //
-// grid_sweep_cycle (K3): one cycle of the fast sweeping method on the
+// grid_sweep_cycle (K3): cycles of the fast sweeping method on the
 //   H x W lattice (ops/grid_sweep.py::cycle without off_lattice): four
-//   quadrant sweeps (+,+), (-,-), (+,-), (-,+); a sweep visits the
-//   anti-diagonals in order, each cell reading its two in-quadrant
-//   neighbours on the previous diagonal, already updated (Gauss-Seidel
-//   across diagonals, Jacobi within one), in place. A diagonal depends on
-//   the one before it, so one block owns a group of `cols` batch columns
-//   and runs the whole chain, a barrier between diagonals; the blocks are
-//   independent. Bound: the chain of 4 (H + W - 1) dependent diagonal
-//   steps a cycle, each a round trip to L2, far above the bytes (one
-//   read and at most one write of d a sweep). Sets *flag when any cell
-//   falls.
+//   quadrant sweeps (+,+), (-,-), (+,-), (-,+) in place. A cell's new
+//   value is min(old, w_cross + new(x, y - sy), w_same + new(x - sx, y))
+//   (each term saturated at INF): it depends on its own old value and on
+//   its two in-quadrant neighbours' new values only, so every order that
+//   reaches a cell after those two gives the same sweep, bit for bit. The
+//   kernel takes the rows in sy order and runs a min-plus scan along each
+//   row in sx order: the cell maps v -> min(a, w + v), a = min(old,
+//   w_cross + new above), compose to maps of the same form with the
+//   weight sum saturated at INF (exact: weights and values are <= INF, so
+//   a term past INF never wins, and INF + INF fits int32).
+//   Bound: bytes. Each sweep must read d and write what fell; d (1.06 MB
+//   a column on the 514 x 514 grid) does not fit on chip, so four sweeps
+//   that stream it are the realistic floor, 4x the one-read-one-write
+//   figure. The chain is long: 4 H rows a cycle, each depending on the
+//   one before.
+//   Design: the launch copies d into a column-major [B, H, Wp] buffer
+//   (Wp = W rounded up to 4; a tiled transpose each way, about 0.37 ms
+//   each at B = 512 on the 514 x 514 grid), so a column's row is one
+//   16-byte aligned run. A block owns `cols` columns (1 by default: 512
+//   blocks, four resident an SM, four independent chains), one warp a
+//   column (or `row_warps` warps splitting a row wider than 32 x 33
+//   cells), L cells a lane (L odd: the lanes' shared-memory reads hit
+//   distinct banks). A row wider than the shared memory holds (past 2,552
+//   cells at one column a block) is swept in pieces: all the rows of one
+//   piece, then the next in sx order; a piece's first cell takes its
+//   same-row neighbour's new value from the piece before, read back with
+//   the row (the same sweep: that neighbour is final by then). The row
+//   the chain depends on stays in registers (each lane keeps its own L
+//   cells of the row above). Lanes 0 .. cols + 1 of warp 0 copy a row's
+//   columns and its two weight rows with one TMA bulk copy each, up to
+//   kSweepMaxStages - 2 rows ahead of the front, into a shared-memory ring
+//   whose stages complete on mbarriers, so device memory is off the
+//   dependency chain: a row costs a wait, a lane-local pass, a 5-step
+//   shuffle scan and a second lane-local pass (stage indices and phases
+//   are counted, not divided out). New values go to a separate pair of
+//   rows in shared memory, and the columns where a cell fell are stored
+//   whole, 16 bytes a thread, while the next row computes (a proxy fence
+//   a piece orders them before the next piece's bulk reads); nothing
+//   reads them back within the piece. With
+//   max_cycles > 1 (a lattice with no off-lattice edges) a block runs its
+//   own cycles until one lowers none of its columns or the cap: a
+//   converged column is a fixed point of a cycle, so its iterate at a cut
+//   is the batch loop's, and *cycles receives the largest count, which is
+//   the batch loop's. Sets *flag when any cell falls.
+//   Measured (NVIDIA H100 80GB HBM3, 700 W): a row costs about 1,650
+//   cycles of one warp's chain, so a cycle at B = 512 takes about 3.3 ms,
+//   2.6x the four-sweep floor; tried and slower: a producer warp for the
+//   copies and stores, and the two sweeps of a row order fused into one
+//   pass over the rows (register pressure).
 //
 // INF = 1e9, so w + d <= 2e9 fits int32 for every w, d <= INF.
 
@@ -88,8 +137,11 @@ constexpr int kActiveStride = 16;
 // K2: nodes a warp extracts; tile = kWarps * kFmNodesPerWarp nodes
 constexpr int kFmNodesPerWarp = 8;
 constexpr int kFmTileNodes = kWarps * kFmNodesPerWarp;
-// K3 threads a block
-constexpr int kSweepThreads = 512;
+// a tile row's bytes: 17 words, so lanes on consecutive rows hit distinct
+// banks
+constexpr int kFmTileStride = kFmTileNodes + 4;
+// K3: warps a block (one a column, or a few splitting a wide row)
+constexpr int kSweepMaxWarps = 8;
 
 // V consecutive int32 columns at p (4 V-byte aligned): one load
 template <int V>
@@ -120,11 +172,11 @@ __device__ __forceinline__ void store_cols(int* p, const int (&v)[V]) {
 
 // p[i] for a run-time i, without indexing a register array (which would
 // put it in local memory)
-__device__ __forceinline__ int pick(const int (&p)[kRelaxNodesPerWarp + 1],
-                                    int i) {
+template <int K>
+__device__ __forceinline__ int pick(const int (&p)[K], int i) {
   int v = p[0];
 #pragma unroll
-  for (int j = 1; j <= kRelaxNodesPerWarp; ++j) v = i == j ? p[j] : v;
+  for (int j = 1; j < K; ++j) v = i == j ? p[j] : v;
   return v;
 }
 
@@ -294,102 +346,557 @@ relax_jacobi_kernel(const int* __restrict__ row_ptr,
   }
 }
 
+// K2's write-out: the shared-memory tile (column r of the group in row
+// (r % V) * 32 + r / V, node i at byte i) into fm rows group * 32 V + r,
+// nodes x0 .. x0 + kFmTileNodes - 1, one 4-byte store a thread where fm
+// allows it
+template <int V>
+__device__ __forceinline__ void write_tile(const int8_t* tile, int8_t* fm,
+                                           int group, long long x0,
+                                           long long n, int rows) {
+  constexpr int kCols = 32 * V;
+  constexpr int kWords = kFmTileNodes / 4;
+  const bool word = n % 4 == 0 && (reinterpret_cast<uintptr_t>(fm) & 3) == 0;
+  for (int k = threadIdx.x; k < kCols * kWords; k += kThreads) {
+    const int r = k / kWords;
+    const int q = k % kWords;
+    const int cr = group * kCols + r;
+    const long long x = x0 + 4 * q;
+    if (cr >= rows || x >= n) continue;
+    const int8_t* src = tile + ((r % V) * 32 + r / V) * kFmTileStride + 4 * q;
+    int8_t* dst = fm + static_cast<long long>(cr) * n + x;
+    if (word && x + 4 <= n) {
+      *reinterpret_cast<int*>(dst) = *reinterpret_cast<const int*>(src);
+    } else {
+      for (int e = 0; e < 4 && x + e < n; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+template <int V>
 __global__ void __launch_bounds__(kThreads)
 first_moves_kernel(const int* __restrict__ row_ptr,
                    const int* __restrict__ col, const int* __restrict__ wt,
                    const int* __restrict__ d, const int* __restrict__ targets,
                    int8_t* __restrict__ fm, long long n, int b, int rows,
                    int node_tiles) {
-  __shared__ int8_t tile[32][kFmTileNodes + 4];
-  const int col_tile = blockIdx.x / node_tiles;
-  const long long x0 =
-      static_cast<long long>(blockIdx.x % node_tiles) * kFmTileNodes;
+  // segment loads a warp issues before it folds them
+  constexpr int kUnroll = V == 4 ? 4 : 8;
+  __shared__ __align__(16) int8_t tile[32 * V * kFmTileStride];
+  // column group major: consecutive blocks share a group
+  const int group = blockIdx.x / node_tiles;
+  const long long s_tile =
+      static_cast<long long>(blockIdx.x - group * node_tiles) * kFmTileNodes;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int c0 = col_tile * 32;
-  const int c = c0 + lane;
-  const int t = c < b ? __ldg(targets + c) : -1;
+  const int c = (group * 32 + lane) * V;
+  const bool live = c < rows;  // rows <= b, b % V == 0
+  int t[V];
+  if (c < b) {
+    load_cols<V>(targets + c, t);
+  } else {
 #pragma unroll
-  for (int i = 0; i < kFmNodesPerWarp; ++i) {
-    const int xo = warp * kFmNodesPerWarp + i;
-    const long long x = x0 + xo;
-    int8_t slot = -1;
-    if (x < n && t >= 0 && x != t) {
-      const int e0 = __ldg(row_ptr + x);
-      const int e1 = __ldg(row_ptr + x + 1);
-      int best = kInf;
-      int arg = 0;
-      for (int e = e0; e < e1; ++e) {
-        const int v = __ldg(col + e);
-        const int via = min(
-            __ldg(wt + e) + __ldg(d + static_cast<long long>(v) * b + c), kInf);
-        if (via < best) {
-          best = via;
-          arg = e - e0;
+    for (int j = 0; j < V; ++j) t[j] = -1;
+  }
+  // the warp's nodes: s0 .. s0 + np - 1
+  const long long s0 = s_tile + warp * kFmNodesPerWarp;
+  const int np = s0 >= n ? 0
+      : static_cast<int>(min(n - s0, static_cast<long long>(kFmNodesPerWarp)));
+  // lane j < np: node j's edge range
+  int ej0 = 0, ej1 = 0;
+  if (lane < np) {
+    ej0 = __ldg(row_ptr + s0 + lane);
+    ej1 = __ldg(row_ptr + s0 + lane + 1);
+  }
+  // the nodes' edges laid end to end: node j's are q in [p[j], p[j + 1])
+  int p[kFmNodesPerWarp + 1];
+  p[0] = 0;
+#pragma unroll
+  for (int j = 0; j < kFmNodesPerWarp; ++j) {
+    p[j + 1] = p[j] + __shfl_sync(kFull, ej1 - ej0, j);
+  }
+  const int total = p[kFmNodesPerWarp];
+  // the chunk q in [cb, cb + 32), one a lane: destination and weight
+  int cb = 0x7fffffff;
+  int ecol = 0, ewt = 0;
+  auto load_chunk = [&](int at) {
+    cb = at;
+    const int q = at + lane;
+    int i = 0;
+#pragma unroll
+    for (int j = 1; j < kFmNodesPerWarp; ++j) i += q >= p[j];
+    const int e = __shfl_sync(kFull, ej0, i) + q - pick(p, i);
+    ecol = 0;
+    ewt = 0;
+    if (q < total) {
+      ecol = __ldg(col + e);
+      ewt = __ldg(wt + e);
+    }
+  };
+  for (int i = 0; i < np; ++i) {
+    const long long x = s0 + i;
+    const int q0 = pick(p, i), q1 = pick(p, i + 1);
+    if (q0 < cb || q1 - cb > 32) load_chunk(q0);
+    int best[V], arg[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      best[j] = kInf;
+      arg[j] = 0;
+    }
+    for (int k = q0; k < q1; k += kUnroll) {
+      // past 32 out-edges (then cb == q0 and kUnroll divides 32, so a
+      // round never straddles two chunks)
+      if (k - cb >= 32) load_chunk(k);
+      int val[kUnroll][V];
+      int wv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int src = (k + u - cb) & 31;
+        const int v = __shfl_sync(kFull, ecol, src);
+        const int w = __shfl_sync(kFull, ewt, src);
+        wv[u] = 0;
+#pragma unroll
+        for (int j = 0; j < V; ++j) val[u][j] = kInf;
+        if (live && k + u < q1) {
+          wv[u] = w;
+          load_cols<V>(d + static_cast<long long>(v) * b + c, val[u]);
         }
       }
-      slot = best >= kInf ? -1 : static_cast<int8_t>(arg);
+      // fold in slot order: the first minimal slot wins
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int via = min(val[u][j] + wv[u], kInf);
+          if (via < best[j]) {
+            best[j] = via;
+            arg[j] = k + u - q0;
+          }
+        }
+      }
     }
-    tile[lane][xo] = slot;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      tile[(j * 32 + lane) * kFmTileStride + warp * kFmNodesPerWarp + i] =
+          (best[j] >= kInf || t[j] < 0 || x == t[j])
+              ? static_cast<int8_t>(-1) : static_cast<int8_t>(arg[j]);
+    }
   }
   __syncthreads();
-  // write the tile out row by row: a warp stores 32 consecutive bytes
-  for (int k = threadIdx.x; k < 32 * kFmTileNodes; k += kThreads) {
-    const int r = k / kFmTileNodes;
-    const int xo = k % kFmTileNodes;
-    const long long x = x0 + xo;
-    if (c0 + r < rows && x < n) {
-      fm[static_cast<long long>(c0 + r) * n + x] = tile[r][xo];
+  write_tile<V>(tile, fm, group, s_tile, n, rows);
+}
+
+// K3 works on a column-major copy of d, [B, H, Wp], its rows padded to
+// Wp = W rounded up to 4 ints, so every row starts on 16 bytes. to_cols:
+// dt[c, y, x] = d[y * W + x, c]; else the copy back. A block moves 32
+// nodes x 32 columns through shared memory, so both sides are read and
+// written in whole lines.
+__global__ void __launch_bounds__(kThreads)
+transpose_kernel(int* __restrict__ d, int* __restrict__ dt, long long n,
+                 int b, int w, int wp, long long hwp, int to_cols,
+                 long long col_tiles) {
+  __shared__ int tile[32][33];
+  const long long u0 = static_cast<long long>(blockIdx.x / col_tiles) * 32;
+  const long long c0 = static_cast<long long>(blockIdx.x % col_tiles) * 32;
+  const int tx = threadIdx.x & 31;
+  // node u's place in a padded column
+  auto padded = [&](long long u) {
+    const int v = static_cast<int>(u);  // n < 2^31
+    return static_cast<long long>(v / w) * wp + v % w;
+  };
+  for (int ty = threadIdx.x >> 5; ty < 32; ty += kWarps) {
+    if (to_cols) {
+      if (u0 + ty < n && c0 + tx < b) tile[ty][tx] = d[(u0 + ty) * b + c0 + tx];
+    } else if (c0 + ty < b && u0 + tx < n) {
+      tile[tx][ty] = dt[(c0 + ty) * hwp + padded(u0 + tx)];
+    }
+  }
+  __syncthreads();
+  for (int ty = threadIdx.x >> 5; ty < 32; ty += kWarps) {
+    if (to_cols) {
+      if (c0 + ty < b && u0 + tx < n) {
+        dt[(c0 + ty) * hwp + padded(u0 + tx)] = tile[tx][ty];
+      }
+    } else if (u0 + ty < n && c0 + tx < b) {
+      d[(u0 + ty) * b + c0 + tx] = tile[ty][tx];
     }
   }
 }
 
-__global__ void __launch_bounds__(kSweepThreads)
-grid_sweep_kernel(const int* __restrict__ wl, const int* __restrict__ wr,
-                  const int* __restrict__ wd, const int* __restrict__ wu,
-                  int* d, int* __restrict__ flag, int h, int w, int b,
-                  int cols) {
-  const int lane_c = threadIdx.x % cols;
-  const int ylane = threadIdx.x / cols;
-  const int ylanes = blockDim.x / cols;
-  const int c = blockIdx.x * cols + lane_c;
-  const bool live = c < b && ylane < ylanes;
-  bool fell = false;
-  const int diagonals = h + w - 1;
-  for (int q = 0; q < 4; ++q) {
-    // (sx, sy) = (+,+), (-,-), (+,-), (-,+): a cell's in-quadrant
-    // neighbours are (x - sx, y) and (x, y - sy)
-    const int sx = (q == 0 || q == 2) ? 1 : -1;
-    const int sy = (q == 0 || q == 3) ? 1 : -1;
-    const int* __restrict__ w_same = sx > 0 ? wl : wr;
-    const int* __restrict__ w_cross = sy > 0 ? wd : wu;
-    const long long step_same = static_cast<long long>(sx) * b;
-    const long long step_cross = static_cast<long long>(sy) * w * b;
-    for (int j = 0; j < diagonals; ++j) {
-      if (live) {
-        // quadrant-local coordinates X + Y = j
-        const int ylo = j - (w - 1) > 0 ? j - (w - 1) : 0;
-        const int yhi = j < h - 1 ? j : h - 1;
-        for (int yy = ylo + ylane; yy <= yhi; yy += ylanes) {
-          const int xx = j - yy;
-          const int x = sx > 0 ? xx : w - 1 - xx;
-          const int y = sy > 0 ? yy : h - 1 - yy;
-          const long long u = static_cast<long long>(y) * w + x;
-          int* cell = d + u * b + c;
-          const int cur = *cell;
-          int best = cur;
-          if (xx >= 1) best = min(best, __ldg(w_same + u) + *(cell - step_same));
-          if (yy >= 1) best = min(best, __ldg(w_cross + u) + *(cell - step_cross));
-          if (best < cur) {
-            *cell = best;
-            fell = true;
+// K3 loads kSweepHalo ints past each end of a piece of a row, so the cell
+// next to the piece (its new value, from the piece before in the sweep's
+// order) comes with it and every copy stays 16-byte aligned
+constexpr int kSweepHalo = 4;
+// cells a K3 lane may scan (L), narrowest first; odd, so the lanes'
+// shared-memory reads hit distinct banks
+constexpr int kSweepSegs[] = {3, 5, 9, 17, 33};
+constexpr int kSweepMaxSeg = 33;
+// shared memory a K3 block may take (two blocks fit an SM), and its most
+// ring stages (rows up to kSweepMaxStages - 2 in flight)
+constexpr int kSweepSmemBytes = 112 * 1024;
+constexpr int kSweepMaxStages = 8;
+
+// K3's ring stage for a block's `cols` columns: each column's piece of a
+// row, then the piece's same-row and cross-row weights, each with both
+// halos
+__host__ __device__ __forceinline__ int sweep_stage_ints(int piece,
+                                                         int cols) {
+  return (cols + 2) * (piece + 2 * kSweepHalo);
+}
+
+// where K3's mbarriers start (ints into its shared memory, 8-byte
+// aligned): after the ring, two rows of new values, a map (2 ints) a
+// warp and a row-fell flag a stage and column
+__host__ __device__ __forceinline__ int sweep_bars_at(int piece, int cols,
+                                                      int warps,
+                                                      int stages) {
+  return (stages * sweep_stage_ints(piece, cols) + 2 * cols * piece +
+          2 * warps + stages * cols + 1) & ~1;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// the one arrival of a stage's phase, with the bytes its copies bring
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait for phase `parity` of bar to complete. A copy that never lands
+// traps instead of hanging the card; a trap is a sticky error that
+// poisons the whole CUDA context, so every later call in the process
+// fails too and the process must restart.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  for (unsigned spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (spins > (1u << 24)) __trap();
+  }
+}
+
+// TMA bulk copies (16-byte multiples, 16-byte aligned both sides)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// order this thread's device-memory writes before later bulk copies
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A block: `cols` columns x `row_warps` warps a column (blockDim.x = 32 x
+// cols x row_warps); warp k sweeps column k % cols, lanes (k / cols) * 32
+// .. + 31 of a piece's row, L cells a lane. A sweep takes the padded row's
+// pieces of `piece` cells in sx order, each over all its rows in sy
+// order. wpad: the weights wl, wr, wd, wu as [4, H, Wp].
+template <int L>
+__global__ void __launch_bounds__(kSweepMaxWarps * 32)
+grid_sweep_kernel(const int* __restrict__ wpad, int* __restrict__ dt,
+                  int* __restrict__ flag, int* __restrict__ cycles, int h,
+                  int w, int wp, int piece, int cols, int row_warps,
+                  int stages, int max_cycles) {
+  extern __shared__ __align__(16) int ring[];
+  const long long hwp = static_cast<long long>(h) * wp;
+  const int span = piece + 2 * kSweepHalo;  // a ring row's ints
+  const int stage = sweep_stage_ints(piece, cols);
+  const int warps = blockDim.x >> 5;
+  const int pieces = (wp + piece - 1) / piece;
+  // two rows of new values (the row being computed, the row being
+  // stored); per warp: its inclusive map over its part of the row (A, W);
+  // per stage and column: whether a cell of that row fell; per stage: the
+  // mbarrier its copies complete
+  int* const out = ring + stages * stage;
+  int* const tot = out + 2 * cols * piece;
+  int* const row_fell = tot + 2 * warps;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(
+      ring + sweep_bars_at(piece, cols, warps, stages));
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j = warp % cols;
+  const int part = warp / cols;
+  // the lane's cells: quadrant-local columns X0 .. X0 + L - 1 of a piece
+  const int X0 = (part * 32 + lane) * L;
+  // this block's first column: column c's row y at base + c * hwp + y * wp
+  int* const base = dt + static_cast<long long>(blockIdx.x) * cols * hwp;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < stages; ++k) bar_init(bars + k);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the stages of the next row to fetch and to consume, the phase each
+  // stage completes next (bit k), and the parity of the rows consumed
+  int k_fetch = 0, k_cur = 0;
+  unsigned phases = 0, odd = 0;
+  auto next = [&](int k) { return k + 1 == stages ? 0 : k + 1; };
+  bool fell_any = false;
+  int cyc = 0;
+  while (cyc < max_cycles) {
+    bool fell = false;
+    for (int q = 0; q < 4; ++q) {
+      // (sx, sy) = (+,+), (-,-), (+,-), (-,+): a cell's in-quadrant
+      // neighbours are (x - sx, y) and (x, y - sy)
+      const int sx = (q == 0 || q == 2) ? 1 : -1;
+      const int sy = (q == 0 || q == 3) ? 1 : -1;
+      const int* const w_same = wpad + (sx > 0 ? 0 : 1) * hwp;
+      const int* const w_cross = wpad + (sy > 0 ? 2 : 3) * hwp;
+      auto row_of = [&](int yy) {
+        return static_cast<long long>(sy > 0 ? yy : h - 1 - yy) * wp;
+      };
+      for (int pi = 0; pi < pieces; ++pi) {
+        // the piece's cells a .. e - 1 of each row; a ring row holds
+        // cells lo .. hi - 1 (the halos included), cell x at x - a +
+        // kSweepHalo
+        const int a = (sx > 0 ? pi : pieces - 1 - pi) * piece;
+        const int e = min(a + piece, w);
+        const int cells = e - a;
+        const int lo = max(a - kSweepHalo, 0);
+        const int hi = min(a + piece + kSweepHalo, wp);
+        const unsigned bytes = 4u * (hi - lo);
+        // the cell before the piece in sx order (piece-relative), new
+        // since the piece before was swept; none before the first
+        const bool has_edge = sx > 0 ? a > 0 : e < w;
+        const int edge = sx > 0 ? -1 : cells;
+        // row yy of the piece into the next stage: lanes 0 .. cols + 1
+        // of warp 0 each issue the bulk copy of one row (a column, the
+        // same-row weights, the cross-row weights) in one instruction
+        auto fetch = [&](int yy) {
+          if (yy >= h) return;
+          const int k = k_fetch;
+          if (warp == 0) {
+            const long long row = row_of(yy) + lo;
+            if (lane == 0) bar_expect(bars + k, (cols + 2) * bytes);
+            if (lane < cols) row_fell[k * cols + lane] = 0;
+            __syncwarp();
+            if (lane < cols + 2) {
+              const int* src = lane < cols ? base + lane * hwp + row
+                  : (lane == cols ? w_same : w_cross) + row;
+              bulk_load(ring + k * stage + lane * span + lo - a + kSweepHalo,
+                        src, bytes, bars + k);
+            }
           }
+          k_fetch = next(k_fetch);
+        };
+        // the columns of row yy (stage k, new values in out[o]) where a
+        // cell fell, back to device memory, the whole piece 16 bytes a
+        // thread
+        auto store = [&](int yy, int k, unsigned o) {
+          const int* nw = out + o * cols * piece;
+          const long long row = row_of(yy) + a;
+          const int quads = (min(a + piece, wp) - a) / 4;
+          for (int c = 0; c < cols; ++c) {
+            if (!row_fell[k * cols + c]) continue;
+            for (int i = threadIdx.x; i < quads; i += blockDim.x) {
+              *reinterpret_cast<int4*>(base + c * hwp + row + 4 * i) =
+                  *reinterpret_cast<const int4*>(nw + c * piece + 4 * i);
+            }
+          }
+        };
+        // the piece before is stored (its writes are ordered before the
+        // copies below by each thread's fence)
+        __syncthreads();
+        for (int k = 0; k < stages - 2; ++k) fetch(k);
+        // the row above: the lane's cells of the sweep's previous row
+        int prev[L];
+#pragma unroll
+        for (int i = 0; i < L; ++i) prev[i] = kInf;
+        for (int yy = 0; yy < h; ++yy) {
+          bar_wait(bars + k_cur, (phases >> k_cur) & 1u);
+          // row yy landed; row yy - 1 is computed, row yy - 2 stored
+          __syncthreads();
+          fetch(yy + stages - 2);  // into row yy - 2's stage
+          if (yy > 0) {
+            store(yy - 1, k_cur == 0 ? stages - 1 : k_cur - 1, odd ^ 1u);
+          }
+          const int* st = ring + k_cur * stage + kSweepHalo;
+          const int* sv = st + j * span;
+          int* nw = out + odd * cols * piece + j * piece;
+          const int* sws = st + cols * span;
+          const int* swc = sws + span;
+          // the lane's cells, all loaded before the chain uses them (a
+          // cell past the piece reads the last one and is masked below)
+          int old[L], ws[L], wc[L];
+#pragma unroll
+          for (int i = 0; i < L; ++i) {
+            const int X = min(X0 + i, cells - 1);
+            const int x = sx > 0 ? X : cells - 1 - X;
+            old[i] = sv[x];
+            ws[i] = sws[x];
+            wc[i] = swc[x];
+          }
+          // pass 1: a = min(old, w_cross + above), and the segment's map
+          // v -> min(A, W + v) composed in scan order (a cell past the
+          // piece is the identity)
+          int A = kInf;
+          int W = 0;
+#pragma unroll
+          for (int i = 0; i < L; ++i) {
+            const bool in = X0 + i < cells;
+            const int a = min(old[i], wc[i] + prev[i]);
+            prev[i] = a;
+            A = in ? min(a, ws[i] + A) : A;
+            W = in ? min(ws[i] + W, kInf) : W;
+          }
+          // the warp's inclusive scan of the maps (a later map after an
+          // earlier one)
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const int ao = __shfl_up_sync(kFull, A, off);
+            const int wo = __shfl_up_sync(kFull, W, off);
+            if (lane >= off) {
+              A = min(A, W + ao);
+              W = min(W + wo, kInf);
+            }
+          }
+          // the value left of the lane's segment: the cell before the
+          // piece (INF where there is none), then the earlier warps' maps
+          // of this column, then the earlier lanes'
+          const int ew = __shfl_up_sync(kFull, W, 1);
+          int v = __shfl_up_sync(kFull, A, 1);
+          int vin = has_edge ? sv[edge] : kInf;
+          if (row_warps > 1) {
+            if (lane == 31) {
+              tot[2 * warp] = A;
+              tot[2 * warp + 1] = W;
+            }
+            __syncthreads();
+            for (int k = 0; k < part; ++k) {
+              const int* tk = tot + 2 * (k * cols + j);
+              vin = min(tk[0], tk[1] + vin);
+            }
+          }
+          v = lane == 0 ? vin : min(v, ew + vin);
+          // pass 2: new = min(a, w_same + new left), into the row of new
+          // values, to be stored during the next row
+          bool row_ch = false;
+#pragma unroll
+          for (int i = 0; i < L; ++i) {
+            const int nv = min(prev[i], ws[i] + v);
+            prev[i] = nv;
+            v = nv;
+            if (X0 + i < cells) {
+              nw[sx > 0 ? X0 + i : cells - 1 - X0 - i] = nv;
+              row_ch |= nv < old[i];
+            }
+          }
+          fell |= row_ch;
+          if (__any_sync(kFull, row_ch) && lane == 0) {
+            row_fell[k_cur * cols + j] = 1;
+          }
+          phases ^= 1u << k_cur;
+          k_cur = next(k_cur);
+          odd ^= 1u;
         }
+        __syncthreads();
+        store(h - 1, k_cur == 0 ? stages - 1 : k_cur - 1, odd ^ 1u);
+        fence_async_global();
       }
-      __syncthreads();
+    }
+    ++cyc;
+    const int any = __syncthreads_or(fell);
+    fell_any |= any != 0;
+    if (!any) break;  // this group is at a fixed point of the cycle
+  }
+  if (threadIdx.x == 0) {
+    if (fell_any && *flag == 0) *flag = 1;
+    if (cycles) atomicMax(cycles, cyc);
+  }
+}
+
+size_t sweep_smem(int piece, int cols, int warps, int stages) {
+  return sizeof(int) * static_cast<size_t>(
+      sweep_bars_at(piece, cols, warps, stages)) + sizeof(uint64_t) * stages;
+}
+
+// K3's launch shape for rows of wp (padded) cells, `cols` columns a block
+struct SweepShape {
+  int piece;      // cells of a row a block holds at once (a multiple of 4)
+  int row_warps;  // warps a column's piece is split over
+  int seg;        // cells a lane scans (L)
+  int stages;     // ring stages
+  size_t smem;    // bytes of shared memory
+};
+
+// The fewest pieces a row is cut into (all as wide, rounded up to 4
+// cells) such that three stages fit kSweepSmemBytes and the lanes of at
+// most kSweepMaxWarps warps cover a piece; then the narrowest segment that
+// covers it and as many stages as fit. One piece up to 2,552 cells at one
+// column a block (514 x 514 grid: one piece, one warp, 17 cells a lane).
+SweepShape sweep_shape(int wp, int cols) {
+  SweepShape s{};
+  for (int pieces = 1;; ++pieces) {
+    s.piece = ((wp + pieces - 1) / pieces + 3) & ~3;
+    s.row_warps = (s.piece + 32 * kSweepMaxSeg - 1) / (32 * kSweepMaxSeg);
+    if (cols * s.row_warps <= kSweepMaxWarps &&
+        sweep_smem(s.piece, cols, cols * s.row_warps, 3) <= kSweepSmemBytes) {
+      break;
     }
   }
-  if (__syncthreads_or(fell) && threadIdx.x == 0) *flag = 1;
+  for (const int seg : kSweepSegs) {
+    if (32 * s.row_warps * seg >= s.piece) {
+      s.seg = seg;
+      break;
+    }
+  }
+  const int warps = cols * s.row_warps;
+  s.stages = 3;
+  while (s.stages < kSweepMaxStages &&
+         sweep_smem(s.piece, cols, warps, s.stages + 1) <= kSweepSmemBytes) {
+    ++s.stages;
+  }
+  s.smem = sweep_smem(s.piece, cols, warps, s.stages);
+  return s;
+}
+
+int launch_transpose(int* d, int* dt, int h, int w, int wp, int b, bool to,
+                     cudaStream_t s) {
+  const long long n = static_cast<long long>(h) * w;
+  const long long col_tiles = (b + 31) / 32;
+  const long long blocks = (n + 31) / 32 * col_tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  transpose_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      d, dt, n, b, w, wp, static_cast<long long>(h) * wp, to ? 1 : 0,
+      col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L>
+int launch_sweep(const int* wpad, int* d, int* dt, int* flag, int* cycles,
+                 int h, int w, int b, int cols, const SweepShape& sh,
+                 int max_cycles, cudaStream_t s) {
+  const int wp = (w + 3) & ~3;
+  int e = launch_transpose(d, dt, h, w, wp, b, true, s);
+  if (e) return e;
+  const auto kernel = grid_sweep_kernel<L>;
+  if (sh.smem > 48 * 1024) {
+    const cudaError_t a = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sh.smem));
+    if (a != cudaSuccess) return static_cast<int>(a);
+  }
+  kernel<<<b / cols, cols * sh.row_warps * 32, sh.smem, s>>>(
+      wpad, dt, flag, cycles, h, w, wp, sh.piece, cols, sh.row_warps,
+      sh.stages, max_cycles);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  return launch_transpose(d, dt, h, w, wp, b, false, s);
 }
 
 }  // namespace
@@ -448,38 +955,77 @@ extern "C" int relax_jacobi(const void* row_ptr, const void* col,
   return static_cast<int>(cudaGetLastError());
 }
 
+// first_moves: vec (columns a lane: 1, 2 or 4) divides b; fm is int8
+// [rows, n] (rows <= b, rows n bytes apart).
 extern "C" int first_moves(const void* row_ptr, const void* col,
-                           const void* wt, const void* d, const void* targets,
-                           void* fm, long long n, int b, int rows,
-                           void* stream) {
+                           const void* wt, const void* d,
+                           const void* targets, void* fm, long long n, int b,
+                           int rows, int vec, void* stream) {
+  if ((vec != 1 && vec != 2 && vec != 4) || b % vec || rows > b) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0 && rows > 0) {
     const long long node_tiles = (n + kFmTileNodes - 1) / kFmTileNodes;
-    const long long blocks = node_tiles * ((rows + 31) / 32);
+    const long long cols = 32LL * vec;
+    const long long blocks = node_tiles * ((rows + cols - 1) / cols);
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    first_moves_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-        static_cast<const int*>(wt), static_cast<const int*>(d),
-        static_cast<const int*>(targets), static_cast<int8_t*>(fm), n, b,
-        rows, static_cast<int>(node_tiles));
+    const auto grid = static_cast<unsigned>(blocks);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto rp = static_cast<const int*>(row_ptr);
+    const auto cl = static_cast<const int*>(col);
+    const auto w = static_cast<const int*>(wt);
+    const auto din = static_cast<const int*>(d);
+    const auto t = static_cast<const int*>(targets);
+    const auto out = static_cast<int8_t*>(fm);
+    const auto nt = static_cast<int>(node_tiles);
+    if (vec == 4) {
+      first_moves_kernel<4><<<grid, kThreads, 0, s>>>(rp, cl, w, din, t, out,
+                                                      n, b, rows, nt);
+    } else if (vec == 2) {
+      first_moves_kernel<2><<<grid, kThreads, 0, s>>>(rp, cl, w, din, t, out,
+                                                      n, b, rows, nt);
+    } else {
+      first_moves_kernel<1><<<grid, kThreads, 0, s>>>(rp, cl, w, din, t, out,
+                                                      n, b, rows, nt);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int grid_sweep_cycle(const void* wl, const void* wr,
-                                const void* wd, const void* wu, void* d,
-                                void* flag, int h, int w, int b, int cols,
+// grid_sweep_cycle: up to max_cycles cycles; a block owns `cols`
+// columns (1 to 8, dividing b) and sweeps each row in pieces sized to its
+// shared memory (sweep_shape), so any width builds; a block stops after
+// the first cycle that lowers none of its columns. wpad: int32 [4, h, wp],
+// the weights wl, wr, wd, wu with rows padded to wp = w rounded up to 4
+// (16-byte aligned). d [h * w, b] is copied into dt (int32 [b, h, wp],
+// 16-byte aligned) before and back after. cycles (int32, may be null)
+// receives the largest count of cycles a block ran, by atomicMax. Three
+// launches on `stream`.
+extern "C" int grid_sweep_cycle(const void* wpad, void* d, void* dt,
+                                void* flag, void* cycles, int h, int w,
+                                int b, int cols, int max_cycles,
                                 void* stream) {
-  if (cols < 1 || cols > kSweepThreads || kSweepThreads % cols) {
+  if (cols < 1 || cols > kSweepMaxWarps || b % cols || max_cycles < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (h > 0 && w > 0 && b > 0) {
-    const int blocks = (b + cols - 1) / cols;
-    grid_sweep_kernel<<<blocks, kSweepThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(wl), static_cast<const int*>(wr),
-        static_cast<const int*>(wd), static_cast<const int*>(wu),
-        static_cast<int*>(d), static_cast<int*>(flag), h, w, b, cols);
+  if (h <= 0 || w <= 0 || b <= 0) return static_cast<int>(cudaGetLastError());
+  const auto wt = static_cast<const int*>(wpad);
+  const auto dd = static_cast<int*>(d);
+  const auto t = static_cast<int*>(dt);
+  const auto f = static_cast<int*>(flag);
+  const auto cy = static_cast<int*>(cycles);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const SweepShape sh = sweep_shape((w + 3) & ~3, cols);
+  switch (sh.seg) {
+    case 3: return launch_sweep<3>(wt, dd, t, f, cy, h, w, b, cols, sh,
+                                   max_cycles, s);
+    case 5: return launch_sweep<5>(wt, dd, t, f, cy, h, w, b, cols, sh,
+                                   max_cycles, s);
+    case 9: return launch_sweep<9>(wt, dd, t, f, cy, h, w, b, cols, sh,
+                                   max_cycles, s);
+    case 17: return launch_sweep<17>(wt, dd, t, f, cy, h, w, b, cols, sh,
+                                     max_cycles, s);
+    default: return launch_sweep<33>(wt, dd, t, f, cy, h, w, b, cols, sh,
+                                     max_cycles, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }

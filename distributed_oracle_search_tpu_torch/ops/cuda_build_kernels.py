@@ -18,9 +18,14 @@ Source: ``csrc/cpd_build.cu``, built with ``nvcc`` at first use
   own step: the same iterate, exactly;
 * :func:`first_moves` (K2) — the first-move extraction of
   ``bellman_ford.first_move_from_dist``, from ``[N, B]`` distances into
-  int8 ``[B, N]`` rows (optionally straight into a larger table);
-* :func:`grid_sweep` (K3) — one fast-sweeping cycle's four quadrant
-  sweeps, in place.
+  int8 ``[B, N]`` rows (optionally straight into a larger table), by
+  node id through a shared-memory transpose;
+* :func:`grid_sweep` (K3) — fast-sweeping cycles' four quadrant sweeps,
+  in place: rows in order, a min-plus scan along each row, a row wider
+  than a block's shared memory in pieces
+  (:func:`grid_sweep.sweep_quadrants_rows` is its plain twin), one block
+  a column group; on a lattice with no off-lattice edges a launch runs
+  each group's cycles to its own convergence.
 
 Every wrapper picks by the device its tensors lie on, as the walk does:
 CPU tensors take the plain torch version of the same function (how the
@@ -32,8 +37,10 @@ from a failed build or launch. Each launch adds one to the wrapper's
 JAX ``while_loop`` semantics (``while changed and i < limit``), reading
 the flag after every step or cycle (:func:`jacobi_dist` skips settled
 tiles through the changed map, and its CPU branch runs the same
-bookkeeping with :func:`relax_work_set`); :func:`build_fm_jacobi` is the
-card's ``ell``/``ellsplit``/``shift`` build.
+bookkeeping with :func:`relax_work_set`; :func:`sweep_dist` on a
+lattice-only graph makes one launch and reads the cycle count it
+returns); :func:`build_fm_jacobi` is the card's
+``ell``/``ellsplit``/``shift`` build.
 """
 
 from __future__ import annotations
@@ -53,8 +60,10 @@ KERNEL_NAME = "cpd_build"
 RELAX_ENTRY = "relax_jacobi"
 FIRST_MOVES_ENTRY = "first_moves"
 SWEEP_ENTRY = "grid_sweep_cycle"
-#: threads of a grid-sweep block (``kSweepThreads`` in the source)
-SWEEP_THREADS = 512
+#: columns a sweep block may own, one warp a column (``cols`` in the
+#: source); one, the default, measured fastest (independent chains,
+#: several blocks resident an SM)
+SWEEP_COLS = (1, 2, 4, 8)
 #: columns a relax lane may own (``V`` in the source); a warp's column
 #: group, the changed map's tile, is ``32 * vec`` columns
 RELAX_VECS = (4, 2, 1)
@@ -67,8 +76,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     RELAX_ENTRY: [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                   _P],
-    FIRST_MOVES_ENTRY: [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
-    SWEEP_ENTRY: [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    FIRST_MOVES_ENTRY: [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    SWEEP_ENTRY: [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 _fns: dict[str, object] = {}
 
@@ -399,6 +408,15 @@ def write_rows(fm: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     return out.copy_(fm[:out.shape[0]])
 
 
+def _fm_vec(dist_nb: torch.Tensor, targets: torch.Tensor) -> int:
+    """K2's columns a lane: :func:`relax_vec`'s, narrowed until the
+    distances and the targets on the card are aligned for it."""
+    vec = relax_vec(dist_nb.shape[1])
+    while (dist_nb.data_ptr() | targets.data_ptr()) % (4 * vec):
+        vec //= 2
+    return vec
+
+
 def first_moves(dg: DeviceGraph, targets: torch.Tensor,
                 dist_nb: torch.Tensor, csr: EdgeCSR | None = None,
                 out: torch.Tensor | None = None) -> torch.Tensor:
@@ -407,7 +425,8 @@ def first_moves(dg: DeviceGraph, targets: torch.Tensor,
     full out-edge CSR (built here when None). ``out``: an int8
     ``[R, N]`` row block (``R <= B``, rows contiguous — e.g. a slice of a
     whole-index table) that receives the first ``R`` rows; returns it,
-    else a new ``[B, N]`` tensor."""
+    else a new ``[B, N]`` tensor. A lane owns :func:`relax_vec`'s
+    columns, narrowed to the alignment."""
     n = dg.n
     if not _on_cuda(dist_nb, "first-move extraction"):
         return write_rows(first_move_from_dist(dg, targets, dist_nb.T), out)
@@ -424,52 +443,84 @@ def first_moves(dg: DeviceGraph, targets: torch.Tensor,
     if csr is None:
         csr = csr_from_ell(dg)
     _check("row_ptr", csr.row_ptr, torch.int32, (n + 1,), dev)
+    vec = _fm_vec(dist_nb, targets)
     _launch(FIRST_MOVES_ENTRY, dev, csr.row_ptr.data_ptr(),
             csr.col.data_ptr(), csr.wt.data_ptr(), dist_nb.data_ptr(),
-            targets.data_ptr(), out.data_ptr(), n, b, out.shape[0])
+            targets.data_ptr(), out.data_ptr(), n, b, out.shape[0], vec)
     first_moves.launches += 1
     return out
 
 
-def sweep_cols(b: int, sms: int) -> int:
-    """Batch columns a sweep block owns: the widest power of two (at most
-    32, a node's columns within one 128 B segment) that still gives at
-    least three quarters of the SMs a block — a block's chain of
-    diagonals is serial, so the card's parallelism is the block count.
-    At B = 512 on 132 SMs that is 4 columns, 128 blocks."""
-    cols = 32
-    while cols > 1 and -(-b // cols) < sms * 3 // 4:
-        cols //= 2
-    return cols
-
-
-def grid_sweep(gd, d: torch.Tensor, flag: torch.Tensor,
-               cols: int | None = None) -> torch.Tensor:
-    """K3: the four quadrant sweeps of one fast-sweeping cycle on int32
-    ``[N, B]`` ``d``, in place (``gd``: ``grid_sweep.GridDevice``); sets
-    ``flag[0] = 1`` when any value fell. ``cols``: batch columns a block
-    owns (None → :func:`sweep_cols`). Returns ``d``."""
+def _sweep_cpu(gd, d: torch.Tensor, flag: torch.Tensor, cycles: int,
+               counter, cols: int) -> None:
+    """The CPU branch of :func:`grid_sweep`, with the kernel's per-group
+    loop: each group of ``cols`` columns runs cycles until one lowers none
+    of its values or the cap (a cycle runs on the groups still active
+    only); ``counter`` receives the largest count."""
     from .grid_sweep import sweep_quadrants
 
-    if not _on_cuda(d, "grid sweep"):
-        if bool(sweep_quadrants(gd, d)):
+    b = d.shape[1]
+    group = torch.arange(b) // cols
+    ran = torch.zeros(-(-b // cols), dtype=torch.int64)
+    active = torch.ones_like(ran, dtype=torch.bool)
+    for c in range(1, cycles + 1):
+        live = active[group].nonzero().flatten().to(d.device)
+        part = d.index_select(1, live)
+        before = part.clone()
+        sweep_quadrants(gd, part)
+        d.index_copy_(1, live, part)
+        fell = torch.zeros_like(active)
+        fell.index_put_((group[live.cpu()],),
+                        (part < before).any(dim=0).cpu(), accumulate=True)
+        ran[active] = c
+        if bool(fell.any()):
             flag.fill_(1)
+        active &= fell
+        if not bool(active.any()):
+            break
+    if counter is not None:
+        counter.fill_(max(int(counter.item()), int(ran.max())))
+
+
+def grid_sweep(gd, d: torch.Tensor, flag: torch.Tensor, *, cycles: int = 1,
+               counter: torch.Tensor | None = None,
+               cols: int = 1) -> torch.Tensor:
+    """K3: fast-sweeping cycles' four quadrant sweeps on int32 ``[N, B]``
+    ``d``, in place (``gd``: ``grid_sweep.GridDevice``); sets ``flag[0] =
+    1`` when any value fell. Each group of ``cols`` columns (one of
+    :data:`SWEEP_COLS`) runs up to ``cycles`` cycles and stops after the
+    first that lowers none of its values — the batch loop's iterate for a
+    lattice with no off-lattice edges, since a converged group is a fixed
+    point of a cycle. ``counter`` (int32 ``[1]``): raised to the largest
+    count of cycles a group ran. A block sweeps its ``cols`` columns one
+    warp a column (a few for a wide row; a row wider than its shared
+    memory in pieces, at any width). On the card the launch copies ``d``
+    into a column-major int32 ``[B, H, Wp]`` buffer (``Wp``: the width
+    rounded up to 4), sweeps there and copies back: three kernels, one
+    count. Returns ``d``."""
+    b = d.shape[1] if d.dim() == 2 else -1
+    if cols not in SWEEP_COLS or b % cols:
+        raise ValueError(f"cols must be one of {SWEEP_COLS} and divide "
+                         f"B = {b}, got {cols}")
+    if cycles < 1:
+        raise ValueError(f"cycles must be at least 1, got {cycles}")
+    if not _on_cuda(d, "grid sweep"):
+        _sweep_cpu(gd, d, flag, cycles, counter, cols)
         return d
     dev = d.device
     n = gd.n
-    b = d.shape[1] if d.dim() == 2 else -1
     _check("d", d, torch.int32, (n, b), dev)
     _check("flag", flag, torch.int32, (1,), dev)
-    for name in ("wl", "wr", "wd", "wu"):
-        _check(name, getattr(gd, name), torch.int32, (n,), dev)
-    if cols is None:
-        cols = sweep_cols(b, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-    if cols < 1 or SWEEP_THREADS % cols:
-        raise ValueError(f"cols must divide {SWEEP_THREADS}, got {cols}")
-    _launch(SWEEP_ENTRY, dev, gd.wl.data_ptr(), gd.wr.data_ptr(),
-            gd.wd.data_ptr(), gd.wu.data_ptr(), d.data_ptr(),
-            flag.data_ptr(), gd.height, gd.width, b, cols)
+    if counter is not None:
+        _check("counter", counter, torch.int32, (1,), dev)
+    h, w = gd.height, gd.width
+    wp = -(-w // 4) * 4
+    _check("wpad", gd.wpad, torch.int32, (4, h, wp), dev)
+    transposed = torch.empty((b, h, wp), dtype=torch.int32, device=dev)
+    _launch(SWEEP_ENTRY, dev, gd.wpad.data_ptr(), d.data_ptr(),
+            transposed.data_ptr(), flag.data_ptr(),
+            None if counter is None else counter.data_ptr(),
+            h, w, b, cols, cycles)
     grid_sweep.launches += 1
     return d
 
@@ -531,20 +582,26 @@ def jacobi_dist(csr: EdgeCSR, targets: torch.Tensor, max_iters: int = 0,
 
 def sweep_dist(gd, targets: torch.Tensor,
                max_iters: int = 0) -> tuple[torch.Tensor, int]:
-    """``([N, B] distances, cycles)`` by fast sweeping: each cycle one
-    :func:`grid_sweep` launch, then the off-lattice stage as
-    :func:`relax_jacobi` over the shift-plane edges and then over the
-    straggler edges on the result (the JAX order). Cycles run while one
-    lowers a distance and fewer than ``limit`` ran (``max_iters``, 0 =
-    N-1)."""
+    """``([N, B] distances, cycles)`` by fast sweeping; cycles run while
+    one lowers a distance and fewer than ``limit`` ran (``max_iters``,
+    0 = N-1). With off-lattice edges each cycle is one :func:`grid_sweep`
+    launch, then :func:`relax_jacobi` over the shift-plane edges and then
+    over the straggler edges on the result (the JAX order), the flag read
+    after each. On a lattice alone one launch runs every
+    column group's cycles to its own convergence, capped at ``limit``,
+    and the count is the largest a group ran: the JAX loop's iterate and
+    count."""
     n = gd.n
     limit = (n - 1) if max_iters == 0 else max_iters
     d = init_dist(n, targets)
     if not bool((targets >= 0).any()):
         return d, 0
-    spare = (None if gd.shift_csr is None and gd.left_csr is None
-             else torch.empty_like(d))
     flag = torch.zeros(1, dtype=torch.int32, device=d.device)
+    if gd.shift_csr is None and gd.left_csr is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=d.device)
+        grid_sweep(gd, d, flag, cycles=limit, counter=counter)
+        return d, int(counter.item())
+    spare = torch.empty_like(d)
     i = 0
     while i < limit:
         flag.zero_()

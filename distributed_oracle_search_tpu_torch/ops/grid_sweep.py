@@ -19,10 +19,13 @@ Order and arithmetic follow the JAX program exactly (``grid_sweep.py``
 after any number of cycles, not just at convergence. The JAX package's
 skewed layout (every anti-diagonal a contiguous column, for the TPU's
 scan) is not carried over: the plain torch version here walks each
-diagonal's node ids through precomputed index lists, and the hand
-kernel (``csrc/cpd_build.cu``, entry ``grid_sweep_cycle``) lets each
-CUDA block own a group of batch columns and run the chain of diagonals
-with a barrier between them.
+diagonal's node ids through precomputed index lists. A cell's new value
+depends only on its old value and its two in-quadrant neighbours' new
+values, so any order that reaches a cell after those two gives the same
+sweep bit for bit: the hand kernel (``csrc/cpd_build.cu``, entry
+``grid_sweep_cycle``) takes the rows in order and runs a min-plus scan
+along each row, one CUDA block a group of batch columns, and
+:func:`sweep_quadrants_rows` is that order in plain torch.
 
 Correctness never depends on the grid assumption, only speed does:
 min-plus relaxation reaches the same fixed point under any update
@@ -112,7 +115,9 @@ class GridDevice(NamedTuple):
     ``wl``..``wu`` int32 ``[N]`` (row-major node ids); ``w_shift`` int32
     ``[S, N]``; the straggler list as int64 ids and int32 weights;
     ``shift_csr``/``left_csr`` the same two off-lattice edge sets as CSRs
-    for the hand relax kernel (None when empty)."""
+    for the hand relax kernel (None when empty); ``wpad`` int32 ``[4, H,
+    Wp]``, the hand sweep kernel's weights ``wl``..``wu`` with each row
+    padded with zeros to ``Wp``, the width rounded up to 4."""
     height: int
     width: int
     shifts: tuple
@@ -126,6 +131,7 @@ class GridDevice(NamedTuple):
     w_left: torch.Tensor
     shift_csr: object
     left_csr: object
+    wpad: torch.Tensor
     #: the plain sweep's per-quadrant diagonal index lists (built at use)
     diagonals: dict
 
@@ -161,6 +167,9 @@ def _grid_device(gg: GridGraph, dev: torch.device) -> GridDevice:
     def flat(a):
         return torch.as_tensor(a.reshape(-1), dtype=torch.int32, device=dev)
 
+    wpad = np.zeros((4, gg.height, -(-gg.width // 4) * 4), np.int32)
+    wpad[:, :, :gg.width] = np.stack([gg.wl, gg.wr, gg.wd, gg.wu])
+
     return GridDevice(
         height=gg.height, width=gg.width, shifts=gg.shifts,
         wl=flat(gg.wl), wr=flat(gg.wr), wd=flat(gg.wd), wu=flat(gg.wu),
@@ -168,7 +177,8 @@ def _grid_device(gg: GridGraph, dev: torch.device) -> GridDevice:
         src_left=torch.as_tensor(gg.src_left, device=dev).long(),
         dst_left=torch.as_tensor(gg.dst_left, device=dev).long(),
         w_left=torch.as_tensor(gg.w_left, dtype=torch.int32, device=dev),
-        shift_csr=shift_csr, left_csr=left_csr, diagonals={})
+        shift_csr=shift_csr, left_csr=left_csr,
+        wpad=torch.as_tensor(wpad, device=dev), diagonals={})
 
 
 def _diagonals(gd: GridDevice, sx: int, sy: int):
@@ -218,6 +228,78 @@ def sweep_quadrants(gd: GridDevice, d: torch.Tensor) -> torch.Tensor:
             fell |= (new < cur).any()
             dp.index_copy_(0, ids, new)
     d.copy_(dp[:n])
+    return fell
+
+
+def min_plus_then(first, then):
+    """``then ∘ first`` of two maps ``v -> min(A, W + v)`` given as
+    ``(A, W)``: ``(min(A2, W2 + A1), min(W2 + W1, INF))``. With every
+    ``A`` and ``W`` at most INF the sums fit int32, and saturating ``W``
+    is exact on values at most INF (a term past INF never beats ``A``),
+    so the combine is associative on that domain."""
+    a1, w1 = first
+    a2, w2 = then
+    return torch.minimum(a2, w2 + a1), (w2 + w1).clamp_max(TINF)
+
+
+def row_scan(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``new[X] = min(a[X], w[X] + new[X - 1])`` along dim 0 (nothing
+    left of ``X = 0``), as a log-depth inclusive scan of the maps
+    ``v -> min(a[X], w[X] + v)`` under :func:`min_plus_then`, applied
+    to INF. ``a`` ``[X, B]``, ``w`` ``[X, 1]``, both at most INF."""
+    acc, wt = a.clone(), w.clone()
+    off = 1
+    while off < acc.shape[0]:
+        a2, w2 = min_plus_then((acc[:-off], wt[:-off]),
+                               (acc[off:], wt[off:]))
+        acc = torch.cat([acc[:off], a2])
+        wt = torch.cat([wt[:off], w2])
+        off *= 2
+    return acc
+
+
+def sweep_quadrants_rows(gd: GridDevice, d: torch.Tensor,
+                         piece: int | None = None) -> torch.Tensor:
+    """The four quadrant sweeps of one cycle in the hand kernel's order,
+    plain torch, in place: a sweep takes the columns ``[k * piece, (k +
+    1) * piece)`` in ``sx`` order (None: the whole row), and in each the
+    rows in ``sy`` order, each cell's ``a = min(old, min(w_cross + new
+    above, INF))``, then :func:`row_scan` along the piece's row in ``sx``
+    order from the new value of the cell before the piece (INF where
+    there is none). The same values as :func:`sweep_quadrants`; returns a
+    bool tensor: any value fell."""
+    h, w = gd.height, gd.width
+    b = d.shape[1]
+    piece = piece or w
+    grid = d.view(h, w, b)
+    fell = torch.zeros((), dtype=torch.bool, device=d.device)
+    starts = range(0, w, piece)
+    for sx, sy in QUADRANTS:
+        w_same = (gd.wl if sx > 0 else gd.wr).view(h, w)
+        w_cross = (gd.wd if sy > 0 else gd.wu).view(h, w)
+        for a0 in (starts if sx > 0 else reversed(starts)):
+            cols = slice(a0, min(a0 + piece, w))
+            edge = a0 - 1 if sx > 0 else cols.stop   # the cell before
+
+            def local(row):   # quadrant-local column order
+                return row if sx > 0 else row.flip(0)
+
+            above = torch.full((cols.stop - a0, b), TINF, dtype=d.dtype,
+                               device=d.device)
+            for yy in range(h):
+                y = yy if sy > 0 else h - 1 - yy
+                old = local(grid[y, cols])
+                a = torch.minimum(old, (local(w_cross[y, cols])[:, None]
+                                        + above).clamp_max(TINF))
+                ws = local(w_same[y, cols])[:, None]
+                if 0 <= edge < w:
+                    # the cell before enters as a map with A = its value
+                    a[0] = torch.minimum(a[0], (ws[0] + grid[y, edge])
+                                         .clamp_max(TINF))
+                new = row_scan(a, ws)
+                fell |= (new < old).any()
+                grid[y, cols] = local(new)
+                above = new
     return fell
 
 

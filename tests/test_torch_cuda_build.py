@@ -10,9 +10,12 @@ step by step, and as the sweep's two-launch off-lattice stage (shift
 planes, then stragglers on the result); K2
 byte for byte with unreachable nodes, target columns and pad targets,
 and writing rows past byte 2^31 of a larger table; K3 after one and two
-cycles and at convergence. Every build method gives the CPU's table on
-the card, each launch is counted, and a kernel that fails to build or
-launch raises instead of falling back.
+cycles and at convergence, one launch a chunk on a lattice alone and
+one a cycle with off-lattice edges, for every count of columns a block,
+rows split over several warps, and rows swept in pieces on a lattice
+6,000 cells wide. Every build method
+gives the CPU's table on the card, each launch is counted, and a kernel
+that fails to build or launch raises instead of falling back.
 
 Needs an NVIDIA GPU and ``nvcc``; skips without them. This file imports
 the port only (no JAX), so it runs on a machine without JAX:
@@ -233,45 +236,139 @@ def test_off_lattice_two_launches_equal_plain(dev):
     assert torch.equal(a.cpu(), want) and int(flag.item()) == 1
 
 
-@pytest.mark.parametrize("case", ["city", "stragglers"])
-@pytest.mark.parametrize("cycles", [1, 2, 0])
-def test_sweep_equals_plain(dev, case, cycles):
+def _sweep_graph(case):
+    if case == "lattice":
+        g = synth_city_graph(40, 33, seed=2, shortcut_frac=0.0)
+        return g, grid_sweep.GridGraph.from_graph(g)
     if case == "city":
         g = synth_city_graph(40, 33, seed=2)
-        gg = grid_sweep.GridGraph.from_graph(g)
-    else:
-        g, gg = _grid_with_stragglers()
+        return g, grid_sweep.GridGraph.from_graph(g)
+    return _grid_with_stragglers()
+
+
+@pytest.mark.parametrize("case", ["lattice", "city", "stragglers"])
+@pytest.mark.parametrize("cycles", [1, 2, 0])
+def test_sweep_equals_plain(dev, case, cycles):
+    """The loop at a cut and converged, with the plain loop's cycle
+    count; on a lattice alone one launch runs every cycle, with
+    off-lattice edges one launch a cycle."""
+    g, gg = _sweep_graph(case)
     t = _targets(g.n, 77, cycles)
     want = grid_sweep.dist_to_targets_sweep(gg, t, cycles)
+    _, want_cyc = cbk.sweep_dist(gg.on("cpu"), torch.as_tensor(t), cycles)
     before = cbk.grid_sweep.launches
     d, n_cyc = cbk.sweep_dist(gg.on(dev), torch.as_tensor(t, device=dev),
                               cycles)
     torch.cuda.synchronize()
     assert torch.equal(d.T.cpu(), want)
-    assert cbk.grid_sweep.launches - before == n_cyc
+    assert n_cyc == want_cyc
+    assert cbk.grid_sweep.launches - before == (
+        1 if case == "lattice" else n_cyc)
     if cycles:
         assert n_cyc == cycles
 
 
-@pytest.mark.parametrize("cols", [1, 2, 4, 8, 16, 32])
-def test_sweep_cycle_any_column_group(dev, cols):
-    g = synth_city_graph(37, 29, seed=4)
+#: lattices (width, height) for the sweep's shapes: a row one warp
+#: covers; 1,100 cells, a row two warps cover at one or two columns a
+#: block and two pieces at four or eight
+SWEEP_WIDTHS = [(37, 29), (1100, 3)]
+
+
+@pytest.mark.parametrize("size", SWEEP_WIDTHS)
+@pytest.mark.parametrize("cols", cbk.SWEEP_COLS)
+def test_sweep_cycle_any_column_group(dev, cols, size):
+    """One cycle from random distances (every cell moves) at each count
+    of columns a block, and the per-group loop's cycles and count,
+    against the CPU branch."""
+    g = synth_city_graph(*size, seed=4)
     gg = grid_sweep.GridGraph.from_graph(g)
-    t = torch.as_tensor(_targets(g.n, 45, cols))
-    d_cpu = bellman_ford.init_dist(g.n, t)
-    want = d_cpu.clone()
+    rng = np.random.default_rng(cols * 10 + size[0])
+    d_np = rng.integers(0, 10 ** 9 + 1, (g.n, 40)).astype(np.int32)
+    d_np[rng.random(d_np.shape) < 0.4] = 10 ** 9
+    want = torch.tensor(d_np)     # a copy: the plain sweep is in place
     grid_sweep.sweep_quadrants(gg.on("cpu"), want)
-    d = d_cpu.to(dev)
+    d = torch.as_tensor(d_np, device=dev)
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
     cbk.grid_sweep(gg.on(dev), d, flag, cols=cols)
     torch.cuda.synchronize()
     assert torch.equal(d.cpu(), want) and int(flag.item()) == 1
+    t = torch.as_tensor(_targets(g.n, 40, cols))
+    sides = []
+    for where in ("cpu", dev):
+        dd = bellman_ford.init_dist(g.n, t.to(where))
+        fl = torch.zeros(1, dtype=torch.int32, device=where)
+        counter = torch.zeros(1, dtype=torch.int32, device=where)
+        cbk.grid_sweep(gg.on(where), dd, fl, cycles=50, counter=counter,
+                       cols=cols)
+        sides.append((dd.cpu(), int(counter.item()), int(fl.item())))
+    assert torch.equal(sides[0][0], sides[1][0])
+    assert sides[0][1:] == sides[1][1:]
 
 
+def test_sweep_fused_only_on_lattice(dev):
+    """With shift planes and stragglers the loop is a launch a cycle, the
+    off-lattice stage between (at a cut, with no fused launch); on the
+    same grid without them one launch runs the cut's cycles."""
+    g, gg = _grid_with_stragglers()
+    t = torch.as_tensor(_targets(g.n, 64, 3), device=dev)
+    sweeps, relax = cbk.grid_sweep.launches, cbk.relax_jacobi.launches
+    d, n_cyc = cbk.sweep_dist(gg.on(dev), t, 2)
+    torch.cuda.synchronize()
+    assert n_cyc == 2
+    assert cbk.grid_sweep.launches - sweeps == 2
+    assert cbk.relax_jacobi.launches - relax == 4     # planes, stragglers
+    want = grid_sweep.dist_to_targets_sweep(gg, t.cpu(), 2)
+    assert torch.equal(d.T.cpu(), want)
+    lat = grid_sweep.GridGraph.from_graph(
+        synth_city_graph(40, 33, seed=2, shortcut_frac=0.0))
+    assert lat.on(dev).shift_csr is None and lat.on(dev).left_csr is None
+    t = torch.as_tensor(_targets(lat.n, 64, 3), device=dev)
+    sweeps = cbk.grid_sweep.launches
+    d, n_cyc = cbk.sweep_dist(lat.on(dev), t, 2)
+    torch.cuda.synchronize()
+    assert n_cyc == 2 and cbk.grid_sweep.launches - sweeps == 1
+    assert torch.equal(d.T.cpu(),
+                       grid_sweep.dist_to_targets_sweep(lat, t.cpu(), 2))
+
+
+@pytest.mark.parametrize("cols", [1, 8])
+def test_sweep_wide_lattice_in_pieces(dev, cols):
+    """A lattice 6,000 cells wide (past the 2,552 a block holds at one
+    column, so rows go in pieces): ``auto`` builds it by sweep; one cycle
+    from random distances equals the plain cycle, and the loop equals
+    the plain loop at a cut and at convergence with its cycle count, in
+    one launch."""
+    g = synth_city_graph(6000, 6, seed=6, shortcut_frac=0.0)
+    kind, gg = cpd.pick_build_kernel(g, "auto")
+    assert kind == "sweep" and gg.width == 6000
+    rng = np.random.default_rng(cols)
+    d_np = rng.integers(0, 10 ** 9 + 1, (g.n, 16)).astype(np.int32)
+    d_np[rng.random(d_np.shape) < 0.4] = 10 ** 9
+    want = torch.tensor(d_np)
+    grid_sweep.sweep_quadrants(gg.on("cpu"), want)
+    d = torch.as_tensor(d_np, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    cbk.grid_sweep(gg.on(dev), d, flag, cols=cols)
+    torch.cuda.synchronize()
+    assert torch.equal(d.cpu(), want) and int(flag.item()) == 1
+    t = _targets(g.n, 40, cols)
+    for cut in (1, 0):
+        want_d, want_cyc = cbk.sweep_dist(gg.on("cpu"), torch.as_tensor(t),
+                                          cut)
+        before = cbk.grid_sweep.launches
+        got, n_cyc = cbk.sweep_dist(gg.on(dev),
+                                    torch.as_tensor(t, device=dev), cut)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want_d) and n_cyc == want_cyc
+        assert cbk.grid_sweep.launches - before == 1
+
+
+@pytest.mark.parametrize("b", [70, 128])
 @pytest.mark.parametrize("name", sorted(GRAPHS))
-def test_first_moves_equal_plain(dev, name):
+def test_first_moves_equal_plain(dev, name, b):
+    """2 and 4 columns a lane."""
     g = GRAPHS[name]()
-    t = _targets(g.n, 70, 1)
+    t = _targets(g.n, b, 1)
     dg_cpu = DeviceGraph.from_graph(g, device="cpu")
     dist = bellman_ford.dist_to_targets(dg_cpu, t)
     want = bellman_ford.first_move_from_dist(dg_cpu, t, dist)
@@ -347,17 +444,21 @@ def test_build_failure_raises(dev, tmp_path, monkeypatch):
 
 
 def test_refused_launch_raises(dev):
-    """The sweep entry refuses a column group that does not divide its
-    block; the wrapper turns the returned error into an exception."""
+    """The sweep entry refuses a column group that does not divide the
+    batch, and a cap of no cycles; the wrapper turns the returned error
+    into an exception."""
     g = synth_city_graph(8, 6, seed=1)
     gd = grid_sweep.GridGraph.from_graph(g).on(dev)
     d = torch.zeros((g.n, 4), dtype=torch.int32, device=dev)
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        cbk._launch(cbk.SWEEP_ENTRY, dev, gd.wl.data_ptr(), gd.wr.data_ptr(),
-                    gd.wd.data_ptr(), gd.wu.data_ptr(), d.data_ptr(),
-                    flag.data_ptr(), gd.height, gd.width, 4, 3)
-    with pytest.raises(ValueError, match="cols must divide"):
+    dt = torch.empty((4, gd.height, gd.wpad.shape[2]), dtype=torch.int32,
+                     device=dev)
+    for cols, cycles in ((3, 1), (1, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cbk._launch(cbk.SWEEP_ENTRY, dev, gd.wpad.data_ptr(),
+                        d.data_ptr(), dt.data_ptr(), flag.data_ptr(), None,
+                        gd.height, gd.width, 4, cols, cycles)
+    with pytest.raises(ValueError, match="cols must"):
         cbk.grid_sweep(gd, d, flag, cols=3)
     csr = cbk.csr_from_ell(DeviceGraph.from_graph(g, device=dev))
     with pytest.raises(ValueError, match="second buffer"):
