@@ -84,9 +84,50 @@ points a user calls, then the compressed-residency path:
    (``method="auto"`` must resolve ``ellsplit``) and its relax and
    extraction kernels held against their plain versions and timed on
    worker 0's 8,192 targets, as in step 2;
-5. print the kernel table as one JSON line (both walks and the three
-   build kernels, each with its launches in the main runs), then, as the
-   last line, ``{"ok": true, "device": {...}}``.
+5. host path (``[host]`` lines), the reference's own pipeline on the
+   campaign's inputs: a second conf, ``partmethod "mod"`` over 8
+   ``localhost`` workers (8,192 targets each, a 512 MiB int8 shard, 4 GiB
+   over 8 processes); ``make_cpds.main(["-c", conf, "--backend",
+   "host", "--chunk", "512"])`` starts one ``worker.build`` process a
+   worker on the card, ``make_fifos.launch_servers`` (``make_fifos``'s
+   launch, as tracked subprocesses) one resident ``worker.server``
+   process a worker, each on a command FIFO under this run's directory;
+   every server must answer a ping (``transport.fifo.probe``) within a
+   deadline, from the PID it was started as; ``process_query.main``
+   answers the free-flow and diff rounds through the command FIFOs, and
+   again with ``-k 8 --extract``; every server is stopped by its stop
+   token in a ``finally`` and must exit 0 (one left is killed and fails
+   the smoke). Checks: every query finishes; each round's ``size``/``plen``/
+   ``finished`` sums over ``parts.csv`` equal the campaign's direct
+   answers (and its ``-k 8`` rounds'); ``paths.csv`` put in query order
+   equals the campaign's row for row; each build's dump shows this card
+   and K1/K2 launches, each server's dump this card, device memory
+   allocated, raw walk launches > 0 and no plain walk, and the PID that
+   answered the pings (``nvidia-smi`` lists the PIDs where the container
+   lets it); worker 0's shard loaded here answers worker 0's batch of
+   the free-flow, diff and ``k=8`` rounds as its server did, with kernel
+   == plain walk on each; worker 0's first 512 targets built here by the
+   relax and extraction kernels equal the plain relax loop (after 4
+   steps and at convergence) and the plain extraction, and the rows
+   worker 0's build process wrote. Recorded: ``make_cpds`` wall time and
+   each build's seconds, server launch-to-ready, each round's q/s on the
+   host clock beside the campaign's, ``t_search`` per worker row, the
+   card's peak used memory over all processes (``nvidia-smi``);
+6. reorder path (``[reorder]`` lines): ``cli.reorder.main`` with
+   ``--order rcm`` on the campaign's ``.xy``/``.scen``/``.diff``; the
+   scenario must come back relabelled; ``auto`` must resolve
+   ``frontier`` on the reordered graph; worker 0's first 512 targets
+   built by ``auto`` (the plain torch queue on the card, then the
+   extraction kernel) and by ``ellsplit`` must give byte-equal fm,
+   equal too to the plain extraction of the queue's distances; records
+   the queue's pops and ms a pop;
+7. print the card's name and power limit again on the ``[done]`` line,
+   then the kernel table as one JSON line (both walks and the three
+   build kernels, each with its launches in the main runs; the raw
+   walk's ``launches_by_path`` holds the host servers' launches read
+   from their dumps, the build kernels' the build processes' and the
+   reorder build's), then, as the last line, ``{"ok": true, "device":
+   {...}}``.
 
 Every kernel's launch count is set to 0 at the start of each path and
 read at the end of its main run (build, load, rounds), before any
@@ -116,10 +157,13 @@ import traceback
 import numpy as np
 import torch
 
-from distributed_oracle_search_tpu_torch.cli import make_cpds, process_query
+from distributed_oracle_search_tpu_torch.cli import (
+    make_cpds, make_fifos, process_query,
+)
+from distributed_oracle_search_tpu_torch.cli import reorder as reorder_cli
 from distributed_oracle_search_tpu_torch.data import (
-    Graph, synth_city_graph, synth_diff, synth_road_network, write_diff,
-    write_scen, write_xy,
+    Graph, read_scen, synth_city_graph, synth_diff, synth_road_network,
+    write_diff, write_scen, write_xy,
 )
 from distributed_oracle_search_tpu_torch.models import (
     cpd, dist_to_target, table_search_walk,
@@ -128,7 +172,11 @@ from distributed_oracle_search_tpu_torch.models.cpd import (
     build_worker_shard, write_index_manifest,
 )
 from distributed_oracle_search_tpu_torch.ops import (
-    bellman_ford, cuda_build_kernels as cbk, ell_split, grid_sweep,
+    bellman_ford, cuda_build_kernels as cbk, ell_split, frontier_relax,
+    grid_sweep,
+)
+from distributed_oracle_search_tpu_torch.ops.frontier_relax import (
+    locality_fraction,
 )
 from distributed_oracle_search_tpu_torch.ops import cuda_walk as cw
 from distributed_oracle_search_tpu_torch.ops.device_graph import DeviceGraph
@@ -139,8 +187,11 @@ from distributed_oracle_search_tpu_torch.parallel import (
     DistributionController, sharded,
 )
 from distributed_oracle_search_tpu_torch.transport import RuntimeConfig
+from distributed_oracle_search_tpu_torch.transport import fifo as fifo_transport
 from distributed_oracle_search_tpu_torch.utils import cuda_build
+from distributed_oracle_search_tpu_torch.utils.config import ClusterConfig
 from distributed_oracle_search_tpu_torch.worker import engine as eng
+from distributed_oracle_search_tpu_torch.worker import server as wserver
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUILD_FNS = {"relax_jacobi": cbk.relax_jacobi,
@@ -176,6 +227,14 @@ ROUND_NAMES = ("free-flow", "diff", "k8-extract")
 CAMPAIGN_NODES = 65_536
 CAMPAIGN_WORKERS = 8
 CAMPAIGN_K = 8
+#: the host phase: the campaign's index partitioned ``mod`` over 8
+#: ``localhost`` workers (8,192 targets, a 512 MiB int8 shard each), one
+#: build and one server process a worker; a batch's transport timeout,
+#: the wait for every server to answer a ping, and for each to exit
+HOST_WORKERS = 8
+HOST_SEND_TIMEOUT_S = 60
+HOST_READY_S = 300
+HOST_STOP_S = 60
 #: the build kind ``method="auto"`` must resolve to on each path
 EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit"}
 #: the cuts at which each build kernel is held against its plain version
@@ -1070,21 +1129,33 @@ def run() -> list[dict]:
     torch.cuda.empty_cache()
     log(f"[compressed] done at {time.perf_counter() - T_START:.1f} s")
 
-    # ---- 4. campaign path: make_cpds -> process_query over all workers
+    # ---- 4. campaign path: make_cpds -> process_query over all workers,
+    # then 5. the host backend and 6. the reorder tool on its inputs
     outdir = tempfile.mkdtemp(prefix="chip-smoke-campaign-", dir=work)
     try:
-        campaign, cmps["campaign"], build_launches["campaign"] = \
+        campaign, cmps["campaign"], build_launches["campaign"], ref = \
             campaign_path(outdir)
+        log(f"[campaign] done at {time.perf_counter() - T_START:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        host, build_launches["host"] = host_path(outdir, ref)
+        log(f"[host] done at {time.perf_counter() - T_START:.1f} s")
+        reorder, build_launches["reorder"] = reorder_path(outdir, ref)
+        log(f"[reorder] done at {time.perf_counter() - T_START:.1f} s")
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
-    log(f"[campaign] done at {time.perf_counter() - T_START:.1f} s")
     raw_kernel["launches_by_path"] = {"road": raw_kernel["launches"],
-                                      "campaign": campaign["launches"]}
-    raw_kernel["launches"] += campaign["launches"]
+                                      "campaign": campaign["launches"],
+                                      "host": host["launches"]}
+    raw_kernel["launches"] += campaign["launches"] + host["launches"]
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
-                                    campaign["max_abs_err"])
+                                    campaign["max_abs_err"],
+                                    host["max_abs_err"])
     raw_kernel["campaign"] = campaign
+    raw_kernel["host"] = host
+    raw_kernel["reorder"] = reorder
     build = build_kernel_entries(cmps, build_launches)
+    next(e for e in build if e["name"] == "first_moves")["reorder"] = reorder
     for entry in build:
         if entry["launches"] <= 0:
             raise AssertionError(f"the main path never launched "
@@ -1492,6 +1563,16 @@ def campaign_path(outdir: str) -> dict:
                  for name, call in zip(("free-flow", "diff"), recorded)]
     targets0 = oracle.targets_wr[0]
     resident = int(oracle.fm.numel())
+    # what the host phase is held to: the direct answers of each round,
+    # the -k 8 rounds' parts.csv and paths.csv
+    ref = {"g": g, "queries": queries, "diff_path": diff_path,
+           "xy": os.path.join(outdir, "road.xy"),
+           "scen": os.path.join(outdir, "road.scen"),
+           "answers": {name: (np.asarray(plen), np.asarray(fin))
+                       for name, (_, plen, fin) in direct.items()},
+           "parts_k": os.path.join(out_k, "parts.csv"),
+           "paths": os.path.join(out_k, "paths.csv"),
+           "round_s": dict(zip(names, probe.seconds["query"][:4]))}
     probe.oracles.clear()
     del oracle, recorded, direct
     gc.collect()
@@ -1505,7 +1586,581 @@ def campaign_path(outdir: str) -> dict:
             "load_s": probe.seconds["load"],
             "round_s": probe.seconds["query"][:4], "index_bytes": disk,
             "resident_bytes": resident, "rounds": per_round}, cmp, \
-        build_counts
+        build_counts, ref
+
+
+# ----------------------------------------------------------------- host path
+
+def nvidia_smi(query: str, what: str = "--query-gpu") -> list[list[str]]:
+    """Rows of ``nvidia-smi <what>=<query> --format=csv,noheader,nounits``
+    (empty when the tool lists nothing)."""
+    out = subprocess.run(
+        ["nvidia-smi", f"{what}={query}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return [[c.strip() for c in line.split(",")]
+            for line in out.stdout.strip().splitlines() if line.strip()]
+
+
+class MemorySampler:
+    """Polls the card's used memory (``nvidia-smi memory.used``, every
+    process on it) once a second on a thread; ``peak_mib`` is the most
+    seen."""
+
+    def __init__(self, period_s: float = 1.0):
+        self.period_s = period_s
+        self.peak_mib = 0
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                used = int(nvidia_smi("memory.used")[0][0])
+                self.peak_mib = max(self.peak_mib, used)
+                self.samples += 1
+            except (subprocess.SubprocessError, OSError, ValueError,
+                    IndexError):
+                pass
+            self._stop.wait(self.period_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=120)
+
+
+class RoundTimer:
+    """Times every round the host campaign fans out (``process_query``
+    drives a round's batches through ``fan_out`` and waits for them)."""
+
+    def __init__(self):
+        self.seconds: list[float] = []
+        self._real = process_query.fan_out
+
+    def _timed(self, jobs, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = self._real(jobs, fn, *a, **kw)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+    def __enter__(self):
+        process_query.fan_out = self._timed
+        return self
+
+    def __exit__(self, *exc):
+        process_query.fan_out = self._real
+
+
+def wait_ready(fifos: dict, procs: dict, nfs: str, t_launch: float,
+               deadline_s: float) -> dict:
+    """Ping every server until it answers (``transport.fifo.probe``), or
+    until one has exited or the deadline passed; returns ``{wid: (pid,
+    seconds from launch to its first answer)}``."""
+    ready = {}
+    deadline = time.perf_counter() + deadline_s
+    while (len(ready) < len(fifos) and time.perf_counter() < deadline
+           and all(p.poll() is None for p in procs.values())):
+        for w, fifo in fifos.items():
+            if w in ready or not os.path.exists(fifo):
+                continue
+            st = fifo_transport.probe("localhost", w, command_fifo=fifo,
+                                      nfs=nfs, timeout=5.0)
+            if st is not None:
+                ready[w] = (st.pid, time.perf_counter() - t_launch)
+        time.sleep(0.2)
+    return ready
+
+
+def stop_servers(fifos: dict, procs: dict) -> dict[int, int]:
+    """Stop every server: the stop token, then wait for each tracked
+    process to exit; one still alive after ``HOST_STOP_S`` is killed.
+    Returns ``{wid: exit code}`` (a killed server's is negative)."""
+    for fifo in fifos.values():
+        wserver.stop_server(fifo)
+    deadline = time.perf_counter() + HOST_STOP_S
+    for w, proc in procs.items():
+        try:
+            proc.wait(timeout=max(deadline - time.perf_counter(), 0.1))
+        except subprocess.TimeoutExpired:
+            log(f"[host] server {w} (pid {proc.pid}) outlived its stop "
+                "token; killing it")
+            proc.kill()
+            proc.wait(timeout=30)
+    return {w: proc.returncode for w, proc in procs.items()}
+
+
+def log_tails(nfs: str) -> None:
+    """The end of each worker process's log (tracked launches log to
+    ``<nfs>/<session>.log``), for a failed host phase."""
+    for name in sorted(os.listdir(nfs)):
+        if name.endswith(".log"):
+            with open(os.path.join(nfs, name), errors="replace") as f:
+                tail = f.read()[-2000:]
+            log(f"[host] --- {name} (last 2000 characters) ---\n{tail}")
+
+
+def read_parts(path: str) -> list[dict]:
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def round_sums(parts: list[dict], expe: int) -> tuple[int, int, int]:
+    """(size, plen, finished) summed over one round's worker rows."""
+    rows = [p for p in parts if p["expe"] == str(expe)]
+    return tuple(sum(int(r[k]) for r in rows)
+                 for k in ("size", "plen", "finished"))
+
+
+def check_build_dump(b: dict, card: str) -> None:
+    """A build process's dump: it built on this card and launched the
+    relax (K1) and extraction (K2) kernels."""
+    c = b["counters"]
+    if (b["device"]["name"] != card or b["device"]["type"] != "cuda"
+            or c["relax_jacobi.launches"] <= 0
+            or c["first_moves.launches"] <= 0):
+        raise AssertionError(f"[host] build of worker {b['wid']}: {b}")
+
+
+def check_serve_dump(sv: dict, card: str, pid: int) -> None:
+    """A server's dump: it served from this card with device memory
+    allocated, launched the raw walk kernel and walked nothing plain,
+    and it is the process that answered the pings."""
+    c, d = sv["counters"], sv["device"]
+    if (d["name"] != card or d["type"] != "cuda"
+            or d["max_memory_allocated"] <= 0
+            or c["cuda_walk_batch.launches"] <= 0
+            or c["cuda_walk_batch.plain"] != 0 or sv["pid"] != pid):
+        raise AssertionError(f"[host] server {sv['wid']}: {sv}")
+
+
+def compute_apps() -> dict[int, str] | None:
+    """``{pid: used MiB}`` of the card's compute processes as
+    ``nvidia-smi`` lists them, or None when it cannot be asked."""
+    try:
+        rows = nvidia_smi("pid,used_memory", "--query-compute-apps")
+    except (subprocess.SubprocessError, OSError):
+        return None
+    return {int(r[0]): r[1] for r in rows if r and r[0].isdigit()}
+
+
+def build_chunk_vs_plain(tag: str, g, targets, saved) -> dict:
+    """One chunk of a build process's targets built again in this
+    process, by the build's own chunk function (the relax kernel's loop,
+    then the extraction kernel) and by the plain split relaxation and
+    the plain extraction: the kernel's distances equal the plain loop's
+    after RELAX_CUT steps and at convergence, with its step count, and
+    the two tables are byte-equal to each other and to ``saved``, the
+    rows the build process wrote for those targets."""
+    kind, st = cpd.pick_build_kernel(g, "auto")
+    if kind != EXPECTED_KIND["campaign"]:
+        raise AssertionError(f"{tag} auto resolved {kind!r}")
+    dg = DeviceGraph.from_graph(g, device="cuda")
+    csr = cbk.csr_from_ell(dg)
+    t = torch.as_tensor(np.asarray(targets, np.int32), device=dg.device)
+    t0 = time.perf_counter()
+    plain_at, plain_conv, plain_steps = plain_relax_loop(st, t, (RELAX_CUT,))
+    d_cut, _ = cbk.jacobi_dist(csr, t, RELAX_CUT)
+    same_dist("relax_jacobi", d_cut, plain_at[RELAX_CUT].T,
+              f"{tag} cut {RELAX_CUT}")
+    d_conv, steps = cbk.jacobi_dist(csr, t)
+    if steps != plain_steps:
+        raise AssertionError(f"{tag} relax_jacobi: {steps} steps to "
+                             f"converge, the plain loop {plain_steps}")
+    same_dist("relax_jacobi", d_conv, plain_conv.T, f"{tag} converged")
+    fm = sharded.chunk_compute(dg, (kind, st))(t)
+    fm_plain = bellman_ford.first_move_from_dist(dg, t, plain_conv.T)
+    for name, other in (("the plain build", fm_plain),
+                        ("the build process's rows", saved)):
+        if not torch.equal(fm, other):
+            raise AssertionError(f"{tag} kernel-built fm differs from "
+                                 f"{name} on {int((fm != other).sum())} "
+                                 "entries")
+    log(f"{tag} worker 0's first {len(targets)} targets built here: "
+        f"relax_jacobi equal to the plain split relaxation after "
+        f"{RELAX_CUT} steps and at convergence ({steps} steps, as the "
+        f"plain loop); fm [{len(targets)}, {g.n}] by K1 + K2 byte-equal to "
+        "the plain relax loop + plain extraction and to the rows worker "
+        f"0's build process wrote ({time.perf_counter() - t0:.1f} s)")
+    return {"targets": len(targets), "steps": steps}
+
+
+def host_path(outdir: str, ref: dict) -> tuple[dict, dict[str, int]]:
+    """The reference's own pipeline on the card: ``make_cpds --backend
+    host`` (one ``worker.build`` process a worker) → ``make_fifos`` (one
+    resident ``worker.server`` process a worker) → ``process_query``
+    over their FIFOs, on the campaign's inputs partitioned ``mod`` over
+    8 workers. Returns the raw walk's host entry and the build kernels'
+    launches summed over the build processes' dumps."""
+    tag = "[host]"
+    g, queries = ref["g"], ref["queries"]
+    w = HOST_WORKERS
+    dc = DistributionController("mod", w, w, g.n)
+    index = os.path.join(outdir, "host-index")
+    nfs = os.path.join(outdir, "host-nfs")
+    os.makedirs(nfs)
+    conf = os.path.join(outdir, "host-conf.json")
+    with open(conf, "w") as f:
+        json.dump({"workers": ["localhost"] * w, "partmethod": "mod",
+                   "partkey": w, "outdir": index, "nfs": nfs,
+                   "projectdir": ROOT, "xy_file": ref["xy"],
+                   "scenfile": ref["scen"],
+                   "diffs": ["-", ref["diff_path"]]}, f)
+    rows = [dc.n_owned(x) for x in range(w)]
+    log(f"{tag} conf: partmethod mod, partkey {w}, {w} x localhost; rows "
+        f"per worker {rows}: int8 shards of {rows[0] * g.n} B each, "
+        f"{sum(rows) * g.n} B in all; servers run as tracked "
+        "subprocesses, their command FIFOs under this run's directory")
+    card = torch.cuda.get_device_name(0)
+    old_timeout = os.environ.get("DOS_SEND_TIMEOUT_S")
+    os.environ["DOS_SEND_TIMEOUT_S"] = str(HOST_SEND_TIMEOUT_S)
+    # the fleet's FIFOs live in this run's directory, not at the fixed
+    # /tmp/worker<w>.fifo another checkout on the machine may be using:
+    # make_fifos passes each server its path, the head sends to it
+    fifos = {x: os.path.join(outdir, f"worker{x}.fifo") for x in range(w)}
+    fifo_names = (make_fifos.command_fifo_path,
+                  process_query.command_fifo_path)
+    make_fifos.command_fifo_path = process_query.command_fifo_path = \
+        fifos.__getitem__
+    build_dump = os.path.join(outdir, "host-build")
+    serve_dump = os.path.join(outdir, "host-serve")
+    out_rounds = os.path.join(outdir, "host-rounds")
+    out_k = os.path.join(outdir, f"host-k{CAMPAIGN_K}")
+    procs: dict = {}
+    exits: dict[int, int] = {}
+    apps: dict[int, str] | None = None
+    try:
+        with MemorySampler() as mem:
+            t0 = time.perf_counter()
+            rcs = [make_cpds.main(["-c", conf, "--backend", "host",
+                                   "--chunk", str(CHUNK), "--metrics-dump",
+                                   build_dump])]
+            make_s = time.perf_counter() - t0
+            try:
+                t_launch = time.perf_counter()
+                # make_fifos.main's launch, tracked even where tmux
+                # exists: this process stops each server and reads its
+                # exit code
+                procs = dict(make_fifos.launch_servers(
+                    ClusterConfig.load(conf), conf,
+                    metrics_dump=serve_dump, track=True))
+                ready = wait_ready(fifos, procs, nfs, t_launch,
+                                   HOST_READY_S)
+                if len(ready) != w:
+                    raise AssertionError(
+                        f"{tag} servers {sorted(set(fifos) - set(ready))} "
+                        f"did not answer a ping within {HOST_READY_S} s "
+                        "(exit codes "
+                        f"{ {x: p.poll() for x, p in procs.items()} })")
+                pids = {x: p.pid for x, p in procs.items()}
+                if {x: pid for x, (pid, _) in ready.items()} != pids:
+                    raise AssertionError(f"{tag} the pings were answered by "
+                                         f"{ready}, not the servers {pids}")
+                with RoundTimer() as rt:
+                    rcs.append(process_query.main(["-c", conf, "-o",
+                                                   out_rounds]))
+                    rcs.append(process_query.main(
+                        ["-c", conf, "-o", out_k, "-k", str(CAMPAIGN_K),
+                         "--extract"]))
+                apps = compute_apps()
+            finally:
+                exits = stop_servers(fifos, procs)
+    except BaseException:
+        log_tails(nfs)
+        raise
+    finally:
+        make_fifos.command_fifo_path, process_query.command_fifo_path = \
+            fifo_names
+        if old_timeout is None:
+            os.environ.pop("DOS_SEND_TIMEOUT_S", None)
+        else:
+            os.environ["DOS_SEND_TIMEOUT_S"] = old_timeout
+    if any(exits.values()):
+        raise AssertionError(f"{tag} server exit codes {exits} (negative: "
+                             "killed after outliving its stop token)")
+    after = set(compute_apps() or {}) & set(pids.values())
+    if after:
+        raise AssertionError(f"{tag} nvidia-smi still lists the servers "
+                             f"{sorted(after)} after they exited")
+    log(f"{tag} every server stopped on its stop token and exited 0; "
+        f"nvidia-smi lists none of their PIDs")
+    if rcs != [0, 0, 0]:
+        raise AssertionError(f"{tag} CLI exit codes {rcs}")
+
+    # the build processes: each on the card, K1 and K2 launched
+    builds = []
+    for x in range(w):
+        with open(f"{build_dump}.w{x}.json") as f:
+            builds.append(json.load(f))
+    build_counts = {"relax_jacobi": 0, "first_moves": 0,
+                    "grid_sweep_cycle": 0}
+    for b in builds:
+        check_build_dump(b, card)
+        c = b["counters"]
+        build_counts["relax_jacobi"] += c["relax_jacobi.launches"]
+        build_counts["first_moves"] += c["first_moves.launches"]
+        build_counts["grid_sweep_cycle"] += c["grid_sweep.launches"]
+    log(f"{tag} make_cpds --backend host: {make_s:.3f} s wall for {w} "
+        f"build processes ({sum(rows)} rows = {sum(rows) / make_s:.2f} "
+        "rows/s); per worker build_worker_shard seconds "
+        + ", ".join(f"w{b['wid']} {b['seconds']:.3f}" for b in builds)
+        + "; peak allocated per process "
+        + ", ".join(f"{b['device']['max_memory_allocated'] / 2**30:.2f}"
+                    for b in builds)
+        + f" GiB; build kernel launches {build_counts}")
+
+    # the servers: each on the card, the raw walk kernel and no plain walk
+    serves = []
+    for x in range(w):
+        with open(f"{serve_dump}.w{x}.json") as f:
+            serves.append(json.load(f))
+    launches = 0
+    for sv in serves:
+        check_serve_dump(sv, card, pids[sv["wid"]])
+        launches += sv["counters"]["cuda_walk_batch.launches"]
+    log(f"{tag} servers ready (launch to first ping answer): "
+        + ", ".join(f"w{x} {ready[x][1]:.2f} s" for x in sorted(ready)))
+    log(f"{tag} server dumps: device {card!r} in all {w}; raw walk "
+        "launches "
+        + ", ".join(f"w{sv['wid']} {sv['counters']['cuda_walk_batch.launches']}"
+                    for sv in serves)
+        + f" (total {launches}), plain walks "
+        + str(sum(sv["counters"]["cuda_walk_batch.plain"] for sv in serves))
+        + "; batches "
+        + ", ".join(str(sv["counters"]["worker_batches_total"])
+                    for sv in serves)
+        + "; peak allocated per server "
+        + ", ".join(f"{sv['device']['max_memory_allocated'] / 2**30:.2f}"
+                    for sv in serves) + " GiB")
+    seen = apps or {}
+    if os.getpid() in seen:
+        # nvidia-smi sees this container's PIDs: every server must show
+        missing = [p for p in pids.values() if p not in seen]
+        if missing:
+            raise AssertionError(f"{tag} nvidia-smi lists {seen} but not "
+                                 f"the servers {missing}")
+        log(f"{tag} nvidia-smi compute apps while serving: "
+            + ", ".join(f"pid {p} {seen[p]} MiB" for p in pids.values()))
+    else:
+        log(f"{tag} nvidia-smi cannot see this container's processes (it "
+            f"lists {seen or 'none'}, not this process's pid "
+            f"{os.getpid()}); the servers' dumps show their device instead")
+    log(f"{tag} peak card memory over all processes (nvidia-smi "
+        f"memory.used, {mem.samples} samples at 1 s): {mem.peak_mib} MiB")
+
+    # answers: the rounds' sums equal the in-process campaign's
+    n = len(queries)
+    parts = read_parts(os.path.join(out_rounds, "parts.csv"))
+    for expe, name in enumerate(("free-flow", "diff")):
+        plen, fin = ref["answers"][name]
+        want = (n, int(plen.sum()), int(fin.sum()))
+        got = round_sums(parts, expe)
+        if got != want or got[2] != n:
+            raise AssertionError(f"{tag} round {name}: (size, plen, "
+                                 f"finished) {got} != campaign {want}")
+    parts_k = read_parts(os.path.join(out_k, "parts.csv"))
+    ref_k = read_parts(ref["parts_k"])
+    for expe in (0, 1):
+        if round_sums(parts_k, expe) != round_sums(ref_k, expe):
+            raise AssertionError(f"{tag} -k {CAMPAIGN_K} round {expe}: "
+                                 f"{round_sums(parts_k, expe)} != campaign "
+                                 f"{round_sums(ref_k, expe)}")
+    log(f"{tag} every query finished; each round's size/plen/finished "
+        "sums equal the in-process campaign's (free-flow, diff, and both "
+        f"-k {CAMPAIGN_K} rounds)")
+    # paths.csv, put in query order (the host file lists each worker's
+    # batch in turn), equals the in-process paths.csv row for row
+    host_paths = np.loadtxt(os.path.join(out_k, "paths.csv"), delimiter=",",
+                            skiprows=1, dtype=np.int64)
+    owner = dc.worker_of(queries[:, 1])
+    order = np.concatenate([np.flatnonzero(owner == x) for x in range(w)])
+    in_order = np.empty_like(host_paths)
+    in_order[order] = host_paths
+    want_paths = np.loadtxt(ref["paths"], delimiter=",", skiprows=1,
+                            dtype=np.int64)
+    if not np.array_equal(in_order, want_paths):
+        raise AssertionError(f"{tag} paths.csv != the campaign's")
+    log(f"{tag} paths.csv in query order equals the in-process campaign's "
+        f"row for row ({len(want_paths)} rows)")
+    names = ["free-flow", "diff", f"k{CAMPAIGN_K} free-flow",
+             f"k{CAMPAIGN_K} diff"]
+    for name, sec in zip(names, rt.seconds):
+        c_s = ref["round_s"][name]
+        log(f"{tag} round {name}: {n} queries in {sec:.4f} s = "
+            f"{n / sec:.1f} q/s on the host clock (in-process campaign "
+            f"{n / c_s:.1f} q/s)")
+    for expe, name in enumerate(("free-flow", "diff")):
+        log(f"{tag} t_search per worker row, round {name}: "
+            + ", ".join(f"w{x} {float(p['t_search']):.4f} s"
+                        for x, p in enumerate(
+                            q for q in parts if q["expe"] == str(expe))))
+
+    # worker 0's shard in this process: kernel == plain walk on worker
+    # 0's batch of each round
+    engine = eng.ShardEngine(g, dc, 0, index, device="cuda")
+    mine = queries[owner == 0]
+    calls = []
+    real = eng.cuda_walk_batch
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    w0_rounds = (("free-flow", RuntimeConfig(), "-", parts, 0),
+                 ("diff", RuntimeConfig(), ref["diff_path"], parts, 1),
+                 (f"k{CAMPAIGN_K}-extract",
+                  RuntimeConfig(k_moves=CAMPAIGN_K, extract=True), "-",
+                  parts_k, 0))
+    eng.cuda_walk_batch = recording
+    alone = {}
+    try:
+        for name, cfg, diff, rows_of, expe in w0_rounds:
+            engine.answer(mine, cfg, diff)                 # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, _, stats = engine.answer(mine, cfg, diff)
+            torch.cuda.synchronize()
+            alone[name] = (time.perf_counter() - t0, stats.t_search)
+            row = [p for p in rows_of if p["expe"] == str(expe)][0]
+            if (stats.plen, stats.finished) != (int(row["plen"]),
+                                                int(row["finished"])):
+                raise AssertionError(f"{tag} worker 0 in this process "
+                                     f"{stats} != its server's row {row} "
+                                     f"({name})")
+            log(f"{tag} worker 0's {name} batch ({len(mine)} queries) "
+                f"answered in this process, its context alone on the "
+                f"card: {alone[name][0]:.4f} s (t_search "
+                f"{alone[name][1]:.4f} s); its server's row, beside 7 "
+                f"other contexts: t_search {float(row['t_search']):.4f} s")
+    finally:
+        eng.cuda_walk_batch = real
+    per_round = [kernel_vs_plain(r[0], call, f"{tag} kernel w0")
+                 for r, call in zip(w0_rounds, calls[1::2])]
+    del calls
+    if not isinstance(engine.fm, torch.Tensor):
+        raise AssertionError(f"{tag} worker 0's engine is not raw resident")
+    w0_build = build_chunk_vs_plain(f"{tag} build w0", g,
+                                    dc.owned(0)[:CHUNK], engine.fm[:CHUNK])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, **headline(per_round[0]),
+            "max_abs_err": max(x["max_abs_err"] for x in per_round),
+            "workers": w, "make_cpds_s": make_s,
+            "build_s": [b["seconds"] for b in builds],
+            "ready_s": [ready[x][1] for x in range(w)],
+            "round_s": rt.seconds[:4],
+            "peak_card_mib": mem.peak_mib,
+            "w0_alone_s": {k: v[0] for k, v in alone.items()},
+            "server_peak_bytes": [sv["device"]["max_memory_allocated"]
+                                  for sv in serves],
+            "w0_build_vs_plain": w0_build,
+            "rounds": per_round}, build_counts
+
+
+# -------------------------------------------------------------- reorder path
+
+def reorder_path(outdir: str, ref: dict) -> tuple[dict, dict[str, int]]:
+    """The port's reorder tool on the campaign's files (RCM), then the
+    build ``auto`` picks on the reordered graph (``frontier``: the plain
+    torch queue on the card, then the extraction kernel) held byte-equal
+    to ``ellsplit`` on worker 0's first 512 targets; the queue's pops
+    and ms a pop are recorded. Returns the measurements and the build
+    kernels' launches of the ``auto`` build."""
+    tag = "[reorder]"
+    rxy = os.path.join(outdir, "road-rcm.xy")
+    rscen = os.path.join(outdir, "road-rcm.scen")
+    rdiff = os.path.join(outdir, "congestion-rcm.diff")
+    t0 = time.perf_counter()
+    rc = reorder_cli.main(["--input", ref["xy"], "--order", "rcm", "-o", rxy,
+                           "--scen", ref["scen"], rscen,
+                           "--diff", ref["diff_path"], rdiff])
+    tool_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{tag} reorder exit code {rc}")
+    g0, g = ref["g"], Graph.from_xy(rxy)
+    perm = np.loadtxt(rxy + ".order", dtype=np.int64)
+    inv = np.empty(g.n, np.int64)
+    inv[perm] = np.arange(g.n)
+    if not np.array_equal(read_scen(rscen), inv[ref["queries"]]):
+        raise AssertionError(f"{tag} the reordered scenario is not the "
+                             "relabelled one")
+    loc0, loc = locality_fraction(g0), locality_fraction(g)
+    kind, st = cpd.pick_build_kernel(g, "auto")
+    log(f"{tag} cli.reorder --order rcm: {tool_s:.3f} s; edge locality "
+        f"{loc0:.3f} -> {loc:.3f}; auto resolves {kind!r} (raw ids: "
+        f"{cpd.pick_build_kernel(g0, 'auto')[0]!r})")
+    if kind != "frontier":
+        raise AssertionError(f"{tag} auto resolved {kind!r}, not frontier")
+    dc = DistributionController("tpu", CAMPAIGN_WORKERS, CAMPAIGN_WORKERS,
+                                g.n)
+    dg = DeviceGraph.from_graph(g, device="cuda")
+    t = torch.as_tensor(dc.owned(0)[:CHUNK].astype(np.int32),
+                        device=dg.device)
+    queue = {}
+    real = frontier_relax.dist_to_targets_frontier
+
+    def timed_queue(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = real(*a, stats=queue, **kw)
+        torch.cuda.synchronize()
+        queue["s"] = time.perf_counter() - t1
+        queue["dist"] = out
+        return out
+
+    build = sharded.chunk_compute(dg, (kind, st))
+    zero_launches()
+    frontier_relax.dist_to_targets_frontier = timed_queue
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fm_auto = build(t)
+        torch.cuda.synchronize()
+        auto_s = time.perf_counter() - t1
+    finally:
+        frontier_relax.dist_to_targets_frontier = real
+    counts = read_build_launches()
+    if counts["first_moves"] <= 0:
+        raise AssertionError(f"{tag} the frontier build never launched "
+                             "first_moves")
+    # the extraction kernel against the plain extraction on the queue's
+    # own distances
+    fm_plain = bellman_ford.first_move_from_dist(dg, t, queue.pop("dist"))
+    if not torch.equal(fm_auto, fm_plain):
+        raise AssertionError(f"{tag} first_moves differs from the plain "
+                             f"extraction on {int((fm_auto != fm_plain).sum())}"
+                             " entries of the frontier distances")
+    del fm_plain
+    kind_e, st_e = cpd.pick_build_kernel(g, "ellsplit")
+    build_e = sharded.chunk_compute(dg, (kind_e, st_e))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fm_e = build_e(t)
+    torch.cuda.synchronize()
+    ell_s = time.perf_counter() - t1
+    if not torch.equal(fm_auto, fm_e):
+        bad = int((fm_auto != fm_e).sum())
+        raise AssertionError(f"{tag} frontier fm differs from ellsplit on "
+                             f"{bad} entries")
+    pops, queue_s = queue["pops"], queue["s"]
+    ms_pop = queue_s * 1e3 / max(pops, 1)
+    log(f"{tag} worker 0's first {CHUNK} targets: auto (frontier queue + "
+        f"first_moves) {auto_s:.3f} s, queue {pops} pops in {queue_s:.3f} s "
+        f"= {ms_pop:.4f} ms a pop (host syncs as they are), ellsplit "
+        f"{ell_s:.3f} s; fm [{CHUNK}, {g.n}] byte-equal to ellsplit's and "
+        "to the plain extraction of the queue's distances; build kernel "
+        f"launches of the auto build {counts}")
+    del fm_auto, fm_e, dg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kind": kind, "locality": [loc0, loc], "tool_s": tool_s,
+            "targets": CHUNK, "auto_s": auto_s, "pops": pops,
+            "queue_s": queue_s, "ms_per_pop": ms_pop,
+            "ellsplit_s": ell_s}, counts
 
 
 T_START = time.perf_counter()
@@ -1520,7 +2175,7 @@ def main() -> int:
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
         traceback.print_exc()
         return 1
-    log(f"[done] {time.perf_counter() - T_START:.1f} s")
+    log(f"[done] {time.perf_counter() - T_START:.1f} s on {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

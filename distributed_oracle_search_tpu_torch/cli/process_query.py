@@ -4,26 +4,35 @@ Role parity with reference P4 (SURVEY.md §2.1, call stack §3.3) and the
 JAX package's ``cli/process_query.py``: read the scenario, route queries
 by the worker owning each **target** node, run one round per congestion
 diff, collect per-worker stats rows, and write the campaign artifacts.
+Two backends behind one stats schema:
 
-The in-process backend (``partmethod: "tpu"`` or ``--backend tpu``) is
-the one ported: a :class:`~..models.cpd.CPDOracle` holds every worker's
-rows on one device (``--device``, default ``cuda``) and each diff round
-is ONE walk over all workers (``CPDOracle.query``; on the card the CUDA
-walk kernel). Per-worker stats rows are recovered from the routed
-results, so ``parts.csv`` has the JAX CLI's columns. Rounds run one per
-diff; the JAX CLI's fused multi-diff walk (``query_multi``, ROADMAP.md
-A9) gives bit-identical answers.
+* in-process (``partmethod: "tpu"`` or ``--backend tpu``): a
+  :class:`~..models.cpd.CPDOracle` holds every worker's rows on one
+  device (``--device``, default ``cuda``) and each diff round is ONE
+  walk over all workers (``CPDOracle.query``; on the card the CUDA walk
+  kernel). Per-worker stats rows are recovered from the routed results.
+  Rounds run one per diff; the JAX CLI's fused multi-diff walk
+  (``query_multi``, ROADMAP.md A9) gives bit-identical answers.
+* host (``div``/``mod``/``alloc``, or ``--backend host``): the
+  reference mechanism — query files to the conf's ``nfs`` dir, the
+  2-line request through each worker's command FIFO, one CSV stats line
+  back (``transport.fifo``), driven concurrently by a thread pool, with
+  explicit failure rows and retries. The resident ``worker.server``
+  processes (``make_fifos``) answer on their own devices. A failed batch
+  is booked in ``degraded.json`` and sets the exit code.
 
 Artifacts (``-o DIR``): ``metrics.json`` (phase timings), ``data.json``
-(full arg dump), ``parts.csv`` (per-worker rows) and, with ``--extract
--k K``, ``paths.csv`` — reference ``process_query.py:230-239``, with its
-multi-worker CSV crash fixed.
+(full arg dump), ``parts.csv`` (per-worker rows), ``degraded.json`` when
+a batch failed and, with ``--extract -k K``, ``paths.csv`` — reference
+``process_query.py:230-239``, with its multi-worker CSV crash fixed.
 
 Not ported, and refused with the ``ROADMAP.md`` item that ports each:
-the host backend (FIFO and RPC, A6), ``--alg astar`` (A12), ``--alg ch``
-(native engine, host backend only), the streamed memory plan (A11),
-multi-host confs (A13), and ``--trace``/``--metrics-dump``/
-``--profile``/``--obs-port`` with ``obs_metrics.json`` (A14).
+``--alg astar`` (A12) and ``--alg ch`` (native engine, A15) in-process,
+the streamed memory plan (A11), multi-host confs (A13),
+``--trace``/``--metrics-dump``/``--profile``/``--obs-port`` with
+``obs_metrics.json`` (A14), and on the host backend the RPC lanes
+(``DOS_TRANSPORT=rpc/auto``), breakers, failover and membership re-reads
+(A14) and replication above 1 (A4-rest).
 
     python -m distributed_oracle_search_tpu_torch.cli.process_query \\
         -c conf.json -o out/
@@ -37,15 +46,20 @@ import sys
 
 import numpy as np
 
-from .args import parse_args
+from .args import get_time_ns, parse_args
 from ..data.formats import read_diff, read_scen, xy_node_count
 from ..parallel.partition import DistributionController
-from ..transport.wire import STATS_HEADER, StatsRow
+from ..transport import fifo as fifo_transport
+from ..transport.fifo import answer_fifo_path, command_fifo_path, fan_out
+from ..transport.wire import (
+    STATS_HEADER, Request, RuntimeConfig, StatsRow, paths_file_for,
+    read_paths_file, write_query_file,
+)
 from ..utils.atomicio import (
     atomic_write_json, atomic_writer, sweep_stale_artifacts,
 )
 from ..utils.config import ClusterConfig, mesh_layout, test_config
-from ..utils.env import env_cast, env_flag
+from ..utils.env import env_cast, env_flag, env_str
 from ..utils.log import get_logger, set_verbosity
 from ..utils.timer import Timer
 
@@ -57,6 +71,21 @@ log = get_logger(__name__)
 EXIT_CLEAN = 0
 EXIT_DEGRADED = 3
 EXIT_FAILED = 4
+
+
+def runtime_config(args) -> RuntimeConfig:
+    """Per-batch engine knobs from CLI args (parity: reference
+    ``process_query.py:149-160``)."""
+    extract = bool(getattr(args, "extract", False))
+    if extract and args.k_moves <= 0:
+        raise SystemExit("--extract needs -k/--k-moves > 0")
+    return RuntimeConfig(
+        hscale=args.h_scale, fscale=args.f_scale, time=get_time_ns(args),
+        itrs=args.itrs, k_moves=args.k_moves, threads=args.omp,
+        verbose=args.verbose, debug=args.debug,
+        thread_alloc=args.thread_alloc, no_cache=args.no_cache,
+        extract=extract,
+    )
 
 
 def effective_partition(conf: ClusterConfig, args):
@@ -88,8 +117,8 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
         raise SystemExit("--alg astar is not ported (ROADMAP.md A12)")
     if args.alg == "ch":
         raise SystemExit(
-            "--alg ch is served by the native engine only, on the host "
-            "backend (ROADMAP.md A6)")
+            "--alg ch is served by the native engine only, which is not "
+            "ported (ROADMAP.md A15)")
     graph = Graph.from_xy(conf.xy_file)
     # debris of killed atomic writes goes before the build-if-missing
     # path below can trip on it
@@ -158,6 +187,100 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
     return stats, paths
 
 
+# ----------------------------------------------------------------- host path
+
+def send_queries(host: str, wid: int, part: np.ndarray, rconf: RuntimeConfig,
+                 nfs: str, diff: str, t_partition: float = 0.0,
+                 timeout: float | None = fifo_transport.DEFAULT_TIMEOUT,
+                 round_idx: int = 0,
+                 policy: fifo_transport.RetryPolicy | None = None):
+    """One shard's batch: write the query file, push the request through
+    the command FIFO, read the stats line (parity: reference
+    ``process_query.py:82-111``). The batch goes to the shard's primary
+    worker only.
+
+    Returns ``(row_list, failure)``: ``failure`` is None on success, else
+    a dict describing the failed batch for ``degraded.json``."""
+    qfile = os.path.join(nfs, f"query.{host}{wid}")
+    with Timer() as prep:
+        write_query_file(qfile, part)
+    req = Request(rconf, qfile, answer_fifo_path(nfs, host, wid), diff)
+    row = fifo_transport.send_with_retry(
+        host, req, command_fifo_path(wid), timeout=timeout, policy=policy)
+    out = row.as_list(t_prepare=prep.interval, t_partition=t_partition,
+                      size=len(part))
+    if row.ok:
+        return out, None
+    log.error("worker %d on %s failed its batch (round %d)", wid, host,
+              round_idx)
+    return out, {"wid": wid, "host": host, "round": round_idx,
+                 "diff": diff, "size": int(len(part)),
+                 "reason": "send-failed"}
+
+
+def send_timeout_s(args) -> float:
+    """Transport timeout: independent of the per-query search budget (a
+    short ``--ms-lim`` must not kill the FIFO round trip itself; a long
+    budget extends the allowance proportionally). ``DOS_SEND_TIMEOUT_S``
+    overrides outright, so a dead worker is found in seconds rather than
+    after the 10-minute default."""
+    override = env_cast("DOS_SEND_TIMEOUT_S", None, float)
+    if override is not None:
+        return override
+    return max(fifo_transport.DEFAULT_TIMEOUT,
+               (get_time_ns(args) / 1e9) * 10)
+
+
+def run_host(conf: ClusterConfig, args, queries, dc, diffs,
+             t_partition: float = 0.0):
+    """Every diff round over the resident FIFO servers, each round's
+    batches sent concurrently; returns ``(stats, paths, failures)``."""
+    transport = (env_str("DOS_TRANSPORT", "fifo") or "fifo").strip().lower()
+    if transport in ("rpc", "auto"):
+        raise SystemExit(f"DOS_TRANSPORT={transport}: the RPC lanes are "
+                         "not ported (ROADMAP.md A14)")
+    rconf = runtime_config(args)
+    groups = dc.group_queries(queries, active_worker=args.worker)
+    timeout = send_timeout_s(args)
+    policy = fifo_transport.RetryPolicy.from_env()
+    # a killed transfer script never reaches its `rm -f`: stale answer
+    # FIFOs go before the first batch, stale build debris with them
+    fifo_transport.clean_stale_answer_fifos(conf.nfs)
+    sweep_stale_artifacts(conf.outdir)
+    jobs = [(conf.workers[wid], wid, part)
+            for wid, part in sorted(groups.items())]
+    stats, paths, failures = [], None, []
+    for di, diff in enumerate(diffs):
+        results = fan_out(jobs, lambda j: send_queries(
+            j[0], j[1], j[2], rconf, conf.nfs, diff,
+            t_partition=t_partition, timeout=timeout, round_idx=di,
+            policy=policy))
+        stats.append([row for row, _failure in results])
+        failures.extend(f for _row, f in results if f is not None)
+        if rconf.extract and paths is None:
+            # prefixes follow free-flow moves -> diff-invariant; collect
+            # each worker's .paths file from the first round only
+            parts = []
+            for host, wid, part in jobs:
+                pfile = paths_file_for(
+                    os.path.join(conf.nfs, f"query.{host}{wid}"))
+                try:
+                    nodes, moves = read_paths_file(pfile)
+                except (OSError, ValueError) as e:
+                    log.error("no paths from worker %d (%s); skipping", wid,
+                              e)
+                    continue
+                parts.append(np.concatenate(
+                    [part, moves[:, None], nodes], axis=1))
+            if parts:
+                paths = np.concatenate(parts, axis=0)
+    if failures:
+        log.error("campaign degraded: %d failed batch(es) across "
+                  "workers %s", len(failures),
+                  sorted({f["wid"] for f in failures}))
+    return stats, paths, failures
+
+
 def run(conf: ClusterConfig, args):
     """The campaign: returns ``(data, stats, paths)`` with the
     reference's shapes (reference ``process_query.py:132-194``)."""
@@ -166,8 +289,11 @@ def run(conf: ClusterConfig, args):
         # diffs); the supported flow reorders the dataset once, up front
         raise SystemExit(
             "--order is applied at dataset-preparation time, not per "
-            "campaign: reorder the dataset once and point the conf at the "
-            "reordered files")
+            "campaign: run `python -m distributed_oracle_search_tpu_torch."
+            f"cli.reorder --input {conf.xy_file} --order {args.order} "
+            "-o <out.xy> --scen <in> <out>` once and point the conf at "
+            "the reordered files (build + serve then agree by "
+            "construction).")
     if conf.multihost:
         raise SystemExit("multi-host campaigns are not ported "
                          "(ROADMAP.md A13)")
@@ -179,24 +305,35 @@ def run(conf: ClusterConfig, args):
     with Timer() as t_workload:
         partmethod, partkey = effective_partition(conf, args)
         nodenum = xy_node_count(conf.xy_file)
-        if not (args.backend == "tpu" or (args.backend == "auto"
-                                          and partmethod == "tpu")):
-            raise SystemExit(
-                f"the host backend (partmethod {partmethod!r}: FIFO/RPC "
-                "workers) is not ported (ROADMAP.md A6); use partmethod "
-                "'tpu' or --backend tpu for the in-process campaign")
-        mesh_layout(conf)
-        # replication is a host-wire concept: the in-process campaign
-        # routes every query to its primary owner
-        if conf.effective_replication() > 1:
-            log.info("replication=%d ignored on the in-process campaign "
-                     "(queries route to primary owners only)",
-                     conf.effective_replication())
+        use_tpu = args.backend == "tpu" or (args.backend == "auto"
+                                            and partmethod == "tpu")
+        if use_tpu:
+            mesh_layout(conf)
+            # replication is a host-wire concept: the in-process
+            # campaign routes every query to its primary owner
+            if conf.effective_replication() > 1:
+                log.info("replication=%d ignored on the in-process "
+                         "campaign (queries route to primary owners "
+                         "only)", conf.effective_replication())
+        else:
+            if conf.effective_replication() > 1:
+                raise SystemExit("replicated host campaigns (replication "
+                                 "> 1, failover) are not ported "
+                                 "(ROADMAP.md A4-rest)")
+            if os.path.exists(os.path.join(conf.outdir, "membership.json")):
+                raise SystemExit("elastic membership (membership.json) is "
+                                 "not ported (ROADMAP.md A14)")
         dc = DistributionController(partmethod, partkey, conf.maxworker,
                                     nodenum)
     diffs = list(conf.diffs) if conf.diffs else list(args.diffs)
     with Timer() as t_process:
-        stats, paths = run_tpu(conf, args, queries, dc, diffs)
+        if use_tpu:
+            stats, paths = run_tpu(conf, args, queries, dc, diffs)
+            failures = []     # in-process rounds have no wire
+        else:
+            stats, paths, failures = run_host(
+                conf, args, queries, dc, diffs,
+                t_partition=t_workload.interval)
 
     data = {
         "num_queries": int(len(queries)),
@@ -204,7 +341,7 @@ def run(conf: ClusterConfig, args):
         "t_read": t_read.interval,
         "t_workload": t_workload.interval,
         "t_process": t_process.interval,
-        "failed_batches": [],     # in-process rounds have no wire
+        "failed_batches": failures,
     }
     return data, stats, paths
 
@@ -216,6 +353,23 @@ def campaign_exit_code(data, stats) -> int:
         return EXIT_CLEAN
     total = sum(len(expe) for expe in stats)
     return EXIT_FAILED if len(failures) >= total else EXIT_DEGRADED
+
+
+def write_degraded_manifest(dirname: str, data, stats) -> str:
+    """``degraded.json`` next to the other campaign artifacts: which
+    batches failed, on which workers, and why — the machine-readable
+    companion of the non-zero exit code."""
+    failures = data.get("failed_batches", [])
+    manifest = {
+        "exit_code": campaign_exit_code(data, stats),
+        "total_batches": sum(len(expe) for expe in stats),
+        "failed_count": len(failures),
+        "failed_workers": sorted({f["wid"] for f in failures}),
+        "failed_batches": failures,
+    }
+    path = os.path.join(dirname, "degraded.json")
+    atomic_write_json(path, manifest)
+    return path
 
 
 def output(data, stats, args, paths=None) -> None:
@@ -246,6 +400,9 @@ def output(data, stats, args, paths=None) -> None:
         writer.writerow(STATS_HEADER)
         writer.writerows([i, *row] for i, expe in enumerate(stats)
                          for row in expe)
+    if data.get("failed_batches"):
+        path = write_degraded_manifest(dirname, data, stats)
+        log.error("degraded campaign: manifest written to %s", path)
     if paths is not None:
         k = paths.shape[1] - 4
         with atomic_writer(os.path.join(dirname, "paths.csv")) as f:

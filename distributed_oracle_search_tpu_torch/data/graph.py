@@ -320,7 +320,7 @@ class Graph:
         The analog of the reference's ``--order`` NodeOrdering override
         (reference ``args.py:119``). Costs and paths are invariant — only
         labels move (query node ids must be mapped through the inverse
-        permutation).
+        permutation; see ``cli.reorder``).
         """
         perm = np.asarray(perm, np.int64)
         if not np.array_equal(np.sort(perm), np.arange(self.n)):
@@ -329,6 +329,72 @@ class Graph:
         inv[perm] = np.arange(self.n)
         return Graph(self.xs[perm], self.ys[perm],
                      inv[self.src], inv[self.dst], self.w)
+
+    def _undirected_csr(self):
+        """Symmetrized adjacency (ptr, nbr) for ordering algorithms."""
+        su = np.concatenate([self.src, self.dst])
+        sv = np.concatenate([self.dst, self.src])
+        order = np.argsort(su, kind="stable")
+        ptr = np.zeros(self.n + 1, np.int64)
+        np.add.at(ptr, su + 1, 1)
+        np.cumsum(ptr, out=ptr)
+        return ptr, sv[order]
+
+    @staticmethod
+    def frontier_neighbors(ptr, nbr, frontier):
+        """All neighbors of ``frontier`` via CSR, one vectorized gather
+        (the shared inner step of every level-synchronous BFS here)."""
+        counts = ptr[frontier + 1] - ptr[frontier]
+        idx = np.repeat(ptr[frontier], counts) + (
+            np.arange(counts.sum())
+            - np.repeat(np.cumsum(counts) - counts, counts))
+        return np.unique(nbr[idx])
+
+    def _bfs_traversal(self, seed_order, frontier_key=None) -> np.ndarray:
+        """Level-synchronous vectorized BFS visit order (restarting per
+        component along ``seed_order``); ``frontier_key(nodes) -> key``
+        optionally sorts each new frontier (Cuthill–McKee's degree rule).
+        """
+        ptr, nbr = self._undirected_csr()
+        visited = np.zeros(self.n, bool)
+        out = np.empty(self.n, np.int64)
+        k = 0
+        si = 0
+        while k < self.n:
+            while visited[seed_order[si]]:
+                si += 1
+            frontier = np.asarray([seed_order[si]])
+            visited[frontier] = True
+            while len(frontier):
+                out[k:k + len(frontier)] = frontier
+                k += len(frontier)
+                nxt = self.frontier_neighbors(ptr, nbr, frontier)
+                nxt = nxt[~visited[nxt]]
+                visited[nxt] = True
+                frontier = (nxt if frontier_key is None
+                            else nxt[np.argsort(frontier_key(nxt),
+                                                kind="stable")])
+        return out
+
+    def bfs_order(self, start: int = 0) -> np.ndarray:
+        """BFS permutation (new → old), restarting per component."""
+        ids = np.arange(self.n)
+        return self._bfs_traversal(
+            np.concatenate([[start], ids[ids != start]]))
+
+    def rcm_order(self) -> np.ndarray:
+        """Reverse Cuthill–McKee permutation (new → old).
+
+        BFS from a low-degree peripheral node, neighbors visited in
+        ascending degree, result reversed. Low bandwidth = neighbor ids
+        close together = high shift coverage and frontier locality for
+        the build kernels.
+        """
+        ptr, _ = self._undirected_csr()
+        deg = np.diff(ptr)
+        out = self._bfs_traversal(np.argsort(deg, kind="stable"),
+                                  frontier_key=lambda nodes: deg[nodes])
+        return out[::-1].copy()
 
     # ----------------------------------------------------------------- io
     @classmethod

@@ -84,8 +84,10 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
     one per cached weight vector); None builds it here.
 
     Each raw kernel launch adds one to ``cuda_walk_batch.launches``, each
-    pack4 launch one to ``cuda_walk_batch.launches_pack4``."""
+    pack4 launch one to ``cuda_walk_batch.launches_pack4``, and each walk
+    on CPU tensors (the plain version) one to ``cuda_walk_batch.plain``."""
     if s.device.type == "cpu":
+        cuda_walk_batch.plain += 1
         return table_search_batch(dg, fm, t_rows, s, t, w_query_pad,
                                   valid=valid, k_moves=k_moves,
                                   max_steps=max_steps, unroll=unroll,
@@ -151,3 +153,4 @@ def launch_walk(fm: torch.Tensor, n: int, t_rows: torch.Tensor,
 
 cuda_walk_batch.launches = 0
 cuda_walk_batch.launches_pack4 = 0
+cuda_walk_batch.plain = 0

@@ -88,11 +88,13 @@ def frontier_graph(graph, f: int | None = None, delta: int | None = None,
 
 
 def dist_to_targets_frontier(dg, fg: FrontierGraph, targets,
-                             max_iters: int = 0) -> torch.Tensor:
+                             max_iters: int = 0,
+                             stats: dict | None = None) -> torch.Tensor:
     """int32 [B, N] of d(x → targets[b]) by delta-stepping on ``dg``'s
     device (a transposed view of the batch-minor ``[N, B]`` table the
     queue works on). ``max_iters`` bounds queue POPS; 0 = run until the
-    queue is empty (with the JAX package's ``1 << 30`` backstop)."""
+    queue is empty (with the JAX package's ``1 << 30`` backstop).
+    ``stats``: a dict that receives ``pops``, the pops the queue ran."""
     n, f, delta = fg.n, fg.f, fg.delta
     dev = dg.device
     targets = torch.as_tensor(targets, dtype=torch.int32, device=dev)
@@ -131,6 +133,8 @@ def dist_to_targets_frontier(dg, fg: FrontierGraph, targets,
                 0, wake.reshape(-1),
                 newmin[ch][:, None].expand_as(wake).reshape(-1), "amin")
         i += 1
+    if stats is not None:
+        stats["pops"] = i
     return dist.T
 
 

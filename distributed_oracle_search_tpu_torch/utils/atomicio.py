@@ -94,6 +94,20 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
     _fsync_dir(os.path.dirname(path))
 
 
+def atomic_replace_bytes(path: str, data: bytes) -> None:
+    """Atomic VISIBILITY without durability: tmp + rename, no fsync.
+
+    For transient data-plane files (per-batch query, paths and results
+    files) that are deleted after one round trip: a concurrent reader
+    must never observe torn bytes, but an fsync pair per batch on a
+    shared dir is a hot-path round trip the data is not worth. Durable
+    artifacts keep :func:`atomic_write_bytes`."""
+    tmp = f"{path}{TMP_SUFFIX}.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.rename(tmp, path)
+
+
 def atomic_write_json(path: str, obj) -> None:
     atomic_write_bytes(path, (json.dumps(obj, indent=2) + "\n").encode())
 

@@ -5,9 +5,12 @@ shared library with a plain C interface, loaded with ``ctypes``. The
 library's file name carries a hash of the source and the flags, so an
 edited source rebuilds and an unchanged one loads the cached ``.so``.
 The build directory is ``build/kernels`` beside the package (listed in
-``.gitignore``); concurrent builds each compile to a private temp name
-and publish with an atomic rename. Each source has its own lock, so
-threads can build different sources at once (one ``nvcc`` each).
+``.gitignore``); a build compiles to a private temp name and publishes
+with an atomic rename. Each source has its own lock, a thread lock
+beside an ``fcntl.flock`` on ``build/kernels/<name>.lock``: threads and
+processes (a fleet of worker processes on a cold cache) compile a source
+once and all load that one library, while different sources build at
+once (one ``nvcc`` each).
 
 Nothing here runs at import: the CPU test suite imports every module on
 a host with no ``nvcc``.
@@ -15,7 +18,9 @@ a host with no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -53,6 +58,21 @@ def find_nvcc() -> str:
                        "build the package's kernels")
 
 
+@contextlib.contextmanager
+def _process_lock(name: str):
+    """Exclusive ``flock`` on ``build/kernels/<name>.lock`` for the
+    block: one process at a time checks the cache and runs ``nvcc`` for
+    a source; the kernel releases the lock if the holder dies."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd = os.open(os.path.join(BUILD_DIR, f"{name}.lock"),
+                 os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (once per source hash) and load ``csrc/<name>.cu``."""
     with _locks_guard:
@@ -65,22 +85,23 @@ def load_library(name: str) -> ctypes.CDLL:
             code = f.read()
         tag = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()
                              ).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"{name}-{tag}.so")
         info = {"seconds": 0.0, "ptxas": "", "path": so}
-        if not os.path.exists(so):
-            tmp = f"{so}.tmp.{os.getpid()}"
-            t0 = time.perf_counter()
-            proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            info["seconds"] = time.perf_counter() - t0
-            info["ptxas"] = proc.stderr.strip()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src} "
-                                   f"(rc {proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            os.rename(tmp, so)
-            log.info("built %s in %.1f s", so, info["seconds"])
+        with _process_lock(name):
+            if not os.path.exists(so):
+                tmp = f"{so}.tmp.{os.getpid()}"
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    capture_output=True, text=True)
+                info["seconds"] = time.perf_counter() - t0
+                info["ptxas"] = proc.stderr.strip()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src} "
+                                       f"(rc {proc.returncode}):\n"
+                                       f"{proc.stdout}\n{proc.stderr}")
+                os.rename(tmp, so)
+                log.info("built %s in %.1f s", so, info["seconds"])
         lib = ctypes.CDLL(so)
         build_info[name] = info
         _loaded[name] = lib

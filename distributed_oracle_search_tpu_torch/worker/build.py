@@ -8,6 +8,7 @@ at reference ``make_cpds.py:20``)::
         --workerid <int> --maxworker <int> [--outdir <dir>] [--chunk N] \\
         [--block-size N] [--codec raw|pack4|rle|auto] [--device cuda|cpu]
         [--method auto|sweep|shift|frontier|ellsplit|ell]
+        [--metrics-dump PATH]
 
 Computes the first-move rows for the node subset owned by ``workerid``
 with the batched min-plus build on one device (the card unless
@@ -16,7 +17,10 @@ picks by the graph's structure, ``models.cpd.pick_build_kernel``; every
 method writes the same blocks), and writes one ``.npy`` per block
 (``bid``/``bidx`` scheme of the distribution controller). ``--codec``
 persists each block as a compressed container (``models.resident``; a
-block the codec cannot take is written raw). Re-running resumes at block granularity.
+block the codec cannot take is written raw). Re-running resumes at block
+granularity. ``--metrics-dump`` writes, on exit, the build's seconds and
+blocks, the build kernels' launches, the device and its peak allocated
+bytes as JSON.
 """
 
 from __future__ import annotations
@@ -24,10 +28,16 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
+
+import torch
 
 from ..data.graph import Graph
 from ..models.cpd import build_worker_shard
+from ..ops import cuda_build_kernels as cbk
 from ..parallel.partition import DistributionController
+from ..utils.atomicio import atomic_write_json
+from ..utils.device import resolve_device
 from ..utils.log import get_logger, set_verbosity
 
 log = get_logger(__name__)
@@ -64,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "gates (models.cpd.pick_build_kernel)")
     p.add_argument("--device", default="cuda",
                    help="torch device to build on (default: cuda)")
+    p.add_argument("--metrics-dump", default="",
+                   help="write the build's seconds, blocks, build kernel "
+                        "launches, device and peak device memory as JSON "
+                        "to this path on exit")
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
 
@@ -78,9 +92,28 @@ def main(argv=None) -> int:
              else {})
     dc = DistributionController(args.partmethod, partkey, args.maxworker,
                                 graph.n, **dc_kw)
+    t0 = time.perf_counter()
     written = build_worker_shard(graph, dc, args.workerid, outdir,
                                  chunk=args.chunk, device=args.device,
                                  codec=args.codec, method=args.method)
+    seconds = time.perf_counter() - t0
+    if args.metrics_dump:
+        dev = resolve_device(args.device)
+        on_card = dev.type == "cuda"
+        atomic_write_json(args.metrics_dump, {
+            "wid": args.workerid, "pid": os.getpid(), "seconds": seconds,
+            "blocks": len(written), "rows": dc.n_owned(args.workerid),
+            "counters": {f"{fn.__name__}.launches": fn.launches for fn in
+                         (cbk.relax_jacobi, cbk.first_moves,
+                          cbk.grid_sweep)},
+            "device": {
+                "type": dev.type,
+                "name": (torch.cuda.get_device_name(dev) if on_card
+                         else "cpu"),
+                "max_memory_allocated": (
+                    int(torch.cuda.max_memory_allocated(dev)) if on_card
+                    else 0)},
+        })
     log.info("worker %d: wrote %d block(s) to %s", args.workerid,
              len(written), outdir)
     print(f"worker {args.workerid}: {len(written)} block(s) -> {outdir}")
