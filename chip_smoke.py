@@ -8,9 +8,10 @@ points a user calls, then the compressed-residency path:
 
 1. print the card (``nvidia-smi``) and build the CUDA kernels from
    ``distributed_oracle_search_tpu_torch/csrc`` with ``nvcc``, one
-   ``nvcc`` a source, started together: the walk (raw and pack4 entries)
-   and the build (``cpd_build.cu``: the Jacobi relax, the first-move
-   extraction, the grid sweep cycle);
+   ``nvcc`` a source, started together: the walk (raw, pack4 and fused
+   multi-diff entries), the build (``cpd_build.cu``: the Jacobi relax,
+   the first-move extraction, the grid sweep cycle) and the doubling
+   sweep (``pointer_doubling.cu``);
 2. road path, at the size of the USA-road-d.NY stand-in
    (``synth_road_network(264_000, seed=0)``, ``mod`` over 32 workers;
    worker 0 owns 8,250 targets, a 2.18 GB int8 first-move table): build
@@ -72,10 +73,14 @@ points a user calls, then the compressed-residency path:
    conf JSON with ``partmethod "tpu"`` over 8 workers (the fm is int8
    ``[8, 8192, 65536]``, 4 GiB); ``make_cpds.main(["-c", conf])`` builds
    and saves the index, then ``process_query.main`` answers the conf's
-   free-flow and diff rounds, and again with ``-k 8 --extract`` — each
-   round one walk kernel launch over every worker's rows, launch
-   counters zeroed before the campaign and read after it, pair tables
-   counted (one per oracle and weight set, or the smoke fails); checks:
+   free-flow and diff rounds — fused: ONE launch of the fused multi-diff
+   walk kernel over every worker's rows for both — and again with ``-k
+   8 --extract`` — one walk kernel launch a round (a budget runs the
+   rounds one by one); launch counters zeroed before the campaign and
+   read after it, pair tables counted (the ``-k`` oracle's one per
+   weight set, the fused oracle's one edge-id table, or the smoke
+   fails); checks: the fused rounds' costs, ``plen`` and ``finished``
+   equal a direct ``CPDOracle.query`` of each round query by query,
    free-flow costs equal reverse-Dijkstra and every query finishes,
    ``parts.csv``'s per-worker ``plen``/``finished`` sums equal a direct
    ``CPDOracle.query``, ``paths.csv`` equals ``query_paths``, and the
@@ -84,7 +89,32 @@ points a user calls, then the compressed-residency path:
    (``method="auto"`` must resolve ``ellsplit``) and its relax and
    extraction kernels held against their plain versions and timed on
    worker 0's 8,192 targets, as in step 2;
-5. host path (``[host]`` lines), the reference's own pipeline on the
+5. serving path (``[serving]`` lines), the oracle's serving methods on
+   the campaign's oracle at full size, with ``DOS_TABLE_BUDGET_GB`` set
+   to 60 for the phase (the default 8 refuses the cell's tables):
+   ``query`` (free flow, diff; the walk q/s), ``query_multi`` at D = 2
+   (free flow, diff) and D = 5 (three more ``synth_diff(frac=0.1)``
+   seeds), ``query_mat`` (8 sources x 4,096 targets), ``build(store_dists
+   =True)`` (``auto`` must resolve ``ellsplit``) then ``query_dist``,
+   ``prepare_weights`` (free flow, diff) then ``query_table``, and
+   ``prepare_weights_multi`` at D = 2 then ``query_table_multi``, each
+   table freed before the next, host seconds and peak device memory a
+   step; counts zeroed before and read after (two fused walk launches,
+   one walk launch a query and a mat row, one doubling sweep launch a
+   sweep, or the smoke fails). Checks: ``query_multi`` equals D single
+   queries, ``query_mat`` equals ``query`` on the same pairs,
+   ``query_dist`` equals the free-flow walk where finished and
+   reverse-Dijkstra, ``query_table`` equals ``query`` and
+   ``query_table_multi`` equals ``query_multi``; the fused walk kernel
+   equals the plain multi walk on each recorded call (timed: bare
+   launch, the plain walk, D single walk launches on the same lanes,
+   the bound from the distinct sectors the walk reads); the doubling
+   sweep equals the plain sweep, sweep by sweep, on worker 0's first
+   2,048 rows (timed: each sweep's launch, the plain sweep and
+   ``torch.gather`` of the same records) and at D = 5 on 512 rows;
+   recorded: prepare seconds and sweeps, lookup q/s beside walk q/s and
+   the break-even ``prepare / (1/walk_qps - 1/lookup_qps)``;
+6. host path (``[host]`` lines), the reference's own pipeline on the
    campaign's inputs: a second conf, ``partmethod "mod"`` over 8
    ``localhost`` workers (8,192 targets each, a 512 MiB int8 shard, 4 GiB
    over 8 processes); ``make_cpds.main(["-c", conf, "--backend",
@@ -113,7 +143,7 @@ points a user calls, then the compressed-residency path:
    each build's seconds, server launch-to-ready, each round's q/s on the
    host clock beside the campaign's, ``t_search`` per worker row, the
    card's peak used memory over all processes (``nvidia-smi``);
-6. reorder path (``[reorder]`` lines): ``cli.reorder.main`` with
+7. reorder path (``[reorder]`` lines): ``cli.reorder.main`` with
    ``--order rcm`` on the campaign's ``.xy``/``.scen``/``.diff``; the
    scenario must come back relabelled; ``auto`` must resolve
    ``frontier`` on the reordered graph; worker 0's first 512 targets
@@ -121,13 +151,13 @@ points a user calls, then the compressed-residency path:
    extraction kernel) and by ``ellsplit`` must give byte-equal fm,
    equal too to the plain extraction of the queue's distances; records
    the queue's pops and ms a pop;
-7. print the card's name and power limit again on the ``[done]`` line,
-   then the kernel table as one JSON line (both walks and the three
-   build kernels, each with its launches in the main runs; the raw
-   walk's ``launches_by_path`` holds the host servers' launches read
-   from their dumps, the build kernels' the build processes' and the
-   reorder build's), then, as the last line, ``{"ok": true, "device":
-   {...}}``.
+8. print the card's name and power limit again on the ``[done]`` line,
+   then the kernel table as one JSON line (the raw and pack4 walks, the
+   three build kernels, the fused walk and the doubling sweep, each with
+   its launches in the main runs; the raw walk's ``launches_by_path``
+   holds the host servers' launches read from their dumps, the build
+   kernels' the build processes' and the reorder build's), then, as the
+   last line, ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 at the start of each path and
 read at the end of its main run (build, load, rounds), before any
@@ -178,10 +208,12 @@ from distributed_oracle_search_tpu_torch.ops import (
 from distributed_oracle_search_tpu_torch.ops.frontier_relax import (
     locality_fraction,
 )
+from distributed_oracle_search_tpu_torch.ops import cuda_doubling as cd
 from distributed_oracle_search_tpu_torch.ops import cuda_walk as cw
+from distributed_oracle_search_tpu_torch.ops import pointer_doubling as pd
 from distributed_oracle_search_tpu_torch.ops.device_graph import DeviceGraph
 from distributed_oracle_search_tpu_torch.ops.table_search import (
-    fm_slot, table_search_batch, walk_budget, walk_pairs,
+    fm_slot, table_search_batch, table_search_multi, walk_budget, walk_pairs,
 )
 from distributed_oracle_search_tpu_torch.parallel import (
     DistributionController, sharded,
@@ -236,7 +268,26 @@ HOST_SEND_TIMEOUT_S = 60
 HOST_READY_S = 300
 HOST_STOP_S = 60
 #: the build kind ``method="auto"`` must resolve to on each path
-EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit"}
+EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit",
+                 "serving": "ellsplit"}
+#: the serving phase, on the campaign's oracle: three more congestion
+#: diffs (seeds) for the D = 5 fused walk, 8 mat rows of 4,096 targets,
+#: and the device budget it sets for the prepared tables (the fused D = 2
+#: tables of the campaign cell take 51.5 GB; the default 8 GB refuses them)
+SERVING_DIFF_SEEDS = (3, 4, 5)
+#: four more diffs for the kernels' wide branches, compared with their
+#: plain versions on the main path's inputs: K4 at D = 9 (sums in the
+#: lane's own cost column past the 8 register sums) and K5 at D = 7
+#: (three 16-byte vectors a record)
+WIDE_DIFF_SEEDS = (6, 7, 8, 9)
+SERVING_MAT_ROWS = 8
+SERVING_MAT_TARGETS = 4_096
+SERVING_TABLE_BUDGET_GB = 60
+#: the doubling sweep's comparison: worker 0's first rows (the oracle's
+#: prepare_weights chunk), and a narrower chunk at D = 5 and D = 7 (two
+#: and three 16-byte vectors a record)
+SWEEP_ROWS = 2048
+SWEEP_ROWS_WIDE = 512
 #: the cuts at which each build kernel is held against its plain version
 #: (Jacobi steps; sweep cycles), before the check at convergence
 RELAX_CUT = 4
@@ -336,10 +387,12 @@ def make_queries(targets: np.ndarray, n: int) -> np.ndarray:
 
 
 def zero_launches() -> None:
-    """Every kernel's launch count to 0: the two walks and the three
-    build kernels."""
+    """Every kernel's launch count to 0: the three walks (raw, pack4,
+    fused multi-diff), the doubling sweep and the three build kernels."""
     cw.cuda_walk_batch.launches = 0
     cw.cuda_walk_batch.launches_pack4 = 0
+    cw.cuda_walk_multi.launches = 0
+    cd.doubling_sweep.launches = 0
     for fn in BUILD_FNS.values():
         fn.launches = 0
 
@@ -419,9 +472,11 @@ def drive_rounds(engine, queries, rounds, tag: str) -> dict:
     return answers
 
 
-def touched_sectors(call, plen_kernel) -> tuple[int, int]:
+def touched_sectors(call, plen_kernel, d: int = 0):
     """Distinct 32-byte sectors of the fm table and of the ``(next, w)``
-    pair table that the walk on one recorded call's inputs must read.
+    pair table that the walk on one recorded call's inputs must read;
+    with ``d`` > 0 (the fused walk) also those of the ``[M+1, d]``
+    transposed weights, each move reading its edge's row.
 
     Replays the walk one move at a time: a live lane reads its fm byte
     (birth and after each move, none after its move budget runs out) and
@@ -442,7 +497,7 @@ def touched_sectors(call, plen_kernel) -> tuple[int, int]:
     x = s.long()
     plen = torch.zeros_like(x)
     live = valid.clone()
-    fm_sec, pair_sec = [], []
+    fm_sec, pair_sec, w_sec = [], [], []
     for _ in range(steps):
         if not bool(live.any()):
             break
@@ -454,6 +509,10 @@ def touched_sectors(call, plen_kernel) -> tuple[int, int]:
             can &= plen < budget
         slot = slot.clamp_min(0)
         pair_sec.append(((x * dg.k + slot) * 8 // SECTOR)[can])
+        if d:
+            row = dg.out_eid[x, slot].long() * (4 * d)
+            w_sec.append(torch.cat([(row // SECTOR)[can],
+                                    ((row + 4 * d - 1) // SECTOR)[can]]))
         x = torch.where(can, dg.out_nbr[x, slot].long(), x)
         plen += can.long()
         live = can if budget is None else can & (plen < budget)
@@ -463,6 +522,8 @@ def touched_sectors(call, plen_kernel) -> tuple[int, int]:
     def distinct(parts):
         return int(torch.unique(torch.cat(parts)).numel()) if parts else 0
 
+    if d:
+        return distinct(fm_sec), distinct(pair_sec), distinct(w_sec)
     return distinct(fm_sec), distinct(pair_sec)
 
 
@@ -1065,7 +1126,7 @@ def run() -> list[dict]:
     # ---- 1. card + kernel builds: one nvcc a source, started together
     log(card_line())
     t0 = time.perf_counter()
-    sources = (cw.KERNEL_NAME, cbk.KERNEL_NAME)
+    sources = (cw.KERNEL_NAME, cbk.KERNEL_NAME, cd.KERNEL_NAME)
     errors: list[BaseException] = []
 
     def build_one(name):
@@ -1130,14 +1191,18 @@ def run() -> list[dict]:
     log(f"[compressed] done at {time.perf_counter() - T_START:.1f} s")
 
     # ---- 4. campaign path: make_cpds -> process_query over all workers,
-    # then 5. the host backend and 6. the reorder tool on its inputs
+    # then 5. the serving methods on its oracle, 6. the host backend and
+    # 7. the reorder tool on its inputs
     outdir = tempfile.mkdtemp(prefix="chip-smoke-campaign-", dir=work)
     try:
-        campaign, cmps["campaign"], build_launches["campaign"], ref = \
-            campaign_path(outdir)
+        campaign, cmps["campaign"], build_launches["campaign"], ref, \
+            oracle = campaign_path(outdir)
         log(f"[campaign] done at {time.perf_counter() - T_START:.1f} s")
+        serving, build_launches["serving"] = serving_path(oracle, ref)
+        del oracle
         gc.collect()
         torch.cuda.empty_cache()
+        log(f"[serving] done at {time.perf_counter() - T_START:.1f} s")
         host, build_launches["host"] = host_path(outdir, ref)
         log(f"[host] done at {time.perf_counter() - T_START:.1f} s")
         reorder, build_launches["reorder"] = reorder_path(outdir, ref)
@@ -1146,8 +1211,10 @@ def run() -> list[dict]:
         shutil.rmtree(outdir, ignore_errors=True)
     raw_kernel["launches_by_path"] = {"road": raw_kernel["launches"],
                                       "campaign": campaign["launches"],
+                                      "serving": serving["launches"]["walk"],
                                       "host": host["launches"]}
-    raw_kernel["launches"] += campaign["launches"] + host["launches"]
+    raw_kernel["launches"] += (campaign["launches"] + host["launches"]
+                               + serving["launches"]["walk"])
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
                                     campaign["max_abs_err"],
                                     host["max_abs_err"])
@@ -1160,7 +1227,51 @@ def run() -> list[dict]:
         if entry["launches"] <= 0:
             raise AssertionError(f"the main path never launched "
                                  f"{entry['name']}")
-    return [raw_kernel, pack4_kernel, *build]
+    return [raw_kernel, pack4_kernel, *build, *serving_entries(campaign,
+                                                               serving)]
+
+
+def serving_entries(campaign: dict, serving: dict) -> list[dict]:
+    """The kernel table's entries of K4 (the fused multi-diff walk) and
+    K5 (the doubling sweep): launches in the campaign's and the serving
+    phase's main runs, the headline numbers from the serving phase."""
+    k4 = serving["k4"][0]
+    multi = {"name": cw.KERNEL_NAME_MULTI, "route": "cuda",
+             "source": "distributed_oracle_search_tpu_torch/csrc/"
+                       "table_search_walk.cu",
+             "replaces": "distributed_oracle_search_tpu/ops/table_search.py"
+                         ":235 (table_search_multi, an XLA stage: no "
+                         "pallas_call)",
+             "launches": (campaign["multi_launches"]
+                          + serving["launches"]["multi"]),
+             "launches_by_path": {"campaign": campaign["multi_launches"],
+                                  "serving": serving["launches"]["multi"]},
+             "max_abs_err": max(x["max_abs_err"] for x in serving["k4"]),
+             **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by", "singles_ms")},
+             "library_ms": None, "parity": "bit-identical",
+             "calls": serving["k4"]}
+    k5 = serving["k5"]
+    sweep = {"name": cd.ENTRY, "route": "cuda",
+             "source": "distributed_oracle_search_tpu_torch/csrc/"
+                       "pointer_doubling.cu",
+             "replaces": "distributed_oracle_search_tpu/ops/"
+                         "pointer_doubling.py:101 (doubled_tables' "
+                         "while_loop body, an XLA stage: no pallas_call)",
+             "launches": serving["launches"]["sweep"],
+             "launches_by_path": {"serving": serving["launches"]["sweep"]},
+             "max_abs_err": max(x["max_abs_err"]
+                                for x in (k5, *serving["k5_wide"])),
+             **{k: k5[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+             "parity": "bit-identical", "chunk": k5,
+             "wide": serving["k5_wide"], "sweeps": serving["sweeps"],
+             "qps": serving["qps"]}
+    for entry in (multi, sweep):
+        if entry["launches"] <= 0:
+            raise AssertionError(f"the main path never launched "
+                                 f"{entry['name']}")
+    return [multi, sweep]
 
 
 def check_build_launches(path: str, tag: str) -> dict[str, int]:
@@ -1412,18 +1523,23 @@ def campaign_inputs(outdir: str):
 
 
 class CampaignProbe:
-    """Times the oracle's ``build``/``save``/``load``/``query`` calls the
-    CLIs make (host clock, synchronised), keeps the oracles they load,
-    and records every pair-table build by (oracle, weight set)."""
+    """Times the oracle's ``build``/``save``/``load``/``query``/
+    ``query_multi`` calls the CLIs make (host clock, synchronised), keeps
+    the oracles they load and what ``query_multi`` answered, and records
+    every pair-table build by (oracle, weight set) and every edge-id
+    pair-table build (the fused walk's) by oracle."""
 
-    METHODS = ("build", "save", "load", "query")
+    METHODS = ("build", "save", "load", "query", "query_multi")
 
     def __init__(self):
         self.seconds: dict[str, list[float]] = {m: [] for m in self.METHODS}
         self.oracles: list = []
+        self.multi_out: list = []
         self.pairs: list[tuple[int, str]] = []
+        self.eid_pairs: list[int] = []
         self._real = {m: getattr(cpd.CPDOracle, m) for m in self.METHODS}
         self._real_pairs = cpd.walk_pairs
+        self._real_eid_pairs = cpd.walk_eid_pairs
 
     def _timed(self, name):
         fn = self._real[name]
@@ -1436,6 +1552,8 @@ class CampaignProbe:
             self.seconds[name].append(time.perf_counter() - t0)
             if name == "load":
                 self.oracles.append(oracle)
+            if name == "query_multi":
+                self.multi_out.append(out)
             return out
         return wrapper
 
@@ -1444,16 +1562,22 @@ class CampaignProbe:
         self.pairs.append((id(dg), key))
         return self._real_pairs(dg, w_pad)
 
+    def _counting_eid_pairs(self, dg):
+        self.eid_pairs.append(id(dg))
+        return self._real_eid_pairs(dg)
+
     def __enter__(self):
         for m in self.METHODS:
             setattr(cpd.CPDOracle, m, self._timed(m))
         cpd.walk_pairs = self._counting_pairs
+        cpd.walk_eid_pairs = self._counting_eid_pairs
         return self
 
     def __exit__(self, *exc):
         for m, fn in self._real.items():
             setattr(cpd.CPDOracle, m, fn)
         cpd.walk_pairs = self._real_pairs
+        cpd.walk_eid_pairs = self._real_eid_pairs
 
 
 def campaign_path(outdir: str) -> dict:
@@ -1479,8 +1603,10 @@ def campaign_path(outdir: str) -> dict:
         rcs.append(process_query.main(["-c", conf, "-o", out_k, "-k",
                                        str(CAMPAIGN_K), "--extract"]))
         launches = read_launches()[0]
+        multi_launches = cw.cuda_walk_multi.launches
         build_counts = check_build_launches("campaign", tag)
         n_pairs = len(probe.pairs)
+        n_eid_pairs = len(probe.eid_pairs)
         oracle = probe.oracles[0]
         del probe.oracles[1:]
         # a direct query of every round on the first campaign's oracle,
@@ -1520,18 +1646,49 @@ def campaign_path(outdir: str) -> dict:
         f"{oracle.fm.device})")
     names = ["free-flow", "diff", f"k{CAMPAIGN_K} free-flow",
              f"k{CAMPAIGN_K} diff"]
-    for name, sec in zip(names, probe.seconds["query"]):
+    # the conf's two rounds are one fused walk: each round's time is an
+    # equal share of it, as the CLI books it
+    fused_s = probe.seconds["query_multi"][0]
+    round_s = [fused_s / 2, fused_s / 2, *probe.seconds["query"][:2]]
+    log(f"{tag} rounds free-flow + diff fused into one walk: "
+        f"{len(queries)} queries x 2 rounds in {fused_s:.4f} s = "
+        f"{2 * len(queries) / fused_s:.1f} answers/s")
+    for name, sec in zip(names[2:], round_s[2:]):
         log(f"{tag} round {name}: {len(queries)} queries in {sec:.4f} s = "
             f"{len(queries) / sec:.1f} q/s")
-    log(f"{tag} walk kernel launches in the four rounds: {launches}; pair "
-        f"tables built: {n_pairs}, one per oracle and weight set")
-    if launches != 4:
+    log(f"{tag} launches in the CLIs' runs: fused walk {multi_launches} "
+        f"(the two conf rounds), walk {launches} (the -k {CAMPAIGN_K} "
+        f"rounds, one a round); pair tables built: {n_pairs}, one per "
+        f"weight set of the -k oracle; edge-id pair tables: {n_eid_pairs}, "
+        "the fused oracle's one")
+    if multi_launches != 1:
+        raise AssertionError(f"{tag} {multi_launches} fused walk launches "
+                             "for the two fused rounds, not one")
+    if launches != 2:
         raise AssertionError(f"{tag} {launches} walk kernel launches in "
-                             "four rounds, not one a round")
-    if len(set(probe.pairs)) != len(probe.pairs) or n_pairs != 4:
+                             f"the two -k {CAMPAIGN_K} rounds, not one a "
+                             "round")
+    if len(set(probe.pairs)) != len(probe.pairs) or n_pairs != 2:
         raise AssertionError(f"{tag} pair tables built {probe.pairs}")
-    if len(probe.pairs) != n_pairs:
-        raise AssertionError(f"{tag} the direct queries rebuilt pairs")
+    if n_eid_pairs != 1:
+        raise AssertionError(f"{tag} edge-id pair tables built "
+                             f"{probe.eid_pairs}")
+    # the direct queries walk the fused oracle, which built no pair table
+    # of its own: one each for its two weight sets, none twice
+    if (len(probe.pairs) != n_pairs + 2
+            or len(set(probe.pairs)) != len(probe.pairs)):
+        raise AssertionError(f"{tag} the direct queries built pairs "
+                             f"{probe.pairs[n_pairs:]}")
+    f_cost, f_plen, f_fin = probe.multi_out[0]
+    for i, name in enumerate(("free-flow", "diff")):
+        cost, plen, fin = direct[name]
+        if not (np.array_equal(f_cost[i], cost)
+                and np.array_equal(f_plen, plen)
+                and np.array_equal(f_fin, fin)):
+            raise AssertionError(f"{tag} fused round {name} differs from "
+                                 "a direct CPDOracle.query")
+    log(f"{tag} the fused rounds' costs, plen and finished equal a direct "
+        "CPDOracle.query of each round, query by query")
 
     # parts.csv: per-worker plen and finished sums of each round
     owner = dc.worker_of(queries[:, 1])
@@ -1572,21 +1729,372 @@ def campaign_path(outdir: str) -> dict:
                        for name, (_, plen, fin) in direct.items()},
            "parts_k": os.path.join(out_k, "parts.csv"),
            "paths": os.path.join(out_k, "paths.csv"),
-           "round_s": dict(zip(names, probe.seconds["query"][:4]))}
+           "round_s": dict(zip(names, round_s)),
+           "direct": direct,
+           "walk_kernel_ms": {x["round"]: x["kernel_ms"] for x in per_round}}
     probe.oracles.clear()
-    del oracle, recorded, direct
+    del recorded
     gc.collect()
     torch.cuda.empty_cache()
     cmp = build_kernels_vs_plain(f"{tag} build-kernel", g, kind,
                                  cpd.pick_build_kernel(g, "auto")[1],
                                  targets0)
-    return {"launches": launches, **headline(per_round[0]),
+    return {"launches": launches, "multi_launches": multi_launches,
+            **headline(per_round[0]),
             "max_abs_err": max(x["max_abs_err"] for x in per_round),
             "build_s": build_s, "save_s": save_s,
-            "load_s": probe.seconds["load"],
-            "round_s": probe.seconds["query"][:4], "index_bytes": disk,
+            "load_s": probe.seconds["load"], "fused_round_s": fused_s,
+            "round_s": round_s, "index_bytes": disk,
             "resident_bytes": resident, "rounds": per_round}, cmp, \
-        build_counts, ref
+        build_counts, ref, oracle
+
+
+# -------------------------------------------------------------- serving path
+
+def multi_vs_plain(name: str, call, tag: str) -> dict:
+    """K4 on one recorded ``cuda_walk_multi`` call's exact inputs against
+    the plain multi walk (equal element by element or raise); time the
+    bare launch, the plain walk, and D single walk launches on the same
+    lanes (the walks the fused one replaces); the bound from this run's
+    data (distinct fm, pair and weight-row sectors)."""
+    a, kw = call
+    dg, fm, t_rows, s, t, w_pads = a
+    valid, pair = kw["valid"], kw["pair"]
+    d, q = w_pads.shape[0], s.shape[0]
+    ker = cw.cuda_walk_multi(*a, **kw)
+    plain = table_search_multi(*a, **kw)
+    steps, budget = walk_budget(dg.n, -1, int(kw.get("max_steps", 0)), 8)
+    w_t = w_pads.T.contiguous()
+    out = (torch.empty_like(ker[0]), torch.empty_like(ker[1]),
+           torch.empty_like(ker[2]))
+
+    def launch():
+        cw.launch_walk_multi(fm, dg.n, t_rows, s, t, valid, pair, w_t,
+                             steps, budget, *out)
+
+    pairs = [walk_pairs(dg, w_pads[i]) for i in range(d)]
+    singles_out = [(torch.empty_like(s), torch.empty_like(s),
+                    torch.empty_like(valid)) for _ in range(d)]
+
+    def singles():
+        for i in range(d):
+            cw.launch_walk(fm, dg.n, t_rows, s, t, valid, pairs[i], steps,
+                           budget, *singles_out[i])
+
+    launch()
+    singles()
+    torch.cuda.synchronize()
+    for x, y, b, label in zip(ker, plain, out, ("cost", "plen", "fin")):
+        for got, what in ((x, "kernel"), (b, "bare launch")):
+            if got.dtype != y.dtype or not torch.equal(got, y):
+                raise AssertionError(f"{tag} {name}: {what} {label} differs "
+                                     "from the plain multi walk on "
+                                     f"{int((got != y).sum())} entries")
+    for i, (c1, p1, f1) in enumerate(singles_out):
+        if not (torch.equal(c1, ker[0][i]) and torch.equal(p1, ker[1])
+                and torch.equal(f1, ker[2])):
+            raise AssertionError(f"{tag} {name}: row {i} differs from the "
+                                 "single walk on its weights")
+    kernel_ms = time_bare(launch, KERNEL_REPS)
+    singles_ms = time_bare(singles, KERNEL_REPS)
+    plain_ms = time_cuda(lambda: table_search_multi(*a, **kw), PLAIN_REPS)
+    sum_plen = int(ker[1][valid].long().sum())
+    max_plen = int(ker[1].max()) if q else 0
+    fm_sec, pair_sec, w_sec = touched_sectors(call, ker[1], d=d)
+    # lanes in (rows, s, t int32 + valid) once, out (d costs, plen, fin)
+    nbytes = (fm_sec + pair_sec + w_sec) * SECTOR + q * 13 + q * (4 * d + 5)
+    ops = (5 + d) * sum_plen + 4 * q
+    bound_ms, bound_by = bound(nbytes, ops)
+    err = int((ker[0].long() - plain[0].long()).abs().max()) if q else 0
+    log(f"{tag} K4 {name}: D={d} lanes={q} valid={int(valid.sum())} "
+        f"sum_plen={sum_plen} max_plen={max_plen} kernel {kernel_ms:.4f} "
+        f"ms, {d} single walk launches on the same lanes {singles_ms:.4f} "
+        f"ms ({singles_ms / kernel_ms:.2f}x), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B: {fm_sec} fm + "
+        f"{pair_sec} pair + {w_sec} weight sectors) — bit-identical")
+    return {"round": name, "d": d, "lanes": q, "sum_plen": sum_plen,
+            "max_plen": max_plen, "ms": kernel_ms, "singles_ms": singles_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err}
+
+
+def doubling_vs_plain(dg, fm_rows: torch.Tensor, w_pads: torch.Tensor,
+                      tag: str, timed: bool) -> dict:
+    """K5 against the plain sweep on one chunk's records, sweep by sweep
+    until the plain sweep moves no successor or the sweep bound: equal
+    records and flags or raise. ``timed``: each sweep's bare launch, the
+    plain sweep and ``torch.gather`` of the same packed records (the one
+    PyTorch call that computes the sweep's gather) by CUDA events."""
+    rec = pd.initial_records(dg, fm_rows, w_pads)
+    out = torch.empty_like(rec)
+    flag = torch.zeros(1, dtype=torch.int32, device=rec.device)
+    r, n, p = rec.shape
+    d = w_pads.shape[0]
+    ms, plain_ms, gather_ms = [], [], []
+    changed, i, err = True, 0, 0
+    while changed and i < pd.n_sweeps(n):
+        want, changed = pd.sweep_records(rec)
+        flag.zero_()
+        cd.doubling_sweep(rec, out, flag)
+        torch.cuda.synchronize()
+        err = max(err, int((out.long() - want.long()).abs().max()))
+        if not torch.equal(out, want) or bool(flag.item()) != changed:
+            raise AssertionError(f"{tag} K5 sweep {i} (D={d}, {r} rows) "
+                                 "differs from the plain sweep")
+        del want
+        if timed:
+            idx = rec[..., 0].long()[..., None].expand_as(rec)
+            ms.append(time_bare(lambda: cd.launch_sweep(rec, out, flag),
+                                KERNEL_REPS))
+            plain_ms.append(time_cuda(lambda: pd.sweep_records(rec),
+                                      PLAIN_REPS))
+            gather_ms.append(time_cuda(lambda: torch.gather(rec, 1, idx),
+                                       KERNEL_REPS))
+            del idx
+        rec, out = out, rec
+        i += 1
+    # each record field read once and written once, a compare and 1 + d
+    # adds an entry
+    nbytes = 2 * r * n * (2 + d) * 4
+    bound_ms, bound_by = bound(nbytes, r * n * (2 + d))
+    res = {"rows": r, "d": d, "sweeps": i, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err}
+    if timed:
+        res.update(ms=sum(ms) / len(ms), plain_ms=sum(plain_ms) / len(ms),
+                   library_ms=sum(gather_ms) / len(ms), ms_by_sweep=ms,
+                   gather_ms_by_sweep=gather_ms)
+        log(f"{tag} K5 D={d} on {r} rows x {n} nodes: {i} sweeps equal to "
+            f"the plain sweep; a sweep kernel {res['ms']:.4f} ms (by sweep "
+            + ", ".join(f"{x:.4f}" for x in ms) + f"), plain "
+            f"{res['plain_ms']:.4f} ms, torch.gather of the records "
+            f"{res['library_ms']:.4f} ms, bound {bound_ms:.5f} ms by "
+            f"{bound_by} ({nbytes} B)")
+    else:
+        log(f"{tag} K5 D={d} ({p // 4} vectors a record) on {r} rows: {i} "
+            "sweeps equal to the plain sweep")
+    return res
+
+
+def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
+    """The oracle's serving methods on the campaign cell at full size:
+    ``query_multi`` (D = 2 and 5), ``query_mat``, ``build(store_dists=
+    True)`` + ``query_dist``, ``prepare_weights`` + ``query_table`` (free
+    flow, diff), ``prepare_weights_multi`` + ``query_table_multi`` (D =
+    2); every table freed before the next. Counts zeroed before, read
+    after; then every answer held to the walk's and K4/K5 to their plain
+    versions."""
+    tag = "[serving]"
+    g, queries, n = ref["g"], ref["queries"], len(ref["queries"])
+    w_diff = g.weights_with_diff(ref["diff_path"])
+    ws2 = [None, w_diff]
+    ws9 = ws2 + [g.weights_with_diff(synth_diff(g, frac=0.1, seed=sd))
+                 for sd in SERVING_DIFF_SEEDS + WIDE_DIFF_SEEDS]
+    ws5 = ws9[:5]
+    rng = np.random.default_rng(SEED + 3)
+    sources = rng.integers(0, g.n, SERVING_MAT_ROWS)
+    mat_targets = rng.integers(0, g.n, (SERVING_MAT_ROWS,
+                                        SERVING_MAT_TARGETS))
+    w, r = oracle.targets_wr.shape
+    steps: dict[str, dict] = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        steps[name] = {"s": dt, "peak_bytes": peak}
+        log(f"{tag} {name}: {dt:.4f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        return out
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    recorded: list = []
+    real_multi = sharded.cuda_walk_multi
+
+    def recording_multi(*a, **kw):
+        recorded.append((a, kw))
+        return real_multi(*a, **kw)
+
+    budget_was = os.environ.get("DOS_TABLE_BUDGET_GB")
+    os.environ["DOS_TABLE_BUDGET_GB"] = str(SERVING_TABLE_BUDGET_GB)
+    log(f"{tag} DOS_TABLE_BUDGET_GB={SERVING_TABLE_BUDGET_GB} for this "
+        f"phase (default 8): tables need {oracle.table_memory_bytes()} B "
+        f"single, {w * r * g.n * 12} B fused at D=2; fm [{w}, {r}, {g.n}]")
+    sweeps: dict[str, int] = {}
+    t_bytes: dict[str, int] = {}
+    try:
+        zero_launches()
+        sharded.cuda_walk_multi = recording_multi
+        try:
+            walk = {"free-flow": step("query free-flow",
+                                      lambda: oracle.query(queries)),
+                    "diff": step("query diff", lambda: oracle.query(
+                        queries, w_query=w_diff))}
+            multi2 = step("query_multi D=2",
+                          lambda: oracle.query_multi(queries, ws2))
+            multi5 = step("query_multi D=5",
+                          lambda: oracle.query_multi(queries, ws5))
+        finally:
+            sharded.cuda_walk_multi = real_multi
+        mats = step(f"query_mat x{SERVING_MAT_ROWS}", lambda: [
+            oracle.query_mat(int(sv), tg)
+            for sv, tg in zip(sources, mat_targets)])
+        with KindProbe() as kinds:
+            step("build(store_dists=True)",
+                 lambda: oracle.build(store_dists=True))
+        t_bytes["dists"] = oracle.dists.numel() * oracle.dists.element_size()
+        dist = step("query_dist", lambda: oracle.query_dist(queries))
+        oracle.dists = None
+        free()
+        tabled, lookup_ms = {}, {}
+        r_arr, s_arr, _, valid, _ = oracle.route(queries)
+        for name, wq in (("free-flow", None), ("diff", w_diff)):
+            before = cd.doubling_sweep.launches
+            tables = step(f"prepare_weights {name}",
+                          lambda wq=wq: oracle.prepare_weights(wq))
+            sweeps[name] = cd.doubling_sweep.launches - before
+            t_bytes[name] = sum(x.numel() * x.element_size() for x in tables)
+            oracle.query_table(tables, queries)     # warm, as the walk is
+            tabled[name] = step(f"query_table {name}",
+                                lambda t=tables: oracle.query_table(
+                                    t, queries))
+            # the lookup's device time on the routed lanes (CUDA events),
+            # beside the walk kernel's on the same lanes
+            rows_d, s_d, v_d = sharded._flat_lanes(tables[1], r_arr, s_arr,
+                                                   valid)[1:]
+            flat = [x.view(w * r, g.n) for x in tables]
+            lookup_ms[name] = time_cuda(lambda f=flat: pd.lookup_tables(
+                *f, rows_d, s_d, v_d), KERNEL_REPS)
+            del tables, flat
+            free()
+        before = cd.doubling_sweep.launches
+        tables = step("prepare_weights_multi D=2",
+                      lambda: oracle.prepare_weights_multi(ws2))
+        sweeps["multi D=2"] = cd.doubling_sweep.launches - before
+        t_bytes["multi D=2"] = sum(x.numel() * x.element_size()
+                                   for x in tables)
+        oracle.query_table_multi(tables, queries)   # warm
+        tabled_multi = step("query_table_multi D=2",
+                            lambda: oracle.query_table_multi(tables,
+                                                             queries))
+        del tables
+        free()
+        launches = {"walk": cw.cuda_walk_batch.launches,
+                    "multi": cw.cuda_walk_multi.launches,
+                    "sweep": cd.doubling_sweep.launches}
+        build_counts = check_build_launches("serving", tag)
+    finally:
+        if budget_was is None:
+            os.environ.pop("DOS_TABLE_BUDGET_GB", None)
+        else:
+            os.environ["DOS_TABLE_BUDGET_GB"] = budget_was
+    kinds.check("serving", tag)
+    log(f"{tag} launches in the phase's run: walk {launches['walk']} (2 "
+        f"queries + {SERVING_MAT_ROWS} mat rows), fused walk "
+        f"{launches['multi']}, doubling sweep {launches['sweep']} "
+        f"({sweeps}); table bytes {t_bytes}")
+    if launches["multi"] != 2:
+        raise AssertionError(f"{tag} {launches['multi']} fused walk "
+                             "launches, not one a query_multi call")
+    if launches["walk"] != 2 + SERVING_MAT_ROWS:
+        raise AssertionError(f"{tag} {launches['walk']} walk launches, not "
+                             "one a query and one a mat row")
+    if launches["sweep"] != sum(sweeps.values()) or min(sweeps.values()) < 1:
+        raise AssertionError(f"{tag} doubling sweeps {sweeps}")
+
+    # every answer against the walk's
+    def same(got, want, what):
+        for a, b in zip(got, want):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{tag} {what} differs from the walk")
+
+    for i, name in enumerate(("free-flow", "diff")):
+        same((multi2[0][i], multi2[1], multi2[2]), walk[name],
+             f"query_multi D=2 row {name}")
+    for i, wq in enumerate(ws5):
+        want = (walk["free-flow"] if i == 0 else walk["diff"] if i == 1
+                else oracle.query(queries, w_query=wq))
+        same((multi5[0][i], multi5[1], multi5[2]), want,
+             f"query_multi D=5 row {i}")
+    log(f"{tag} query_multi at D=2 and D=5 equals D single queries, query "
+        "by query")
+    mat_q = np.concatenate([np.stack([np.full(SERVING_MAT_TARGETS, sv), tg],
+                                     axis=1)
+                            for sv, tg in zip(sources, mat_targets)])
+    mc, _, mf = oracle.query(mat_q)
+    same((np.concatenate([c for c, _ in mats]),
+          np.concatenate([f for _, f in mats])), (mc, mf), "query_mat")
+    mat_ms = steps[f"query_mat x{SERVING_MAT_ROWS}"]["s"] * 1e3 \
+        / SERVING_MAT_ROWS
+    log(f"{tag} query_mat: {SERVING_MAT_ROWS} rows x {SERVING_MAT_TARGETS} "
+        f"targets equal query on the same pairs; {mat_ms:.4f} ms a row")
+    cost_ff, _, fin_ff = walk["free-flow"]
+    if not (np.array_equal(dist[1], fin_ff)
+            and np.array_equal(dist[0][fin_ff], cost_ff[fin_ff])):
+        raise AssertionError(f"{tag} query_dist differs from the free-flow "
+                             "walk")
+    golden_dijkstra(g, queries, dist[0], dist[1], f"{tag} query_dist golden")
+    for name in ("free-flow", "diff"):
+        same(tabled[name], walk[name], f"query_table {name}")
+    same(tabled_multi, multi2, "query_table_multi D=2")
+    log(f"{tag} query_dist equals the free-flow walk where finished; "
+        "query_table (free flow, diff) equals query; query_table_multi "
+        "equals query_multi")
+
+    def pads(ws):
+        return torch.as_tensor(g.padded_weights_multi(ws), dtype=torch.int32,
+                               device=oracle.device)
+
+    # K4's wide branch on the D=2 call's lanes at D=9 (a comparison, not
+    # a launch of the main path)
+    a9 = recorded[0][0][:5] + (pads(ws9),)
+    per_call = [multi_vs_plain(name, call, tag) for name, call in zip(
+        ("D=2", "D=5", "D=9"), recorded + [(a9, recorded[0][1])])]
+    del recorded, a9
+    free()
+    k5 = doubling_vs_plain(oracle.dg, oracle.fm[0, :SWEEP_ROWS],
+                           oracle.dg.w_pad[None], tag, timed=True)
+    k5_wide = [doubling_vs_plain(oracle.dg, oracle.fm[0, :SWEEP_ROWS_WIDE],
+                                 pads(ws9[:d]), tag, timed=False)
+               for d in (5, 7)]
+    free()
+    qps = {}
+    for name in ("free-flow", "diff"):
+        walk_qps = n / steps[f"query {name}"]["s"]
+        look_qps = n / steps[f"query_table {name}"]["s"]
+        prep = steps[f"prepare_weights {name}"]["s"]
+        gap = 1 / walk_qps - 1 / look_qps
+        walk_ms = ref["walk_kernel_ms"][name]
+        dev_gap = (walk_ms - lookup_ms[name]) * 1e-3 / n
+        qps[name] = {"walk_qps": walk_qps, "lookup_qps": look_qps,
+                     "prepare_s": prep, "sweeps": sweeps[name],
+                     "breakeven_queries": prep / gap if gap > 0 else None,
+                     "walk_kernel_ms": walk_ms,
+                     "lookup_device_ms": lookup_ms[name],
+                     "device_breakeven_queries": (prep / dev_gap
+                                                  if dev_gap > 0 else None)}
+        log(f"{tag} {name}: prepare {prep:.3f} s ({sweeps[name]} sweeps "
+            f"over {w} workers x {-(-r // 2048)} chunks), lookup "
+            f"{look_qps:.1f} q/s vs walk {walk_qps:.1f} q/s (host clock, "
+            f"{n} queries): break-even "
+            f"{qps[name]['breakeven_queries']} queries; on the device the "
+            f"lookup takes {lookup_ms[name]:.4f} ms and the walk kernel "
+            f"{walk_ms:.4f} ms on the same lanes: break-even "
+            f"{qps[name]['device_breakeven_queries']} queries")
+    fused_s = steps["query_multi D=2"]["s"]
+    seq_s = steps["query free-flow"]["s"] + steps["query diff"]["s"]
+    log(f"{tag} query_multi D=2 {fused_s:.4f} s vs two queries "
+        f"{seq_s:.4f} s (host clock)")
+    return {"launches": launches, "steps": steps, "sweeps": sweeps,
+            "table_bytes": t_bytes, "k4": per_call, "k5": k5,
+            "k5_wide": k5_wide, "qps": qps, "mat_ms_per_row": mat_ms,
+            "fused_s": fused_s, "two_queries_s": seq_s}, build_counts
 
 
 # ----------------------------------------------------------------- host path

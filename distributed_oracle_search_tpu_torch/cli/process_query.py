@@ -11,8 +11,10 @@ Two backends behind one stats schema:
   device (``--device``, default ``cuda``) and each diff round is ONE
   walk over all workers (``CPDOracle.query``; on the card the CUDA walk
   kernel). Per-worker stats rows are recovered from the routed results.
-  Rounds run one per diff; the JAX CLI's fused multi-diff walk
-  (``query_multi``, ROADMAP.md A9) gives bit-identical answers.
+  With two or more diffs and no ``-k`` budget every round is answered by
+  ONE fused walk (``CPDOracle.query_multi``; on the card the fused walk
+  kernel), bit-identical to one round per diff; ``-k`` campaigns run one
+  round per diff.
 * host (``div``/``mod``/``alloc``, or ``--backend host``): the
   reference mechanism — query files to the conf's ``nfs`` dir, the
   2-line request through each worker's command FIFO, one CSV stats line
@@ -101,7 +103,8 @@ def effective_partition(conf: ClusterConfig, args):
 
 
 def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
-    """All diff rounds in-process on one device; per-worker rows
+    """All diff rounds in-process on one device — fused into one walk
+    when there are several and no ``-k`` budget; per-worker rows
     recovered from the routed results.
 
     Per-worker timing semantics: one walk answers the whole round, so a
@@ -143,16 +146,40 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
     owner = dc.worker_of(queries[:, 1])
     stats = []
     paths = None
-    for diff in diffs:
+    # fused multi-diff: trajectories are diff-independent (moves follow
+    # the FREE-FLOW first-move table), so a multi-diff campaign walks ONCE
+    # and sums every round's costs (CPDOracle.query_multi). Answers are
+    # bit-identical to sequential rounds; each round's timers carry an
+    # equal share of the fused interval. k_moves budgets fall back to
+    # sequential rounds (the fused walk serves the unlimited default).
+    fused = None
+    if len(diffs) > 1 and args.k_moves < 0:
+        with Timer() as fprep:
+            w_list = [None if d == "-"
+                      else graph.weights_with_diff(read_diff(d))
+                      for d in diffs]
+        with Timer() as fsearch:
+            f_cost, f_plen, f_fin = oracle.query_multi(
+                queries, w_list, active_worker=args.worker)
+        fused = (f_cost, f_plen, f_fin, fprep.interval / len(diffs),
+                 fsearch.interval / len(diffs))
+        log.info("fused %d diff rounds in one walk (%.3fs)", len(diffs),
+                 fsearch.interval)
+    for di, diff in enumerate(diffs):
         active = (np.ones(len(queries), bool) if args.worker == -1
                   else owner == args.worker)
-        with Timer() as prep:
-            w_query = (None if diff == "-"
-                       else graph.weights_with_diff(read_diff(diff)))
-        with Timer() as search:
-            cost, plen, fin = oracle.query(
-                queries, w_query=w_query, k_moves=args.k_moves,
-                active_worker=args.worker)
+        if fused is not None:
+            cost, plen, fin = fused[0][di], fused[1], fused[2]
+            prep_iv, search_iv = fused[3], fused[4]
+        else:
+            with Timer() as prep:
+                w_query = (None if diff == "-"
+                           else graph.weights_with_diff(read_diff(diff)))
+            with Timer() as search:
+                cost, plen, fin = oracle.query(
+                    queries, w_query=w_query, k_moves=args.k_moves,
+                    active_worker=args.worker)
+            prep_iv, search_iv = prep.interval, search.interval
         total_moves = int(plen[active].sum())
         total_size = int(active.sum())
         rows = []
@@ -171,11 +198,11 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
                 n_touched=size,
                 plen=moves,
                 finished=int(fin[mask].sum()),
-                t_receive=prep.interval * share,
-                t_astar=search.interval * share,
-                t_search=search.interval * share,
+                t_receive=prep_iv * share,
+                t_astar=search_iv * share,
+                t_search=search_iv * share,
             )
-            rows.append(row.as_list(t_prepare=prep.interval * share,
+            rows.append(row.as_list(t_prepare=prep_iv * share,
                                     t_partition=0.0, size=size))
         stats.append(rows)
     if args.extract and args.k_moves > 0:

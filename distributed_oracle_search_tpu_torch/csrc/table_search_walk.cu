@@ -58,6 +58,18 @@
 // is half a raw one, so horizontal moves on a grid find their byte in
 // the sector an earlier move brought into L1.
 //
+// The fused multi-diff variant (K4, entry table_search_walk_multi) serves
+// the JAX package's XLA stage ops/table_search.py::table_search_multi (no
+// Pallas kernel there): one walk whose every move adds the moved edge's
+// weight under each of d weight sets. It is bound like the raw walk, by
+// the longest lane's chain, and keeps its design: the move reads
+// (next, edge id) where the raw walk reads (next, weight), and the d
+// weights of the edge, a contiguous row of w_t [M + 1, d], are read off
+// the chain (nothing waits on them but the sums). Up to d = 8 the sums
+// live in registers (a template a width); wider d adds into the lane's
+// own column of cost, which has no limit on d. The bytes a move adds
+// over the raw walk are its d weights, 4 d bytes from one or two sectors.
+//
 // Parity traps kept from the TPU kernel:
 // * the row offset is int64 (8,250 rows x 264,000 nodes is past 2^31);
 // * birth rule: x0 = valid ? s : t, halted0 = fm[row, x0] < 0 || !valid;
@@ -171,35 +183,44 @@ table_search_walk_kernel(const uint8_t* __restrict__ fm, long long n,
   fin[i] = (v && x == tt) ? 1 : 0;
 }
 
+// Threads a block: the fewest of kMinThreads, 2 x that, ... kMaxThreads
+// that keep all q lanes resident on the card at once.
+cudaError_t walk_threads(int q, int* threads) {
+  int dev = 0, sms = 0, blocks_per_sm = 0, threads_per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &blocks_per_sm, cudaDevAttrMaxBlocksPerMultiprocessor, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &threads_per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  }
+  if (err != cudaSuccess) return err;
+  auto resident = [&](int th) {
+    const long long per_sm =
+        blocks_per_sm < threads_per_sm / th ? blocks_per_sm
+                                            : threads_per_sm / th;
+    return static_cast<long long>(sms) * per_sm * th;
+  };
+  int th = kMinThreads;
+  while (th < kMaxThreads && resident(th) < q) th *= 2;
+  *threads = th;
+  return cudaSuccess;
+}
+
 template <bool kPacked4>
 int launch(const void* fm, long long n, const void* rows, const void* s,
            const void* t, const void* valid, const void* pair, int k,
            long long steps, int budget, void* cost, void* plen, void* fin,
            int q, void* stream) {
   if (q > 0) {
-    int dev = 0, sms = 0, blocks_per_sm = 0, threads_per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    }
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(
-          &blocks_per_sm, cudaDevAttrMaxBlocksPerMultiprocessor, dev);
-    }
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(
-          &threads_per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
-    }
+    int threads = 0;
+    const cudaError_t err = walk_threads(q, &threads);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int threads = kMinThreads;
-    auto resident = [&](int th) {
-      const long long per_sm =
-          blocks_per_sm < threads_per_sm / th ? blocks_per_sm
-                                              : threads_per_sm / th;
-      return static_cast<long long>(sms) * per_sm * th;
-    };
-    while (threads < kMaxThreads && resident(threads) < q) threads *= 2;
     const int blocks = (q + threads - 1) / threads;
     table_search_walk_kernel<kPacked4><<<blocks, threads, 0,
                                          static_cast<cudaStream_t>(stream)>>>(
@@ -210,6 +231,98 @@ int launch(const void* fm, long long n, const void* rows, const void* s,
         static_cast<uint8_t*>(fin), q);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fused multi-diff walk (K4): the raw walk's chain, with the move's
+// edge id read where the single walk reads its weight, and the edge's d
+// weights w_t[eid, 0:d] read off the chain. kD > 0: d == kD sums kept in
+// registers; kD == 0: any d, each move adding into the lane's own column
+// of cost [d, q].
+template <int kD>
+__global__ void __launch_bounds__(kMaxThreads)
+table_search_walk_multi_kernel(const uint8_t* __restrict__ fm, long long n,
+                               const int* __restrict__ rows,
+                               const int* __restrict__ s,
+                               const int* __restrict__ t,
+                               const uint8_t* __restrict__ valid,
+                               const int* __restrict__ pair, int k,
+                               const int* __restrict__ w_t, int d,
+                               long long steps, int budget,
+                               int* __restrict__ cost,
+                               int* __restrict__ plen,
+                               uint8_t* __restrict__ fin, int q) {
+  const int i = threadIdx.x * gridDim.x + blockIdx.x;
+  if (i >= q) return;
+  const bool v = valid[i] != 0;
+  const int tt = t[i];
+  int x = v ? s[i] : tt;
+  unsigned int c[kD > 0 ? kD : 1];
+#pragma unroll
+  for (int j = 0; j < (kD > 0 ? kD : 1); ++j) c[j] = 0;
+  if constexpr (kD == 0) {
+    for (int j = 0; j < d; ++j) cost[static_cast<long long>(j) * q + i] = 0;
+  }
+  int p = 0;
+  if (v) {
+    const uint8_t* row = fm + static_cast<long long>(rows[i]) * n;
+    const int* __restrict__ next = pair;
+    const int* __restrict__ eids = pair + n * k;
+    int head[kHead];
+    int slot = visit<false>(row, next, k, x, head);
+    if (slot >= 0) {
+      for (long long step = 0; step < steps; ++step) {
+        if (budget >= 0 && p >= budget) break;
+        const long long at = static_cast<long long>(x) * k + slot;
+        int nx = head[0];
+#pragma unroll
+        for (int j = 1; j < kHead; ++j) {
+          if (slot == j) nx = head[j];
+        }
+        if (slot >= kHead) nx = __ldg(next + at);
+        const int* wrow = w_t + static_cast<long long>(__ldg(eids + at)) * d;
+        if constexpr (kD > 0) {
+#pragma unroll
+          for (int j = 0; j < kD; ++j) {
+            c[j] += static_cast<unsigned int>(__ldg(wrow + j));
+          }
+        } else {
+          for (int j = 0; j < d; ++j) {
+            int* out = cost + static_cast<long long>(j) * q + i;
+            *out = static_cast<int>(static_cast<unsigned int>(*out) +
+                                    static_cast<unsigned int>(__ldg(wrow + j)));
+          }
+        }
+        p += 1;
+        x = nx;
+        slot = visit<false>(row, next, k, x, head);
+        if (slot < 0) break;
+      }
+    }
+  }
+  if constexpr (kD > 0) {
+#pragma unroll
+    for (int j = 0; j < kD; ++j) {
+      cost[static_cast<long long>(j) * q + i] = v ? static_cast<int>(c[j]) : 0;
+    }
+  }
+  plen[i] = v ? p : 0;
+  fin[i] = (v && x == tt) ? 1 : 0;
+}
+
+template <int kD>
+void launch_multi(int blocks, int threads, cudaStream_t stream,
+                  const void* fm, long long n, const void* rows,
+                  const void* s, const void* t, const void* valid,
+                  const void* pair, int k, const void* w_t, int d,
+                  long long steps, int budget, void* cost, void* plen,
+                  void* fin, int q) {
+  table_search_walk_multi_kernel<kD><<<blocks, threads, 0, stream>>>(
+      static_cast<const uint8_t*>(fm), n, static_cast<const int*>(rows),
+      static_cast<const int*>(s), static_cast<const int*>(t),
+      static_cast<const uint8_t*>(valid), static_cast<const int*>(pair), k,
+      static_cast<const int*>(w_t), d, steps, budget,
+      static_cast<int*>(cost), static_cast<int*>(plen),
+      static_cast<uint8_t*>(fin), q);
 }
 
 }  // namespace
@@ -239,4 +352,41 @@ extern "C" int table_search_walk_pack4(const void* fm, long long n,
                                        int q, void* stream) {
   return launch<true>(fm, n, rows, s, t, valid, pair, k, steps, budget,
                       cost, plen, fin, q, stream);
+}
+
+// The fused multi-diff walk (K4). `pair` is int32 [2, n, k]: the next
+// node, then the edge id, per out-slot (ops/table_search.py::
+// walk_eid_pairs); `w_t` is int32 [M + 1, d], the d padded weight rows
+// transposed; `cost` is int32 [d, q].
+extern "C" int table_search_walk_multi(const void* fm, long long n,
+                                       const void* rows, const void* s,
+                                       const void* t, const void* valid,
+                                       const void* pair, int k,
+                                       const void* w_t, int d,
+                                       long long steps, int budget,
+                                       void* cost, void* plen, void* fin,
+                                       int q, void* stream) {
+  if (q > 0 && d > 0) {
+    int threads = 0;
+    const cudaError_t err = walk_threads(q, &threads);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = (q + threads - 1) / threads;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DOS_MULTI(D)                                                      \
+  launch_multi<D>(blocks, threads, st, fm, n, rows, s, t, valid, pair, k, \
+                  w_t, d, steps, budget, cost, plen, fin, q)
+    switch (d) {
+      case 1: DOS_MULTI(1); break;
+      case 2: DOS_MULTI(2); break;
+      case 3: DOS_MULTI(3); break;
+      case 4: DOS_MULTI(4); break;
+      case 5: DOS_MULTI(5); break;
+      case 6: DOS_MULTI(6); break;
+      case 7: DOS_MULTI(7); break;
+      case 8: DOS_MULTI(8); break;
+      default: DOS_MULTI(0); break;
+    }
+#undef DOS_MULTI
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -181,6 +181,13 @@ class Graph:
         base = self.w if w is None else np.asarray(w, np.int32)
         return np.concatenate([base, np.asarray([INF], np.int32)])
 
+    def padded_weights_multi(self, w_list) -> np.ndarray:
+        """``[D, M+1]`` int32 — one padded weight row per diff round
+        (``None`` entries mean free flow): the weight operand of the
+        fused multi-diff walk and doubling tables."""
+        return np.stack([np.asarray(self.padded_weights(w), np.int32)
+                         for w in w_list])
+
     # --------------------------------------------------------------- diffs
     def _edge_lookup(self):
         if self._edge_key_sorted is None:

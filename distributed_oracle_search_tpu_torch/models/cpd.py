@@ -27,10 +27,15 @@ oracle:
   JAX package's, so an index built by either package loads under the
   other.
 * :class:`CPDOracle` — every worker's rows as one ``[W, R, N]`` tensor on
-  one device: ``build`` (any method), ``save``, ``load``, ``route`` queries to
-  the worker owning their target, and answer a round of them in one walk
-  over all workers (``parallel.sharded``). The walk's pair table is built
-  once per weight set.
+  one device: ``build`` (any method; ``store_dists=True`` keeps the
+  distances), ``save``, ``load``, ``route`` queries to the worker owning
+  their target, and answer a round of them in one walk over all workers
+  (``parallel.sharded``). The walk's pair table is built once per weight
+  set. The serving methods: ``query_multi`` (D diffs in one fused walk),
+  ``query_mat`` (one source to K targets, joined on the device),
+  ``query_dist`` (free-flow distances by one gather), and
+  ``prepare_weights(_multi)`` with ``query_table(_multi)`` (pointer-
+  doubling tables that answer any query by one gather).
 """
 
 from __future__ import annotations
@@ -52,11 +57,14 @@ from ..ops.ell_split import ell_split_graph, split_ratio
 from ..ops.frontier_relax import frontier_graph, locality_fraction
 from ..ops.grid_sweep import GridGraph
 from ..ops.shift_relax import ShiftGraph, split_coverage
-from ..ops.table_search import walk_pairs
+from ..ops.pointer_doubling import plen_dtype
+from ..ops.table_search import walk_eid_pairs, walk_pairs
 from ..parallel.partition import DistributionController
 from ..parallel.sharded import (
-    build_fm_sharded, chunk_compute, pad_targets, query_paths_sharded,
-    query_sharded,
+    build_fm_sharded, build_tables_multi_sharded, build_tables_sharded,
+    chunk_compute, pad_targets, query_dist_sharded, query_mat_sharded,
+    query_multi_sharded, query_paths_sharded, query_sharded,
+    query_tables_multi_sharded, query_tables_sharded,
 )
 from ..utils.atomicio import (
     SWEEP_MIN_AGE_S, TMP_SUFFIX, AtomicNpyWriter, atomic_save_npy,
@@ -497,13 +505,14 @@ class CPDOracle:
     tensor on ``device`` (None → ``cuda``; raises without a GPU unless
     ``device="cpu"``) and there is no mesh — the ``data`` axis of the
     routed arrays has size 1. On the card a round's walk is the CUDA
-    kernel, on the CPU the plain torch walk.
+    kernel (the fused multi-diff walk and the doubling sweep too), on the
+    CPU the plain torch version.
 
     The walk's ``(next, w)`` pair table (``ops.table_search.walk_pairs``)
     is built once per weight set — free flow, and each distinct diffed
-    weight vector — and kept beside its padded weights in an LRU
-    (``DOS_TRAFFIC_WEIGHT_EPOCHS`` entries, at least 2), as
-    ``ShardEngine`` keeps them."""
+    weight vector, or each ``w_key`` of ``query_mat`` — and kept beside
+    its padded weights in an LRU (``DOS_TRAFFIC_WEIGHT_EPOCHS`` entries,
+    at least 2), as ``ShardEngine`` keeps them."""
 
     def __init__(self, graph: Graph, controller: DistributionController,
                  device=None):
@@ -513,19 +522,32 @@ class CPDOracle:
         self.dg = DeviceGraph.from_graph(graph, device=self.device)
         self.targets_wr = pad_targets(controller)
         self.fm: torch.Tensor | None = None     # int8 [W, R, N]
+        #: optional int32 [W, R, N] (``build(store_dists=True)``)
+        self.dists: torch.Tensor | None = None
         #: the build kind ``build`` resolved (None before a build)
         self.build_kind: str | None = None
-        #: weight-set key (None = free flow, else a digest of the weight
-        #: vector) -> (padded weights, pair table) on the device
+        #: the fused walk's (next, edge id) table: weight-free, one a graph
+        self._eid_pair: torch.Tensor | None = None
+        #: weight-set key (None = free flow, a caller's ``w_key``, else a
+        #: digest of the weight vector) -> (padded weights, pair table) on
+        #: the device
         self._weights: OrderedDict[
-            bytes | None, tuple[torch.Tensor, torch.Tensor]] = OrderedDict()
+            str | bytes | None,
+            tuple[torch.Tensor, torch.Tensor]] = OrderedDict()
         self._weight_keep = max(
             2, env_cast("DOS_TRAFFIC_WEIGHT_EPOCHS", 4, int))
 
     # ------------------------------------------------------------- build
     def build(self, chunk: int = 0, max_iters: int = 0,
+              store_dists: bool = False,
               method: str = "auto") -> "CPDOracle":
         """Precompute every worker's first-move rows on the device.
+
+        ``store_dists=True`` also keeps the converged distance table,
+        int32 ``[W, R, N]`` in ``dists`` (4x the fm memory), enabling
+        :meth:`query_dist` — free-flow answers by one gather instead of a
+        walk. Distances are free-flow only and :meth:`save` does not
+        persist them (they are a pure derivative of the graph).
 
         ``method``: ``"sweep"`` forces the fast-sweeping build, ``"shift"``
         the shift relaxation, ``"frontier"`` the delta-stepping queue,
@@ -535,9 +557,14 @@ class CPDOracle:
         ``build_kind``."""
         kind, structure = pick_build_kernel(self.graph, method)
         self.build_kind = kind
-        self.fm = build_fm_sharded(self.dg, self.targets_wr, chunk=chunk,
-                                   max_iters=max_iters,
-                                   kernel=(kind, structure))
+        built = build_fm_sharded(self.dg, self.targets_wr, chunk=chunk,
+                                 max_iters=max_iters,
+                                 kernel=(kind, structure),
+                                 with_dists=store_dists)
+        if store_dists:
+            self.fm, self.dists = built
+        else:
+            self.fm = built
         return self
 
     # ------------------------------------------------------- persistence
@@ -662,29 +689,40 @@ class CPDOracle:
         return r_arr, s_arr, t_arr, valid, scatter
 
     @staticmethod
-    def _unroute(scatter, nq: int, arrays):
+    def _unroute(scatter, nq: int, arrays, lead_flags=None):
         """Scatter routed ``[D, W, Q, ...]`` results back to input query
-        order (the inverse of :meth:`route`'s packing). Bool arrays come
-        back bool; everything else int64. Inactive queries stay zero, the
-        reference's ``-w`` filter semantics (``process_query.py:59``)."""
+        order (the inverse of :meth:`route`'s packing). Arrays flagged in
+        ``lead_flags`` carry a leading per-diff axis (``[Dd, D, W, Q]``)
+        that is preserved. Bool arrays come back bool; everything else
+        int64. Inactive queries stay zero, the reference's ``-w`` filter
+        semantics (``process_query.py:59``)."""
         active, sd, sw, sq = scatter
+        if lead_flags is None:
+            lead_flags = (False,) * len(arrays)
         outs = []
-        for a in arrays:
+        for a, lead in zip(arrays, lead_flags):
             a = np.asarray(a)
-            out = np.zeros((nq,) + a.shape[3:],
-                           bool if a.dtype == np.bool_ else np.int64)
-            out[active] = a[sd[active], sw[active], sq[active]]
+            dt = bool if a.dtype == np.bool_ else np.int64
+            if lead:
+                out = np.zeros((a.shape[0], nq) + a.shape[4:], dt)
+                out[:, active] = a[:, sd[active], sw[active], sq[active]]
+            else:
+                out = np.zeros((nq,) + a.shape[3:], dt)
+                out[active] = a[sd[active], sw[active], sq[active]]
             outs.append(out)
         return outs
 
-    def _weights_for(self, w_query: np.ndarray | None
+    def _weights_for(self, w_query: np.ndarray | None,
+                     w_key: str | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """``(w_pad, pair)`` for one weight set: the padded query-time
         weights on the device and the walk's pair table built from them,
-        cached together under the weights' digest."""
-        key = None if w_query is None else hashlib.blake2b(
-            np.ascontiguousarray(w_query, np.int32).tobytes(),
-            digest_size=16).digest()
+        cached together under ``w_key`` when the caller names the weights,
+        else under the weights' digest."""
+        key = None if w_query is None else w_key if w_key is not None \
+            else hashlib.blake2b(
+                np.ascontiguousarray(w_query, np.int32).tobytes(),
+                digest_size=16).digest()
         if key in self._weights:
             self._weights.move_to_end(key)
             return self._weights[key]
@@ -737,3 +775,264 @@ class CPDOracle:
                                    k=k)
         return tuple(self._unroute(scatter, len(queries),
                                    [o.cpu().numpy() for o in outs]))
+
+    # ------------------------------------------------- multi-diff, mat
+    def _pads_multi(self, w_diffs) -> torch.Tensor:
+        return torch.as_tensor(self.graph.padded_weights_multi(w_diffs),
+                               dtype=torch.int32, device=self.device)
+
+    def query_multi(self, queries: np.ndarray,
+                    w_diffs: list[np.ndarray | None],
+                    active_worker: int = -1, max_steps: int = 0):
+        """Answer queries under D congestion diffs in ONE fused walk.
+
+        The reference campaign runs one round per diff file over the same
+        scenario (``process_query.py:178``), re-walking every query each
+        round. Trajectories are diff-independent (moves follow the
+        free-flow table; diffs only change cost sums), so the fused walk
+        (``cuda_walk_multi``: K4 on the card) walks once and sums every
+        diff's costs.
+
+        ``w_diffs``: per-diff edge-weight arrays (file order); ``None``
+        entries mean free flow. Returns ``(cost [D, Q], plen [Q],
+        finished [Q])`` in input query order."""
+        if self.fm is None:
+            raise RuntimeError("build() or load() before query_multi()")
+        if not w_diffs:
+            raise ValueError("w_diffs must name at least one round")
+        r_arr, s_arr, t_arr, valid, scatter = self.route(
+            queries, active_worker)
+        if self._eid_pair is None:
+            self._eid_pair = walk_eid_pairs(self.dg)
+        outs = query_multi_sharded(self.dg, self.fm, r_arr, s_arr, t_arr,
+                                   valid, self._pads_multi(w_diffs),
+                                   max_steps=max_steps, pair=self._eid_pair)
+        return tuple(self._unroute(scatter, len(queries),
+                                   [o.cpu().numpy() for o in outs],
+                                   (True, False, False)))
+
+    def query_mat(self, s: int, targets,
+                  w_query: np.ndarray | None = None,
+                  w_key: str | None = None):
+        """One ``mat`` family row — one source, K targets — in one walk
+        over every worker's rows, the answers scattered into a dense row
+        in target order on the device (``parallel.sharded.
+        query_mat_sharded``; the JAX oracle's on-mesh join).
+
+        ``w_key``: a stable identity for ``w_query`` (the diff file path)
+        — given one, the padded weights and their pair table are cached
+        under it (the oracle's weight cache, least recently used dropped
+        first), so many rows under one diff pay one upload and no digest
+        of the vector; rows under one key walk the weights first cached
+        for it, as the JAX oracle's. The JAX oracle's
+        collective-time histogram (``M_MESH_COLLECTIVE``) is
+        observability, which waits for ``ROADMAP.md`` A14.
+
+        Returns ``(cost [K] int64, finished [K] bool)`` in target order;
+        an out-of-range target comes back unfinished with cost 0 (the
+        router cannot place it) rather than raising."""
+        if self.fm is None:
+            raise RuntimeError("build() or load() before query_mat()")
+        targets = np.asarray(targets, np.int64).reshape(-1)
+        k = len(targets)
+        ok = (targets >= 0) & (targets < self.graph.n)
+        cost = np.zeros(k, np.int64)
+        fin = np.zeros(k, bool)
+        if not ok.any() or not (0 <= int(s) < self.graph.n):
+            return cost, fin
+        tgts = targets[ok]
+        queries = np.stack(
+            [np.full(len(tgts), int(s), np.int64), tgts], axis=1)
+        r_arr, s_arr, t_arr, valid, scatter = self.route(queries)
+        # each routed slot's position in the output row: the scatter
+        # writes answers straight into target order
+        _active, sd, sw, sq = scatter
+        slots = np.full(r_arr.shape, -1, np.int32)
+        slots[sd, sw, sq] = np.arange(len(tgts), dtype=np.int32)
+        w_pad, pair = self._weights_for(w_query, w_key)
+        # the row width pads to the next power of two (the JAX oracle's
+        # stable-shape rule); pad slots never receive an answer
+        k_pad = 1 << (len(tgts) - 1).bit_length()
+        row_c, row_f = query_mat_sharded(
+            self.dg, self.fm, r_arr, s_arr, t_arr, valid, slots, w_pad,
+            k_out=k_pad, pair=pair)
+        cost[ok] = row_c.cpu().numpy().astype(np.int64)[:len(tgts)]
+        fin[ok] = row_f.cpu().numpy()[:len(tgts)]
+        return cost, fin
+
+    def query_dist(self, queries: np.ndarray, active_worker: int = -1):
+        """Free-flow fast path: answer d(s → t) by one gather.
+
+        Requires ``build(store_dists=True)``. Returns ``(cost,
+        finished)`` — no ``plen``: no path is materialized. Costs on a
+        diffed graph still need :meth:`query`."""
+        if self.dists is None:
+            raise RuntimeError(
+                "distance table not resident; build(store_dists=True)")
+        r_arr, s_arr, _t_arr, _valid, scatter = self.route(
+            queries, active_worker)
+        cost = query_dist_sharded(self.dists, r_arr, s_arr).cpu().numpy()
+        nq = len(queries)
+        active, sd, sw, sq = scatter
+        out_c = np.zeros(nq, np.int64)
+        out_f = np.zeros(nq, bool)
+        got = cost[sd[active], sw[active], sq[active]]
+        fin = got < TINF
+        out_c[active] = np.where(fin, got, 0)
+        out_f[active] = fin
+        return out_c, out_f
+
+    # ------------------------------------------------- prepared tables
+    def _table_need(self, per_entry: int) -> int:
+        w, r = self.targets_wr.shape
+        return w * r * self.graph.n * per_entry
+
+    def table_memory_bytes(self) -> int:
+        """Device bytes the prepared tables will occupy: int32 cost +
+        sign-packed plen (int16 when N < 2^15) per (worker, row, node)."""
+        return self._table_need(
+            4 + torch.iinfo(plen_dtype(self.graph.n)).bits // 8)
+
+    @property
+    def TABLE_BUDGET(self) -> int:
+        """Device budget for prepared tables (bytes), read at each call
+        from ``DOS_TABLE_BUDGET_GB`` (default 8; a malformed or
+        non-positive value falls back to it)."""
+        gb = env_cast("DOS_TABLE_BUDGET_GB", 8.0, float)
+        return int((gb if gb > 0 else 8.0) * 1e9)
+
+    def prepare_weights(self, w_query: np.ndarray | None = None,
+                        max_len: int = 0, chunk: int = 2048):
+        """Pointer doubling: precompute cost + packed plen for EVERY
+        (source, owned-target) pair under ``w_query`` in O(log L) sweeps
+        (``ops.pointer_doubling``; each sweep K5 on the card). After this,
+        :meth:`query_table` answers any query on these weights by one
+        gather — the amortization path for large campaigns, congestion-
+        diffed rounds included, where :meth:`query_dist` does not apply.
+
+        Memory: 6-8 bytes an entry, 6-8x the fm table. One device holds
+        every worker's tables, so the whole need is held against the
+        budget (``DOS_TABLE_BUDGET_GB``, default 8): the JAX gate with one
+        worker shard. Over it, the call raises with the math instead of
+        faulting mid-campaign. ``chunk`` bounds the rows a worker doubles
+        at once (two ``[chunk, N, 4]`` int32 record buffers live).
+
+        Returns a tables handle ``(cost [W, R, N], plen_packed [W, R,
+        N])`` for :meth:`query_table`."""
+        if self.fm is None:
+            raise RuntimeError("build() or load() before prepare_weights()")
+        need = self.table_memory_bytes()
+        budget = self.TABLE_BUDGET
+        if need > budget:
+            w, r = self.targets_wr.shape
+            raise ValueError(
+                f"prepared tables need {need / 1e9:.1f} GB "
+                f"({w}x{r}x{self.graph.n} entries x "
+                f"{need // (w * r * self.graph.n)} B, sharded over 1 "
+                f"worker shard(s) = {need / 1e9:.1f} GB/device) — "
+                f"over the {budget / 1e9:.1f} GB/device budget "
+                "(DOS_TABLE_BUDGET_GB). At this scale serve via the walk "
+                "instead (the streamed oracle is not ported, ROADMAP.md "
+                "A11).")
+        w_pad, _pair = self._weights_for(w_query)
+        w, r = self.targets_wr.shape
+        out = (torch.empty((w, r, self.graph.n), dtype=torch.int32,
+                           device=self.device),
+               torch.empty((w, r, self.graph.n),
+                           dtype=plen_dtype(self.graph.n),
+                           device=self.device))
+        return self._chunked_tables(
+            lambda fm_, tw_, o: build_tables_sharded(
+                self.dg, fm_, tw_, w_pad, max_len=max_len, out=o),
+            chunk, out)
+
+    def _chunked_tables(self, build_one, chunk: int, out):
+        """Run a table builder over row chunks of the target axis, each
+        chunk's rows written into ``out``'s — the shared scaffolding of
+        :meth:`prepare_weights` and :meth:`prepare_weights_multi`. As in
+        the JAX oracle every chunk is ``chunk`` rows: a short tail is
+        padded with -1 targets and -1 fm rows and trimmed."""
+        r = self.targets_wr.shape[1]
+        if chunk <= 0 or chunk >= r:
+            return build_one(self.fm, self.targets_wr, out)
+        w, _, n = self.fm.shape
+        for i in range(0, r, chunk):
+            c = min(chunk, r - i)
+            fm = self.fm[:, i:i + c]
+            tw = self.targets_wr[:, i:i + c]
+            if c == chunk:
+                build_one(fm, tw, tuple(o[:, i:i + c] for o in out))
+                continue
+            fm = torch.cat([fm, torch.full((w, chunk - c, n), -1,
+                                           dtype=fm.dtype,
+                                           device=fm.device)], dim=1)
+            tw = np.concatenate(
+                [tw, np.full((w, chunk - c), -1, tw.dtype)], axis=1)
+            for o, part in zip(out, build_one(fm, tw, None)):
+                o[:, i:i + c] = part[:, :c]
+        return out
+
+    def query_table(self, tables, queries: np.ndarray,
+                    active_worker: int = -1):
+        """Answer queries from :meth:`prepare_weights` tables. Returns
+        ``(cost, plen, finished)`` — identical to :meth:`query` on the
+        same weights, by one gather a query."""
+        r_arr, s_arr, _t_arr, valid, scatter = self.route(
+            queries, active_worker)
+        outs = query_tables_sharded(tables, r_arr, s_arr, valid)
+        return tuple(self._unroute(scatter, len(queries),
+                                   [o.cpu().numpy() for o in outs]))
+
+    def prepare_weights_multi(self, w_diffs: list[np.ndarray | None],
+                              max_len: int = 0, chunk: int = 1024):
+        """Fused pointer-doubling tables for D diffs at once: the doubling
+        recursion is shared across diffs (free-flow successors), so each
+        sweep sums every diff's costs from one record
+        (``ops.pointer_doubling.doubled_tables_multi``). Memory: ``4 D +
+        2-4`` bytes an entry, gated like :meth:`prepare_weights`.
+        ``chunk`` defaults lower than the single-diff path because each
+        record widens by the D costs.
+
+        Returns a tables handle ``(costs [W, R, N, D], plen_packed [W, R,
+        N])`` for :meth:`query_table_multi`."""
+        if self.fm is None:
+            raise RuntimeError(
+                "build() or load() before prepare_weights_multi()")
+        if not w_diffs:
+            raise ValueError("w_diffs must name at least one round")
+        d = len(w_diffs)
+        per_entry = 4 * d + torch.iinfo(plen_dtype(self.graph.n)).bits // 8
+        need = self._table_need(per_entry)
+        budget = self.TABLE_BUDGET
+        if need > budget:
+            raise ValueError(
+                f"fused tables for {d} diffs need {need / 1e9:.1f} GB "
+                f"({per_entry} B/entry over 1 worker shard(s) = "
+                f"{need / 1e9:.1f} GB/device) — over the "
+                f"{budget / 1e9:.1f} GB/device budget "
+                "(DOS_TABLE_BUDGET_GB). Prepare fewer diffs per call or "
+                "serve via the fused walk (query_multi) instead.")
+        w_pads = self._pads_multi(w_diffs)
+        w, r = self.targets_wr.shape
+        out = (torch.empty((w, r, self.graph.n, d), dtype=torch.int32,
+                           device=self.device),
+               torch.empty((w, r, self.graph.n),
+                           dtype=plen_dtype(self.graph.n),
+                           device=self.device))
+        return self._chunked_tables(
+            lambda fm_, tw_, o: build_tables_multi_sharded(
+                self.dg, fm_, tw_, w_pads, max_len=max_len, out=o),
+            chunk, out)
+
+    def query_table_multi(self, tables, queries: np.ndarray,
+                          active_worker: int = -1):
+        """Answer queries from :meth:`prepare_weights_multi` tables: one
+        ``[D]``-wide gather a query. Returns ``(cost [D, Q], plen [Q],
+        finished [Q])`` — row d identical to :meth:`query_table` on diff
+        d's tables."""
+        r_arr, s_arr, _t_arr, valid, scatter = self.route(
+            queries, active_worker)
+        outs = query_tables_multi_sharded(tables, r_arr, s_arr, valid)
+        return tuple(self._unroute(scatter, len(queries),
+                                   [o.cpu().numpy() for o in outs],
+                                   (True, False, False)))

@@ -166,8 +166,8 @@ def first_move_from_dist(dg: DeviceGraph, targets,
 
 
 def build_fm_columns(dg: DeviceGraph, targets, max_iters: int = 0,
-                     csr=None, out: torch.Tensor | None = None
-                     ) -> torch.Tensor:
+                     csr=None, out: torch.Tensor | None = None,
+                     dist_out: torch.Tensor | None = None) -> torch.Tensor:
     """CPD shard build: first-move rows for a batch of targets —
     Bellman-Ford to convergence, then first-move extraction, all on
     ``dg``'s device. Returns int8 [B, N] (or ``out``, an int8 ``[R, N]``
@@ -177,12 +177,16 @@ def build_fm_columns(dg: DeviceGraph, targets, max_iters: int = 0,
     build above; on the card the hand relax and extraction kernels
     (``cuda_build_kernels.build_fm_jacobi``; ``csr`` is ``dg``'s full
     out-edge CSR, built there when None) — the same Jacobi iterate, so
-    the same table — or an error, never the plain build."""
+    the same table — or an error, never the plain build. ``dist_out``:
+    an int32 ``[R, N]`` row block that receives the converged distances'
+    first R rows (``build(store_dists=True)``)."""
     from . import cuda_build_kernels as cbk
 
     targets = _as_targets(dg, targets)
     if dg.device.type != "cpu":
-        return cbk.build_fm_jacobi(dg, targets, max_iters, csr=csr, out=out)
+        return cbk.build_fm_jacobi(dg, targets, max_iters, csr=csr, out=out,
+                                   dist_out=dist_out)
     plan = _slot_plan(dg)
     dist_nb = _dist_nb(dg, targets, plan, max_iters)
+    cbk.write_dists(dist_nb.T, dist_out)
     return cbk.write_rows(_first_move_nb(dg, targets, dist_nb, plan), out)

@@ -408,6 +408,16 @@ def write_rows(fm: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     return out.copy_(fm[:out.shape[0]])
 
 
+def write_dists(dist_bn: torch.Tensor, dist_out: torch.Tensor | None
+                ) -> None:
+    """Copy the first ``len(dist_out)`` rows of ``[B, N]`` distances (on
+    the card a transposed view of the relax loop's node-major ``[N, B]``
+    table) into the int32 ``[R, N]`` rows ``dist_out``; nothing when
+    None."""
+    if dist_out is not None:
+        dist_out.copy_(dist_bn[:dist_out.shape[0]])
+
+
 def _fm_vec(dist_nb: torch.Tensor, targets: torch.Tensor) -> int:
     """K2's columns a lane: :func:`relax_vec`'s, narrowed until the
     distances and the targets on the card are aligned for it."""
@@ -618,11 +628,14 @@ def sweep_dist(gd, targets: torch.Tensor,
 
 def build_fm_jacobi(dg: DeviceGraph, targets: torch.Tensor,
                     max_iters: int = 0, csr: EdgeCSR | None = None,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    dist_out: torch.Tensor | None = None) -> torch.Tensor:
     """The ``ell``/``ellsplit``/``shift`` build through the kernels:
     :func:`jacobi_dist` over the full out-edge CSR, then
-    :func:`first_moves`. int8 ``[B, N]`` (or ``out``)."""
+    :func:`first_moves`. int8 ``[B, N]`` (or ``out``); ``dist_out``
+    receives the distances' first rows (:func:`write_dists`)."""
     if csr is None:
         csr = csr_from_ell(dg)
     dist_nb, _ = jacobi_dist(csr, targets, max_iters)
+    write_dists(dist_nb.T, dist_out)
     return first_moves(dg, targets, dist_nb, csr=csr, out=out)

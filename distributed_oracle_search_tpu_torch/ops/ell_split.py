@@ -141,7 +141,8 @@ def dist_to_targets_split(sg: ELLSplitGraph, targets,
 
 def build_fm_columns_ellsplit(dg, sg: ELLSplitGraph, targets,
                               max_iters: int = 0, csr=None,
-                              out: torch.Tensor | None = None
+                              out: torch.Tensor | None = None,
+                              dist_out: torch.Tensor | None = None
                               ) -> torch.Tensor:
     """CPD build via the split relaxation: int8 ``[B, N]`` first moves.
 
@@ -150,10 +151,13 @@ def build_fm_columns_ellsplit(dg, sg: ELLSplitGraph, targets,
     out-edge CSR (``csr``, built from ``dg`` when None) and the hand
     extraction kernel — the same Jacobi iterate, so the same table. The
     extraction always runs over the full-width ELL (bit-identical
-    tie-breaks). ``out``: see ``cuda_build_kernels.first_moves``."""
+    tie-breaks). ``out``: see ``cuda_build_kernels.first_moves``;
+    ``dist_out``: ``cuda_build_kernels.write_dists``."""
     targets = torch.as_tensor(targets, dtype=torch.int32, device=dg.device)
     if dg.device.type == "cpu":
         dist = dist_to_targets_split(sg, targets, max_iters)
+        cbk.write_dists(dist, dist_out)
         fm = first_move_from_dist(dg, targets, dist)
         return cbk.write_rows(fm, out)
-    return cbk.build_fm_jacobi(dg, targets, max_iters, csr=csr, out=out)
+    return cbk.build_fm_jacobi(dg, targets, max_iters, csr=csr, out=out,
+                               dist_out=dist_out)

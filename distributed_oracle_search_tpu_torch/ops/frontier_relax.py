@@ -140,7 +140,8 @@ def dist_to_targets_frontier(dg, fg: FrontierGraph, targets,
 
 def build_fm_columns_frontier(dg, fg: FrontierGraph, targets,
                               max_iters: int = 0, extract_chunk: int = 512,
-                              csr=None, out: torch.Tensor | None = None
+                              csr=None, out: torch.Tensor | None = None,
+                              dist_out: torch.Tensor | None = None
                               ) -> torch.Tensor:
     """CPD build via the delta-stepping relaxation: int8 ``[B, N]``.
 
@@ -148,9 +149,11 @@ def build_fm_columns_frontier(dg, fg: FrontierGraph, targets,
     slices of this many targets (the JAX package's chunked extraction);
     on the card the extraction is one launch of the hand kernel, which
     needs no per-slot temporaries. ``csr``/``out``: see
-    ``cuda_build_kernels.first_moves``."""
+    ``cuda_build_kernels.first_moves``; ``dist_out``:
+    ``cuda_build_kernels.write_dists``."""
     targets = torch.as_tensor(targets, dtype=torch.int32, device=dg.device)
     dist = dist_to_targets_frontier(dg, fg, targets, max_iters)
+    cbk.write_dists(dist, dist_out)
     if dg.device.type != "cpu":
         return cbk.first_moves(dg, targets, dist.T, csr=csr, out=out)
     b = int(targets.shape[0])

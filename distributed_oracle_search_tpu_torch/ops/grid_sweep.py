@@ -349,16 +349,20 @@ def dist_to_targets_sweep(gg: GridGraph, targets,
 
 
 def build_fm_columns_sweep(dg, gg: GridGraph, targets, max_iters: int = 0,
-                           csr=None, out: torch.Tensor | None = None
+                           csr=None, out: torch.Tensor | None = None,
+                           dist_out: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """CPD build via fast sweeping + the shared first-move extraction:
     int8 ``[B, N]``. On the CPU the plain sweep and extraction; on the
     card the hand sweep kernel, the hand relax kernel for the off-lattice
     edges and the hand extraction kernel (``csr``: the full out-edge CSR
-    the extraction reads, built from ``dg`` when None)."""
+    the extraction reads, built from ``dg`` when None). ``dist_out``:
+    ``cuda_build_kernels.write_dists``."""
     targets = torch.as_tensor(targets, dtype=torch.int32, device=dg.device)
     if dg.device.type == "cpu":
         dist = dist_to_targets_sweep(gg, targets, max_iters)
+        cbk.write_dists(dist, dist_out)
         return cbk.write_rows(first_move_from_dist(dg, targets, dist), out)
     dist_nb, _ = cbk.sweep_dist(gg.on(dg.device), targets, max_iters)
+    cbk.write_dists(dist_nb.T, dist_out)
     return cbk.first_moves(dg, targets, dist_nb, csr=csr, out=out)

@@ -113,15 +113,19 @@ def dist_to_targets_shift(sg: ShiftGraph, targets,
 
 
 def build_fm_columns_shift(dg, sg: ShiftGraph, targets, max_iters: int = 0,
-                           csr=None, out: torch.Tensor | None = None
+                           csr=None, out: torch.Tensor | None = None,
+                           dist_out: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """CPD build via the shift relaxation: int8 ``[B, N]`` first moves.
     On the CPU the plain shift steps and the plain extraction; on the
     card the hand relax kernel over the full out-edge CSR and the hand
-    extraction kernel (same Jacobi iterate, same table)."""
+    extraction kernel (same Jacobi iterate, same table). ``dist_out``:
+    ``cuda_build_kernels.write_dists``."""
     targets = torch.as_tensor(targets, dtype=torch.int32, device=dg.device)
     if dg.device.type == "cpu":
         dist = dist_to_targets_shift(sg, targets, max_iters)
+        cbk.write_dists(dist, dist_out)
         fm = first_move_from_dist(dg, targets, dist)
         return cbk.write_rows(fm, out)
-    return cbk.build_fm_jacobi(dg, targets, max_iters, csr=csr, out=out)
+    return cbk.build_fm_jacobi(dg, targets, max_iters, csr=csr, out=out,
+                               dist_out=dist_out)

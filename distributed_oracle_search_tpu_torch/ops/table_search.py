@@ -24,7 +24,9 @@ exactly (and which must match ``models.reference.table_search_walk``):
 
 With ``packed4=True`` the walk reads a pack4-resident table
 (``models.resident``), one nibble per slot: the plain version of the
-kernel's pack4 entry.
+kernel's pack4 entry. :func:`table_search_multi` is the fused multi-diff
+walk (D weight sets summed along one trajectory), the plain version of
+the kernel's multi entry (``cuda_walk.cuda_walk_multi``).
 """
 
 from __future__ import annotations
@@ -173,6 +175,84 @@ def table_search_batch(dg: DeviceGraph, fm: torch.Tensor,
         it += unroll
     fin = (x == t32) & valid
     cost = torch.where(valid, cost, 0)
+    plen = torch.where(valid, plen, 0)
+    return cost, plen, fin
+
+
+def walk_eid_pairs(dg: DeviceGraph) -> torch.Tensor:
+    """The fused multi-diff walk's ``(next-node, edge id)`` per out-slot,
+    planar: int32 ``[2, N, K']`` laid out as :func:`walk_pairs` (``K'``
+    a multiple of 4, padding slots the node itself and edge id ``M``,
+    the INF row of the weights). Edge ids carry no weight, so one table
+    serves every weight set of a graph."""
+    return walk_pairs(dg, torch.arange(dg.w_pad.shape[0], dtype=torch.int32,
+                                       device=dg.device))
+
+
+def weights_t(w_pads: torch.Tensor) -> torch.Tensor:
+    """``[M+1, D]`` contiguous int32: the D padded weight rows
+    transposed, so one move reads its edge's D weights as one row."""
+    return w_pads.to(torch.int32).T.contiguous()
+
+
+def table_search_multi(dg: DeviceGraph, fm: torch.Tensor,
+                       t_rows: torch.Tensor, s: torch.Tensor,
+                       t: torch.Tensor, w_pads: torch.Tensor,
+                       valid: torch.Tensor | None = None,
+                       max_steps: int = 0,
+                       pair: torch.Tensor | None = None):
+    """Answer a batch under D congestion diffs in ONE walk (the JAX
+    package's ``ops/table_search.py::table_search_multi``).
+
+    A trajectory is diff-independent — moves follow the free-flow
+    first-move table, only the cost sums see the query-time weights — so
+    one walk sums every diff's cost at once: each move reads its
+    ``(next node, edge id)`` pair and the edge's D weights.
+
+    Parameters as :func:`table_search_batch`, except ``w_pads``: int32
+    ``[D, M+1]``, one padded weight row per diff (include free flow as a
+    row to fuse it too). There is no ``k_moves``: the fused path serves
+    the unlimited default; an explicit ``max_steps`` caps ``plen`` at
+    every step exactly as the single walk's, and a lane that never halts
+    stops at the single walk's default bound (``unroll`` 8). ``pair``:
+    :func:`walk_eid_pairs`, built here when None.
+
+    Returns ``(cost [D, Q] int32, plen [Q], finished [Q])`` — plen and
+    finished are shared across diffs because the trajectory is. Costs
+    wrap like int32 adds."""
+    q = s.shape[0]
+    dev = s.device
+    d = w_pads.shape[0]
+    if valid is None:
+        valid = torch.ones(q, dtype=torch.bool, device=dev)
+    unroll = 8
+    steps, budget = walk_budget(dg.n, -1, int(max_steps), unroll)
+    rows = t_rows.long()
+    t32 = t.to(torch.int32)
+    if pair is None:
+        pair = walk_eid_pairs(dg)
+    w_t = weights_t(w_pads)
+
+    x = torch.where(valid, s.to(torch.int32), t32)
+    halted = (fm_slot(fm, rows, x) < 0) | ~valid
+    cost = torch.zeros((q, d), dtype=torch.int32, device=dev)
+    plen = torch.zeros(q, dtype=torch.int32, device=dev)
+    it = 0
+    while it < steps and q and not bool(halted.all()):
+        for _ in range(unroll):
+            slot = fm_slot(fm, rows, x)
+            can = ~halted & (slot >= 0)
+            if budget is not None:
+                can &= plen < budget
+            at = (x.long(), slot.clamp_min(0).long())
+            w_row = w_t[pair[1][at].long()]                  # [Q, D]
+            cost = torch.where(can[:, None], cost + w_row, cost)
+            plen = torch.where(can, plen + 1, plen)
+            x = torch.where(can, pair[0][at], x)
+            halted = halted | ~can
+        it += unroll
+    fin = (x == t32) & valid
+    cost = torch.where(valid[:, None], cost, 0).T.contiguous()
     plen = torch.where(valid, plen, 0)
     return cost, plen, fin
 

@@ -17,7 +17,18 @@ worker axis is a loop (build) or a row offset (walk):
   Lanes are independent and the step bound depends only on
   ``max_steps`` or N, so the answers are bit-identical to the per-worker
   ``shard_map`` walk;
-* :func:`query_paths_sharded` — the path prefixes of a routed round.
+* :func:`query_paths_sharded` — the path prefixes of a routed round;
+* :func:`query_multi_sharded` — a round under D weight sets in ONE fused
+  walk (``cuda_walk_multi``);
+* :func:`query_mat_sharded` — one source to K targets, one walk, the
+  answers scattered into a row in target order (the JAX program's
+  ``psum`` over workers is that scatter on one device);
+* :func:`query_dist_sharded` — stored distances by one gather
+  (:func:`build_fm_sharded` ``with_dists=True``);
+* :func:`build_tables_sharded` / :func:`build_tables_multi_sharded` —
+  pointer-doubling tables, a loop over workers — and
+  :func:`query_tables_sharded` / :func:`query_tables_multi_sharded`, one
+  gather over the ``[W·R, N]`` views.
 
 Padding convention as in the JAX module: targets pad with -1, queries
 with ``valid=False`` lanes (which come back cost 0, plen 0, unfinished).
@@ -30,11 +41,14 @@ import torch
 
 from ..ops.bellman_ford import build_fm_columns
 from ..ops.cuda_build_kernels import csr_from_ell
-from ..ops.cuda_walk import cuda_walk_batch
+from ..ops.cuda_walk import cuda_walk_batch, cuda_walk_multi
 from ..ops.device_graph import DeviceGraph
 from ..ops.ell_split import build_fm_columns_ellsplit
 from ..ops.frontier_relax import build_fm_columns_frontier
 from ..ops.grid_sweep import build_fm_columns_sweep
+from ..ops.pointer_doubling import (
+    doubled_tables, doubled_tables_multi, lookup_tables, lookup_tables_multi,
+)
 from ..ops.shift_relax import build_fm_columns_shift
 from ..ops.table_search import extract_paths
 
@@ -52,10 +66,12 @@ def pad_targets(controller, dtype=np.int32) -> np.ndarray:
 
 def chunk_compute(dg: DeviceGraph, kernel=None, max_iters: int = 0):
     """One build closure per resolved build kind (the JAX
-    ``models.cpd._make_chunk_compute``): ``fn(targets, out=None)`` takes
-    an int32 target tensor on ``dg``'s device (``-1`` = pad) and returns
-    its int8 ``[B, N]`` first-move rows, or writes the first ``len(out)``
-    of them into ``out``.
+    ``models.cpd._make_chunk_compute``): ``fn(targets, out=None,
+    dist_out=None)`` takes an int32 target tensor on ``dg``'s device
+    (``-1`` = pad) and returns its int8 ``[B, N]`` first-move rows, or
+    writes the first ``len(out)`` of them into ``out``; ``dist_out``, an
+    int32 ``[R, N]`` row block, receives the converged distances' first
+    R rows (every kind: the JAX ``_build_fn(with_dists=True)``).
 
     ``kernel``: ``(kind, structure)`` from ``models.cpd.pick_build_kernel``
     (None = ``("ell", None)``). Every kind picks by device: the plain
@@ -67,8 +83,8 @@ def chunk_compute(dg: DeviceGraph, kernel=None, max_iters: int = 0):
     kind, st = kernel if kernel is not None else ("ell", None)
     csr = None if dg.device.type == "cpu" else csr_from_ell(dg)
     if kind == "ell":
-        return lambda t, out=None: build_fm_columns(
-            dg, t, max_iters=max_iters, csr=csr, out=out)
+        return lambda t, out=None, dist_out=None: build_fm_columns(
+            dg, t, max_iters=max_iters, csr=csr, out=out, dist_out=dist_out)
     stages = {"sweep": build_fm_columns_sweep,
               "shift": build_fm_columns_shift,
               "frontier": build_fm_columns_frontier,
@@ -76,13 +92,13 @@ def chunk_compute(dg: DeviceGraph, kernel=None, max_iters: int = 0):
     if kind not in stages:
         raise ValueError(f"unknown build kind {kind!r}")
     stage = stages[kind]
-    return lambda t, out=None: stage(dg, st, t, max_iters=max_iters,
-                                     csr=csr, out=out)
+    return lambda t, out=None, dist_out=None: stage(
+        dg, st, t, max_iters=max_iters, csr=csr, out=out, dist_out=dist_out)
 
 
 def build_fm_sharded(dg: DeviceGraph, targets_wr: np.ndarray,
                      chunk: int = 0, max_iters: int = 0,
-                     kernel=None) -> torch.Tensor:
+                     kernel=None, with_dists: bool = False):
     """Build the whole CPD: int8 ``[W, R, N]`` on ``dg``'s device.
 
     ``chunk`` bounds the live distance columns (0 = a worker's R rows at
@@ -92,18 +108,28 @@ def build_fm_sharded(dg: DeviceGraph, targets_wr: np.ndarray,
     byte-identical whatever the chunk. ``kernel``: ``(kind, structure)``
     from ``models.cpd.pick_build_kernel`` selecting the distance stage
     (default ELL), as in the JAX ``build_fm_sharded``; every kind gives
-    the same table."""
+    the same table.
+
+    ``with_dists=True`` also returns the converged distance table, int32
+    ``[W, R, N]`` (4x the fm memory; INF where unreachable and in pad
+    rows, the ``max_iters`` cut's iterate when cut): ``(fm, dists)``. On
+    the card the relax loop works node-major, so each chunk's rows are a
+    transposed copy of its ``[N, B]`` table."""
     w, r = targets_wr.shape
     chunk = r if chunk <= 0 or chunk >= r else chunk
     padded = np.full((w, -(-r // chunk) * chunk), -1, np.int32)
     padded[:, :r] = targets_wr
     build = chunk_compute(dg, kernel, max_iters)
     fm = torch.empty((w, r, dg.n), dtype=torch.int8, device=dg.device)
+    dists = (torch.empty((w, r, dg.n), dtype=torch.int32, device=dg.device)
+             if with_dists else None)
     for wid in range(w):
         for i in range(0, r, chunk):
             cols = torch.from_numpy(padded[wid, i:i + chunk]).to(dg.device)
-            build(cols, out=fm[wid, i:i + min(chunk, r - i)])
-    return fm
+            rows = slice(i, i + min(chunk, r - i))
+            build(cols, out=fm[wid, rows],
+                  dist_out=None if dists is None else dists[wid, rows])
+    return (fm, dists) if with_dists else fm
 
 
 def _flat_lanes(fm_wrn: torch.Tensor, t_rows: np.ndarray,
@@ -158,3 +184,128 @@ def query_paths_sharded(dg: DeviceGraph, fm_wrn: torch.Tensor,
         fm_wrn, t_rows, np.asarray(s, np.int32), np.asarray(t, np.int32))
     nodes, moves = extract_paths(dg, fm2, rows, s_d, t_d, k=k)
     return nodes.view(*shape, k + 1), moves.view(shape)
+
+
+def query_multi_sharded(dg: DeviceGraph, fm_wrn: torch.Tensor,
+                        t_rows: np.ndarray, s: np.ndarray, t: np.ndarray,
+                        valid: np.ndarray, w_pads: torch.Tensor,
+                        max_steps: int = 0, pair: torch.Tensor | None = None):
+    """Fused multi-diff round over every worker's rows: ONE walk, D cost
+    sets (the JAX ``query_multi_sharded``). ``w_pads`` int32 ``[D, M+1]``
+    on the table's device; ``pair``: ``ops.table_search.walk_eid_pairs``
+    of ``dg`` (built here when None). Returns ``(cost [D, Dg, W, Q],
+    plen [Dg, W, Q], finished [Dg, W, Q])`` for routed ``[Dg, W, Q]``
+    lanes, from one ``cuda_walk_multi`` call (K4 on the card)."""
+    shape = np.shape(s)
+    fm2, rows, s_d, t_d, v_d = _flat_lanes(
+        fm_wrn, t_rows, np.asarray(s, np.int32), np.asarray(t, np.int32),
+        np.asarray(valid, bool))
+    cost, plen, fin = cuda_walk_multi(
+        dg, fm2, rows, s_d, t_d, w_pads, valid=v_d, max_steps=max_steps,
+        pair=pair)
+    return (cost.view(w_pads.shape[0], *shape), plen.view(shape),
+            fin.view(shape))
+
+
+def query_mat_sharded(dg: DeviceGraph, fm_wrn: torch.Tensor, t_rows, s, t,
+                      valid, slots, w_pad: torch.Tensor, k_out: int,
+                      max_steps: int = 0, pair: torch.Tensor | None = None):
+    """One ``mat`` row (one source, ``k_out`` targets): routed ``[D, W,
+    Q]`` lanes as in :func:`query_sharded` plus ``slots``, each lane's
+    position in the output row (-1 on padding). One walk answers every
+    lane; the answers are scattered into a ``[k_out + 1]`` row at their
+    slots (pad lanes into the extra slot) — on one card this scatter is
+    the JAX program's ``psum`` over workers, since every target lives in
+    exactly one slot. Returns ``(cost [k_out] int32, finished [k_out]
+    bool)`` in target order, on the table's device."""
+    cost, _plen, fin = query_sharded(dg, fm_wrn, t_rows, s, t, valid, w_pad,
+                                     k_moves=-1, max_steps=max_steps,
+                                     pair=pair)
+    dev = fm_wrn.device
+    v = torch.from_numpy(np.asarray(valid, bool).reshape(-1)).to(dev)
+    idx = torch.where(v, torch.from_numpy(
+        np.asarray(slots, np.int64).reshape(-1)).to(dev), k_out)
+    row_c = torch.zeros(k_out + 1, dtype=torch.int32, device=dev)
+    row_f = torch.zeros(k_out + 1, dtype=torch.int32, device=dev)
+    row_c.index_add_(0, idx, torch.where(v, cost.reshape(-1), 0))
+    row_f.index_add_(0, idx, fin.reshape(-1).to(torch.int32))
+    return row_c[:k_out], row_f[:k_out] > 0
+
+
+def query_dist_sharded(dist_wrn: torch.Tensor, t_rows: np.ndarray,
+                       s: np.ndarray) -> torch.Tensor:
+    """Free-flow fast path: d(s → t) by one gather over the ``[W·R, N]``
+    view of the stored distances, no walk (the JAX
+    ``query_dist_sharded``). Routed ``[D, W, Q]`` inputs; returns cost
+    ``[D, W, Q]`` (INF where unreachable) on the table's device."""
+    shape = np.shape(s)
+    d2, rows, s_d = _flat_lanes(dist_wrn, t_rows, np.asarray(s, np.int32))
+    return d2[rows.long(), s_d.long()].view(shape)
+
+
+def build_tables_sharded(dg: DeviceGraph, fm_wrn: torch.Tensor,
+                         targets_wr: np.ndarray, w_query_pad: torch.Tensor,
+                         max_len: int = 0, out=None):
+    """Pointer-doubling cost and packed-plen tables of every worker's
+    rows (the JAX ``build_tables_sharded``): each worker doubles only its
+    own ``[R, N]`` rows — on one card a loop over workers, one
+    ``doubled_tables`` each. ``out``: ``(cost [W, R, N], plen_packed [W,
+    R, N])`` to write into. Returns ``(cost, plen_packed)``."""
+    return _tables_by_worker(
+        lambda fm, tg, o: doubled_tables(dg, fm, tg, w_query_pad,
+                                         max_len=max_len, out=o),
+        fm_wrn, targets_wr, out)
+
+
+def build_tables_multi_sharded(dg: DeviceGraph, fm_wrn: torch.Tensor,
+                               targets_wr: np.ndarray, w_pads: torch.Tensor,
+                               max_len: int = 0, out=None):
+    """Fused multi-diff pointer-doubling tables of every worker's rows
+    (the JAX ``build_tables_multi_sharded``). ``w_pads`` int32 ``[D,
+    M+1]``. Returns ``(costs [W, R, N, D], plen_packed [W, R, N])``;
+    ``out`` as :func:`build_tables_sharded`."""
+    return _tables_by_worker(
+        lambda fm, tg, o: doubled_tables_multi(dg, fm, tg, w_pads,
+                                               max_len=max_len, out=o),
+        fm_wrn, targets_wr, out)
+
+
+def _tables_by_worker(double, fm_wrn, targets_wr, out):
+    tgt = torch.as_tensor(np.asarray(targets_wr, np.int32),
+                          device=fm_wrn.device)
+    parts = [double(fm_wrn[wid], tgt[wid],
+                    None if out is None else (out[0][wid], out[1][wid]))
+             for wid in range(fm_wrn.shape[0])]
+    if out is not None:
+        return out
+    return tuple(torch.stack(p) for p in zip(*parts))
+
+
+def query_tables_sharded(tables, t_rows, s, valid):
+    """Answer routed ``[D, W, Q]`` lanes from prepared cost tables (the
+    JAX ``query_tables_sharded``): one gather over the ``[W·R, N]``
+    views. Returns ``(cost, plen, finished)`` ``[D, W, Q]``."""
+    cost, plen_packed = tables
+    shape = np.shape(s)
+    w, r, n = cost.shape
+    _, rows, s_d, v_d = _flat_lanes(cost, t_rows, np.asarray(s, np.int32),
+                                    np.asarray(valid, bool))
+    c, p, f = lookup_tables(cost.view(w * r, n),
+                            plen_packed.view(w * r, n), rows, s_d, v_d)
+    return c.view(shape), p.view(shape), f.view(shape)
+
+
+def query_tables_multi_sharded(tables, t_rows, s, valid):
+    """Answer routed ``[Dg, W, Q]`` lanes from fused multi-diff tables
+    (the JAX ``query_tables_multi_sharded``): one ``[D]``-wide gather a
+    lane. Returns ``(cost [D, Dg, W, Q], plen, finished [Dg, W, Q])``."""
+    costs, plen_packed = tables
+    shape = np.shape(s)
+    w, r, n, d = costs.shape
+    _, rows, s_d, v_d = _flat_lanes(plen_packed, t_rows,
+                                    np.asarray(s, np.int32),
+                                    np.asarray(valid, bool))
+    c, p, f = lookup_tables_multi(costs.view(w * r, n, d),
+                                  plen_packed.view(w * r, n), rows, s_d,
+                                  v_d)
+    return c.reshape(d, *shape), p.view(shape), f.view(shape)

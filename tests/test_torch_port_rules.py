@@ -115,3 +115,72 @@ def test_walk_wrapper_rejects_other_devices(small):
     with pytest.raises(ValueError, match="no walk"):
         cuda_walk_batch(dg, torch.zeros((1, g.n), dtype=torch.int8),
                         meta, meta, meta, dg.w_pad)
+
+
+JAX_DIR = os.path.join(ROOT, "distributed_oracle_search_tpu") + os.sep
+SERVING_MODULES = ("ops/pointer_doubling.py", "ops/cuda_doubling.py",
+                   "ops/cuda_walk.py", "ops/table_search.py",
+                   "parallel/sharded.py", "models/cpd.py",
+                   "cli/process_query.py")
+
+
+def _csrc_sources():
+    d = os.path.join(PORT, "csrc")
+    return sorted(os.path.join(d, f) for f in os.listdir(d)
+                  if f.endswith((".cu", ".cuh", ".h")))
+
+
+def test_serving_modules_are_scanned():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert set(SERVING_MODULES) <= scanned
+    names = {os.path.basename(p) for p in _csrc_sources()}
+    assert {"table_search_walk.cu", "pointer_doubling.cu"} <= names
+
+
+@pytest.mark.parametrize("path", _csrc_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_kernel_sources_include_nothing_of_the_jax_package(path):
+    with open(path) as f:
+        includes = [ln for ln in f if ln.lstrip().startswith("#include")]
+    assert includes and not any("distributed_oracle_search_tpu" in ln
+                                for ln in includes), includes
+
+
+def test_kernels_build_from_the_port_package():
+    from distributed_oracle_search_tpu_torch.utils import cuda_build
+
+    assert cuda_build.CSRC_DIR == os.path.join(PORT, "csrc")
+    assert not cuda_build.BUILD_DIR.startswith(JAX_DIR)
+
+
+def test_serving_path_reads_no_file_of_the_jax_package(small, monkeypatch,
+                                                       tmp_path):
+    """The serving methods, the fused campaign round's oracle calls and
+    the doubling tables open no file under the JAX package's
+    directory."""
+    import builtins
+    import io as _io
+
+    opened = []
+    real_open = builtins.open
+
+    def spy(file, *a, **kw):
+        opened.append(os.path.abspath(os.fspath(file))
+                      if isinstance(file, (str, bytes, os.PathLike))
+                      else str(file))
+        return real_open(file, *a, **kw)
+
+    monkeypatch.setattr(builtins, "open", spy)
+    monkeypatch.setattr(_io, "open", spy)
+    g, _, _ = small
+    dc = DistributionController("tpu", 2, 2, g.n)
+    o = cpd.CPDOracle(g, dc, device="cpu").build(store_dists=True)
+    q = np.stack([np.arange(g.n), np.full(g.n, 2)], 1)
+    ws = [None, g.w * 2]
+    o.query_multi(q, ws)
+    o.query_mat(1, [0, 2, 5])
+    o.query_dist(q)
+    o.query_table(o.prepare_weights(ws[1], chunk=2), q)
+    o.query_table_multi(o.prepare_weights_multi(ws), q)
+    o.save(str(tmp_path))
+    assert opened and not any(p.startswith(JAX_DIR) for p in opened)
