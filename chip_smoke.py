@@ -11,7 +11,7 @@ points a user calls, then the compressed-residency path:
    ``nvcc`` a source, started together: the walk (raw, pack4 and fused
    multi-diff entries), the build (``cpd_build.cu``: the Jacobi relax,
    the first-move extraction, the grid sweep cycle) and the doubling
-   sweep (``pointer_doubling.cu``);
+   kernels (``pointer_doubling.cu``: on chip, and the wide sweep);
 2. road path, at the size of the USA-road-d.NY stand-in
    (``synth_road_network(264_000, seed=0)``, ``mod`` over 32 workers;
    worker 0 owns 8,250 targets, a 2.18 GB int8 first-move table): build
@@ -28,8 +28,17 @@ points a user calls, then the compressed-residency path:
    on the engine's pair table (warm, and after an L2 flush; µs a move of
    the longest lane), the wrapper as the engine calls it, the wrapper
    building its own pairs, the pair build and the plain walk; golden
-   checks against reverse-Dijkstra and the CPU reference walk; then hold
-   the relax kernel's loop (the settled-tile skip, as the build runs it)
+   checks against reverse-Dijkstra and the CPU reference walk; then
+   worker 0's free-flow doubling tables (``[road-tables]`` lines) through
+   the sharded layer ``CPDOracle.prepare_weights`` calls
+   (``build_tables_sharded``, 2,048 rows a call, the oracle's Z-order),
+   the wide path by the shape rule (a 264,000-node row is past the
+   largest cluster): doubling counts zeroed just before and read just
+   after (no on-chip launch, one sweep launch a sweep), prepare seconds
+   and peak memory, the ``query_tables_sharded`` answers equal to the
+   engine's free-flow walk, and the wide sweep on the first chunk equal
+   to the plain sweep, sweep by sweep, timed beside ``torch.gather`` and
+   the plain sweep; then hold the relax kernel's loop (the settled-tile skip, as the build runs it)
    against the plain split relaxation on worker 0's first 512 targets
    (after 4 steps, at a mid cut and at convergence, equal element by
    element, with the plain loop's step count) and the extraction kernel
@@ -100,18 +109,30 @@ points a user calls, then the compressed-residency path:
    ``prepare_weights_multi`` at D = 2 then ``query_table_multi``, each
    table freed before the next, host seconds and peak device memory a
    step; counts zeroed before and read after (two fused walk launches,
-   one walk launch a query and a mat row, one doubling sweep launch a
-   sweep, or the smoke fails). Checks: ``query_multi`` equals D single
-   queries, ``query_mat`` equals ``query`` on the same pairs,
-   ``query_dist`` equals the free-flow walk where finished and
-   reverse-Dijkstra, ``query_table`` equals ``query`` and
-   ``query_table_multi`` equals ``query_multi``; the fused walk kernel
-   equals the plain multi walk on each recorded call (timed: bare
-   launch, the plain walk, D single walk launches on the same lanes,
-   the bound from the distinct sectors the walk reads); the doubling
-   sweep equals the plain sweep, sweep by sweep, on worker 0's first
-   2,048 rows (timed: each sweep's launch, the plain sweep and
-   ``torch.gather`` of the same records) and at D = 5 on 512 rows;
+   one walk launch a query and a mat row, one on-chip doubling launch a
+   chunk plus its logged reruns and no wide sweep, 320 / 320 / 640
+   sweeps, or the smoke fails). Checks:
+   ``query_multi`` equals D single queries, ``query_mat`` equals
+   ``query`` on the same pairs, ``query_dist`` equals the free-flow walk
+   where finished and reverse-Dijkstra, ``query_table`` equals ``query``
+   and ``query_table_multi`` equals ``query_multi``; the fused walk
+   kernel equals the plain multi walk on each recorded call and at D =
+   8, 9, 16, 17 on the D = 2 call's lanes (timed: bare launch, the
+   padded transposed weights' build, the plain walk, D single walk
+   launches on the same lanes, the bound from the distinct sectors the
+   walk reads);
+   K5's on-chip doubling equals ``double_rows`` at sweep caps 1, 2, 3
+   and convergence on worker 0's first 2,048 rows (D = 1) and 512 rows
+   (D = 5, 7), the tables ``doubled_tables_multi`` builds equal the JAX
+   loop on plain sweeps there and on a corrupted copy with a 2-cycle
+   and a 3-cycle (max_len 0 and a cut, on chip and on the wide path),
+   and ``ops.doubled_tables_multi`` at D = 14 on those 512 rows (a row
+   past the largest cluster: the wide path; a comparison, not a launch
+   of the main path); timed on the 2,048 rows, all on the same Z-order
+   records the kernel doubles: the whole on-chip doubling, the wide
+   path's sweeps, the plain ``double_rows``, ``torch.gather`` of each
+   sweep's records, and by node id as a side column (the wide sweep
+   equal to the plain sweep, sweep by sweep, on both);
    recorded: prepare seconds and sweeps, lookup q/s beside walk q/s and
    the break-even ``prepare / (1/walk_qps - 1/lookup_qps)``;
 6. host path (``[host]`` lines), the reference's own pipeline on the
@@ -153,8 +174,10 @@ points a user calls, then the compressed-residency path:
    the queue's pops and ms a pop;
 8. print the card's name and power limit again on the ``[done]`` line,
    then the kernel table as one JSON line (the raw and pack4 walks, the
-   three build kernels, the fused walk and the doubling sweep, each with
-   its launches in the main runs; the raw walk's ``launches_by_path``
+   three build kernels, the fused walk, the on-chip doubling and the
+   wide doubling sweep, each with
+   its launches in the main runs — the wide sweep's in the road shard's
+   tables; the raw walk's ``launches_by_path``
    holds the host servers' launches read from their dumps, the build
    kernels' the build processes' and the reorder build's), then, as the
    last line, ``{"ok": true, "device": {...}}``.
@@ -214,6 +237,7 @@ from distributed_oracle_search_tpu_torch.ops import pointer_doubling as pd
 from distributed_oracle_search_tpu_torch.ops.device_graph import DeviceGraph
 from distributed_oracle_search_tpu_torch.ops.table_search import (
     fm_slot, table_search_batch, table_search_multi, walk_budget, walk_pairs,
+    weights_t, weights_width,
 )
 from distributed_oracle_search_tpu_torch.parallel import (
     DistributionController, sharded,
@@ -275,11 +299,30 @@ EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit",
 #: and the device budget it sets for the prepared tables (the fused D = 2
 #: tables of the campaign cell take 51.5 GB; the default 8 GB refuses them)
 SERVING_DIFF_SEEDS = (3, 4, 5)
-#: four more diffs for the kernels' wide branches, compared with their
-#: plain versions on the main path's inputs: K4 at D = 9 (sums in the
-#: lane's own cost column past the 8 register sums) and K5 at D = 7
-#: (three 16-byte vectors a record)
-WIDE_DIFF_SEEDS = (6, 7, 8, 9)
+#: twelve more diffs for the kernels' wider shapes, compared with their
+#: plain versions on the main path's inputs: K4 at D = 8, 9, 16 and 17
+#: (one, two, two and four threads a query), K5 at D = 5 and 7 and its
+#: wide path at D = 14
+WIDE_DIFF_SEEDS = tuple(range(6, 18))
+K4_WIDE_DS = (8, 9, 16, 17)
+#: a doubled_tables_multi comparison past the largest cluster (not a
+#: launch of the main path): a row of 65,536 nodes x 16 fields (4 MiB)
+#: takes the wide path
+K5_WIDE_D = 14
+#: the road shard's doubling tables, rows a call (prepare_weights'
+#: chunk): a row of 264,000 nodes x 16 bytes (4.2 MB) is past the
+#: largest cluster (3.7 MB), so every chunk takes the wide path
+ROAD_TABLE_CHUNK = 2048
+#: the sweeps each prepare of the campaign cell runs: 32 chunks of 2,048
+#: rows (8 workers x 8,192 targets) x 10 sweeps, 64 chunks of 1,024 for
+#: the fused D = 2 prepare; the successors are free-flow moves, so the
+#: count is the same under every weight set
+EXPECTED_SWEEPS = {"free-flow": 320, "diff": 320, "multi D=2": 640}
+#: the sweep caps at which K5's on-chip doubling is held against the
+#: plain version (then at convergence), and the cut (max_len) of the
+#: cyclic rows' second comparison
+K5_CAPS = (1, 2, 3)
+K5_CYCLE_CUT = 5
 SERVING_MAT_ROWS = 8
 SERVING_MAT_TARGETS = 4_096
 SERVING_TABLE_BUDGET_GB = 60
@@ -388,10 +431,12 @@ def make_queries(targets: np.ndarray, n: int) -> np.ndarray:
 
 def zero_launches() -> None:
     """Every kernel's launch count to 0: the three walks (raw, pack4,
-    fused multi-diff), the doubling sweep and the three build kernels."""
+    fused multi-diff), the on-chip doubling, the doubling sweep and the
+    three build kernels."""
     cw.cuda_walk_batch.launches = 0
     cw.cuda_walk_batch.launches_pack4 = 0
     cw.cuda_walk_multi.launches = 0
+    cd.doubling_rows.launches = 0
     cd.doubling_sweep.launches = 0
     for fn in BUILD_FNS.values():
         fn.launches = 0
@@ -1164,8 +1209,8 @@ def run() -> list[dict]:
     cmps: dict[str, dict] = {}
     build_launches: dict[str, dict[str, int]] = {}
     try:
-        raw_kernel, cmps["road"], build_launches["road"] = road_path(
-            g, dc, outdir)
+        raw_kernel, cmps["road"], build_launches["road"], road_k5 = \
+            road_path(g, dc, outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     # release the road engine's tables before the compressed phase
@@ -1227,14 +1272,18 @@ def run() -> list[dict]:
         if entry["launches"] <= 0:
             raise AssertionError(f"the main path never launched "
                                  f"{entry['name']}")
-    return [raw_kernel, pack4_kernel, *build, *serving_entries(campaign,
-                                                               serving)]
+    return [raw_kernel, pack4_kernel, *build,
+            *serving_entries(campaign, serving, road_k5)]
 
 
-def serving_entries(campaign: dict, serving: dict) -> list[dict]:
+def serving_entries(campaign: dict, serving: dict, road: dict
+                    ) -> list[dict]:
     """The kernel table's entries of K4 (the fused multi-diff walk) and
-    K5 (the doubling sweep): launches in the campaign's and the serving
-    phase's main runs, the headline numbers from the serving phase."""
+    K5 (the on-chip doubling and the wide path's sweep): launches in the
+    main runs (the campaign's and the serving phase's; the road shard's
+    tables for the wide sweep), the headline numbers from the serving
+    phase (K4, the on-chip doubling) and the road shard (the wide
+    sweep)."""
     k4 = serving["k4"][0]
     multi = {"name": cw.KERNEL_NAME_MULTI, "route": "cuda",
              "source": "distributed_oracle_search_tpu_torch/csrc/"
@@ -1252,26 +1301,39 @@ def serving_entries(campaign: dict, serving: dict) -> list[dict]:
              "library_ms": None, "parity": "bit-identical",
              "calls": serving["k4"]}
     k5 = serving["k5"]
-    sweep = {"name": cd.ENTRY, "route": "cuda",
-             "source": "distributed_oracle_search_tpu_torch/csrc/"
-                       "pointer_doubling.cu",
-             "replaces": "distributed_oracle_search_tpu/ops/"
-                         "pointer_doubling.py:101 (doubled_tables' "
-                         "while_loop body, an XLA stage: no pallas_call)",
-             "launches": serving["launches"]["sweep"],
-             "launches_by_path": {"serving": serving["launches"]["sweep"]},
-             "max_abs_err": max(x["max_abs_err"]
-                                for x in (k5, *serving["k5_wide"])),
-             **{k: k5[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")},
-             "parity": "bit-identical", "chunk": k5,
-             "wide": serving["k5_wide"], "sweeps": serving["sweeps"],
-             "qps": serving["qps"]}
-    for entry in (multi, sweep):
+    k5_err = max(x["max_abs_err"]
+                 for x in (k5, *serving["k5_wide"], serving["k5_main_wide"],
+                           road))
+    replaces = ("distributed_oracle_search_tpu/ops/pointer_doubling.py:173 "
+                "(doubled_tables_multi's while_loop, an XLA stage: no "
+                "pallas_call; also doubled_tables' at :101)")
+    source = "distributed_oracle_search_tpu_torch/csrc/pointer_doubling.cu"
+    rows = {"name": cd.ENTRY_ROWS, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": serving["launches"]["rows"],
+            "launches_by_path": {"serving": serving["launches"]["rows"]},
+            "reruns": serving["reruns"], "max_abs_err": k5_err,
+            **{k: k5[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "sweep_loop_ms", "sweeps",
+                                  "plan", "ids_ms", "ids_library_ms",
+                                  "ids_sweep_loop_ms")},
+            "parity": "bit-identical", "chunk": k5,
+            "wide": serving["k5_wide"], "sweeps_by_prepare": serving["sweeps"],
+            "qps": serving["qps"]}
+    sweep = {"name": cd.ENTRY, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": road["launches"],
+             "launches_by_path": {"road": road["launches"]},
+             "max_abs_err": k5_err,
+             **{k: road[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "ms_by_sweep")},
+             "parity": "bit-identical", "road": road,
+             "campaign_chunk": k5["sweep"],
+             "past_the_largest_cluster": serving["k5_main_wide"]}
+    for entry in (multi, rows, sweep):
         if entry["launches"] <= 0:
             raise AssertionError(f"the main path never launched "
                                  f"{entry['name']}")
-    return [multi, sweep]
+    return [multi, rows, sweep]
 
 
 def check_build_launches(path: str, tag: str) -> dict[str, int]:
@@ -1344,6 +1406,7 @@ def road_path(g, dc, outdir):
             or not np.array_equal(moves, plen_k) or plen_k.max() > 8):
         raise AssertionError("k_moves=8 extraction disagrees with the walk")
     log("[golden] k_moves=8 extraction: [Q, 9] prefixes, moves == plen")
+    road_k5 = road_doubling(g, dc, engine, queries, answers["free-flow"])
 
     main = per_round[0]
     del engine
@@ -1363,7 +1426,107 @@ def road_path(g, dc, outdir):
         **headline(main),
         "parity": "bit-identical",
         "rounds": per_round,
-    }, cmp, build_counts
+    }, cmp, build_counts, road_k5
+
+
+def road_doubling(g, dc, engine, queries, walk) -> dict:
+    """The road shard's doubling tables: the wide path on the main path.
+    Worker 0's rows are doubled through the sharded layer that
+    ``CPDOracle.prepare_weights`` calls (``sharded.build_tables_sharded``,
+    ``ROAD_TABLE_CHUNK`` rows a call, the records in the oracle's
+    Z-order) and answered by ``sharded.query_tables_sharded``: an oracle
+    of this graph would hold every worker's rows (a 69.7 GB fm, 557 GB of
+    tables), so one worker's shard (17.4 GB of tables) is what one card
+    serves. The doubling counts are zeroed just before and read just
+    after: no on-chip launch, one sweep launch a sweep. Checks: the
+    answers equal the engine's free-flow walk (``walk``: cost, plen,
+    finished); then the wide sweep on the first chunk equals the plain
+    sweep, sweep by sweep, each timed beside ``torch.gather`` and the
+    plain sweep."""
+    tag = "[road-tables]"
+    dev = engine.device
+    r, n = engine.fm.shape
+    plan = cd.rows_plan(n, 1, dev)
+    if plan[0] != 0:
+        raise AssertionError(f"{tag} a row of {n} nodes fits a cluster "
+                             f"{plan}: expected the wide path")
+    targets = np.asarray(dc.owned(WID), np.int32)[None]
+    order = pd.record_order(g, dev)
+    w_pad = engine.dg.w_pad
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cd.doubling_rows.launches = 0
+    cd.doubling_sweep.launches = 0
+    before = pd.doubled_tables_multi.sweeps
+    t0 = time.perf_counter()
+    tables = (torch.empty((1, r, n), dtype=torch.int32, device=dev),
+              torch.empty((1, r, n), dtype=pd.plen_dtype(n), device=dev))
+    for i in range(0, r, ROAD_TABLE_CHUNK):
+        c = min(ROAD_TABLE_CHUNK, r - i)
+        sharded.build_tables_sharded(
+            engine.dg, engine.fm[None, i:i + c], targets[:, i:i + c], w_pad,
+            out=tuple(x[:, i:i + c] for x in tables), order=order)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    shape = (1, 1, len(queries))
+    t0 = time.perf_counter()
+    got = [x.cpu().numpy().reshape(-1) for x in sharded.query_tables_sharded(
+        tables, np.asarray(dc.owned_index_of(queries[:, 1]),
+                           np.int32).reshape(shape),
+        queries[:, 0].astype(np.int32).reshape(shape), np.ones(shape, bool))]
+    look_s = time.perf_counter() - t0
+    launches = (cd.doubling_rows.launches, cd.doubling_sweep.launches)
+    sweeps = pd.doubled_tables_multi.sweeps - before
+    chunks = -(-r // ROAD_TABLE_CHUNK)
+    t_bytes = sum(x.numel() * x.element_size() for x in tables)
+    log(f"{tag} worker {WID}'s {r} rows x {n} nodes in {chunks} chunks: "
+        f"prepare {prep_s:.4f} s, {sweeps} sweeps, launches: on-chip "
+        f"{launches[0]}, wide sweep {launches[1]}; tables {t_bytes} B, peak "
+        f"device memory {peak / 2**30:.2f} GiB; {len(queries)} lookups "
+        f"{look_s:.4f} s")
+    if launches[0] != 0 or launches[1] != sweeps or sweeps < chunks:
+        raise AssertionError(f"{tag} the road shard's doubling did not take "
+                             f"the wide path: {launches[0]} on-chip "
+                             f"launches, {launches[1]} sweep launches for "
+                             f"{sweeps} sweeps over {chunks} chunks")
+    for a, b, what in zip(got, walk[:3], ("cost", "plen", "finished")):
+        if not np.array_equal(a.astype(b.dtype), b):
+            raise AssertionError(f"{tag} the tables' {what} differs from "
+                                 "the engine's free-flow walk")
+    log(f"{tag} every table answer equals the engine's free-flow walk")
+    del tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = pd.initial_records(engine.dg, engine.fm[:ROAD_TABLE_CHUNK],
+                             w_pad[None], order)
+    rows = rec.shape[0]
+    loop = sweep_loop(rec, pd.n_sweeps(n), tag, f"D=1, {rows} rows", True)
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    k = loop["sweeps"]
+    ms, gather_ms = loop["ms_by_sweep"], loop["gather_ms_by_sweep"]
+    # a sweep's compact records read once and written once
+    nbytes = 2 * rows * n * 3 * 4
+    bound_ms, bound_by = bound(nbytes, rows * n * 3)
+    res = {"rows": r, "n": n, "chunks": chunks, "prepare_s": prep_s,
+           "peak_bytes": peak, "table_bytes": t_bytes, "lookup_s": look_s,
+           "sweeps": sweeps, "launches": launches[1],
+           "timed_rows": rows, "timed_sweeps": k, "ms": sum(ms) / k,
+           "plain_ms": sum(loop["plain_ms_by_sweep"]) / k,
+           "library_ms": sum(gather_ms) / k, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "ms_by_sweep": ms,
+           "gather_ms_by_sweep": gather_ms,
+           "max_abs_err": loop["max_abs_err"]}
+    log(f"{tag} the wide sweep on the first {rows} rows equals the plain "
+        f"sweep, sweep by sweep: {k} sweeps, a sweep {res['ms']:.4f} ms "
+        "(" + ", ".join(f"{x:.4f}" for x in ms) + f"), torch.gather "
+        f"{res['library_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+        f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B)")
+    return res
 
 
 def compressed_path(g, dc, outdir):
@@ -1754,9 +1917,10 @@ def campaign_path(outdir: str) -> dict:
 def multi_vs_plain(name: str, call, tag: str) -> dict:
     """K4 on one recorded ``cuda_walk_multi`` call's exact inputs against
     the plain multi walk (equal element by element or raise); time the
-    bare launch, the plain walk, and D single walk launches on the same
-    lanes (the walks the fused one replaces); the bound from this run's
-    data (distinct fm, pair and weight-row sectors)."""
+    bare launch, the padded transposed weights' build (once a call), the
+    plain walk, and D single walk launches on the same lanes (the walks
+    the fused one replaces); the bound from this run's data (distinct fm,
+    pair and weight-row sectors)."""
     a, kw = call
     dg, fm, t_rows, s, t, w_pads = a
     valid, pair = kw["valid"], kw["pair"]
@@ -1764,7 +1928,7 @@ def multi_vs_plain(name: str, call, tag: str) -> dict:
     ker = cw.cuda_walk_multi(*a, **kw)
     plain = table_search_multi(*a, **kw)
     steps, budget = walk_budget(dg.n, -1, int(kw.get("max_steps", 0)), 8)
-    w_t = w_pads.T.contiguous()
+    w_t = weights_t(w_pads, weights_width(d))
     out = (torch.empty_like(ker[0]), torch.empty_like(ker[1]),
            torch.empty_like(ker[2]))
 
@@ -1796,6 +1960,8 @@ def multi_vs_plain(name: str, call, tag: str) -> dict:
             raise AssertionError(f"{tag} {name}: row {i} differs from the "
                                  "single walk on its weights")
     kernel_ms = time_bare(launch, KERNEL_REPS)
+    w_t_ms = time_cuda(lambda: weights_t(w_pads, weights_width(d)),
+                       KERNEL_REPS)
     singles_ms = time_bare(singles, KERNEL_REPS)
     plain_ms = time_cuda(lambda: table_search_multi(*a, **kw), PLAIN_REPS)
     sum_plen = int(ker[1][valid].long().sum())
@@ -1808,70 +1974,292 @@ def multi_vs_plain(name: str, call, tag: str) -> dict:
     err = int((ker[0].long() - plain[0].long()).abs().max()) if q else 0
     log(f"{tag} K4 {name}: D={d} lanes={q} valid={int(valid.sum())} "
         f"sum_plen={sum_plen} max_plen={max_plen} kernel {kernel_ms:.4f} "
-        f"ms, {d} single walk launches on the same lanes {singles_ms:.4f} "
+        f"ms ({w_t.shape[1] // 4} weight vectors an edge; the padded "
+        f"transposed weights' build {w_t_ms:.4f} ms), {d} single walk "
+        f"launches on the same lanes {singles_ms:.4f} "
         f"ms ({singles_ms / kernel_ms:.2f}x), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B: {fm_sec} fm + "
         f"{pair_sec} pair + {w_sec} weight sectors) — bit-identical")
     return {"round": name, "d": d, "lanes": q, "sum_plen": sum_plen,
-            "max_plen": max_plen, "ms": kernel_ms, "singles_ms": singles_ms,
+            "max_plen": max_plen, "ms": kernel_ms, "weights_t_ms": w_t_ms,
+            "singles_ms": singles_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err}
 
 
-def doubling_vs_plain(dg, fm_rows: torch.Tensor, w_pads: torch.Tensor,
-                      tag: str, timed: bool) -> dict:
-    """K5 against the plain sweep on one chunk's records, sweep by sweep
-    until the plain sweep moves no successor or the sweep bound: equal
-    records and flags or raise. ``timed``: each sweep's bare launch, the
-    plain sweep and ``torch.gather`` of the same packed records (the one
-    PyTorch call that computes the sweep's gather) by CUDA events."""
-    rec = pd.initial_records(dg, fm_rows, w_pads)
+def plain_chunk(rec: torch.Tensor, limit: int) -> tuple[torch.Tensor, int]:
+    """The JAX loop on plain sweeps (``pd.sweep_records``): every row of
+    the chunk the same sweeps, while some successor moved, at most
+    ``limit``. Returns ``(records, sweeps)``."""
+    x = torch.arange(rec.shape[1], dtype=torch.int32, device=rec.device)
+    changed, i = bool((rec[..., 0] != x).any()), 0
+    while changed and i < limit:
+        rec, changed = pd.sweep_records(rec)
+        i += 1
+    return rec, i
+
+
+def plant_cycles(g, fm_rows: torch.Tensor, r2: int, r3: int) -> torch.Tensor:
+    """A corrupted copy of first-move rows: row ``r2`` with a 2-cycle
+    ``a -> b -> a`` and row ``r3`` with a 3-cycle ``a -> b -> c -> a``
+    along real edges (every weight positive), at the first such nodes.
+    A 2-cycle settles into two fixed points whose cost and plen grow
+    every sweep (a live row); a 3-cycle never settles (2^k steps never
+    close it), so the chunk runs every sweep of its limit."""
+    nbr, eid = g.ell("out")
+    out: dict[int, set[int]] = {}
+    for a, b in zip(g.src.tolist(), g.dst.tolist()):
+        if a != b:
+            out.setdefault(a, set()).add(b)
+    two = next((a, b) for a in sorted(out) for b in sorted(out[a])
+               if a in out.get(b, ()))
+    three = next((a, b, c) for a in sorted(out) for b in sorted(out[a])
+                 for c in sorted(out.get(b, ())) if c != a
+                 and a in out.get(c, ()))
+    fm = fm_rows.clone()
+    for r, cyc in ((r2, two), (r3, three)):
+        for i, a in enumerate(cyc):
+            b = cyc[(i + 1) % len(cyc)]
+            fm[r, a] = int(np.flatnonzero((nbr[a] == b) & (eid[a] < g.m))[0])
+    return fm
+
+
+class WidePath:
+    """Within the block, the shape rule answers "no cluster holds a row":
+    ``doubled_tables_multi`` takes the wide path whatever the shape."""
+
+    def __enter__(self):
+        self._real = cd.rows_plan
+        cd.rows_plan = lambda n, d, device: (0, 0, 0, 0)
+        return self
+
+    def __exit__(self, *exc):
+        cd.rows_plan = self._real
+
+
+def tables_vs_plain(dg, fm_rows, targets, w_pads, max_len: int, tag: str,
+                    what: str, order: torch.Tensor, wide: bool = False
+                    ) -> dict:
+    """``pd.doubled_tables_multi`` with the records in ``order`` (the
+    wrapper's rule: the on-chip doubling and the rerun of live rows, or
+    with ``wide`` the wide path's sweep loop) against the JAX loop on
+    plain sweeps, equal or raise; the launches it made."""
+    n, d = fm_rows.shape[1], w_pads.shape[0]
+    before = (cd.doubling_rows.launches, cd.doubling_sweep.launches,
+              pd.doubled_tables_multi.sweeps)
+    if wide:
+        with WidePath():
+            got = pd.doubled_tables_multi(dg, fm_rows, targets, w_pads,
+                                          max_len=max_len, order=order)
+    else:
+        got = pd.doubled_tables_multi(dg, fm_rows, targets, w_pads,
+                                      max_len=max_len, order=order)
+    torch.cuda.synchronize()
+    launched = (cd.doubling_rows.launches - before[0],
+                cd.doubling_sweep.launches - before[1])
+    sweeps = pd.doubled_tables_multi.sweeps - before[2]
+    rec, k = plain_chunk(pd.initial_records(dg, fm_rows, w_pads, order),
+                         pd.n_sweeps(n, max_len))
+    want = pd._finish(rec, targets, d, order)
+    del rec
+    for a, b, label in zip(got, want, ("costs", "plen")):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{tag} K5 {what}: the tables' {label} "
+                                 "differ from the JAX loop on plain sweeps")
+    if sweeps != k:
+        raise AssertionError(f"{tag} K5 {what}: {sweeps} sweeps, the JAX "
+                             f"loop runs {k}")
+    err = int((got[0].long() - want[0].long()).abs().max())
+    log(f"{tag} K5 {what} (D={d}, {fm_rows.shape[0]} rows, max_len "
+        f"{max_len}): tables equal the JAX loop on plain sweeps, {k} sweeps; "
+        f"launches: on-chip {launched[0]}, wide sweep {launched[1]}")
+    return {"what": what, "d": d, "rows": fm_rows.shape[0],
+            "max_len": max_len, "sweeps": k, "rows_launches": launched[0],
+            "sweep_launches": launched[1], "max_abs_err": err}
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor, rows: int = 256) -> int:
+    """The largest |a - b| over int32 tensors, in int64, a slab of
+    ``rows`` rows at a time (a whole chunk in int64 would double it)."""
+    return max((int((a[i:i + rows].long() - b[i:i + rows].long()).abs()
+                    .max()) for i in range(0, len(a), rows)), default=0)
+
+
+def sweep_loop(rec: torch.Tensor, limit: int, tag: str, what: str,
+               plain: bool) -> dict:
+    """The wide path's sweep loop on the records ``rec`` (consumed: the
+    loop swaps buffers with it), until a sweep moves no successor or
+    ``limit`` sweeps: each sweep's launch equal to the plain sweep and
+    its flag to the plain one, or raise; each sweep's bare launch timed
+    by CUDA events beside ``torch.gather`` of its records (the one
+    PyTorch call that computes a sweep's gather) and, with ``plain``,
+    the plain sweep."""
     out = torch.empty_like(rec)
     flag = torch.zeros(1, dtype=torch.int32, device=rec.device)
-    r, n, p = rec.shape
-    d = w_pads.shape[0]
     ms, plain_ms, gather_ms = [], [], []
     changed, i, err = True, 0, 0
-    while changed and i < pd.n_sweeps(n):
+    while changed and i < limit:
         want, changed = pd.sweep_records(rec)
         flag.zero_()
         cd.doubling_sweep(rec, out, flag)
         torch.cuda.synchronize()
-        err = max(err, int((out.long() - want.long()).abs().max()))
         if not torch.equal(out, want) or bool(flag.item()) != changed:
-            raise AssertionError(f"{tag} K5 sweep {i} (D={d}, {r} rows) "
-                                 "differs from the plain sweep")
+            raise AssertionError(f"{tag} K5 wide sweep {i} ({what}) differs "
+                                 "from the plain sweep")
+        err = max(err, max_abs_diff(out, want))
         del want
-        if timed:
-            idx = rec[..., 0].long()[..., None].expand_as(rec)
-            ms.append(time_bare(lambda: cd.launch_sweep(rec, out, flag),
-                                KERNEL_REPS))
+        idx = rec[..., 0].long()[..., None].expand_as(rec)
+        ms.append(time_bare(lambda: cd.launch_sweep(rec, out, flag),
+                            KERNEL_REPS))
+        if plain:
             plain_ms.append(time_cuda(lambda: pd.sweep_records(rec),
                                       PLAIN_REPS))
-            gather_ms.append(time_cuda(lambda: torch.gather(rec, 1, idx),
-                                       KERNEL_REPS))
-            del idx
+        gather_ms.append(time_cuda(lambda: torch.gather(rec, 1, idx),
+                                   KERNEL_REPS))
+        del idx
         rec, out = out, rec
         i += 1
-    # each record field read once and written once, a compare and 1 + d
-    # adds an entry
-    nbytes = 2 * r * n * (2 + d) * 4
-    bound_ms, bound_by = bound(nbytes, r * n * (2 + d))
-    res = {"rows": r, "d": d, "sweeps": i, "bound_ms": bound_ms,
-           "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err}
-    if timed:
-        res.update(ms=sum(ms) / len(ms), plain_ms=sum(plain_ms) / len(ms),
-                   library_ms=sum(gather_ms) / len(ms), ms_by_sweep=ms,
-                   gather_ms_by_sweep=gather_ms)
-        log(f"{tag} K5 D={d} on {r} rows x {n} nodes: {i} sweeps equal to "
-            f"the plain sweep; a sweep kernel {res['ms']:.4f} ms (by sweep "
-            + ", ".join(f"{x:.4f}" for x in ms) + f"), plain "
-            f"{res['plain_ms']:.4f} ms, torch.gather of the records "
-            f"{res['library_ms']:.4f} ms, bound {bound_ms:.5f} ms by "
-            f"{bound_by} ({nbytes} B)")
+    return {"sweeps": i, "ms_by_sweep": ms, "plain_ms_by_sweep": plain_ms,
+            "gather_ms_by_sweep": gather_ms, "max_abs_err": err}
+
+
+def doubling_vs_plain(g, dg, fm_rows: torch.Tensor, targets: torch.Tensor,
+                      w_pads: torch.Tensor, order: torch.Tensor, tag: str,
+                      timed: bool) -> dict:
+    """K5 on one chunk of rows, the records in ``order`` (the oracle's
+    Z-order), against its plain versions, equal or raise: the on-chip
+    doubling (``doubling_rows``) against ``double_rows`` at sweep caps
+    1, 2, 3 and at convergence (on its own count; at cap 3 also on a
+    fixed count); the wrapper's tables against the JAX loop on plain
+    sweeps at convergence, and on a corrupted copy of the rows (a
+    2-cycle, a 3-cycle) at max_len 0 and a cut, on chip and on the wide
+    path. A shape the rule sends to the wide path is compared there
+    only. ``timed``: the whole on-chip doubling of the chunk (CUDA
+    events, the records restored before each launch), beside the wide
+    path's sweep loop (each sweep's launch, summed), the plain
+    ``double_rows``, and ``torch.gather`` of each sweep's records
+    (summed), all on the same records; then the on-chip doubling, the
+    sweep loop and the gathers on the records by node id (the layout of
+    the first versions) as a side column. The wide sweep also equals the
+    plain sweep, sweep by sweep, on both layouts."""
+    r, n = fm_rows.shape
+    d = w_pads.shape[0]
+    limit = pd.n_sweeps(n)
+    plan = cd.rows_plan(n, d, fm_rows.device)
+    res = {"rows": r, "d": d, "plan": {"blocks": plan[0],
+                                       "threads": plan[1],
+                                       "nodes": plan[2],
+                                       "smem": plan[3]}}
+    err = 0
+    rec0 = pd.initial_records(dg, fm_rows, w_pads, order)
+    if plan[0]:
+        caps = []
+        for cap, fixed in ([(c, False) for c in K5_CAPS]
+                           + [(limit, False), (K5_CAPS[-1], True)]):
+            got = rec0.clone()
+            settled, live = cd.doubling_rows(got, d, cap, fixed)
+            want = rec0.clone()
+            s_want, l_want = pd.double_rows(want, d, cap, fixed)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(settled, s_want)
+                    and torch.equal(live, l_want)):
+                raise AssertionError(
+                    f"{tag} K5 D={d} cap {cap} fixed={fixed}: the on-chip "
+                    "doubling differs from the plain double_rows")
+            err = max(err, max_abs_diff(got, want))
+            caps.append({"cap": cap, "fixed": fixed,
+                         "max_settled": int(settled.max()),
+                         "live_rows": int(live.sum())})
+            del got, want
+        res["caps"] = caps
+        log(f"{tag} K5 D={d} on {r} rows x {n} nodes, {plan[0]} block(s) a "
+            f"row ({plan[1]} threads, {plan[2]} nodes, {plan[3]} shared "
+            f"bytes a block): the on-chip doubling equals double_rows at "
+            f"caps {[c['cap'] for c in caps]} (fixed at the last)")
     else:
-        log(f"{tag} K5 D={d} ({p // 4} vectors a record) on {r} rows: {i} "
-            "sweeps equal to the plain sweep")
+        log(f"{tag} K5 D={d} on {r} rows x {n} nodes: the shape rule takes "
+            "the wide path")
+    cyc = plant_cycles(g, fm_rows, 1, 2)
+    res["tables"] = [tables_vs_plain(dg, fm_rows, targets, w_pads, 0, tag,
+                                     "chunk", order)]
+    for max_len in (0, K5_CYCLE_CUT):
+        res["tables"].append(tables_vs_plain(dg, cyc, targets, w_pads,
+                                             max_len, tag, "cycles", order))
+    res["tables"].append(tables_vs_plain(dg, cyc, targets, w_pads, 0, tag,
+                                         "cycles, wide path", order,
+                                         wide=True))
+    if plan[0] and res["tables"][1]["rows_launches"] != 2:
+        raise AssertionError(f"{tag} K5 D={d}: the live 2-cycle row was "
+                             "not doubled again for the chunk's sweeps")
+    res["max_abs_err"] = max([err] + [x["max_abs_err"]
+                                      for x in res["tables"]])
+    if not timed:
+        return res
+    # the whole doubling of the chunk on chip, the records restored before
+    # each launch (outside the timed span)
+    work = torch.empty_like(rec0)
+    settled = torch.empty(r, dtype=torch.int32, device=rec0.device)
+    live = torch.empty(r, dtype=torch.bool, device=rec0.device)
+    rows_ms = time_restored(lambda: work.copy_(rec0),
+                            lambda: cd.launch_rows(work, d, limit, False,
+                                                   settled, live),
+                            KERNEL_REPS)
+    # the same launch with the records by node id, and with no sweep
+    # (the row's load and store alone)
+    rec_ids = pd.initial_records(dg, fm_rows, w_pads)
+    rows_ids_ms = time_restored(lambda: work.copy_(rec_ids),
+                                lambda: cd.launch_rows(work, d, limit, False,
+                                                       settled, live),
+                                KERNEL_REPS)
+    io_ms = time_restored(lambda: work.copy_(rec0),
+                          lambda: cd.launch_rows(work, d, 0, True, settled,
+                                                 live), KERNEL_REPS)
+    plain_ms = time_cuda(lambda: pd.double_rows(rec0.clone(), d, limit),
+                         PLAIN_REPS)
+    del work
+    # the wide path's sweep loop and the gathers on the records the
+    # kernel doubles, then on the records by node id
+    z = sweep_loop(rec0, limit, tag, f"D={d}, {r} rows", plain=True)
+    del rec0
+    ids = sweep_loop(rec_ids, limit, tag, f"D={d}, {r} rows by node id",
+                     plain=False)
+    del rec_ids
+    if z["sweeps"] != ids["sweeps"]:
+        raise AssertionError(f"{tag} K5 D={d}: {z['sweeps']} sweeps in "
+                             f"Z-order, {ids['sweeps']} by node id")
+    i, ms, gather_ms = z["sweeps"], z["ms_by_sweep"], z["gather_ms_by_sweep"]
+    # the chunk's compact records read once and written once; a compare
+    # and 1 + d adds an entry a sweep
+    nbytes = 2 * r * n * (2 + d) * 4
+    bound_ms, bound_by = bound(nbytes, i * r * n * (2 + d))
+    sweep_bound_ms, sweep_bound_by = bound(nbytes, r * n * (2 + d))
+    res.update(sweeps=i, ms=rows_ms, ids_ms=rows_ids_ms, io_ms=io_ms,
+               plain_ms=plain_ms, library_ms=sum(gather_ms),
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               sweep_loop_ms=sum(ms),
+               ids_library_ms=sum(ids["gather_ms_by_sweep"]),
+               ids_sweep_loop_ms=sum(ids["ms_by_sweep"]),
+               max_abs_err=max(res["max_abs_err"], z["max_abs_err"],
+                               ids["max_abs_err"]),
+               sweep={"ms": sum(ms) / i,
+                      "plain_ms": sum(z["plain_ms_by_sweep"]) / i,
+                      "library_ms": sum(gather_ms) / i,
+                      "bound_ms": sweep_bound_ms,
+                      "bound_by": sweep_bound_by, "bytes": nbytes,
+                      "ms_by_sweep": ms, "gather_ms_by_sweep": gather_ms,
+                      "ids_ms_by_sweep": ids["ms_by_sweep"],
+                      "ids_gather_ms_by_sweep": ids["gather_ms_by_sweep"]})
+    log(f"{tag} K5 D={d} on {r} rows x {n} nodes, {i} sweeps, the same "
+        f"Z-order records for each: the on-chip doubling {rows_ms:.4f} ms "
+        f"(no sweep, the load and store alone {io_ms:.4f} ms), the wide "
+        f"sweep loop {sum(ms):.4f} ms (a sweep {sum(ms) / i:.4f} ms: "
+        + ", ".join(f"{x:.4f}" for x in ms) + "), torch.gather of each "
+        f"sweep's records {sum(gather_ms):.4f} ms in all, plain double_rows "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+        f"({nbytes} B); by node id: the on-chip doubling {rows_ids_ms:.4f} "
+        f"ms, the wide sweep loop {res['ids_sweep_loop_ms']:.4f} ms, "
+        f"torch.gather {res['ids_library_ms']:.4f} ms; the wide sweep "
+        "equals the plain sweep, sweep by sweep, on both")
     return res
 
 
@@ -1881,15 +2269,17 @@ def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
     True)`` + ``query_dist``, ``prepare_weights`` + ``query_table`` (free
     flow, diff), ``prepare_weights_multi`` + ``query_table_multi`` (D =
     2); every table freed before the next. Counts zeroed before, read
-    after; then every answer held to the walk's and K4/K5 to their plain
-    versions."""
+    after (every doubling on chip); then every answer held to the walk's
+    and K4/K5 to their plain versions, and ``ops.doubled_tables_multi``
+    at D = 14 on worker 0's first rows (a row past the largest cluster:
+    the wide path) held to the JAX loop on plain sweeps."""
     tag = "[serving]"
     g, queries, n = ref["g"], ref["queries"], len(ref["queries"])
     w_diff = g.weights_with_diff(ref["diff_path"])
     ws2 = [None, w_diff]
-    ws9 = ws2 + [g.weights_with_diff(synth_diff(g, frac=0.1, seed=sd))
-                 for sd in SERVING_DIFF_SEEDS + WIDE_DIFF_SEEDS]
-    ws5 = ws9[:5]
+    ws_all = ws2 + [g.weights_with_diff(synth_diff(g, frac=0.1, seed=sd))
+                    for sd in SERVING_DIFF_SEEDS + WIDE_DIFF_SEEDS]
+    ws5 = ws_all[:5]
     rng = np.random.default_rng(SEED + 3)
     sources = rng.integers(0, g.n, SERVING_MAT_ROWS)
     mat_targets = rng.integers(0, g.n, (SERVING_MAT_ROWS,
@@ -1914,6 +2304,15 @@ def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
         gc.collect()
         torch.cuda.empty_cache()
 
+    def pads(ws):
+        return torch.as_tensor(g.padded_weights_multi(ws), dtype=torch.int32,
+                               device=oracle.device)
+
+    wide_fm = oracle.fm[0, :SWEEP_ROWS_WIDE]
+    wide_targets = torch.as_tensor(oracle.targets_wr[0, :SWEEP_ROWS_WIDE],
+                                   dtype=torch.int32, device=oracle.device)
+    wide_pads = pads(ws_all[:K5_WIDE_D])
+    order = pd.record_order(g, oracle.device)
     recorded: list = []
     real_multi = sharded.cuda_walk_multi
 
@@ -1955,10 +2354,10 @@ def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
         tabled, lookup_ms = {}, {}
         r_arr, s_arr, _, valid, _ = oracle.route(queries)
         for name, wq in (("free-flow", None), ("diff", w_diff)):
-            before = cd.doubling_sweep.launches
+            before = pd.doubled_tables_multi.sweeps
             tables = step(f"prepare_weights {name}",
                           lambda wq=wq: oracle.prepare_weights(wq))
-            sweeps[name] = cd.doubling_sweep.launches - before
+            sweeps[name] = pd.doubled_tables_multi.sweeps - before
             t_bytes[name] = sum(x.numel() * x.element_size() for x in tables)
             oracle.query_table(tables, queries)     # warm, as the walk is
             tabled[name] = step(f"query_table {name}",
@@ -1973,40 +2372,53 @@ def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
                 *f, rows_d, s_d, v_d), KERNEL_REPS)
             del tables, flat
             free()
-        before = cd.doubling_sweep.launches
+        before = pd.doubled_tables_multi.sweeps
         tables = step("prepare_weights_multi D=2",
                       lambda: oracle.prepare_weights_multi(ws2))
-        sweeps["multi D=2"] = cd.doubling_sweep.launches - before
+        sweeps["multi D=2"] = pd.doubled_tables_multi.sweeps - before
         t_bytes["multi D=2"] = sum(x.numel() * x.element_size()
                                    for x in tables)
         oracle.query_table_multi(tables, queries)   # warm
         tabled_multi = step("query_table_multi D=2",
                             lambda: oracle.query_table_multi(tables,
                                                              queries))
-        del tables
-        free()
         launches = {"walk": cw.cuda_walk_batch.launches,
                     "multi": cw.cuda_walk_multi.launches,
+                    "rows": cd.doubling_rows.launches,
                     "sweep": cd.doubling_sweep.launches}
         build_counts = check_build_launches("serving", tag)
+        del tables
+        free()
     finally:
         if budget_was is None:
             os.environ.pop("DOS_TABLE_BUDGET_GB", None)
         else:
             os.environ["DOS_TABLE_BUDGET_GB"] = budget_was
     kinds.check("serving", tag)
+    # one on-chip launch a chunk of each prepare, plus one a chunk whose
+    # live rows ran short of the chunk's sweeps
+    chunks = sum(-(-r // c) for c in (2048, 2048, 1024)) * w
+    reruns = launches["rows"] - chunks
     log(f"{tag} launches in the phase's run: walk {launches['walk']} (2 "
         f"queries + {SERVING_MAT_ROWS} mat rows), fused walk "
-        f"{launches['multi']}, doubling sweep {launches['sweep']} "
-        f"({sweeps}); table bytes {t_bytes}")
+        f"{launches['multi']}, on-chip doubling {launches['rows']} ({chunks} "
+        f"chunks + {reruns} reruns of live rows), wide doubling sweep "
+        f"{launches['sweep']}; sweeps {sweeps}; table bytes {t_bytes}")
     if launches["multi"] != 2:
         raise AssertionError(f"{tag} {launches['multi']} fused walk "
                              "launches, not one a query_multi call")
     if launches["walk"] != 2 + SERVING_MAT_ROWS:
         raise AssertionError(f"{tag} {launches['walk']} walk launches, not "
                              "one a query and one a mat row")
-    if launches["sweep"] != sum(sweeps.values()) or min(sweeps.values()) < 1:
-        raise AssertionError(f"{tag} doubling sweeps {sweeps}")
+    if any(sweeps[k] != v for k, v in EXPECTED_SWEEPS.items()):
+        raise AssertionError(f"{tag} doubling sweeps {sweeps}, expected "
+                             f"{EXPECTED_SWEEPS}")
+    if reruns < 0 or reruns > chunks:
+        raise AssertionError(f"{tag} {launches['rows']} on-chip doubling "
+                             f"launches for {chunks} chunks")
+    if launches["sweep"] != 0:
+        raise AssertionError(f"{tag} {launches['sweep']} wide sweep launches: "
+                             "the cell's rows fit a cluster")
 
     # every answer against the walk's
     def same(got, want, what):
@@ -2047,21 +2459,34 @@ def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
         "query_table (free flow, diff) equals query; query_table_multi "
         "equals query_multi")
 
-    def pads(ws):
-        return torch.as_tensor(g.padded_weights_multi(ws), dtype=torch.int32,
-                               device=oracle.device)
-
-    # K4's wide branch on the D=2 call's lanes at D=9 (a comparison, not
-    # a launch of the main path)
-    a9 = recorded[0][0][:5] + (pads(ws9),)
+    # a shape past the largest cluster: the wide path's tables against
+    # the JAX loop on plain sweeps
+    k5_main_wide = tables_vs_plain(oracle.dg, wide_fm, wide_targets,
+                                   wide_pads, 0, tag,
+                                   f"D={K5_WIDE_D} past the largest cluster",
+                                   order)
+    if not (k5_main_wide["rows_launches"] == 0
+            and k5_main_wide["sweep_launches"] == k5_main_wide["sweeps"]
+            >= 1):
+        raise AssertionError(f"{tag} D={K5_WIDE_D} did not take the wide "
+                             f"path: {k5_main_wide}")
+    # K4 at D = 8, 9, 16, 17 on the D=2 call's lanes (comparisons, not
+    # launches of the main path)
+    extra = [(recorded[0][0][:5] + (pads(ws_all[:d]),), recorded[0][1])
+             for d in K4_WIDE_DS]
     per_call = [multi_vs_plain(name, call, tag) for name, call in zip(
-        ("D=2", "D=5", "D=9"), recorded + [(a9, recorded[0][1])])]
-    del recorded, a9
+        ("D=2", "D=5") + tuple(f"D={d}" for d in K4_WIDE_DS),
+        recorded + extra)]
+    del recorded, extra
     free()
-    k5 = doubling_vs_plain(oracle.dg, oracle.fm[0, :SWEEP_ROWS],
-                           oracle.dg.w_pad[None], tag, timed=True)
-    k5_wide = [doubling_vs_plain(oracle.dg, oracle.fm[0, :SWEEP_ROWS_WIDE],
-                                 pads(ws9[:d]), tag, timed=False)
+    k5 = doubling_vs_plain(g, oracle.dg, oracle.fm[0, :SWEEP_ROWS],
+                           torch.as_tensor(oracle.targets_wr[0, :SWEEP_ROWS],
+                                           dtype=torch.int32,
+                                           device=oracle.device),
+                           oracle.dg.w_pad[None], order, tag, timed=True)
+    free()
+    k5_wide = [doubling_vs_plain(g, oracle.dg, wide_fm, wide_targets,
+                                 pads(ws_all[:d]), order, tag, timed=False)
                for d in (5, 7)]
     free()
     qps = {}
@@ -2092,8 +2517,9 @@ def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
     log(f"{tag} query_multi D=2 {fused_s:.4f} s vs two queries "
         f"{seq_s:.4f} s (host clock)")
     return {"launches": launches, "steps": steps, "sweeps": sweeps,
-            "table_bytes": t_bytes, "k4": per_call, "k5": k5,
-            "k5_wide": k5_wide, "qps": qps, "mat_ms_per_row": mat_ms,
+            "reruns": reruns, "table_bytes": t_bytes, "k4": per_call,
+            "k5": k5, "k5_wide": k5_wide, "k5_main_wide": k5_main_wide,
+            "qps": qps, "mat_ms_per_row": mat_ms,
             "fused_s": fused_s, "two_queries_s": seq_s}, build_counts
 
 

@@ -62,14 +62,33 @@
 // the JAX package's XLA stage ops/table_search.py::table_search_multi (no
 // Pallas kernel there): one walk whose every move adds the moved edge's
 // weight under each of d weight sets. It is bound like the raw walk, by
-// the longest lane's chain, and keeps its design: the move reads
-// (next, edge id) where the raw walk reads (next, weight), and the d
-// weights of the edge, a contiguous row of w_t [M + 1, d], are read off
-// the chain (nothing waits on them but the sums). Up to d = 8 the sums
-// live in registers (a template a width); wider d adds into the lane's
-// own column of cost, which has no limit on d. The bytes a move adds
-// over the raw walk are its d weights, 4 d bytes from one or two sectors.
-//
+// the longest lane's chain. What it adds are the d weights of a move: the
+// move's edge id (read where B1 reads its weight) and then the edge's row
+// of w_t [M + 1, dp], a read behind a read. The first version (PR 9)
+// waited for both before the next move's visit, and past d = 8 added its
+// sums into the lane's column of cost in device memory, d
+// read-modify-writes a move (6x its register path at d = 9). This one:
+// * takes the weights off the chain: a move issues the next node's visit
+//   before it waits on the edge id, and adds the weights one move later,
+//   so the edge id and the weight row are in flight under the next
+//   move's reads; two 16-byte loads a thread (w_t rows padded to a
+//   multiple of 8: with one load at d <= 4 the compiler put the weight
+//   read back on the chain, 0.3359 ms at d = 2 on the H100 where two
+//   loads take 0.2994 ms);
+// * keeps every sum in registers at any d: a query takes G = ceil(d / 8)
+//   threads (rounded up to a power of two, at most 32) on neighbouring
+//   lanes of one warp, each summing 8 weight sets. All G
+//   walk the same chain, so their fm byte and head reads go to the same
+//   addresses and are served together. The group's first thread writes
+//   plen and fin. Past 256 weight sets (32 threads x 8) the group walks
+//   the chain again in turns of 256;
+// * sizes blocks as the raw walk (walk_threads over G x lanes threads) and
+//   deals queries to blocks round-robin, a group never split over warps.
+// Tried and not kept: the weights read by (node, slot) from a slot-weight
+// table [n, k, dp] beside the next nodes, built once a call (a faster
+// kernel at d = 2, 0.2880 ms, slower at d >= 5, and the table's build, a
+// gather of its rows, cost 0.80 ms a call: PERF.md, section 6).
+
 // Parity traps kept from the TPU kernel:
 // * the row offset is int64 (8,250 rows x 264,000 nodes is past 2^31);
 // * birth rule: x0 = valid ? s : t, halted0 = fm[row, x0] < 0 || !valid;
@@ -83,6 +102,9 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// 16-byte weight vectors a fused-walk thread reads a move (8 weight sets)
+constexpr int kWv = 2;
 
 // lanes a block: the fewest of 8, 16, ..., 256 that keep every lane
 // resident
@@ -233,12 +255,12 @@ int launch(const void* fm, long long n, const void* rows, const void* s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fused multi-diff walk (K4): the raw walk's chain, with the move's
-// edge id read where the single walk reads its weight, and the edge's d
-// weights w_t[eid, 0:d] read off the chain. kD > 0: d == kD sums kept in
-// registers; kD == 0: any d, each move adding into the lane's own column
-// of cost [d, q].
-template <int kD>
+// The fused multi-diff walk (K4): the raw walk's chain, the move's edge id
+// read where B1 reads its weight, and the edge's weights w_t[eid, j0 ..
+// j0 + 8) read off the chain: the next node's visit is issued before
+// the wait on the edge id, and the weights are added one move later. A
+// query takes g threads (a power of two), thread gl summing the 8 weight
+// sets from turn * 8 g + gl * 8, read as two 16-byte vectors.
 __global__ void __launch_bounds__(kMaxThreads)
 table_search_walk_multi_kernel(const uint8_t* __restrict__ fm, long long n,
                                const int* __restrict__ rows,
@@ -246,83 +268,87 @@ table_search_walk_multi_kernel(const uint8_t* __restrict__ fm, long long n,
                                const int* __restrict__ t,
                                const uint8_t* __restrict__ valid,
                                const int* __restrict__ pair, int k,
-                               const int* __restrict__ w_t, int d,
-                               long long steps, int budget,
+                               const int* __restrict__ w_t, int dp, int d,
+                               int g, long long steps, int budget,
                                int* __restrict__ cost,
                                int* __restrict__ plen,
                                uint8_t* __restrict__ fin, int q) {
-  const int i = threadIdx.x * gridDim.x + blockIdx.x;
+  // groups of g neighbouring threads, dealt round-robin over the blocks
+  const int gl = threadIdx.x & (g - 1);
+  const int i = (threadIdx.x / g) * gridDim.x + blockIdx.x;
   if (i >= q) return;
   const bool v = valid[i] != 0;
   const int tt = t[i];
-  int x = v ? s[i] : tt;
-  unsigned int c[kD > 0 ? kD : 1];
+  const uint8_t* row = fm + static_cast<long long>(rows[i]) * n;
+  const int* __restrict__ next = pair;
+  const int* __restrict__ eids = pair + n * k;
+  const int stride = dp / 4;
+  for (int j0 = gl * 8; j0 < d; j0 += 8 * g) {
+    const int4* __restrict__ wv = reinterpret_cast<const int4*>(w_t + j0);
+    int x = v ? s[i] : tt;
+    unsigned int c[4 * kWv];
+    int4 pend[kWv];  // the last move's weights, added one move later
 #pragma unroll
-  for (int j = 0; j < (kD > 0 ? kD : 1); ++j) c[j] = 0;
-  if constexpr (kD == 0) {
-    for (int j = 0; j < d; ++j) cost[static_cast<long long>(j) * q + i] = 0;
-  }
-  int p = 0;
-  if (v) {
-    const uint8_t* row = fm + static_cast<long long>(rows[i]) * n;
-    const int* __restrict__ next = pair;
-    const int* __restrict__ eids = pair + n * k;
-    int head[kHead];
-    int slot = visit<false>(row, next, k, x, head);
-    if (slot >= 0) {
-      for (long long step = 0; step < steps; ++step) {
-        if (budget >= 0 && p >= budget) break;
-        const long long at = static_cast<long long>(x) * k + slot;
-        int nx = head[0];
+    for (int u = 0; u < kWv; ++u) {
+      c[4 * u] = c[4 * u + 1] = c[4 * u + 2] = c[4 * u + 3] = 0;
+      pend[u] = make_int4(0, 0, 0, 0);
+    }
+    int p = 0;
+    if (v) {
+      int head[kHead];
+      int slot = visit<false>(row, next, k, x, head);
+      if (slot >= 0) {
+        for (long long step = 0; step < steps; ++step) {
+          if (budget >= 0 && p >= budget) break;
+          const long long at = static_cast<long long>(x) * k + slot;
+          int nx = head[0];
 #pragma unroll
-        for (int j = 1; j < kHead; ++j) {
-          if (slot == j) nx = head[j];
-        }
-        if (slot >= kHead) nx = __ldg(next + at);
-        const int* wrow = w_t + static_cast<long long>(__ldg(eids + at)) * d;
-        if constexpr (kD > 0) {
-#pragma unroll
-          for (int j = 0; j < kD; ++j) {
-            c[j] += static_cast<unsigned int>(__ldg(wrow + j));
+          for (int j = 1; j < kHead; ++j) {
+            if (slot == j) nx = head[j];
           }
-        } else {
-          for (int j = 0; j < d; ++j) {
-            int* out = cost + static_cast<long long>(j) * q + i;
-            *out = static_cast<int>(static_cast<unsigned int>(*out) +
-                                    static_cast<unsigned int>(__ldg(wrow + j)));
+          if (slot >= kHead) nx = __ldg(next + at);
+          const int eid = __ldg(eids + at);
+          p += 1;
+          x = nx;
+          slot = visit<false>(row, next, k, x, head);
+#pragma unroll
+          for (int u = 0; u < kWv; ++u) {
+            c[4 * u] += static_cast<unsigned int>(pend[u].x);
+            c[4 * u + 1] += static_cast<unsigned int>(pend[u].y);
+            c[4 * u + 2] += static_cast<unsigned int>(pend[u].z);
+            c[4 * u + 3] += static_cast<unsigned int>(pend[u].w);
+            pend[u] = __ldg(wv + static_cast<long long>(eid) * stride + u);
           }
+          if (slot < 0) break;
         }
-        p += 1;
-        x = nx;
-        slot = visit<false>(row, next, k, x, head);
-        if (slot < 0) break;
       }
     }
-  }
-  if constexpr (kD > 0) {
 #pragma unroll
-    for (int j = 0; j < kD; ++j) {
-      cost[static_cast<long long>(j) * q + i] = v ? static_cast<int>(c[j]) : 0;
+    for (int u = 0; u < kWv; ++u) {
+      c[4 * u] += static_cast<unsigned int>(pend[u].x);
+      c[4 * u + 1] += static_cast<unsigned int>(pend[u].y);
+      c[4 * u + 2] += static_cast<unsigned int>(pend[u].z);
+      c[4 * u + 3] += static_cast<unsigned int>(pend[u].w);
+    }
+#pragma unroll
+    for (int j = 0; j < 4 * kWv; ++j) {
+      if (j0 + j < d) {
+        cost[static_cast<long long>(j0 + j) * q + i] =
+            v ? static_cast<int>(c[j]) : 0;
+      }
+    }
+    if (j0 == 0) {
+      plen[i] = v ? p : 0;
+      fin[i] = (v && x == tt) ? 1 : 0;
     }
   }
-  plen[i] = v ? p : 0;
-  fin[i] = (v && x == tt) ? 1 : 0;
 }
 
-template <int kD>
-void launch_multi(int blocks, int threads, cudaStream_t stream,
-                  const void* fm, long long n, const void* rows,
-                  const void* s, const void* t, const void* valid,
-                  const void* pair, int k, const void* w_t, int d,
-                  long long steps, int budget, void* cost, void* plen,
-                  void* fin, int q) {
-  table_search_walk_multi_kernel<kD><<<blocks, threads, 0, stream>>>(
-      static_cast<const uint8_t*>(fm), n, static_cast<const int*>(rows),
-      static_cast<const int*>(s), static_cast<const int*>(t),
-      static_cast<const uint8_t*>(valid), static_cast<const int*>(pair), k,
-      static_cast<const int*>(w_t), d, steps, budget,
-      static_cast<int*>(cost), static_cast<int*>(plen),
-      static_cast<uint8_t*>(fin), q);
+// Threads a query: ceil(d / 8) rounded up to a power of two, at most 32.
+int multi_group(int d) {
+  int g = 1;
+  while (g < 32 && 8 * g < d) g *= 2;
+  return g;
 }
 
 }  // namespace
@@ -356,37 +382,36 @@ extern "C" int table_search_walk_pack4(const void* fm, long long n,
 
 // The fused multi-diff walk (K4). `pair` is int32 [2, n, k]: the next
 // node, then the edge id, per out-slot (ops/table_search.py::
-// walk_eid_pairs); `w_t` is int32 [M + 1, d], the d padded weight rows
-// transposed; `cost` is int32 [d, q].
+// walk_eid_pairs); `w_t` is int32 [M + 1, dp], the d padded weight rows
+// transposed and zero past d (dp = d rounded up to 8; weights_t),
+// 16-byte aligned; `cost` is int32 [d, q].
 extern "C" int table_search_walk_multi(const void* fm, long long n,
                                        const void* rows, const void* s,
                                        const void* t, const void* valid,
                                        const void* pair, int k,
-                                       const void* w_t, int d,
+                                       const void* w_t, int dp, int d,
                                        long long steps, int budget,
                                        void* cost, void* plen, void* fin,
                                        int q, void* stream) {
   if (q > 0 && d > 0) {
-    int threads = 0;
-    const cudaError_t err = walk_threads(q, &threads);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int blocks = (q + threads - 1) / threads;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DOS_MULTI(D)                                                      \
-  launch_multi<D>(blocks, threads, st, fm, n, rows, s, t, valid, pair, k, \
-                  w_t, d, steps, budget, cost, plen, fin, q)
-    switch (d) {
-      case 1: DOS_MULTI(1); break;
-      case 2: DOS_MULTI(2); break;
-      case 3: DOS_MULTI(3); break;
-      case 4: DOS_MULTI(4); break;
-      case 5: DOS_MULTI(5); break;
-      case 6: DOS_MULTI(6); break;
-      case 7: DOS_MULTI(7); break;
-      case 8: DOS_MULTI(8); break;
-      default: DOS_MULTI(0); break;
+    const int g = multi_group(d);
+    if (dp != (d + 7) / 8 * 8 ||
+        static_cast<long long>(q) * g >= (1LL << 31)) {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
-#undef DOS_MULTI
+    int threads = 0;
+    const cudaError_t err = walk_threads(q * g, &threads);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (threads < g) threads = g;
+    const int blocks = (q + threads / g - 1) / (threads / g);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    table_search_walk_multi_kernel<<<blocks, threads, 0, st>>>(
+        static_cast<const uint8_t*>(fm), n, static_cast<const int*>(rows),
+        static_cast<const int*>(s), static_cast<const int*>(t),
+        static_cast<const uint8_t*>(valid), static_cast<const int*>(pair), k,
+        static_cast<const int*>(w_t), dp, d, g, steps, budget,
+        static_cast<int*>(cost), static_cast<int*>(plen),
+        static_cast<uint8_t*>(fin), q);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,7 +57,7 @@ from ..ops.ell_split import ell_split_graph, split_ratio
 from ..ops.frontier_relax import frontier_graph, locality_fraction
 from ..ops.grid_sweep import GridGraph
 from ..ops.shift_relax import ShiftGraph, split_coverage
-from ..ops.pointer_doubling import plen_dtype
+from ..ops.pointer_doubling import plen_dtype, record_order
 from ..ops.table_search import walk_eid_pairs, walk_pairs
 from ..parallel.partition import DistributionController
 from ..parallel.sharded import (
@@ -528,6 +528,9 @@ class CPDOracle:
         self.build_kind: str | None = None
         #: the fused walk's (next, edge id) table: weight-free, one a graph
         self._eid_pair: torch.Tensor | None = None
+        #: the doubling records' layout (``record_order``), made at the
+        #: first prepare
+        self._record_order: torch.Tensor | None = None
         #: weight-set key (None = free flow, a caller's ``w_key``, else a
         #: digest of the weight vector) -> (padded weights, pair table) on
         #: the device
@@ -943,8 +946,16 @@ class CPDOracle:
                            device=self.device))
         return self._chunked_tables(
             lambda fm_, tw_, o: build_tables_sharded(
-                self.dg, fm_, tw_, w_pad, max_len=max_len, out=o),
+                self.dg, fm_, tw_, w_pad, max_len=max_len, out=o,
+                order=self._order()),
             chunk, out)
+
+    def _order(self) -> torch.Tensor:
+        """The doubling records' layout, a Z-order of the coordinates
+        (``ops.pointer_doubling.record_order``), made once."""
+        if self._record_order is None:
+            self._record_order = record_order(self.graph, self.device)
+        return self._record_order
 
     def _chunked_tables(self, build_one, chunk: int, out):
         """Run a table builder over row chunks of the target axis, each
@@ -1021,7 +1032,8 @@ class CPDOracle:
                            device=self.device))
         return self._chunked_tables(
             lambda fm_, tw_, o: build_tables_multi_sharded(
-                self.dg, fm_, tw_, w_pads, max_len=max_len, out=o),
+                self.dg, fm_, tw_, w_pads, max_len=max_len, out=o,
+                order=self._order()),
             chunk, out)
 
     def query_table_multi(self, tables, queries: np.ndarray,

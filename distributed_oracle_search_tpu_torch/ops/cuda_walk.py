@@ -15,7 +15,9 @@ pack4 variant (``packed4=True``, the TPU kernel's ``packed4`` body): the
 fm table is the pack4-resident shard (``models.resident``) and each slot
 is a nibble of the lane's packed row. It also holds K4, the fused
 multi-diff walk (:func:`cuda_walk_multi`, the JAX package's XLA stage
-``table_search_multi``): the same chain, summing D weight sets at once.
+``table_search_multi``): the same chain, each move's edge id and D
+weights read off it (added one move later) and summed in registers,
+``ceil(D / 8)`` threads a query.
 
 :func:`cuda_walk_batch` picks the walk by the device its tensors lie on:
 CPU tensors walk through the plain :func:`.table_search.table_search_batch`
@@ -33,7 +35,7 @@ import torch
 from .device_graph import DeviceGraph
 from .table_search import (
     table_search_batch, table_search_multi, walk_budget, walk_eid_pairs,
-    walk_pairs, weights_t,
+    walk_pairs, weights_t, weights_width,
 )
 
 #: the CUDA source (``csrc/<KERNEL_NAME>.cu``) and its raw entry point
@@ -54,8 +56,8 @@ def _kernel(entry: str):
         fn = getattr(load_library(KERNEL_NAME), entry)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if entry == KERNEL_NAME_MULTI:
-            fn.argtypes = [p, ll, p, p, p, p, p, i, p, i, ll, i, p, p, p, i,
-                           p]
+            fn.argtypes = [p, ll, p, p, p, p, p, i, p, i, i, ll, i, p, p, p,
+                           i, p]
         else:
             fn.argtypes = [p, ll, p, p, p, p, p, i, ll, i, p, p, p, i, p]
         fn.restype = ctypes.c_int
@@ -176,7 +178,8 @@ def cuda_walk_multi(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
     bool)`` contract, bit-identical answers. ``pair``: the int32
     ``[2, N, K']`` edge-id table ``walk_eid_pairs(dg)`` (weight-free: one
     per graph), built here when None; the kernel reads the weights
-    transposed, ``weights_t(w_pads)`` (int32 ``[M+1, D]``), built here.
+    transposed, ``weights_t(w_pads, weights_width(D))`` (int32 ``[M+1,
+    dp]``), built here.
 
     CPU tensors walk through the plain version (counted in
     ``cuda_walk_multi.plain``); CUDA tensors launch the kernel (counted
@@ -210,8 +213,8 @@ def cuda_walk_multi(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
     _check("pair", pair, torch.int32, (2, n, k + -k % 4), dev)
     if pair.data_ptr() % 16:
         raise ValueError("pair must start on 16 bytes")
-    w_t = weights_t(w_pads)
-    _check("w_t", w_t, torch.int32, (m1, d), dev)
+    w_t = weights_t(w_pads, weights_width(d))
+    _check("w_t", w_t, torch.int32, (m1, weights_width(d)), dev)
     steps, budget = walk_budget(n, -1, int(max_steps), 8)
     cost = torch.empty((d, q), dtype=torch.int32, device=dev)
     plen = torch.empty(q, dtype=torch.int32, device=dev)
@@ -228,7 +231,8 @@ def launch_walk_multi(fm: torch.Tensor, n: int, t_rows: torch.Tensor,
                       budget: int | None, cost: torch.Tensor,
                       plen: torch.Tensor, fin: torch.Tensor) -> None:
     """The bare K4 launch on tensors :func:`cuda_walk_multi` has checked
-    and allocated (``cost`` ``[D, Q]``): one launch on the current
+    and allocated (``pair`` the edge-id table, ``w_t`` the padded
+    transposed weights, ``cost`` ``[D, Q]``): one launch on the current
     stream, no synchronisation; raises if the launch is refused. Counts
     the launch."""
     fn = _kernel(KERNEL_NAME_MULTI)
@@ -237,8 +241,9 @@ def launch_walk_multi(fm: torch.Tensor, n: int, t_rows: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(fm.data_ptr(), n, t_rows.data_ptr(), s.data_ptr(),
                  t.data_ptr(), valid.data_ptr(), pair.data_ptr(),
-                 pair.shape[2], w_t.data_ptr(), w_t.shape[1], steps,
-                 -1 if budget is None else int(budget), cost.data_ptr(),
+                 pair.shape[2], w_t.data_ptr(), w_t.shape[1], cost.shape[0],
+                 steps, -1 if budget is None else int(budget),
+                 cost.data_ptr(),
                  plen.data_ptr(), fin.data_ptr(), s.shape[0], stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME_MULTI} launch failed: CUDA error "

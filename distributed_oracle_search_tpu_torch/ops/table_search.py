@@ -189,10 +189,24 @@ def walk_eid_pairs(dg: DeviceGraph) -> torch.Tensor:
                                        device=dg.device))
 
 
-def weights_t(w_pads: torch.Tensor) -> torch.Tensor:
-    """``[M+1, D]`` contiguous int32: the D padded weight rows
-    transposed, so one move reads its edge's D weights as one row."""
-    return w_pads.to(torch.int32).T.contiguous()
+def weights_width(d: int) -> int:
+    """Ints a row of the fused walk kernel's :func:`weights_t` takes:
+    ``d`` rounded up to 8 (a kernel thread sums 8 weight sets, read as
+    two 16-byte vectors)."""
+    return -(-d // 8) * 8
+
+
+def weights_t(w_pads: torch.Tensor, width: int | None = None
+              ) -> torch.Tensor:
+    """``[M+1, width]`` contiguous int32 (``width`` defaults to D): the
+    D padded weight rows transposed, so one move reads its edge's D
+    weights as one row, zero past D."""
+    d, m1 = w_pads.shape
+    if width is None or width == d:
+        return w_pads.to(torch.int32).T.contiguous()
+    w_t = torch.zeros((m1, width), dtype=torch.int32, device=w_pads.device)
+    w_t[:, :d] = w_pads.T
+    return w_t
 
 
 def table_search_multi(dg: DeviceGraph, fm: torch.Tensor,

@@ -245,28 +245,32 @@ def query_dist_sharded(dist_wrn: torch.Tensor, t_rows: np.ndarray,
 
 def build_tables_sharded(dg: DeviceGraph, fm_wrn: torch.Tensor,
                          targets_wr: np.ndarray, w_query_pad: torch.Tensor,
-                         max_len: int = 0, out=None):
+                         max_len: int = 0, out=None, order=None):
     """Pointer-doubling cost and packed-plen tables of every worker's
     rows (the JAX ``build_tables_sharded``): each worker doubles only its
     own ``[R, N]`` rows — on one card a loop over workers, one
     ``doubled_tables`` each. ``out``: ``(cost [W, R, N], plen_packed [W,
-    R, N])`` to write into. Returns ``(cost, plen_packed)``."""
+    R, N])`` to write into; ``order``: the records' layout
+    (``ops.pointer_doubling.record_order``; None: node order). Returns
+    ``(cost, plen_packed)``."""
     return _tables_by_worker(
         lambda fm, tg, o: doubled_tables(dg, fm, tg, w_query_pad,
-                                         max_len=max_len, out=o),
+                                         max_len=max_len, out=o,
+                                         order=order),
         fm_wrn, targets_wr, out)
 
 
 def build_tables_multi_sharded(dg: DeviceGraph, fm_wrn: torch.Tensor,
                                targets_wr: np.ndarray, w_pads: torch.Tensor,
-                               max_len: int = 0, out=None):
+                               max_len: int = 0, out=None, order=None):
     """Fused multi-diff pointer-doubling tables of every worker's rows
     (the JAX ``build_tables_multi_sharded``). ``w_pads`` int32 ``[D,
     M+1]``. Returns ``(costs [W, R, N, D], plen_packed [W, R, N])``;
-    ``out`` as :func:`build_tables_sharded`."""
+    ``out`` and ``order`` as :func:`build_tables_sharded`."""
     return _tables_by_worker(
         lambda fm, tg, o: doubled_tables_multi(dg, fm, tg, w_pads,
-                                               max_len=max_len, out=o),
+                                               max_len=max_len, out=o,
+                                               order=order),
         fm_wrn, targets_wr, out)
 
 

@@ -1,12 +1,17 @@
 """PyTorch port, serving kernels on the card: the fused multi-diff walk
 (K4, ``csrc/table_search_walk.cu`` entry ``table_search_walk_multi``)
 answers bit-identically to the plain multi walk on the same CUDA tensors
-— D = 1 to 9 weight sets (9 past the kernel's register sums), step cuts
-0, 1 and 5, targets a lane cannot reach — and refuses operands of the
-wrong shape or type; the doubling sweep (K5, ``csrc/pointer_doubling.cu``)
-equals the plain sweep sweep by sweep at one to seven cost sets (one and
-two 16-byte vectors a record, and a wider one), refuses an in-place or
-unaligned sweep, and the tables it builds equal the CPU's; and the
+— D = 1 to 33 weight sets (one thread a query up to 8, then 2, 4 and 8
+threads), step cuts 0, 1 and 5, targets a lane cannot reach — and
+refuses operands of the wrong shape or type; K5's on-chip doubling
+(``csrc/pointer_doubling.cu`` entry ``doubling_rows``) equals the plain
+``double_rows`` at sweep caps 1, 2, 3 and at convergence, on its own
+count and on a fixed one, at one to eight cost sets, on rows of one
+block and rows a cluster of blocks holds, random records (cycles and
+wrapping sums) included; a row no cluster holds is refused; the wide
+path's sweep (``doubling_sweep``) equals the plain sweep sweep by sweep
+and refuses an in-place or unaligned sweep; the tables either path
+builds equal the CPU's, on corrupted rows with cycles too; and the
 oracle's serving methods on the card (``query_multi``, ``query_mat``,
 ``query_dist``, ``query_table(_multi)``) answer as on the CPU. Each
 launch is counted.
@@ -29,13 +34,15 @@ from distributed_oracle_search_tpu_torch.data import (  # noqa: E402
 )
 from distributed_oracle_search_tpu_torch.models.cpd import CPDOracle  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import (  # noqa: E402
-    DeviceGraph, build_fm_columns, cuda_walk_multi, doubling_sweep,
-    table_search_multi,
+    DeviceGraph, build_fm_columns, cuda_walk_multi, doubling_rows,
+    doubling_sweep, table_search_multi,
 )
+from distributed_oracle_search_tpu_torch.ops import cuda_doubling as tcd  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import pointer_doubling as tpd  # noqa: E402
 from distributed_oracle_search_tpu_torch.parallel import (  # noqa: E402
     DistributionController,
 )
+from torch_doubling_cases import plant_cycles  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -76,7 +83,7 @@ def _case(seed: int, d: int):
     return g, targets, fm, rows, s, t, valid, w_pads
 
 
-@pytest.mark.parametrize("d", [1, 2, 5, 8, 9])
+@pytest.mark.parametrize("d", [1, 2, 5, 8, 9, 16, 17, 33])
 @pytest.mark.parametrize("max_steps", [0, 1, 5])
 def test_k4_equals_plain(dev, d, max_steps):
     g, _, fm, rows, s, t, valid, w_pads = _case(20 + d, d)
@@ -121,22 +128,97 @@ def test_k5_equals_plain_each_sweep(dev, d):
         rec, out = out, rec
 
 
+def _random_records(r: int, n: int, d: int, seed: int, dev):
+    """Records ``[r, n, record_width(d)]``: successors of random forests
+    (each node points at a node earlier in a random order, some at
+    themselves) with a few random successors (cycles), random plen and
+    full-range costs (the sums wrap), zero padding."""
+    rng = np.random.default_rng(seed)
+    rec = np.zeros((r, n, tpd.record_width(d)), np.int32)
+    for i in range(r):
+        order = rng.permutation(n)
+        parent = order[(rng.random(n) * np.arange(n)).astype(np.int64)]
+        succ = np.empty(n, np.int64)
+        succ[order] = parent
+        succ[rng.random(n) < 0.05] = -1
+        succ = np.where(succ < 0, np.arange(n), succ)
+        if i % 3 == 2:
+            hit = rng.random(n) < 0.001
+            succ[hit] = rng.integers(0, n, int(hit.sum()))
+        rec[i, :, 0] = succ
+    rec[..., 1] = rng.integers(0, 3, (r, n))
+    rec[..., 2:2 + d] = rng.integers(-2**31, 2**31, (r, n, d),
+                                     dtype=np.int64)
+    return torch.from_numpy(rec).to(dev)
+
+
+@pytest.mark.parametrize("n", [300, 65536], ids=["block", "cluster"])
+@pytest.mark.parametrize("d", [1, 2, 5, 7, 8])
+def test_k5_rows_equal_plain(dev, n, d):
+    rec0 = _random_records(6, n, d, 40 + d, dev)
+    limit = tpd.n_sweeps(n)
+    plan = tcd.rows_plan(n, d, dev)
+    assert plan[0] >= 1, plan
+    for cap, fixed in ((1, False), (2, False), (3, False), (limit, False),
+                       (3, True), (limit, True)):
+        got = rec0.clone()
+        before = doubling_rows.launches
+        settled, live = doubling_rows(got, d, cap, fixed)
+        torch.cuda.synchronize()
+        assert doubling_rows.launches == before + 1
+        want = rec0.clone()
+        s_want, l_want = tpd.double_rows(want, d, cap, fixed)
+        assert torch.equal(got, want), (cap, fixed)
+        assert torch.equal(settled, s_want) and torch.equal(live, l_want)
+
+
+def test_k5_rows_refuse(dev):
+    rec = torch.zeros((2, 8, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="record_width"):
+        doubling_rows(rec, 1, 3)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flat = torch.zeros(2 * 8 * 4 + 1, dtype=torch.int32, device=dev)
+        doubling_rows(flat[1:].view(2, 8, 4), 1, 3)
+    big = 1 << 22                        # 4,194,304 nodes x 16 B: 64 MiB
+    assert tcd.rows_plan(big, 1, dev)[0] == 0
+    with pytest.raises(ValueError, match="wide path"):
+        doubling_rows(torch.zeros((1, big, 4), dtype=torch.int32,
+                                  device=dev), 1, 3)
+
+
+@pytest.mark.parametrize("path", ["rows", "wide"])
+@pytest.mark.parametrize("cyclic", [False, True], ids=["paths", "cycles"])
 @pytest.mark.parametrize("multi", [False, True])
-def test_tables_on_card_equal_cpu(dev, multi):
+def test_tables_on_card_equal_cpu(dev, multi, cyclic, path, monkeypatch):
     g, targets, fm, *_, w_pads = _case(9, 3)
     targets[4] = -1
     fm[4] = -1
+    if cyclic:
+        plant_cycles(g, fm, 1, 2)
+    if path == "wide":
+        real = tcd.rows_plan
+        monkeypatch.setattr(
+            tcd, "rows_plan", lambda n, d, device: (0, 0, 0, 0)
+            if device.type == "cuda" else real(n, d, device))
+    before = (doubling_rows.launches, doubling_sweep.launches)
     out = []
     for device in ("cpu", dev):
         dg = DeviceGraph.from_graph(g, device=device)
         args = (dg, torch.from_numpy(fm).to(device),
                 torch.from_numpy(targets).to(device))
         w = torch.from_numpy(w_pads).to(device)
-        got = (tpd.doubled_tables_multi(*args, w) if multi
-               else tpd.doubled_tables(*args, w[0]))
+        order = tpd.record_order(g, device)
+        got = (tpd.doubled_tables_multi(*args, w, order=order) if multi
+               else tpd.doubled_tables(*args, w[0], order=order))
         out.append([x.cpu() for x in got])
     for a, b in zip(*out):
         assert a.dtype == b.dtype and torch.equal(a, b)
+    launched = (doubling_rows.launches - before[0],
+                doubling_sweep.launches - before[1])
+    if path == "wide":
+        assert launched[0] == 0 and launched[1] >= 1
+    else:
+        assert launched[1] == 0 and launched[0] == (2 if cyclic else 1)
 
 
 def test_k5_refuses_in_place(dev):

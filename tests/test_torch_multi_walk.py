@@ -29,7 +29,7 @@ from distributed_oracle_search_tpu_torch.ops import (  # noqa: E402
     table_search_multi,
 )
 from distributed_oracle_search_tpu_torch.ops.table_search import (  # noqa: E402
-    walk_eid_pairs, weights_t,
+    walk_eid_pairs, weights_t, weights_width,
 )
 
 
@@ -132,3 +132,22 @@ def test_eid_pairs_layout():
     w_pads = torch.from_numpy(np.stack([g.padded_weights()] * 3))
     w_t = weights_t(w_pads)
     assert w_t.shape == (g.m + 1, 3) and w_t.is_contiguous()
+
+
+@pytest.mark.parametrize("d", [1, 4, 5, 8, 9, 17, 33])
+def test_padded_weights_t_layout(d):
+    """The fused walk kernel's weights: ``[M+1, dp]``, the weight of edge
+    e under set i at ``[e, i]``, zero past D; dp is D rounded up to 8."""
+    g = synth_road_network(200, seed=2)
+    rng = np.random.default_rng(d)
+    w_pads = torch.from_numpy(np.stack([g.padded_weights(
+        (g.w * rng.uniform(1.0, 3.0, g.m)).astype(np.int32))
+        for _ in range(d)]).astype(np.int32))
+    dp = weights_width(d)
+    assert dp == -(-d // 8) * 8
+    w_t = weights_t(w_pads, dp)
+    assert w_t.shape == (g.m + 1, dp) and w_t.dtype == torch.int32
+    assert w_t.is_contiguous()
+    assert torch.equal(w_t[:, :d], w_pads.T)
+    assert (w_t[:, d:] == 0).all()
+    assert torch.equal(weights_t(w_pads), w_pads.T)

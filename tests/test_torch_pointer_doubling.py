@@ -5,10 +5,16 @@ serves) on the same fm rows, targets and weights, made from numpy seeds.
 Held exactly (no tolerance: integer sums): ``max_len`` 0 (converge), 1,
 2 and 3 (cuts, where a Jacobi and an in-place squaring differ), pad rows
 (target -1), targets a node cannot reach, plen packed as int16 (a small
-grid) and as int32 (a 32,768-node two-way path with a few rows). The
-sweep wrapper takes the plain sweep on CPU tensors, double-buffered, and
-counts it; the card case (K5 against the plain sweep, sweep by sweep)
-is in ``test_torch_cuda_serving.py``."""
+grid) and as int32 (a 32,768-node two-way path with a few rows), D = 1,
+2, 3 and 5 cost sets, rows that settle at different sweeps and corrupted
+first-move rows with a 2-cycle and a 3-cycle of non-zero weight (their
+cost and plen grow every sweep, so a row must run exactly the chunk's
+sweep count), on the on-chip path's rule (``double_rows`` a chunk, the
+live rows rerun) and on the wide path's sweep loop. ``double_rows``
+with a sweep cap equals a row-by-row Jacobi loop of ``sweep_records``,
+and its ``settled`` and ``live`` their definitions. The wrappers take
+the plain versions on CPU tensors and count them; the card cases (K5
+against the plain versions) are in ``test_torch_cuda_serving.py``."""
 
 import numpy as np
 import pytest
@@ -24,9 +30,11 @@ from distributed_oracle_search_tpu_torch.data import (  # noqa: E402
     Graph, synth_road_network,
 )
 from distributed_oracle_search_tpu_torch.ops import (  # noqa: E402
-    DeviceGraph, build_fm_columns, doubling_sweep,
+    DeviceGraph, build_fm_columns, doubling_rows, doubling_sweep,
 )
+from distributed_oracle_search_tpu_torch.ops import cuda_doubling as tcd  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import pointer_doubling as tpd  # noqa: E402
+from torch_doubling_cases import plant_cycles  # noqa: E402
 
 
 def _sinks(seed: int) -> Graph:
@@ -58,7 +66,7 @@ def _path(n: int) -> tuple[Graph, np.ndarray, np.ndarray]:
     return g, fm, targets
 
 
-def _road_case(seed: int, d: int):
+def _road_case(seed: int, d: int, cyclic: bool = False):
     g = _sinks(seed)
     rng = np.random.default_rng(seed)
     targets = np.sort(rng.choice(g.n, 24, replace=False)).astype(np.int32)
@@ -66,6 +74,8 @@ def _road_case(seed: int, d: int):
                           targets).numpy()
     targets[5] = -1                                  # a pad row
     fm[5] = -1
+    if cyclic:
+        plant_cycles(g, fm, 1, 2)
     w_pads = np.stack([g.padded_weights(
         None if i == 0 else (g.w * rng.uniform(1.0, 3.0, g.m)).astype(
             np.int32)) for i in range(d)]).astype(np.int32)
@@ -82,15 +92,19 @@ def _jax(g, fm, targets, w_pads, max_len, multi):
                               jnp.asarray(w_pads[0]), max_len=max_len)
 
 
-def _port(g, fm, targets, w_pads, max_len, multi):
+def _port(g, fm, targets, w_pads, max_len, multi, ids=False):
+    """The port's tables, the records in the Z-order the oracle lays
+    them out in (``record_order``), or by node id with ``ids``."""
     dg = DeviceGraph.from_graph(g, device="cpu")
+    order = None if ids else tpd.record_order(g, "cpu")
     if multi:
         return tpd.doubled_tables_multi(
             dg, torch.from_numpy(fm), torch.from_numpy(targets),
-            torch.from_numpy(w_pads), max_len=max_len)
+            torch.from_numpy(w_pads), max_len=max_len, order=order)
     return tpd.doubled_tables(dg, torch.from_numpy(fm),
                               torch.from_numpy(targets),
-                              torch.from_numpy(w_pads[0]), max_len=max_len)
+                              torch.from_numpy(w_pads[0]), max_len=max_len,
+                              order=order)
 
 
 def _equal(got, want):
@@ -100,22 +114,58 @@ def _equal(got, want):
         np.testing.assert_array_equal(a.numpy(), b)
 
 
+@pytest.fixture
+def wide(monkeypatch):
+    """Route the doubling to the wide path (the shape rule's answer for a
+    row no cluster holds)."""
+    monkeypatch.setattr(tcd, "rows_plan", lambda n, d, device: (0, 0, 0, 0))
+
+
 @pytest.mark.parametrize("max_len", [0, 1, 2, 3])
-@pytest.mark.parametrize("multi, d", [(False, 1), (True, 1), (True, 3)],
-                         ids=["single", "multi1", "multi3"])
-def test_tables_equal_jax(multi, d, max_len):
-    g, fm, targets, w_pads = _road_case(7 + d, d)
-    before = doubling_sweep.plain
-    got = _port(g, fm, targets, w_pads, max_len, multi)
-    sweeps = doubling_sweep.plain - before
+@pytest.mark.parametrize("cyclic", [False, True], ids=["paths", "cycles"])
+@pytest.mark.parametrize("multi, d", [(False, 1), (True, 1), (True, 2),
+                                      (True, 3), (True, 5)],
+                         ids=["single", "multi1", "multi2", "multi3",
+                              "multi5"])
+@pytest.mark.parametrize("ids", [False, True], ids=["zorder", "ids"])
+def test_tables_equal_jax(multi, d, cyclic, max_len, ids):
+    """The records laid out in the Z-order (``record_order``, as the
+    oracle lays them out) or by node id give the JAX tables."""
+    g, fm, targets, w_pads = _road_case(7 + d, d, cyclic)
+    before = (tpd.doubled_tables_multi.sweeps, doubling_rows.plain,
+              doubling_sweep.plain)
+    got = _port(g, fm, targets, w_pads, max_len, multi, ids)
+    sweeps = tpd.doubled_tables_multi.sweeps - before[0]
     _equal(got, _jax(g, fm, targets, w_pads, max_len, multi))
     assert got[1].dtype == torch.int16
+    # one on-chip call a chunk, a second when a live row stopped early
+    calls = doubling_rows.plain - before[1]
+    assert doubling_sweep.plain == before[2]
+    assert calls == 1 or (cyclic and calls == 2)
     if max_len == 0:
         assert 1 <= sweeps <= tpd.n_sweeps(g.n)
         _, plen, fin = tpd.unpack_tables(*got)
         assert (~fin[5]).all() and fin.any() and (~fin).any()
+        if cyclic:
+            # the cycles' rows run the chunk's every sweep
+            assert calls == 2
     else:
         assert sweeps <= tpd.n_sweeps(g.n, max_len)
+
+
+@pytest.mark.parametrize("max_len", [0, 2])
+@pytest.mark.parametrize("cyclic", [False, True], ids=["paths", "cycles"])
+def test_wide_path_equals_jax(wide, cyclic, max_len):
+    """The wide path's sweep loop (padded records, double-buffered, a
+    flag a sweep) keeps the JAX tables too, cycles included."""
+    g, fm, targets, w_pads = _road_case(11, 2, cyclic)
+    before = (tpd.doubled_tables_multi.sweeps, doubling_rows.plain,
+              doubling_sweep.plain)
+    got = _port(g, fm, targets, w_pads, max_len, True)
+    _equal(got, _jax(g, fm, targets, w_pads, max_len, True))
+    sweeps = tpd.doubled_tables_multi.sweeps - before[0]
+    assert doubling_rows.plain == before[1]
+    assert doubling_sweep.plain - before[2] == sweeps >= 1
 
 
 @pytest.mark.parametrize("max_len", [0, 1, 2, 3])
@@ -185,3 +235,73 @@ def test_sweep_wrapper_is_double_buffered_on_cpu():
     assert torch.equal(out[..., 0], gat[..., 0])
     assert torch.equal(out[..., 1:], keep[..., 1:] + gat[..., 1:])
     assert tpd.record_width(1) == 4 and tpd.record_width(3) == 8
+
+
+def _row_loop(rec: torch.Tensor, sweeps: int, fixed: bool):
+    """The reference for ``double_rows``: each row alone through the
+    Jacobi ``sweep_records`` loop, stopping after its first sweep that
+    moves no successor unless ``fixed``; ``settled`` and ``live`` by
+    their definitions, node by node."""
+    out, settled, live = [], [], []
+    n = rec.shape[1]
+    for row in rec:
+        cur = row[None].clone()
+        moving = bool((cur[0, :, 0] != torch.arange(n)).any())
+        first = 0
+        for i in range(1, sweeps + 1):
+            if not (moving or fixed):
+                break
+            cur, changed = tpd.sweep_records(cur)
+            if not changed and moving and first == 0:
+                first = i
+                if not fixed:
+                    break
+        out.append(cur[0])
+        settled.append(first if first or not moving else sweeps)
+        succ, rest = cur[0, :, 0].numpy(), cur[0, :, 1:].numpy()
+        live.append(any(succ[y] == y and rest[y].any() for y in range(n)))
+    return torch.stack(out), settled, live
+
+
+@pytest.mark.parametrize("fixed", [False, True], ids=["own", "fixed"])
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 8])
+@pytest.mark.parametrize("d", [1, 2, 5])
+def test_double_rows_equals_row_loop(d, sweeps, fixed):
+    g, fm, _, w_pads = _road_case(13 + d, d, cyclic=True)
+    dg = DeviceGraph.from_graph(g, device="cpu")
+    rec = tpd.initial_records(dg, torch.from_numpy(fm),
+                              torch.from_numpy(w_pads))
+    assert rec.shape == (len(fm), g.n, tpd.record_width(d))
+    want, settled_want, live_want = _row_loop(rec, sweeps, fixed)
+    before = (doubling_rows.plain, doubling_rows.launches)
+    settled, live = doubling_rows(rec, d, sweeps, fixed)
+    assert (doubling_rows.plain, doubling_rows.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(rec, want)
+    assert settled.dtype == torch.int32 and live.dtype == torch.bool
+    assert settled.tolist() == settled_want
+    assert live.tolist() == live_want
+    # the pad row never moves; the 2-cycle's row is live once it
+    # settles; the 3-cycle's never settles (2^k steps never close it);
+    # rows settle at different sweeps
+    assert settled[5] == 0 and not live[5]
+    assert settled[2] == sweeps
+    if sweeps == 8:
+        assert bool(live[1]) and not bool(live[0])
+        assert len(set(settled.tolist())) > 2
+
+
+def test_zorder_is_a_permutation_of_nearby_nodes():
+    """The records' Z-order is a permutation (new -> old) that keeps a
+    range of positions in a compact region: neighbouring positions lie
+    nearer each other on the map than neighbouring ids do."""
+    g = synth_road_network(2000, seed=4)
+    order = tpd.record_order(g, "cpu").numpy()
+    assert order.dtype == np.int64
+    assert np.array_equal(np.sort(order), np.arange(g.n))
+
+    def step(o):
+        return np.hypot(np.diff(g.xs[o].astype(float)),
+                        np.diff(g.ys[o].astype(float))).mean()
+
+    assert step(order) * 5 < step(np.arange(g.n))
