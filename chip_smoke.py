@@ -164,7 +164,35 @@ points a user calls, then the compressed-residency path:
    each build's seconds, server launch-to-ready, each round's q/s on the
    host clock beside the campaign's, ``t_search`` per worker row, the
    card's peak used memory over all processes (``nvidia-smi``);
-7. reorder path (``[reorder]`` lines): ``cli.reorder.main`` with
+7. heal path (``[heal]`` lines), verify, heal and replicas on the host
+   cell's index at full size (8 blocks of 512 MiB): ``make_cpds
+   --verify`` (exit 0, ok == total == 8); the conf rewritten with
+   ``replication: 2`` and ``make_cpds --backend host`` run again (every
+   build process's dump: its primary resumed, its hosted replica copied,
+   no kernel launched; the manifest's 8 ``replica_files`` carry their
+   primaries' digests); four faults planted (worker 3's block torn,
+   worker 5's deleted, a byte of worker 6's and of
+   ``cpd-w00002-r01-b00000.npy`` flipped) that ``--verify`` lists
+   exactly, exit 3, as ``--scrub --scrub-passes 2`` does;
+   ``anti_entropy`` heals the flipped replica by copy, then worker 5's
+   replica, deleted beside its primary, by a recompute on the card
+   (K1/K2); ``ShardEngine`` of worker 3 heals its torn block on the card
+   (K1/K2, a ``.quarantined`` file left, the crc32 the manifest's,
+   ``index.json`` unchanged) and answers worker 3's free-flow, diff and
+   ``-k 8 --extract`` batches as its server did (``parts.csv`` sums, the
+   campaign's per-query answers, ``paths.csv``), B1 with no plain walk
+   and equal to the plain walk on those inputs; ``worker.build
+   --adopt-shard 5`` in a process of its own heals worker 5's block (its
+   dump: this card, K1/K2 launches, ``reshard_blocks_adopted_total``
+   1); worker 6's engine heals its block; on the campaign index,
+   ``CPDOracle.load(heal=True)`` with a block torn gives the fm of the
+   load before the fault (``torch.equal``) and the campaign's free-flow
+   answers, ``load(heal=False)`` on a fresh fault raises; the closing
+   ``--verify`` exits 0 with every digest as before the faults.
+   Recorded, beside the card's name and power limit: the verify and
+   scrub seconds, the replicated build's wall time, each heal split into
+   quarantine, rebuild and reload, the anti-entropy seconds;
+8. reorder path (``[reorder]`` lines): ``cli.reorder.main`` with
    ``--order rcm`` on the campaign's ``.xy``/``.scen``/``.diff``; the
    scenario must come back relabelled; ``auto`` must resolve
    ``frontier`` on the reordered graph; worker 0's first 512 targets
@@ -172,14 +200,15 @@ points a user calls, then the compressed-residency path:
    extraction kernel) and by ``ellsplit`` must give byte-equal fm,
    equal too to the plain extraction of the queue's distances; records
    the queue's pops and ms a pop;
-8. print the card's name and power limit again on the ``[done]`` line,
+9. print the card's name and power limit again on the ``[done]`` line,
    then the kernel table as one JSON line (the raw and pack4 walks, the
    three build kernels, the fused walk, the on-chip doubling and the
    wide doubling sweep, each with
    its launches in the main runs — the wide sweep's in the road shard's
    tables; the raw walk's ``launches_by_path``
-   holds the host servers' launches read from their dumps, the build
-   kernels' the build processes' and the reorder build's), then, as the
+   holds the host servers' launches read from their dumps and the heal
+   phase's, the build kernels' the build processes', the heal phase's
+   (with the adopt process's) and the reorder build's), then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 at the start of each path and
@@ -194,9 +223,11 @@ writes goes under ``build/`` beside this script and is removed at exit.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import gc
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -245,6 +276,7 @@ from distributed_oracle_search_tpu_torch.parallel import (
 from distributed_oracle_search_tpu_torch.transport import RuntimeConfig
 from distributed_oracle_search_tpu_torch.transport import fifo as fifo_transport
 from distributed_oracle_search_tpu_torch.utils import cuda_build
+from distributed_oracle_search_tpu_torch.utils.atomicio import digest_file
 from distributed_oracle_search_tpu_torch.utils.config import ClusterConfig
 from distributed_oracle_search_tpu_torch.worker import engine as eng
 from distributed_oracle_search_tpu_torch.worker import server as wserver
@@ -1248,8 +1280,12 @@ def run() -> list[dict]:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[serving] done at {time.perf_counter() - T_START:.1f} s")
-        host, build_launches["host"] = host_path(outdir, ref)
+        host, build_launches["host"], handoff = host_path(outdir, ref)
         log(f"[host] done at {time.perf_counter() - T_START:.1f} s")
+        heal, build_launches["heal"] = heal_path(
+            ref, handoff, os.path.join(outdir, "index"))
+        del handoff
+        log(f"[heal] done at {time.perf_counter() - T_START:.1f} s")
         reorder, build_launches["reorder"] = reorder_path(outdir, ref)
         log(f"[reorder] done at {time.perf_counter() - T_START:.1f} s")
     finally:
@@ -1257,14 +1293,18 @@ def run() -> list[dict]:
     raw_kernel["launches_by_path"] = {"road": raw_kernel["launches"],
                                       "campaign": campaign["launches"],
                                       "serving": serving["launches"]["walk"],
-                                      "host": host["launches"]}
+                                      "host": host["launches"],
+                                      "heal": heal["launches"]}
     raw_kernel["launches"] += (campaign["launches"] + host["launches"]
-                               + serving["launches"]["walk"])
+                               + serving["launches"]["walk"]
+                               + heal["launches"])
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
                                     campaign["max_abs_err"],
-                                    host["max_abs_err"])
+                                    host["max_abs_err"],
+                                    heal["max_abs_err"])
     raw_kernel["campaign"] = campaign
     raw_kernel["host"] = host
+    raw_kernel["heal"] = heal
     raw_kernel["reorder"] = reorder
     build = build_kernel_entries(cmps, build_launches)
     next(e for e in build if e["name"] == "first_moves")["reorder"] = reorder
@@ -2722,13 +2762,15 @@ def build_chunk_vs_plain(tag: str, g, targets, saved) -> dict:
     return {"targets": len(targets), "steps": steps}
 
 
-def host_path(outdir: str, ref: dict) -> tuple[dict, dict[str, int]]:
+def host_path(outdir: str, ref: dict) -> tuple[dict, dict[str, int], dict]:
     """The reference's own pipeline on the card: ``make_cpds --backend
     host`` (one ``worker.build`` process a worker) → ``make_fifos`` (one
     resident ``worker.server`` process a worker) → ``process_query``
     over their FIFOs, on the campaign's inputs partitioned ``mod`` over
-    8 workers. Returns the raw walk's host entry and the build kernels'
-    launches summed over the build processes' dumps."""
+    8 workers. Returns the raw walk's host entry, the build kernels'
+    launches summed over the build processes' dumps, and what the heal
+    phase works on: the conf, its index, the controller, the servers'
+    ``parts.csv`` rows and ``paths.csv`` in query order."""
     tag = "[host]"
     g, queries = ref["g"], ref["queries"]
     w = HOST_WORKERS
@@ -2992,7 +3034,445 @@ def host_path(outdir: str, ref: dict) -> tuple[dict, dict[str, int]]:
             "server_peak_bytes": [sv["device"]["max_memory_allocated"]
                                   for sv in serves],
             "w0_build_vs_plain": w0_build,
-            "rounds": per_round}, build_counts
+            "rounds": per_round}, build_counts, {
+                "conf": conf, "index": index, "dc": dc,
+                "parts": parts, "parts_k": parts_k,
+                "paths_in_order": in_order}
+
+
+# ----------------------------------------------------------------- heal path
+
+class HealTimer:
+    """Splits every ``models.cpd.heal_block`` call (both load paths heal
+    through it) into its quarantine, its rebuild (a replica copy and
+    ``build_worker_shard``) and the rest (the reload, the digest and the
+    manifest check), host clock. Calls of ``quarantine`` and
+    ``build_worker_shard`` outside a heal (anti-entropy) are not
+    counted."""
+
+    def __init__(self):
+        self.heals: list[dict] = []
+        self._cur: dict | None = None
+        self._real = {name: getattr(cpd, name) for name in (
+            "heal_block", "quarantine", "build_worker_shard")}
+        self._real_engine_heal = eng.heal_block
+
+    def _part(self, name, key):
+        fn = self._real[name]
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if self._cur is not None:
+                    self._cur[key] += time.perf_counter() - t0
+        return wrapper
+
+    def _heal(self, outdir, manifest, fname, *a, **kw):
+        self._cur = {"file": fname, "quarantine_s": 0.0, "rebuild_s": 0.0}
+        t0 = time.perf_counter()
+        try:
+            return self._real["heal_block"](outdir, manifest, fname, *a,
+                                            **kw)
+        finally:
+            cur, self._cur = self._cur, None
+            cur["total_s"] = time.perf_counter() - t0
+            cur["reload_s"] = (cur["total_s"] - cur["quarantine_s"]
+                               - cur["rebuild_s"])
+            self.heals.append(cur)
+
+    def __enter__(self):
+        cpd.quarantine = self._part("quarantine", "quarantine_s")
+        cpd.build_worker_shard = self._part("build_worker_shard",
+                                            "rebuild_s")
+        cpd.heal_block = eng.heal_block = self._heal
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._real.items():
+            setattr(cpd, name, fn)
+        eng.heal_block = self._real_engine_heal
+
+
+def verify_cli(conf: str, flags: list[str]) -> tuple[int, dict, float]:
+    """``make_cpds.main(["-c", conf, *flags])`` (``--verify`` or
+    ``--scrub``): its exit code, the last JSON report line it printed and
+    its seconds on the host clock."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = make_cpds.main(["-c", conf, *flags])
+    sec = time.perf_counter() - t0
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1]), sec
+
+
+def flip_byte(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def truncate_half(path: str) -> None:
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+
+
+def heal_path(ref: dict, host: dict, campaign_index: str
+              ) -> tuple[dict, dict[str, int]]:
+    """Verify, heal and replicas on the host phase's index at full size
+    (8 ``mod`` workers, one 512 MiB int8 block each), through the entry
+    points a user calls: ``make_cpds --verify``; a rerun of ``make_cpds
+    --backend host`` with ``replication: 2`` (every primary resumes,
+    every hosted replica is copied); four planted faults that
+    ``--verify`` and ``--scrub`` report; ``anti_entropy`` healing a
+    flipped replica by copy and a replica with no primary by a recompute
+    on the card; ``ShardEngine`` healing worker 3's torn block (K1/K2)
+    and answering worker 3's batches as its server did (B1, == the plain
+    walk); ``worker.build --adopt-shard`` in a process of its own healing
+    worker 5's missing block; worker 6's flipped block healed by its
+    engine; ``CPDOracle.load(heal=True)`` on the campaign index; a
+    closing ``--verify``. Returns the phase's entry and the build
+    kernels' launches in its run (this process's and the adopt
+    process's dump)."""
+    tag = "[heal]"
+    card_txt = card_line()
+    card = torch.cuda.get_device_name(0)
+    g, queries = ref["g"], ref["queries"]
+    index, w = host["index"], HOST_WORKERS
+    dc = DistributionController("mod", w, w, g.n, replication=2)
+    name = cpd.shard_block_name
+    out: dict = {"card": card_txt}
+
+    # 1. the host index as the host phase left it
+    rc, rep, out["verify_s"] = verify_cli(host["conf"], ["--verify"])
+    if rc != 0 or rep["ok"] != rep["total"] or rep["total"] != w:
+        raise AssertionError(f"{tag} --verify of the host index: rc {rc}, "
+                             f"{rep}")
+    index_bytes = sum(os.path.getsize(os.path.join(index, name(x, 0)))
+                      for x in range(w))
+    log(f"{tag} make_cpds --verify: exit 0, ok == total == {w}; "
+        f"{out['verify_s']:.3f} s for crc32 over {index_bytes} B "
+        f"({index_bytes / out['verify_s'] / 2**30:.2f} GiB/s) on "
+        f"{card_txt}")
+
+    # the phase's main run: counts set to 0 here, read after step 7
+    zero_launches()
+    cw.cuda_walk_batch.plain = 0
+    # 2. replication 2: primaries resume, hosted replicas copy
+    with open(host["conf"]) as f:
+        conf_d = json.load(f)
+    conf_d["replication"] = 2
+    conf = host["conf"][:-len(".json")] + "-r2.json"
+    with open(conf, "w") as f:
+        json.dump(conf_d, f)
+    dump = os.path.join(os.path.dirname(conf), "heal-build")
+    t0 = time.perf_counter()
+    rc = make_cpds.main(["-c", conf, "--backend", "host", "--chunk",
+                         str(CHUNK), "--metrics-dump", dump])
+    out["replicated_build_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{tag} make_cpds -R2 exit code {rc}")
+    for x in range(w):
+        with open(f"{dump}.w{x}.json") as f:
+            b = json.load(f)
+        c = b["counters"]
+        # the primary resumes, the replica is copied and its own build
+        # pass then finds it complete: 2 resumed blocks, one copied, no
+        # kernel launched
+        if (b["blocks"] != 0 or c["build_blocks_resumed_total"] != 2
+                or c["replica_blocks_copied_total"] != 1
+                or c["relax_jacobi.launches"] or c["first_moves.launches"]
+                or b["device"]["name"] != card):
+            raise AssertionError(f"{tag} replicated build of worker {x}: "
+                                 f"{b}")
+    manifest = cpd.read_manifest(index)
+    orig = {f: m["digest"] for f, m in manifest["blocks"].items()}
+    reps = manifest.get("replica_files", [])
+    if (manifest.get("replication") != 2 or len(reps) != w
+            or any(orig[r] != orig[r.replace("-r01", "")] for r in reps)):
+        raise AssertionError(f"{tag} replicated manifest: replication "
+                             f"{manifest.get('replication')}, {reps}")
+    log(f"{tag} make_cpds --backend host with replication 2: "
+        f"{out['replicated_build_s']:.3f} s wall for {w} build processes; "
+        "each dump: 0 blocks built, build_blocks_resumed_total 2 (the "
+        "primary, and the replica after its copy), "
+        "replica_blocks_copied_total 1, 0 K1/K2 launches; the manifest "
+        f"lists {len(reps)} replica_files, each with its primary's digest "
+        f"({card_txt})")
+
+    # 3. four faults: --verify and --scrub see each
+    faults = {name(3, 0): "corrupt", name(5, 0): "missing",
+              name(6, 0): "corrupt", name(2, 0, 1): "corrupt"}
+    w5_replica_original = orig[name(5, 0, 1)]
+    truncate_half(os.path.join(index, name(3, 0)))
+    os.remove(os.path.join(index, name(5, 0)))
+    mid = os.path.getsize(os.path.join(index, name(6, 0))) // 2
+    flip_byte(os.path.join(index, name(6, 0)), mid)
+    flip_byte(os.path.join(index, name(2, 0, 1)), mid + 4097)
+    rc, rep, out["verify_faulted_s"] = verify_cli(conf, ["--verify"])
+    seen = {**{f: "missing" for f in rep["missing"]},
+            **{c["file"]: "corrupt" for c in rep["corrupt"]}}
+    if rc != 3 or seen != faults or rep["ok"] != 2 * w - 4:
+        raise AssertionError(f"{tag} --verify after the faults: rc {rc}, "
+                             f"{rep}")
+    rc, rep, out["scrub_s"] = verify_cli(
+        conf, ["--scrub", "--scrub-passes", "2", "--scrub-interval", "0"])
+    if rc != 3:
+        raise AssertionError(f"{tag} --scrub: rc {rc}, {rep}")
+    log(f"{tag} faults planted: {faults}; --verify exit 3 listing exactly "
+        f"those ({out['verify_faulted_s']:.3f} s, crc32 over "
+        f"{2 * index_bytes} B with the replicas); --scrub 2 passes exit 3 "
+        f"({out['scrub_s']:.3f} s) on {card_txt}")
+
+    # 4. anti-entropy: the flipped replica by copy, then a replica with no
+    # primary by a recompute on the card
+    k0 = read_build_launches()
+    t0 = time.perf_counter()
+    ae = cpd.anti_entropy(index, dc, graph=g, device="cuda")
+    out["anti_entropy_copy_s"] = time.perf_counter() - t0
+    k1 = read_build_launches()
+    if (ae["healed"] != [name(2, 0, 1)] or ae["checked"] != w
+            or [m["file"] for m in ae["mismatched"]] != [name(2, 0, 1)]
+            or k1 != k0
+            or digest_file(os.path.join(index, name(2, 0, 1)))
+            != orig[name(2, 0)]):
+        raise AssertionError(f"{tag} anti-entropy (copy): {ae}, launches "
+                             f"{k0} -> {k1}")
+    os.remove(os.path.join(index, name(5, 0, 1)))
+    t0 = time.perf_counter()
+    ae2 = cpd.anti_entropy(index, dc, graph=g, device="cuda")
+    out["anti_entropy_recompute_s"] = time.perf_counter() - t0
+    k2 = read_build_launches()
+    recompute = {k: k2[k] - k1[k] for k in k2}
+    if (ae2["healed"] != [name(5, 0, 1)]
+            or recompute["relax_jacobi"] <= 0
+            or recompute["first_moves"] <= 0
+            or digest_file(os.path.join(index, name(5, 0, 1)))
+            != w5_replica_original):
+        raise AssertionError(f"{tag} anti-entropy (recompute): {ae2}, "
+                             f"launches {recompute}")
+    log(f"{tag} anti_entropy: the flipped replica {name(2, 0, 1)} healed "
+        f"by copy in {out['anti_entropy_copy_s']:.3f} s (0 kernel "
+        f"launches); {name(5, 0, 1)}, deleted with its primary, "
+        f"recomputed on the card in {out['anti_entropy_recompute_s']:.3f} "
+        f"s (K1 {recompute['relax_jacobi']}, K2 {recompute['first_moves']} "
+        "launches); each healed replica's crc32 == its primary's original "
+        f"digest ({card_txt})")
+
+    # 5. worker 3's engine heals its torn block, then answers worker 3's
+    # batches as its server did
+    with open(os.path.join(index, "index.json"), "rb") as f:
+        manifest_bytes = f.read()
+    calls = []
+    real_walk = eng.cuda_walk_batch
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return real_walk(*a, **kw)
+
+    owner = host["dc"].worker_of(queries[:, 1])
+    mine = queries[owner == 3]
+    w3_rounds = (("free-flow", RuntimeConfig(), "-", host["parts"], 0),
+                 ("diff", RuntimeConfig(), ref["diff_path"], host["parts"],
+                  1),
+                 (f"k{CAMPAIGN_K}-extract",
+                  RuntimeConfig(k_moves=CAMPAIGN_K, extract=True), "-",
+                  host["parts_k"], 0))
+    with HealTimer() as ht:
+        k_before = read_build_launches()
+        engine = eng.ShardEngine(g, dc, 3, index, device="cuda")
+        k_after = read_build_launches()
+        eng.cuda_walk_batch = recording
+        try:
+            answers = [engine.answer(mine, cfg, diff)
+                       for _, cfg, diff, _, _ in w3_rounds]
+            paths = engine.last_paths
+        finally:
+            eng.cuda_walk_batch = real_walk
+        w3_heal = ht.heals[-1]
+        with open(os.path.join(index, "index.json"), "rb") as f:
+            same_manifest = f.read() == manifest_bytes
+        if (k_after["relax_jacobi"] <= k_before["relax_jacobi"]
+                or k_after["first_moves"] <= k_before["first_moves"]
+                or not os.path.exists(os.path.join(
+                    index, name(3, 0) + ".quarantined"))
+                or digest_file(os.path.join(index, name(3, 0)))
+                != orig[name(3, 0)] or not same_manifest
+                or w3_heal["file"] != name(3, 0)):
+            raise AssertionError(f"{tag} worker 3's engine heal: launches "
+                                 f"{k_before} -> {k_after}, {w3_heal}, "
+                                 f"manifest unchanged {same_manifest}")
+        for (rname, _, _, rows_of, expe), (cost, plen, fin, stats) in zip(
+                w3_rounds, answers):
+            row = [p for p in rows_of if p["expe"] == str(expe)][3]
+            if (stats.plen, stats.finished) != (int(row["plen"]),
+                                                int(row["finished"])):
+                raise AssertionError(f"{tag} worker 3 {rname}: {stats} != "
+                                     f"its server's row {row}")
+            if rname in ref["direct"]:
+                want = ref["direct"][rname]
+                for got, exp in zip((cost, plen, fin), want):
+                    if not np.array_equal(got, np.asarray(exp)[owner == 3]):
+                        raise AssertionError(f"{tag} worker 3 {rname} "
+                                             "answers differ from the "
+                                             "campaign's")
+        got_paths = np.concatenate([mine, paths[1][:, None], paths[0]],
+                                   axis=1)
+        if not np.array_equal(got_paths,
+                              host["paths_in_order"][owner == 3]):
+            raise AssertionError(f"{tag} worker 3's k{CAMPAIGN_K} paths != "
+                                 "its server's")
+        log(f"{tag} ShardEngine(worker 3) healed {name(3, 0)}: quarantined "
+            f"{w3_heal['quarantine_s']:.4f} s, rebuilt on the card "
+            f"{w3_heal['rebuild_s']:.3f} s (K1 "
+            f"{k_after['relax_jacobi'] - k_before['relax_jacobi']}, K2 "
+            f"{k_after['first_moves'] - k_before['first_moves']} launches), "
+            f"reloaded and checked {w3_heal['reload_s']:.3f} s; crc32 == "
+            "the manifest's, index.json unchanged; worker 3's free-flow, "
+            f"diff and k{CAMPAIGN_K}-extract batches ({len(mine)} queries) "
+            "answered as its server did (plen/finished sums, per-query "
+            f"costs == the campaign's, paths == paths.csv) ({card_txt})")
+        del engine
+
+        # 6. --adopt-shard in a process of its own heals the missing
+        # block; worker 6's flipped block heals through its engine
+        adopt_dump = os.path.join(os.path.dirname(conf), "heal-adopt.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "distributed_oracle_search_tpu_torch.worker.build",
+             "--input", ref["xy"], "--partmethod", "mod", "--partkey",
+             str(w), "--workerid", "5", "--maxworker", str(w), "--outdir",
+             index, "--adopt-shard", "5", "--device", "cuda",
+             "--metrics-dump", adopt_dump],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        out["adopt_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag} --adopt-shard 5: rc "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        with open(adopt_dump) as f:
+            adopt = json.load(f)
+        ac = adopt["counters"]
+        if (ac["reshard_blocks_adopted_total"] != 1
+                or ac["cpd_blocks_rebuilt_total"] != 1
+                or ac["relax_jacobi.launches"] <= 0
+                or ac["first_moves.launches"] <= 0
+                or adopt["device"]["name"] != card
+                or digest_file(os.path.join(index, name(5, 0)))
+                != orig[name(5, 0)]):
+            raise AssertionError(f"{tag} --adopt-shard 5 dump: {adopt}")
+        log(f"{tag} worker.build --adopt-shard 5 (its own process): "
+            f"{out['adopt_s']:.3f} s wall, {adopt['seconds']:.3f} s in "
+            f"adopt_shard_blocks; dump: device {adopt['device']['name']!r},"
+            f" K1 {ac['relax_jacobi.launches']}, K2 "
+            f"{ac['first_moves.launches']} launches, "
+            "reshard_blocks_adopted_total 1, cpd_blocks_rebuilt_total 1; "
+            f"crc32 == the manifest's ({card_txt})")
+        eng.ShardEngine(g, dc, 6, index, device="cuda")
+        w6_heal = ht.heals[-1]
+        if (w6_heal["file"] != name(6, 0)
+                or digest_file(os.path.join(index, name(6, 0)))
+                != orig[name(6, 0)]):
+            raise AssertionError(f"{tag} worker 6's engine heal: {w6_heal}")
+        log(f"{tag} ShardEngine(worker 6) healed {name(6, 0)}: quarantine "
+            f"{w6_heal['quarantine_s']:.4f} s, rebuild "
+            f"{w6_heal['rebuild_s']:.3f} s, reload {w6_heal['reload_s']:.3f}"
+            f" s; crc32 == the manifest's ({card_txt})")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 7. the in-process oracle on the campaign index
+        cdc = DistributionController("tpu", CAMPAIGN_WORKERS,
+                                     CAMPAIGN_WORKERS, g.n)
+        before = cpd.CPDOracle(g, cdc, device="cuda").load(campaign_index)
+        victim = os.path.join(campaign_index, name(2, 0))
+        c_digest = cpd.read_manifest(campaign_index)["blocks"][name(2, 0)][
+            "digest"]
+        truncate_half(victim)
+        t0 = time.perf_counter()
+        healed = cpd.CPDOracle(g, cdc, device="cuda").load(campaign_index,
+                                                           heal=True)
+        out["oracle_load_heal_s"] = time.perf_counter() - t0
+        oracle_heal = ht.heals[-1]
+        if (not torch.equal(healed.fm, before.fm)
+                or digest_file(victim) != c_digest):
+            raise AssertionError(f"{tag} CPDOracle.load(heal=True): fm "
+                                 "differs from the one before the fault")
+        del before
+        got = healed.query(queries)
+        for x, want in zip(got, ref["direct"]["free-flow"]):
+            if not np.array_equal(x, want):
+                raise AssertionError(f"{tag} the healed oracle's free-flow "
+                                     "answers differ from the campaign's")
+        del healed
+        gc.collect()
+        torch.cuda.empty_cache()
+    second = os.path.join(campaign_index, name(6, 0))
+    with open(second, "rb") as f:
+        second_bytes = f.read()
+    truncate_half(second)
+    try:
+        cpd.CPDOracle(g, cdc, device="cuda").load(campaign_index,
+                                                  heal=False)
+        raise AssertionError(f"{tag} load(heal=False) served a torn block")
+    except ValueError as e:
+        if name(6, 0) not in str(e):
+            raise
+        refusal = str(e)
+    finally:
+        with open(second, "wb") as f:
+            f.write(second_bytes)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"{tag} CPDOracle.load(heal=True) on the campaign index with "
+        f"{name(2, 0)} torn: {out['oracle_load_heal_s']:.3f} s (quarantine "
+        f"{oracle_heal['quarantine_s']:.4f} s, rebuild "
+        f"{oracle_heal['rebuild_s']:.3f} s, reload "
+        f"{oracle_heal['reload_s']:.3f} s); fm torch.equal to the one before "
+        f"the fault, {len(queries)} free-flow answers == the campaign's; "
+        f"load(heal=False) on a fresh fault raised: {refusal[:120]} "
+        f"({card_txt})")
+
+    # the main run's counts, before any comparison with a plain version
+    counts = read_build_launches()
+    counts["relax_jacobi"] += ac["relax_jacobi.launches"]
+    counts["first_moves"] += ac["first_moves.launches"]
+    counts["grid_sweep_cycle"] += ac["grid_sweep.launches"]
+    launches = cw.cuda_walk_batch.launches
+    if cw.cuda_walk_batch.plain:
+        raise AssertionError(f"{tag} {cw.cuda_walk_batch.plain} plain walks")
+    if launches <= 0 or counts["relax_jacobi"] <= 0 or \
+            counts["first_moves"] <= 0:
+        raise AssertionError(f"{tag} launches: walk {launches}, build "
+                             f"{counts}")
+    log(f"{tag} launches in the phase's run: raw walk {launches} (no plain "
+        f"walk), build kernels {counts} (this process and the adopt "
+        "process's dump)")
+    per_round = [kernel_vs_plain(r[0], call, f"{tag} kernel w3")
+                 for r, call in zip(w3_rounds, calls)]
+    del calls
+
+    # 8. the closing verify: everything as it was before the faults
+    rc, rep, out["verify_closing_s"] = verify_cli(conf, ["--verify"])
+    now = {f: m["digest"]
+           for f, m in cpd.read_manifest(index)["blocks"].items()}
+    if rc != 0 or rep["ok"] != rep["total"] or rep["total"] != 2 * w \
+            or now != orig:
+        raise AssertionError(f"{tag} closing --verify: rc {rc}, {rep}")
+    log(f"{tag} closing --verify: exit 0, ok == total == {2 * w}, every "
+        f"digest equal to its value before the faults "
+        f"({out['verify_closing_s']:.3f} s) on {card_txt}")
+    heals = {"w3_engine": w3_heal, "w6_engine": w6_heal,
+             "oracle": oracle_heal}
+    return {"launches": launches, **headline(per_round[0]),
+            "max_abs_err": max(x["max_abs_err"] for x in per_round),
+            **out, "heals": heals, "anti_entropy_launches": recompute,
+            "adopt_launches": {k: ac[f"{k}.launches"] for k in
+                               ("relax_jacobi", "first_moves")},
+            "rounds": per_round}, counts
 
 
 # -------------------------------------------------------------- reorder path

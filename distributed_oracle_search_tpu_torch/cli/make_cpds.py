@@ -22,18 +22,28 @@ rows, save the index to the conf's ``outdir`` with its manifest.
 every worker), generating the synthetic dataset under ``./data`` if it
 is absent; ``-w N`` restricts a host build to one worker.
 
+``--verify`` runs a check-only integrity pass over the conf's index
+instead of building: one JSON report line, exit 0/3/4 (clean / degraded /
+corrupt). ``--scrub`` repeats that pass ``--scrub-passes`` times,
+``--scrub-interval`` seconds apart, and exits with the worst code seen.
+On the host backend ``--no-resume`` rebuilds every block, and a conf with
+``replication`` R > 1 (or ``DOS_REPLICATION``) builds each worker's
+hosted replica sets too, then writes the replicated manifest and runs one
+anti-entropy pass over it.
+
 Not ported, and refused with the ``ROADMAP.md`` item that ports each:
-``--verify`` and ``--scrub`` (A4), ``--delta-from`` (A10), and on the
-host backend ``--engine native`` (A15), ``--no-resume`` and replication
-above 1 (A4-rest).
+``--delta-from`` (A10) and on the host backend ``--engine native``
+(A15).
 
     python -m distributed_oracle_search_tpu_torch.cli.make_cpds -c conf.json
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
+import time
 
 from .args import parse_args
 from ..transport.launch import launch, session_name, worker_logfile
@@ -65,7 +75,7 @@ def run_tpu(conf: ClusterConfig, args) -> None:
 
 def worker_build_cmd(wid: int, conf: ClusterConfig, chunk: int = 0,
                      codec: str | None = None, device: str = "cuda",
-                     metrics_dump: str = "") -> str:
+                     metrics_dump: str = "", resume: bool = True) -> str:
     """The shell command a host-mode worker runs (our ``make_cpd_auto``):
     the port's ``worker.build`` on ``device``, with its metrics dump at
     ``<metrics_dump>.w<wid>.json`` when ``metrics_dump`` is set."""
@@ -79,8 +89,13 @@ def worker_build_cmd(wid: int, conf: ClusterConfig, chunk: int = 0,
            f" --maxworker {conf.maxworker} --outdir {conf.outdir}")
     if chunk:
         cmd += f" --chunk {chunk}"
+    if not resume:
+        cmd += " --no-resume"
     if codec:
         cmd += f" --codec {codec}"
+    repl = conf.effective_replication()
+    if repl > 1:
+        cmd += f" --replication {repl}"
     if metrics_dump:
         cmd += f" --metrics-dump {metrics_dump}.w{wid}.json"
     return cmd + f" --device {device}"
@@ -88,14 +103,14 @@ def worker_build_cmd(wid: int, conf: ClusterConfig, chunk: int = 0,
 
 def call_worker(wid: int, conf: ClusterConfig, chunk: int = 0,
                 codec: str | None = None, device: str = "cuda",
-                metrics_dump: str = ""):
+                metrics_dump: str = "", resume: bool = True):
     """Launch one worker's build (parity: reference ``make_cpds.py:10-25``).
 
     Returns a Popen handle when the build runs as a tracked local
     subprocess, else None (tmux/ssh detached)."""
     host = conf.workers[wid]
     cmd = worker_build_cmd(wid, conf, chunk, codec=codec, device=device,
-                           metrics_dump=metrics_dump)
+                           metrics_dump=metrics_dump, resume=resume)
     log.info("launch build w%d on %s: %s", wid, host, cmd)
     session = session_name("worker", wid)
     # prefer_track: builds are finite jobs — await local ones so the index
@@ -106,18 +121,90 @@ def call_worker(wid: int, conf: ClusterConfig, chunk: int = 0,
                   prefer_track=True)
 
 
+def run_verify(conf: ClusterConfig) -> int:
+    """Check-only integrity pass: digest/shape-verify every manifest
+    block (replicas included) in place, print one JSON report line,
+    return 0/3/4 (clean / degraded / corrupt — ``process_query``'s
+    convention)."""
+    from ..data.formats import xy_node_count
+    from ..models.cpd import read_manifest, verify_exit_code, verify_index
+    from ..parallel.partition import DistributionController
+
+    # verify against the manifest's own block_size and replication (a
+    # worker.build --block-size or replicated index is still a valid
+    # index); the partition quadruple is still cross-checked
+    dc_kw = {}
+    try:
+        man = read_manifest(conf.outdir)
+        bs = int(man.get("block_size", 0))
+        if bs > 0:
+            dc_kw["block_size"] = bs
+        repl = int(man.get("replication", 1))
+        if repl > 1:
+            dc_kw["replication"] = repl
+    except (OSError, ValueError):
+        pass            # verify_index reports the unusable manifest
+    try:
+        dc = DistributionController(conf.partmethod, conf.partkey,
+                                    conf.maxworker,
+                                    xy_node_count(conf.xy_file), **dc_kw)
+    except ValueError as e:
+        # e.g. a manifest replication above this conf's maxworker: a
+        # manifest/conf mismatch is exit 4, never a traceback
+        log.error("verify fatal: %s", e)
+        print(json.dumps({"index": conf.outdir, "exit_code": 4,
+                          "fatal": str(e)}))
+        return 4
+    report = verify_index(conf.outdir, dc=dc)
+    for fname in report["missing"]:
+        log.error("missing block: %s", fname)
+    for ent in report["corrupt"]:
+        log.error("corrupt block: %s (%s)", ent["file"], ent["reason"])
+    if report.get("fatal"):
+        log.error("verify fatal: %s", report["fatal"])
+    code = verify_exit_code(report)
+    print(json.dumps({"index": conf.outdir, "exit_code": code,
+                      **{k: report[k] for k in
+                         ("total", "ok", "unverified", "missing",
+                          "corrupt")},
+                      **({"fatal": report["fatal"]}
+                         if report.get("fatal") else {})}))
+    return code
+
+
+def run_scrub(conf: ClusterConfig, args) -> int:
+    """``--scrub``: repeat the ``--verify`` pass ``--scrub-passes`` times
+    (0: until interrupted), ``--scrub-interval`` seconds apart, and
+    return the WORST code any pass gave (degradation seen once is
+    degradation, even if a later pass no longer sees it)."""
+    worst = passes = 0
+    budget = max(0, int(args.scrub_passes))
+    try:
+        while True:
+            worst = max(worst, run_verify(conf))
+            passes += 1
+            log.info("scrub pass %d done (worst exit so far: %d)",
+                     passes, worst)
+            if budget and passes >= budget:
+                break
+            time.sleep(max(0.0, float(args.scrub_interval)))
+    except KeyboardInterrupt:
+        log.info("scrub interrupted after %d pass(es)", passes)
+    return worst
+
+
 def run_host(conf: ClusterConfig, args) -> None:
     """One ``worker.build`` process per worker; the manifest once every
-    local build has exited 0."""
+    local build has exited 0 (with R > 1: any replica set still missing
+    built here, the replicated manifest, one anti-entropy pass)."""
     if args.engine != "python":
         raise SystemExit("--engine native is not ported (ROADMAP.md A15)")
-    if args.no_resume:
-        raise SystemExit("--no-resume is not ported (ROADMAP.md A4-rest)")
-    if conf.effective_replication() > 1:
-        raise SystemExit("replicated host builds (replication > 1) are not "
-                         "ported (ROADMAP.md A4-rest)")
     from ..data.formats import xy_node_count
-    from ..models.cpd import write_index_manifest
+    from ..data.graph import Graph
+    from ..models.cpd import (
+        anti_entropy, build_replica_shards, shard_block_name,
+        write_index_manifest,
+    )
     from ..parallel.partition import DistributionController
 
     # sweep BEFORE any worker launches: once builds are running, their
@@ -129,7 +216,8 @@ def run_host(conf: ClusterConfig, args) -> None:
             continue
         proc = call_worker(wid, conf, chunk=args.chunk, codec=args.codec,
                            device=args.device,
-                           metrics_dump=args.metrics_dump)
+                           metrics_dump=args.metrics_dump,
+                           resume=not args.no_resume)
         if proc is not None:
             procs.append((wid, proc))
     failures = 0
@@ -140,8 +228,32 @@ def run_host(conf: ClusterConfig, args) -> None:
     if procs and not failures and args.worker == -1:
         dc = DistributionController(conf.partmethod, conf.partkey,
                                     conf.maxworker,
-                                    xy_node_count(conf.xy_file))
-        write_index_manifest(conf.outdir, dc)
+                                    xy_node_count(conf.xy_file),
+                                    replication=conf.effective_replication())
+        graph = None
+        if dc.replication > 1:
+            # backstop for replica sets a worker's build left missing on
+            # disk (an existence scan only: the builds digest-checked
+            # what they wrote, the anti-entropy pass below checks all)
+            graph = Graph.from_xy(conf.xy_file)
+            bs = dc.block_size
+            for host in range(conf.maxworker):
+                if any(not os.path.exists(os.path.join(
+                        conf.outdir, shard_block_name(
+                            shard, bid, dc.replica_rank(shard, host))))
+                       for shard in dc.replica_shards(host)[1:]
+                       for bid in range((dc.n_owned(shard) + bs - 1)
+                                        // bs)):
+                    build_replica_shards(graph, dc, host, conf.outdir,
+                                         chunk=args.chunk,
+                                         device=args.device)
+        manifest = write_index_manifest(conf.outdir, dc)
+        if dc.replication > 1:
+            report = anti_entropy(conf.outdir, dc, graph=graph,
+                                  manifest=manifest, device=args.device)
+            print(f"anti-entropy: {report['checked']} replica block(s) "
+                  f"cross-checked, {len(report['mismatched'])} divergent, "
+                  f"{len(report['healed'])} healed")
         print(f"index complete -> {conf.outdir}")
     if failures:
         raise SystemExit(f"{failures} worker build(s) failed")
@@ -157,9 +269,10 @@ def main(argv=None) -> int:
         ensure_synth_dataset(os.path.dirname(conf.xy_file) or "./data")
     else:
         conf = ClusterConfig.load(args.c)
-    if args.scrub or args.verify:
-        raise SystemExit("--verify/--scrub (verify_index) is not ported "
-                         "(ROADMAP.md A4)")
+    if args.scrub:
+        return run_scrub(conf, args)
+    if args.verify:
+        return run_verify(conf)
     if args.delta_from:
         raise SystemExit("--delta-from (delta rebuilds) is not ported "
                          "(ROADMAP.md A10)")

@@ -33,8 +33,8 @@ Not ported, and refused with the ``ROADMAP.md`` item that ports each:
 the streamed memory plan (A11), multi-host confs (A13),
 ``--trace``/``--metrics-dump``/``--profile``/``--obs-port`` with
 ``obs_metrics.json`` (A14), and on the host backend the RPC lanes
-(``DOS_TRANSPORT=rpc/auto``), breakers, failover and membership re-reads
-(A14) and replication above 1 (A4-rest).
+(``DOS_TRANSPORT=rpc/auto``), breakers, membership re-reads and the
+failover over replicas that replication above 1 needs (A14).
 
     python -m distributed_oracle_search_tpu_torch.cli.process_query \\
         -c conf.json -o out/
@@ -345,8 +345,8 @@ def run(conf: ClusterConfig, args):
         else:
             if conf.effective_replication() > 1:
                 raise SystemExit("replicated host campaigns (replication "
-                                 "> 1, failover) are not ported "
-                                 "(ROADMAP.md A4-rest)")
+                                 "> 1: the head's failover over replicas) "
+                                 "are not ported (ROADMAP.md A14)")
             if os.path.exists(os.path.join(conf.outdir, "membership.json")):
                 raise SystemExit("elastic membership (membership.json) is "
                                  "not ported (ROADMAP.md A14)")

@@ -14,18 +14,27 @@ oracle:
   ``chunk``-row batches through the resolved stage
   (``parallel.sharded.chunk_compute``) on one device, one ``.npy``
   file per controller block, each written atomically and journaled with
-  its crc32 digest in the per-worker build ledger. A ``codec`` persists
-  each block as a compressed container (``models.resident``). The loop
-  is serial: no background stager, lane mesh, RLE fetch, replica or
-  epoch. On the card every stage runs through the hand build kernels
-  (``ops.cuda_build_kernels``).
+  its crc32 digest in the per-worker build ledger; a re-run resumes
+  (``resume=False`` recomputes) and ``replica=r`` writes a shard's rank-r
+  replica block set. A ``codec`` persists each block as a compressed
+  container (``models.resident``). The loop is serial: no background
+  stager, lane mesh, RLE fetch or epoch. On the card every stage runs
+  through the hand build kernels (``ops.cuda_build_kernels``).
 * :func:`write_index_manifest` / :func:`read_manifest` /
   :func:`validate_manifest` / :func:`check_manifest_version` /
-  :func:`load_verified_block` — the ``index.json`` manifest (schema v2,
-  per-block digests) and digest-checked block loads. File names,
-  digests, the manifest schema and the compressed containers are the
-  JAX package's, so an index built by either package loads under the
-  other.
+  :func:`check_block` / :func:`load_verified_block` — the ``index.json``
+  manifest (schema v2, per-block digests; ``replica_files`` at R > 1)
+  and digest-checked block loads. File names, digests, the manifest
+  schema and the compressed containers are the JAX package's, so an
+  index built by either package loads under the other.
+* verify, heal and replicas: :func:`verify_index` /
+  :func:`verify_exit_code` (``make_cpds --verify``), :func:`heal_block`
+  (quarantine, copy or rebuild on the device, reload; both load paths
+  heal through it), :func:`copy_replica_blocks` /
+  :func:`build_replica_shards` (replica sets: copied from digest-valid
+  primaries, else recomputed), :func:`anti_entropy` (replica digests
+  against their primary's) and :func:`adopt_shard_blocks` (an adopter's
+  catch-up); each event adds to :data:`COUNTERS`.
 * :class:`CPDOracle` — every worker's rows as one ``[W, R, N]`` tensor on
   one device: ``build`` (any method; ``store_dists=True`` keeps the
   distances), ``save``, ``load``, ``route`` queries to the worker owning
@@ -68,7 +77,7 @@ from ..parallel.sharded import (
 )
 from ..utils.atomicio import (
     SWEEP_MIN_AGE_S, TMP_SUFFIX, AtomicNpyWriter, atomic_save_npy,
-    atomic_write_json, digest_bytes, digest_file,
+    atomic_write_json, digest_bytes, digest_file, quarantine,
 )
 from ..utils.device import resolve_device
 from ..utils.env import env_cast
@@ -86,13 +95,43 @@ log = get_logger(__name__)
 #: load under v2 code, v(N+1) indexes are rejected by vN code.
 INDEX_VERSION = 2
 
+#: artifact-durability counters, under the JAX package's metric names:
+#: every verify, corruption, rebuild, resume, replica divergence, replica
+#: copy and adopted block in the index data plane adds to one.
+#: ``worker.build --metrics-dump`` writes them beside the kernel launches
+COUNTERS = dict.fromkeys((
+    "cpd_blocks_verified_total",         # blocks that passed verification
+    "cpd_blocks_corrupt_total",          # missing/torn/digest-mismatched
+    "cpd_blocks_rebuilt_total",          # corrupt blocks rebuilt in place
+    "build_blocks_resumed_total",        # blocks a resumed build skipped
+    "replica_digest_mismatches_total",   # replicas diverged from primary
+    "replica_blocks_copied_total",       # replicas copied from a primary
+    "reshard_blocks_adopted_total",      # blocks an adopter verified
+), 0)
 
-def shard_block_name(wid: int, bid: int) -> str:
-    """Block file name of worker ``wid``'s block ``bid`` (primary copy)."""
+
+def shard_block_name(wid: int, bid: int, replica: int = 0) -> str:
+    """Block file name. ``replica=0`` (the primary copy) keeps the plain
+    name; replica rank r's copy — the same rows, hosted by worker
+    ``(wid + r) % W`` — is a separate block set ``cpd-w<wid>-r<r>-b<bid>``
+    so primaries and replicas verify and heal independently."""
+    if replica:
+        return f"cpd-w{wid:05d}-r{replica:02d}-b{bid:05d}.npy"
     return f"cpd-w{wid:05d}-b{bid:05d}.npy"
 
 
-def ledger_path(outdir: str, wid: int) -> str:
+def block_file_replica(fname: str) -> int:
+    """Replica rank encoded in a block file name (0 for primaries)."""
+    parts = fname.split("-")
+    if len(parts) >= 4 and parts[2].startswith("r"):
+        return int(parts[2][1:])
+    return 0
+
+
+def ledger_path(outdir: str, wid: int, replica: int = 0) -> str:
+    if replica:
+        return os.path.join(outdir,
+                            f"build-w{wid:05d}-r{replica:02d}.ledger")
     return os.path.join(outdir, f"build-w{wid:05d}.ledger")
 
 
@@ -105,8 +144,8 @@ class BuildLedger:
     flushed+fsynced per line; a torn trailing line (crash mid-append)
     is skipped on read. Later entries for the same file win."""
 
-    def __init__(self, outdir: str, wid: int):
-        self.path = ledger_path(outdir, wid)
+    def __init__(self, outdir: str, wid: int, replica: int = 0):
+        self.path = ledger_path(outdir, wid, replica)
 
     def entries(self) -> dict[str, dict]:
         out: dict[str, dict] = {}
@@ -156,7 +195,8 @@ def block_complete(outdir: str, fname: str,
     try:
         np.load(path, mmap_mode="r")
         return True
-    except (OSError, ValueError) as e:
+    except Exception as e:  # noqa: BLE001 — any unreadable file means
+        # rebuild, as in the JAX package
         log.debug("unledgered block %s unreadable (%s); rebuilding",
                   fname, e)
         return False
@@ -270,7 +310,8 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
                        outdir: str, chunk: int = 0,
                        device=None, codec: str | None = None,
                        method: str = "auto",
-                       max_iters: int = 0) -> list[str]:
+                       max_iters: int = 0, resume: bool = True,
+                       replica: int = 0) -> list[str]:
     """Build and persist ONE worker's CPD block files on one device.
 
     The owned targets run through the build kind ``method`` resolves to
@@ -280,21 +321,25 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
     cuts the distance loop, 0 = converge) and each controller block
     (``dc.block_size`` rows) is written as ``cpd-w<wid>-b<bid>.npy``
     through an atomic write, journaled with its digest in the build
-    ledger. A re-run resumes: blocks the ledger records as complete
-    with a matching on-disk digest are skipped. ``device``: None →
-    ``cuda`` (raises without a GPU unless ``device="cpu"``). ``codec``
-    (``raw``/``pack4``/``rle``/``auto``; None → ``DOS_CPD_RESIDENT``)
-    writes each block as a compressed container (``encode_block``); a
-    block whose rows the codec cannot take is written raw. Returns the
-    file names written.
+    ledger. ``resume=True`` skips blocks the ledger records as complete
+    with a matching on-disk digest (un-ledgered blocks if they parse);
+    ``resume=False`` recomputes every block. ``replica=r`` builds shard
+    ``wid``'s rank-r replica block set (the same rows under
+    ``cpd-w<wid>-r<rr>-b<bid>.npy``, its own ledger): the kernels are
+    deterministic, so a recomputed replica is bit-identical to the
+    primary. ``device``: None → ``cuda`` (raises without a GPU unless
+    ``device="cpu"``). ``codec`` (``raw``/``pack4``/``rle``/``auto``;
+    None → ``DOS_CPD_RESIDENT``) writes each block as a compressed
+    container (``encode_block``); a block whose rows the codec cannot
+    take is written raw. Returns the file names written.
     """
     dev = resolve_device(device)
     os.makedirs(outdir, exist_ok=True)
-    # sweep THIS worker's atomic-write debris from a killed build (old
+    # sweep THIS block set's atomic-write debris from a killed build (old
     # enough not to be a live write by a concurrent same-wid process)
     now = time.time()
-    for p in glob.glob(os.path.join(
-            outdir, f"cpd-w{wid:05d}-b*{TMP_SUFFIX}.*")):
+    stem = shard_block_name(wid, 0, replica)[:-len("00000.npy")]
+    for p in glob.glob(os.path.join(outdir, f"{stem}*{TMP_SUFFIX}.*")):
         try:
             if now - os.path.getmtime(p) >= SWEEP_MIN_AGE_S:
                 os.remove(p)
@@ -303,15 +348,16 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
     owned = dc.owned(wid)
     bs = dc.block_size
     n_blocks = (len(owned) + bs - 1) // bs
-    ledger = BuildLedger(outdir, wid)
-    entries = ledger.entries()
+    ledger = BuildLedger(outdir, wid, replica)
+    entries = ledger.entries() if resume else {}
     missing = [bid for bid in range(n_blocks)
-               if not block_complete(outdir, shard_block_name(wid, bid),
-                                     entries)]
-    if len(missing) < n_blocks:
+               if not (resume and block_complete(
+                   outdir, shard_block_name(wid, bid, replica), entries))]
+    resumed = n_blocks - len(missing)
+    if resumed:
+        COUNTERS["build_blocks_resumed_total"] += resumed
         log.info("worker %d build resume: %d/%d block(s) already "
-                 "complete and digest-valid", wid, n_blocks - len(missing),
-                 n_blocks)
+                 "complete and digest-valid", wid, resumed, n_blocks)
     if not missing:
         return []
     kind, structure = pick_build_kernel(graph, method)
@@ -335,7 +381,7 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
         # ledger cover the container bytes
         enc = encode_block(arr, codec_req)
         arr, blk_codec = enc if enc is not None else (arr, None)
-        fname = shard_block_name(wid, bid)
+        fname = shard_block_name(wid, bid, replica)
         writer = AtomicNpyWriter(os.path.join(outdir, fname))
         try:
             digest = writer.commit(arr)
@@ -350,15 +396,102 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
     return written
 
 
+# ------------------------------------------------------------- replicas
+
+def _primary_codec(outdir: str, shard: int) -> str:
+    """The codec shard ``shard``'s PRIMARY blocks were written with
+    (ledger first, block sniff second, raw default) — what a replica
+    recompute must use so its digest can ever match the primary's in
+    the anti-entropy cross-check."""
+    for ent in BuildLedger(outdir, shard).entries().values():
+        if ent.get("codec"):
+            return str(ent["codec"])
+    try:
+        arr = np.load(os.path.join(outdir, shard_block_name(shard, 0)),
+                      mmap_mode="r")
+        if is_container(arr):
+            return str(block_codec(arr))
+    except (OSError, ValueError) as e:
+        log.debug("primary codec sniff for shard %d failed (%s); "
+                  "assuming raw", shard, e)
+    return "raw"
+
+
+def copy_replica_blocks(dc: DistributionController, shard: int,
+                        replica: int, outdir: str,
+                        resume: bool = True) -> list[str]:
+    """Materialize shard ``shard``'s rank-``replica`` block set by
+    copying digest-valid PRIMARY blocks (the build and the primary share
+    a filesystem; the kernels are deterministic, so the copy is exactly
+    what a recompute would write). Blocks whose primary is missing or
+    unreadable are skipped: the caller recomputes them with
+    ``build_worker_shard(..., replica=r)``. Copies go through the same
+    atomic write and ledger journal as built blocks, and a compressed
+    primary copies as its container. Returns the names written."""
+    os.makedirs(outdir, exist_ok=True)
+    bs = dc.block_size
+    n_blocks = (dc.n_owned(shard) + bs - 1) // bs
+    ledger = BuildLedger(outdir, shard, replica)
+    entries = ledger.entries() if resume else {}
+    prim_ledger = BuildLedger(outdir, shard).entries()
+    written = []
+    for bid in range(n_blocks):
+        fname = shard_block_name(shard, bid, replica)
+        if resume and block_complete(outdir, fname, entries):
+            continue
+        prim = shard_block_name(shard, bid)
+        prim_ent = prim_ledger.get(prim)
+        rows, _status, _reason = _verify_block(
+            os.path.join(outdir, prim),
+            {"digest": prim_ent["digest"]} if prim_ent else None,
+            want_rows=True)
+        if rows is None:
+            continue        # no healthy primary: the caller recomputes
+        digest = atomic_save_npy(os.path.join(outdir, fname), rows)
+        ledger.record(fname, digest, rows.shape, str(rows.dtype),
+                      codec=(block_codec(rows) if is_container(rows)
+                             else None))
+        COUNTERS["replica_blocks_copied_total"] += 1
+        written.append(fname)
+    return written
+
+
+def build_replica_shards(graph: Graph, dc: DistributionController,
+                         host_wid: int, outdir: str, chunk: int = 0,
+                         resume: bool = True, method: str = "auto",
+                         device=None) -> dict[int, list[str]]:
+    """Build every replica block set worker ``host_wid`` hosts (rank r
+    of shard ``(host_wid - r) % W`` for r in 1..R-1): copy from
+    digest-valid primaries first, recompute the rest on ``device`` with
+    the primary's codec (a raw recompute of a compressed primary would
+    never pass the anti-entropy cross-check). No-op at R = 1. Returns
+    ``{shard: [files written]}``."""
+    out: dict[int, list[str]] = {}
+    for r in range(1, dc.replication):
+        shard = (host_wid - r) % dc.maxworker
+        copied = copy_replica_blocks(dc, shard, r, outdir, resume=resume)
+        computed = build_worker_shard(graph, dc, shard, outdir,
+                                      chunk=chunk, device=device,
+                                      codec=_primary_codec(outdir, shard),
+                                      method=method, replica=r)
+        out[shard] = sorted(set(copied) | set(computed))
+        if copied or computed:
+            log.info("worker %d: replica r%d of shard %d ready "
+                     "(%d copied, %d computed)", host_wid, r, shard,
+                     len(copied), len(computed))
+    return out
+
+
 def _block_meta_for(outdir: str, fname: str,
-                    ledgers: dict[int, dict]) -> dict:
+                    ledgers: dict[tuple[int, int], dict]) -> dict:
     """Digest/shape/dtype (and a compressed block's codec) for one block
-    file, cheapest source first: the worker's build ledger, else read the
-    file once."""
+    file, cheapest source first: the block set's build ledger (keyed by
+    ``(wid, replica)``), else read the file once."""
     wid = int(fname.split("-")[1][1:])
-    if wid not in ledgers:
-        ledgers[wid] = BuildLedger(outdir, wid).entries()
-    ent = ledgers[wid].get(fname)
+    key = (wid, block_file_replica(fname))
+    if key not in ledgers:
+        ledgers[key] = BuildLedger(outdir, *key).entries()
+    ent = ledgers[key].get(fname)
     if ent is not None and "digest" in ent:
         meta = {"digest": ent["digest"], "shape": list(ent["shape"]),
                 "dtype": ent["dtype"]}
@@ -386,8 +519,13 @@ def write_index_manifest(outdir: str, dc: DistributionController,
     ``blocks``: from ``block_meta`` (computed as the blocks were
     written), else harvested from the build ledgers, else read from
     disk. ``workers``: optional subset of worker ids — a PARTIAL index
-    for single-worker serving (the reference's ``-w`` filter)."""
+    for single-worker serving (the reference's ``-w`` filter). With
+    ``dc.replication`` R > 1 every block's rank 1..R-1 replicas must be
+    on disk too: they are listed under ``replica_files`` (with their
+    digests in ``blocks``) and ``replication`` records R. At R = 1 the
+    manifest has neither key."""
     files = []
+    replica_files = []
     bs = dc.block_size
     for wid in (range(dc.maxworker) if workers is None else workers):
         for bid in range((dc.n_owned(wid) + bs - 1) // bs):
@@ -397,7 +535,15 @@ def write_index_manifest(outdir: str, dc: DistributionController,
                     f"index incomplete: missing {fname} "
                     f"(worker {wid} block {bid})")
             files.append(fname)
-    ledgers: dict[int, dict] = {}
+            for r in range(1, dc.replication):
+                rname = shard_block_name(wid, bid, r)
+                if not os.path.exists(os.path.join(outdir, rname)):
+                    raise FileNotFoundError(
+                        f"index incomplete: missing replica {rname} "
+                        f"(shard {wid} block {bid} rank {r}, hosted by "
+                        f"worker {(wid + r) % dc.maxworker})")
+                replica_files.append(rname)
+    ledgers: dict[tuple[int, int], dict] = {}
     manifest = {
         "version": INDEX_VERSION,
         "digest_algo": "crc32",
@@ -411,8 +557,12 @@ def write_index_manifest(outdir: str, dc: DistributionController,
                             else max(dc.max_owned, 1)),
         "files": files,
         "blocks": {f: (block_meta or {}).get(f)
-                   or _block_meta_for(outdir, f, ledgers) for f in files},
+                   or _block_meta_for(outdir, f, ledgers)
+                   for f in files + replica_files},
     }
+    if dc.replication > 1:
+        manifest["replication"] = dc.replication
+        manifest["replica_files"] = replica_files
     atomic_write_json(os.path.join(outdir, "index.json"), manifest)
     return manifest
 
@@ -455,22 +605,32 @@ def validate_manifest(manifest: dict, dc: DistributionController,
                 f"controller has {mine}")
 
 
-def load_verified_block(path: str, meta: dict | None):
-    """Load one block with verification in a SINGLE file read; returns
-    ``(block | None, status, reason)`` with status ``ok``
+def _verify_block(path: str, meta: dict | None, want_rows: bool):
+    """One block's verification against its manifest entry, behind both
+    :func:`check_block` (streamed digest and an mmap'd header: no rows
+    materialized) and :func:`load_verified_block` (one file read: the
+    digest over the bytes in memory, then those same bytes parsed).
+    Returns ``(rows | None, status, reason)`` with status ``ok``
     (digest-verified), ``unverified`` (parses, no digest to check — v1
-    manifest), ``missing`` or ``corrupt``; the block is None for the last
-    two. A compressed container comes back as it is (``maybe_decode_rows``
-    inflates it); when the manifest names a codec, the container's header
-    must parse and name the same one, else the block is ``corrupt``."""
+    manifest), ``missing`` or ``corrupt``; rows is None unless
+    ``want_rows`` and the block is servable. A compressed container
+    comes back as it is (``maybe_decode_rows`` inflates it); when the
+    manifest names a codec, the container's header must parse and name
+    the same one, else the block is ``corrupt``. Whatever a torn file
+    raises (a short payload, a foreign or torn header) reports
+    ``corrupt``, never escapes."""
     if not os.path.exists(path):
         return None, "missing", "file absent"
     need_digest = bool(meta and meta.get("digest"))
     try:
-        with open(path, "rb") as f:
-            data = f.read()
-        got = digest_bytes(data) if need_digest else None
-        arr = np.load(io.BytesIO(data))
+        if want_rows:
+            with open(path, "rb") as f:
+                data = f.read()
+            got = digest_bytes(data) if need_digest else None
+            arr = np.load(io.BytesIO(data))
+        else:
+            got = digest_file(path) if need_digest else None
+            arr = np.load(path, mmap_mode="r")
         if need_digest and got != meta["digest"]:
             return None, "corrupt", (f"digest {got} != manifest "
                                      f"{meta['digest']}")
@@ -491,9 +651,260 @@ def load_verified_block(path: str, meta: dict | None):
                     return None, "corrupt", (
                         f"codec {got_codec!r} != manifest "
                         f"{meta['codec']!r}")
-    except (OSError, ValueError, EOFError) as e:
+    except Exception as e:  # noqa: BLE001 — torn header, short file, ...
         return None, "corrupt", f"unreadable: {type(e).__name__}: {e}"
-    return arr, ("ok" if need_digest else "unverified"), ""
+    return (arr if want_rows else None,
+            "ok" if need_digest else "unverified", "")
+
+
+def check_block(path: str, meta: dict | None) -> tuple[str, str]:
+    """Verify one block file WITHOUT materializing the rows (streamed
+    digest, mmap'd header); returns ``(status, reason)``."""
+    _, status, reason = _verify_block(path, meta, want_rows=False)
+    return status, reason
+
+
+def load_verified_block(path: str, meta: dict | None):
+    """Load one block with verification in a SINGLE file read; returns
+    ``(block | None, status, reason)`` — the block is None whenever the
+    status is ``missing`` or ``corrupt`` (see :func:`_verify_block`)."""
+    return _verify_block(path, meta, want_rows=True)
+
+
+def _fresh_meta(path: str, rows) -> dict:
+    """A manifest entry for a block just healed: its digest, shape,
+    dtype and, for a container, its codec."""
+    meta = {"digest": digest_file(path), "shape": list(rows.shape),
+            "dtype": str(rows.dtype)}
+    if is_container(rows):
+        meta["codec"] = block_codec(rows)
+    return meta
+
+
+def heal_block(outdir: str, manifest: dict | None, fname: str, wid: int,
+               graph: Graph, dc: DistributionController,
+               status: str = "corrupt", reason: str = "",
+               device=None) -> np.ndarray:
+    """The self-heal sequence of both load paths (``CPDOracle.load`` and
+    the engine's ``load_shard_rows``): quarantine the bad block
+    (``<file>.quarantined``), copy a replica from its primary when that
+    is digest-valid, else rebuild it in place from the graph on
+    ``device`` (``build_worker_shard`` with resume recomputes exactly
+    the blocks whose ledger/digest check fails — here the quarantined
+    one) keeping the manifest's codec, reload it, and refresh the
+    manifest entry only when the new digest differs from the recorded
+    one (else every later load would flag the healthy rebuild again).
+    Returns the dense rows; raises ``ValueError`` when no loadable block
+    comes out."""
+    path = os.path.join(outdir, fname)
+    qpath = quarantine(path)
+    replica = block_file_replica(fname)
+    meta = (manifest or {}).get("blocks", {}).get(fname)
+    log.warning("CPD block %s is %s (%s); %srebuilding from the graph",
+                fname, status, reason,
+                f"quarantined to {qpath}; " if qpath else "")
+    if replica:
+        copy_replica_blocks(dc, wid, replica, outdir)
+    # the manifest, not the process env, owns the block's format: a
+    # healed compressed index stays compressed (and a raw one raw)
+    build_worker_shard(graph, dc, wid, outdir, device=device,
+                       codec=(meta or {}).get("codec", "raw"),
+                       replica=replica)
+    rows, _status, reason2 = load_verified_block(path, None)
+    if rows is None:
+        raise ValueError(
+            f"CPD block {fname} in {outdir} could not be rebuilt: "
+            f"{reason2} (original fault: {reason})")
+    COUNTERS["cpd_blocks_rebuilt_total"] += 1
+    new_meta = _fresh_meta(path, rows)
+    if meta is not None and meta.get("digest") != new_meta["digest"]:
+        if meta.get("digest"):
+            log.warning(
+                "rebuilt %s has digest %s != manifest %s (different "
+                "build kernel?); refreshing the manifest entry",
+                fname, new_meta["digest"], meta["digest"])
+        manifest["blocks"][fname] = new_meta
+        atomic_write_json(os.path.join(outdir, "index.json"), manifest)
+    return maybe_decode_rows(rows)
+
+
+def verify_index(outdir: str, dc: DistributionController | None = None,
+                 manifest: dict | None = None) -> dict:
+    """Check-only integrity pass over a CPD index (``make_cpds
+    --verify``): every manifest block, replicas included, is digest- and
+    shape-verified in place. Returns::
+
+        {"total": N, "ok": n, "unverified": [...],   # no digest (v1)
+         "missing": [...], "corrupt": [{"file","reason"}, ...],
+         "fatal": "..."}                              # manifest-level
+
+    ``dc`` also cross-checks the partition quadruple.
+    :func:`verify_exit_code` maps the report to 0/3/4."""
+    report: dict = {"total": 0, "ok": 0, "unverified": [],
+                    "missing": [], "corrupt": []}
+    if manifest is None:
+        try:
+            manifest = read_manifest(outdir)
+        except (OSError, ValueError) as e:
+            report["fatal"] = f"no readable manifest in {outdir}: {e}"
+            return report
+    if dc is not None:
+        try:
+            validate_manifest(manifest, dc, outdir)
+        except ValueError as e:
+            report["fatal"] = str(e)
+            return report
+    blocks_meta = manifest.get("blocks", {})
+    all_files = (list(manifest.get("files", []))
+                 + list(manifest.get("replica_files", [])))
+    report["total"] = len(all_files)
+    for fname in all_files:
+        status, reason = check_block(os.path.join(outdir, fname),
+                                     blocks_meta.get(fname))
+        if status == "ok":
+            COUNTERS["cpd_blocks_verified_total"] += 1
+            report["ok"] += 1
+        elif status == "unverified":
+            report["unverified"].append(fname)
+        elif status == "missing":
+            COUNTERS["cpd_blocks_corrupt_total"] += 1
+            report["missing"].append(fname)
+        else:
+            COUNTERS["cpd_blocks_corrupt_total"] += 1
+            report["corrupt"].append({"file": fname, "reason": reason})
+    return report
+
+
+def verify_exit_code(report: dict) -> int:
+    """0 clean (every block ok or unverified), 3 degraded (some blocks
+    bad), 4 corrupt (manifest unreadable or mismatched, or no block
+    survived) — ``process_query``'s 0/3/4 convention."""
+    if report.get("fatal"):
+        return 4
+    bad = len(report["missing"]) + len(report["corrupt"])
+    if bad == 0:
+        return 0
+    good = report["ok"] + len(report["unverified"])
+    return 3 if good > 0 else 4
+
+
+def anti_entropy(outdir: str, dc: DistributionController,
+                 graph: Graph | None = None,
+                 manifest: dict | None = None, heal: bool = True,
+                 device=None) -> dict:
+    """Replica anti-entropy pass: cross-check every replica block's crc32
+    digest against its PRIMARY's (the manifest's digest, else the file's)
+    and, with ``heal=True``, quarantine each divergent or missing replica
+    and make it again — a copy of a digest-valid primary, else a
+    recompute from ``graph`` on ``device`` with the primary's codec —
+    refreshing its manifest entry, with one manifest rewrite for the
+    whole pass. The primary wins. Returns ``{"checked": n,
+    "mismatched": [...], "healed": [...], "missing_primary": [...]}``;
+    a no-op at R = 1."""
+    report: dict = {"checked": 0, "mismatched": [], "healed": [],
+                    "missing_primary": []}
+    if dc.replication <= 1:
+        return report
+    if manifest is None:
+        try:
+            manifest = read_manifest(outdir)
+        except (OSError, ValueError):
+            manifest = None
+    blocks_meta = (manifest or {}).get("blocks", {})
+    manifest_dirty = False
+    bs = dc.block_size
+    for shard in range(dc.maxworker):
+        for bid in range((dc.n_owned(shard) + bs - 1) // bs):
+            prim = shard_block_name(shard, bid)
+            prim_meta = blocks_meta.get(prim)
+            prim_digest = (prim_meta or {}).get("digest")
+            if prim_digest is None:
+                try:
+                    prim_digest = digest_file(os.path.join(outdir, prim))
+                except OSError:
+                    report["missing_primary"].append(prim)
+                    continue      # nothing to cross-check against
+            for r in range(1, dc.replication):
+                rname = shard_block_name(shard, bid, r)
+                rpath = os.path.join(outdir, rname)
+                report["checked"] += 1
+                try:
+                    got = digest_file(rpath)
+                except OSError:
+                    got = None        # a missing replica is divergent
+                if got == prim_digest:
+                    continue
+                COUNTERS["replica_digest_mismatches_total"] += 1
+                report["mismatched"].append(
+                    {"file": rname, "digest": got,
+                     "primary_digest": prim_digest})
+                if not heal:
+                    continue
+                quarantine(rpath)
+                copied = copy_replica_blocks(dc, shard, r, outdir)
+                if rname not in copied and graph is not None:
+                    build_worker_shard(
+                        graph, dc, shard, outdir, device=device,
+                        codec=(prim_meta or {}).get(
+                            "codec", _primary_codec(outdir, shard)),
+                        replica=r)
+                rows, status, reason = load_verified_block(rpath, None)
+                if rows is None:
+                    log.error("anti-entropy could not heal %s: %s (%s)",
+                              rname, status, reason)
+                    continue
+                report["healed"].append(rname)
+                new_meta = _fresh_meta(rpath, rows)
+                if (manifest is not None
+                        and blocks_meta.get(rname, {}).get("digest")
+                        != new_meta["digest"]):
+                    blocks_meta[rname] = new_meta
+                    manifest_dirty = True
+    if manifest_dirty:
+        manifest["blocks"] = blocks_meta
+        atomic_write_json(os.path.join(outdir, "index.json"), manifest)
+    if report["mismatched"]:
+        log.warning("anti-entropy: %d/%d replica block(s) diverged from "
+                    "their primary (%d healed)", len(report["mismatched"]),
+                    report["checked"], len(report["healed"]))
+    return report
+
+
+def adopt_shard_blocks(graph: Graph, dc: DistributionController,
+                       shard: int, outdir: str, device=None) -> dict:
+    """Adopter catch-up for a shard ownership transfer: make shard
+    ``shard``'s PRIMARY block set servable on this filesystem — every
+    block digest-verified against the manifest, anything missing or torn
+    healed through :func:`heal_block` on ``device``. Idempotent and
+    crash-resumable (rebuilt blocks are journaled by the build ledger).
+    Returns ``{"shard", "blocks", "ok", "unverified", "healed": [...]}``;
+    raises when a block can neither be verified nor healed."""
+    try:
+        manifest = read_manifest(outdir)
+    except (OSError, ValueError):
+        manifest = None             # pre-manifest build: heal from graph
+    if manifest is not None:
+        check_manifest_version(manifest, outdir)
+    blocks_meta = (manifest or {}).get("blocks", {})
+    bs = dc.block_size
+    n_blocks = (dc.n_owned(int(shard)) + bs - 1) // bs
+    report: dict = {"shard": int(shard), "blocks": n_blocks, "ok": 0,
+                    "unverified": 0, "healed": []}
+    for bid in range(n_blocks):
+        fname = shard_block_name(int(shard), bid)
+        status, reason = check_block(os.path.join(outdir, fname),
+                                     blocks_meta.get(fname))
+        if status == "ok":
+            report["ok"] += 1
+        elif status == "unverified":
+            report["unverified"] += 1
+        else:
+            COUNTERS["cpd_blocks_corrupt_total"] += 1
+            heal_block(outdir, manifest, fname, int(shard), graph, dc,
+                       status=status, reason=reason, device=device)
+            report["healed"].append(fname)
+        COUNTERS["reshard_blocks_adopted_total"] += 1
+    return report
 
 
 class CPDOracle:
@@ -614,9 +1025,12 @@ class CPDOracle:
         shape and codec as it loads. Compressed containers inflate: the
         oracle is raw-resident. Rows no block covers stay ``-1``.
 
-        A missing or corrupt block raises ``ValueError`` whatever
-        ``heal`` says: rebuilding a block in place (the JAX package's
-        ``heal_block``) is not ported."""
+        ``heal=True`` (default): a missing or corrupt block is
+        quarantined (``<file>.quarantined``) and rebuilt in place from
+        the graph on the oracle's device (:func:`heal_block`), then
+        reloaded; the manifest entry is refreshed only when the rebuilt
+        digest differs. ``heal=False`` raises ``ValueError`` with the
+        per-block diagnostic on the first bad block."""
         manifest = read_manifest(outdir)
         validate_manifest(manifest, self.dc, outdir)
         blocks_meta = manifest.get("blocks", {})
@@ -630,10 +1044,16 @@ class CPDOracle:
             rows, status, reason = load_verified_block(
                 os.path.join(outdir, fname), blocks_meta.get(fname))
             if rows is None:
-                raise ValueError(
-                    f"CPD block {fname} in {outdir} is {status}: {reason} "
-                    f"(heal={heal}: healing a block is not ported, "
-                    "ROADMAP.md A4; rebuild the index)")
+                COUNTERS["cpd_blocks_corrupt_total"] += 1
+                if not heal:
+                    raise ValueError(f"CPD block {fname} in {outdir} is "
+                                     f"{status}: {reason}")
+                rows = heal_block(outdir, manifest, fname, wid, self.graph,
+                                  self.dc, status=status, reason=reason,
+                                  device=self.device)
+            elif status == "ok":
+                # only digest-checked blocks count as verified
+                COUNTERS["cpd_blocks_verified_total"] += 1
             rows = maybe_decode_rows(rows)
             fm[wid, bid * bs: bid * bs + len(rows)] = torch.from_numpy(
                 np.ascontiguousarray(rows)).to(self.device)

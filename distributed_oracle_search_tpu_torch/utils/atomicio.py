@@ -207,3 +207,23 @@ def sweep_stale_artifacts(dirname: str,
     if n:
         log.info("swept %d stale artifact file(s) in %s", n, dirname)
     return n
+
+
+def quarantine(path: str) -> str | None:
+    """Move a corrupt artifact aside (``<path>.quarantined``) instead of
+    deleting it — the bad bytes stay inspectable until the next sweep.
+    Returns the quarantine path, or None when nothing was there."""
+    if not os.path.exists(path):
+        return None
+    qpath = path + QUARANTINE_SUFFIX
+    try:
+        os.replace(path, qpath)
+    except OSError as e:
+        log.warning("could not quarantine %s (%s); removing instead",
+                    path, e)
+        try:
+            os.remove(path)
+        except OSError:
+            return None
+        return None
+    return qpath

@@ -29,9 +29,14 @@ at or below one chunk stay all-or-nothing. Extraction still covers every
 query of a truncated batch, so ``last_paths`` holds prefixes for queries
 reported unfinished — the same asymmetry as the JAX engine.
 
-Not ported: A*, worker lane meshes, path signatures (``sig_k``), index
-promotion, observability hooks and self-healing (a corrupt block raises
-instead of being rebuilt).
+The load heals: a missing or corrupt block is quarantined and rebuilt
+on the engine's device through the build kernels (``models.cpd.
+heal_block``). An engine may serve another shard's rows from the replica
+block set its worker hosts (``shard=``, ``replica=``).
+
+Not ported: A*, worker lane meshes and the lane placement of replica
+engines (A13), path signatures (``sig_k``), index promotion and
+observability hooks.
 """
 
 from __future__ import annotations
@@ -48,8 +53,8 @@ import torch
 from ..data.formats import read_diff
 from ..data.graph import Graph
 from ..models.cpd import (
-    check_manifest_version, length_estimate, load_verified_block,
-    read_manifest, shard_block_name,
+    COUNTERS, check_manifest_version, heal_block, length_estimate,
+    load_verified_block, read_manifest, shard_block_name,
 )
 from ..models.resident import CompressedFM, make_resident, maybe_decode_rows
 from ..ops.cuda_walk import cuda_walk_batch
@@ -68,16 +73,26 @@ def _block_id(path: str) -> int:
     return int(re.search(r"-b(\d+)\.npy$", path).group(1))
 
 
-def load_shard_rows(outdir: str, wid: int) -> np.ndarray:
+def load_shard_rows(outdir: str, wid: int,
+                    dc: DistributionController | None = None,
+                    graph: Graph | None = None, heal: bool = True,
+                    replica: int = 0, device=None) -> np.ndarray:
     """Load one worker's CPD rows from the block files the build wrote
     (``cpd-w<wid>-b<bid>.npy``; the index manifest is optional so a
     shard can serve before the whole cluster's build completes).
 
     When the manifest is present its per-block digests are verified as
-    the rows load; a corrupt or missing block raises ``ValueError`` with
-    the per-block diagnostic instead of serving garbage answers.
-    Compressed containers inflate to dense rows here; whether the
-    resident table re-compresses is ``ShardEngine``'s policy."""
+    the rows load. A missing or corrupt block is quarantined and — when
+    the caller gives ``graph`` and ``dc`` (``ShardEngine`` does) and
+    ``heal`` — rebuilt in place on ``device`` (``models.cpd.heal_block``);
+    else the load raises ``ValueError`` with the per-block diagnostic.
+
+    ``replica``: load shard ``wid``'s rank-``replica`` replica block set
+    (``cpd-w<wid>-r<rr>-b<bid>.npy``). With no replica blocks on disk the
+    load falls back to the primary set (the rows are identical by
+    construction: a shared filesystem holds them). Compressed containers
+    inflate to dense rows here; whether the resident table re-compresses
+    is ``ShardEngine``'s policy."""
     manifest: dict | None = None
     try:
         manifest = read_manifest(outdir)
@@ -86,13 +101,21 @@ def load_shard_rows(outdir: str, wid: int) -> np.ndarray:
     if manifest is not None:
         check_manifest_version(manifest, outdir)
     blocks_meta = (manifest or {}).get("blocks", {})
-    prefix = shard_block_name(wid, 0)[:-len("00000.npy")]
+    # the name up to the block id: primary names never match a replica
+    # set's, nor the other way round
+    prefix = shard_block_name(wid, 0, replica)[:-len("00000.npy")]
     files = sorted(glob.glob(os.path.join(outdir, f"{prefix}*.npy")),
                    key=_block_id)
     # the manifest knows blocks the glob cannot see (deleted on disk)
     manifested = sorted((os.path.join(outdir, f) for f in blocks_meta
                          if f.startswith(prefix)), key=_block_id)
     files = manifested if manifested else files
+    if not files and replica:
+        log.warning("no rank-%d replica blocks for shard %d in %s; "
+                    "falling back to the primary block set (same rows, "
+                    "shared filesystem)", replica, wid, outdir)
+        return load_shard_rows(outdir, wid, dc=dc, graph=graph, heal=heal,
+                               device=device)
     if not files:
         raise FileNotFoundError(f"no CPD blocks for worker {wid} in {outdir}")
     parts = []
@@ -101,8 +124,20 @@ def load_shard_rows(outdir: str, wid: int) -> np.ndarray:
         rows, status, reason = load_verified_block(path,
                                                    blocks_meta.get(fname))
         if rows is None:
-            raise ValueError(f"CPD block {fname} in {outdir} is {status}: "
-                             f"{reason} (rebuild the shard to heal it)")
+            COUNTERS["cpd_blocks_corrupt_total"] += 1
+            if not heal or graph is None or dc is None:
+                raise ValueError(
+                    f"CPD block {fname} in {outdir} is {status}: {reason}"
+                    + ("" if heal else " (healing disabled)")
+                    + ("" if graph is not None and dc is not None
+                       else " — no graph/controller to rebuild from; "
+                            "load degraded"))
+            parts.append(heal_block(outdir, manifest, fname, wid, graph,
+                                    dc, status=status, reason=reason,
+                                    device=device))
+            continue
+        if status == "ok":
+            COUNTERS["cpd_blocks_verified_total"] += 1
         try:
             parts.append(maybe_decode_rows(rows))
         except ValueError as e:        # torn container, no manifest codec
@@ -112,14 +147,22 @@ def load_shard_rows(outdir: str, wid: int) -> np.ndarray:
 
 
 class ShardEngine:
-    """One worker's resident shard on one device, answering
+    """One shard's rows resident on one device, answering
     ``table-search`` batches. ``device``: None → ``cuda`` (raises
     without a GPU unless ``device="cpu"``). The table is kept raw, pack4
     or rle under ``DOS_CPD_RESIDENT``; ``resident_codec`` says what it
-    resolved to and ``resident_bytes`` what it occupies."""
+    resolved to and ``resident_bytes`` what it occupies.
+
+    ``shard``: the shard whose rows the engine answers — ``wid`` itself
+    (the default), or another shard when worker ``wid`` hosts one of its
+    replicas. ``replica``: the block set the rows load from (None → the
+    rank with which ``wid`` holds ``shard``, 0 for its own). The load
+    gets the graph and the controller, so a missing or corrupt block is
+    rebuilt on ``device`` (``load_shard_rows``)."""
 
     def __init__(self, graph: Graph, dc: DistributionController, wid: int,
-                 outdir: str, alg: str = "table-search", device=None):
+                 outdir: str, alg: str = "table-search", device=None,
+                 shard: int | None = None, replica: int | None = None):
         if alg != "table-search":
             raise ValueError(f"algorithm {alg!r} is not ported (only "
                              "table-search)")
@@ -129,11 +172,18 @@ class ShardEngine:
         self.dc = dc
         self.wid = wid
         self.outdir = outdir
-        rows = load_shard_rows(outdir, self.wid)
-        owned = dc.owned(self.wid)
+        self.shard = wid if shard is None else int(shard)
+        if replica is not None:
+            self.replica = int(replica)
+        else:
+            self.replica = (dc.replica_rank(self.shard, wid)
+                            if self.shard != wid else 0)
+        rows = load_shard_rows(outdir, self.shard, dc=dc, graph=graph,
+                               replica=self.replica, device=self.device)
+        owned = dc.owned(self.shard)
         if len(owned) != rows.shape[0]:
             raise ValueError(
-                f"shard w{self.wid}: {rows.shape[0]} CPD rows but "
+                f"shard w{self.shard}: {rows.shape[0]} CPD rows but "
                 f"controller owns {len(owned)} nodes — partition mismatch")
         self.fm = self._make_resident(rows)
         self.dg = DeviceGraph.from_graph(graph, device=self.device)
@@ -203,10 +253,10 @@ class ShardEngine:
         # routing invariant FIRST — before any shard-local row lookup
         if len(queries):
             owner = self.dc.worker_of(queries[:, 1])
-            if (owner != self.wid).any():
-                bad = int((owner != self.wid).sum())
+            if (owner != self.shard).any():
+                bad = int((owner != self.shard).sum())
                 raise ValueError(
-                    f"shard w{self.wid} received {bad} queries for "
+                    f"shard w{self.shard} received {bad} queries for "
                     "other workers — routing invariant violated")
         w_pad, pair = self._weights_for(difffile, config.no_cache)
         nq = len(queries)

@@ -21,11 +21,17 @@ ONE CSV stats line to the answer FIFO. Stays resident across requests.
     python -m distributed_oracle_search_tpu_torch.worker.server \\
         -c conf.json --workerid N [--device cpu] [--metrics-dump m.json]
 
-Serves a static fleet with replication 1. Not ported, and refused with
-the ``ROADMAP.md`` item that ports each: replica and adoption engines
-and the membership epoch gate (A4-rest, A14), the worker L2 cache and
-``--traffic-dir`` (A14), the RPC serve loop, ``--rpc-*``, ``--obs-port``
-and telemetry (A14), ``--alg astar`` (A12), answer fingerprints (A14).
+Serves a static fleet. With ``replication`` R > 1 a batch whose targets
+all lie in a shard this worker hosts as a replica is answered by a
+replica engine made on first use from that shard's replica block set
+(:meth:`FifoServer.engine_for_shard`; counted in
+``server_replica_batches_total``); a batch for a shard it does not host
+fails the routing invariant. The head's failover over replicas is not
+ported (A14). Not ported, and refused with the ``ROADMAP.md`` item that
+ports each: adoption engines and the membership epoch gate (A14), the
+worker L2 cache and ``--traffic-dir`` (A14), the RPC serve loop,
+``--rpc-*``, ``--obs-port`` and telemetry (A14), ``--alg astar`` (A12),
+answer fingerprints (A14).
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ COUNTER_NAMES = (
     "server_replies_sent_total",         # stats lines written
     "server_replies_dropped_total",      # replies with no reader in time
     "server_pings_answered_total",       # health lines written
+    "server_replica_batches_total",      # batches a replica engine answered
 )
 
 
@@ -97,9 +104,6 @@ class FifoServer:
                  alg: str = "table-search", device=None):
         if alg != "table-search":
             raise ValueError(f"--alg {alg} is not ported (ROADMAP.md A12)")
-        if conf.effective_replication() > 1:
-            raise ValueError("replicated shards (replication > 1) are not "
-                             "ported (ROADMAP.md A4-rest)")
         if os.path.exists(os.path.join(conf.outdir, "membership.json")):
             raise ValueError(
                 f"{conf.outdir} holds a membership state: elastic fleets "
@@ -109,14 +113,40 @@ class FifoServer:
         self.counters = dict.fromkeys(COUNTER_NAMES, 0)
         self.command_fifo = command_fifo or command_fifo_path(wid)
         self.graph = Graph.from_xy(conf.xy_file)
-        self.dc = DistributionController(conf.partmethod, conf.partkey,
-                                         conf.maxworker, self.graph.n)
+        self.dc = DistributionController(
+            conf.partmethod, conf.partkey, conf.maxworker, self.graph.n,
+            replication=conf.effective_replication())
+        self.device = device
         self.engine = ShardEngine(self.graph, self.dc, wid, conf.outdir,
                                   device=device)
+        #: engines by shard: this worker's own, and the replica engines
+        #: made on first use for the shards it hosts
+        self._replica_engines: dict[int, ShardEngine] = {wid: self.engine}
         # preload the first diff's weights like the reference server
         # does (make_fifos.py:18 loads only diffs[0])
         if conf.diffs:
             self.engine._weights_for(conf.diffs[0], no_cache=False)
+
+    def engine_for_shard(self, shard: int) -> ShardEngine:
+        """The engine serving ``shard``'s rows: this worker's own engine
+        for its shard, a replica engine (made on first use from the
+        shard's replica block set) for a shard it hosts as a replica,
+        and a routing-invariant error naming the hosted shards for any
+        other."""
+        eng = self._replica_engines.get(shard)
+        if eng is None:
+            hosted = sorted(int(x) for x in self.dc.replica_shards(self.wid))
+            if shard not in hosted:
+                raise ValueError(
+                    f"worker {self.wid} hosts no replica of shard {shard} "
+                    f"(hosted: {hosted}) — routing invariant violated")
+            log.info("worker %d: loading shard %d's replica for failover "
+                     "traffic", self.wid, shard)
+            eng = ShardEngine(self.graph, self.dc, self.wid,
+                              self.conf.outdir, device=self.device,
+                              shard=shard)
+            self._replica_engines[shard] = eng
+        return eng
 
     # ------------------------------------------------------------ serving
     def _ensure_fifo(self) -> None:
@@ -137,12 +167,22 @@ class FifoServer:
         return stats
 
     def answer_queries(self, queries: np.ndarray, config, difffile: str):
-        """One batch on the engine: ``(cost, plen, fin, stats, paths)``
-        with ``paths = engine.last_paths`` (None unless extracting)."""
-        cost, plen, fin, stats = self.engine.answer(queries, config,
-                                                    difffile)
+        """One batch on the engine of the shard its targets lie in:
+        ``(cost, plen, fin, stats, paths)`` with ``paths =
+        engine.last_paths`` (None unless extracting). A batch for one
+        shard this worker hosts as a replica goes to that shard's
+        replica engine; any other batch meets its engine's routing
+        invariant."""
+        engine = self.engine
+        if len(queries):
+            shards = np.unique(self.dc.worker_of(
+                np.asarray(queries, np.int64).reshape(-1, 2)[:, 1]))
+            if len(shards) == 1 and int(shards[0]) != engine.shard:
+                engine = self.engine_for_shard(int(shards[0]))
+                self.counters["server_replica_batches_total"] += 1
+        cost, plen, fin, stats = engine.answer(queries, config, difffile)
         self.counters["worker_queries_total"] += len(queries)
-        return cost, plen, fin, stats, self.engine.last_paths
+        return cost, plen, fin, stats, engine.last_paths
 
     def serve_forever(self) -> None:
         """Framed request loop over a PERSISTENT command-FIFO read session.

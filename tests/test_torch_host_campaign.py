@@ -14,7 +14,8 @@ and query file under ``tmp_path``. Held equal, exactly:
 (d) ``make_fifos`` + ``process_query`` with real ``worker.server``
     subprocesses answer every query and stop cleanly; a dead worker
     degrades the campaign (``FAIL`` row, ``degraded.json``, exit 3);
-(e) each refused flag names its ``ROADMAP.md`` item."""
+(e) each refused flag names its ``ROADMAP.md`` item (a replicated host
+    campaign A14: the head's failover over replicas)."""
 
 import csv
 import json
@@ -48,6 +49,7 @@ from distributed_oracle_search_tpu_torch.data import (  # noqa: E402
     Graph, read_scen, synth_city_graph, synth_diff, synth_scenario,
     write_diff, write_scen, write_xy,
 )
+from distributed_oracle_search_tpu_torch.models import cpd  # noqa: E402
 from distributed_oracle_search_tpu_torch.models.cpd import (  # noqa: E402
     build_worker_shard, write_index_manifest,
 )
@@ -251,7 +253,8 @@ def test_make_cpds_host_subprocess_blocks_equal_jax(dataset, tmp_path):
         assert snap["device"]["type"] == "cpu"
         assert set(snap["counters"]) == {"relax_jacobi.launches",
                                          "first_moves.launches",
-                                         "grid_sweep.launches"}
+                                         "grid_sweep.launches",
+                                         *cpd.COUNTERS}
     jout = str(tmp_path / "jax-index")
     for wid in range(W):
         assert j_wbuild.main([
@@ -391,14 +394,11 @@ def test_worker_commands_name_the_port(cluster):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--no-resume"], "A4-rest"), (["--engine", "native"], "A15"),
-    (["-R2"], "A4-rest"),
+    (["--engine", "native"], "A15"),
 ])
 def test_make_cpds_host_refusals_name_roadmap(dataset, tmp_path, argv,
                                               item):
-    extra = {"replication": 2} if argv == ["-R2"] else {}
-    argv = [] if argv == ["-R2"] else argv
-    conf = _write_conf(tmp_path, dataset, **extra)
+    conf = _write_conf(tmp_path, dataset)
     with pytest.raises(SystemExit, match=item):
         t_make.main(["-c", conf, *DEV, *argv])
     assert not os.path.exists(tmp_path / "index")
@@ -423,7 +423,7 @@ def test_make_fifos_tpu_conf_needs_no_servers(tmp_path, dataset, capsys):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("rpc", "A14"), ("auto", "A14"), ("replication", "A4-rest"),
+    ("rpc", "A14"), ("auto", "A14"), ("replication", "A14"),
     ("membership", "A14"),
 ])
 def test_process_query_host_refusals_name_roadmap(dataset, tmp_path,

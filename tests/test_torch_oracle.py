@@ -8,8 +8,8 @@ digests with each package loading the other's index, the checked-in
 flow, under ``data/synth-city.xy.diff``, with move budgets, step cuts and
 the ``-w`` filter — and, after unrouting, the answers of a JAX oracle on
 a ``[2, 4]`` data × worker mesh. Also: the pair table is built once per
-weight set, a bad block raises, and the synthetic dataset writer writes
-the JAX package's files."""
+weight set, a bad block heals (or raises with ``heal=False``), and the
+synthetic dataset writer writes the JAX package's files."""
 
 import filecmp
 import json
@@ -160,21 +160,39 @@ def test_load_checked_in_index(setup, built):
     np.testing.assert_array_equal(_fm(got), _fm(to))
 
 
-@pytest.mark.parametrize("heal", [True, False])
-def test_bad_block_raises_whatever_heal(setup, built, tmp_path, heal):
+@pytest.mark.parametrize("fault", ["corrupt", "missing"])
+def test_bad_block_heals_or_raises(setup, built, tmp_path, fault):
+    """``load(heal=True)`` quarantines a corrupt block (or finds a missing
+    one), rebuilds it from the graph and loads the table it was saved
+    from; ``heal=False`` raises the per-block diagnostic instead."""
     _, tg, _, tdc, *_ = setup
     _, to = built
     out = str(tmp_path)
     to.save(out)
     victim = os.path.join(out, cpd.shard_block_name(5, 0))
-    with open(victim, "r+b") as f:
-        f.seek(-1, os.SEEK_END)
-        f.write(b"\x7f")
-    with pytest.raises(ValueError, match="corrupt.*heal.*not ported"):
-        CPDOracle(tg, tdc, device="cpu").load(out, heal=heal)
-    os.remove(victim)
-    with pytest.raises(ValueError, match="missing"):
-        CPDOracle(tg, tdc, device="cpu").load(out, heal=heal)
+    with open(victim, "rb") as f:
+        original = f.read()
+
+    def plant():
+        if fault == "missing":
+            os.remove(victim)
+        else:
+            with open(victim, "r+b") as f:
+                f.seek(-1, os.SEEK_END)
+                f.write(b"\x7f")
+
+    plant()
+    with pytest.raises(ValueError, match=f"{os.path.basename(victim)} in "
+                       f".* is {fault}"):
+        CPDOracle(tg, tdc, device="cpu").load(out, heal=False)
+    healed = CPDOracle(tg, tdc, device="cpu").load(out, heal=True)
+    np.testing.assert_array_equal(_fm(healed), _fm(to))
+    with open(victim, "rb") as f:
+        assert f.read() == original
+    assert os.path.exists(victim + ".quarantined") == (fault == "corrupt")
+    plant()
+    with pytest.raises(ValueError, match=fault):
+        CPDOracle(tg, tdc, device="cpu").load(out, heal=False)
 
 
 def test_manifest_of_other_partition_refused(setup, built, tmp_path):
