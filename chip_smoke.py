@@ -10,8 +10,9 @@ points a user calls, then the compressed-residency path:
    ``distributed_oracle_search_tpu_torch/csrc`` with ``nvcc``, one
    ``nvcc`` a source, started together: the walk (raw, pack4 and fused
    multi-diff entries), the build (``cpd_build.cu``: the Jacobi relax,
-   the first-move extraction, the grid sweep cycle) and the doubling
-   kernels (``pointer_doubling.cu``: on chip, and the wide sweep);
+   the first-move extraction, the grid sweep cycle), the doubling
+   kernels (``pointer_doubling.cu``: on chip, and the wide sweep) and
+   the batched A* (``batched_astar.cu``: the sweep, the heuristic);
 2. road path, at the size of the USA-road-d.NY stand-in
    (``synth_road_network(264_000, seed=0)``, ``mod`` over 32 workers;
    worker 0 owns 8,250 targets, a 2.18 GB int8 first-move table): build
@@ -200,10 +201,34 @@ points a user calls, then the compressed-residency path:
    extraction kernel) and by ``ellsplit`` must give byte-equal fm,
    equal too to the plain extraction of the queue's distances; records
    the queue's pops and ms a pop;
+8b. A* path (``[astar]`` lines), no index: ``process_query --alg
+   astar`` as a user calls it (its default: the batched search on the
+   card, K6, ``csrc/batched_astar.cu``) on the first 4,096 campaign
+   queries, free flow and diff, in chunks of 1,024 (the main run: K6's
+   counts zeroed before it, read after it, no plain loop or heuristic,
+   ``parts.csv`` sums equal the answers, costs equal K1's exact
+   distances to every target); ``make_fifos --alg astar`` with 8
+   tracked servers and a free-flow ``process_query --backend host``
+   round over them (``[astar-host]``: per-query answers equal the
+   in-process round's, each dump names the card with K6 launched and no
+   plain run, every server exits 0); the heap route
+   (``DOS_ASTAR_DEVICE=0``) on the first 16 queries, free flow, its
+   costs equal to K6's; then, while 7 spawned reference processes run
+   the heap route on the first 512 queries (free flow) and scipy's
+   Dijkstra on every query to 256 seeded targets a round and 128 of the
+   road chunk: K6 against the plain versions on the campaign's first
+   1,024-query chunk at hscale 1 and at hscale 1.5 / fscale 0.1 (the
+   heuristic table; g, hops, improved, the flag and the counts after
+   sweeps 1-3; at hscale 1 also at convergence: cost, plen, finished,
+   the sweep count and the counters) and on a 1,024-query chunk of the
+   264,000-node road network (sweeps 1-3; K6's loop to convergence,
+   costs equal K1's exact distances); ms a sweep and of the heuristic
+   (CUDA events) beside the bound and the plain version; last the
+   references' costs against K6's;
 9. print the card's name and power limit again on the ``[done]`` line,
    then the kernel table as one JSON line (the raw and pack4 walks, the
-   three build kernels, the fused walk, the on-chip doubling and the
-   wide doubling sweep, each with
+   three build kernels, the fused walk, the on-chip doubling, the
+   wide doubling sweep, K6's sweep and heuristic, each with
    its launches in the main runs — the wide sweep's in the road shard's
    tables; the raw walk's ``launches_by_path``
    holds the host servers' launches read from their dumps and the heal
@@ -225,6 +250,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import gc
 import hashlib
 import io
@@ -246,11 +272,11 @@ from distributed_oracle_search_tpu_torch.cli import (
 )
 from distributed_oracle_search_tpu_torch.cli import reorder as reorder_cli
 from distributed_oracle_search_tpu_torch.data import (
-    Graph, read_scen, synth_city_graph, synth_diff, synth_road_network,
-    write_diff, write_scen, write_xy,
+    Graph, read_diff, read_scen, synth_city_graph, synth_diff,
+    synth_road_network, write_diff, write_scen, write_xy,
 )
 from distributed_oracle_search_tpu_torch.models import (
-    cpd, dist_to_target, table_search_walk,
+    cpd, dist_to_target, min_cost_per_unit, table_search_walk,
 )
 from distributed_oracle_search_tpu_torch.models.cpd import (
     build_worker_shard, write_index_manifest,
@@ -262,6 +288,8 @@ from distributed_oracle_search_tpu_torch.ops import (
 from distributed_oracle_search_tpu_torch.ops.frontier_relax import (
     locality_fraction,
 )
+from distributed_oracle_search_tpu_torch.ops import batched_astar as ba
+from distributed_oracle_search_tpu_torch.ops import cuda_astar as ca
 from distributed_oracle_search_tpu_torch.ops import cuda_doubling as cd
 from distributed_oracle_search_tpu_torch.ops import cuda_walk as cw
 from distributed_oracle_search_tpu_torch.ops import pointer_doubling as pd
@@ -275,6 +303,9 @@ from distributed_oracle_search_tpu_torch.parallel import (
 )
 from distributed_oracle_search_tpu_torch.transport import RuntimeConfig
 from distributed_oracle_search_tpu_torch.transport import fifo as fifo_transport
+from distributed_oracle_search_tpu_torch.transport.wire import (
+    read_results_file, results_file_for,
+)
 from distributed_oracle_search_tpu_torch.utils import cuda_build
 from distributed_oracle_search_tpu_torch.utils.atomicio import digest_file
 from distributed_oracle_search_tpu_torch.utils.config import ClusterConfig
@@ -372,6 +403,24 @@ SWEEP_CUTS = (1, 2)
 #: row in pieces; ``auto`` builds it by sweep. Its batch of targets.
 WIDE_GRID = (6000, 6)
 WIDE_BATCH = 64
+#: the A* phase: the first campaign queries it answers (4 chunks of
+#: 1,024, the engines' chunk); the knobs at which K6 is held to the
+#: plain versions on a chunk (sweep by sweep at each, to convergence at
+#: the first) and the sweep cuts of that comparison; the heap engine's
+#: queries through ``process_query`` (heap A* in Python takes tenths of
+#: a second a query on this graph) and in the reference processes; the
+#: seeded targets whose queries scipy's Dijkstra checks, each campaign
+#: round and the road chunk; the reference processes (heap and
+#: Dijkstra), which run while the card works
+ASTAR_QUERIES = 4_096
+ASTAR_CHUNK = 1_024
+ASTAR_KNOBS = ((1.0, 0.0), (1.5, 0.1))
+ASTAR_CUTS = (1, 2, 3)
+ASTAR_HEAP_CLI = 16
+ASTAR_HEAP_QUERIES = 512
+ASTAR_DIJKSTRA = 256
+ASTAR_ROAD_DIJKSTRA = 128
+ASTAR_REF_PROCS = 7
 #: the three build kernels' entries in the kernel table
 BUILD_KERNELS = {
     "relax_jacobi": "distributed_oracle_search_tpu/ops/ell_split.py:115 "
@@ -463,8 +512,8 @@ def make_queries(targets: np.ndarray, n: int) -> np.ndarray:
 
 def zero_launches() -> None:
     """Every kernel's launch count to 0: the three walks (raw, pack4,
-    fused multi-diff), the on-chip doubling, the doubling sweep and the
-    three build kernels."""
+    fused multi-diff), the on-chip doubling, the doubling sweep, the
+    three build kernels and K6 (with the plain A* runs)."""
     cw.cuda_walk_batch.launches = 0
     cw.cuda_walk_batch.launches_pack4 = 0
     cw.cuda_walk_multi.launches = 0
@@ -472,6 +521,8 @@ def zero_launches() -> None:
     cd.doubling_sweep.launches = 0
     for fn in BUILD_FNS.values():
         fn.launches = 0
+    ca.astar_sweep.launches = ca.astar_heuristic.launches = 0
+    ca.astar_heuristic.plain = ba.astar_batch.plain = 0
 
 
 def read_build_launches() -> dict[str, int]:
@@ -1203,7 +1254,8 @@ def run() -> list[dict]:
     # ---- 1. card + kernel builds: one nvcc a source, started together
     log(card_line())
     t0 = time.perf_counter()
-    sources = (cw.KERNEL_NAME, cbk.KERNEL_NAME, cd.KERNEL_NAME)
+    sources = (cw.KERNEL_NAME, cbk.KERNEL_NAME, cd.KERNEL_NAME,
+               ca.KERNEL_NAME)
     errors: list[BaseException] = []
 
     def build_one(name):
@@ -1288,6 +1340,8 @@ def run() -> list[dict]:
         log(f"[heal] done at {time.perf_counter() - T_START:.1f} s")
         reorder, build_launches["reorder"] = reorder_path(outdir, ref)
         log(f"[reorder] done at {time.perf_counter() - T_START:.1f} s")
+        astar = astar_path(outdir, ref)
+        log(f"[astar] done at {time.perf_counter() - T_START:.1f} s")
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     raw_kernel["launches_by_path"] = {"road": raw_kernel["launches"],
@@ -1313,7 +1367,7 @@ def run() -> list[dict]:
             raise AssertionError(f"the main path never launched "
                                  f"{entry['name']}")
     return [raw_kernel, pack4_kernel, *build,
-            *serving_entries(campaign, serving, road_k5)]
+            *serving_entries(campaign, serving, road_k5), *astar]
 
 
 def serving_entries(campaign: dict, serving: dict, road: dict
@@ -3575,6 +3629,756 @@ def reorder_path(outdir: str, ref: dict) -> tuple[dict, dict[str, int]]:
             "targets": CHUNK, "auto_s": auto_s, "pops": pops,
             "queue_s": queue_s, "ms_per_pop": ms_pop,
             "ellsplit_s": ell_s}, counts
+
+
+# ------------------------------------------------------------------ A* path
+
+def astar_inputs(outdir: str, ref: dict) -> dict:
+    """The A* phase's files beside the campaign's: the first
+    ``ASTAR_QUERIES`` campaign queries and their first
+    ``ASTAR_HEAP_CLI`` as scenarios, an in-process conf of each
+    (partmethod ``tpu``, 8 workers; free flow and diff, the heap's free
+    flow only), and a host conf (``mod`` over 8 localhost workers, free
+    flow); every conf names an index directory that does not exist (A*
+    reads none)."""
+    queries = ref["queries"][:ASTAR_QUERIES]
+    files = {"queries": queries, "dir": outdir}
+    no_index = os.path.join(outdir, "astar-no-index")
+    for name, part, diffs in (
+            ("main", queries, ["-", ref["diff_path"]]),
+            ("heap", queries[:ASTAR_HEAP_CLI], ["-"])):
+        scen = os.path.join(outdir, f"astar-{name}.scen")
+        write_scen(scen, part)
+        conf = os.path.join(outdir, f"astar-{name}.json")
+        with open(conf, "w") as f:
+            json.dump({"workers": [f"tpu:{i}"
+                                   for i in range(CAMPAIGN_WORKERS)],
+                       "partmethod": "tpu", "partkey": CAMPAIGN_WORKERS,
+                       "outdir": no_index, "xy_file": ref["xy"],
+                       "scenfile": scen, "diffs": diffs}, f)
+        files[name] = conf
+    nfs = os.path.join(outdir, "astar-nfs")
+    os.makedirs(nfs)
+    files["nfs"] = nfs
+    files["host"] = os.path.join(outdir, "astar-host.json")
+    with open(files["host"], "w") as f:
+        json.dump({"workers": ["localhost"] * HOST_WORKERS,
+                   "partmethod": "mod", "partkey": HOST_WORKERS,
+                   "outdir": no_index, "nfs": nfs, "projectdir": ROOT,
+                   "xy_file": ref["xy"],
+                   "scenfile": os.path.join(outdir, "astar-main.scen"),
+                   "diffs": ["-"]}, f)
+    return files
+
+
+class AstarProbe:
+    """Records each call ``process_query``'s A* rounds make — the batched
+    search (``astar_batch_np``, with its per-chunk ``info``) or the heap
+    engine — with its answers and its seconds (host clock,
+    synchronised)."""
+
+    def __init__(self):
+        self.calls: list[dict] = []
+        self._real = (process_query.astar_batch_np,
+                      process_query._astar_heap_campaign)
+
+    def _device(self, *a, **kw):
+        info: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self._real[0](*a, info=info, **kw)
+        torch.cuda.synchronize()
+        self.calls.append({"engine": "device", "s": time.perf_counter() - t0,
+                           "out": out, "info": info})
+        return out
+
+    def _heap(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = self._real[1](*a, **kw)
+        self.calls.append({"engine": "heap", "s": time.perf_counter() - t0,
+                           "out": out})
+        return out
+
+    def __enter__(self):
+        process_query.astar_batch_np = self._device
+        process_query._astar_heap_campaign = self._heap
+        return self
+
+    def __exit__(self, *exc):
+        process_query.astar_batch_np, process_query._astar_heap_campaign = \
+            self._real
+
+
+class HostResults:
+    """Has the head ask every server for its batch's per-query answers
+    (``RuntimeConfig.results``) and reads each worker's results file as
+    soon as its round's fan-out returns (a round's query files are
+    rewritten by the next)."""
+
+    def __init__(self, nfs: str, queries: np.ndarray, dc):
+        self.nfs = nfs
+        self.owner = dc.worker_of(queries[:, 1])
+        self.n = len(queries)
+        self.rounds: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        self.seconds: list[float] = []
+        self._real = (process_query.runtime_config, process_query.fan_out)
+
+    def _config(self, args):
+        return dataclasses.replace(self._real[0](args), results=True)
+
+    def _fan_out(self, jobs, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = self._real[1](jobs, fn, *a, **kw)
+        self.seconds.append(time.perf_counter() - t0)
+        cost = np.zeros(self.n, np.int64)
+        plen = np.zeros(self.n, np.int64)
+        fin = np.zeros(self.n, bool)
+        for host, wid, _part in jobs:
+            c, p, f = read_results_file(results_file_for(
+                os.path.join(self.nfs, f"query.{host}{wid}")))
+            sel = self.owner == wid
+            cost[sel], plen[sel], fin[sel] = c, p, f
+        self.rounds.append((cost, plen, fin))
+        return out
+
+    def __enter__(self):
+        process_query.runtime_config = self._config
+        process_query.fan_out = self._fan_out
+        return self
+
+    def __exit__(self, *exc):
+        process_query.runtime_config, process_query.fan_out = self._real
+
+
+def read_astar_launches() -> dict[str, int]:
+    """K6's launches and the plain A* runs (the batch loop, the
+    heuristic) since the last zero_launches()."""
+    return {"sweep": ca.astar_sweep.launches,
+            "batch_plain": ba.astar_batch.plain,
+            "heuristic": ca.astar_heuristic.launches,
+            "heuristic_plain": ca.astar_heuristic.plain}
+
+
+def exact_costs(g, queries: np.ndarray, w=None) -> np.ndarray:
+    """Shortest-path costs of ``queries`` under weights ``w``: every
+    distinct target's distances by the relax kernel's loop (K1, exact
+    int32 min-plus to convergence), 2,048 targets a call."""
+    dg = DeviceGraph.from_graph(g, weights=w, device="cuda")
+    csr = cbk.csr_from_ell(dg)
+    targets, inv = np.unique(queries[:, 1], return_inverse=True)
+    inv = inv.reshape(-1)
+    out = np.zeros(len(queries), np.int64)
+    for lo in range(0, len(targets), 2048):
+        t = torch.as_tensor(targets[lo:lo + 2048].astype(np.int32),
+                            device="cuda")
+        d, _ = cbk.jacobi_dist(csr, t)
+        sel = np.nonzero((inv >= lo) & (inv < lo + 2048))[0]
+        src = torch.as_tensor(queries[sel, 0], device="cuda")
+        col = torch.as_tensor(inv[sel] - lo, device="cuda")
+        out[sel] = d[src, col].cpu().numpy()
+        del d
+    return out
+
+
+def golden_costs(g, queries, cost, fin, w, tag: str) -> None:
+    """Costs equal the exact shortest paths (:func:`exact_costs`) query
+    by query, and every query of the strongly connected graph
+    finishes."""
+    if not fin.all():
+        raise AssertionError(f"{tag} {int((~fin).sum())} queries left "
+                             "unfinished on a strongly connected graph")
+    want = exact_costs(g, queries, w)
+    if not np.array_equal(cost, want):
+        bad = np.nonzero(cost != want)[0]
+        raise AssertionError(f"{tag} {len(bad)} costs differ from the "
+                             f"shortest paths, first {bad[:5]}: "
+                             f"{cost[bad[:5]]} != {want[bad[:5]]}")
+    log(f"{tag} {len(queries)} costs equal the shortest paths (K1's "
+        f"exact distances to {len(np.unique(queries[:, 1]))} targets)")
+
+
+# The CPU references of the A* phase run in processes of their own
+# (spawned: each imports this file, not the card), while the card works.
+_REF_GRAPHS: dict = {}
+
+
+def reference_graph(spec: tuple, diff_path: str | None):
+    """A reference process's graph and weights: ``spec`` ``("xy",
+    path)`` or ``("road", nodes, seed)``, ``diff_path`` None for free
+    flow; the graph is made once a process."""
+    if spec not in _REF_GRAPHS:
+        _REF_GRAPHS[spec] = (Graph.from_xy(spec[1]) if spec[0] == "xy"
+                             else synth_road_network(spec[1],
+                                                     seed=spec[2]))
+    g = _REF_GRAPHS[spec]
+    return g, (g.w if diff_path is None
+               else g.weights_with_diff(read_diff(diff_path)))
+
+
+def heap_reference(xy: str, queries: np.ndarray):
+    """``process_query``'s heap route (``_astar_heap_campaign``, hscale
+    1, free flow) on a share of the queries: ``(cost, plen, finished,
+    seconds)``."""
+    g, _ = reference_graph(("xy", xy), None)
+    t0 = time.perf_counter()
+    cost, plen, fin, _ = process_query._astar_heap_campaign(
+        g, queries, None, 1.0, 0.0, None)
+    return cost, plen, fin, time.perf_counter() - t0
+
+
+def dijkstra_reference(spec: tuple, diff_path: str | None,
+                       queries: np.ndarray) -> np.ndarray:
+    """scipy's Dijkstra (no code of the port) from each distinct target
+    of ``queries`` over the reversed graph, parallel edges reduced to
+    the lightest: each query's shortest-path cost, INF where none."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+
+    g, w = reference_graph(spec, diff_path)
+    w = np.asarray(w, np.int64)
+    key = g.dst.astype(np.int64) * g.n + g.src
+    order = np.lexsort((w, key))
+    first = np.r_[True, key[order][1:] != key[order][:-1]]
+    keep = order[first]
+    rev = sp.csr_matrix((w[keep].astype(np.float64),
+                         (g.dst[keep], g.src[keep])), shape=(g.n, g.n))
+    targets, inv = np.unique(queries[:, 1], return_inverse=True)
+    d = dijkstra(rev, directed=True, indices=targets)
+    out = d[inv.reshape(-1), queries[:, 0]]
+    return np.where(np.isinf(out), ba.JINF, out).astype(np.int64)
+
+
+class AstarReferences:
+    """The phase's CPU references in :data:`ASTAR_REF_PROCS` spawned
+    processes: the heap route on queries and scipy's Dijkstra on the
+    queries of seeded targets, submitted in shares at once and collected
+    at the end. Every process is stopped on exit."""
+
+    def __init__(self):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            ASTAR_REF_PROCS)
+        self.jobs: dict[str, tuple[list, list]] = {}
+
+    def submit(self, name: str, fn, shares: list[np.ndarray], *lead):
+        """``fn(*lead, share)`` for each index share; ``name`` collects
+        them."""
+        self.jobs[name] = (shares, [self.pool.apply_async(fn, (*lead, part))
+                                    for part in shares])
+
+    def collect(self, name: str, timeout: float = 600.0) -> list:
+        return [r.get(timeout) for r in self.jobs[name][1]]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def check_dijkstra(tag: str, queries: np.ndarray, sel: np.ndarray,
+                   cost: np.ndarray, parts: list) -> None:
+    """The costs at ``sel`` equal scipy's Dijkstra (``parts``, in share
+    order), or raise."""
+    want = np.concatenate(parts)
+    got = cost[sel]
+    if not np.array_equal(got, want):
+        bad = np.nonzero(got != want)[0]
+        raise AssertionError(f"{tag} {len(bad)} of {len(sel)} costs differ "
+                             f"from scipy's Dijkstra, first queries "
+                             f"{sel[bad[:5]]}: {got[bad[:5]]} != "
+                             f"{want[bad[:5]]}")
+    log(f"{tag} {len(sel)} costs (every query to "
+        f"{len(np.unique(queries[sel, 1]))} seeded targets) equal scipy's "
+        "Dijkstra")
+
+
+def astar_chunk_tensors(g, queries: np.ndarray) -> tuple[dict, float]:
+    """One chunk's inputs on the card, as ``astar_batch_np`` makes them
+    (free-flow weights, every lane valid), and ``min_cost_per_unit``."""
+    in_nbr, in_eid = g.ell("in")
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")
+
+    return {"in_nbr": dev(in_nbr, torch.int32),
+            "in_eid": dev(in_eid, torch.int32),
+            "w_pad": dev(g.padded_weights(), torch.int32),
+            "xs": dev(np.asarray(g.xs, np.float32), torch.float32),
+            "ys": dev(np.asarray(g.ys, np.float32), torch.float32),
+            "s": dev(queries[:, 0], torch.int32),
+            "t": dev(queries[:, 1], torch.int32),
+            "valid": torch.ones(len(queries), dtype=torch.bool,
+                                device="cuda")}, min_cost_per_unit(g)
+
+
+def sweep_bytes(n: int, k: int, q: int) -> int:
+    """A sweep's distinct bytes: g, h, hops and changed read, g, hops and
+    improved written (22 bytes a cell), the in-edge ELL (in_nbr, w_in),
+    the targets and the valid lanes."""
+    return 22 * n * q + 8 * n * k + 5 * q
+
+
+def heuristic_bytes(n: int, q: int) -> int:
+    """The heuristic's distinct bytes: the coordinates and the targets
+    read, h written."""
+    return 8 * n + 4 * q + 4 * n * q
+
+
+def astar_vs_plain(tag: str, args: dict, cpu: float, hscale: float,
+                   fscale: float, converge: bool) -> dict:
+    """K6 against the plain versions on one chunk's exact inputs: the
+    heuristic entry against ``heuristic_plain``; sweeps 1..3 launched one
+    at a time against ``sweep_plain`` (g, hops, improved, the flag and
+    the five counts after each); with ``converge``, K6's loop against the
+    plain copy of the JAX loop at convergence (cost, plen, finished, the
+    sweep count, every sweep's counts and the float32 totals). Times the
+    heuristic and a sweep launch (CUDA events, back to back) and the
+    plain sweep. Equal or raise."""
+    n, k = args["in_nbr"].shape
+    q = args["s"].shape[0]
+    xs, ys, t = args["xs"], args["ys"], args["t"]
+    h = ca.astar_heuristic(xs, ys, t, cpu, hscale)
+    h_plain = ba.heuristic_plain(xs, ys, t, cpu, hscale)
+    torch.cuda.synchronize()
+    if not torch.equal(h, h_plain):
+        raise AssertionError(f"{tag} astar_heuristic differs from the plain "
+                             f"table in {int((h != h_plain).sum())} entries")
+    del h_plain
+    h_ms = time_bare(lambda: ca.astar_heuristic(xs, ys, t, cpu, hscale),
+                     KERNEL_REPS)
+    h_plain_ms = time_cuda(lambda: ba.heuristic_plain(xs, ys, t, cpu,
+                                                      hscale), PLAIN_REPS)
+    w_in = args["w_pad"][args["in_eid"].long()]
+    valid8 = args["valid"].to(torch.uint8)
+    g0, hops0, ch0 = ba.init_state(n, args["s"], args["valid"])
+    bufs = ((g0.clone(), hops0.clone(), ch0.to(torch.uint8)),
+            (torch.empty_like(g0), torch.empty_like(hops0),
+             torch.empty((n, q), dtype=torch.uint8, device="cuda")))
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    pg, phops, pch = g0, hops0, ch0
+    err = 0
+    for j in range(len(ASTAR_CUTS)):
+        flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+        counts = torch.zeros(ca.COUNT_SLOTS, dtype=torch.int64,
+                             device="cuda")
+        ca.astar_sweep(args["in_nbr"], w_in, h, t, valid8, *bufs[j % 2],
+                       *bufs[(j + 1) % 2], fscale, one, flag, counts)
+        pg, phops, pch, pc = ba.sweep_plain(args["in_nbr"], w_in, h, t,
+                                            args["valid"], pg, phops, pch,
+                                            fscale)
+        kg, khops, kimp = bufs[(j + 1) % 2]
+        torch.cuda.synchronize()
+        err = max(err, int((kg - pg).abs().max()),
+                  int((khops - phops).abs().max()))
+        same = (torch.equal(kg, pg) and torch.equal(khops, phops)
+                and torch.equal(kimp.bool(), pch)
+                and torch.equal(counts[:5], pc)
+                and bool(flag[0]) == bool(pch.any()))
+        if not same:
+            raise AssertionError(
+                f"{tag} astar_sweep differs from the plain sweep after "
+                f"sweep {j + 1}: g {int((kg != pg).sum())}, hops "
+                f"{int((khops != phops).sum())}, improved "
+                f"{int((kimp.bool() != pch).sum())} entries; counts "
+                f"{counts[:5].tolist()} vs {pc.tolist()}")
+    log(f"{tag} hscale {hscale} fscale {fscale}: astar_heuristic equal to "
+        f"the plain table ([{n}, {q}]); g, hops, improved, the flag and the "
+        f"five counts equal the plain sweep after sweeps "
+        f"{', '.join(map(str, ASTAR_CUTS))}")
+    # a sweep launch with its flag set, on the state after the cuts
+    src, dst = bufs[len(ASTAR_CUTS) % 2], bufs[(len(ASTAR_CUTS) + 1) % 2]
+    scratch = torch.zeros(ca.COUNT_SLOTS, dtype=torch.int64, device="cuda")
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ms = time_bare(lambda: ca.astar_sweep(
+        args["in_nbr"], w_in, h, t, valid8, *src, *dst, fscale, one, flag,
+        scratch), KERNEL_REPS)
+    plain_ms = time_cuda(lambda: ba.sweep_plain(
+        args["in_nbr"], w_in, h, t, args["valid"], pg, phops, pch, fscale),
+        PLAIN_REPS)
+    del bufs, src, dst
+    bound_ms, bound_by = bound(sweep_bytes(n, k, q), 5 * n * k * q)
+    h_bound_ms, h_bound_by = bound(heuristic_bytes(n, q), 12 * n * q)
+    out = {"n": n, "k": k, "q": q, "hscale": hscale, "fscale": fscale,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "h_ms": h_ms, "h_plain_ms": h_plain_ms,
+           "h_bound_ms": h_bound_ms, "h_bound_by": h_bound_by,
+           "max_abs_err": err}
+    log(f"{tag} a sweep [{n} x {q}, K = {k}]: {ms:.4f} ms (bound "
+        f"{bound_ms:.4f} ms by {bound_by}: {sweep_bytes(n, k, q)} B), plain "
+        f"sweep {plain_ms:.4f} ms; heuristic {h_ms:.4f} ms (bound "
+        f"{h_bound_ms:.4f} by {h_bound_by}), plain {h_plain_ms:.4f} ms")
+    if converge:
+        info, pinfo = {}, {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ca.astar_loop(**args, hscale=hscale, fscale=fscale, cpu=cpu,
+                            info=info)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = ba.astar_batch_plain(**args, hscale=hscale, fscale=fscale,
+                                    cpu=cpu, info=pinfo)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same = (all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+                and got[3] == want[3] and info["sweeps"] == pinfo["sweeps"]
+                and np.array_equal(info["counts"], pinfo["counts"]))
+        if not same:
+            raise AssertionError(
+                f"{tag} K6's loop differs from the plain loop at "
+                f"convergence: sweeps {info['sweeps']} vs "
+                f"{pinfo['sweeps']}, counters {got[3]} vs {want[3]}")
+        out.update(sweeps=info["sweeps"], launches=info["launches"],
+                   loop_s=loop_s, plain_loop_s=plain_s,
+                   counters=got[3], exact=info["exact"])
+        log(f"{tag} converged: cost, plen, finished, {info['sweeps']} "
+            f"sweeps (as the plain loop), every sweep's counts and the "
+            f"float32 totals {got[3]} equal the plain loop (exact totals "
+            f"{info['exact']}); K6's loop {loop_s:.3f} s ({info['launches']} "
+            f"launches, {1e3 * loop_s / max(info['sweeps'], 1):.4f} ms a "
+            f"sweep on the host clock), the plain loop {plain_s:.3f} s")
+    return out
+
+
+def check_astar_dump(sv: dict, card: str, pid: int) -> None:
+    """An A* server's dump: it served from this card, launched K6 (sweep
+    and heuristic) and ran no plain version, and it answered the pings."""
+    c, d = sv["counters"], sv["device"]
+    if (d["name"] != card or d["type"] != "cuda" or sv["alg"] != "astar"
+            or c["astar_sweep.launches"] <= 0
+            or c["astar_heuristic.launches"] <= 0
+            or c["astar_batch.plain"] != 0
+            or c["astar_heuristic.plain"] != 0 or sv["pid"] != pid):
+        raise AssertionError(f"[astar] server {sv['wid']}: {sv}")
+
+
+def astar_host_round(files: dict, g, inproc: list) -> dict:
+    """``make_fifos --alg astar``: 8 tracked servers (no index) on the
+    card, then ``process_query --backend host`` over them on the phase's
+    queries, one free-flow round, every server asked for its per-query
+    answers; those equal the in-process free-flow round's query by
+    query, and the round's ``parts.csv`` sums equal its. Returns the
+    servers' K6 launches and the round's seconds."""
+    tag = "[astar-host]"
+    conf, nfs, queries = files["host"], files["nfs"], files["queries"]
+    w = HOST_WORKERS
+    dc = DistributionController("mod", w, w, g.n)
+    card = torch.cuda.get_device_name(0)
+    fifos = {x: os.path.join(files["dir"], f"astar-worker{x}.fifo")
+             for x in range(w)}
+    fifo_names = (make_fifos.command_fifo_path,
+                  process_query.command_fifo_path)
+    make_fifos.command_fifo_path = process_query.command_fifo_path = \
+        fifos.__getitem__
+    old_timeout = os.environ.get("DOS_SEND_TIMEOUT_S")
+    os.environ["DOS_SEND_TIMEOUT_S"] = str(HOST_SEND_TIMEOUT_S)
+    dump = os.path.join(files["dir"], "astar-serve")
+    out = os.path.join(files["dir"], "astar-host-rounds")
+    procs: dict = {}
+    exits: dict[int, int] = {}
+    try:
+        try:
+            t_launch = time.perf_counter()
+            procs = dict(make_fifos.launch_servers(
+                ClusterConfig.load(conf), conf, metrics_dump=dump,
+                track=True, alg="astar"))
+            ready = wait_ready(fifos, procs, nfs, t_launch, HOST_READY_S)
+            if len(ready) != w:
+                raise AssertionError(
+                    f"{tag} servers {sorted(set(fifos) - set(ready))} did "
+                    f"not answer a ping within {HOST_READY_S} s")
+            pids = {x: p.pid for x, p in procs.items()}
+            with HostResults(nfs, queries, dc) as hr:
+                rc = process_query.main(["-c", conf, "-o", out])
+        finally:
+            exits = stop_servers(fifos, procs)
+    except BaseException:
+        log_tails(nfs)
+        raise
+    finally:
+        make_fifos.command_fifo_path, process_query.command_fifo_path = \
+            fifo_names
+        if old_timeout is None:
+            os.environ.pop("DOS_SEND_TIMEOUT_S", None)
+        else:
+            os.environ["DOS_SEND_TIMEOUT_S"] = old_timeout
+    if rc != 0 or any(exits.values()):
+        raise AssertionError(f"{tag} process_query rc {rc}, server exit "
+                             f"codes {exits}")
+    launches = {"sweep": 0, "heuristic": 0}
+    for x in range(w):
+        with open(f"{dump}.w{x}.json") as f:
+            sv = json.load(f)
+        check_astar_dump(sv, card, pids[x])
+        launches["sweep"] += sv["counters"]["astar_sweep.launches"]
+        launches["heuristic"] += sv["counters"]["astar_heuristic.launches"]
+    log(f"{tag} {w} servers ready in "
+        + ", ".join(f"{ready[x][1]:.2f}" for x in sorted(ready))
+        + f" s; every dump names {card!r}, K6 launched (sweep "
+        f"{launches['sweep']}, heuristic {launches['heuristic']} in all), "
+        "no plain sweep or heuristic; every server exited 0")
+    parts = read_parts(os.path.join(out, "parts.csv"))
+    if len(hr.rounds) != 1:
+        raise AssertionError(f"{tag} {len(hr.rounds)} rounds, not 1")
+    for expe, name in enumerate(("free-flow",)):
+        cost, plen, fin = hr.rounds[expe]
+        want = inproc[expe]
+        if not (np.array_equal(cost, want[0])
+                and np.array_equal(plen, want[1])
+                and np.array_equal(fin, want[2])):
+            raise AssertionError(f"{tag} round {name}: the servers' "
+                                 "answers differ from the in-process run")
+        sums = (len(queries), int(want[1].sum()), int(want[2].sum()))
+        if round_sums(parts, expe) != sums:
+            raise AssertionError(f"{tag} parts.csv round {name}: "
+                                 f"{round_sums(parts, expe)} != {sums}")
+        log(f"{tag} round {name}: {len(queries)} queries in "
+            f"{hr.seconds[expe]:.3f} s = "
+            f"{len(queries) / hr.seconds[expe]:.1f} q/s; cost, plen and "
+            "finished equal the in-process run query by query, parts.csv "
+            "sums too")
+    return {"launches": launches, "round_s": hr.seconds,
+            "ready_s": [ready[x][1] for x in sorted(ready)]}
+
+
+def target_shares(queries: np.ndarray, n_targets: int, seed: int,
+                  n_shares: int) -> list[np.ndarray]:
+    """The indices of the queries whose target is one of ``n_targets``
+    distinct targets drawn with ``seed``, in ``n_shares`` groups of
+    whole targets (one Dijkstra a target)."""
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(np.unique(queries[:, 1]), n_targets, replace=False)
+    return [np.nonzero(np.isin(queries[:, 1], part))[0]
+            for part in np.array_split(np.sort(pick), n_shares)]
+
+
+def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
+    """A* on the card (no index): ``process_query --alg astar`` as a user
+    calls it (its default: the batched search on the card, K6) on the
+    first campaign queries, free flow and diff (the phase's main run,
+    counts zeroed before it and read after it; then the servers' main
+    run); ``make_fifos --alg astar`` and a host free-flow round held to
+    it; the heap route (``DOS_ASTAR_DEVICE=0``) on the first queries held
+    to K6. Then, while reference processes run the heap route on the
+    first ``ASTAR_HEAP_QUERIES`` queries and scipy's Dijkstra on the
+    queries of seeded targets: the rounds' costs against K1's exact
+    distances; K6 against the plain versions on one chunk of the
+    campaign graph (hscale 1 and 1.5 / fscale 0.1, sweeps 1-3; at
+    convergence at hscale 1) and of the road graph at full width (sweeps
+    1-3; K6's loop, costs against K1's). Last, the references' answers
+    against K6's. Returns the kernel table's two entries."""
+    tag = "[astar]"
+    t_phase = time.perf_counter()
+    g = ref["g"]
+    files = astar_inputs(outdir, ref)
+    queries = files["queries"]
+    w_diff = g.weights_with_diff(read_diff(ref["diff_path"]))
+
+    # 1. the main run: the in-process rounds, by default on K6
+    out = os.path.join(outdir, "astar-rounds")
+    old = os.environ.pop("DOS_ASTAR_DEVICE", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    try:
+        with AstarProbe() as probe:
+            rc = process_query.main(["-c", files["main"], "--alg", "astar",
+                                     "-o", out])
+        launches = read_astar_launches()
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise AssertionError(f"{tag} process_query exit code {rc}")
+        if (launches["sweep"] <= 0 or launches["heuristic"] <= 0
+                or launches["batch_plain"] or launches["heuristic_plain"]):
+            raise AssertionError(f"{tag} the rounds' launches {launches}: "
+                                 "K6 never launched, or a plain version "
+                                 "ran")
+        if ([c["engine"] for c in probe.calls] != ["device", "device"]
+                or os.path.exists(os.path.join(outdir, "astar-no-index"))):
+            raise AssertionError(f"{tag} the rounds took {probe.calls}, or "
+                                 "an index directory appeared")
+        inproc, rounds = [], []
+        parts = read_parts(os.path.join(out, "parts.csv"))
+        for expe, (name, call) in enumerate(zip(("free-flow", "diff"),
+                                                probe.calls)):
+            cost, plen, fin, counters = call["out"]
+            inproc.append((cost, plen, fin))
+            info = call["info"]
+            sums = (len(queries), int(plen.sum()), int(fin.sum()))
+            if round_sums(parts, expe) != sums:
+                raise AssertionError(f"{tag} parts.csv round {name}: "
+                                     f"{round_sums(parts, expe)} != {sums}")
+            rounds.append({"round": name, "s": call["s"],
+                           "qps": len(queries) / call["s"],
+                           "sweeps": info["sweeps"],
+                           "launches": info["launches"],
+                           "counters": counters, "exact": info["exact"]})
+            log(f"{tag} round {name}: {len(queries)} queries in "
+                f"{call['s']:.3f} s = {len(queries) / call['s']:.1f} q/s; "
+                f"{len(info['sweeps'])} chunks of {ASTAR_CHUNK}, sweeps "
+                f"{info['sweeps']}, launches {info['launches']}; counters "
+                f"(float32 totals, as JAX) {counters}; exact "
+                f"{info['exact']}")
+        log(f"{tag} launches in the rounds' run (process_query's default "
+            f"route): astar_sweep {launches['sweep']}, astar_heuristic "
+            f"{launches['heuristic']}, no plain loop or heuristic; no index "
+            f"read or written; peak device memory {peak / 2**30:.2f} GiB; "
+            "parts.csv sums equal the rounds' answers")
+
+        # 2. the host backend over A* servers, held to the in-process
+        # free-flow round
+        host = astar_host_round(files, g, inproc)
+
+        # 3. the heap route through process_query on the first queries
+        os.environ["DOS_ASTAR_DEVICE"] = "0"
+        with AstarProbe() as heap_probe:
+            rc = process_query.main(["-c", files["heap"], "--alg", "astar",
+                                     "-o", os.path.join(outdir,
+                                                        "astar-heap")])
+    finally:
+        if old is None:
+            os.environ.pop("DOS_ASTAR_DEVICE", None)
+        else:
+            os.environ["DOS_ASTAR_DEVICE"] = old
+    if rc != 0 or [c["engine"] for c in heap_probe.calls] != ["heap"]:
+        raise AssertionError(f"{tag} DOS_ASTAR_DEVICE=0: rc {rc}, calls "
+                             f"{[c['engine'] for c in heap_probe.calls]}")
+    nh = ASTAR_HEAP_CLI
+    h_cost, h_plen, h_fin, _ = heap_probe.calls[0]["out"]
+    heap_s = heap_probe.calls[0]["s"]
+    if not (h_fin.all() and np.array_equal(h_cost, inproc[0][0][:nh])):
+        raise AssertionError(f"{tag} the heap route's costs differ from "
+                             "K6's")
+    log(f"{tag} heap route (DOS_ASTAR_DEVICE=0), free flow: {nh} queries "
+        f"in {heap_s:.3f} s ({heap_s / nh:.4f} s a query on the host); "
+        "costs equal K6's")
+
+    road_g = synth_road_network(N_NODES, seed=SEED)
+    road_q = make_queries(np.arange(road_g.n), road_g.n)[:ASTAR_CHUNK]
+    camp = ("xy", ref["xy"])
+    shares = {"free-flow": target_shares(queries, ASTAR_DIJKSTRA, SEED + 2,
+                                         8),
+              "diff": target_shares(queries, ASTAR_DIJKSTRA, SEED + 3, 8),
+              "road": target_shares(road_q, ASTAR_ROAD_DIJKSTRA, SEED + 4,
+                                    8)}
+    heap_shares = [queries[lo:lo + 16]
+                   for lo in range(0, ASTAR_HEAP_QUERIES, 16)]
+    with AstarReferences() as refs:
+        # 4. the CPU references start; they run while the card works
+        refs.submit("heap", heap_reference, heap_shares, ref["xy"])
+        refs.submit("free-flow", dijkstra_reference,
+                    [queries[ix] for ix in shares["free-flow"]], camp, None)
+        refs.submit("diff", dijkstra_reference,
+                    [queries[ix] for ix in shares["diff"]], camp,
+                    ref["diff_path"])
+        refs.submit("road", dijkstra_reference,
+                    [road_q[ix] for ix in shares["road"]],
+                    ("road", N_NODES, SEED), None)
+
+        # 5. the rounds' costs against K1's exact distances
+        for (name, w), (cost, _, fin) in zip(
+                (("free-flow", None), ("diff", w_diff)), inproc):
+            golden_costs(g, queries, cost, fin, w, f"{tag} round {name}")
+
+        # 6. K6 against the plain versions on the campaign's first chunk
+        args, cpu = astar_chunk_tensors(g, queries[:ASTAR_CHUNK])
+        chunk = [astar_vs_plain(f"{tag} campaign chunk", args, cpu, hs, fs,
+                                converge=x == 0)
+                 for x, (hs, fs) in enumerate(ASTAR_KNOBS)]
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 7. the road network at full width: one chunk, sweeps 1-3
+        # against the plain sweep, K6's loop, costs against the shortest
+        # paths
+        args, cpu = astar_chunk_tensors(road_g, road_q)
+        road = astar_vs_plain(f"{tag} road chunk", args, cpu, 1.0, 0.0,
+                              converge=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        info: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cost, plen, fin, counters = ca.astar_loop(
+            **args, hscale=1.0, fscale=0.0, cpu=cpu, info=info)
+        torch.cuda.synchronize()
+        road.update(sweeps=info["sweeps"], loop_s=time.perf_counter() - t0,
+                    launches=info["launches"], exact=info["exact"])
+        log(f"{tag} road chunk: K6's loop {road['loop_s']:.3f} s, "
+            f"{info['sweeps']} sweeps ({info['launches']} launches), "
+            f"{ASTAR_CHUNK / road['loop_s']:.1f} q/s; exact counts "
+            f"{info['exact']}")
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+        road_cost = cost.cpu().numpy().astype(np.int64)
+        golden_costs(road_g, road_q, road_cost, fin.cpu().numpy(), None,
+                     f"{tag} road chunk")
+        del road_g
+
+        # 8. the references' answers against K6's
+        t0 = time.perf_counter()
+        heap_parts = refs.collect("heap")
+        dijkstra = {name: refs.collect(name) for name in shares}
+        wait_s = time.perf_counter() - t0
+    nh = ASTAR_HEAP_QUERIES
+    h_cost = np.concatenate([p[0] for p in heap_parts])
+    h_plen = np.concatenate([p[1] for p in heap_parts])
+    h_fin = np.concatenate([p[2] for p in heap_parts])
+    ref_heap_s = sum(p[3] for p in heap_parts)
+    cost, plen, _ = inproc[0]
+    if not (h_fin.all() and np.array_equal(h_cost, cost[:nh])):
+        bad = np.nonzero(h_cost != cost[:nh])[0]
+        raise AssertionError(f"{tag} the heap route's free-flow costs differ "
+                             f"from K6's on {len(bad)} of {nh} queries, "
+                             f"first {bad[:5]}")
+    log(f"{tag} heap route in {ASTAR_REF_PROCS} reference processes, free "
+        f"flow: {nh} queries, {ref_heap_s:.1f} s of process time "
+        f"({ref_heap_s / nh:.4f} s a query, the processes sharing the "
+        f"host); costs equal K6's; plen differs on "
+        f"{int((h_plen != plen[:nh]).sum())} of {nh} (ties between optimal "
+        f"paths); the phase waited {wait_s:.1f} s for the references")
+    for name, (cost, _, _) in zip(("free-flow", "diff"), inproc):
+        check_dijkstra(f"{tag} round {name}", queries,
+                       np.concatenate(shares[name]), cost, dijkstra[name])
+    check_dijkstra(f"{tag} road chunk", road_q,
+                   np.concatenate(shares["road"]), road_cost,
+                   dijkstra["road"])
+    log(f"{tag} phase {time.perf_counter() - t_phase:.1f} s")
+
+    source = "distributed_oracle_search_tpu_torch/csrc/batched_astar.cu"
+    replaces = ("distributed_oracle_search_tpu/ops/batched_astar.py:{} "
+                "({}, an XLA stage: no pallas_call)")
+    head = chunk[0]
+    common = {"route": "cuda", "source": source, "library_ms": None,
+              "parity": "bit-identical",
+              "max_abs_err": max(x["max_abs_err"] for x in (*chunk, road))}
+    sweep = {"name": ca.ENTRY_SWEEP, **common,
+             "replaces": replaces.format(125, "astar_batch's while_loop "
+                                              "body"),
+             "launches": launches["sweep"] + host["launches"]["sweep"],
+             "launches_by_path": {"astar": launches["sweep"],
+                                  "astar-host": host["launches"]["sweep"]},
+             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+             "rounds": rounds, "peak_bytes": peak, "chunk": chunk,
+             "road": road, "host": host, "heap_s": heap_s,
+             "heap_reference_s": ref_heap_s, "reference_wait_s": wait_s}
+    heur = {"name": ca.ENTRY_H, **common,
+            "replaces": replaces.format(101, "astar_batch's heuristic "
+                                             "table"),
+            "launches": launches["heuristic"] + host["launches"]["heuristic"],
+            "launches_by_path": {"astar": launches["heuristic"],
+                                 "astar-host": host["launches"]["heuristic"]},
+            "ms": head["h_ms"], "plain_ms": head["h_plain_ms"],
+            "bound_ms": head["h_bound_ms"], "bound_by": head["h_bound_by"],
+            "road_ms": road["h_ms"]}
+    return sweep, heur
 
 
 T_START = time.perf_counter()

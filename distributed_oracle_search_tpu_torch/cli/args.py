@@ -141,7 +141,7 @@ def build_parser(prog: str | None = None) -> argparse.ArgumentParser:
                            "astar serves the hscale/fscale family, ch the "
                            "congestion-free contraction hierarchy "
                            "(native engine only). This package serves "
-                           "table-search.")
+                           "table-search and astar.")
 
     new = p.add_argument_group("in-process backend (new in this framework)")
     new.add_argument("--backend", choices=["auto", "tpu", "host"],

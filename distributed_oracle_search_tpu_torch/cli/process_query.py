@@ -11,6 +11,12 @@ Two backends behind one stats schema:
   device (``--device``, default ``cuda``) and each diff round is ONE
   walk over all workers (``CPDOracle.query``; on the card the CUDA walk
   kernel). Per-worker stats rows are recovered from the routed results.
+  ``--alg astar`` searches the graph with no index: the batched search
+  on ``--device`` (``ops.batched_astar``; K6 on the card) by default,
+  the per-query heap engine (``models.astar``) with
+  ``DOS_ASTAR_DEVICE=0``. The JAX package routes the other way round,
+  because its device search was the slower one; on the card K6 is the
+  faster (``PERF.md``).
   With two or more diffs and no ``-k`` budget every round is answered by
   ONE fused walk (``CPDOracle.query_multi``; on the card the fused walk
   kernel), bit-identical to one round per diff; ``-k`` campaigns run one
@@ -29,8 +35,8 @@ a batch failed and, with ``--extract -k K``, ``paths.csv`` — reference
 ``process_query.py:230-239``, with its multi-worker CSV crash fixed.
 
 Not ported, and refused with the ``ROADMAP.md`` item that ports each:
-``--alg astar`` (A12) and ``--alg ch`` (native engine, A15) in-process,
-the streamed memory plan (A11), multi-host confs (A13),
+``--alg ch`` (native engine, A15) in-process, the streamed memory plan
+(A11), multi-host confs (A13),
 ``--trace``/``--metrics-dump``/``--profile``/``--obs-port`` with
 ``obs_metrics.json`` (A14), and on the host backend the RPC lanes
 (``DOS_TRANSPORT=rpc/auto``), breakers, membership re-reads and the
@@ -45,11 +51,13 @@ from __future__ import annotations
 import csv
 import os
 import sys
+import time
 
 import numpy as np
 
 from .args import get_time_ns, parse_args
 from ..data.formats import read_diff, read_scen, xy_node_count
+from ..ops.batched_astar import astar_batch_np
 from ..parallel.partition import DistributionController
 from ..transport import fifo as fifo_transport
 from ..transport.fifo import answer_fifo_path, command_fifo_path, fan_out
@@ -102,30 +110,36 @@ def effective_partition(conf: ClusterConfig, args):
     return conf.partmethod, conf.partkey
 
 
-def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
-    """All diff rounds in-process on one device — fused into one walk
-    when there are several and no ``-k`` budget; per-worker rows
-    recovered from the routed results.
+def _astar_heap_campaign(graph, queries, w_query, hscale, fscale,
+                         deadline):
+    """Per-query heap A* over a batch (``models.astar``, taken with
+    ``DOS_ASTAR_DEVICE=0``). The ns deadline truncates between queries;
+    the first always runs."""
+    from ..models.astar import AstarStats, astar, min_cost_per_unit
 
-    Per-worker timing semantics: one walk answers the whole round, so a
-    per-worker wall clock does not exist. Each row's ``t_astar``/
-    ``t_search`` (and ``t_receive``/``t_prepare``) carry the worker's
-    SHARE of the round interval, apportioned by walked moves (by batch
-    size when no moves) — rows of a round sum to the measured round
-    time."""
-    from ..data.graph import Graph
+    w = graph.w if w_query is None else w_query
+    cpu = min_cost_per_unit(graph, w)
+    st = AstarStats()
+    cost = np.zeros(len(queries), np.int64)
+    plen = np.zeros(len(queries), np.int64)
+    fin = np.zeros(len(queries), bool)
+    for i, (s, t) in enumerate(queries):
+        if i and deadline is not None and time.perf_counter() > deadline:
+            break
+        cost[i], plen[i], fin[i] = astar(
+            graph, int(s), int(t), w, hscale=hscale, fscale=fscale,
+            cpu=cpu, stats=st)
+    return cost, plen, fin, dict(
+        n_expanded=st.n_expanded, n_inserted=st.n_inserted,
+        n_touched=st.n_touched, n_updated=st.n_updated,
+        n_surplus=st.n_surplus)
+
+
+def _load_oracle(conf: ClusterConfig, args, graph, dc):
+    """The resident oracle of every worker's rows on ``--device``, loaded
+    from the conf's index or built and saved when there is none."""
     from ..models.cpd import CPDOracle
 
-    if args.alg == "astar":
-        raise SystemExit("--alg astar is not ported (ROADMAP.md A12)")
-    if args.alg == "ch":
-        raise SystemExit(
-            "--alg ch is served by the native engine only, which is not "
-            "ported (ROADMAP.md A15)")
-    graph = Graph.from_xy(conf.xy_file)
-    # debris of killed atomic writes goes before the build-if-missing
-    # path below can trip on it
-    sweep_stale_artifacts(conf.outdir)
     # memory plan: the resident oracle when a worker's fm shard fits the
     # per-device budget, as the JAX CLI decides it
     fm_gb = env_cast("DOS_FM_BUDGET_GB", 8.0, float)
@@ -142,8 +156,51 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
         log.info("no index at %s; building in-process", conf.outdir)
         oracle.build(chunk=args.chunk)
         oracle.save(conf.outdir)
+    return oracle
+
+
+def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
+    """All diff rounds in-process on one device — fused into one walk
+    when there are several and no ``-k`` budget; per-worker rows
+    recovered from the routed results. ``--alg astar`` rounds search the
+    graph with no index (the batched search on ``--device``, or the
+    heap engine under ``DOS_ASTAR_DEVICE=0``), the ``--ms-lim``/
+    ``--us-lim`` budget a round's deadline.
+
+    Per-worker timing semantics: one call answers the whole round, so a
+    per-worker wall clock does not exist. Each row's ``t_astar``/
+    ``t_search`` (and ``t_receive``/``t_prepare``) carry the worker's
+    SHARE of the round interval, apportioned by walked moves (by batch
+    size when no moves) — rows of a round sum to the measured round
+    time. A* rows share the round's counters by the same rule."""
+    from ..data.graph import Graph
+
+    if args.alg == "ch":
+        raise SystemExit(
+            "--alg ch is served by the native engine only, which is not "
+            "ported (ROADMAP.md A15)")
+    graph = Graph.from_xy(conf.xy_file)
+    # debris of killed atomic writes goes before the build-if-missing
+    # path below can trip on it
+    sweep_stale_artifacts(conf.outdir)
+    use_astar = args.alg == "astar"
+    if use_astar:
+        # A* searches the graph itself: no index. The batched search on
+        # --device is the default (on the card K6 answers hundreds of
+        # times faster than the heap engine); DOS_ASTAR_DEVICE=0 takes
+        # the heap engine
+        astar_device = env_flag("DOS_ASTAR_DEVICE", True)
+        log.info("--alg astar served by the %s",
+                 f"batched search on {args.device} (DOS_ASTAR_DEVICE=0 "
+                 "for the heap engine)" if astar_device else
+                 "heap engine (DOS_ASTAR_DEVICE=0)")
+        astar_ctx: dict = {}
+        oracle = None
+    else:
+        oracle = _load_oracle(conf, args, graph, dc)
 
     owner = dc.worker_of(queries[:, 1])
+    time_ns = get_time_ns(args)
     stats = []
     paths = None
     # fused multi-diff: trajectories are diff-independent (moves follow
@@ -153,7 +210,7 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
     # equal share of the fused interval. k_moves budgets fall back to
     # sequential rounds (the fused walk serves the unlimited default).
     fused = None
-    if len(diffs) > 1 and args.k_moves < 0:
+    if not use_astar and len(diffs) > 1 and args.k_moves < 0:
         with Timer() as fprep:
             w_list = [None if d == "-"
                       else graph.weights_with_diff(read_diff(d))
@@ -166,6 +223,7 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
         log.info("fused %d diff rounds in one walk (%.3fs)", len(diffs),
                  fsearch.interval)
     for di, diff in enumerate(diffs):
+        counters = {}
         active = (np.ones(len(queries), bool) if args.worker == -1
                   else owner == args.worker)
         if fused is not None:
@@ -176,9 +234,28 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
                 w_query = (None if diff == "-"
                            else graph.weights_with_diff(read_diff(diff)))
             with Timer() as search:
-                cost, plen, fin = oracle.query(
-                    queries, w_query=w_query, k_moves=args.k_moves,
-                    active_worker=args.worker)
+                if use_astar:
+                    deadline = (time.perf_counter() + time_ns / 1e9
+                                if time_ns else None)
+                    cost = np.zeros(len(queries), np.int64)
+                    plen = np.zeros(len(queries), np.int64)
+                    fin = np.zeros(len(queries), bool)
+                    if astar_device:
+                        c, p, f, counters = astar_batch_np(
+                            graph, queries[active], w=w_query,
+                            hscale=args.h_scale, fscale=args.f_scale,
+                            deadline=deadline, ctx=astar_ctx,
+                            w_key=diff if not args.no_cache else None,
+                            device=args.device)
+                    else:
+                        c, p, f, counters = _astar_heap_campaign(
+                            graph, queries[active], w_query,
+                            args.h_scale, args.f_scale, deadline)
+                    cost[active], plen[active], fin[active] = c, p, f
+                else:
+                    cost, plen, fin = oracle.query(
+                        queries, w_query=w_query, k_moves=args.k_moves,
+                        active_worker=args.worker)
             prep_iv, search_iv = prep.interval, search.interval
         total_moves = int(plen[active].sum())
         total_size = int(active.sum())
@@ -193,9 +270,17 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
             moves = int(plen[mask].sum())
             share = (moves / total_moves if total_moves
                      else size / max(total_size, 1))
+            # A* rows carry the round's priority-queue counters by the
+            # same share rule as the timers (one batch has no per-worker
+            # counters); table-search rows keep their walk counters
             row = StatsRow(
-                n_expanded=moves,
-                n_touched=size,
+                n_expanded=(int(counters.get("n_expanded", 0) * share)
+                            if use_astar else moves),
+                n_inserted=int(counters.get("n_inserted", 0) * share),
+                n_touched=(int(counters.get("n_touched", 0) * share)
+                           if use_astar else size),
+                n_updated=int(counters.get("n_updated", 0) * share),
+                n_surplus=int(counters.get("n_surplus", 0) * share),
                 plen=moves,
                 finished=int(fin[mask].sum()),
                 t_receive=prep_iv * share,
@@ -206,11 +291,18 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
                                     t_partition=0.0, size=size))
         stats.append(rows)
     if args.extract and args.k_moves > 0:
-        # moves always follow the FREE-FLOW first-move table (reference
-        # semantics), so path prefixes are diff-invariant: extract once
-        nodes, moves = oracle.query_paths(queries, k=args.k_moves,
-                                          active_worker=args.worker)
-        paths = np.concatenate([queries, moves[:, None], nodes], axis=1)
+        if use_astar:
+            # reference semantics: "K-moves are only available with
+            # extractions while hScale only influences A*" (args.py:28)
+            log.warning("--extract is a table-search feature; ignored "
+                        "for --alg astar")
+        else:
+            # moves always follow the FREE-FLOW first-move table
+            # (reference semantics), so path prefixes are diff-invariant:
+            # extract once
+            nodes, moves = oracle.query_paths(queries, k=args.k_moves,
+                                              active_worker=args.worker)
+            paths = np.concatenate([queries, moves[:, None], nodes], axis=1)
     return stats, paths
 
 

@@ -7,6 +7,7 @@ from .cuda_walk import cuda_walk_batch, cuda_walk_multi
 from .pointer_doubling import (doubled_tables, doubled_tables_multi,
                                lookup_tables, lookup_tables_multi)
 from .cuda_doubling import doubling_rows, doubling_sweep
+from .batched_astar import astar_batch, astar_batch_np, heuristic_table
 
 __all__ = [
     "DeviceGraph", "dist_to_targets", "first_move_from_dist",
@@ -14,4 +15,5 @@ __all__ = [
     "extract_paths", "pick_buckets", "cuda_walk_batch", "cuda_walk_multi",
     "doubled_tables", "doubled_tables_multi", "lookup_tables",
     "lookup_tables_multi", "doubling_rows", "doubling_sweep",
+    "astar_batch", "astar_batch_np", "heuristic_table",
 ]

@@ -34,7 +34,14 @@ on the engine's device through the build kernels (``models.cpd.
 heal_block``). An engine may serve another shard's rows from the replica
 block set its worker hosts (``shard=``, ``replica=``).
 
-Not ported: A*, worker lane meshes and the lane placement of replica
+``alg="astar"`` (the hscale/fscale weighted-A* family) loads no shard:
+a batch searches the graph directly, on the raw batch (no dedupe, no
+length sort), through the batched search on the engine's device
+(``ops.batched_astar``; K6 on the card) in ``time_chunk`` chunks with the
+deadline checked between chunks, or through the per-query heap engine
+(``models.astar``) under ``debug``.
+
+Not ported: worker lane meshes and the lane placement of replica
 engines (A13), path signatures (``sig_k``), index promotion and
 observability hooks.
 """
@@ -56,7 +63,9 @@ from ..models.cpd import (
     COUNTERS, check_manifest_version, heal_block, length_estimate,
     load_verified_block, read_manifest, shard_block_name,
 )
+from ..models.astar import AstarStats, astar, min_cost_per_unit
 from ..models.resident import CompressedFM, make_resident, maybe_decode_rows
+from ..ops.batched_astar import astar_batch_np
 from ..ops.cuda_walk import cuda_walk_batch
 from ..ops.device_graph import DeviceGraph
 from ..ops.table_search import extract_paths, walk_pairs
@@ -148,10 +157,11 @@ def load_shard_rows(outdir: str, wid: int,
 
 class ShardEngine:
     """One shard's rows resident on one device, answering
-    ``table-search`` batches. ``device``: None → ``cuda`` (raises
-    without a GPU unless ``device="cpu"``). The table is kept raw, pack4
-    or rle under ``DOS_CPD_RESIDENT``; ``resident_codec`` says what it
-    resolved to and ``resident_bytes`` what it occupies.
+    ``table-search`` batches, or an ``astar`` engine that holds no rows.
+    ``device``: None → ``cuda`` (raises without a GPU unless
+    ``device="cpu"``). The table is kept raw, pack4 or rle under
+    ``DOS_CPD_RESIDENT``; ``resident_codec`` says what it resolved to
+    and ``resident_bytes`` what it occupies (``"raw"`` and 0 for A*).
 
     ``shard``: the shard whose rows the engine answers — ``wid`` itself
     (the default), or another shard when worker ``wid`` hosts one of its
@@ -163,9 +173,8 @@ class ShardEngine:
     def __init__(self, graph: Graph, dc: DistributionController, wid: int,
                  outdir: str, alg: str = "table-search", device=None,
                  shard: int | None = None, replica: int | None = None):
-        if alg != "table-search":
-            raise ValueError(f"algorithm {alg!r} is not ported (only "
-                             "table-search)")
+        if alg not in ("table-search", "astar"):
+            raise ValueError(f"unknown algorithm {alg!r}")
         self.device = resolve_device(device)
         self.alg = alg
         self.graph = graph
@@ -178,25 +187,35 @@ class ShardEngine:
         else:
             self.replica = (dc.replica_rank(self.shard, wid)
                             if self.shard != wid else 0)
-        rows = load_shard_rows(outdir, self.shard, dc=dc, graph=graph,
-                               replica=self.replica, device=self.device)
-        owned = dc.owned(self.shard)
-        if len(owned) != rows.shape[0]:
-            raise ValueError(
-                f"shard w{self.shard}: {rows.shape[0]} CPD rows but "
-                f"controller owns {len(owned)} nodes — partition mismatch")
-        self.fm = self._make_resident(rows)
-        self.dg = DeviceGraph.from_graph(graph, device=self.device)
-        #: per-diff device weight buffers, each with the walk's
-        #: ``(next, w)`` pair table built from it once, LRU-bounded (≥ 2:
-        #: the double buffer an epoch swap needs); a re-upload after
-        #: eviction is a read + transfer, never a correctness event
-        self._weight_cache: OrderedDict[
-            str, tuple[torch.Tensor, torch.Tensor]] = OrderedDict()
+        self.resident_codec = "raw"
+        self.resident_bytes = 0
+        self.fm = self.dg = None
+        if alg == "table-search":         # A* needs no first-move shard
+            rows = load_shard_rows(outdir, self.shard, dc=dc, graph=graph,
+                                   replica=self.replica, device=self.device)
+            owned = dc.owned(self.shard)
+            if len(owned) != rows.shape[0]:
+                raise ValueError(
+                    f"shard w{self.shard}: {rows.shape[0]} CPD rows but "
+                    f"controller owns {len(owned)} nodes — partition "
+                    "mismatch")
+            self.fm = self._make_resident(rows)
+            self.dg = DeviceGraph.from_graph(graph, device=self.device)
+        #: per-diff weights, LRU-bounded (≥ 2: the double buffer an epoch
+        #: swap needs): the walk's device weights with the ``(next, w)``
+        #: pair table built from them once, and A*'s raw host weights
+        #: with their heuristic scale under ``("raw", diff)``; a re-upload
+        #: after eviction is a read + transfer, never a correctness event
+        self._weight_cache: OrderedDict[object, tuple] = OrderedDict()
         self._weight_keep = max(
             2, env_cast("DOS_TRAFFIC_WEIGHT_EPOCHS", 4, int))
-        #: device-batch rows per deadline-checked chunk
+        #: device-batch rows per deadline-checked chunk (the walk's under
+        #: a time budget; every A* batch's)
         self.time_chunk = 1024
+        #: A*'s device graph (in-edge ELL, coordinates) and each named
+        #: weight set's device copy, uploaded once
+        #: (``ops.batched_astar.astar_batch_np``'s ``ctx``)
+        self._astar_ctx: dict = {}
         #: path prefixes of the most recent extract batch (see answer())
         self.last_paths: tuple[np.ndarray, np.ndarray] | None = None
 
@@ -229,9 +248,39 @@ class ShardEngine:
             self._weight_cache.clear()
         else:
             self._weight_cache[difffile] = entry
-            while len(self._weight_cache) > self._weight_keep:
-                self._weight_cache.popitem(last=False)
+            self._trim_weight_cache()
         return entry
+
+    def _trim_weight_cache(self) -> None:
+        while len(self._weight_cache) > self._weight_keep:
+            self._weight_cache.popitem(last=False)
+
+    def _raw_weights_for(self, difffile: str, no_cache: bool
+                         ) -> tuple[np.ndarray, float]:
+        """A*'s raw (unpadded) query weights and heuristic scale
+        (``min_cost_per_unit``), cached per diff like the walk's."""
+        key = ("raw", difffile)
+        if key in self._weight_cache and not no_cache:
+            self._weight_cache.move_to_end(key)
+            return self._weight_cache[key]
+        w = (self.graph.w if difffile == "-"
+             else self.graph.weights_with_diff(read_diff(difffile)))
+        entry = (w, min_cost_per_unit(self.graph, w))
+        if no_cache:
+            self._weight_cache.pop(key, None)
+        else:
+            self._weight_cache[key] = entry
+            self._trim_weight_cache()
+        return entry
+
+    def preload(self, difffile: str) -> None:
+        """Load ``difffile``'s weights ahead of the first batch, as the
+        reference server loads its first diff (what the algorithm
+        reads: the walk's device weights, or A*'s raw weights)."""
+        if self.alg == "astar":
+            self._raw_weights_for(difffile, no_cache=False)
+        else:
+            self._weights_for(difffile, no_cache=False)
 
     # -------------------------------------------------------------- batch
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -258,9 +307,10 @@ class ShardEngine:
                 raise ValueError(
                     f"shard w{self.shard} received {bad} queries for "
                     "other workers — routing invariant violated")
-        w_pad, pair = self._weights_for(difffile, config.no_cache)
         nq = len(queries)
         extracting = config.extract and config.k_moves > 0
+        if self.alg == "table-search":
+            w_pad, pair = self._weights_for(difffile, config.no_cache)
         if nq == 0:
             if extracting:
                 self.last_paths = (
@@ -268,6 +318,20 @@ class ShardEngine:
                     np.zeros(0, np.int64))
             return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                     np.zeros(0, bool), StatsRow())
+        if self.alg == "astar":
+            # the raw batch: A*'s counters measure the work done for
+            # every query sent, duplicates included
+            t1 = time.perf_counter()
+            deadline = t1 + config.time / 1e9 if config.time else None
+            for _ in range(max(config.itrs, 1)):
+                cost, plen, fin, counters = self._answer_astar(
+                    queries, config, difffile, deadline=deadline)
+                if deadline is not None and time.perf_counter() > deadline:
+                    break
+            t2 = time.perf_counter()
+            return cost, plen, fin, StatsRow(
+                **counters, t_receive=t1 - t0, t_astar=t2 - t1,
+                t_search=t2 - t0)
         # dedupe identical (s, t) pairs: the kernel walks each distinct
         # pair once and answers fan back out through `inverse`
         uniq, inverse = np.unique(queries, axis=0, return_inverse=True)
@@ -371,3 +435,45 @@ class ShardEngine:
             t_search=t2 - t0,
         )
         return cost, plen, fin, stats
+
+    def _answer_astar(self, queries: np.ndarray, config: RuntimeConfig,
+                      difffile: str = "-", deadline: float | None = None):
+        """hscale/fscale weighted A*: the batched search on the engine's
+        device (``ops.batched_astar.astar_batch_np``, K6 on the card) in
+        ``time_chunk`` chunks, the deadline checked between chunks (the
+        first always runs, the rest come back unfinished); under
+        ``config.debug`` the per-query heap engine (``models.astar``),
+        the deadline checked before each query. ``k_moves`` does not
+        apply: "K-moves are only available with extractions while hScale
+        only influences A*" (reference ``args.py:28``)."""
+        w, cpu = self._raw_weights_for(difffile, config.no_cache)
+        if not config.debug:
+            if config.no_cache:
+                # re-read the diff next time: its device copy goes too
+                for k in [k for k in self._astar_ctx
+                          if isinstance(k, tuple) and k[0] == "w_pad"]:
+                    del self._astar_ctx[k]
+            cost, plen, fin, counters = astar_batch_np(
+                self.graph, queries, w, hscale=config.hscale,
+                fscale=config.fscale, deadline=deadline, cpu=cpu,
+                chunk=self.time_chunk, ctx=self._astar_ctx,
+                w_key=None if config.no_cache else difffile,
+                device=self.device)
+            counters["plen"] = int(plen.sum())
+            counters["finished"] = int(fin.sum())
+            return cost, plen, fin, counters
+        st = AstarStats()
+        cost = np.zeros(len(queries), np.int64)
+        plen = np.zeros(len(queries), np.int64)
+        fin = np.zeros(len(queries), bool)
+        for i, (s, t) in enumerate(queries):
+            if deadline is not None and time.perf_counter() > deadline:
+                break
+            cost[i], plen[i], fin[i] = astar(
+                self.graph, int(s), int(t), w, hscale=config.hscale,
+                fscale=config.fscale, cpu=cpu, stats=st)
+        counters = dict(
+            n_expanded=st.n_expanded, n_inserted=st.n_inserted,
+            n_touched=st.n_touched, n_updated=st.n_updated,
+            n_surplus=st.n_surplus, plen=st.plen, finished=st.finished)
+        return cost, plen, fin, counters

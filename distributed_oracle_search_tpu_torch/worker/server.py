@@ -6,8 +6,10 @@ Behavior parity with reference C3 (SURVEY.md §2.2) and the JAX package's
 the first diff's weights; create the command FIFO
 ``/tmp/worker<wid>.fifo`` (or ``--fifo``) and block on it. Per request:
 parse the 2-line frame (JSON knobs + ``queryfile answerfifo difffile``),
-read the query file, answer the batch with the table-search walk, write
-ONE CSV stats line to the answer FIFO. Stays resident across requests.
+read the query file, answer the batch with the table-search walk (or,
+with ``--alg astar``, the batched A* search, which needs no index),
+write ONE CSV stats line to the answer FIFO. Stays resident across
+requests.
 
 * ``__DOS_STOP__`` on the command FIFO shuts the server down cleanly;
   ``__DOS_PING__ <fifo>`` gets one health JSON line;
@@ -15,11 +17,12 @@ ONE CSV stats line to the answer FIFO. Stays resident across requests.
   ``FAIL`` sentinel, never a silent zero row, and never leaves the head
   blocked on ``cat <answer>``;
 * ``--metrics-dump PATH`` writes the server's counters, the walk
-  kernel's launches and plain walks, the device name and the peak
-  device memory as JSON on clean shutdown.
+  kernel's and the A* kernels' launches and plain runs, the device name
+  and the peak device memory as JSON on clean shutdown.
 
     python -m distributed_oracle_search_tpu_torch.worker.server \\
-        -c conf.json --workerid N [--device cpu] [--metrics-dump m.json]
+        -c conf.json --workerid N [--alg astar] [--device cpu] \\
+        [--metrics-dump m.json]
 
 Serves a static fleet. With ``replication`` R > 1 a batch whose targets
 all lie in a shard this worker hosts as a replica is answered by a
@@ -30,8 +33,8 @@ fails the routing invariant. The head's failover over replicas is not
 ported (A14). Not ported, and refused with the ``ROADMAP.md`` item that
 ports each: adoption engines and the membership epoch gate (A14), the
 worker L2 cache and ``--traffic-dir`` (A14), the RPC serve loop,
-``--rpc-*``, ``--obs-port`` and telemetry (A14), ``--alg astar`` (A12),
-answer fingerprints (A14).
+``--rpc-*``, ``--obs-port`` and telemetry (A14), answer fingerprints
+(A14).
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ import numpy as np
 import torch
 
 from ..data.graph import Graph
+from ..ops.batched_astar import astar_batch
+from ..ops.cuda_astar import astar_heuristic, astar_sweep
 from ..ops.cuda_walk import cuda_walk_batch
 from ..parallel.partition import DistributionController
 from ..transport.fifo import command_fifo_path
@@ -102,14 +107,15 @@ class FifoServer:
     def __init__(self, conf: ClusterConfig, wid: int,
                  command_fifo: str | None = None,
                  alg: str = "table-search", device=None):
-        if alg != "table-search":
-            raise ValueError(f"--alg {alg} is not ported (ROADMAP.md A12)")
+        if alg not in ("table-search", "astar"):
+            raise ValueError(f"unknown algorithm {alg!r}")
         if os.path.exists(os.path.join(conf.outdir, "membership.json")):
             raise ValueError(
                 f"{conf.outdir} holds a membership state: elastic fleets "
                 "are not ported (ROADMAP.md A14)")
         self.conf = conf
         self.wid = wid
+        self.alg = alg
         self.counters = dict.fromkeys(COUNTER_NAMES, 0)
         self.command_fifo = command_fifo or command_fifo_path(wid)
         self.graph = Graph.from_xy(conf.xy_file)
@@ -118,14 +124,14 @@ class FifoServer:
             replication=conf.effective_replication())
         self.device = device
         self.engine = ShardEngine(self.graph, self.dc, wid, conf.outdir,
-                                  device=device)
+                                  alg=alg, device=device)
         #: engines by shard: this worker's own, and the replica engines
         #: made on first use for the shards it hosts
         self._replica_engines: dict[int, ShardEngine] = {wid: self.engine}
         # preload the first diff's weights like the reference server
         # does (make_fifos.py:18 loads only diffs[0])
         if conf.diffs:
-            self.engine._weights_for(conf.diffs[0], no_cache=False)
+            self.engine.preload(conf.diffs[0])
 
     def engine_for_shard(self, shard: int) -> ShardEngine:
         """The engine serving ``shard``'s rows: this worker's own engine
@@ -143,8 +149,8 @@ class FifoServer:
             log.info("worker %d: loading shard %d's replica for failover "
                      "traffic", self.wid, shard)
             eng = ShardEngine(self.graph, self.dc, self.wid,
-                              self.conf.outdir, device=self.device,
-                              shard=shard)
+                              self.conf.outdir, alg=self.alg,
+                              device=self.device, shard=shard)
             self._replica_engines[shard] = eng
         return eng
 
@@ -387,8 +393,10 @@ class FifoServer:
     # ------------------------------------------------------------ metrics
     def metrics_snapshot(self) -> dict:
         """The ``--metrics-dump`` payload: the serve loop's counters, the
-        walk's kernel launches (raw, pack4) and plain walks, and the
-        device with its peak allocated bytes."""
+        walk's kernel launches (raw, pack4) and plain walks, the A*
+        kernels' launches (K6: the sweep, the heuristic) and plain runs
+        (the batch loop, the heuristic), and the device with its peak
+        allocated bytes."""
         dev = self.engine.device
         on_card = dev.type == "cuda"
         return {
@@ -398,7 +406,12 @@ class FifoServer:
                 "cuda_walk_batch.launches_pack4":
                     cuda_walk_batch.launches_pack4,
                 "cuda_walk_batch.plain": cuda_walk_batch.plain,
+                "astar_sweep.launches": astar_sweep.launches,
+                "astar_batch.plain": astar_batch.plain,
+                "astar_heuristic.launches": astar_heuristic.launches,
+                "astar_heuristic.plain": astar_heuristic.plain,
             },
+            "alg": self.alg,
             "device": {
                 "type": dev.type,
                 "name": (torch.cuda.get_device_name(dev) if on_card
@@ -469,8 +482,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="command FIFO path override")
     p.add_argument("--alg", default="table-search",
                    choices=["table-search", "astar"],
-                   help="serving algorithm (table-search; astar is not "
-                        "ported, ROADMAP.md A12)")
+                   help="serving algorithm: table-search (the "
+                        "reference's, make_fifos.py:20) or astar (the "
+                        "hscale/fscale weighted-A* family; batched on the "
+                        "device, no index needed)")
     p.add_argument("--device", default="cuda",
                    help="torch device the shard is served from "
                         "(default: cuda; raises without a GPU)")
@@ -490,13 +505,11 @@ def main(argv=None) -> int:
     for dest, (flag, item) in REFUSED_FLAGS.items():
         if getattr(args, dest) is not None:
             raise SystemExit(f"{flag} is not ported (ROADMAP.md {item})")
-    if args.alg != "table-search":
-        raise SystemExit(f"--alg {args.alg} is not ported (ROADMAP.md A12)")
     set_verbosity(args.verbose)
     set_worker_id(args.workerid)
     conf = ClusterConfig.load(args.c)
     server = FifoServer(conf, args.workerid, command_fifo=args.fifo,
-                        device=args.device)
+                        alg=args.alg, device=args.device)
     try:
         server.serve_forever()
     finally:

@@ -228,7 +228,6 @@ def test_build_if_missing_and_print_mode(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--alg", "astar"], "A12"),
     (["--alg", "ch"], "A15"), (["--trace", "t.json"], "A14"),
     (["--metrics-dump", "m.json"], "A14"), (["--profile", "p"], "A14"),
     (["--obs-port", "0"], "A14"),

@@ -363,7 +363,6 @@ def test_main_writes_metrics_dump(cluster, tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--traffic-dir", "x"], "A14"), (["--rpc-socket", "s"], "A14"),
     (["--rpc-port", "9"], "A14"), (["--obs-port", "0"], "A14"),
-    (["--alg", "astar"], "A12"),
 ])
 def test_server_refused_flags_name_roadmap(cluster, tmp_path, argv, item):
     with pytest.raises(SystemExit, match=item):

@@ -406,7 +406,7 @@ def test_make_cpds_host_refusals_name_roadmap(dataset, tmp_path, argv,
 
 @pytest.mark.parametrize("argv,item", [
     (["--supervise"], "A15"), (["--engine", "native"], "A15"),
-    (["--alg", "ch"], "A15"), (["--alg", "astar"], "A12"),
+    (["--alg", "ch"], "A15"),
 ])
 def test_make_fifos_refusals_name_roadmap(cluster, argv, item,
                                           monkeypatch):
