@@ -522,6 +522,7 @@ def zero_launches() -> None:
     for fn in BUILD_FNS.values():
         fn.launches = 0
     ca.astar_sweep.launches = ca.astar_heuristic.launches = 0
+    ca.astar_sweep.dense = 0
     ca.astar_heuristic.plain = ba.astar_batch.plain = 0
 
 
@@ -3673,9 +3674,9 @@ def astar_inputs(outdir: str, ref: dict) -> dict:
 
 class AstarProbe:
     """Records each call ``process_query``'s A* rounds make — the batched
-    search (``astar_batch_np``, with its per-chunk ``info``) or the heap
-    engine — with its answers and its seconds (host clock,
-    synchronised)."""
+    search (``astar_batch_np``, with its per-chunk ``info`` and its
+    arguments) or the heap engine — with its answers and its seconds
+    (host clock, synchronised)."""
 
     def __init__(self):
         self.calls: list[dict] = []
@@ -3689,7 +3690,7 @@ class AstarProbe:
         out = self._real[0](*a, info=info, **kw)
         torch.cuda.synchronize()
         self.calls.append({"engine": "device", "s": time.perf_counter() - t0,
-                           "out": out, "info": info})
+                           "out": out, "info": info, "call": (a, kw)})
         return out
 
     def _heap(self, *a, **kw):
@@ -3751,9 +3752,11 @@ class HostResults:
 
 
 def read_astar_launches() -> dict[str, int]:
-    """K6's launches and the plain A* runs (the batch loop, the
-    heuristic) since the last zero_launches()."""
+    """K6's launches (the sweep's without the skip apart) and the plain
+    A* runs (the batch loop, the heuristic) since the last
+    zero_launches()."""
     return {"sweep": ca.astar_sweep.launches,
+            "sweep_dense": ca.astar_sweep.dense,
             "batch_plain": ba.astar_batch.plain,
             "heuristic": ca.astar_heuristic.launches,
             "heuristic_plain": ca.astar_heuristic.plain}
@@ -3915,10 +3918,18 @@ def astar_chunk_tensors(g, queries: np.ndarray) -> tuple[dict, float]:
 
 
 def sweep_bytes(n: int, k: int, q: int) -> int:
-    """A sweep's distinct bytes: g, h, hops and changed read, g, hops and
-    improved written (22 bytes a cell), the in-edge ELL (in_nbr, w_in),
-    the targets and the valid lanes."""
+    """The bytes a sweep's function needs: g, h, hops and changed read,
+    g, hops and improved written (22 bytes a cell), the in-edge ELL
+    (in_nbr, w_in), the targets and the valid lanes."""
     return 22 * n * q + 8 * n * k + 5 * q
+
+
+def sweep_design_bytes(n: int, q: int) -> int:
+    """The bytes K6's design adds to a sweep beyond :func:`sweep_bytes`
+    (logged apart, not in the bound): the dirty groups read and written
+    (a byte a node and group of 32 queries each way) and the rows'
+    in-degrees."""
+    return 2 * n * ba.n_groups(q) + 4 * n
 
 
 def heuristic_bytes(n: int, q: int) -> int:
@@ -3927,16 +3938,26 @@ def heuristic_bytes(n: int, q: int) -> int:
     return 8 * n + 4 * q + 4 * n * q
 
 
+def sweep_buffers(n: int, q: int) -> tuple:
+    """One set of a sweep's outputs (g, hops, improved, groups)."""
+    return (torch.empty((n, q), dtype=torch.int32, device="cuda"),
+            torch.empty((n, q), dtype=torch.int32, device="cuda"),
+            torch.empty((n, q), dtype=torch.uint8, device="cuda"),
+            torch.empty((n, ba.n_groups(q)), dtype=torch.uint8,
+                        device="cuda"))
+
+
 def astar_vs_plain(tag: str, args: dict, cpu: float, hscale: float,
                    fscale: float, converge: bool) -> dict:
     """K6 against the plain versions on one chunk's exact inputs: the
-    heuristic entry against ``heuristic_plain``; sweeps 1..3 launched one
-    at a time against ``sweep_plain`` (g, hops, improved, the flag and
-    the five counts after each); with ``converge``, K6's loop against the
+    heuristic entry against ``heuristic_plain``; sweeps 1..3, each
+    launched at skip 1 and at skip 0 on the plain iterate, against
+    ``sweep_plain`` (g, hops, improved, the dirty groups, the flag and the
+    five counts after each); with ``converge``, K6's loop against the
     plain copy of the JAX loop at convergence (cost, plen, finished, the
     sweep count, every sweep's counts and the float32 totals). Times the
-    heuristic and a sweep launch (CUDA events, back to back) and the
-    plain sweep. Equal or raise."""
+    heuristic and a sweep launch at each skip (CUDA events, back to back)
+    and the plain sweep. Equal or raise."""
     n, k = args["in_nbr"].shape
     q = args["s"].shape[0]
     xs, ys, t = args["xs"], args["ys"], args["t"]
@@ -3952,62 +3973,70 @@ def astar_vs_plain(tag: str, args: dict, cpu: float, hscale: float,
     h_plain_ms = time_cuda(lambda: ba.heuristic_plain(xs, ys, t, cpu,
                                                       hscale), PLAIN_REPS)
     w_in = args["w_pad"][args["in_eid"].long()]
+    deg = ba.in_degree(args["in_eid"], args["w_pad"].shape[0] - 1)
     valid8 = args["valid"].to(torch.uint8)
-    g0, hops0, ch0 = ba.init_state(n, args["s"], args["valid"])
-    bufs = ((g0.clone(), hops0.clone(), ch0.to(torch.uint8)),
-            (torch.empty_like(g0), torch.empty_like(hops0),
-             torch.empty((n, q), dtype=torch.uint8, device="cuda")))
+    pg, phops, pch, pgrp = ba.init_state(n, args["s"], args["valid"])
+    out = sweep_buffers(n, q)
     one = torch.ones(1, dtype=torch.int32, device="cuda")
-    pg, phops, pch = g0, hops0, ch0
     err = 0
     for j in range(len(ASTAR_CUTS)):
-        flag = torch.zeros(1, dtype=torch.int32, device="cuda")
-        counts = torch.zeros(ca.COUNT_SLOTS, dtype=torch.int64,
-                             device="cuda")
-        ca.astar_sweep(args["in_nbr"], w_in, h, t, valid8, *bufs[j % 2],
-                       *bufs[(j + 1) % 2], fscale, one, flag, counts)
-        pg, phops, pch, pc = ba.sweep_plain(args["in_nbr"], w_in, h, t,
-                                            args["valid"], pg, phops, pch,
-                                            fscale)
-        kg, khops, kimp = bufs[(j + 1) % 2]
-        torch.cuda.synchronize()
-        err = max(err, int((kg - pg).abs().max()),
-                  int((khops - phops).abs().max()))
-        same = (torch.equal(kg, pg) and torch.equal(khops, phops)
-                and torch.equal(kimp.bool(), pch)
-                and torch.equal(counts[:5], pc)
-                and bool(flag[0]) == bool(pch.any()))
-        if not same:
-            raise AssertionError(
-                f"{tag} astar_sweep differs from the plain sweep after "
-                f"sweep {j + 1}: g {int((kg != pg).sum())}, hops "
-                f"{int((khops != phops).sum())}, improved "
-                f"{int((kimp.bool() != pch).sum())} entries; counts "
-                f"{counts[:5].tolist()} vs {pc.tolist()}")
+        want = ba.sweep_plain(args["in_nbr"], w_in, h, t, args["valid"], pg,
+                              phops, pch, fscale)
+        state = (pg, phops, pch.to(torch.uint8), pgrp)
+        for skip in (True, False):
+            flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+            counts = torch.zeros(ca.COUNT_SLOTS, dtype=torch.int64,
+                                 device="cuda")
+            ca.astar_sweep(args["in_nbr"], w_in, deg, h, t, valid8, *state,
+                           *out, fscale, one, flag, counts, skip=skip)
+            kg, khops, kimp, kgrp = out
+            torch.cuda.synchronize()
+            err = max(err, int((kg - want[0]).abs().max()),
+                      int((khops - want[1]).abs().max()))
+            same = (torch.equal(kg, want[0]) and torch.equal(khops, want[1])
+                    and torch.equal(kimp.bool(), want[2])
+                    and torch.equal(kgrp, ba.groups_plain(want[2]))
+                    and torch.equal(counts[:5], want[3])
+                    and bool(flag[0]) == bool(want[2].any()))
+            if not same:
+                raise AssertionError(
+                    f"{tag} astar_sweep (skip {int(skip)}) differs from the "
+                    f"plain sweep after sweep {j + 1}: g "
+                    f"{int((kg != want[0]).sum())}, hops "
+                    f"{int((khops != want[1]).sum())}, improved "
+                    f"{int((kimp.bool() != want[2]).sum())} entries; counts "
+                    f"{counts[:5].tolist()} vs {want[3].tolist()}")
+        pg, phops, pch = want[:3]
+        pgrp = ba.groups_plain(pch)
+        del want, state
     log(f"{tag} hscale {hscale} fscale {fscale}: astar_heuristic equal to "
-        f"the plain table ([{n}, {q}]); g, hops, improved, the flag and the "
-        f"five counts equal the plain sweep after sweeps "
-        f"{', '.join(map(str, ASTAR_CUTS))}")
+        f"the plain table ([{n}, {q}]); g, hops, improved, the dirty "
+        f"groups, the flag and the five counts equal the plain sweep after "
+        f"sweeps {', '.join(map(str, ASTAR_CUTS))} at skip 1 and skip 0")
     # a sweep launch with its flag set, on the state after the cuts
-    src, dst = bufs[len(ASTAR_CUTS) % 2], bufs[(len(ASTAR_CUTS) + 1) % 2]
+    state = (pg, phops, pch.to(torch.uint8), pgrp)
     scratch = torch.zeros(ca.COUNT_SLOTS, dtype=torch.int64, device="cuda")
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
-    ms = time_bare(lambda: ca.astar_sweep(
-        args["in_nbr"], w_in, h, t, valid8, *src, *dst, fscale, one, flag,
-        scratch), KERNEL_REPS)
+    ms, dense_ms = (time_bare(lambda skip=skip: ca.astar_sweep(
+        args["in_nbr"], w_in, deg, h, t, valid8, *state, *out, fscale, one,
+        flag, scratch, skip=skip), KERNEL_REPS) for skip in (True, False))
     plain_ms = time_cuda(lambda: ba.sweep_plain(
         args["in_nbr"], w_in, h, t, args["valid"], pg, phops, pch, fscale),
         PLAIN_REPS)
-    del bufs, src, dst
+    del out, state
     bound_ms, bound_by = bound(sweep_bytes(n, k, q), 5 * n * k * q)
     h_bound_ms, h_bound_by = bound(heuristic_bytes(n, q), 12 * n * q)
-    out = {"n": n, "k": k, "q": q, "hscale": hscale, "fscale": fscale,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "h_ms": h_ms, "h_plain_ms": h_plain_ms,
-           "h_bound_ms": h_bound_ms, "h_bound_by": h_bound_by,
-           "max_abs_err": err}
-    log(f"{tag} a sweep [{n} x {q}, K = {k}]: {ms:.4f} ms (bound "
-        f"{bound_ms:.4f} ms by {bound_by}: {sweep_bytes(n, k, q)} B), plain "
+    res = {"n": n, "k": k, "q": q, "hscale": hscale, "fscale": fscale,
+           "ms": ms, "dense_ms": dense_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "design_bytes": sweep_design_bytes(n, q), "h_ms": h_ms,
+           "h_plain_ms": h_plain_ms, "h_bound_ms": h_bound_ms,
+           "h_bound_by": h_bound_by, "max_abs_err": err}
+    log(f"{tag} a sweep [{n} x {q}, K = {k}] after sweep {ASTAR_CUTS[-1]}: "
+        f"{ms:.4f} ms with the skip, {dense_ms:.4f} ms without (bound "
+        f"{bound_ms:.4f} ms by {bound_by}: {sweep_bytes(n, k, q)} B; the "
+        f"design adds {sweep_design_bytes(n, q)} B of groups and degrees, "
+        f"not in the bound), plain "
         f"sweep {plain_ms:.4f} ms; heuristic {h_ms:.4f} ms (bound "
         f"{h_bound_ms:.4f} by {h_bound_by}), plain {h_plain_ms:.4f} ms")
     if converge:
@@ -4031,24 +4060,180 @@ def astar_vs_plain(tag: str, args: dict, cpu: float, hscale: float,
                 f"{tag} K6's loop differs from the plain loop at "
                 f"convergence: sweeps {info['sweeps']} vs "
                 f"{pinfo['sweeps']}, counters {got[3]} vs {want[3]}")
-        out.update(sweeps=info["sweeps"], launches=info["launches"],
+        res.update(sweeps=info["sweeps"], launches=info["launches"],
                    loop_s=loop_s, plain_loop_s=plain_s,
-                   counters=got[3], exact=info["exact"])
+                   counters=got[3], exact=info["exact"],
+                   counts=info["counts"])
         log(f"{tag} converged: cost, plen, finished, {info['sweeps']} "
             f"sweeps (as the plain loop), every sweep's counts and the "
             f"float32 totals {got[3]} equal the plain loop (exact totals "
             f"{info['exact']}); K6's loop {loop_s:.3f} s ({info['launches']} "
             f"launches, {1e3 * loop_s / max(info['sweeps'], 1):.4f} ms a "
             f"sweep on the host clock), the plain loop {plain_s:.3f} s")
+    return res
+
+
+def dirty_share(in_nbr: torch.Tensor, deg: torch.Tensor,
+                groups: torch.Tensor) -> float:
+    """The share of (node, query group, real slot) triples, a warp's
+    slots in K6's sweep, whose source's group is dirty: the gathers the
+    skip leaves (plain torch on the card)."""
+    k = in_nbr.shape[1]
+    real = (torch.arange(k, device=in_nbr.device)[None, :]
+            < deg.long()[:, None])
+    dirty = groups.bool()[in_nbr.long()] & real[:, :, None]
+    return int(dirty.sum()) / (int(real.sum()) * groups.shape[1])
+
+
+def k6_sweeps(args: dict, h: torch.Tensor, w_in: torch.Tensor,
+              deg: torch.Tensor, fscale: float, sweeps: int, skip: bool,
+              keep: tuple = ()) -> tuple[float, np.ndarray, dict]:
+    """``sweeps`` K6 sweeps from ``init_state``, launched back to back
+    with their flags chained as ``astar_loop`` chains them and timed by
+    CUDA events behind a spin kernel: ``(ms, counts, kept)``, ``counts``
+    every sweep's five counts, ``kept`` a copy of the state after each
+    sweep in ``keep`` (then the time includes the copies)."""
+    n = args["in_nbr"].shape[0]
+    q = args["s"].shape[0]
+    g0, hops0, ch0, grp0 = ba.init_state(n, args["s"], args["valid"])
+    bufs = ((g0, hops0, ch0.to(torch.uint8), grp0), sweep_buffers(n, q))
+    valid8 = args["valid"].to(torch.uint8)
+    flags = torch.zeros(sweeps + 1, dtype=torch.int32, device="cuda")
+    flags[0] = 1
+    counts = torch.zeros((sweeps, ca.COUNT_SLOTS), dtype=torch.int64,
+                         device="cuda")
+    kept = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for j in range(sweeps):
+        ca.astar_sweep(args["in_nbr"], w_in, deg, h, args["t"], valid8,
+                       *bufs[j % 2], *bufs[(j + 1) % 2], fscale,
+                       flags[j:j + 1], flags[j + 1:j + 2], counts[j],
+                       skip=skip)
+        if j + 1 in keep:
+            kept[j + 1] = tuple(x.clone() for x in bufs[(j + 1) % 2])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), counts[:, :5].cpu().numpy(), kept
+
+
+def astar_loop_profile(tag: str, args: dict, cpu: float, hscale: float,
+                       fscale: float, counts: np.ndarray,
+                       snapshots: bool) -> dict:
+    """K6's loop on the device clock at both skip values: the S sweeps of
+    a converged run (``counts``, its per-sweep counts, which each run
+    must reproduce) launched back to back, ms a sweep. With
+    ``snapshots``, the states after sweeps 3, S // 2 and S - 5 of a third
+    run (skip 1, with copies), on each a sweep timed at skip 1 and skip 0
+    (CUDA events) beside the dirty share of its (node, group, real slot)
+    triples."""
+    n, k = args["in_nbr"].shape
+    q = args["s"].shape[0]
+    sweeps = len(counts)
+    h = ca.astar_heuristic(args["xs"], args["ys"], args["t"], cpu, hscale)
+    w_in = args["w_pad"][args["in_eid"].long()]
+    deg = ba.in_degree(args["in_eid"], args["w_pad"].shape[0] - 1)
+    loop = {}
+    for name, skip in (("skip", True), ("dense", False)):
+        ms, got, _ = k6_sweeps(args, h, w_in, deg, fscale, sweeps, skip)
+        if not np.array_equal(got, counts):
+            raise AssertionError(f"{tag} K6's sweeps at skip {int(skip)} "
+                                 "differ from the converged loop's counts")
+        loop[name] = {"ms": ms, "ms_a_sweep": ms / max(sweeps, 1)}
+    out = {"sweeps": sweeps, "loop": loop}
+    log(f"{tag} K6's loop on the device clock, {sweeps} sweeps back to back "
+        f"(every sweep's counts == the loop's): {loop['skip']['ms']:.3f} ms "
+        f"= {loop['skip']['ms_a_sweep']:.4f} ms a sweep with the skip, "
+        f"{loop['dense']['ms']:.3f} ms = {loop['dense']['ms_a_sweep']:.4f} "
+        "ms a sweep without")
+    if snapshots and sweeps > 8:
+        at = (3, sweeps // 2, sweeps - 5)
+        _, _, kept = k6_sweeps(args, h, w_in, deg, fscale, sweeps, True,
+                               keep=at)
+        one = torch.ones(1, dtype=torch.int32, device="cuda")
+        flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+        scratch = torch.zeros(ca.COUNT_SLOTS, dtype=torch.int64,
+                              device="cuda")
+        dst = sweep_buffers(n, q)
+        valid8 = args["valid"].to(torch.uint8)
+        snaps = []
+        for j in at:
+            state = kept.pop(j)
+            share = dirty_share(args["in_nbr"], deg, state[3])
+            ms, dense_ms = (time_bare(lambda skip=skip: ca.astar_sweep(
+                args["in_nbr"], w_in, deg, h, args["t"], valid8, *state,
+                *dst, fscale, one, flag, scratch, skip=skip), KERNEL_REPS)
+                for skip in (True, False))
+            snaps.append({"after_sweep": j, "dirty_share": share, "ms": ms,
+                          "dense_ms": dense_ms,
+                          "changed": int(state[2].sum())})
+            log(f"{tag} snapshot after sweep {j} of {sweeps}: dirty share "
+                f"{share:.4f} of the (node, group, real slot) triples, "
+                f"{snaps[-1]['changed']} changed cells; a sweep {ms:.4f} ms "
+                f"with the skip, {dense_ms:.4f} ms without")
+            del state
+        out["snapshots"] = snaps
+    return out
+
+
+def astar_rounds_by_skip(tag: str, calls: list[dict]) -> list[dict]:
+    """The in-process rounds' searches again on their own arguments (the
+    main run's ``astar_batch_np`` calls; the graph's device arrays are
+    cached by then): first with every sweep at skip 0 (the default of
+    ``cuda_astar.astar_sweep``'s ``skip`` set to False for this replay
+    only), then as the main run ran them. Each replay's answers, sweeps
+    and counters equal the main run's; returns each round's seconds at
+    both skips."""
+    sweep = ca.astar_sweep
+    if sweep.__defaults__ != (True,):
+        raise AssertionError(f"{tag} astar_sweep's defaults "
+                             f"{sweep.__defaults__}: expected (skip=True,)")
+    out = [{"round": name} for name in ("free-flow", "diff")]
+    for key, skip in (("dense_s", False), ("skip_s", True)):
+        dense0 = sweep.dense
+        sweep.__defaults__ = (skip,)
+        try:
+            for row, call in zip(out, calls):
+                a, kw = call["call"]
+                info: dict = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = ba.astar_batch_np(*a, info=info, **kw)
+                torch.cuda.synchronize()
+                row[key] = time.perf_counter() - t0
+                same = (all(np.array_equal(x, y)
+                            for x, y in zip(got[:3], call["out"][:3]))
+                        and got[3] == call["out"][3]
+                        and info["sweeps"] == call["info"]["sweeps"])
+                if not same:
+                    raise AssertionError(
+                        f"{tag} round {row['round']} replayed at skip "
+                        f"{int(skip)} differs from the main run")
+        finally:
+            sweep.__defaults__ = (True,)
+        if (sweep.dense > dense0) == skip:
+            raise AssertionError(f"{tag} the replay at skip {int(skip)} "
+                                 f"launched {sweep.dense - dense0} sweeps "
+                                 "at skip 0")
+    for row in out:
+        log(f"{tag} round {row['round']} replayed: {row['dense_s']:.3f} s "
+            f"at skip 0, {row['skip_s']:.3f} s at skip 1 (skip 0 / skip 1 "
+            f"= {row['dense_s'] / row['skip_s']:.4f}); answers, sweeps "
+            "and counters equal the main run's")
     return out
 
 
 def check_astar_dump(sv: dict, card: str, pid: int) -> None:
-    """An A* server's dump: it served from this card, launched K6 (sweep
-    and heuristic) and ran no plain version, and it answered the pings."""
+    """An A* server's dump: it served from this card, launched K6 (sweep,
+    every launch with the skip, and heuristic) and ran no plain version,
+    and it answered the pings."""
     c, d = sv["counters"], sv["device"]
     if (d["name"] != card or d["type"] != "cuda" or sv["alg"] != "astar"
             or c["astar_sweep.launches"] <= 0
+            or c["astar_sweep.dense"] != 0
             or c["astar_heuristic.launches"] <= 0
             or c["astar_batch.plain"] != 0
             or c["astar_heuristic.plain"] != 0 or sv["pid"] != pid):
@@ -4119,7 +4304,8 @@ def astar_host_round(files: dict, g, inproc: list) -> dict:
         + ", ".join(f"{ready[x][1]:.2f}" for x in sorted(ready))
         + f" s; every dump names {card!r}, K6 launched (sweep "
         f"{launches['sweep']}, heuristic {launches['heuristic']} in all), "
-        "no plain sweep or heuristic; every server exited 0")
+        "every sweep with the skip (astar_sweep.dense 0), no plain sweep "
+        "or heuristic; every server exited 0")
     parts = read_parts(os.path.join(out, "parts.csv"))
     if len(hr.rounds) != 1:
         raise AssertionError(f"{tag} {len(hr.rounds)} rounds, not 1")
@@ -4160,16 +4346,20 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
     calls it (its default: the batched search on the card, K6) on the
     first campaign queries, free flow and diff (the phase's main run,
     counts zeroed before it and read after it; then the servers' main
-    run); ``make_fifos --alg astar`` and a host free-flow round held to
-    it; the heap route (``DOS_ASTAR_DEVICE=0``) on the first queries held
+    run); its searches replayed at skip 0, then at skip 1;
+    ``make_fifos --alg astar`` and a host free-flow round held to it; the heap route (``DOS_ASTAR_DEVICE=0``) on the first queries held
     to K6. Then, while reference processes run the heap route on the
     first ``ASTAR_HEAP_QUERIES`` queries and scipy's Dijkstra on the
     queries of seeded targets: the rounds' costs against K1's exact
     distances; K6 against the plain versions on one chunk of the
-    campaign graph (hscale 1 and 1.5 / fscale 0.1, sweeps 1-3; at
-    convergence at hscale 1) and of the road graph at full width (sweeps
-    1-3; K6's loop, costs against K1's). Last, the references' answers
-    against K6's. Returns the kernel table's two entries."""
+    campaign graph (hscale 1 and 1.5 / fscale 0.1, sweeps 1-3 at both
+    skips; at convergence at hscale 1) and of the road graph at full
+    width (sweeps 1-3 at both skips; K6's loop, costs against K1's); on
+    both, K6's loop on the device clock at both skips, and on the
+    campaign chunk three snapshots with their dirty shares. Every round
+    and server sweeps with the skip (``astar_sweep.dense`` 0). Last, the
+    references' answers against K6's. Returns the kernel table's two
+    entries."""
     tag = "[astar]"
     t_phase = time.perf_counter()
     g = ref["g"]
@@ -4193,10 +4383,11 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
         if rc != 0:
             raise AssertionError(f"{tag} process_query exit code {rc}")
         if (launches["sweep"] <= 0 or launches["heuristic"] <= 0
-                or launches["batch_plain"] or launches["heuristic_plain"]):
+                or launches["sweep_dense"] or launches["batch_plain"]
+                or launches["heuristic_plain"]):
             raise AssertionError(f"{tag} the rounds' launches {launches}: "
-                                 "K6 never launched, or a plain version "
-                                 "ran")
+                                 "K6 never launched, a sweep ran without "
+                                 "the skip, or a plain version ran")
         if ([c["engine"] for c in probe.calls] != ["device", "device"]
                 or os.path.exists(os.path.join(outdir, "astar-no-index"))):
             raise AssertionError(f"{tag} the rounds took {probe.calls}, or "
@@ -4224,10 +4415,14 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
                 f"(float32 totals, as JAX) {counters}; exact "
                 f"{info['exact']}")
         log(f"{tag} launches in the rounds' run (process_query's default "
-            f"route): astar_sweep {launches['sweep']}, astar_heuristic "
+            f"route): astar_sweep {launches['sweep']} (every one with the "
+            f"skip: astar_sweep.dense 0), astar_heuristic "
             f"{launches['heuristic']}, no plain loop or heuristic; no index "
             f"read or written; peak device memory {peak / 2**30:.2f} GiB; "
             "parts.csv sums equal the rounds' answers")
+
+        # the same searches replayed at skip 0, then at skip 1
+        by_skip = astar_rounds_by_skip(tag, probe.calls)
 
         # 2. the host backend over A* servers, held to the in-process
         # free-flow round
@@ -4284,11 +4479,16 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
                 (("free-flow", None), ("diff", w_diff)), inproc):
             golden_costs(g, queries, cost, fin, w, f"{tag} round {name}")
 
-        # 6. K6 against the plain versions on the campaign's first chunk
+        # 6. K6 against the plain versions on the campaign's first chunk;
+        # its loop on the device clock at both skips, and snapshots
         args, cpu = astar_chunk_tensors(g, queries[:ASTAR_CHUNK])
         chunk = [astar_vs_plain(f"{tag} campaign chunk", args, cpu, hs, fs,
                                 converge=x == 0)
                  for x, (hs, fs) in enumerate(ASTAR_KNOBS)]
+        hs, fs = ASTAR_KNOBS[0]
+        chunk[0].update(astar_loop_profile(
+            f"{tag} campaign chunk", args, cpu, hs, fs,
+            chunk[0].pop("counts"), snapshots=True))
         del args
         gc.collect()
         torch.cuda.empty_cache()
@@ -4313,6 +4513,9 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
             f"{info['sweeps']} sweeps ({info['launches']} launches), "
             f"{ASTAR_CHUNK / road['loop_s']:.1f} q/s; exact counts "
             f"{info['exact']}")
+        road.update(astar_loop_profile(f"{tag} road chunk", args, cpu, 1.0,
+                                       0.0, info["counts"],
+                                       snapshots=False))
         del args
         gc.collect()
         torch.cuda.empty_cache()
@@ -4364,9 +4567,14 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
              "launches": launches["sweep"] + host["launches"]["sweep"],
              "launches_by_path": {"astar": launches["sweep"],
                                   "astar-host": host["launches"]["sweep"]},
-             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by")},
-             "rounds": rounds, "peak_bytes": peak, "chunk": chunk,
+             # a sweep's time depends on the state: the loop's mean on
+             # the device clock, and one launch after the cuts beside it
+             "ms": head["loop"]["skip"]["ms_a_sweep"],
+             "cut_ms": head["ms"], "cut_dense_ms": head["dense_ms"],
+             **{k: head[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                     "loop", "snapshots")},
+             "rounds": rounds, "rounds_by_skip": by_skip,
+             "peak_bytes": peak, "chunk": chunk,
              "road": road, "host": host, "heap_s": heap_s,
              "heap_reference_s": ref_heap_s, "reference_wait_s": wait_s}
     heur = {"name": ca.ENTRY_H, **common,

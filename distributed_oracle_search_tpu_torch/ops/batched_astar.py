@@ -38,6 +38,12 @@ The pieces, each bit-equal to the JAX stage:
   operations out with round-to-nearest intrinsics.
 * :func:`astar_batch_plain` — a plain copy of the ``while_loop``: the
   ``[N, K, Q]`` ``via``, ``argmin``'s first minimal slot, Jacobi state.
+* :func:`sweep_skip_plain` — :func:`sweep_plain` with exactly the slots
+  K6's sweep skips masked out (past a node's in-degree, or in range and
+  in a query group of 32 that did not change at the source: the
+  invariant is proved in ``csrc/batched_astar.cu``); the tests hold it
+  equal to :func:`sweep_plain` sweep by sweep. :func:`groups_plain` is
+  the dirty-group map a sweep hands the next.
 * :func:`astar_batch` — picks by the tensors' device: K6's loop
   (``ops.cuda_astar``) on the card, :func:`astar_batch_plain` on the
   CPU; on CUDA tensors it launches K6 or raises.
@@ -63,6 +69,14 @@ JINF = int(INF)
 H_MARGIN = float(np.float32(1.0 - 4e-7))
 #: the clamp that keeps h in int32 range (``2.0e9`` as float32)
 H_CLAMP = 2.0e9
+#: queries a dirty group covers (a warp's lanes in K6's sweep)
+GROUP = 32
+#: the largest slot weight K6's sweep may skip: ``w + prop`` cannot wrap
+#: int32 for any ``prop <= INF`` (heavier slots are always gathered)
+SKIP_W_MAX = 2 ** 31 - 1 - JINF
+#: the least threshold at which a query's slots may be skipped:
+#: ``thr - h`` cannot wrap for any ``h`` in ``[0, 2e9]``
+THR_SAFE = -2 ** 31 + 2_000_000_000
 #: the counter names, in the order a sweep's counts are laid out
 COUNTERS = ("n_expanded", "n_surplus", "n_touched", "n_inserted",
             "n_updated")
@@ -138,15 +152,10 @@ def threshold(ub: torch.Tensor, fscale: float) -> torch.Tensor:
                        max=float(JINF)).to(torch.int32)
 
 
-def sweep_plain(in_nbr: torch.Tensor, w_in: torch.Tensor, h: torch.Tensor,
-                t: torch.Tensor, valid: torch.Tensor, g: torch.Tensor,
-                hops: torch.Tensor, changed: torch.Tensor, fscale: float
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                           torch.Tensor]:
-    """One Jacobi step of the JAX ``body`` (``:125-159``): ``(g', hops',
-    improved, counts)`` with ``counts`` int64 [5] this sweep's exact
-    ``live & changed``, ``live & ~changed``, ``live`` (not yet × K),
-    ``improved & g >= INF`` and ``improved & g < INF``."""
+def _sweep(in_nbr, w_in, h, t, valid, g, hops, changed, fscale,
+           keep=None):
+    """One Jacobi step; ``keep(thr, nbr)`` (bool ``[N, K, Q]``) masks
+    out the slots it is False on, as a sweep that never gathers them."""
     q = g.shape[1]
     qix = torch.arange(q, device=g.device)
     thr = threshold(g[t.long(), qix], fscale)
@@ -156,6 +165,8 @@ def sweep_plain(in_nbr: torch.Tensor, w_in: torch.Tensor, h: torch.Tensor,
     via = prop[nbr]                                  # [N, K, Q]
     via += w_in[:, :, None]
     via.clamp_(max=JINF)
+    if keep is not None:
+        via.masked_fill_(~keep(thr, nbr), 2 ** 31 - 1)
     best = via.amin(dim=1)
     slot = via.argmin(dim=1)                         # the first minimal
     del via
@@ -172,11 +183,75 @@ def sweep_plain(in_nbr: torch.Tensor, w_in: torch.Tensor, h: torch.Tensor,
     return new_g, new_hops, improved, counts
 
 
+def sweep_plain(in_nbr: torch.Tensor, w_in: torch.Tensor, h: torch.Tensor,
+                t: torch.Tensor, valid: torch.Tensor, g: torch.Tensor,
+                hops: torch.Tensor, changed: torch.Tensor, fscale: float
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """One Jacobi step of the JAX ``body`` (``:125-159``): ``(g', hops',
+    improved, counts)`` with ``counts`` int64 [5] this sweep's exact
+    ``live & changed``, ``live & ~changed``, ``live`` (not yet × K),
+    ``improved & g >= INF`` and ``improved & g < INF``."""
+    return _sweep(in_nbr, w_in, h, t, valid, g, hops, changed, fscale)
+
+
+def sweep_skip_plain(in_nbr: torch.Tensor, w_in: torch.Tensor,
+                     deg: torch.Tensor, h: torch.Tensor, t: torch.Tensor,
+                     valid: torch.Tensor, g: torch.Tensor,
+                     hops: torch.Tensor, changed: torch.Tensor,
+                     groups: torch.Tensor, fscale: float):
+    """:func:`sweep_plain` over only the slots K6's sweep gathers at
+    ``skip=1``: slot k of ``(v, q)`` is left out past ``deg[v]``, or when
+    its weight is in ``[0, SKIP_W_MAX]``, the query's threshold is at
+    least ``THR_SAFE`` and ``groups[in_nbr[v, k], q // GROUP]`` is clear
+    (``groups``: :func:`groups_plain` of the ``changed`` the sweep before
+    left). Equal to :func:`sweep_plain` on every state a loop reaches
+    (tests only)."""
+    k = in_nbr.shape[1]
+    qgrp = torch.arange(g.shape[1], device=g.device) // GROUP
+
+    def keep(thr, nbr):
+        real = (torch.arange(k, device=g.device)[None, :]
+                < deg.long()[:, None])
+        fixed = (w_in < 0) | (w_in > SKIP_W_MAX)
+        dirty = groups.bool()[nbr][:, :, qgrp]       # [N, K, Q]
+        return real[:, :, None] & (fixed[:, :, None]
+                                   | (thr < THR_SAFE)[None, None, :]
+                                   | dirty)
+
+    return _sweep(in_nbr, w_in, h, t, valid, g, hops, changed, fscale,
+                  keep)
+
+
+def n_groups(q: int) -> int:
+    """Dirty groups a node of a ``q``-query chunk: ``ceil(q / 32)``."""
+    return -(-q // GROUP)
+
+
+def groups_plain(improved: torch.Tensor) -> torch.Tensor:
+    """uint8 ``[N, ceil(Q / 32)]``: whether any query of each group of
+    :data:`GROUP` improved (or changed) at each node."""
+    n, q = improved.shape
+    pad = n_groups(q) * GROUP - q
+    x = torch.nn.functional.pad(improved.bool(), (0, pad))
+    return x.reshape(n, -1, GROUP).any(dim=2).to(torch.uint8)
+
+
+def in_degree(in_eid: torch.Tensor, m: int) -> torch.Tensor:
+    """int32 [N]: the slots of each in-edge ELL row before its trailing
+    padding (``in_eid == m``, weight ``w_pad[m] = INF`` on the node
+    itself), where K6's sweep stops."""
+    real = in_eid != m
+    last = in_eid.shape[1] - real.flip(1).to(torch.int32).argmax(dim=1)
+    return torch.where(real.any(dim=1), last, 0).to(torch.int32)
+
+
 def init_state(n: int, s: torch.Tensor, valid: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(g, hops, changed)`` before the first sweep: ``g`` 0 at each
-    valid lane's source and INF elsewhere, ``hops`` 0, ``changed`` the
-    valid lanes' sources."""
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """``(g, hops, changed, groups)`` before the first sweep: ``g`` 0 at
+    each valid lane's source and INF elsewhere, ``hops`` 0, ``changed``
+    the valid lanes' sources, ``groups`` its :func:`groups_plain`."""
     q = s.shape[0]
     dev = s.device
     qix = torch.arange(q, device=dev)
@@ -185,7 +260,7 @@ def init_state(n: int, s: torch.Tensor, valid: torch.Tensor
     hops = torch.zeros((n, q), dtype=torch.int32, device=dev)
     changed = torch.zeros((n, q), dtype=torch.bool, device=dev)
     changed[s.long(), qix] = valid
-    return g, hops, changed
+    return g, hops, changed, groups_plain(changed)
 
 
 def fold_counts(counts: np.ndarray, k: int) -> dict[str, float]:
@@ -238,7 +313,7 @@ def astar_batch_plain(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale,
         valid = torch.ones(q, dtype=torch.bool, device=s.device)
     limit = (n - 1) if max_iters == 0 else max_iters
     h = heuristic_plain(xs, ys, t, cpu, hscale)
-    g, hops, changed = init_state(n, s, valid)
+    g, hops, changed, _ = init_state(n, s, valid)
     if w_in is None:
         w_in = w_pad[in_eid.long()]
     rows = []
@@ -257,7 +332,7 @@ def astar_batch_plain(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale,
 
 
 def astar_batch(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale, cpu,
-                valid=None, max_iters: int = 0, w_in=None,
+                valid=None, max_iters: int = 0, w_in=None, deg=None,
                 info: dict | None = None):
     """Batched weighted A* from ``s[q]`` to ``t[q]`` for every query q, the
     JAX ``astar_batch``'s signature and results.
@@ -272,6 +347,9 @@ def astar_batch(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale, cpu,
     max_iters      : sweep bound; 0 = N-1
     w_in           : ``w_pad[in_eid]`` when the caller holds it (built
                      once a weight set); None builds it
+    deg            : :func:`in_degree` of ``in_eid`` when the caller holds
+                     it (built once a graph; K6's loop only); None builds
+                     it
 
     On CUDA tensors K6's loop (:func:`.cuda_astar.astar_loop`) or an
     error; on CPU tensors :func:`astar_batch_plain`, each such call
@@ -288,15 +366,16 @@ def astar_batch(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale, cpu,
     from .cuda_astar import astar_loop
 
     return astar_loop(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale,
-                      cpu, **kw)
+                      cpu, deg=deg, **kw)
 
 
 astar_batch.plain = 0
 
 
 def _device_graph(graph, ctx: dict, device) -> dict:
-    """The in-edge ELL and the float32 coordinates on the device, cached
-    in ``ctx`` (a resident server uploads them once)."""
+    """The in-edge ELL, its rows' in-degrees and the float32 coordinates
+    on the device, cached in ``ctx`` (a resident server uploads them
+    once)."""
     if "in_nbr" not in ctx:
         dev = resolve_device(device)
         in_nbr, in_eid = graph.ell("in")
@@ -305,6 +384,7 @@ def _device_graph(graph, ctx: dict, device) -> dict:
                                         device=dev)
         ctx["in_eid"] = torch.as_tensor(in_eid, dtype=torch.int32,
                                         device=dev)
+        ctx["deg"] = in_degree(ctx["in_eid"], graph.m)
         ctx["xs"] = torch.as_tensor(np.asarray(graph.xs, np.float32),
                                     device=dev)
         ctx["ys"] = torch.as_tensor(np.asarray(graph.ys, np.float32),
@@ -384,7 +464,7 @@ def astar_batch_np(graph, queries: np.ndarray, w: np.ndarray | None = None,
             ctx["in_nbr"], ctx["in_eid"], w_pad, ctx["xs"], ctx["ys"],
             torch.from_numpy(sq).to(dev), torch.from_numpy(tq).to(dev),
             hscale, fscale, cpu, valid=torch.from_numpy(vq).to(dev),
-            w_in=w_in, info=one)
+            w_in=w_in, deg=ctx["deg"], info=one)
         cost[lo:lo + m] = c[:m].cpu().numpy()
         plen[lo:lo + m] = p[:m].cpu().numpy()
         fin[lo:lo + m] = f[:m].cpu().numpy()

@@ -394,9 +394,9 @@ class FifoServer:
     def metrics_snapshot(self) -> dict:
         """The ``--metrics-dump`` payload: the serve loop's counters, the
         walk's kernel launches (raw, pack4) and plain walks, the A*
-        kernels' launches (K6: the sweep, the heuristic) and plain runs
-        (the batch loop, the heuristic), and the device with its peak
-        allocated bytes."""
+        kernels' launches (K6: the sweep, its launches without the skip,
+        the heuristic) and plain runs (the batch loop, the heuristic),
+        and the device with its peak allocated bytes."""
         dev = self.engine.device
         on_card = dev.type == "cuda"
         return {
@@ -407,6 +407,7 @@ class FifoServer:
                     cuda_walk_batch.launches_pack4,
                 "cuda_walk_batch.plain": cuda_walk_batch.plain,
                 "astar_sweep.launches": astar_sweep.launches,
+                "astar_sweep.dense": astar_sweep.dense,
                 "astar_batch.plain": astar_batch.plain,
                 "astar_heuristic.launches": astar_heuristic.launches,
                 "astar_heuristic.plain": astar_heuristic.plain,

@@ -239,12 +239,15 @@ def test_batch_on_cpu_is_the_plain_loop():
     n, nq = g.n, len(q)
     z = torch.zeros((n, nq), dtype=torch.int32)
     z8 = torch.zeros((n, nq), dtype=torch.uint8)
+    grp = torch.zeros((n, tba.n_groups(nq)), dtype=torch.uint8)
     flag = torch.ones(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="cpu"):
-        tca.astar_sweep(tt["in_nbr"], tt["w_pad"][tt["in_eid"].long()], z,
-                        t, torch.ones(nq, dtype=torch.uint8), z, z.clone(),
-                        z8, z.clone(), z.clone(), z8.clone(), 0.0, flag,
-                        flag.clone(), torch.zeros(8, dtype=torch.int64))
+        tca.astar_sweep(tt["in_nbr"], tt["w_pad"][tt["in_eid"].long()],
+                        tba.in_degree(tt["in_eid"], g.m), z, t,
+                        torch.ones(nq, dtype=torch.uint8), z, z.clone(), z8,
+                        grp, z.clone(), z.clone(), z8.clone(), grp.clone(),
+                        0.0, flag, flag.clone(),
+                        torch.zeros(8, dtype=torch.int64))
 
 
 def test_no_valid_lane_runs_no_sweep():
