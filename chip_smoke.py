@@ -18,8 +18,11 @@ points a user calls, then the compressed-residency path:
    worker 0 owns 8,250 targets, a 2.18 GB int8 first-move table): build
    worker 0's shard on the card (``build_worker_shard``, 512-row chunks,
    ``method="auto"``, which must resolve ``ellsplit``: the relax and
-   extraction kernels) into block files plus an ``index.json``; load it
-   into a ``ShardEngine``
+   extraction kernels) into 9 blocks of 1,024 rows, so the build runs its
+   default pipeline (a stager ahead, a flush thread behind; the seconds
+   split into the build loop's compute, the flush thread's busy time,
+   the stall and the staging, with the peak device memory), plus an
+   ``index.json``; load it into a ``ShardEngine``
    and answer three rounds of 20,000 queries — free flow, one congestion
    diff, ``k_moves=8`` with extraction — with the launch counters zeroed
    before the rounds and read after them, and the engine's pair-table
@@ -39,7 +42,31 @@ points a user calls, then the compressed-residency path:
    and peak memory, the ``query_tables_sharded`` answers equal to the
    engine's free-flow walk, and the wide sweep on the first chunk equal
    to the plain sweep, sweep by sweep, timed beside ``torch.gather`` and
-   the plain sweep; then hold the relax kernel's loop (the settled-tile skip, as the build runs it)
+   the plain sweep; then ``[delta]``: three epochs on the shard — epoch
+   1 slows one entrance edge (x3) of 3 of worker 0's targets that lie on
+   no shortest path between their two neighbours, epoch 2 (chained from
+   the epoch-1 index) restores them and slows 3 others (diffs built so
+   that the splice runs), epoch 3 (chained from epoch 2) slows every
+   edge within a radius of a seeded node (x3), the congestion an
+   operator sees — each by ``delta_build_index(..., workers=[0])`` on
+   the card (K1's affected pass on the transposed graph, then K1/K2 on
+   the dirty rows with clean blocks byte-copied: epochs 1 and 2 must
+   splice, copy a block and splice a block; epoch 3 must dirty more than
+   ``DOS_BUILD_DELTA_MAX_FRAC`` of the shard, its share logged, and
+   degrade to the pipelined full build under its epoch) and its
+   manifest, then promoted into the road engine (``promote_index``):
+   rounds of 20,000 queries naming the epoch's file before and after,
+   costs after equal to scipy's Dijkstra on the retimed graph for every
+   query to the dirty (epoch 3: the 4 nearest the hotspot) and 4 seeded
+   targets and never above the re-priced ones, free flow and a round
+   naming the epoch before the one promoted unchanged, epoch 1 refused
+   the second time, B1 launched in the promoted rounds; the epoch-2
+   index's copied block, spliced block and 512 seeded rows, and 512
+   seeded rows of the epoch-3 index, equal to K1/K2 on the retimed
+   graph; each delta's seconds split (affected pass, recompute, copies,
+   spliced writes) and against the full build
+   (``build_delta_vs_full_ratio``, the degraded epoch's apart);
+   then hold the relax kernel's loop (the settled-tile skip, as the build runs it)
    against the plain split relaxation on worker 0's first 512 targets
    (after 4 steps, at a mid cut and at convergence, equal element by
    element, with the plain loop's step count) and the extraction kernel
@@ -51,6 +78,13 @@ points a user calls, then the compressed-residency path:
    bytes and the changed map over every step), with a per-step profile
    of the build's loop (the kernels' share of its time); and an
    extraction beside its byte bound;
+2b. pipeline (``[pipeline]`` lines): worker 0 of the campaign graph
+   (8,192 rows, 8 blocks of 1,024) built under epoch 1 serially and
+   pipelined in turns through one compute context, blocks and ledger
+   lines byte-equal every time, each timed with its split and peak
+   memory; an epoch-1 build rebuilds only a block journaled under
+   another epoch, then resumes all; a block write that fails raises,
+   leaves no temp file and the blocks before it journaled;
 3. compressed path (``[compressed]`` lines), on
    ``synth_city_graph(514, 514, seed=0, shortcut_frac=0.0)`` (264,196
    nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 32
@@ -214,7 +248,7 @@ points a user calls, then the compressed-residency path:
    plain run, every server exits 0); the heap route
    (``DOS_ASTAR_DEVICE=0``) on the first 16 queries, free flow, its
    costs equal to K6's; then, while 7 spawned reference processes run
-   the heap route on the first 512 queries (free flow) and scipy's
+   the heap route on the first 256 queries (free flow) and scipy's
    Dijkstra on every query to 256 seeded targets a round and 128 of the
    road chunk: K6 against the plain versions on the campaign's first
    1,024-query chunk at hscale 1 and at hscale 1.5 / fscale 0.1 (the
@@ -417,11 +451,32 @@ ASTAR_CHUNK = 1_024
 ASTAR_KNOBS = ((1.0, 0.0), (1.5, 0.1))
 ASTAR_CUTS = (1, 2, 3)
 ASTAR_HEAP_CLI = 16
-ASTAR_HEAP_QUERIES = 512
+ASTAR_HEAP_QUERIES = 256
 ASTAR_DIJKSTRA = 256
 ASTAR_ROAD_DIJKSTRA = 128
 ASTAR_REF_PROCS = 7
 #: the three build kernels' entries in the kernel table
+# the pipelined build and the delta rebuilds: the road and [pipeline]
+# shards' blocks of 1,024 rows (9 and 8 blocks: the build's default
+# pipeline has blocks to overlap; the controller's default of 16,384
+# rows makes every shard of the smoke one block)
+ROAD_BLOCK = 1024
+PIPE_KEYS = ("build_compute_seconds", "build_flush_seconds",
+             "build_pipeline_stall_seconds", "build_stage_overlap_seconds",
+             "build_rows_staged_total")
+PIPE_FAULT_BLOCK = 3
+# a delta epoch slows one entrance edge (x DELTA_MULT) of this many of
+# worker 0's targets, each in a block of its own (``detour_targets``)
+DELTA_TARGETS = 3
+DELTA_MULT = 3
+DELTA_CHECK_ROWS = 512
+DELTA_DIJKSTRA_TARGETS = 4
+# a congestion epoch as operators see it: every edge with both ends
+# within radius r of a seeded node slowed x DELTA_MULT, r the distance to
+# the HOTSPOT_NODES-th nearest node; it dirties nearly every target, so
+# the delta degrades to the pipelined full build under its epoch
+HOTSPOT_NODES = 64
+
 BUILD_KERNELS = {
     "relax_jacobi": "distributed_oracle_search_tpu/ops/ell_split.py:115 "
                     "(XLA relax; also shift_relax.py:76, bellman_ford.py:39)",
@@ -777,17 +832,46 @@ def golden_dijkstra(g, queries, cost, fin, tag: str) -> None:
             "Dijkstra")
 
 
-def build_index(g, dc, outdir: str, tag: str, codec: str | None = None):
+def pipeline_split(c0: dict) -> dict:
+    """The build pipeline's running sums since the ``cpd.COUNTERS``
+    snapshot ``c0``: the build loop's compute, the flush thread's busy
+    time, the loop's stall and the staging seconds, the rows staged."""
+    return {k: cpd.COUNTERS[k] - c0[k] for k in PIPE_KEYS}
+
+
+def split_line(split: dict) -> str:
+    return (f"main thread compute {split['build_compute_seconds']:.3f} s, "
+            f"flush thread busy {split['build_flush_seconds']:.3f} s, "
+            f"stall {split['build_pipeline_stall_seconds']:.3f} s, "
+            f"staging {split['build_stage_overlap_seconds']:.3f} s, "
+            f"{split['build_rows_staged_total']} rows staged")
+
+
+def build_index(g, dc, outdir: str, tag: str, codec: str | None = None,
+                stats: dict | None = None):
+    """Worker 0's shard by ``build_worker_shard`` (the pipeline when it
+    has more than one block), its seconds split by the pipeline's sums
+    and its peak device memory logged (and kept in ``stats``), then its
+    manifest."""
     torch.cuda.reset_peak_memory_stats()
+    c0 = dict(cpd.COUNTERS)
     t0 = time.perf_counter()
     written = build_worker_shard(g, dc, WID, outdir, chunk=CHUNK,
                                  device="cuda", codec=codec)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     rows = dc.n_owned(WID)
-    log(f"{tag} rows={rows} chunk={CHUNK} blocks={len(written)} "
-        f"seconds={build_s:.3f} rows/s={rows / build_s:.2f} peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    split = pipeline_split(c0)
+    peak = torch.cuda.max_memory_allocated()
+    pipelined = cpd.build_pipeline_enabled() and len(written) > 1
+    log(f"{tag} rows={rows} chunk={CHUNK} blocks={len(written)} of "
+        f"{dc.block_size} rows ({'pipelined' if pipelined else 'serial'})"
+        f" seconds={build_s:.3f} rows/s={rows / build_s:.2f} peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    log(f"{tag} split: {split_line(split)}")
+    if stats is not None:
+        stats.update(seconds=build_s, blocks=len(written),
+                     pipelined=pipelined, peak_bytes=peak, **split)
     return write_index_manifest(outdir, dc, workers=[WID])
 
 
@@ -965,8 +1049,7 @@ def relax_vs_plain(tag: str, dg, csr, st, t) -> tuple[dict, torch.Tensor]:
     CUDA events, back to back) at each column group width, the nodes in
     the CSR's visit order and by id, beside the dense bound; the whole
     loop to convergence as the build runs it (the skip, the default
-    width, the visit order) and with one lever changed at a time (by id;
-    one column a lane; no skip), beside its bound; the plain split step.
+    width, the visit order), beside its bound; the plain split step.
     Returns the entry and the converged ``[N, B]`` distances."""
     n, b, m = dg.n, int(t.shape[0]), int(csr.col.numel())
     t0 = time.perf_counter()
@@ -1013,9 +1096,9 @@ def relax_vs_plain(tag: str, dg, csr, st, t) -> tuple[dict, torch.Tensor]:
             + (" [default]" if v == default else "") for v in vecs)
         + f"; dense bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B); "
         f"plain split step {plain_ms:.4f} ms")
-    loops = [relax_loop_ms(c, t, skip, v) for c, skip, v in (
-        (csr, True, default), (by_id, True, default), (csr, True, 1),
-        (csr, False, default))]
+    # the loop as the build runs it (the loops with one lever changed at
+    # a time are recorded in PERF.md and no longer run)
+    loops = [relax_loop_ms(csr, t, True, default)]
     for lp in loops:
         if lp["steps"] != steps:
             raise AssertionError(f"{tag} relax loop {lp}: steps != {steps}")
@@ -1251,6 +1334,498 @@ def build_kernel_entries(by_path: dict[str, dict],
     return entries
 
 
+def detour_targets(g, dc, rng, k: int, avoid=()) -> tuple[
+        np.ndarray, np.ndarray, list[int]]:
+    """``k`` of worker 0's targets ``c``, each in a block of its own and
+    none in a block of ``avoid``, with two neighbours ``u1``, ``u2`` such
+    that ``c`` lies on no shortest ``u1 → u2`` path (``w(u1,c) + w(c,u2)
+    > d(u1 → u2)``, a bounded scipy Dijkstra from ``u1``) and the detour
+    by ``u2`` beats the entrance ``u1 → c`` tripled (``d(u1 → u2) +
+    w(u2,c) < 3 w(u1,c)``): ``(targets, the ids of the entrances u1 → c,
+    blocks)``. Raising that entrance's weight then makes exactly row
+    ``c`` dirty (the edge lies on no shortest path into another target),
+    and changes its first moves."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+
+    fwd = sp.csr_matrix((g.w.astype(np.float64), (g.src, g.dst)),
+                        shape=(g.n, g.n))
+    owned = dc.owned(WID)
+    rows = np.nonzero(np.diff(g.out_ptr)[owned] == 2)[0]
+    nodes, eids, blocks = [], [], []
+    for r in rows[rng.permutation(len(rows))]:
+        b = int(r // dc.block_size)
+        if b in blocks or b in avoid:
+            continue
+        c = int(owned[r])
+        u1, u2 = (int(v) for v in g.dst[g.out_eid[g.out_ptr[c]:
+                                                  g.out_ptr[c + 1]]])
+        e1, e12, e2 = g.edge_ids(np.array([u1, c, u2]),
+                                 np.array([c, u2, c]))
+        through = int(g.w[e1]) + int(g.w[e12])
+        d12 = dijkstra(fwd, indices=u1, limit=through)[u2]
+        if not (d12 < through and d12 + g.w[e2] < DELTA_MULT * g.w[e1]):
+            continue
+        nodes.append(c)
+        eids.append(int(e1))
+        blocks.append(b)
+        if len(nodes) == k:
+            break
+    if len(nodes) < k:
+        raise AssertionError(f"only {len(nodes)} detour targets in distinct "
+                             f"blocks of worker {WID}")
+    return np.asarray(nodes, np.int64), np.asarray(eids, np.int64), blocks
+
+
+class DeltaProbe:
+    """Seconds (host clock) of a delta's stages, by wrapping what
+    ``models.cpd`` calls: the affected pass, the rows' recompute, the
+    byte copies of clean blocks and the spliced blocks' writes; also the
+    pipelined builds (``_BackgroundStager`` made) and the affected pass's
+    result (``last``)."""
+
+    STAGES = ("delta_affected_targets", "_compute_rows_batched",
+              "atomic_copy_file", "atomic_save_npy")
+    NAMES = STAGES + ("_BackgroundStager",)
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(self.NAMES, 0.0)
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.last: dict = {}
+        self._real: dict = {}
+
+    def _wrap(self, name, real):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                self.last[name] = out = real(*a, **kw)
+                return out
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+        return timed
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self._real[name] = getattr(cpd, name)
+            setattr(cpd, name, self._wrap(name, self._real[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(cpd, name, real)
+
+
+def delta_epoch(g, dc, old_dir: str, fused: str, epoch: int,
+                tag: str, degrade: bool = False) -> dict:
+    """One delta epoch of worker 0's shard as the smoke drives every
+    single-worker index (``delta_build_index(..., workers=[0])``, then
+    ``write_index_manifest(..., workers=[0], extra=...)``, as
+    ``build_index`` does for a build); it must splice, copy at least one
+    block and splice at least one, or with ``degrade`` dirty more than
+    ``DOS_BUILD_DELTA_MAX_FRAC`` of the shard in the affected pass and
+    rebuild every row by the pipelined build, each ledger line keyed to
+    ``epoch``. Returns its report, seconds and the shard's dirty share."""
+    old_man = cpd.read_manifest(old_dir)
+    with DeltaProbe() as probe:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = cpd.delta_build_index(g, dc, old_dir, fused, workers=[WID],
+                                    chunk=CHUNK, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    write_index_manifest(rep["outdir"], dc,
+                         rows_per_worker=old_man["rows_per_worker"],
+                         workers=[WID],
+                         extra={"diff_epoch": rep["epoch"],
+                                "diff_file": os.path.abspath(fused)})
+    n_blocks = -(-dc.n_owned(WID) // dc.block_size)
+    spliced = n_blocks - rep["blocks_skipped"] - rep["blocks_resumed"]
+    affected = probe.last.get("delta_affected_targets")
+    share = (None if affected is None
+             else float(np.isin(dc.owned(WID), affected).mean()))
+    stages = {k: probe.seconds[k] for k in DeltaProbe.STAGES}
+    if degrade:
+        max_frac = float(os.environ.get("DOS_BUILD_DELTA_MAX_FRAC", 0.75))
+        lines = cpd.BuildLedger(rep["outdir"], WID).entries()
+        keyed = sum(e.get("epoch") == epoch for e in lines.values())
+        if (rep["epoch"] != epoch or not rep["degraded_full"]
+                or share is None or share <= max_frac
+                or probe.calls["_BackgroundStager"] != 1
+                or rep["rows_recomputed"] != dc.n_owned(WID)
+                or keyed != n_blocks):
+            raise AssertionError(
+                f"{tag} epoch {epoch}: expected the affected pass to dirty "
+                f"more than {max_frac} of the shard and a pipelined full "
+                f"build keyed to the epoch, got {rep}, dirty share {share}, "
+                f"{probe.calls['_BackgroundStager']} pipelined builds, "
+                f"{keyed} of {n_blocks} ledger lines of epoch {epoch}")
+        log(f"{tag} epoch {epoch}: {rep['changed_edges']} changed edges -> "
+            f"{rep['affected_rows']} affected rows of {g.n}, dirty share "
+            f"of worker {WID}'s targets {share:.6f} > {max_frac}: degraded "
+            f"to the pipelined full build, {n_blocks} blocks journaled "
+            f"under epoch {epoch}, in {seconds:.3f} s (affected pass "
+            f"{stages['delta_affected_targets']:.3f} s) -> {rep['outdir']}")
+        return {**rep, "seconds": seconds, "spliced": 0,
+                "dirty_share": share, "stages_s": stages}
+    if (rep["epoch"] != epoch or rep["degraded_full"]
+            or rep["blocks_skipped"] < 1 or spliced < 1):
+        raise AssertionError(f"{tag} epoch {epoch}: expected a splice with "
+                             f"copies and spliced blocks, got {rep}")
+    log(f"{tag} epoch {epoch}: {rep['changed_edges']} changed edges -> "
+        f"{rep['affected_rows']} affected rows, dirty share of worker "
+        f"{WID}'s targets {share:.6f}, {rep['rows_recomputed']} "
+        f"recomputed, {rep['blocks_skipped']} of {n_blocks} blocks copied, "
+        f"{spliced} spliced, in {seconds:.3f} s (affected pass "
+        f"{stages['delta_affected_targets']:.3f} s, recompute "
+        f"{stages['_compute_rows_batched']:.3f} s, copies "
+        f"{stages['atomic_copy_file']:.3f} s, spliced writes "
+        f"{stages['atomic_save_npy']:.3f} s) -> {rep['outdir']}")
+    return {**rep, "seconds": seconds, "spliced": spliced,
+            "dirty_share": share, "stages_s": stages}
+
+
+def radius_hotspot(g, rng) -> tuple[np.ndarray, int, float]:
+    """The edges with both ends within radius r of a seeded node ``c``, r
+    the distance from ``c`` to its HOTSPOT_NODES-th nearest node:
+    ``(edge ids, c, r)``."""
+    c = int(rng.integers(g.n))
+    d2 = ((g.xs - g.xs[c]).astype(np.float64) ** 2
+          + (g.ys - g.ys[c]).astype(np.float64) ** 2)
+    r2 = np.partition(d2, HOTSPOT_NODES)[HOTSPOT_NODES]
+    inside = d2 <= r2
+    return np.nonzero(inside[g.src] & inside[g.dst])[0], c, float(r2 ** 0.5)
+
+
+def delta_path(g, dc, outdir: str, engine, queries: np.ndarray,
+               free_flow: tuple, full_s: float) -> dict:
+    """``[delta]``: three diff epochs absorbed into worker 0's road
+    shard by delta rebuilds on the card, each promoted into the road
+    phase's engine. Epoch 1 (``fused-e000001.diff``) slows one entrance
+    edge of DELTA_TARGETS targets (``detour_targets``, x DELTA_MULT);
+    epoch 2 (``fused-e000002.diff``, chained from the epoch-1 index)
+    restores them (the decrease branch) and slows as many others: diffs
+    built so that the splice runs. Epoch 3 (``fused-e000003.diff``,
+    chained from the epoch-2 index) is a congestion epoch as operators
+    see it, a radius hotspot (``radius_hotspot``, x DELTA_MULT): its
+    affected pass dirties nearly every target, so the delta degrades to
+    the pipelined full build under epoch 3. Counts are zeroed just
+    before and read just after the main run: the three deltas (K1 in the
+    affected pass and, with K2, the recompute or the build) and the
+    rounds of 20,000 queries around the promotions (B1). Checks: each
+    promoted round's costs equal scipy's Dijkstra on the retimed graph
+    for every query to the dirty targets (epoch 3: the DELTA_DIJKSTRA_
+    TARGETS targets nearest the hotspot) and to DELTA_DIJKSTRA_TARGETS
+    seeded ones, and none is above the same query's cost before
+    promotion; free flow, and a round naming the epoch before the one
+    promoted, are unchanged; promoting epoch 1 again is refused; on the
+    epoch-2 index every row of a copied block, of a spliced block and
+    DELTA_CHECK_ROWS seeded rows, and on the epoch-3 index as many seeded
+    rows, equal the rows K1/K2 compute on the retimed graph."""
+    tag = "[delta]"
+    rng = np.random.default_rng(SEED + 5)
+    ends1, eids1, blocks1 = detour_targets(g, dc, rng, DELTA_TARGETS)
+    ends2, eids2, blocks2 = detour_targets(g, dc, rng, DELTA_TARGETS,
+                                           avoid=blocks1)
+    w1, w2 = g.w.copy(), g.w.copy()
+    w1[eids1] *= DELTA_MULT
+    w2[eids2] *= DELTA_MULT
+    fused1 = os.path.join(outdir, "fused-e000001.diff")
+    write_diff(fused1, g.src[eids1], g.dst[eids1], w1[eids1])
+    both = np.concatenate([eids1, eids2])
+    fused2 = os.path.join(outdir, "fused-e000002.diff")
+    write_diff(fused2, g.src[both], g.dst[both], w2[both])
+    hot, centre, radius = radius_hotspot(g, np.random.default_rng(SEED + 6))
+    w3 = w2.copy()
+    w3[hot] *= DELTA_MULT
+    third = np.union1d(eids2, hot)
+    fused3 = os.path.join(outdir, "fused-e000003.diff")
+    write_diff(fused3, g.src[third], g.dst[third], w3[third])
+    owned = dc.owned(WID)
+    near = owned[np.argsort((g.xs[owned] - g.xs[centre]).astype(np.float64)
+                            ** 2 + (g.ys[owned] - g.ys[centre])
+                            .astype(np.float64) ** 2)[:DELTA_DIJKSTRA_TARGETS]]
+    log(f"{tag} epoch 1 slows one entrance of targets {ends1.tolist()} "
+        f"(blocks {blocks1}) x{DELTA_MULT}; epoch 2 restores them and slows "
+        f"one entrance of {ends2.tolist()} (blocks {blocks2}); epoch 3 "
+        f"slows the {len(hot)} edges within radius {radius:.1f} of node "
+        f"{centre} x{DELTA_MULT}")
+    cfg = RuntimeConfig()
+    rounds: dict[str, dict] = {}
+
+    def round_(name: str, diff: str):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.answer(queries, cfg, difffile=diff)[:3]
+        s = time.perf_counter() - t0
+        rounds[name] = {"s": s, "qps": len(queries) / s}
+        return out
+
+    zero_launches()
+    t0 = time.perf_counter()
+    rep1 = delta_epoch(g, dc, outdir, fused1, 1, tag)
+    pre1 = round_("epoch 1 re-priced", fused1)
+    if not engine.promote_index(rep1["outdir"], 1):
+        raise AssertionError(f"{tag} epoch 1 did not promote")
+    walk0 = cw.cuda_walk_batch.launches
+    post1 = round_("epoch 1 promoted", fused1)
+    promoted_walks = cw.cuda_walk_batch.launches - walk0
+    ff = round_("free flow", "-")
+    rep2 = delta_epoch(g, dc, rep1["outdir"], fused2, 2, tag)
+    pre2 = round_("epoch 2 re-priced", fused2)
+    if not engine.promote_index(rep2["outdir"], 2):
+        raise AssertionError(f"{tag} epoch 2 did not promote")
+    walk0 = cw.cuda_walk_batch.launches
+    post2 = round_("epoch 2 promoted", fused2)
+    promoted_walks += cw.cuda_walk_batch.launches - walk0
+    old1 = round_("epoch 1 after epoch 2's promotion", fused1)
+    if engine.promote_index(rep1["outdir"], 1):
+        raise AssertionError(f"{tag} epoch 1 promoted over epoch 2")
+    rep3 = delta_epoch(g, dc, rep2["outdir"], fused3, 3, tag, degrade=True)
+    pre3 = round_("epoch 3 re-priced", fused3)
+    if not engine.promote_index(rep3["outdir"], 3):
+        raise AssertionError(f"{tag} epoch 3 did not promote")
+    walk0 = cw.cuda_walk_batch.launches
+    post3 = round_("epoch 3 promoted", fused3)
+    promoted_walks += cw.cuda_walk_batch.launches - walk0
+    old2 = round_("epoch 2 after epoch 3's promotion", fused2)
+    main_s = time.perf_counter() - t0
+    walks = cw.cuda_walk_batch.launches
+    build = read_build_launches()
+    log(f"{tag} launches in the phase's run: walk {walks} ({promoted_walks} "
+        f"in the promoted rounds), build {build}; engine at epoch "
+        f"{engine.index_epoch}; re-promoting epoch 1 refused")
+    if promoted_walks <= 0 or build["relax_jacobi"] <= 0 \
+            or build["first_moves"] <= 0:
+        raise AssertionError(f"{tag} B1 or K1/K2 did not launch")
+    for name, r in rounds.items():
+        log(f"{tag} round {name}: {len(queries)} queries in {r['s']:.3f} s "
+            f"= {r['qps']:.1f} q/s")
+
+    # the answers: unchanged where the gate keeps the base table
+    for name, got, want in (("free flow", ff, free_flow),
+                            ("epoch 1 after epoch 2", old1, pre1),
+                            ("epoch 2 after epoch 3", old2, pre2)):
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{tag} the {name} round changed")
+    improved = {}
+    for epoch, post, pre, w, ends in ((1, post1, pre1, w1, ends1),
+                                      (2, post2, pre2, w2,
+                                       np.concatenate([ends1, ends2])),
+                                      (3, post3, pre3, w3, near)):
+        if not post[2].all() or (post[0] > pre[0]).any():
+            raise AssertionError(f"{tag} epoch {epoch}: promoted costs "
+                                 "above the re-priced ones, or unfinished")
+        improved[epoch] = int((post[0] < pre[0]).sum())
+        seeded = rng.choice(np.unique(queries[:, 1]),
+                            DELTA_DIJKSTRA_TARGETS, replace=False)
+        sel = np.nonzero(np.isin(queries[:, 1], np.r_[ends, seeded]))[0]
+        want = scipy_dijkstra(g, w, queries[sel])
+        if not np.array_equal(post[0][sel], want):
+            raise AssertionError(f"{tag} epoch {epoch}: promoted costs "
+                                 "differ from scipy's Dijkstra")
+        log(f"{tag} epoch {epoch} promoted: {len(sel)} costs (every query "
+            f"to {len(ends)} {'dirty' if epoch < 3 else 'nearest'} and "
+            f"{len(seeded)} seeded targets) equal "
+            f"scipy's Dijkstra on the retimed graph; {improved[epoch]} of "
+            f"{len(queries)} costs below the re-priced ones, none above")
+
+    # the epoch-1 rows of the slowed targets are new rows
+    bs = dc.block_size
+    idx1 = np.searchsorted(owned, ends1)
+
+    def rows_of(d, idx):
+        return np.stack([np.load(os.path.join(d, cpd.shard_block_name(
+            WID, int(i) // bs)), mmap_mode="r")[int(i) % bs] for i in idx])
+
+    moved = int((rows_of(rep1["outdir"], idx1) != rows_of(outdir, idx1))
+                .sum())
+    if moved == 0:
+        raise AssertionError(f"{tag} epoch 1 changed no first move")
+    log(f"{tag} epoch 1's spliced rows differ from the base index's in "
+        f"{moved} first moves")
+
+    # the epoch-2 and epoch-3 indexes' rows against K1/K2 on the retimed
+    # graphs
+    copied = next(b for b in range(-(-len(owned) // bs))
+                  if b not in blocks1 + blocks2)
+    checks = {2: {"copied block": np.arange(copied * bs,
+                                            min((copied + 1) * bs,
+                                                len(owned))),
+                  "spliced block": np.arange(blocks2[0] * bs,
+                                             min((blocks2[0] + 1) * bs,
+                                                 len(owned)))}}
+    for epoch in (2, 3):
+        checks.setdefault(epoch, {})["seeded rows"] = np.sort(
+            rng.choice(len(owned), DELTA_CHECK_ROWS, replace=False))
+    for epoch, rep, w in ((2, rep2, w2), (3, rep3, w3)):
+        gw = Graph(g.xs, g.ys, g.src, g.dst, w)
+        compute = sharded.chunk_compute(
+            DeviceGraph.from_graph(gw, device="cuda"),
+            cpd.pick_build_kernel(gw, "auto"))
+        for name, idx in checks[epoch].items():
+            for lo in range(0, len(idx), CHUNK):
+                part = idx[lo:lo + CHUNK]
+                t = torch.as_tensor(owned[part].astype(np.int32),
+                                    device="cuda")
+                if not np.array_equal(compute(t).cpu().numpy(),
+                                      rows_of(rep["outdir"], part)):
+                    raise AssertionError(f"{tag} epoch {epoch}'s {name} "
+                                         "differs from K1/K2 on the "
+                                         "retimed graph")
+            log(f"{tag} epoch {epoch}'s {name} ({len(idx)} rows) equal "
+                "K1/K2 on the retimed graph byte for byte")
+        del compute
+    delta_s = rep1["seconds"] + rep2["seconds"]
+    ratio = [rep1["seconds"] / full_s, rep2["seconds"] / full_s]
+    ratio3 = rep3["seconds"] / full_s
+    log(f"{tag} build_delta_vs_full_ratio: epoch 1 {ratio[0]:.4f}, epoch 2 "
+        f"{ratio[1]:.4f} (deltas {rep1['seconds']:.3f} / "
+        f"{rep2['seconds']:.3f} s against the road phase's full build "
+        f"{full_s:.3f} s); the degraded epoch 3 {ratio3:.4f} "
+        f"({rep3['seconds']:.3f} s, dirty share {rep3['dirty_share']:.6f});"
+        f" phase main run {main_s:.3f} s")
+    return {"launches": {"walk": walks, **build},
+            "walk_promoted": promoted_walks, "first_moves_changed": moved,
+            "epochs": [{k: v for k, v in r.items() if k != "outdir"}
+                       for r in (rep1, rep2, rep3)],
+            "rounds": rounds, "improved": improved,
+            "build_delta_vs_full_ratio": ratio, "delta_s": delta_s,
+            "hotspot": {"edges": int(len(hot)), "centre": centre,
+                        "radius": radius,
+                        "dirty_share": rep3["dirty_share"],
+                        "seconds": rep3["seconds"],
+                        "degraded_vs_full_ratio": ratio3},
+            "full_build_s": full_s}
+
+
+def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
+    """``[pipeline]``: worker 0 of the campaign graph
+    (``synth_road_network(65_536, seed=0)``, ``tpu`` over 8 workers:
+    8,192 rows, 8 blocks of ROAD_BLOCK) built on the card under epoch 1
+    through one compute context (set up before the runs), serially
+    (``DOS_BUILD_PIPELINE=0``) and pipelined in turns (serial, pipelined,
+    pipelined, serial): the blocks and ledger lines of every build
+    byte-equal, each timed with the pipeline's split and peak memory.
+    Then on a pipelined index: a block journaled under another epoch is
+    rebuilt alone by an epoch-1 build, a rerun resumes all; a write that
+    fails on block PIPE_FAULT_BLOCK raises, leaves no temp file, and
+    blocks 0-2 stand journaled. Counts zeroed before, read after."""
+    tag = "[pipeline]"
+    g = synth_road_network(CAMPAIGN_NODES, seed=SEED)
+    dc = DistributionController("tpu", CAMPAIGN_WORKERS, CAMPAIGN_WORKERS,
+                                g.n, block_size=ROAD_BLOCK)
+    n_blocks = -(-dc.n_owned(WID) // ROAD_BLOCK)
+    names = [cpd.shard_block_name(WID, b) for b in range(n_blocks)]
+    ctx: dict = {}
+    prior = os.environ.get("DOS_BUILD_PIPELINE")
+
+    def files(d):
+        return {f: open(os.path.join(d, f), "rb").read()
+                for f in sorted(os.listdir(d))}
+
+    def build(d, pipe: str, **kw):
+        os.environ["DOS_BUILD_PIPELINE"] = pipe
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = dict(cpd.COUNTERS)
+        t0 = time.perf_counter()
+        written = build_worker_shard(g, dc, WID, d, chunk=CHUNK,
+                                     device="cuda", ctx=ctx, **kw)
+        torch.cuda.synchronize()
+        return written, {"s": time.perf_counter() - t0,
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         **pipeline_split(c0)}
+
+    # the compute setup (graph upload, kind, CSR) once, outside the runs
+    cpd._compute_ctx(ctx, g, "auto", 0, torch.device("cuda"))
+    zero_launches()
+    runs = []
+    ref = pipe_dir = None
+    try:
+        for i, pipe in enumerate(("0", "1", "1", "0")):
+            d = os.path.join(work, f"run{i}")
+            written, stats = build(d, pipe, epoch=1)
+            got = files(d)
+            ref = got if ref is None else ref
+            if written != names or got != ref:
+                raise AssertionError(f"{tag} run {i} (pipeline {pipe}): "
+                                     "blocks or ledger differ from run 0's")
+            runs.append({"pipelined": pipe == "1", **stats})
+            log(f"{tag} run {i} {'pipelined' if pipe == '1' else 'serial'}"
+                f": {stats['s']:.3f} s, peak device memory "
+                f"{stats['peak_bytes'] / 2**30:.2f} GiB; {split_line(stats)}"
+                "; blocks and ledger byte-equal to run 0's")
+            if pipe == "1" and pipe_dir is None:
+                pipe_dir = d            # kept for the epoch checks
+            else:
+                shutil.rmtree(d)
+        # epoch keys on a pipelined index journaled under epoch 1
+        ledger = cpd.BuildLedger(pipe_dir, WID)
+        ent = dict(ledger.entries()[names[PIPE_FAULT_BLOCK]])
+        ledger.record(ent["file"], ent["digest"], ent["shape"], ent["dtype"],
+                      epoch=2)
+        written, _ = build(pipe_dir, "1", epoch=1)
+        if written != [names[PIPE_FAULT_BLOCK]]:
+            raise AssertionError(f"{tag} block journaled under epoch 2: an "
+                                 f"epoch-1 resume rebuilt {written}")
+        r0 = cpd.COUNTERS["build_blocks_resumed_total"]
+        written, _ = build(pipe_dir, "1", epoch=1)
+        resumed = cpd.COUNTERS["build_blocks_resumed_total"] - r0
+        if written or resumed != n_blocks:
+            raise AssertionError(f"{tag} an epoch-1 rerun rebuilt {written}, "
+                                 f"resumed {resumed}")
+        if {f: b for f, b in files(pipe_dir).items() if f in names} != {
+                f: b for f, b in ref.items() if f in names}:
+            raise AssertionError(f"{tag} the epoch builds changed a block")
+        log(f"{tag} epoch keys: an epoch-1 build rebuilt only the block "
+            f"journaled under epoch 2 ({names[PIPE_FAULT_BLOCK]}), then "
+            "resumed every block; the blocks are run 0's")
+        # a write failing on one block
+        real = cpd.AtomicNpyWriter.commit
+        fault = names[PIPE_FAULT_BLOCK]
+
+        def commit(self, arr):
+            if self.path.endswith(fault):
+                raise OSError(f"planted write fault on {fault}")
+            return real(self, arr)
+
+        fault_dir = os.path.join(work, "fault")
+        cpd.AtomicNpyWriter.commit = commit
+        try:
+            build(fault_dir, "1")
+        except OSError as e:
+            log(f"{tag} the pipelined build raised: {e}")
+        else:
+            raise AssertionError(f"{tag} a failed block write did not raise")
+        finally:
+            cpd.AtomicNpyWriter.commit = real
+        left = sorted(os.listdir(fault_dir))
+        stand = names[:PIPE_FAULT_BLOCK]
+        journaled = list(cpd.BuildLedger(fault_dir, WID).entries())
+        if ([f for f in left if f.endswith(".npy")] != stand
+                or journaled != stand
+                or any(".tmp" in f for f in left)):
+            raise AssertionError(f"{tag} after the fault: {left}, "
+                                 f"journaled {journaled}")
+        log(f"{tag} no temp file left; blocks {stand} stand, journaled in "
+            "order")
+    finally:
+        if prior is None:
+            os.environ.pop("DOS_BUILD_PIPELINE", None)
+        else:
+            os.environ["DOS_BUILD_PIPELINE"] = prior
+    launches = read_build_launches()
+    mean = {p: float(np.mean([r["s"] for r in runs if r["pipelined"] == p]))
+            for p in (False, True)}
+    log(f"{tag} build seconds, serial / pipelined (2 runs each, in turns): "
+        f"{mean[False]:.3f} / {mean[True]:.3f} = "
+        f"{mean[False] / mean[True]:.4f}; build kernel launches in the "
+        f"phase: {launches}")
+    return {"runs": runs, "serial_s": mean[False],
+            "pipelined_s": mean[True], "blocks": n_blocks}, launches
+
+
 def run() -> list[dict]:
     # ---- 1. card + kernel builds: one nvcc a source, started together
     log(card_line())
@@ -1286,7 +1861,8 @@ def run() -> list[dict]:
     # ---- 2. road path
     t0 = time.perf_counter()
     g = synth_road_network(N_NODES, seed=SEED)
-    dc = DistributionController("mod", MAXWORKER, MAXWORKER, g.n)
+    dc = DistributionController("mod", MAXWORKER, MAXWORKER, g.n,
+                                block_size=ROAD_BLOCK)
     log(f"[graph] n={g.n} m={g.m} K={g.max_out_degree} "
         f"({time.perf_counter() - t0:.2f} s); worker {WID} owns "
         f"{dc.n_owned(WID)} targets")
@@ -1294,14 +1870,23 @@ def run() -> list[dict]:
     cmps: dict[str, dict] = {}
     build_launches: dict[str, dict[str, int]] = {}
     try:
-        raw_kernel, cmps["road"], build_launches["road"], road_k5 = \
+        raw_kernel, cmps["road"], build_launches["road"], road_k5, delta = \
             road_path(g, dc, outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
-    # release the road engine's tables before the compressed phase
+    build_launches["delta"] = {k: delta["launches"][k] for k in BUILD_FNS}
+    # release the road engine's tables before the next phase
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[road] done at {time.perf_counter() - T_START:.1f} s")
+
+    # ---- 2b. the pipelined build against the serial loop
+    outdir = tempfile.mkdtemp(prefix="chip-smoke-pipeline-", dir=work)
+    try:
+        pipeline, build_launches["pipeline"] = pipeline_path(outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    log(f"[pipeline] done at {time.perf_counter() - T_START:.1f} s")
 
     # ---- 3. compressed path
     t0 = time.perf_counter()
@@ -1346,11 +1931,13 @@ def run() -> list[dict]:
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     raw_kernel["launches_by_path"] = {"road": raw_kernel["launches"],
+                                      "delta": delta["launches"]["walk"],
                                       "campaign": campaign["launches"],
                                       "serving": serving["launches"]["walk"],
                                       "host": host["launches"],
                                       "heal": heal["launches"]}
-    raw_kernel["launches"] += (campaign["launches"] + host["launches"]
+    raw_kernel["launches"] += (delta["launches"]["walk"]
+                               + campaign["launches"] + host["launches"]
                                + serving["launches"]["walk"]
                                + heal["launches"])
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
@@ -1363,6 +1950,8 @@ def run() -> list[dict]:
     raw_kernel["reorder"] = reorder
     build = build_kernel_entries(cmps, build_launches)
     next(e for e in build if e["name"] == "first_moves")["reorder"] = reorder
+    relax = next(e for e in build if e["name"] == "relax_jacobi")
+    relax["pipeline"], relax["delta"] = pipeline, delta
     for entry in build:
         if entry["launches"] <= 0:
             raise AssertionError(f"the main path never launched "
@@ -1447,9 +2036,14 @@ def check_build_launches(path: str, tag: str) -> dict[str, int]:
 
 def road_path(g, dc, outdir):
     zero_launches()
+    full: dict = {}
     with KindProbe() as kinds:
-        build_index(g, dc, outdir, "[build-shard]")
+        build_index(g, dc, outdir, "[build-shard]", stats=full)
     kind = kinds.check("road", "[build-shard]")
+    if not full["pipelined"] or full["blocks"] != -(-dc.n_owned(WID)
+                                                   // dc.block_size):
+        raise AssertionError(f"[build-shard] the road shard was not built "
+                             f"by the pipeline in blocks: {full}")
 
     # engine on the card, three rounds through answer()
     t0 = time.perf_counter()
@@ -1502,6 +2096,9 @@ def road_path(g, dc, outdir):
         raise AssertionError("k_moves=8 extraction disagrees with the walk")
     log("[golden] k_moves=8 extraction: [Q, 9] prefixes, moves == plen")
     road_k5 = road_doubling(g, dc, engine, queries, answers["free-flow"])
+    delta = delta_path(g, dc, outdir, engine, queries,
+                       answers["free-flow"][:3], full["seconds"])
+    delta["full_build"] = full
 
     main = per_round[0]
     del engine
@@ -1521,7 +2118,7 @@ def road_path(g, dc, outdir):
         **headline(main),
         "parity": "bit-identical",
         "rounds": per_round,
-    }, cmp, build_counts, road_k5
+    }, cmp, build_counts, road_k5, delta
 
 
 def road_doubling(g, dc, engine, queries, walk) -> dict:
@@ -3690,7 +4287,7 @@ class AstarProbe:
         out = self._real[0](*a, info=info, **kw)
         torch.cuda.synchronize()
         self.calls.append({"engine": "device", "s": time.perf_counter() - t0,
-                           "out": out, "info": info, "call": (a, kw)})
+                           "out": out, "info": info})
         return out
 
     def _heap(self, *a, **kw):
@@ -3831,13 +4428,19 @@ def heap_reference(xy: str, queries: np.ndarray):
 
 def dijkstra_reference(spec: tuple, diff_path: str | None,
                        queries: np.ndarray) -> np.ndarray:
+    """:func:`scipy_dijkstra` on a reference process's graph."""
+    g, w = reference_graph(spec, diff_path)
+    return scipy_dijkstra(g, w, queries)
+
+
+def scipy_dijkstra(g, w, queries: np.ndarray) -> np.ndarray:
     """scipy's Dijkstra (no code of the port) from each distinct target
-    of ``queries`` over the reversed graph, parallel edges reduced to
-    the lightest: each query's shortest-path cost, INF where none."""
+    of ``queries`` over the reversed graph under weights ``w``, parallel
+    edges reduced to the lightest: each query's shortest-path cost, INF
+    where none."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import dijkstra
 
-    g, w = reference_graph(spec, diff_path)
     w = np.asarray(w, np.int64)
     key = g.dst.astype(np.int64) * g.n + g.src
     order = np.lexsort((w, key))
@@ -4179,53 +4782,6 @@ def astar_loop_profile(tag: str, args: dict, cpu: float, hscale: float,
     return out
 
 
-def astar_rounds_by_skip(tag: str, calls: list[dict]) -> list[dict]:
-    """The in-process rounds' searches again on their own arguments (the
-    main run's ``astar_batch_np`` calls; the graph's device arrays are
-    cached by then): first with every sweep at skip 0 (the default of
-    ``cuda_astar.astar_sweep``'s ``skip`` set to False for this replay
-    only), then as the main run ran them. Each replay's answers, sweeps
-    and counters equal the main run's; returns each round's seconds at
-    both skips."""
-    sweep = ca.astar_sweep
-    if sweep.__defaults__ != (True,):
-        raise AssertionError(f"{tag} astar_sweep's defaults "
-                             f"{sweep.__defaults__}: expected (skip=True,)")
-    out = [{"round": name} for name in ("free-flow", "diff")]
-    for key, skip in (("dense_s", False), ("skip_s", True)):
-        dense0 = sweep.dense
-        sweep.__defaults__ = (skip,)
-        try:
-            for row, call in zip(out, calls):
-                a, kw = call["call"]
-                info: dict = {}
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                got = ba.astar_batch_np(*a, info=info, **kw)
-                torch.cuda.synchronize()
-                row[key] = time.perf_counter() - t0
-                same = (all(np.array_equal(x, y)
-                            for x, y in zip(got[:3], call["out"][:3]))
-                        and got[3] == call["out"][3]
-                        and info["sweeps"] == call["info"]["sweeps"])
-                if not same:
-                    raise AssertionError(
-                        f"{tag} round {row['round']} replayed at skip "
-                        f"{int(skip)} differs from the main run")
-        finally:
-            sweep.__defaults__ = (True,)
-        if (sweep.dense > dense0) == skip:
-            raise AssertionError(f"{tag} the replay at skip {int(skip)} "
-                                 f"launched {sweep.dense - dense0} sweeps "
-                                 "at skip 0")
-    for row in out:
-        log(f"{tag} round {row['round']} replayed: {row['dense_s']:.3f} s "
-            f"at skip 0, {row['skip_s']:.3f} s at skip 1 (skip 0 / skip 1 "
-            f"= {row['dense_s'] / row['skip_s']:.4f}); answers, sweeps "
-            "and counters equal the main run's")
-    return out
-
-
 def check_astar_dump(sv: dict, card: str, pid: int) -> None:
     """An A* server's dump: it served from this card, launched K6 (sweep,
     every launch with the skip, and heuristic) and ran no plain version,
@@ -4346,8 +4902,8 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
     calls it (its default: the batched search on the card, K6) on the
     first campaign queries, free flow and diff (the phase's main run,
     counts zeroed before it and read after it; then the servers' main
-    run); its searches replayed at skip 0, then at skip 1;
-    ``make_fifos --alg astar`` and a host free-flow round held to it; the heap route (``DOS_ASTAR_DEVICE=0``) on the first queries held
+    run); ``make_fifos --alg astar`` and a host free-flow round held to
+    it; the heap route (``DOS_ASTAR_DEVICE=0``) on the first queries held
     to K6. Then, while reference processes run the heap route on the
     first ``ASTAR_HEAP_QUERIES`` queries and scipy's Dijkstra on the
     queries of seeded targets: the rounds' costs against K1's exact
@@ -4420,9 +4976,6 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
             f"{launches['heuristic']}, no plain loop or heuristic; no index "
             f"read or written; peak device memory {peak / 2**30:.2f} GiB; "
             "parts.csv sums equal the rounds' answers")
-
-        # the same searches replayed at skip 0, then at skip 1
-        by_skip = astar_rounds_by_skip(tag, probe.calls)
 
         # 2. the host backend over A* servers, held to the in-process
         # free-flow round
@@ -4573,7 +5126,7 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
              "cut_ms": head["ms"], "cut_dense_ms": head["dense_ms"],
              **{k: head[k] for k in ("plain_ms", "bound_ms", "bound_by",
                                      "loop", "snapshots")},
-             "rounds": rounds, "rounds_by_skip": by_skip,
+             "rounds": rounds,
              "peak_bytes": peak, "chunk": chunk,
              "road": road, "host": host, "heap_s": heap_s,
              "heap_reference_s": ref_heap_s, "reference_wait_s": wait_s}

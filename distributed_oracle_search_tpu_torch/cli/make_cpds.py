@@ -31,9 +31,15 @@ On the host backend ``--no-resume`` rebuilds every block, and a conf with
 hosted replica sets too, then writes the replicated manifest and runs one
 anti-entropy pass over it.
 
-Not ported, and refused with the ``ROADMAP.md`` item that ports each:
-``--delta-from`` (A10) and on the host backend ``--engine native``
-(A15).
+``--delta-from OLD --diff FUSED [--delta-epoch N]`` runs a delta
+rebuild on ``--device`` instead of building
+(``models.cpd.delta_build_index``): the epoch index lands under
+``OLD/epoch-e<N>``, byte-equal to a build from scratch on the retimed
+graph; one JSON report line, exit 0, or 4 when ``OLD`` has no readable
+manifest.
+
+Not ported, and refused with the ``ROADMAP.md`` item that ports it: on
+the host backend ``--engine native`` (A15).
 
     python -m distributed_oracle_search_tpu_torch.cli.make_cpds -c conf.json
 """
@@ -193,6 +199,45 @@ def run_scrub(conf: ClusterConfig, args) -> int:
     return worst
 
 
+def run_delta(conf: ClusterConfig, args) -> int:
+    """``--delta-from OLD_INDEX --diff FUSED``: old index + fused diff
+    epoch → a new epoch index on ``--device``
+    (``models.cpd.delta_build_index``), with the old manifest's
+    ``block_size`` and ``replication``. Prints one JSON report line;
+    returns 0, 2 without ``--diff``, 4 when the old index has no readable
+    manifest."""
+    from ..data.graph import Graph
+    from ..models.cpd import delta_build_index, read_manifest
+    from ..parallel.partition import DistributionController
+
+    if not args.diff:
+        log.error("--delta-from needs the fused diff file (--diff)")
+        return 2
+    dc_kw = {}
+    try:
+        man = read_manifest(args.delta_from)
+        bs = int(man.get("block_size", 0))
+        if bs > 0:
+            dc_kw["block_size"] = bs
+        repl = int(man.get("replication", 1))
+        if repl > 1:
+            dc_kw["replication"] = repl
+    except (OSError, ValueError) as e:
+        log.error("delta fatal: no readable manifest in %s: %s",
+                  args.delta_from, e)
+        print(json.dumps({"index": args.delta_from, "exit_code": 4,
+                          "fatal": str(e)}))
+        return 4
+    graph = Graph.from_xy(conf.xy_file)
+    dc = DistributionController(conf.partmethod, conf.partkey,
+                                conf.maxworker, graph.n, **dc_kw)
+    report = delta_build_index(
+        graph, dc, args.delta_from, args.diff, epoch=args.delta_epoch,
+        chunk=args.chunk, resume=not args.no_resume, device=args.device)
+    print(json.dumps({"exit_code": 0, **report}))
+    return 0
+
+
 def run_host(conf: ClusterConfig, args) -> None:
     """One ``worker.build`` process per worker; the manifest once every
     local build has exited 0 (with R > 1: any replica set still missing
@@ -274,8 +319,7 @@ def main(argv=None) -> int:
     if args.verify:
         return run_verify(conf)
     if args.delta_from:
-        raise SystemExit("--delta-from (delta rebuilds) is not ported "
-                         "(ROADMAP.md A10)")
+        return run_delta(conf, args)
     if args.backend == "tpu" or (args.backend == "auto" and conf.is_tpu):
         run_tpu(conf, args)
     else:

@@ -17,9 +17,19 @@ oracle:
   its crc32 digest in the per-worker build ledger; a re-run resumes
   (``resume=False`` recomputes) and ``replica=r`` writes a shard's rank-r
   replica block set. A ``codec`` persists each block as a compressed
-  container (``models.resident``). The loop is serial: no background
-  stager, lane mesh, RLE fetch or epoch. On the card every stage runs
-  through the hand build kernels (``ops.cuda_build_kernels``).
+  container (``models.resident``). The block loop is pipelined (a stager
+  thread ahead, a flush thread behind; ``DOS_BUILD_PIPELINE``), an
+  ``epoch`` keys the ledger lines, and a ``ctx`` dict keeps the compute
+  setup across builds. No lane mesh (A13) or device-side RLE fetch. On
+  the card every stage runs through the hand build kernels
+  (``ops.cuda_build_kernels``).
+* delta rebuilds: :func:`delta_affected_targets` (the tense-edge pass,
+  K1 on the transposed graph on the card), :func:`delta_build_worker_shard`
+  and :func:`delta_build_index` (``make_cpds --delta-from``): an old
+  index plus a fused diff epoch give an epoch index
+  (:func:`epoch_index_dir`) byte-equal to a build from scratch on the
+  retimed graph, clean blocks byte-copied, dirty rows recomputed and
+  spliced; ``worker.engine.ShardEngine.promote_index`` serves it.
 * :func:`write_index_manifest` / :func:`read_manifest` /
   :func:`validate_manifest` / :func:`check_manifest_version` /
   :func:`check_block` / :func:`load_verified_block` — the ``index.json``
@@ -54,6 +64,9 @@ import hashlib
 import io
 import json
 import os
+import queue
+import re
+import threading
 import time
 from collections import OrderedDict
 
@@ -61,6 +74,7 @@ import numpy as np
 import torch
 
 from ..data.graph import Graph
+from ..ops import cuda_build_kernels as cbk
 from ..ops.device_graph import TINF, DeviceGraph
 from ..ops.ell_split import ell_split_graph, split_ratio
 from ..ops.frontier_relax import frontier_graph, locality_fraction
@@ -76,11 +90,12 @@ from ..parallel.sharded import (
     query_tables_multi_sharded, query_tables_sharded,
 )
 from ..utils.atomicio import (
-    SWEEP_MIN_AGE_S, TMP_SUFFIX, AtomicNpyWriter, atomic_save_npy,
-    atomic_write_json, digest_bytes, digest_file, quarantine,
+    SWEEP_MIN_AGE_S, TMP_SUFFIX, AtomicNpyWriter, atomic_copy_file,
+    atomic_save_npy, atomic_write_json, digest_bytes, digest_file,
+    quarantine,
 )
 from ..utils.device import resolve_device
-from ..utils.env import env_cast
+from ..utils.env import env_cast, env_flag
 from ..utils.log import get_logger
 from .resident import (
     block_codec, encode_block, is_container, maybe_decode_rows,
@@ -95,10 +110,14 @@ log = get_logger(__name__)
 #: load under v2 code, v(N+1) indexes are rejected by vN code.
 INDEX_VERSION = 2
 
-#: artifact-durability counters, under the JAX package's metric names:
-#: every verify, corruption, rebuild, resume, replica divergence, replica
-#: copy and adopted block in the index data plane adds to one.
-#: ``worker.build --metrics-dump`` writes them beside the kernel launches
+#: index and build counters, under the JAX package's metric names: every
+#: verify, corruption, rebuild, resume, replica divergence, replica copy
+#: and adopted block in the index data plane adds to one, and so do the
+#: build pipeline and the delta rebuilds. The ``*_seconds`` keys are
+#: running sums (the JAX package keeps histograms of the stall and stage
+#: times; ``build_compute_seconds`` and ``build_flush_seconds`` are the
+#: port's own). ``worker.build --metrics-dump`` writes them beside the
+#: kernel launches
 COUNTERS = dict.fromkeys((
     "cpd_blocks_verified_total",         # blocks that passed verification
     "cpd_blocks_corrupt_total",          # missing/torn/digest-mismatched
@@ -107,6 +126,15 @@ COUNTERS = dict.fromkeys((
     "replica_digest_mismatches_total",   # replicas diverged from primary
     "replica_blocks_copied_total",       # replicas copied from a primary
     "reshard_blocks_adopted_total",      # blocks an adopter verified
+    "build_rows_staged_total",           # rows the block stager prepared
+    "build_delta_rows_recomputed_total",  # rows a delta recomputed
+    "build_delta_skipped_blocks_total",  # blocks a delta byte-copied
+    "build_pipeline_stall_seconds",      # build loop waiting on the stager
+                                         # or for a free flush buffer
+    "build_stage_overlap_seconds",       # staging a block's inputs
+    "build_compute_seconds",             # build loop: a block's kernels
+                                         # and the copy-out queued
+    "build_flush_seconds",               # encode, write, fsync, ledger
 ), 0)
 
 
@@ -166,12 +194,19 @@ class BuildLedger:
         return out
 
     def record(self, fname: str, digest: str, shape, dtype: str,
+               epoch: int | None = None,
                codec: str | None = None) -> None:
-        """Journal one completed block. ``codec`` records a compressed
-        block's encoding so the manifest harvest can carry it; raw blocks
-        omit the key, keeping their ledger lines unchanged."""
+        """Journal one completed block. ``epoch`` keys the line to a
+        diff-epoch build (delta rebuilds and their full-build degrade): a
+        resume of an epoch-keyed build treats lines of any other epoch as
+        invalid (:func:`_block_done`). ``codec`` records a compressed
+        block's encoding so the manifest harvest can carry it. Each key
+        is written only when given, so plain raw builds keep their ledger
+        lines unchanged."""
         ent = {"file": fname, "digest": digest,
                "shape": list(shape), "dtype": dtype}
+        if epoch is not None:
+            ent["epoch"] = int(epoch)
         if codec is not None:
             ent["codec"] = str(codec)
         line = json.dumps(ent)
@@ -199,6 +234,24 @@ def block_complete(outdir: str, fname: str,
         # rebuild, as in the JAX package
         log.debug("unledgered block %s unreadable (%s); rebuilding",
                   fname, e)
+        return False
+
+
+def _block_done(outdir: str, fname: str, entries: dict[str, dict],
+                epoch: int | None) -> bool:
+    """The resume check with epoch-keyed invalidation: a plain build
+    (``epoch=None``) keeps :func:`block_complete`'s rules; an epoch-keyed
+    build skips a block only when a ledger line of THAT epoch records it
+    with the digest on disk — a parseable block of another weight regime
+    is never adopted into the new index."""
+    if epoch is None:
+        return block_complete(outdir, fname, entries)
+    ent = entries.get(fname)
+    if ent is None or ent.get("epoch") != int(epoch):
+        return False
+    try:
+        return digest_file(os.path.join(outdir, fname)) == ent.get("digest")
+    except OSError:
         return False
 
 
@@ -306,19 +359,271 @@ def pick_build_kernel(graph: Graph, method: str = "auto"):
     return "shift", ShiftGraph(shifts, w_shift, nbr_left, w_left, graph.n)
 
 
+# ------------------------------------------------------- build pipeline
+
+def build_pipeline_enabled() -> bool:
+    """``DOS_BUILD_PIPELINE`` (default on): :func:`build_worker_shard`
+    runs its blocks through the pipeline — a stager thread ahead of the
+    build loop, a flush thread behind it. Off = the serial loop; both
+    write the same bytes and ledger lines."""
+    return env_flag("DOS_BUILD_PIPELINE", True)
+
+
+def build_stage_depth() -> int:
+    """``DOS_BUILD_STAGE_DEPTH`` (default 2, at least 1): blocks the
+    stager keeps prepared ahead of the build loop, and blocks the flush
+    thread may hold behind it (the host buffers of that many blocks)."""
+    return max(env_cast("DOS_BUILD_STAGE_DEPTH", 2, int), 1)
+
+
+def build_chunk_rows(graph: Graph, chunk: int, n_owned: int,
+                     kind: str = "ell") -> int:
+    """Rows per build call. An explicit ``chunk`` wins; with ``chunk=0``
+    and ``DOS_BUILD_HBM_MB`` set, the chunk is sized to that device
+    memory budget from the JAX package's per-row working-set estimate
+    (the padded gather's ``[N, K + 2]`` int32 for ``ell``/``ellsplit``,
+    three int32 planes otherwise), floored to a power of two — the JAX
+    package's chunk on the same graph; unset keeps the whole shard in
+    one batch."""
+    if chunk > 0:
+        return chunk
+    budget_mb = env_cast("DOS_BUILD_HBM_MB", 0.0, float)
+    if budget_mb <= 0:
+        return max(n_owned, 1)
+    k = max(graph.max_out_degree, 1)
+    per_row = graph.n * ((k + 2) * 4 if kind in ("ell", "ellsplit")
+                         else 12)
+    rows = int(budget_mb * 1e6) // max(per_row, 1)
+    rows = max(min(rows, max(n_owned, 1)), 1)
+    return 1 << (int(rows).bit_length() - 1)
+
+
+def _compute_ctx(ctx: dict | None, graph: Graph, method: str,
+                 max_iters: int, dev: torch.device) -> dict:
+    """The build's per-graph compute setup, kept in ``ctx`` so that a
+    repeat build (a resident rebuild, a timed repeat, every shard of one
+    delta) launches kernels without redoing any of it: the resolved
+    ``(kind, structure)`` under ``kernel``, the ``DeviceGraph`` upload
+    under ``dg``, and the build closure with its CSR
+    (``parallel.sharded.chunk_compute``) under ``compute``. Another graph
+    or device clears it; another ``method`` re-picks the kind and another
+    ``max_iters`` makes a new closure."""
+    ctx = {} if ctx is None else ctx
+    if ctx.get("graph") is not graph or ctx.get("device") != dev:
+        ctx.clear()
+        ctx.update(graph=graph, device=dev,
+                   dg=DeviceGraph.from_graph(graph, device=dev))
+    if ctx.get("method") != method:
+        ctx.update(method=method, kernel=pick_build_kernel(graph, method))
+        ctx.pop("compute", None)
+    if "compute" not in ctx or ctx.get("max_iters") != max_iters:
+        ctx.update(max_iters=max_iters,
+                   compute=chunk_compute(ctx["dg"], ctx["kernel"],
+                                         max_iters))
+    return ctx
+
+
+class _BackgroundStager:
+    """Bounded-depth staging thread of the pipelined build: prepares the
+    next blocks' inputs (padded targets uploaded to the device, the
+    pre-opened atomic block writer) while the build loop computes the
+    current one. Iterating yields the staged items in block order; the
+    wait for one adds to ``build_pipeline_stall_seconds``. An exception
+    of the stager is re-raised in the consuming loop. ``close()`` stops
+    the thread and aborts every staged writer the loop never took, so an
+    error leaves no temp file behind."""
+
+    def __init__(self, bids, stage_fn, depth: int, wid: int):
+        self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, args=(list(bids), stage_fn),
+            name=f"dos-build-stager-w{wid}", daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Stop-aware bounded put; False when close() raced it."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self, bids, stage_fn) -> None:
+        try:
+            for bid in bids:
+                if self._stop.is_set():
+                    return
+                item = stage_fn(bid)
+                if not self._put(("item", item)):
+                    item[-1].abort()      # the writer never reaches the loop
+                    return
+        except BaseException as e:  # noqa: BLE001 — carried to the
+            # consuming build loop, which re-raises it
+            self._put(("err", e))
+            return
+        self._put(("done", None))
+
+    def __iter__(self):
+        while True:
+            t0 = time.perf_counter()
+            kind, val = self._q.get()
+            COUNTERS["build_pipeline_stall_seconds"] += (
+                time.perf_counter() - t0)
+            if kind == "done":
+                return
+            if kind == "err":
+                raise val
+            yield val
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        while True:
+            try:
+                kind, val = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if kind == "item":
+                val[-1].abort()
+
+
+class _BlockFlusher:
+    """The flush side of the pipelined build: ONE thread that lands the
+    computed blocks in block order — wait for the block's device-to-host
+    copy (the event recorded after it), encode, atomic write with fsync,
+    ledger line — while the build loop drives the next block's kernels.
+
+    The host rows come from a pool of ``depth`` block buffers (pinned
+    on the card, so the copy queued after a block's extraction runs
+    asynchronously and precedes the next block's kernels in stream
+    order): at most ``depth`` blocks wait to be flushed, and the loop's
+    wait for a free buffer adds to ``build_pipeline_stall_seconds``. A
+    flush error is kept and re-raised in the build loop (:meth:`check`,
+    :meth:`acquire`, :meth:`submit`, :meth:`finish`); the failed block's
+    writer and every writer queued behind it are aborted, so no temp file
+    is left. ``threaded=False`` lands each block inline (the serial
+    loop)."""
+
+    def __init__(self, flush_fn, shape, pin: bool, depth: int,
+                 threaded: bool, wid: int):
+        self._flush_fn = flush_fn
+        self._shape = shape
+        self._pin = pin
+        self._depth = max(depth, 1)
+        self._n_bufs = 0
+        self._free: queue.Queue = queue.Queue()
+        self._q: queue.Queue = queue.Queue()
+        self._abort = False
+        self.error: BaseException | None = None
+        self._thread = None
+        if threaded:
+            self._thread = threading.Thread(
+                target=self._run, name=f"dos-build-flush-w{wid}",
+                daemon=True)
+            self._thread.start()
+
+    def check(self) -> None:
+        if self.error is not None:
+            raise self.error
+
+    def acquire(self) -> torch.Tensor:
+        """A free ``[block rows, N]`` int8 host buffer: allocated while
+        fewer than ``depth`` exist, else the next one a flush returns."""
+        try:
+            return self._free.get_nowait()
+        except queue.Empty:
+            pass
+        if self._n_bufs < self._depth:
+            self._n_bufs += 1
+            return torch.empty(self._shape, dtype=torch.int8,
+                               pin_memory=self._pin)
+        t0 = time.perf_counter()
+        while True:
+            self.check()
+            try:
+                buf = self._free.get(timeout=0.05)
+                break
+            except queue.Empty:
+                continue
+        COUNTERS["build_pipeline_stall_seconds"] += time.perf_counter() - t0
+        return buf
+
+    def submit(self, fname: str, rows: int, buf: torch.Tensor, event,
+               writer) -> None:
+        """Hand block ``fname`` (its first ``rows`` rows of ``buf``, ready
+        once ``event`` completes) and its pre-opened writer over."""
+        item = (fname, rows, buf, event, writer)
+        if self._thread is None:
+            self._land(item)
+            return
+        self.check()
+        self._q.put(item)
+
+    def _land(self, item) -> None:
+        fname, rows, buf, event, writer = item
+        try:
+            if event is not None:
+                event.synchronize()
+            t0 = time.perf_counter()
+            self._flush_fn(fname, buf[:rows].numpy(), writer)
+            COUNTERS["build_flush_seconds"] += time.perf_counter() - t0
+        except BaseException:
+            writer.abort()
+            raise
+        finally:
+            self._free.put(buf)
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if self.error is not None or self._abort:
+                item[4].abort()
+                self._free.put(item[2])
+                continue
+            try:
+                self._land(item)
+            except BaseException as e:  # noqa: BLE001 — re-raised in the
+                # build loop by check()
+                self.error = e
+
+    def _join(self) -> None:
+        if self._thread is not None:
+            self._q.put(None)
+            self._thread.join()
+            self._thread = None
+
+    def finish(self) -> None:
+        """Wait until every submitted block has landed; re-raise a flush
+        error."""
+        self._join()
+        self.check()
+
+    def close(self) -> None:
+        """Error path: abort every writer not yet landed and stop."""
+        self._abort = True
+        self._join()
+
+
 def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
                        outdir: str, chunk: int = 0,
                        device=None, codec: str | None = None,
                        method: str = "auto",
                        max_iters: int = 0, resume: bool = True,
-                       replica: int = 0) -> list[str]:
+                       replica: int = 0, epoch: int | None = None,
+                       ctx: dict | None = None) -> list[str]:
     """Build and persist ONE worker's CPD block files on one device.
 
     The owned targets run through the build kind ``method`` resolves to
     (:func:`pick_build_kernel`; ``auto`` by the graph's structure) in
-    ``chunk``-row batches (0 = the whole shard in one batch; the last
-    batch is padded with ``-1`` targets to the fixed width; ``max_iters``
-    cuts the distance loop, 0 = converge) and each controller block
+    ``chunk``-row batches (0 = :func:`build_chunk_rows`: the whole shard
+    in one batch unless ``DOS_BUILD_HBM_MB`` sizes it; the last batch is
+    padded with ``-1`` targets to the fixed width; ``max_iters`` cuts the
+    distance loop, 0 = converge) and each controller block
     (``dc.block_size`` rows) is written as ``cpd-w<wid>-b<bid>.npy``
     through an atomic write, journaled with its digest in the build
     ledger. ``resume=True`` skips blocks the ledger records as complete
@@ -331,7 +636,27 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
     ``device="cpu"``). ``codec`` (``raw``/``pack4``/``rle``/``auto``;
     None → ``DOS_CPD_RESIDENT``) writes each block as a compressed
     container (``encode_block``); a block whose rows the codec cannot
-    take is written raw. Returns the file names written.
+    take is written raw. Returns the file names written, in block order.
+
+    With more than one block missing and ``DOS_BUILD_PIPELINE`` on (the
+    default) the loop is a pipeline: a stager thread prepares the next
+    blocks' padded targets on the device and pre-opens their writers
+    (:class:`_BackgroundStager`, ``DOS_BUILD_STAGE_DEPTH`` ahead), the
+    build loop drives a block's kernels and queues the copy of its rows
+    into a host buffer right after its extraction, and one flush thread
+    encodes, writes with fsync and journals the blocks in order while the
+    loop runs the next (:class:`_BlockFlusher`). The loop reads a flag
+    after every relax step, so a copy issued after the next block's
+    launches would wait for them: the copy goes first, the flush runs
+    beside. Blocks and ledger lines are the serial loop's, byte for byte.
+    (The JAX package's ``DOS_BUILD_DONATE`` has no counterpart: a drained
+    block's device rows are one buffer the next block overwrites.)
+
+    ``epoch``: key the ledger lines to a diff epoch (delta rebuilds): a
+    resume skips only blocks journaled under the SAME epoch with a
+    matching digest (:func:`_block_done`). ``ctx``: a dict shared across
+    calls that keeps the compute setup (:func:`_compute_ctx`), so a
+    repeat build pays no graph upload, kind pick or CSR again.
     """
     dev = resolve_device(device)
     os.makedirs(outdir, exist_ok=True)
@@ -351,8 +676,9 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
     ledger = BuildLedger(outdir, wid, replica)
     entries = ledger.entries() if resume else {}
     missing = [bid for bid in range(n_blocks)
-               if not (resume and block_complete(
-                   outdir, shard_block_name(wid, bid, replica), entries))]
+               if not (resume and _block_done(
+                   outdir, shard_block_name(wid, bid, replica), entries,
+                   epoch))]
     resumed = n_blocks - len(missing)
     if resumed:
         COUNTERS["build_blocks_resumed_total"] += resumed
@@ -360,40 +686,465 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
                  "complete and digest-valid", wid, resumed, n_blocks)
     if not missing:
         return []
-    kind, structure = pick_build_kernel(graph, method)
+    ctx = _compute_ctx(ctx, graph, method, max_iters, dev)
+    kind = ctx["kernel"][0]
     log.info("worker %d build kind: %s (method %s)", wid, kind, method)
-    dg = DeviceGraph.from_graph(graph, device=dev)
-    build = chunk_compute(dg, (kind, structure), max_iters)
-    chunk = chunk if chunk > 0 else max(len(owned), 1)
+    compute = ctx["compute"]
+    chunk = build_chunk_rows(graph, chunk, len(owned), kind=kind)
     codec_req = resident_choice() if codec is None else codec
-    written = []
-    for bid in missing:
+
+    def stage(bid: int):
+        """One block's inputs: its padded targets on the device and its
+        pre-opened writer."""
+        t0 = time.perf_counter()
         blk = owned[bid * bs: min((bid + 1) * bs, len(owned))]
-        parts = []
+        pads = []
         for i in range(0, len(blk), chunk):
             part = blk[i:i + chunk]
             pad = np.full(chunk, -1, np.int32)   # fixed batch width
             pad[:len(part)] = part
-            fm = build(torch.from_numpy(pad).to(dev))
-            parts.append(fm[:len(part)].cpu().numpy())
-        arr = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            pads.append((torch.from_numpy(pad).to(dev), len(part)))
+        fname = shard_block_name(wid, bid, replica)
+        writer = AtomicNpyWriter(os.path.join(outdir, fname))
+        COUNTERS["build_rows_staged_total"] += len(blk)
+        COUNTERS["build_stage_overlap_seconds"] += time.perf_counter() - t0
+        return bid, fname, pads, writer
+
+    def flush(fname: str, arr: np.ndarray, writer) -> None:
         # the container goes through the same atomic writer: digest and
         # ledger cover the container bytes
         enc = encode_block(arr, codec_req)
         arr, blk_codec = enc if enc is not None else (arr, None)
-        fname = shard_block_name(wid, bid, replica)
-        writer = AtomicNpyWriter(os.path.join(outdir, fname))
-        try:
-            digest = writer.commit(arr)
-        except BaseException:
-            writer.abort()
-            raise
+        digest = writer.commit(arr)
         # a kill between the commit and the ledger line leaves a complete
         # un-journaled file, which the resume check accepts if it parses
         ledger.record(fname, digest, arr.shape, str(arr.dtype),
-                      codec=blk_codec)
-        written.append(fname)
+                      epoch=epoch, codec=blk_codec)
+
+    pipelined = build_pipeline_enabled() and len(missing) > 1
+    depth = build_stage_depth()
+    rows_max = min(bs, len(owned))
+    on_card = dev.type == "cuda"
+    flusher = _BlockFlusher(flush, (rows_max, graph.n), pin=on_card,
+                            depth=depth if pipelined else 1,
+                            threaded=pipelined, wid=wid)
+    # on the card a block's rows land in one device buffer, reused: the
+    # copy out of it precedes the next block's kernels in stream order
+    dev_rows = (torch.empty((rows_max, graph.n), dtype=torch.int8,
+                            device=dev) if on_card else None)
+    stager = (_BackgroundStager(missing, stage, depth, wid)
+              if pipelined else None)
+    staged = iter(stager) if stager is not None \
+        else (stage(bid) for bid in missing)
+    written: list[str] = []
+    landed = False
+    try:
+        for _bid, fname, pads, writer in staged:
+            try:
+                t0 = time.perf_counter()
+                rows = sum(n for _, n in pads)
+                buf = None if on_card else flusher.acquire()
+                dst = dev_rows if on_card else buf
+                off = 0
+                for pad, n in pads:
+                    compute(pad, out=dst[off:off + n])
+                    off += n
+                event = None
+                COUNTERS["build_compute_seconds"] += (
+                    time.perf_counter() - t0)
+                if on_card:
+                    buf = flusher.acquire()
+                    buf[:rows].copy_(dev_rows[:rows], non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                flusher.submit(fname, rows, buf, event, writer)
+            except BaseException:
+                writer.abort()        # never handed to the flusher
+                raise
+            written.append(fname)
+        flusher.finish()
+        landed = True
+    finally:
+        if not landed:
+            flusher.close()
+        if stager is not None:
+            stager.close()
     return written
+
+
+# --------------------------------------------------------- delta builds
+
+def epoch_index_dir(outdir: str, epoch: int) -> str:
+    """Where a delta rebuild for diff epoch ``epoch`` lands: a subdir of
+    the base index, so promotion finds every epoch's index from the one
+    path it knows."""
+    return os.path.join(outdir, f"epoch-e{int(epoch):06d}")
+
+
+def diff_epoch_of(difffile: str) -> int | None:
+    """The diff epoch a fused-diff file name carries
+    (``fused-e<epoch>.diff``); None for names without one."""
+    m = re.search(r"-e(\d+)\.diff$", os.path.basename(difffile or ""))
+    return int(m.group(1)) if m else None
+
+
+def delta_affected_targets(graph: Graph, changed_eids: np.ndarray,
+                           w_old: np.ndarray, w_new: np.ndarray,
+                           max_seeds: int | None = None,
+                           seed_chunk: int = 512,
+                           device=None) -> np.ndarray | None:
+    """Target rows whose first-move entries CAN change when the named
+    edges change weight — the delta build's dirty set (the JAX package's
+    tense-edge pass).
+
+    ``d_old(e → t)`` for every changed edge endpoint ``e`` comes from one
+    relaxation on the TRANSPOSED graph under the old weights (B =
+    endpoints, not N): K1's loop over the transposed edge list's CSR
+    (``cuda_build_kernels.csr_from_edges(dst, src, w_old)`` +
+    ``jacobi_dist``; on the CPU its plain relax step). Target ``t`` is dirty
+    iff some changed edge ``(u, v)`` has ``d_old(v→t) < INF`` and
+    ``min(w_old, w_new)(u,v) + d_old(v→t) <= d_old(u→t)`` (int64; ``<=``
+    keeps argmin ties dirty, which makes a spliced delta byte-equal to a
+    build from scratch). The endpoints go in chunks of ``seed_chunk //
+    2`` edges, each padded to the power of two of its endpoint count
+    (capped at ``seed_chunk``); the test and its ``any`` over the chunk's
+    edges run on the device, and only the ``[N]`` dirty mask comes back.
+
+    Returns the sorted dirty target ids, or None when the changed edges'
+    endpoints exceed ``max_seeds`` (``DOS_BUILD_DELTA_MAX_SEEDS``, default
+    4,096; <= 0 = unbounded): the caller then rebuilds in full.
+    ``device``: None → ``cuda`` (raises without a GPU unless ``"cpu"``).
+    """
+    dev = resolve_device(device)
+    changed_eids = np.asarray(changed_eids, np.int64)
+    if len(changed_eids) == 0:
+        return np.zeros(0, np.int64)
+    ends_all = np.unique(np.concatenate(
+        [graph.src[changed_eids], graph.dst[changed_eids]]))
+    if max_seeds is None:
+        max_seeds = env_cast("DOS_BUILD_DELTA_MAX_SEEDS", 4096, int)
+    if max_seeds > 0 and len(ends_all) > max_seeds:
+        log.info("delta pass: %d changed-edge endpoints exceed the "
+                 "DOS_BUILD_DELTA_MAX_SEEDS=%d bound; degrading to a "
+                 "full rebuild", len(ends_all), max_seeds)
+        return None
+    # d_T(x -> e) on the transposed graph = d_old(e -> x): [N, B]
+    csr_t = cbk.csr_from_edges(graph.dst, graph.src, w_old, graph.n, dev)
+    minw_all = np.minimum(np.asarray(w_old, np.int64)[changed_eids],
+                          np.asarray(w_new, np.int64)[changed_eids])
+    dirty = torch.zeros(graph.n, dtype=torch.bool, device=dev)
+    per = max(seed_chunk // 2, 1)
+    for i in range(0, len(changed_eids), per):
+        eids = changed_eids[i:i + per]
+        eu, ev = graph.src[eids], graph.dst[eids]
+        ends = np.unique(np.concatenate([eu, ev]))
+        csize = min(seed_chunk, 1 << (max(len(ends), 1) - 1).bit_length())
+        pad = np.full(csize, -1, np.int32)
+        pad[:len(ends)] = ends
+        d = cbk.jacobi_dist(csr_t, torch.from_numpy(pad).to(dev))[0]
+        iu = torch.from_numpy(np.searchsorted(ends, eu)).to(dev)
+        iv = torch.from_numpy(np.searchsorted(ends, ev)).to(dev)
+        du, dv = d[:, iu], d[:, iv].long()                    # [N, E]
+        minw = torch.from_numpy(minw_all[i:i + per]).to(dev)
+        tense = (dv < TINF) & (dv + minw <= du)
+        dirty |= tense.any(dim=1)
+    return torch.nonzero(dirty).squeeze(1).cpu().numpy().astype(np.int64)
+
+
+def _compute_rows_batched(compute, tgts: np.ndarray, chunk_rows: int,
+                          dev: torch.device) -> np.ndarray:
+    """First-move rows of an arbitrary target list in ``chunk_rows``
+    batches — the delta paths' recompute. The final partial batch pads to
+    its own power of two (capped at the chunk), so a handful of dirty
+    rows never pays a whole chunk's solve."""
+    parts = []
+    for i in range(0, len(tgts), chunk_rows):
+        part = tgts[i:i + chunk_rows]
+        csize = min(chunk_rows, 1 << (max(len(part), 1) - 1).bit_length())
+        pad = np.full(csize, -1, np.int32)
+        pad[:len(part)] = part
+        fm = compute(torch.from_numpy(pad).to(dev))
+        parts.append(fm[:len(part)].cpu().numpy())
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+def _delta_single_block(graph_new: Graph, blk: np.ndarray, chunk: int,
+                        n_owned: int, method: str, max_iters: int,
+                        compute_ctx: dict | None,
+                        dev: torch.device) -> np.ndarray:
+    """Recompute one whole block outside the shard-wide batch: the rare
+    fallback when a copy or an old block fails between the passes."""
+    ctx = _compute_ctx(compute_ctx, graph_new, method, max_iters, dev)
+    chunk_rows = build_chunk_rows(graph_new, chunk, n_owned,
+                                  kind=ctx["kernel"][0])
+    return _compute_rows_batched(ctx["compute"], blk, chunk_rows, dev)
+
+
+def delta_build_worker_shard(graph_new: Graph, dc: DistributionController,
+                             wid: int, old_outdir: str, outdir: str,
+                             dirty: np.ndarray | None,
+                             old_blocks_meta: dict | None = None,
+                             chunk: int = 0, max_iters: int = 0,
+                             resume: bool = True, method: str = "auto",
+                             epoch: int = 0,
+                             compute_ctx: dict | None = None,
+                             device=None) -> dict:
+    """One worker's shard of a DELTA rebuild on ``device`` (None →
+    ``cuda``). Blocks with no dirty row are byte-copied from the old index
+    (the copy's digest checked against the old manifest; no device work);
+    dirty blocks recompute ONLY their dirty rows on the retimed graph and
+    splice them into the old block's clean rows (a compressed old block
+    decoded first; the block keeps the old block's codec). ``dirty`` is
+    the ``[N]`` bool mask of :func:`delta_affected_targets`; None, or a
+    dirty share of the shard above ``DOS_BUILD_DELTA_MAX_FRAC`` (default
+    0.75), degrades the shard to a full pipelined build that keeps the
+    old index's codec.
+
+    Two passes: the first classifies every block (resumed, copied or
+    recomputed) and gathers the recomputed blocks' dirty targets, which
+    are then solved in shard-wide chunk batches; the second lands the
+    blocks in block order, each through an atomic write and an
+    epoch-keyed ledger line, so an interrupted delta resumes block by
+    block and a journal of another epoch never satisfies the resume.
+    Returns ``{"blocks", "rows_recomputed", "blocks_skipped",
+    "blocks_resumed", "degraded_full"}``."""
+    dev = resolve_device(device)
+    os.makedirs(outdir, exist_ok=True)
+    owned = dc.owned(wid)
+    bs = dc.block_size
+    n_blocks = (len(owned) + bs - 1) // bs
+    report = {"blocks": n_blocks, "rows_recomputed": 0,
+              "blocks_skipped": 0, "blocks_resumed": 0,
+              "degraded_full": False}
+    dirty_owned = (np.ones(len(owned), bool) if dirty is None
+                   else np.asarray(dirty, bool)[owned])
+    max_frac = env_cast("DOS_BUILD_DELTA_MAX_FRAC", 0.75, float)
+    if dirty is None or (len(owned) and dirty_owned.mean() > max_frac):
+        # the degraded full build keeps the old index's codec (the first
+        # one recorded: an index is built under one knob), so a
+        # compressed index's delta chain stays compressed
+        codec_hint = next(
+            (m.get("codec") for m in (old_blocks_meta or {}).values()
+             if isinstance(m, dict) and m.get("codec")), "raw")
+        written = build_worker_shard(graph_new, dc, wid, outdir,
+                                     chunk=chunk, device=dev,
+                                     codec=codec_hint, method=method,
+                                     max_iters=max_iters, resume=resume,
+                                     epoch=epoch, ctx=compute_ctx)
+        report["degraded_full"] = True
+        report["rows_recomputed"] = int(min(len(written) * bs, len(owned)))
+        COUNTERS["build_delta_rows_recomputed_total"] += (
+            report["rows_recomputed"])
+        return report
+    ledger = BuildLedger(outdir, wid)
+    entries = ledger.entries() if resume else {}
+    old_blocks_meta = old_blocks_meta or {}
+
+    # pass 1: classify every block and collect the recomputed blocks'
+    # dirty targets (only the old block's verify status is kept: pass 2
+    # re-reads each old block as it lands, one block of host memory)
+    todo: list[tuple] = []        # (bid, fname, blk, bmask | None, old_ok)
+    recompute_tgts: list[np.ndarray] = []
+    for bid in range(n_blocks):
+        fname = shard_block_name(wid, bid)
+        if resume and _block_done(outdir, fname, entries, epoch):
+            report["blocks_resumed"] += 1
+            COUNTERS["build_blocks_resumed_total"] += 1
+            continue
+        lo, hi = bid * bs, min((bid + 1) * bs, len(owned))
+        blk = owned[lo:hi]
+        bmask = dirty_owned[lo:hi].copy()
+        if not bmask.any():
+            todo.append((bid, fname, blk, None, False))   # byte copy
+            continue
+        status, reason = check_block(os.path.join(old_outdir, fname),
+                                     old_blocks_meta.get(fname))
+        old_ok = status in ("ok", "unverified")
+        if not old_ok:
+            if status != "missing":
+                log.warning("delta rebuild of %s: old block is %s (%s); "
+                            "recomputing every row", fname, status, reason)
+            bmask[:] = True          # no clean base to splice into
+        todo.append((bid, fname, blk, bmask, old_ok))
+        recompute_tgts.append(blk[bmask])
+
+    rows_new = None
+    if recompute_tgts:
+        compute_ctx = _compute_ctx(compute_ctx, graph_new, method,
+                                   max_iters, dev)
+        chunk_rows = build_chunk_rows(graph_new, chunk, len(owned),
+                                      kind=compute_ctx["kernel"][0])
+        rows_new = _compute_rows_batched(
+            compute_ctx["compute"], np.concatenate(recompute_tgts),
+            chunk_rows, dev)
+
+    # pass 2: land the blocks in block order
+    off = 0
+    for _bid, fname, blk, bmask, old_ok in todo:
+        old_path = os.path.join(old_outdir, fname)
+        old_meta = old_blocks_meta.get(fname)
+        out_codec = (old_meta or {}).get("codec")
+        if bmask is None:
+            # clean block: a byte copy whose digest must be the old
+            # manifest's; a missing or torn source recomputes instead
+            try:
+                digest = atomic_copy_file(old_path,
+                                          os.path.join(outdir, fname))
+            except OSError as e:
+                log.warning("delta copy of %s failed (%s); recomputing",
+                            fname, e)
+                digest = None
+            if digest is None or (old_meta and old_meta.get("digest")
+                                  and digest != old_meta["digest"]):
+                if digest is not None:
+                    log.warning("delta copy of %s does not match the old "
+                                "manifest digest (%s != %s); recomputing",
+                                fname, digest, old_meta["digest"])
+                arr = _delta_single_block(graph_new, blk, chunk,
+                                          len(owned), method, max_iters,
+                                          compute_ctx, dev)
+                n_new = len(blk)
+            else:
+                arr = np.load(os.path.join(outdir, fname), mmap_mode="r")
+                ledger.record(fname, digest, arr.shape, str(arr.dtype),
+                              epoch=epoch, codec=out_codec)
+                report["blocks_skipped"] += 1
+                COUNTERS["build_delta_skipped_blocks_total"] += 1
+                continue
+        else:
+            n_new = int(bmask.sum())
+            fresh = rows_new[off:off + n_new]
+            off += n_new
+            if not old_ok:
+                arr = fresh          # bmask was forced all-dirty
+            else:
+                rows_old, status, reason = load_verified_block(old_path,
+                                                               old_meta)
+                if rows_old is not None:
+                    try:
+                        rows_old = maybe_decode_rows(rows_old)
+                    except ValueError as e:
+                        rows_old, status, reason = (
+                            None, "corrupt", f"undecodable: {e}")
+                if rows_old is None:
+                    # gone or torn between the passes: the batch covered
+                    # only bmask, so the whole block recomputes
+                    log.warning("delta splice of %s: old block became %s "
+                                "between passes (%s); recomputing every "
+                                "row", fname, status, reason)
+                    arr = _delta_single_block(graph_new, blk, chunk,
+                                              len(owned), method,
+                                              max_iters, compute_ctx, dev)
+                    n_new = len(blk)
+                else:
+                    arr = np.asarray(rows_old).copy()
+                    arr[bmask] = fresh
+        enc = encode_block(arr, out_codec)
+        arr, out_codec = enc if enc is not None else (arr, None)
+        digest = atomic_save_npy(os.path.join(outdir, fname), arr)
+        ledger.record(fname, digest, arr.shape, str(arr.dtype),
+                      epoch=epoch, codec=out_codec)
+        report["rows_recomputed"] += n_new
+        COUNTERS["build_delta_rows_recomputed_total"] += n_new
+    return report
+
+
+def delta_build_index(graph: Graph, dc: DistributionController,
+                      old_outdir: str, difffile: str,
+                      epoch: int | None = None,
+                      out_root: str | None = None, chunk: int = 0,
+                      max_iters: int = 0, method: str = "auto",
+                      resume: bool = True, workers=None,
+                      device=None) -> dict:
+    """Delta rebuild on ``device`` (None → ``cuda``): an old index plus a
+    fused diff epoch → a NEW epoch index (:func:`epoch_index_dir` under
+    ``out_root``, default the old index) byte-equal to a build from
+    scratch on the retimed graph, recomputing only the rows the changed
+    edges can affect.
+
+    The changed edges are ``w_new != w_old``, ``w_old`` from the old
+    manifest's ``diff_file`` (absent = free flow), so deltas chain; an
+    old diff that cannot be read degrades the delta to a full build. The
+    epoch is ``epoch``, else the one the diff's name carries
+    (:func:`diff_epoch_of`), else the old manifest's ``diff_epoch`` + 1.
+    Every shard (``workers``: a subset, and then no manifest is written)
+    goes through :func:`delta_build_worker_shard` with one shared compute
+    context; replica sets copy from the new primaries; the manifest
+    carries ``diff_epoch`` and ``diff_file``. Returns the JAX package's
+    report: ``epoch``, ``outdir``, ``changed_edges``, ``affected_rows``,
+    ``rows_recomputed``, ``blocks_skipped``, ``blocks_resumed``,
+    ``degraded_full``, ``shards``."""
+    dev = resolve_device(device)
+    old_manifest = read_manifest(old_outdir)
+    check_manifest_version(old_manifest, old_outdir)
+    old_diff = old_manifest.get("diff_file", "-")
+    try:
+        w_old = graph.weights_with_diff(old_diff)
+    except OSError as e:
+        # the old index's fused diff is gone: the changed edges are
+        # unknowable, so the delta degrades to a full build
+        log.warning("old index %s records diff_file %s which is "
+                    "unreadable (%s); delta degrades to a full rebuild",
+                    old_outdir, old_diff, e)
+        w_old = None
+    w_new = graph.weights_with_diff(difffile)
+    changed = (np.nonzero(w_new != w_old)[0] if w_old is not None
+               else np.zeros(0, np.int64))
+    if epoch is None:
+        epoch = diff_epoch_of(difffile)
+    if epoch is None:
+        epoch = int(old_manifest.get("diff_epoch", 0)) + 1
+    outdir = epoch_index_dir(out_root or old_outdir, int(epoch))
+    graph_new = Graph(graph.xs, graph.ys, graph.src, graph.dst, w_new)
+    if w_old is None:
+        dirty = None                          # unknown delta: full
+    elif len(changed) == 0:
+        dirty = np.zeros(graph.n, bool)       # empty delta: copy all
+    else:
+        affected = delta_affected_targets(graph, changed, w_old, w_new,
+                                          device=dev)
+        if affected is None:
+            dirty = None                      # degrade to full
+        else:
+            dirty = np.zeros(graph.n, bool)
+            dirty[affected] = True
+    report: dict = {
+        "epoch": int(epoch), "outdir": outdir,
+        "changed_edges": int(len(changed)),
+        "affected_rows": (int(graph.n) if dirty is None
+                          else int(dirty.sum())),
+        "rows_recomputed": 0, "blocks_skipped": 0,
+        "blocks_resumed": 0, "degraded_full": False, "shards": 0,
+    }
+    ctx: dict = {}
+    for wid in (range(dc.maxworker) if workers is None else workers):
+        rep = delta_build_worker_shard(
+            graph_new, dc, wid, old_outdir, outdir, dirty,
+            old_blocks_meta=old_manifest.get("blocks", {}),
+            chunk=chunk, max_iters=max_iters, resume=resume,
+            method=method, epoch=int(epoch), compute_ctx=ctx, device=dev)
+        report["shards"] += 1
+        for key in ("rows_recomputed", "blocks_skipped", "blocks_resumed"):
+            report[key] += rep[key]
+        report["degraded_full"] |= rep["degraded_full"]
+    if workers is None and dc.replication > 1:
+        # replica sets copy from the NEW primaries in the same dir
+        for host in range(dc.maxworker):
+            for r in range(1, dc.replication):
+                copy_replica_blocks(dc, (host - r) % dc.maxworker, r,
+                                    outdir, resume=resume)
+    if workers is None:
+        write_index_manifest(
+            outdir, dc, rows_per_worker=old_manifest.get("rows_per_worker"),
+            extra={"diff_epoch": int(epoch),
+                   "diff_file": os.path.abspath(difffile)})
+    log.info("delta build epoch %d: %d changed edge(s) -> %d/%d rows "
+             "recomputed, %d block(s) copied%s -> %s", epoch,
+             report["changed_edges"], report["rows_recomputed"], graph.n,
+             report["blocks_skipped"],
+             " (degraded to full)" if report["degraded_full"] else "",
+             outdir)
+    return report
 
 
 # ------------------------------------------------------------- replicas
@@ -511,8 +1262,8 @@ def _block_meta_for(outdir: str, fname: str,
 
 def write_index_manifest(outdir: str, dc: DistributionController,
                          rows_per_worker: int | None = None,
-                         workers=None, block_meta: dict | None = None
-                         ) -> dict:
+                         workers=None, block_meta: dict | None = None,
+                         extra: dict | None = None) -> dict:
     """Write ``index.json`` describing a per-block CPD index, atomically.
 
     Records per-block content digests, shapes and dtypes under
@@ -523,7 +1274,8 @@ def write_index_manifest(outdir: str, dc: DistributionController,
     ``dc.replication`` R > 1 every block's rank 1..R-1 replicas must be
     on disk too: they are listed under ``replica_files`` (with their
     digests in ``blocks``) and ``replication`` records R. At R = 1 the
-    manifest has neither key."""
+    manifest has neither key. ``extra``: more top-level keys (a delta
+    index's ``diff_epoch`` and ``diff_file``), written last."""
     files = []
     replica_files = []
     bs = dc.block_size
@@ -563,6 +1315,8 @@ def write_index_manifest(outdir: str, dc: DistributionController,
     if dc.replication > 1:
         manifest["replication"] = dc.replication
         manifest["replica_files"] = replica_files
+    if extra:
+        manifest.update(extra)
     atomic_write_json(os.path.join(outdir, "index.json"), manifest)
     return manifest
 

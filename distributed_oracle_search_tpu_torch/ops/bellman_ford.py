@@ -25,11 +25,11 @@ First moves fall out in one more pass: the first minimal slot of the same
 relaxation expression (strict ``<`` in ascending slot order), matching
 the CPU oracle's tie-break (``models.reference.first_move_to_target``).
 
-This module is the plain ELL version. :func:`build_fm_columns` picks by
-device: on the card it runs the hand relax and extraction kernels of
-``cuda_build_kernels`` instead, and :func:`dist_to_targets` and
-:func:`first_move_from_dist` stay the plain versions they are held
-against.
+This module is the plain ELL version. :func:`build_fm_columns` and
+:func:`dist_to_targets` pick by device: on the card they run the hand
+relax (and extraction) kernels of ``cuda_build_kernels`` instead, and
+:func:`first_move_from_dist` stays the plain version the extraction
+kernel is held against.
 
 Distances are directed **node→target** costs: ``dist[x, b] =
 d(x → targets[b])``, the quantity the target-owning worker needs.
@@ -125,8 +125,20 @@ def dist_to_targets(dg: DeviceGraph, targets,
     ``targets`` int32 [B]; negative entries are padding rows (left
     all-INF) so shard batches can be rectangular. ``max_iters`` bounds
     the loop (0 = N-1, the Bellman-Ford worst case); convergence exits
-    early."""
+    early.
+
+    Picked by device, like :func:`build_fm_columns`: CPU tensors take the
+    plain loop above; on the card the hand relax kernel's loop
+    (``cuda_build_kernels.jacobi_dist`` over ``dg``'s full out-edge CSR)
+    — the same Jacobi iterate at every cut — or an error, never the
+    plain loop."""
+    from . import cuda_build_kernels as cbk
+
     targets = _as_targets(dg, targets)
+    if dg.device.type != "cpu":
+        dist_nb, _ = cbk.jacobi_dist(cbk.csr_from_ell(dg), targets,
+                                     max_iters)
+        return dist_nb.T.contiguous()
     return _dist_nb(dg, targets, _slot_plan(dg), max_iters).T.contiguous()
 
 

@@ -179,6 +179,33 @@ class AtomicNpyWriter:
             pass
 
 
+def atomic_copy_file(src: str, dst: str) -> str:
+    """Copy a file atomically (tmp + fsync + rename) and return the crc32
+    digest of the bytes copied — the delta build's reuse of an untouched
+    block, whose digest then feeds the new ledger without a read-back. A
+    failed copy leaves no temp file."""
+    tmp = f"{dst}{TMP_SUFFIX}.{os.getpid()}"
+    crc = 0
+    with open(src, "rb") as fin:
+        try:
+            with open(tmp, "wb") as fout:
+                while True:
+                    chunk = fin.read(1 << 20)
+                    if not chunk:
+                        break
+                    crc = zlib.crc32(chunk, crc)
+                    fout.write(chunk)
+                fout.flush()
+                os.fsync(fout.fileno())
+            os.rename(tmp, dst)
+        except BaseException:
+            with contextlib.suppress(OSError):
+                os.remove(tmp)
+            raise
+    _fsync_dir(os.path.dirname(dst))
+    return f"crc32:{crc & 0xFFFFFFFF:08x}"
+
+
 #: default age below which sweep leaves a file alone: stale debris from
 #: a dead process is minutes old, while a file this young may be a LIVE
 #: atomic write by another process in this dir

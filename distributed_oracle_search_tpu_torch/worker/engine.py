@@ -41,9 +41,17 @@ length sort), through the batched search on the engine's device
 deadline checked between chunks, or through the per-query heap engine
 (``models.astar``) under ``debug``.
 
+Index promotion: :meth:`ShardEngine.promote_index` (or its background
+form) loads this shard's rows from a delta-rebuilt epoch index
+(``models.cpd.delta_build_index``), digest-checked and never healed, and
+publishes them as the promoted table; a batch that names that epoch's
+fused diff (``fused-e<N>.diff``) walks it, every other batch the base
+table (:meth:`ShardEngine._fm_for`). Promotion is monotone in the epoch.
+
 Not ported: worker lane meshes and the lane placement of replica
-engines (A13), path signatures (``sig_k``), index promotion and
-observability hooks.
+engines (A13), path signatures (``sig_k``), promotion by the diff-epoch
+manager with the serving cache's flush, the resident scrubber and the
+observability hooks (A14).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from __future__ import annotations
 import glob
 import os
 import re
+import threading
 import time
 from collections import OrderedDict
 
@@ -60,8 +69,8 @@ import torch
 from ..data.formats import read_diff
 from ..data.graph import Graph
 from ..models.cpd import (
-    COUNTERS, check_manifest_version, heal_block, length_estimate,
-    load_verified_block, read_manifest, shard_block_name,
+    COUNTERS, check_manifest_version, diff_epoch_of, heal_block,
+    length_estimate, load_verified_block, read_manifest, shard_block_name,
 )
 from ..models.astar import AstarStats, astar, min_cost_per_unit
 from ..models.resident import CompressedFM, make_resident, maybe_decode_rows
@@ -189,6 +198,12 @@ class ShardEngine:
                             if self.shard != wid else 0)
         self.resident_codec = "raw"
         self.resident_bytes = 0
+        #: diff epoch of the PROMOTED table (0: none yet); the gate itself
+        #: is ``_fm_promoted``, ONE ``(epoch, table)`` reference that
+        #: :meth:`promote_index` replaces whole under ``_promote_lock``
+        self.index_epoch = 0
+        self._fm_promoted: tuple | None = None
+        self._promote_lock = threading.Lock()
         self.fm = self.dg = None
         if alg == "table-search":         # A* needs no first-move shard
             rows = load_shard_rows(outdir, self.shard, dc=dc, graph=graph,
@@ -227,6 +242,79 @@ class ShardEngine:
         self.resident_codec = codec
         self.resident_bytes = int(fm.nbytes)
         return fm
+
+    # ---------------------------------------------------------- promotion
+    def _fm_for(self, difffile: str):
+        """The table a batch walks: the promoted epoch's table when the
+        batch names that epoch's fused diff (``fused-e<N>.diff``), the
+        base table otherwise — so a batch of an older epoch, or free
+        flow, keeps its answers exactly. The published ``(epoch, table)``
+        pair is read once, so a concurrent promotion cannot pair one
+        epoch with another's table."""
+        promoted = self._fm_promoted
+        if promoted is not None and diff_epoch_of(difffile) == promoted[0]:
+            return promoted[1]
+        return self.fm
+
+    def promote_index(self, new_outdir: str, epoch: int) -> bool:
+        """Serve epoch ``epoch``'s delta-rebuilt index (``new_outdir``,
+        ``models.cpd.epoch_index_dir``) for the batches that name its
+        fused diff: load this shard's rows from it, digest-checked, and
+        publish them as the promoted table (through the resident policy,
+        ``_make_resident``). ``table-search`` engines only. The load never
+        heals: a heal would rebuild a bad block from this engine's
+        free-flow graph and serve wrong-regime rows as the epoch's. The
+        row count must be the base table's, and the epoch must be above
+        the promoted one (two promotions finishing out of order must not
+        let the older win). Returns False, and changes nothing, when any
+        of that fails: the base table is always a correct answer."""
+        if self.alg != "table-search":
+            return False
+        try:
+            rows = load_shard_rows(new_outdir, self.shard, dc=self.dc,
+                                   heal=False, replica=self.replica,
+                                   device=self.device)
+        except (OSError, ValueError) as e:
+            log.error("worker %d: cannot promote epoch %d index from %s: "
+                      "%s (keeping epoch %d)", self.wid, epoch, new_outdir,
+                      e, self.index_epoch)
+            return False
+        if rows.shape[0] != self.fm.shape[0]:
+            log.error("worker %d: epoch %d index has %d rows, resident "
+                      "table %d — partition mismatch, not promoting",
+                      self.wid, epoch, rows.shape[0], self.fm.shape[0])
+            return False
+        with self._promote_lock:
+            cur = self._fm_promoted
+            if cur is not None and int(epoch) <= cur[0]:
+                log.warning("worker %d: not promoting epoch %d over "
+                            "already-promoted epoch %d", self.wid, epoch,
+                            cur[0])
+                return False
+            self._fm_promoted = (int(epoch), self._make_resident(rows))
+            self.index_epoch = int(epoch)
+        log.info("worker %d: promoted shard %d to diff-epoch %d index (%s)",
+                 self.wid, self.shard, epoch, new_outdir)
+        return True
+
+    def promote_index_async(self, new_outdir: str,
+                            epoch: int) -> threading.Thread:
+        """:meth:`promote_index` on a daemon thread (the load runs off the
+        serving path; the publish is one reference swap). Returns the
+        thread; a failure is logged and keeps the old table."""
+        def _run():
+            try:
+                self.promote_index(new_outdir, epoch)
+            except Exception as e:  # noqa: BLE001 — a failed promotion
+                # keeps the old table; serving must not die of it
+                log.error("worker %d: async promotion to epoch %d "
+                          "failed: %s", self.wid, epoch, e)
+
+        t = threading.Thread(target=_run,
+                             name=f"dos-build-promote-w{self.wid}",
+                             daemon=True)
+        t.start()
+        return t
 
     # ------------------------------------------------------------ weights
     def _weights_for(self, difffile: str, no_cache: bool
@@ -354,22 +442,24 @@ class ShardEngine:
         rows = np.zeros(qpad, np.int32)
         rows[:nu] = self.dc.owned_index_of(qsorted[:, 1])
         t1 = time.perf_counter()
-        # compressed residency: a pack4 table feeds the pack4 kernel
+        # the table is epoch-gated a batch: a promoted epoch's table
+        # serves only the batches naming its fused diff (_fm_for).
+        # Compressed residency: a pack4 table feeds the pack4 kernel
         # directly; every other compressed batch (rle, or pack4 with
         # extraction) inflates exactly the batch's distinct target rows
         # once and remaps the row ids onto that dense block — bounded by
         # the batch, freed with it, bit-identical to the raw table
-        fm_walk = self.fm
+        fm_walk = fm_tbl = self._fm_for(difffile)
         packed4 = False
-        if isinstance(self.fm, CompressedFM):
-            if self.fm.codec == "pack4" and not extracting:
-                fm_walk, packed4 = self.fm.packed, True
+        if isinstance(fm_tbl, CompressedFM):
+            if fm_tbl.codec == "pack4" and not extracting:
+                fm_walk, packed4 = fm_tbl.packed, True
             else:
                 urows, rinv = np.unique(rows[:nu], return_inverse=True)
                 rpad = 1 << (len(urows) - 1).bit_length()
                 rows_u = np.zeros(rpad, np.int32)
                 rows_u[:len(urows)] = urows
-                fm_walk = self.fm.decompress_rows(self._dev(rows_u))
+                fm_walk = fm_tbl.decompress_rows(self._dev(rows_u))
                 rows = np.zeros(qpad, np.int32)
                 rows[:nu] = rinv.reshape(-1)
 

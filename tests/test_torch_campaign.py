@@ -250,11 +250,16 @@ def test_process_query_streamed_plan_refused(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["--delta-from", "old", "--diff", "d"], "A10"),
 ])
-def test_make_cpds_refusals_name_roadmap(tmp_path, argv, item):
+def test_make_cpds_refusals_name_roadmap(tmp_path, argv, item, capsys):
+    """``--delta-from`` was refused, naming ``item``, until that ROADMAP
+    item was ported: it now runs the delta path, which reports exit 4 in
+    one JSON line when the old index has no readable manifest, and builds
+    nothing (``tests/test_torch_delta.py`` drives a real delta)."""
     root = str(tmp_path)
     conf = _conf(root, _copy_data(root))
-    with pytest.raises(SystemExit, match=item):
-        t_make.main(["-c", conf, "--device", "cpu", *argv])
+    assert t_make.main(["-c", conf, "--device", "cpu", *argv]) == 4
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["exit_code"] == 4 and out["index"] == "old" and out["fatal"]
     assert not os.path.exists(os.path.join(root, "index"))
 
 

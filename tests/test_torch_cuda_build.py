@@ -384,6 +384,97 @@ def test_first_moves_equal_plain(dev, name, b):
     assert bool((got[torch.as_tensor(t < 0)] == -1).all())
 
 
+@pytest.mark.parametrize("cut", [1, 3, 0])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_dist_to_targets_equals_plain(dev, name, cut):
+    """``bellman_ford.dist_to_targets`` on the card runs K1's loop and
+    gives the plain loop's distances at cuts and at convergence."""
+    g = GRAPHS[name]()
+    t = _targets(g.n, 70, 2)
+    want = bellman_ford.dist_to_targets(
+        DeviceGraph.from_graph(g, device="cpu"), t, max_iters=cut)
+    before = cbk.relax_jacobi.launches
+    got = bellman_ford.dist_to_targets(DeviceGraph.from_graph(g, device=dev),
+                                       t, max_iters=cut)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert cbk.relax_jacobi.launches > before
+
+
+def _files(d):
+    import os
+    return {f: open(os.path.join(d, f), "rb").read()
+            for f in sorted(os.listdir(d)) if os.path.isfile(
+                os.path.join(d, f))}
+
+
+@pytest.mark.parametrize("pipeline", ["1", "0"])
+@pytest.mark.parametrize("codec", ["raw", "pack4"])
+def test_shard_build_on_card_equals_cpu(dev, tmp_path, monkeypatch,
+                                        pipeline, codec):
+    """The pipelined (and the serial) shard build on the card writes the
+    CPU build's blocks and ledger, byte for byte: 10 blocks of 16 rows in
+    chunks of 8, the copy of each block queued into pinned memory."""
+    g = synth_road_network(600, seed=2)
+    dc = DistributionController("mod", 4, 4, g.n, block_size=16)
+    cpu = str(tmp_path / "cpu")
+    cpd.build_worker_shard(g, dc, 0, cpu, chunk=8, device="cpu",
+                           codec=codec)
+    monkeypatch.setenv("DOS_BUILD_PIPELINE", pipeline)
+    card = str(tmp_path / "card")
+    before = cbk.first_moves.launches
+    written = cpd.build_worker_shard(g, dc, 0, card, chunk=8, device=dev,
+                                     codec=codec)
+    assert len(written) == 10
+    assert cbk.first_moves.launches - before == 19    # one a chunk
+    assert _files(card) == _files(cpu)
+
+
+def test_delta_on_card_equals_cpu(dev, tmp_path):
+    """The tense-edge pass (K1 on the transposed graph), the recompute
+    (K1/K2) and the splice on the card give the CPU's dirty targets and
+    epoch index; a promoted engine on the card answers as the CPU's."""
+    import shutil
+
+    from distributed_oracle_search_tpu_torch.data import write_diff
+    from distributed_oracle_search_tpu_torch.transport import RuntimeConfig
+    from distributed_oracle_search_tpu_torch.worker import engine
+
+    g = synth_road_network(600, seed=2)
+    dc = DistributionController("mod", 4, 4, g.n, block_size=16)
+    old = str(tmp_path / "old")
+    for wid in range(4):
+        cpd.build_worker_shard(g, dc, wid, old, chunk=32, device="cpu")
+    cpd.write_index_manifest(old, dc)
+    rng = np.random.default_rng(4)
+    eids = rng.choice(g.m, 2, replace=False)
+    fused = str(tmp_path / "fused-e000001.diff")
+    write_diff(fused, g.src[eids], g.dst[eids],
+               g.w[eids].astype(np.int64) * 4)
+    w_new = g.weights_with_diff(fused)
+    want = cpd.delta_affected_targets(g, eids, g.w, w_new, device="cpu")
+    before = cbk.relax_jacobi.launches
+    got = cpd.delta_affected_targets(g, eids, g.w, w_new, device=dev)
+    assert np.array_equal(got, want) and cbk.relax_jacobi.launches > before
+    reps = {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        shutil.copytree(old, str(tmp_path / name))
+        reps[name] = cpd.delta_build_index(g, dc, str(tmp_path / name),
+                                           fused, chunk=32, device=device)
+    assert reps["card"]["blocks_skipped"] > 0
+    assert {**reps["card"], "outdir": 0} == {**reps["cpu"], "outdir": 0}
+    assert _files(reps["card"]["outdir"]) == _files(reps["cpu"]["outdir"])
+    q = np.stack([rng.integers(0, g.n, 64), rng.choice(dc.owned(0), 64)], 1)
+    answers = []
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        eng = engine.ShardEngine(g, dc, 0, str(tmp_path / name),
+                                 device=device)
+        assert eng.promote_index(reps[name]["outdir"], 1)
+        answers.append(eng.answer(q, RuntimeConfig(), difffile=fused)[:3])
+    for a, b in zip(*answers):
+        assert np.array_equal(a, b)
+
+
 def test_first_moves_rows_past_two_gigabytes(dev):
     """An int8 ``[33_000, 65_536]`` table is 2.16 GB: K2 writes 48 rows
     of a 64-column batch into rows that start past byte 2^31, leaving

@@ -358,12 +358,15 @@ def test_worker_build_cli_equals_jax(world, tmp_path):
             snap = json.load(f)
         assert snap["blocks"] == 3 and snap["device"]["type"] == "cpu"
         c = snap["counters"]
-        # the primaries rebuilt, the hosted replica copied (its own
-        # recompute pass then finds every block done)
-        assert {k: c[k] - before[k] for k in before} == {
-            **dict.fromkeys(before, 0),
+        # the primaries rebuilt (each of their rows staged), the hosted
+        # replica copied (its own recompute pass then finds every block
+        # done); the build pipeline's ``*_seconds`` sums are timings
+        counts = [k for k in before if not k.endswith("_seconds")]
+        assert {k: c[k] - before[k] for k in counts} == {
+            **dict.fromkeys(counts, 0),
             "replica_blocks_copied_total": 3,
-            "build_blocks_resumed_total": 3}
+            "build_blocks_resumed_total": 3,
+            "build_rows_staged_total": world["tdc"].n_owned(wid)}
         assert c["relax_jacobi.launches"] == c["first_moves.launches"] == 0
     _same_tree(j, t)
     for d in (j, t):
