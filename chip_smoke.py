@@ -78,6 +78,24 @@ points a user calls, then the compressed-residency path:
    bytes and the changed map over every step), with a per-step profile
    of the build's loop (the kernels' share of its time); and an
    extraction beside its byte bound;
+2a. streamed path (``[streamed]`` lines), on the road shard's index
+   before its directory goes: ``StreamedCPDOracle`` at ``row_chunk``
+   4,096 (3 range chunks of 1.08 GB), the road phase's 20,000 queries: a
+   cold free-flow round (RLE encode on the host, a sidecar a chunk
+   written), a new oracle's cold round (every chunk read from its
+   sidecar), a warm diff round (0 bytes streamed), ``query_multi`` at D =
+   2, ``query_paths(k=8)`` and ``k_moves=8``, each equal to the road
+   engine's resident answers element by element; the launch counts
+   zeroed before and read after: B1 once a chunk of each query round, K4
+   once a chunk of the fused one, no plain walk; every chunk the cold
+   round decoded equal to its raw rows; B1 against the plain walk on the
+   first chunk's exact inputs (timed as in step 2); the RLE decode of a
+   chunk's sidecar triple and the pack4 decode of 1,024 rows timed by
+   CUDA events beside their bound; a synthetic RLE triple of 264,000 x
+   8,192 cells (past 2**31) decoded on the card to the columns it
+   encodes. Logged: each round's q/s, bytes streamed over raw, the
+   codecs that ran, its seconds split (host read, encode, sidecar read
+   and write, staging, H2D, decode, walk, drain) and the peak memory;
 2b. pipeline (``[pipeline]`` lines): worker 0 of the campaign graph
    (8,192 rows, 8 blocks of 1,024) built under epoch 1 serially and
    pipelined in turns through one compute context, blocks and ledger
@@ -170,6 +188,22 @@ points a user calls, then the compressed-residency path:
    equal to the plain sweep, sweep by sweep, on both);
    recorded: prepare seconds and sweeps, lookup q/s beside walk q/s and
    the break-even ``prepare / (1/walk_qps - 1/lookup_qps)``;
+5b. streamed campaign (``[streamed-campaign]`` lines): ``process_query
+   -c conf`` with ``DOS_SERVE_STREAMED=1`` on the campaign's index (5
+   compacted chunks at this density): the conf's fused rounds (K4 once a
+   chunk), then ``-k 8 --extract`` (B1 once a chunk a round); counts
+   zeroed before and read after, no plain walk; ``parts.csv`` (every
+   column but the timers) and ``paths.csv`` equal the resident
+   campaign's;
+5c. offline (``[offline]`` lines): ``offline.main`` on the campaign's
+   ``.xy``/``.scen``/``.diff`` in 4 parts, two rounds, on the card (a
+   one-worker 4 GiB table built by K1/K2, ``auto`` must resolve
+   ``ellsplit``): each part's size, plen and finished equal the resident
+   campaign's answers, B1 once a part and round, no plain walk; then
+   ``--local`` through a ``worker.server`` (in a thread, on the index of
+   a one-worker conf of a 16,384-node road network, built and saved by
+   ``offline.LocalEngine``) on its FIFO: the counts of the in-process
+   run on the same files, B1 launched in the server;
 6. host path (``[host]`` lines), the reference's own pipeline on the
    campaign's inputs: a second conf, ``partmethod "mod"`` over 8
    ``localhost`` workers (8,192 targets each, a 512 MiB int8 shard, 4 GiB
@@ -208,7 +242,7 @@ points a user calls, then the compressed-residency path:
    primaries' digests); four faults planted (worker 3's block torn,
    worker 5's deleted, a byte of worker 6's and of
    ``cpd-w00002-r01-b00000.npy`` flipped) that ``--verify`` lists
-   exactly, exit 3, as ``--scrub --scrub-passes 2`` does;
+   exactly, exit 3, as ``--scrub --scrub-passes 1`` does;
    ``anti_entropy`` heals the flipped replica by copy, then worker 5's
    replica, deleted beside its primary, by a recompute on the card
    (K1/K2); ``ShardEngine`` of worker 3 heals its torn block on the card
@@ -246,7 +280,7 @@ points a user calls, then the compressed-residency path:
    round over them (``[astar-host]``: per-query answers equal the
    in-process round's, each dump names the card with K6 launched and no
    plain run, every server exits 0); the heap route
-   (``DOS_ASTAR_DEVICE=0``) on the first 16 queries, free flow, its
+   (``DOS_ASTAR_DEVICE=0``) on the first 4 queries, free flow, its
    costs equal to K6's; then, while 7 spawned reference processes run
    the heap route on the first 256 queries (free flow) and scipy's
    Dijkstra on every query to 256 seeded targets a round and 128 of the
@@ -265,8 +299,10 @@ points a user calls, then the compressed-residency path:
    wide doubling sweep, K6's sweep and heuristic, each with
    its launches in the main runs — the wide sweep's in the road shard's
    tables; the raw walk's ``launches_by_path``
-   holds the host servers' launches read from their dumps and the heal
-   phase's, the build kernels' the build processes', the heal phase's
+   holds the streamed, streamed-campaign, offline and offline-local
+   runs', the host servers' launches read from their dumps and the heal
+   phase's, the fused walk's the streamed runs' too, the build kernels'
+   the offline table's, the build processes', the heal phase's
    (with the adopt process's) and the reorder build's), then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
@@ -304,6 +340,7 @@ import torch
 from distributed_oracle_search_tpu_torch.cli import (
     make_cpds, make_fifos, process_query,
 )
+from distributed_oracle_search_tpu_torch.cli import offline as offline_cli
 from distributed_oracle_search_tpu_torch.cli import reorder as reorder_cli
 from distributed_oracle_search_tpu_torch.data import (
     Graph, read_diff, read_scen, synth_city_graph, synth_diff,
@@ -312,6 +349,7 @@ from distributed_oracle_search_tpu_torch.data import (
 from distributed_oracle_search_tpu_torch.models import (
     cpd, dist_to_target, min_cost_per_unit, table_search_walk,
 )
+from distributed_oracle_search_tpu_torch.models import streamed
 from distributed_oracle_search_tpu_torch.models.cpd import (
     build_worker_shard, write_index_manifest,
 )
@@ -369,7 +407,7 @@ PLAIN_REPS = 3
 SLEEP_CYCLES = 20_000_000
 #: bytes written between cold launches: twice the 50 MB L2
 FLUSH_BYTES = 100 << 20
-DECOMPRESS_REPS = 3
+DECOMPRESS_REPS = 1
 #: H100 SXM published device-memory rate and non-tensor 32-bit rate
 #: (used for the int32 walk arithmetic); the bound is the larger time
 HBM_BYTES_PER_S = 3.35e12
@@ -390,7 +428,7 @@ HOST_READY_S = 300
 HOST_STOP_S = 60
 #: the build kind ``method="auto"`` must resolve to on each path
 EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit",
-                 "serving": "ellsplit"}
+                 "serving": "ellsplit", "offline": "ellsplit"}
 #: the serving phase, on the campaign's oracle: three more congestion
 #: diffs (seeds) for the D = 5 fused walk, 8 mat rows of 4,096 targets,
 #: and the device budget it sets for the prepared tables (the fused D = 2
@@ -450,7 +488,7 @@ ASTAR_QUERIES = 4_096
 ASTAR_CHUNK = 1_024
 ASTAR_KNOBS = ((1.0, 0.0), (1.5, 0.1))
 ASTAR_CUTS = (1, 2, 3)
-ASTAR_HEAP_CLI = 16
+ASTAR_HEAP_CLI = 4
 ASTAR_HEAP_QUERIES = 256
 ASTAR_DIJKSTRA = 256
 ASTAR_ROAD_DIJKSTRA = 128
@@ -476,6 +514,19 @@ DELTA_DIJKSTRA_TARGETS = 4
 # the HOTSPOT_NODES-th nearest node; it dirties nearly every target, so
 # the delta degrades to the pipelined full build under its epoch
 HOTSPOT_NODES = 64
+#: the streamed phase: the road index streamed in chunks of this many rows
+#: (the JAX package's default: one chunk is 1.08 GB of fm)
+STREAM_ROW_CHUNK = 4096
+#: the decode past 2**31 cells: N_NODES columns of this many rows
+C2_ROWS = 8192
+#: rows of the chunk whose pack4 decode is timed, and the decodes timed
+PACK4_TIME_ROWS = 1024
+DECODE_REPS = 5
+#: the offline phase: parts of the campaign's queries, and the nodes of
+#: the road network its ``--local`` run serves (the one-worker table a
+#: server loads: 268 MB, not the campaign's 4 GiB)
+OFFLINE_PARTS = 4
+OFFLINE_LOCAL_NODES = 16_384
 
 BUILD_KERNELS = {
     "relax_jacobi": "distributed_oracle_search_tpu/ops/ell_split.py:115 "
@@ -1870,8 +1921,13 @@ def run() -> list[dict]:
     cmps: dict[str, dict] = {}
     build_launches: dict[str, dict[str, int]] = {}
     try:
-        raw_kernel, cmps["road"], build_launches["road"], road_k5, delta = \
-            road_path(g, dc, outdir)
+        raw_kernel, cmps["road"], build_launches["road"], road_k5, delta, \
+            road_ref = road_path(g, dc, outdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- 2a. the road index streamed
+        stream = streamed_path(g, dc, outdir, road_ref)
+        del road_ref
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     build_launches["delta"] = {k: delta["launches"][k] for k in BUILD_FNS}
@@ -1918,6 +1974,11 @@ def run() -> list[dict]:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[serving] done at {time.perf_counter() - T_START:.1f} s")
+        stream_campaign = streamed_campaign(outdir, ref)
+        log(f"[streamed-campaign] done at "
+            f"{time.perf_counter() - T_START:.1f} s")
+        offline, build_launches["offline"] = offline_path(outdir, ref)
+        log(f"[offline] done at {time.perf_counter() - T_START:.1f} s")
         host, build_launches["host"], handoff = host_path(outdir, ref)
         log(f"[host] done at {time.perf_counter() - T_START:.1f} s")
         heal, build_launches["heal"] = heal_path(
@@ -1930,20 +1991,23 @@ def run() -> list[dict]:
         log(f"[astar] done at {time.perf_counter() - T_START:.1f} s")
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
-    raw_kernel["launches_by_path"] = {"road": raw_kernel["launches"],
-                                      "delta": delta["launches"]["walk"],
-                                      "campaign": campaign["launches"],
-                                      "serving": serving["launches"]["walk"],
-                                      "host": host["launches"],
-                                      "heal": heal["launches"]}
-    raw_kernel["launches"] += (delta["launches"]["walk"]
-                               + campaign["launches"] + host["launches"]
-                               + serving["launches"]["walk"]
-                               + heal["launches"])
+    raw_kernel["launches_by_path"] = {
+        "road": raw_kernel["launches"], "delta": delta["launches"]["walk"],
+        "streamed": stream["launches"], "campaign": campaign["launches"],
+        "serving": serving["launches"]["walk"],
+        "streamed-campaign": stream_campaign["launches"],
+        "offline": offline["launches"],
+        "offline-local": offline["local_launches"],
+        "host": host["launches"], "heal": heal["launches"]}
+    raw_kernel["launches"] = sum(raw_kernel["launches_by_path"].values())
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
+                                    stream["max_abs_err"],
                                     campaign["max_abs_err"],
                                     host["max_abs_err"],
                                     heal["max_abs_err"])
+    raw_kernel["streamed"] = stream
+    raw_kernel["streamed_campaign"] = stream_campaign
+    raw_kernel["offline"] = offline
     raw_kernel["campaign"] = campaign
     raw_kernel["host"] = host
     raw_kernel["heal"] = heal
@@ -1956,8 +2020,13 @@ def run() -> list[dict]:
         if entry["launches"] <= 0:
             raise AssertionError(f"the main path never launched "
                                  f"{entry['name']}")
-    return [raw_kernel, pack4_kernel, *build,
-            *serving_entries(campaign, serving, road_k5), *astar]
+    served = serving_entries(campaign, serving, road_k5)
+    multi = served[0]
+    multi["launches_by_path"].update(
+        {"streamed": stream["multi_launches"],
+         "streamed-campaign": stream_campaign["multi_launches"]})
+    multi["launches"] = sum(multi["launches_by_path"].values())
+    return [raw_kernel, pack4_kernel, *build, *served, *astar]
 
 
 def serving_entries(campaign: dict, serving: dict, road: dict
@@ -2107,6 +2176,11 @@ def road_path(g, dc, outdir):
     cmp = build_kernels_vs_plain("[build-kernel road]", g, kind,
                                  cpd.pick_build_kernel(g, "auto")[1],
                                  dc.owned(WID)[:CHUNK])
+    # what the streamed phase is held to: the engine's answers
+    road_ref = {"queries": queries, "diff_path": diff_path,
+                "free-flow": answers["free-flow"][:3],
+                "diff": answers["diff"][:3],
+                "k8": answers["k8-extract"][:3], "paths": paths}
     return {
         "name": cw.KERNEL_NAME,
         "route": "cuda",
@@ -2118,7 +2192,7 @@ def road_path(g, dc, outdir):
         **headline(main),
         "parity": "bit-identical",
         "rounds": per_round,
-    }, cmp, build_counts, road_k5, delta
+    }, cmp, build_counts, road_k5, delta, road_ref
 
 
 def road_doubling(g, dc, engine, queries, walk) -> dict:
@@ -3871,12 +3945,12 @@ def heal_path(ref: dict, host: dict, campaign_index: str
         raise AssertionError(f"{tag} --verify after the faults: rc {rc}, "
                              f"{rep}")
     rc, rep, out["scrub_s"] = verify_cli(
-        conf, ["--scrub", "--scrub-passes", "2", "--scrub-interval", "0"])
+        conf, ["--scrub", "--scrub-passes", "1", "--scrub-interval", "0"])
     if rc != 3:
         raise AssertionError(f"{tag} --scrub: rc {rc}, {rep}")
     log(f"{tag} faults planted: {faults}; --verify exit 3 listing exactly "
         f"those ({out['verify_faulted_s']:.3f} s, crc32 over "
-        f"{2 * index_bytes} B with the replicas); --scrub 2 passes exit 3 "
+        f"{2 * index_bytes} B with the replicas); --scrub 1 pass exit 3 "
         f"({out['scrub_s']:.3f} s) on {card_txt}")
 
     # 4. anti-entropy: the flipped replica by copy, then a replica with no
@@ -5140,6 +5214,531 @@ def astar_path(outdir: str, ref: dict) -> tuple[dict, dict]:
             "bound_ms": head["h_bound_ms"], "bound_by": head["h_bound_by"],
             "road_ms": road["h_ms"]}
     return sweep, heur
+
+
+# ------------------------------------------------------------ streamed path
+
+def round_line(tag: str, run: dict) -> str:
+    """One streamed round: q/s, bytes, codecs and the seconds split."""
+    st, sp = run["stats"], run["split"]
+    h2d_gbs = (st["bytes_streamed"] / sp["h2d"] / 1e9
+               if sp.get("h2d") else 0.0)
+    split = ", ".join(f"{k} {v:.4f}" for k, v in sorted(sp.items()))
+    return (f"{tag} {run['round']}: {st['n_queries']} queries in "
+            f"{run['seconds']:.4f} s = {run['qps']:.1f} q/s; "
+            f"{st['mode']} mode, {st['row_chunks']} chunks "
+            f"({st['distinct_targets']} distinct targets), "
+            f"bytes_streamed/bytes_raw "
+            f"{st['bytes_streamed']}/{st['bytes_raw']} = "
+            f"{st['bytes_streamed'] / max(st['bytes_raw'], 1):.4f}, "
+            f"chunks_rle {st['chunks_rle']}, chunks_packed "
+            f"{st['chunks_packed']}, sidecar_hits {st['sidecar_hits']}, "
+            f"cache hits/misses {st['cache_hits']}/{st['cache_misses']}; "
+            f"seconds: {split}; H2D {h2d_gbs:.2f} GB/s")
+
+
+class StreamProbe:
+    """Times every ``StreamedCPDOracle`` campaign (host clock,
+    synchronised) and keeps its ``last_stats`` and ``last_seconds``; the
+    first ``cuda_walk_batch`` call of the streamed oracle is recorded so
+    its exact inputs can be replayed."""
+
+    METHODS = ("query", "query_multi", "query_paths")
+
+    def __init__(self):
+        self.runs: list[dict] = []
+        self.first_walk = None
+        self._real = {m: getattr(streamed.StreamedCPDOracle, m)
+                      for m in self.METHODS}
+        self._real_walk = streamed.cuda_walk_batch
+        self.name = ""
+
+    def _timed(self, method):
+        fn = self._real[method]
+
+        def wrapper(oracle, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(oracle, *a, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            self.runs.append({"round": self.name or method, "method": method,
+                              "seconds": dt, "qps": len(a[0]) / dt,
+                              "stats": dict(oracle.last_stats),
+                              "split": dict(oracle.last_seconds)})
+            return out
+        return wrapper
+
+    def _walk(self, *a, **kw):
+        if self.first_walk is None:
+            self.first_walk = (a, kw)
+        return self._real_walk(*a, **kw)
+
+    def __enter__(self):
+        for m in self.METHODS:
+            setattr(streamed.StreamedCPDOracle, m, self._timed(m))
+        streamed.cuda_walk_batch = self._walk
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in self._real.items():
+            setattr(streamed.StreamedCPDOracle, m, fn)
+        streamed.cuda_walk_batch = self._real_walk
+
+
+def same_answers(tag: str, what: str, got, want) -> None:
+    for x, y, label in zip(got, want, ("0", "1", "2")):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            bad = int((np.asarray(x) != np.asarray(y)).sum())
+            raise AssertionError(f"{tag} {what}: output {label} differs "
+                                 f"from the resident engine's on {bad} "
+                                 "entries")
+
+
+def rle_triple_past_2_31(n: int, c: int, seed: int):
+    """A transposed-RLE wire triple of an ``[c, n]`` int8 chunk with three
+    runs a column (two seeded boundaries, seeded values), built on the
+    host from the run lengths alone (``_pack_rle``'s layout: runs past
+    255 split, the triple padded to a power of two). Returns the triple
+    and the boundaries and values it encodes."""
+    rng = np.random.default_rng(seed)
+    b0 = rng.integers(1, c - 1, n)
+    b1 = b0 + 1 + (rng.integers(0, 2**31, n) % (c - 1 - b0))
+    vals = rng.integers(-1, 20, (n, 3)).astype(np.int8)
+    lengths = np.stack([b0, b1 - b0, c - b1], axis=1).reshape(-1)
+    pieces = -(-lengths // 255)
+    tot = int(pieces.sum())
+    cap = 1 << max(tot - 1, 0).bit_length()
+    last = np.cumsum(pieces) - 1
+    pl = np.full(tot, 255, np.uint8)
+    pl[last] = (lengths - 255 * (pieces - 1)).astype(np.uint8)
+    plen = np.zeros(cap, np.uint8)
+    plen[:tot] = pl
+    pval = np.full(cap, vals[-1, -1], np.int8)
+    pval[:tot] = np.repeat(vals.reshape(-1), pieces)
+    counts = pieces.reshape(n, 3).sum(axis=1).astype(np.int32)
+    return (plen, pval, counts), (b0, b1, vals)
+
+
+def decode_past_2_31(tag: str) -> dict:
+    """C2: a chunk of ``N_NODES x C2_ROWS`` cells (past 2**31) decodes on
+    the card to the columns its triple encodes, checked on the card in
+    row slabs."""
+    n, c = N_NODES, C2_ROWS
+    t0 = time.perf_counter()
+    wire, (b0, b1, vals) = rle_triple_past_2_31(n, c, SEED + 7)
+    host_s = time.perf_counter() - t0
+    dev = [torch.from_numpy(a).cuda() for a in wire]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fm = streamed._unpack_rle(*dev, c=c)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    b0d, b1d = (torch.from_numpy(x).cuda()[None, :] for x in (b0, b1))
+    v = torch.from_numpy(vals).cuda().T
+    bad = 0
+    for r0 in range(0, c, 1024):
+        r = torch.arange(r0, min(r0 + 1024, c), device="cuda")[:, None]
+        want = torch.where(r < b0d, v[0], torch.where(r < b1d, v[1], v[2]))
+        bad += int((fm[r0:r0 + len(r)] != want).sum())
+    wire_bytes = sum(a.nbytes for a in wire)
+    bound_ms, by = bound(wire_bytes + n * c, 0)
+    log(f"{tag} decode past 2**31: [{c}, {n}] = {n * c} cells "
+        f"({n * c / 2**31:.3f} x 2**31) from {len(wire[0])} runs "
+        f"({wire_bytes} wire bytes, built on the host in {host_s:.2f} s): "
+        f"{'equal' if not bad else f'{bad} cells differ'}; "
+        f"{ms:.3f} ms on the card, bound {bound_ms:.4f} ms by {by}, peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    if bad or tuple(fm.shape) != (c, n):
+        raise AssertionError(f"{tag} the decode past 2**31 cells is wrong "
+                             f"on {bad} cells")
+    del fm, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cells": n * c, "ms": ms, "bound_ms": bound_ms,
+            "wire_bytes": wire_bytes, "peak_bytes": peak}
+
+
+def decoder_times(tag: str, st, wid: int, r0: int) -> dict:
+    """Each decoder on one chunk of the phase, by CUDA events, beside its
+    bound (the wire bytes read and the ``C x N`` int8 written once): the
+    RLE decode of the chunk's sidecar triple, and the pack4 decode of
+    the first ``PACK4_TIME_ROWS`` rows' nibbles (the host encode of a
+    whole chunk takes seconds). Each must give the raw rows."""
+    out = {}
+    c = st.row_chunk
+    raw = np.array(st._row_range(wid, r0, c))
+    path = os.path.join(st.outdir, f"rle-w{wid:05d}-r{r0:09d}-c{c}.npz")
+    with np.load(path) as z:
+        rle = (None if "fallback" in z
+               else (z["lens"], z["vals"], z["counts"]))
+    rows = np.ascontiguousarray(raw[:PACK4_TIME_ROWS])
+    p4 = streamed._pack4(rows)
+    for name, wire, want_np, fn in (
+            ("rle", rle, raw, lambda d: streamed._unpack_rle(*d, c=c)),
+            ("pack4", p4, rows,
+             lambda d: streamed._unpack4(d[0], st.graph.n, *d[1:]))):
+        if wire is None:
+            log(f"{tag} decoder {name}: the chunk does not encode")
+            continue
+        dev = [torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16
+                                else a).cuda() for a in wire]
+        want = torch.from_numpy(want_np).cuda()
+        if not torch.equal(fn(dev), want):
+            raise AssertionError(f"{tag} decoder {name} differs from the "
+                                 "raw rows")
+        ms = time_cuda(lambda: fn(dev), DECODE_REPS)
+        wire_bytes = sum(a.nbytes for a in wire)
+        bound_ms, by = bound(wire_bytes + want_np.size, 0)
+        out[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                     "wire_bytes": wire_bytes, "cells": int(want_np.size)}
+        log(f"{tag} decoder {name}: {list(want_np.shape)} = "
+            f"{want_np.size} cells from {wire_bytes} wire bytes in "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms by {by} "
+            f"({bound_ms / ms:.1%} of it)")
+        del dev, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def streamed_path(g, dc, outdir: str, ref: dict) -> dict:
+    """The road shard's index served by ``StreamedCPDOracle`` at
+    ``row_chunk=STREAM_ROW_CHUNK`` (the JAX default): a cold free-flow
+    round (writes the sidecars), a new oracle's cold round (every chunk
+    from its sidecar), a warm diff round (0 bytes), ``query_multi`` at
+    D = 2, ``query_paths(k=8)`` and ``k_moves=8``, each equal to the road
+    engine's resident answers; every chunk the cold round decoded equal
+    to its raw rows; the decode past 2**31 cells; B1/K4 launches one a
+    chunk and no plain walk."""
+    tag = "[streamed]"
+    t_phase = time.perf_counter()
+    queries = ref["queries"]
+    w_diff = g.weights_with_diff(ref["diff_path"])
+    plain0 = (cw.cuda_walk_batch.plain, cw.cuda_walk_multi.plain)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with StreamProbe() as probe:
+        st1 = streamed.StreamedCPDOracle(g, dc, outdir,
+                                         row_chunk=STREAM_ROW_CHUNK)
+        probe.name = "cold free-flow"
+        cold = st1.query(queries)
+        sidecars = sorted(f for f in os.listdir(outdir)
+                          if f.startswith("rle-"))
+        st2 = streamed.StreamedCPDOracle(g, dc, outdir,
+                                         row_chunk=STREAM_ROW_CHUNK)
+        got = {}
+        for name, fn, a, kw in (
+                ("sidecar free-flow", st2.query, (queries,), {}),
+                ("warm diff", st2.query, (queries,), {"w_query": w_diff}),
+                ("multi D=2", st2.query_multi, (queries, [None, w_diff]),
+                 {}),
+                ("paths k=8", st2.query_paths, (queries,), {"k": 8}),
+                ("k_moves=8", st2.query, (queries,), {"k_moves": 8})):
+            probe.name = name
+            got[name] = fn(*a, **kw)
+        launches = read_launches()[0]
+        multi_launches = cw.cuda_walk_multi.launches
+    peak = torch.cuda.max_memory_allocated()
+    plain = (cw.cuda_walk_batch.plain - plain0[0],
+             cw.cuda_walk_multi.plain - plain0[1])
+    runs = {r["round"]: r for r in probe.runs}
+    for run in probe.runs:
+        log(round_line(tag, run))
+    log(f"{tag} peak device memory over the rounds {peak / 2**30:.2f} GiB "
+        f"(cache_bytes {st1.cache_bytes} B a oracle)")
+    chunks = {name: r["stats"]["row_chunks"] for name, r in runs.items()}
+    want_b1 = sum(chunks[k] for k in ("cold free-flow", "sidecar free-flow",
+                                      "warm diff", "k_moves=8"))
+    log(f"{tag} launches in the phase's run: walk {launches} (one a chunk "
+        f"of each query round: {want_b1}), fused walk {multi_launches} "
+        f"(one a chunk: {chunks['multi D=2']}), plain walks {plain}")
+    if (launches != want_b1 or multi_launches != chunks["multi D=2"]
+            or plain != (0, 0)):
+        raise AssertionError(f"{tag} launches walk {launches} (want "
+                             f"{want_b1}), fused {multi_launches} (want "
+                             f"{chunks['multi D=2']}), plain {plain}")
+    c0 = runs["cold free-flow"]["stats"]
+    n_chunks = -(-dc.n_owned(WID) // STREAM_ROW_CHUNK)
+    if (c0["mode"] != "range" or c0["row_chunks"] != n_chunks
+            or c0["cache_misses"] != n_chunks or c0["sidecar_hits"]
+            or len(sidecars) != n_chunks):
+        raise AssertionError(f"{tag} cold round {c0}, sidecars {sidecars}")
+    s0 = runs["sidecar free-flow"]["stats"]
+    if (s0["sidecar_hits"] != n_chunks or s0["cache_misses"] != n_chunks
+            or s0["bytes_streamed"] != c0["bytes_streamed"]):
+        raise AssertionError(f"{tag} the new oracle's cold round did not "
+                             f"read every chunk from its sidecar: {s0}")
+    for name in ("warm diff", "multi D=2", "paths k=8", "k_moves=8"):
+        st = runs[name]["stats"]
+        if st["bytes_streamed"] or st["cache_hits"] != st["row_chunks"]:
+            raise AssertionError(f"{tag} {name} streamed bytes: {st}")
+    log(f"{tag} {len(sidecars)} sidecars written by the cold round, every "
+        "one read by the new oracle's; the warm rounds streamed 0 bytes")
+    ff, diff = ref["free-flow"], ref["diff"]
+    same_answers(tag, "cold free-flow", cold, ff)
+    same_answers(tag, "sidecar free-flow", got["sidecar free-flow"], ff)
+    same_answers(tag, "warm diff", got["warm diff"], diff)
+    m_cost, m_plen, m_fin = got["multi D=2"]
+    same_answers(tag, "multi D=2 free flow", (m_cost[0], m_plen, m_fin), ff)
+    same_answers(tag, "multi D=2 diff", (m_cost[1], m_plen, m_fin), diff)
+    same_answers(tag, "paths k=8", got["paths k=8"], ref["paths"])
+    same_answers(tag, "k_moves=8", got["k_moves=8"], ref["k8"])
+    log(f"{tag} every round equals the road engine's resident answers "
+        f"({len(queries)} queries each, paths included)")
+    # each chunk the cold round decoded against its raw rows
+    for key, fm_dev in st1._chunk_cache.items():
+        raw = torch.from_numpy(np.array(st1._row_range(*key))).cuda()
+        if not torch.equal(fm_dev, raw):
+            raise AssertionError(f"{tag} decoded chunk {key} differs from "
+                                 "its raw rows")
+        del raw
+    log(f"{tag} the cold round's {len(st1._chunk_cache)} decoded chunks "
+        "equal their raw rows byte for byte")
+    del st1, st2
+    gc.collect()
+    torch.cuda.empty_cache()
+    call = probe.first_walk
+    q = call[0][2].shape[0]
+    call = (call[0], {**call[1], "valid": torch.ones(q, dtype=torch.bool,
+                                                     device="cuda")})
+    kernel = kernel_vs_plain("streamed chunk 0", call, f"{tag} kernel")
+    st = streamed.StreamedCPDOracle(g, dc, outdir, row_chunk=STREAM_ROW_CHUNK,
+                                    cache_bytes=0)
+    decoders = decoder_times(tag, st, WID, 0)
+    del st
+    c2 = decode_past_2_31(tag)
+    log(f"{tag} phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "multi_launches": multi_launches,
+            "max_abs_err": kernel["max_abs_err"], "kernel": kernel,
+            "rounds": probe.runs, "peak_bytes": peak, "decoders": decoders,
+            "past_2_31": c2, "sidecars": len(sidecars)}
+
+
+def read_parts_counts(path: str) -> list[dict]:
+    """``parts.csv`` rows without the timers."""
+    timers = ("t_receive", "t_astar", "t_search", "t_prepare", "t_partition")
+    return [{k: v for k, v in row.items() if k not in timers}
+            for row in read_parts(path)]
+
+
+def streamed_campaign(outdir: str, ref: dict) -> dict:
+    """``process_query -c conf`` under ``DOS_SERVE_STREAMED=1`` on the
+    campaign's index: the conf's fused rounds, then ``-k 8 --extract``;
+    ``parts.csv`` and ``paths.csv`` equal the resident campaign's."""
+    tag = "[streamed-campaign]"
+    conf = os.path.join(outdir, "conf.json")
+    outs = (os.path.join(outdir, "out-streamed-rounds"),
+            os.path.join(outdir, f"out-streamed-k{CAMPAIGN_K}"))
+    plain0 = (cw.cuda_walk_batch.plain, cw.cuda_walk_multi.plain)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    os.environ["DOS_SERVE_STREAMED"] = "1"
+    try:
+        with StreamProbe() as probe:
+            t0 = time.perf_counter()
+            rcs = [process_query.main(["-c", conf, "-o", outs[0]])]
+            t1 = time.perf_counter()
+            rcs.append(process_query.main(["-c", conf, "-o", outs[1], "-k",
+                                           str(CAMPAIGN_K), "--extract"]))
+            t2 = time.perf_counter()
+            launches = read_launches()[0]
+            multi_launches = cw.cuda_walk_multi.launches
+    finally:
+        del os.environ["DOS_SERVE_STREAMED"]
+    peak = torch.cuda.max_memory_allocated()
+    plain = (cw.cuda_walk_batch.plain - plain0[0],
+             cw.cuda_walk_multi.plain - plain0[1])
+    for run in probe.runs:
+        log(round_line(tag, run))
+    log(f"{tag} process_query wall: rounds {t1 - t0:.3f} s, -k "
+        f"{CAMPAIGN_K} --extract {t2 - t1:.3f} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    if rcs != [0, 0]:
+        raise AssertionError(f"{tag} exit codes {rcs}")
+    want_b1 = sum(r["stats"]["row_chunks"] for r in probe.runs
+                  if r["method"] == "query")
+    want_k4 = sum(r["stats"]["row_chunks"] for r in probe.runs
+                  if r["method"] == "query_multi")
+    log(f"{tag} launches in the CLIs' runs: fused walk {multi_launches} "
+        f"(one a chunk: {want_k4}), walk {launches} (one a chunk: "
+        f"{want_b1}), plain walks {plain}; modes "
+        f"{sorted({r['stats']['mode'] for r in probe.runs})}")
+    if (launches, multi_launches, plain) != (want_b1, want_k4, (0, 0)) \
+            or not want_b1 or not want_k4:
+        raise AssertionError(f"{tag} launches walk {launches}, fused "
+                             f"{multi_launches}, plain {plain}")
+    for mine, theirs in ((outs[0], os.path.join(outdir, "out-rounds")),
+                         (outs[1], os.path.dirname(ref["parts_k"]))):
+        got = read_parts_counts(os.path.join(mine, "parts.csv"))
+        want = read_parts_counts(os.path.join(theirs, "parts.csv"))
+        if got != want:
+            raise AssertionError(f"{tag} {mine}/parts.csv differs from the "
+                                 "resident campaign's")
+    with open(os.path.join(outs[1], "paths.csv"), "rb") as f:
+        got = f.read()
+    with open(ref["paths"], "rb") as f:
+        if got != f.read():
+            raise AssertionError(f"{tag} paths.csv differs from the "
+                                 "resident campaign's")
+    log(f"{tag} parts.csv of both runs (every column but the timers) and "
+        "paths.csv equal the resident campaign's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "multi_launches": multi_launches,
+            "rounds": probe.runs, "rounds_s": t1 - t0, "k_s": t2 - t1,
+            "peak_bytes": peak}
+
+
+# ------------------------------------------------------------- offline path
+
+def part_counts(path: str) -> list[tuple[str, int, int, int]]:
+    """``(expe, size, plen, finished)`` of each ``parts.csv`` row."""
+    return [(r["expe"], int(r["size"]), int(r["plen"]), int(r["finished"]))
+            for r in read_parts(path)]
+
+
+def offline_path(outdir: str, ref: dict) -> tuple[dict, dict[str, int]]:
+    """``offline.main`` on the campaign's ``.xy``/``.scen``/``.diff`` in
+    ``OFFLINE_PARTS`` parts, on the card (a one-worker table over the
+    whole graph built by K1/K2, never saved): each part's size, plen and
+    finished equal the resident campaign's answers, one B1 launch a part
+    and round. Then :func:`offline_local`. Returns the phase's entry and
+    the build kernels' launches of its main run."""
+    tag = "[offline]"
+    t_phase = time.perf_counter()
+    queries = ref["queries"]
+    diffs = ["-", ref["diff_path"]]
+    argv = ["-m", ref["xy"], "--scenario", ref["scen"], "-p",
+            str(OFFLINE_PARTS), "--diffs", *diffs]
+    out = os.path.join(outdir, "out-offline")
+    plain0 = cw.cuda_walk_batch.plain
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with KindProbe() as kinds:
+        rc = offline_cli.main([*argv, "-o", out])
+    torch.cuda.synchronize()
+    launches = read_launches()[0]
+    build_counts = check_build_launches("offline", tag)
+    plain = cw.cuda_walk_batch.plain - plain0
+    peak = torch.cuda.max_memory_allocated()
+    kinds.check("offline", tag)
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)
+    log(f"{tag} offline.main: rc {rc}, {metrics['num_queries']} queries in "
+        f"{metrics['num_partitions']} parts x {len(diffs)} rounds, "
+        f"t_process {metrics['t_process']:.3f} s (the table built on the "
+        f"card, then the rounds), peak device memory {peak / 2**30:.2f} "
+        f"GiB; walk launches {launches}, plain walks {plain}")
+    if rc or launches != OFFLINE_PARTS * len(diffs) or plain:
+        raise AssertionError(f"{tag} rc {rc}, walk launches {launches}, "
+                             f"plain {plain}")
+    # each part's counts against the resident campaign's answers
+    split = np.array_split(np.arange(len(queries)), OFFLINE_PARTS)
+    want = []
+    for expe, name in enumerate(("free-flow", "diff")):
+        plen, fin = ref["answers"][name]
+        want += [(str(expe), len(ix), int(plen[ix].sum()),
+                  int(fin[ix].sum())) for ix in split]
+    got = part_counts(os.path.join(out, "parts.csv"))
+    if got != want:
+        raise AssertionError(f"{tag} parts.csv {got} != the resident "
+                             f"campaign's {want}")
+    log(f"{tag} each part's size, plen and finished equal the resident "
+        "campaign's answers in both rounds")
+    gc.collect()
+    torch.cuda.empty_cache()
+    local = offline_local(outdir, tag)
+    log(f"{tag} phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "local_launches": local["launches"],
+            "t_process": metrics["t_process"], "peak_bytes": peak,
+            "local": local}, build_counts
+
+
+def offline_local(outdir: str, tag: str) -> dict:
+    """``offline.main --local`` through a ``worker.server`` over its FIFO
+    (the server in a thread of this process, on the card), on a road
+    network of ``OFFLINE_LOCAL_NODES`` nodes written as files beside the
+    campaign's: the server's one-worker index is built and saved by
+    ``offline.LocalEngine``, and the ``--local`` run's counts must equal
+    the in-process run's on the same files, one B1 launch a part and
+    round in the server."""
+    d = os.path.join(outdir, "offline-local")
+    os.makedirs(d, exist_ok=True)
+    g0 = synth_road_network(OFFLINE_LOCAL_NODES, seed=SEED)
+    xy, scen, diff = (os.path.join(d, f) for f in
+                      ("road.xy", "road.scen", "road.diff"))
+    write_xy(xy, g0.xs, g0.ys, g0.src, g0.dst, g0.w)
+    g = Graph.from_xy(xy)
+    write_scen(scen, make_queries(np.arange(g.n), g.n))
+    write_diff(diff, *synth_diff(g, frac=0.1, seed=2))
+    argv = ["-m", xy, "--scenario", scen, "-p", str(OFFLINE_PARTS),
+            "--diffs", "-", diff]
+    inproc = os.path.join(d, "out-inproc")
+    if offline_cli.main([*argv, "-o", inproc]):
+        raise AssertionError(f"{tag} the in-process run on the --local "
+                             "files failed")
+    index, nfs = os.path.join(d, "index"), os.path.join(d, "nfs")
+    os.makedirs(nfs, exist_ok=True)
+    t0 = time.perf_counter()
+    offline_cli.LocalEngine(xy, outdir=index)
+    build_s = time.perf_counter() - t0
+    conf = ClusterConfig(workers=["localhost"], partmethod="tpu",
+                         partkey=None, outdir=index, xy_file=xy,
+                         nfs=nfs).validate()
+    fifo = os.path.join(d, "offline.fifo")
+    t0 = time.perf_counter()
+    server = wserver.FifoServer(conf, 0, command_fifo=fifo, device="cuda")
+    load_s = time.perf_counter() - t0
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    for _ in range(500):
+        if os.path.exists(fifo):
+            break
+        time.sleep(0.02)
+    real_answer = offline_cli.DEFAULT_ANSWER_FIFO
+    offline_cli.DEFAULT_ANSWER_FIFO = os.path.join(d, "offline.answer")
+    out = os.path.join(d, "out-local")
+    plain0 = cw.cuda_walk_batch.plain
+    zero_launches()
+    try:
+        t0 = time.perf_counter()
+        rc = offline_cli.main([*argv, "-o", out, "--local", "--fifo", fifo,
+                               "--nfs", nfs])
+        local_s = time.perf_counter() - t0
+        launches = read_launches()[0]
+        plain = cw.cuda_walk_batch.plain - plain0
+    finally:
+        offline_cli.DEFAULT_ANSWER_FIFO = real_answer
+        stopped = wserver.stop_server(fifo)
+        th.join(timeout=HOST_STOP_S)
+    if th.is_alive() or not stopped:
+        raise AssertionError(f"{tag} the FIFO server did not stop")
+    got, want = (part_counts(os.path.join(x, "parts.csv"))
+                 for x in (out, inproc))
+    log(f"{tag} --local through a worker.server over its FIFO, on a "
+        f"{g.n}-node road network: its one-worker index built and saved by "
+        f"LocalEngine in {build_s:.3f} s, loaded by the server in "
+        f"{load_s:.3f} s; rc {rc}, {len(got)} rows in {local_s:.3f} s; "
+        f"walk launches in the server {launches}, plain {plain}")
+    if (rc or got != want or launches != 2 * OFFLINE_PARTS or plain
+            or sum(x[1] for x in got) != 2 * N_QUERIES):
+        raise AssertionError(f"{tag} --local: rc {rc}, counts {got} != "
+                             f"the in-process run's {want}, launches "
+                             f"{launches}, plain {plain}")
+    log(f"{tag} --local counts (size, plen, finished a part and round) "
+        "equal the in-process run's on the same files")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "build_s": build_s,
+            "server_load_s": load_s, "local_s": local_s,
+            "nodes": int(g.n)}
 
 
 T_START = time.perf_counter()

@@ -11,6 +11,11 @@ Two backends behind one stats schema:
   device (``--device``, default ``cuda``) and each diff round is ONE
   walk over all workers (``CPDOracle.query``; on the card the CUDA walk
   kernel). Per-worker stats rows are recovered from the routed results.
+  When that table (``W * R * N`` bytes) would pass ``DOS_FM_BUDGET_GB``
+  (default 8), or with ``DOS_SERVE_STREAMED=1``, the rounds are served
+  streamed from the on-disk index instead
+  (``models.streamed.StreamedCPDOracle``: one walk launch a row-chunk),
+  with the same answers.
   ``--alg astar`` searches the graph with no index: the batched search
   on ``--device`` (``ops.batched_astar``; K6 on the card) by default,
   the per-query heap engine (``models.astar``) with
@@ -35,8 +40,7 @@ a batch failed and, with ``--extract -k K``, ``paths.csv`` — reference
 ``process_query.py:230-239``, with its multi-worker CSV crash fixed.
 
 Not ported, and refused with the ``ROADMAP.md`` item that ports each:
-``--alg ch`` (native engine, A15) in-process, the streamed memory plan
-(A11), multi-host confs (A13),
+``--alg ch`` (native engine, A15) in-process, multi-host confs (A13),
 ``--trace``/``--metrics-dump``/``--profile``/``--obs-port`` with
 ``obs_metrics.json`` (A14), and on the host backend the RPC lanes
 (``DOS_TRANSPORT=rpc/auto``), breakers, membership re-reads and the
@@ -135,20 +139,98 @@ def _astar_heap_campaign(graph, queries, w_query, hscale, fscale,
         n_surplus=st.n_surplus)
 
 
+class _StreamedServe:
+    """Stand-in for ``CPDOracle`` in :func:`run_tpu` when the resident
+    table would not fit the card: the campaign is served from the
+    on-disk block files by :class:`~..models.streamed.StreamedCPDOracle`
+    (chunks cached on the device, RLE/4-bit packed uploads), on
+    ``device``, with the ``-w`` filter applied on the host. A missing
+    index is built one worker shard at a time first.
+
+    One controller serves every worker. The JAX package's multi-
+    controller sharding of the streamed campaign (each process streaming
+    its own workers, results merged by one allgather) comes with the
+    multi-host port (``ROADMAP.md`` A13); multi-host confs are refused
+    before this is made."""
+
+    def __init__(self, graph, dc, outdir: str, chunk: int, device):
+        from ..models.cpd import build_worker_shard, write_index_manifest
+        from ..models.streamed import StreamedCPDOracle
+
+        if not os.path.exists(os.path.join(outdir, "index.json")):
+            log.info("no index at %s; building per-worker block files "
+                     "in-process", outdir)
+            for wid in range(dc.maxworker):
+                build_worker_shard(graph, dc, wid, outdir, chunk=chunk,
+                                   device=device)
+            write_index_manifest(outdir, dc)
+        self.dc = dc
+        row_chunk = env_cast("DOS_STREAM_ROW_CHUNK", 4096, int)
+        self.st = StreamedCPDOracle(graph, dc, outdir, row_chunk=row_chunk,
+                                    device=device)
+
+    def _split(self, queries, active_worker):
+        queries = np.asarray(queries)
+        active = np.ones(len(queries), bool)
+        if active_worker != -1:
+            active = self.dc.worker_of(queries[:, 1]) == active_worker
+        return active, queries[active]
+
+    def query(self, queries, w_query=None, k_moves=-1, active_worker=-1,
+              max_steps=0):
+        active, part = self._split(queries, active_worker)
+        got = self.st.query(part, w_query=w_query, k_moves=k_moves,
+                            max_steps=max_steps)
+        out = [np.zeros(len(queries), np.int64),
+               np.zeros(len(queries), np.int64),
+               np.zeros(len(queries), bool)]
+        for o, g in zip(out, got):
+            o[active] = g
+        return tuple(out)
+
+    def query_multi(self, queries, w_diffs, active_worker=-1, max_steps=0):
+        active, part = self._split(queries, active_worker)
+        c, p, f = self.st.query_multi(part, w_diffs, max_steps=max_steps)
+        out_c = np.zeros((len(w_diffs), len(queries)), np.int64)
+        out_p = np.zeros(len(queries), np.int64)
+        out_f = np.zeros(len(queries), bool)
+        out_c[:, active], out_p[active], out_f[active] = c, p, f
+        return out_c, out_p, out_f
+
+    def query_paths(self, queries, k, active_worker=-1):
+        """Path prefixes from the streamed index: the chunks the cost
+        rounds cached serve the extraction too."""
+        active, part = self._split(queries, active_worker)
+        nodes, moves = self.st.query_paths(part, k=k)
+        out_nodes = np.zeros((len(queries), k + 1), np.int64)
+        out_moves = np.zeros(len(queries), np.int64)
+        out_nodes[active], out_moves[active] = nodes, moves
+        return out_nodes, out_moves
+
+
 def _load_oracle(conf: ClusterConfig, args, graph, dc):
-    """The resident oracle of every worker's rows on ``--device``, loaded
-    from the conf's index or built and saved when there is none."""
+    """The campaign's oracle on ``--device``: the resident one of every
+    worker's rows, loaded from the conf's index or built and saved when
+    there is none, or the streamed one when that table would not fit.
+
+    Memory plan: the JAX CLI holds one worker's shard (``max_owned * N``
+    bytes) against ``DOS_FM_BUDGET_GB`` (default 8), since its mesh
+    spreads the workers over devices. The port's resident oracle puts
+    every worker's rows on one card, so the whole ``W * R * N`` table is
+    held against the budget. ``DOS_SERVE_STREAMED=1`` forces the
+    streamed plan. Answers are the same under either plan."""
     from ..models.cpd import CPDOracle
 
-    # memory plan: the resident oracle when a worker's fm shard fits the
-    # per-device budget, as the JAX CLI decides it
     fm_gb = env_cast("DOS_FM_BUDGET_GB", 8.0, float)
-    est_shard = dc.max_owned * graph.n            # int8 fm bytes
-    if env_flag("DOS_SERVE_STREAMED", False) or est_shard > fm_gb * 1e9:
-        raise SystemExit(
-            f"per-worker fm shard {est_shard / 1e9:.2f} GB vs budget "
-            f"{fm_gb:.1f} GB (DOS_FM_BUDGET_GB), or DOS_SERVE_STREAMED "
-            "set: the streamed memory plan is not ported (ROADMAP.md A11)")
+    need = dc.maxworker * max(dc.max_owned, 1) * graph.n   # int8 fm bytes
+    forced = env_flag("DOS_SERVE_STREAMED", False)
+    if forced or need > fm_gb * 1e9:
+        log.info("serving streamed%s: the resident fm table %.2f GB vs "
+                 "budget %.1f GB (DOS_FM_BUDGET_GB)",
+                 " (forced by DOS_SERVE_STREAMED=1)" if forced else "",
+                 need / 1e9, fm_gb)
+        return _StreamedServe(graph, dc, conf.outdir, args.chunk,
+                              args.device)
     oracle = CPDOracle(graph, dc, device=args.device)
     try:
         oracle.load(conf.outdir)

@@ -2109,8 +2109,7 @@ class CPDOracle:
                 f"worker shard(s) = {need / 1e9:.1f} GB/device) — "
                 f"over the {budget / 1e9:.1f} GB/device budget "
                 "(DOS_TABLE_BUDGET_GB). At this scale serve via the walk "
-                "instead (the streamed oracle is not ported, ROADMAP.md "
-                "A11).")
+                "or StreamedCPDOracle instead (models.streamed).")
         w_pad, _pair = self._weights_for(w_query)
         w, r = self.targets_wr.shape
         out = (torch.empty((w, r, self.graph.n), dtype=torch.int32,

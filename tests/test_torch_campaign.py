@@ -239,12 +239,117 @@ def test_process_query_refusals_name_roadmap(tmp_path, argv, item):
         t_pq.main(["-c", conf, "--device", "cpu", *argv])
 
 
-def test_process_query_streamed_plan_refused(tmp_path, monkeypatch):
+def _counts(stats):
+    """The stats rows' counters and size (timers dropped)."""
+    return [[r[:7] + r[-1:] for r in rows] for rows in stats]
+
+
+def test_tpu_streamed_serve_fallback(tmp_path, monkeypatch):
+    """The JAX drivers' test against the port's ``run_tpu``: with
+    ``DOS_SERVE_STREAMED=1`` the in-process campaign serves from the
+    on-disk index through the streamed oracle — the fused rounds, the
+    ``-w 1`` filter and ``--extract -k 3`` — with the resident path's
+    counts and paths, and the JAX package's."""
+    from distributed_oracle_search_tpu.cli.args import (
+        parse_args as j_parse_args,
+    )
+    from distributed_oracle_search_tpu.data import (
+        ensure_synth_dataset as j_ensure,
+    )
+    from distributed_oracle_search_tpu.parallel.partition import (
+        DistributionController as JDC,
+    )
+    from distributed_oracle_search_tpu.utils.config import (
+        ClusterConfig as JClusterConfig,
+    )
+
+    monkeypatch.delenv("DOS_SERVE_STREAMED", raising=False)
+    paths = j_ensure(str(tmp_path / "data"), width=10, height=8,
+                     n_queries=96, seed=13)
+    fields = dict(workers=[f"tpu:{i}" for i in range(4)], partmethod="tpu",
+                  partkey=4, xy_file=paths["xy"], scenfile=paths["scen"],
+                  diffs=["-", paths["diff"]])
+    jconf = JClusterConfig(outdir=str(tmp_path / "jidx"), **fields)
+    tconf = ClusterConfig(outdir=str(tmp_path / "tidx"), **fields)
+    g = Graph.from_xy(paths["xy"])
+    dc = DistributionController("tpu", None, 4, g.n)
+    jdc = JDC("tpu", None, 4, g.n)
+    queries = read_scen(paths["scen"])[:40]
+
+    def runs(streamed: bool):
+        if streamed:
+            monkeypatch.setenv("DOS_SERVE_STREAMED", "1")
+        else:
+            monkeypatch.delenv("DOS_SERVE_STREAMED", raising=False)
+        out = {}
+        for argv, diffs in (([], fields["diffs"]), (["-w", "1"],
+                                                    fields["diffs"]),
+                            (["--extract", "-k", "3"], ["-"])):
+            out[" ".join(argv)] = (
+                t_pq.run_tpu(tconf, parse_args([*argv, "--device", "cpu"]),
+                             queries, dc, diffs),
+                j_pq.run_tpu(jconf, j_parse_args(argv), queries, jdc,
+                             diffs))
+        return out
+
+    resident = runs(False)         # builds and saves both indexes
+    streamed = runs(True)
+    for key in resident:
+        (t_res, j_res), (t_str, j_str) = resident[key], streamed[key]
+        assert _counts(t_str[0]) == _counts(t_res[0]) == _counts(j_res[0])
+        assert _counts(j_str[0]) == _counts(j_res[0])
+        if key.startswith("--extract"):
+            assert t_str[1] is not None
+            np.testing.assert_array_equal(t_str[1], t_res[1])
+            np.testing.assert_array_equal(t_str[1], j_str[1])
+        else:
+            assert t_str[1] is None
+
+
+def test_streamed_plan_needs_a_gpu_unless_asked(tmp_path, monkeypatch):
+    """Under ``DOS_SERVE_STREAMED=1`` the campaign raises without a GPU
+    unless asked for the CPU, with and without an index on disk."""
     root = str(tmp_path)
     conf = _conf(root, _copy_data(root))
-    monkeypatch.setenv("DOS_FM_BUDGET_GB", "1e-6")
-    with pytest.raises(SystemExit, match="A11"):
-        t_pq.main(["-c", conf, "--device", "cpu"])
+    monkeypatch.setenv("DOS_SERVE_STREAMED", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = os.path.join(root, "out")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_pq.main(["-c", conf, "-o", out])
+    assert not os.path.exists(os.path.join(root, "index", "index.json"))
+    assert t_pq.main(["-c", conf, "-o", out, "--device", "cpu"]) == 0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_pq.main(["-c", conf, "-o", os.path.join(root, "out2")])
+
+
+def test_streamed_gate_holds_the_whole_table(tmp_path, monkeypatch,
+                                             campaigns):
+    """The port's resident oracle puts every worker's rows on one card,
+    so ``DOS_FM_BUDGET_GB`` holds ``W * R * N`` bytes: a conf whose one
+    shard fits and whose whole table does not is served streamed, with
+    the resident campaign's counts."""
+    root = str(tmp_path)
+    conf = _conf(root, _copy_data(root))
+    g = Graph.from_xy(os.path.join(root, "data", "synth-city.xy"))
+    dc = DistributionController("tpu", 8, 8, g.n)
+    shard = dc.max_owned * g.n
+    monkeypatch.delenv("DOS_SERVE_STREAMED", raising=False)
+    monkeypatch.setenv("DOS_FM_BUDGET_GB", str(2 * shard / 1e9))
+    made = []
+    real = t_pq._StreamedServe.__init__
+
+    def spy(self, *a, **kw):
+        made.append(a)
+        real(self, *a, **kw)
+
+    monkeypatch.setattr(t_pq._StreamedServe, "__init__", spy)
+    out = os.path.join(root, "rounds")
+    assert t_pq.main(["-c", conf, "-o", out, "--device", "cpu"]) == 0
+    assert len(made) == 1 and 8 * shard > 2 * shard
+    want = _parts(os.path.join(campaigns["torch"][0], "rounds",
+                               "parts.csv"))
+    assert _parts(os.path.join(out, "parts.csv")) == want
+    assert os.path.exists(os.path.join(root, "index", "index.json"))
 
 
 @pytest.mark.parametrize("argv,item", [
