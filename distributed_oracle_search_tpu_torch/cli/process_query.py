@@ -39,8 +39,19 @@ Artifacts (``-o DIR``): ``metrics.json`` (phase timings), ``data.json``
 a batch failed and, with ``--extract -k K``, ``paths.csv`` — reference
 ``process_query.py:230-239``, with its multi-worker CSV crash fixed.
 
+Multi-controller campaigns (a ``multihost`` key in the conf, the process
+id from it or ``$DOS_PROCESS_ID``; ``parallel.multihost``, gloo): every
+process runs the same campaign. On the resident plan process p holds and
+walks its contiguous block of W/P workers; on the streamed plan it
+streams the workers with ``wid % P == p``. The answers merge on every
+process by an all-gather, and only process 0 writes the artifacts. A
+missing index is built process-sharded into a directory every process
+must share. The conf's ``mesh_shape`` lays the resident oracle over a
+``[D, W]`` grid of the process's cards (``parallel.mesh``); on one card
+every cell names it and a round stays one walk.
+
 Not ported, and refused with the ``ROADMAP.md`` item that ports each:
-``--alg ch`` (native engine, A15) in-process, multi-host confs (A13),
+``--alg ch`` (native engine, A15) in-process,
 ``--trace``/``--metrics-dump``/``--profile``/``--obs-port`` with
 ``obs_metrics.json`` (A14), and on the host backend the RPC lanes
 (``DOS_TRANSPORT=rpc/auto``), breakers, membership re-reads and the
@@ -62,6 +73,10 @@ import numpy as np
 from .args import get_time_ns, parse_args
 from ..data.formats import read_diff, read_scen, xy_node_count
 from ..ops.batched_astar import astar_batch_np
+from ..parallel.mesh import device_pool, mesh_from_config
+from ..parallel.multihost import (
+    barrier, gather_to_host, initialize_from_conf, is_primary, process_info,
+)
 from ..parallel.partition import DistributionController
 from ..transport import fifo as fifo_transport
 from ..transport.fifo import answer_fifo_path, command_fifo_path, fan_out
@@ -144,85 +159,140 @@ class _StreamedServe:
     table would not fit the card: the campaign is served from the
     on-disk block files by :class:`~..models.streamed.StreamedCPDOracle`
     (chunks cached on the device, RLE/4-bit packed uploads), on
-    ``device``, with the ``-w`` filter applied on the host. A missing
-    index is built one worker shard at a time first.
+    ``device``, with the ``-w`` filter applied on the host.
 
-    One controller serves every worker. The JAX package's multi-
-    controller sharding of the streamed campaign (each process streaming
-    its own workers, results merged by one allgather) comes with the
-    multi-host port (``ROADMAP.md`` A13); multi-host confs are refused
-    before this is made."""
+    Multi-controller runs SHARD the streamed campaign: process p serves
+    only the workers with ``wid % process_count == p`` — it streams only
+    those workers' rows, and the disjoint partial results merge with one
+    all-gather (int64 words travel as they are: gloo gathers int64). A
+    missing index is built process-sharded: each process writes its own
+    workers' block files, a barrier precedes process 0's manifest and
+    another follows it. Whether the index is missing is decided by all
+    the processes together (any one missing it builds), and a process
+    that finds no manifest after the second barrier fails: the build
+    needs an index directory every process shares. ``bytes_streamed``
+    and ``row_chunks`` sum this process's uploads over its calls."""
 
     def __init__(self, graph, dc, outdir: str, chunk: int, device):
         from ..models.cpd import build_worker_shard, write_index_manifest
         from ..models.streamed import StreamedCPDOracle
 
-        if not os.path.exists(os.path.join(outdir, "index.json")):
-            log.info("no index at %s; building per-worker block files "
-                     "in-process", outdir)
-            for wid in range(dc.maxworker):
-                build_worker_shard(graph, dc, wid, outdir, chunk=chunk,
+        self.pidx, self.pcount = process_info()
+        #: bool [W] — workers THIS controller serves (all of them on a
+        #: single-controller run)
+        self.my_workers = (np.arange(dc.maxworker) % self.pcount
+                           == self.pidx)
+        manifest = os.path.join(outdir, "index.json")
+        missing = not os.path.exists(manifest)
+        if self.pcount > 1:
+            missing = bool(gather_to_host(np.array(missing)).any())
+        if missing:
+            log.info("no index at %s; building %s block files "
+                     "in-process", outdir,
+                     "this process's workers'" if self.pcount > 1
+                     else "per-worker")
+            for wid in np.flatnonzero(self.my_workers):
+                build_worker_shard(graph, dc, int(wid), outdir, chunk=chunk,
                                    device=device)
-            write_index_manifest(outdir, dc)
+            barrier("dos-streamed-build")
+            if self.pidx == 0:
+                write_index_manifest(outdir, dc)
+            barrier("dos-streamed-manifest")
+            if not os.path.exists(manifest):
+                raise RuntimeError(
+                    f"process {self.pidx}: no index manifest at {manifest} "
+                    "after process 0 wrote it: a multi-controller build "
+                    "needs an index directory every process shares")
         self.dc = dc
         row_chunk = env_cast("DOS_STREAM_ROW_CHUNK", 4096, int)
         self.st = StreamedCPDOracle(graph, dc, outdir, row_chunk=row_chunk,
                                     device=device)
+        self.bytes_streamed = 0
+        self.row_chunks = 0
 
     def _split(self, queries, active_worker):
         queries = np.asarray(queries)
-        active = np.ones(len(queries), bool)
+        owner = self.dc.worker_of(queries[:, 1])
+        active = self.my_workers[owner]
         if active_worker != -1:
-            active = self.dc.worker_of(queries[:, 1]) == active_worker
+            active = active & (owner == active_worker)
         return active, queries[active]
+
+    def _tally(self):
+        self.bytes_streamed += int(self.st.last_stats["bytes_streamed"])
+        self.row_chunks += int(self.st.last_stats["row_chunks"])
+
+    def _merge(self, *arrays):
+        """Combine the processes' disjoint partial results (zeros/False
+        outside each process's workers) into the whole campaign answer
+        on every controller: one all-gather an array, summed (bools:
+        any); a no-op on one controller."""
+        if self.pcount == 1:
+            return arrays
+        out = []
+        for a in arrays:
+            g = gather_to_host(a)
+            out.append(g.any(axis=0) if a.dtype == np.bool_
+                       else g.sum(axis=0, dtype=a.dtype))
+        return tuple(out)
 
     def query(self, queries, w_query=None, k_moves=-1, active_worker=-1,
               max_steps=0):
         active, part = self._split(queries, active_worker)
         got = self.st.query(part, w_query=w_query, k_moves=k_moves,
                             max_steps=max_steps)
+        self._tally()
         out = [np.zeros(len(queries), np.int64),
                np.zeros(len(queries), np.int64),
                np.zeros(len(queries), bool)]
         for o, g in zip(out, got):
             o[active] = g
-        return tuple(out)
+        return self._merge(*out)
 
     def query_multi(self, queries, w_diffs, active_worker=-1, max_steps=0):
         active, part = self._split(queries, active_worker)
         c, p, f = self.st.query_multi(part, w_diffs, max_steps=max_steps)
+        self._tally()
         out_c = np.zeros((len(w_diffs), len(queries)), np.int64)
         out_p = np.zeros(len(queries), np.int64)
         out_f = np.zeros(len(queries), bool)
         out_c[:, active], out_p[active], out_f[active] = c, p, f
-        return out_c, out_p, out_f
+        return self._merge(out_c, out_p, out_f)
 
     def query_paths(self, queries, k, active_worker=-1):
         """Path prefixes from the streamed index: the chunks the cost
         rounds cached serve the extraction too."""
         active, part = self._split(queries, active_worker)
         nodes, moves = self.st.query_paths(part, k=k)
+        self._tally()
         out_nodes = np.zeros((len(queries), k + 1), np.int64)
         out_moves = np.zeros(len(queries), np.int64)
         out_nodes[active], out_moves[active] = nodes, moves
-        return out_nodes, out_moves
+        return self._merge(out_nodes, out_moves)
 
 
 def _load_oracle(conf: ClusterConfig, args, graph, dc):
-    """The campaign's oracle on ``--device``: the resident one of every
-    worker's rows, loaded from the conf's index or built and saved when
-    there is none, or the streamed one when that table would not fit.
+    """The campaign's oracle on ``--device``: the resident one of the
+    workers this process holds, loaded from the conf's index or built
+    and saved when there is none, or the streamed one when that table
+    would not fit.
 
     Memory plan: the JAX CLI holds one worker's shard (``max_owned * N``
     bytes) against ``DOS_FM_BUDGET_GB`` (default 8), since its mesh
     spreads the workers over devices. The port's resident oracle puts
-    every worker's rows on one card, so the whole ``W * R * N`` table is
-    held against the budget. ``DOS_SERVE_STREAMED=1`` forces the
-    streamed plan. Answers are the same under either plan."""
+    every worker this process holds on its card(s), so their whole table
+    (``W/P * R * N``, every worker on one controller) is held against
+    the budget. ``DOS_SERVE_STREAMED=1`` forces the streamed plan.
+    Answers are the same under either plan.
+
+    Multi-controller: whether the index is missing is decided by all the
+    processes together (any one missing it, all build their workers and
+    save it collectively)."""
     from ..models.cpd import CPDOracle
 
+    _pidx, pcount = process_info()
     fm_gb = env_cast("DOS_FM_BUDGET_GB", 8.0, float)
-    need = dc.maxworker * max(dc.max_owned, 1) * graph.n   # int8 fm bytes
+    need = (dc.maxworker // pcount) * max(dc.max_owned, 1) * graph.n
     forced = env_flag("DOS_SERVE_STREAMED", False)
     if forced or need > fm_gb * 1e9:
         log.info("serving streamed%s: the resident fm table %.2f GB vs "
@@ -231,10 +301,18 @@ def _load_oracle(conf: ClusterConfig, args, graph, dc):
                  need / 1e9, fm_gb)
         return _StreamedServe(graph, dc, conf.outdir, args.chunk,
                               args.device)
-    oracle = CPDOracle(graph, dc, device=args.device)
+    layout = mesh_layout(conf)
+    cells = layout["data"] * layout["worker"]
+    oracle = CPDOracle(graph, dc, mesh=mesh_from_config(
+        conf, devices=device_pool(cells, args.device)))
     try:
         oracle.load(conf.outdir)
+        found = True
     except FileNotFoundError:
+        found = False
+    if pcount > 1:
+        found = bool(gather_to_host(np.array(found)).all())
+    if not found:
         log.info("no index at %s; building in-process", conf.outdir)
         oracle.build(chunk=args.chunk)
         oracle.save(conf.outdir)
@@ -242,8 +320,8 @@ def _load_oracle(conf: ClusterConfig, args, graph, dc):
 
 
 def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
-    """All diff rounds in-process on one device — fused into one walk
-    when there are several and no ``-k`` budget; per-worker rows
+    """All diff rounds in-process on the oracle's device(s) — fused into
+    one walk when there are several and no ``-k`` budget; per-worker rows
     recovered from the routed results. ``--alg astar`` rounds search the
     graph with no index (the batched search on ``--device``, or the
     heap engine under ``DOS_ASTAR_DEVICE=0``), the ``--ms-lim``/
@@ -262,9 +340,11 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
             "--alg ch is served by the native engine only, which is not "
             "ported (ROADMAP.md A15)")
     graph = Graph.from_xy(conf.xy_file)
-    # debris of killed atomic writes goes before the build-if-missing
-    # path below can trip on it
-    sweep_stale_artifacts(conf.outdir)
+    if process_info()[1] == 1:
+        # debris of killed atomic writes goes before the build-if-missing
+        # path below can trip on it; not multi-controller, where a peer
+        # may have an atomic write in flight in the shared index dir
+        sweep_stale_artifacts(conf.outdir)
     use_astar = args.alg == "astar"
     if use_astar:
         # A* searches the graph itself: no index. The batched search on
@@ -385,6 +465,11 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
             nodes, moves = oracle.query_paths(queries, k=args.k_moves,
                                               active_worker=args.worker)
             paths = np.concatenate([queries, moves[:, None], nodes], axis=1)
+    if isinstance(oracle, _StreamedServe):
+        pidx, pcount = process_info()
+        log.info("streamed: process %d/%d streamed %d wire bytes in %d "
+                 "row chunk(s)", pidx, pcount, oracle.bytes_streamed,
+                 oracle.row_chunks)
     return stats, paths
 
 
@@ -495,9 +580,6 @@ def run(conf: ClusterConfig, args):
             "-o <out.xy> --scen <in> <out>` once and point the conf at "
             "the reordered files (build + serve then agree by "
             "construction).")
-    if conf.multihost:
-        raise SystemExit("multi-host campaigns are not ported "
-                         "(ROADMAP.md A13)")
     scen = conf.scenfile or args.scenario
     with Timer() as t_read:
         queries = read_scen(scen)
@@ -527,6 +609,12 @@ def run(conf: ClusterConfig, args):
         dc = DistributionController(partmethod, partkey, conf.maxworker,
                                     nodenum)
     diffs = list(conf.diffs) if conf.diffs else list(args.diffs)
+    if use_tpu:
+        initialize_from_conf(conf)
+    elif conf.multihost:
+        raise SystemExit("a multihost conf drives the in-process campaign "
+                         "(partmethod tpu or --backend tpu); the host "
+                         "backend runs one head")
     with Timer() as t_process:
         if use_tpu:
             stats, paths = run_tpu(conf, args, queries, dc, diffs)
@@ -644,7 +732,10 @@ def main(argv=None) -> int:
     else:
         conf = ClusterConfig.load(args.c)
         data, stats, paths = run(conf, args)
-        output(data, stats, args, paths)
+        # multi-controller: every process ran the identical campaign;
+        # only process 0 writes or prints the shared artifacts
+        if is_primary():
+            output(data, stats, args, paths)
     return campaign_exit_code(data, stats)
 
 

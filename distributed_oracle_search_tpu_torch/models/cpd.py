@@ -20,9 +20,10 @@ oracle:
   container (``models.resident``). The block loop is pipelined (a stager
   thread ahead, a flush thread behind; ``DOS_BUILD_PIPELINE``), an
   ``epoch`` keys the ledger lines, and a ``ctx`` dict keeps the compute
-  setup across builds. No lane mesh (A13) or device-side RLE fetch. On
-  the card every stage runs through the hand build kernels
-  (``ops.cuda_build_kernels``).
+  setup across builds. With ``DOS_MESH_DEVICES`` above 1 each chunk is
+  built across the worker's lanes (``parallel.sharded.build_fm_lanes``;
+  the same bytes). No device-side RLE fetch. On the card every stage
+  runs through the hand build kernels (``ops.cuda_build_kernels``).
 * delta rebuilds: :func:`delta_affected_targets` (the tense-edge pass,
   K1 on the transposed graph on the card), :func:`delta_build_worker_shard`
   and :func:`delta_build_index` (``make_cpds --delta-from``): an old
@@ -46,9 +47,11 @@ oracle:
   against their primary's) and :func:`adopt_shard_blocks` (an adopter's
   catch-up); each event adds to :data:`COUNTERS`.
 * :class:`CPDOracle` — every worker's rows as one ``[W, R, N]`` tensor on
-  one device: ``build`` (any method; ``store_dists=True`` keeps the
-  distances), ``save``, ``load``, ``route`` queries to the worker owning
-  their target, and answer a round of them in one walk over all workers
+  one device, or spread over a ``[D, W]`` device grid (``mesh=``) and
+  over the processes of a multi-controller run: ``build`` (any method;
+  ``store_dists=True`` keeps the distances), ``save``, ``load``,
+  ``route`` queries to the worker owning their target, and answer a
+  round of them in one walk a device
   (``parallel.sharded``). The walk's pair table is built once per weight
   set. The serving methods: ``query_multi`` (D diffs in one fused walk),
   ``query_mat`` (one source to K targets, joined on the device),
@@ -83,11 +86,14 @@ from ..ops.shift_relax import ShiftGraph, split_coverage
 from ..ops.pointer_doubling import plen_dtype, record_order
 from ..ops.table_search import walk_eid_pairs, walk_pairs
 from ..parallel.partition import DistributionController
+from ..parallel.mesh import local_devices, make_worker_mesh
+from ..parallel.multihost import gather_to_host, is_primary, process_info
 from ..parallel.sharded import (
-    build_fm_sharded, build_tables_multi_sharded, build_tables_sharded,
-    chunk_compute, pad_targets, query_dist_sharded, query_mat_sharded,
-    query_multi_sharded, query_paths_sharded, query_sharded,
-    query_tables_multi_sharded, query_tables_sharded,
+    build_fm_lanes, build_fm_sharded, build_tables_multi_sharded,
+    build_tables_sharded, chunk_compute, gather_cells, grid_parts,
+    pad_targets, query_dist_sharded, query_mat_sharded, query_multi_sharded,
+    query_paths_sharded, query_sharded, query_tables_multi_sharded,
+    query_tables_sharded, scatter_cells,
 )
 from ..utils.atomicio import (
     SWEEP_MIN_AGE_S, TMP_SUFFIX, AtomicNpyWriter, atomic_copy_file,
@@ -404,22 +410,43 @@ def _compute_ctx(ctx: dict | None, graph: Graph, method: str,
     repeat build (a resident rebuild, a timed repeat, every shard of one
     delta) launches kernels without redoing any of it: the resolved
     ``(kind, structure)`` under ``kernel``, the ``DeviceGraph`` upload
-    under ``dg``, and the build closure with its CSR
-    (``parallel.sharded.chunk_compute``) under ``compute``. Another graph
-    or device clears it; another ``method`` re-picks the kind and another
-    ``max_iters`` makes a new closure."""
+    under ``dg``, the worker's lane list under ``mesh``
+    (``parallel.mesh.make_worker_mesh`` over ``dev``'s devices:
+    ``DOS_MESH_DEVICES``; None at one lane) and the build closure under
+    ``compute``. Another graph or device clears it; another ``method``
+    re-picks the kind and another ``max_iters`` makes a new closure.
+
+    ``compute(targets, out=None, dist_out=None)`` is
+    ``parallel.sharded.chunk_compute``'s closure, except that with lanes
+    a target batch the lane count divides is built across them
+    (``parallel.sharded.build_fm_lanes``, one closure and graph copy a
+    distinct lane device) — the same rows, byte for byte. Other batches
+    (and any asking for distances) build on ``dev``."""
     ctx = {} if ctx is None else ctx
     if ctx.get("graph") is not graph or ctx.get("device") != dev:
         ctx.clear()
         ctx.update(graph=graph, device=dev,
-                   dg=DeviceGraph.from_graph(graph, device=dev))
+                   dg=DeviceGraph.from_graph(graph, device=dev),
+                   mesh=make_worker_mesh(devices=local_devices(dev)))
     if ctx.get("method") != method:
         ctx.update(method=method, kernel=pick_build_kernel(graph, method))
         ctx.pop("compute", None)
     if "compute" not in ctx or ctx.get("max_iters") != max_iters:
-        ctx.update(max_iters=max_iters,
-                   compute=chunk_compute(ctx["dg"], ctx["kernel"],
-                                         max_iters))
+        single = chunk_compute(ctx["dg"], ctx["kernel"], max_iters)
+        mesh = ctx["mesh"]
+        if mesh is None:
+            compute = single
+        else:
+            kind, structure = ctx["kernel"]
+            computes = {dev: single}
+
+            def compute(t, out=None, dist_out=None):
+                if dist_out is not None or len(t) % len(mesh):
+                    return single(t, out=out, dist_out=dist_out)
+                return build_fm_lanes(ctx["dg"], t, mesh, kind, structure,
+                                      max_iters=max_iters, out=out,
+                                      computes=computes)
+        ctx.update(max_iters=max_iters, compute=compute)
     return ctx
 
 
@@ -691,6 +718,10 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
     log.info("worker %d build kind: %s (method %s)", wid, kind, method)
     compute = ctx["compute"]
     chunk = build_chunk_rows(graph, chunk, len(owned), kind=kind)
+    if ctx["mesh"] is not None and chunk % len(ctx["mesh"]):
+        log.warning("worker %d: chunk %d does not divide over %d mesh "
+                    "lane(s); building single-device", wid, chunk,
+                    len(ctx["mesh"]))
     codec_req = resident_choice() if codec is None else codec
 
     def stage(bid: int):
@@ -1662,60 +1693,123 @@ def adopt_shard_blocks(graph: Graph, dc: DistributionController,
 
 
 class CPDOracle:
-    """Every worker's CPD rows resident on one device, answering routed
-    query rounds in one walk.
+    """Every worker's CPD rows resident on the device(s), answering
+    routed query rounds with one walk a device.
 
     Port of the JAX package's ``CPDOracle``, whose ``[W, R, N]`` table is
-    sharded over a mesh's ``worker`` axis: here the table is one int8
-    tensor on ``device`` (None → ``cuda``; raises without a GPU unless
-    ``device="cpu"``) and there is no mesh — the ``data`` axis of the
-    routed arrays has size 1. On the card a round's walk is the CUDA
-    kernel (the fused multi-diff walk and the doubling sweep too), on the
-    CPU the plain torch version.
+    sharded over a mesh's ``worker`` axis. With no ``mesh`` (the default)
+    the table is one int8 tensor on ``device`` (None → ``cuda``; raises
+    without a GPU unless ``device="cpu"``) and a round is one walk over
+    every worker. On the card a round's walk is the CUDA kernel (the
+    fused multi-diff walk and the doubling sweep too), on the CPU the
+    plain torch version.
+
+    ``mesh``: a ``[D, W]`` grid of devices (``parallel.mesh.make_mesh`` /
+    ``mesh_from_config``; ``W`` must be ``maxworker``, as in JAX). The
+    router deals each worker's queries over the ``D`` data rows. A grid
+    that names one device throughout keeps the single-table path on that
+    device; otherwise each device holds the rows of the workers whose
+    column names it, once, and walks the lanes of its cells
+    (``parallel.sharded.grid_parts``): one walk a device a round, the
+    answers joined on the host. ``fm`` (and ``dists``) is then a tuple of
+    the devices' ``[Wp, R, N]`` tables, in ``grid_parts`` order.
+
+    Multi-controller runs (``parallel.multihost``, P processes): process
+    p holds and walks only its contiguous block of W/P workers (the
+    workers JAX's global mesh puts on its devices), builds and loads only
+    their rows, and every result merges across the processes by one
+    all-gather (each lane is answered by exactly one process). ``save``
+    gathers each worker's rows and only the primary writes.
 
     The walk's ``(next, w)`` pair table (``ops.table_search.walk_pairs``)
-    is built once per weight set — free flow, and each distinct diffed
-    weight vector, or each ``w_key`` of ``query_mat`` — and kept beside
-    its padded weights in an LRU (``DOS_TRAFFIC_WEIGHT_EPOCHS`` entries,
-    at least 2), as ``ShardEngine`` keeps them."""
+    is built once per weight set and device — free flow, and each
+    distinct diffed weight vector, or each ``w_key`` of ``query_mat`` —
+    and kept beside its padded weights in an LRU
+    (``DOS_TRAFFIC_WEIGHT_EPOCHS`` entries a device, at least 2), as
+    ``ShardEngine`` keeps them."""
 
     def __init__(self, graph: Graph, controller: DistributionController,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
         self.graph = graph
         self.dc = controller
-        self.dg = DeviceGraph.from_graph(graph, device=self.device)
         self.targets_wr = pad_targets(controller)
-        self.fm: torch.Tensor | None = None     # int8 [W, R, N]
-        #: optional int32 [W, R, N] (``build(store_dists=True)``)
-        self.dists: torch.Tensor | None = None
+        w = controller.maxworker
+        self.pidx, self.pcount = process_info()
+        if w % self.pcount:
+            raise ValueError(f"{w} workers do not split over "
+                             f"{self.pcount} processes")
+        per = w // self.pcount
+        #: the workers this process holds: every worker on one
+        #: controller, its contiguous block of W/P across P processes
+        self.workers = np.arange(self.pidx * per, (self.pidx + 1) * per)
+        if mesh is None:
+            self.mesh = None
+            grid = np.empty((1, w), dtype=object)
+            grid[:] = resolve_device(device)
+        else:
+            grid = np.asarray(mesh, dtype=object)
+            if grid.ndim != 2 or grid.shape[1] != w:
+                raise ValueError(
+                    f"mesh worker axis {grid.shape[-1]} != maxworker {w}; "
+                    "partmethod=tpu requires one mesh shard per worker")
+            self.mesh = grid
+        #: the devices' shares (``parallel.sharded.grid_parts``); one
+        #: part holding every worker is the single-table path
+        self.parts = grid_parts(grid, self.workers)
+        for part in self.parts:
+            resolve_device(part.device)
+        self.n_data = grid.shape[0]
+        self.device = self.parts[0].device
+        self.dg = DeviceGraph.from_graph(graph, device=self.device)
+        self._dgs = {self.device: self.dg}
+        #: int8 [W, R, N] (a tuple of the parts' tables on a split grid)
+        self.fm = None
+        #: optional int32 distances, laid out as ``fm``
+        #: (``build(store_dists=True)``)
+        self.dists = None
         #: the build kind ``build`` resolved (None before a build)
         self.build_kind: str | None = None
-        #: the fused walk's (next, edge id) table: weight-free, one a graph
-        self._eid_pair: torch.Tensor | None = None
-        #: the doubling records' layout (``record_order``), made at the
-        #: first prepare
-        self._record_order: torch.Tensor | None = None
-        #: weight-set key (None = free flow, a caller's ``w_key``, else a
-        #: digest of the weight vector) -> (padded weights, pair table) on
-        #: the device
-        self._weights: OrderedDict[
-            str | bytes | None,
-            tuple[torch.Tensor, torch.Tensor]] = OrderedDict()
+        #: the fused walk's (next, edge id) tables, one a device
+        self._eid_pair: dict = {}
+        #: the doubling records' layout (``record_order``), one a device
+        self._record_order: dict = {}
+        #: (weight-set key, device) -> (padded weights, pair table); the
+        #: key is None for free flow, a caller's ``w_key``, else a digest
+        #: of the weight vector
+        self._weights: OrderedDict = OrderedDict()
         self._weight_keep = max(
-            2, env_cast("DOS_TRAFFIC_WEIGHT_EPOCHS", 4, int))
+            2, env_cast("DOS_TRAFFIC_WEIGHT_EPOCHS", 4, int)) * len(
+                self.parts)
+
+    @property
+    def single(self) -> bool:
+        """One device holds every worker's rows (``fm`` is one tensor)."""
+        return len(self.parts) == 1 and self.pcount == 1
+
+    def _tables(self, tbl):
+        """A table attribute (``fm``, ``dists``, a tables handle) as the
+        list of its parts' tables."""
+        return [tbl] if self.single else list(tbl)
+
+    def _store(self, tables):
+        return tables[0] if self.single else tuple(tables)
+
+    def _dg_on(self, dev: torch.device) -> DeviceGraph:
+        if dev not in self._dgs:
+            self._dgs[dev] = DeviceGraph.from_graph(self.graph, device=dev)
+        return self._dgs[dev]
 
     # ------------------------------------------------------------- build
     def build(self, chunk: int = 0, max_iters: int = 0,
               store_dists: bool = False,
               method: str = "auto") -> "CPDOracle":
-        """Precompute every worker's first-move rows on the device.
+        """Precompute the held workers' first-move rows on their devices.
 
         ``store_dists=True`` also keeps the converged distance table,
-        int32 ``[W, R, N]`` in ``dists`` (4x the fm memory), enabling
-        :meth:`query_dist` — free-flow answers by one gather instead of a
-        walk. Distances are free-flow only and :meth:`save` does not
-        persist them (they are a pure derivative of the graph).
+        int32, laid out as ``fm`` in ``dists`` (4x the fm memory),
+        enabling :meth:`query_dist` — free-flow answers by one gather
+        instead of a walk. Distances are free-flow only and :meth:`save`
+        does not persist them (they are a pure derivative of the graph).
 
         ``method``: ``"sweep"`` forces the fast-sweeping build, ``"shift"``
         the shift relaxation, ``"frontier"`` the delta-stepping queue,
@@ -1725,17 +1819,30 @@ class CPDOracle:
         ``build_kind``."""
         kind, structure = pick_build_kernel(self.graph, method)
         self.build_kind = kind
-        built = build_fm_sharded(self.dg, self.targets_wr, chunk=chunk,
-                                 max_iters=max_iters,
-                                 kernel=(kind, structure),
-                                 with_dists=store_dists)
+        built = [build_fm_sharded(self._dg_on(p.device),
+                                  self.targets_wr[p.workers], chunk=chunk,
+                                  max_iters=max_iters,
+                                  kernel=(kind, structure),
+                                  with_dists=store_dists)
+                 for p in self.parts]
         if store_dists:
-            self.fm, self.dists = built
+            self.fm = self._store([b[0] for b in built])
+            self.dists = self._store([b[1] for b in built])
         else:
-            self.fm = built
+            self.fm = self._store(built)
         return self
 
     # ------------------------------------------------------- persistence
+    def _worker_rows(self, wid: int) -> np.ndarray | None:
+        """Worker ``wid``'s ``[n_owned, N]`` rows on the host, from the
+        first part holding it (None when this process holds none)."""
+        n_owned = self.dc.n_owned(wid)
+        for part, fm in zip(self.parts, self._tables(self.fm)):
+            hit = np.flatnonzero(part.workers == wid)
+            if hit.size:
+                return fm[int(hit[0]), :n_owned].cpu().numpy()
+        return None
+
     def save(self, outdir: str, codec: str | None = None) -> None:
         """Write the CPD index: one ``.npy`` per (worker, block), each
         written atomically, plus the manifest with their digests.
@@ -1743,45 +1850,63 @@ class CPDOracle:
         ``codec``: persist blocks compressed (``models.resident``
         containers; None resolves ``DOS_CPD_RESIDENT``, whose ``raw``
         default keeps the plain layout); a block the codec cannot take
-        is written raw. Blocks are byte-identical to the JAX package's."""
+        is written raw. Blocks are byte-identical to the JAX package's.
+
+        Multi-controller: each worker's rows are all-gathered from the
+        process holding them (host memory peaks at P/W of the table) and
+        only the primary writes, so the controllers never race on the
+        shared index directory. Every process must call it."""
         if self.fm is None:
             raise RuntimeError("build() or load() before save()")
         codec_req = resident_choice() if codec is None else codec
-        os.makedirs(outdir, exist_ok=True)
+        primary = is_primary()
+        if primary:
+            os.makedirs(outdir, exist_ok=True)
         bs = self.dc.block_size
+        per = self.dc.maxworker // self.pcount
         block_meta: dict[str, dict] = {}
         for wid in range(self.dc.maxworker):
             n_owned = self.dc.n_owned(wid)
             # one device-to-host copy per worker: host memory peaks at
             # 1/W of the table
-            rows_w = self.fm[wid, :n_owned].cpu().numpy()
-            for b0 in range(0, n_owned, bs):
-                fname = shard_block_name(wid, b0 // bs)
-                arr = np.ascontiguousarray(rows_w[b0:min(b0 + bs, n_owned)])
-                enc = encode_block(arr, codec_req)
-                blk_codec = None
-                if enc is not None:
-                    arr, blk_codec = enc
-                digest = atomic_save_npy(os.path.join(outdir, fname), arr)
-                block_meta[fname] = {"digest": digest,
-                                     "shape": list(arr.shape),
-                                     "dtype": str(arr.dtype)}
-                if blk_codec is not None:
-                    block_meta[fname]["codec"] = blk_codec
+            rows_w = self._worker_rows(wid)
+            if self.pcount > 1:
+                mine = rows_w if rows_w is not None else np.zeros(
+                    (n_owned, self.graph.n), np.int8)
+                rows_w = gather_to_host(mine)[wid // per]
+            if primary:
+                for b0 in range(0, n_owned, bs):
+                    fname = shard_block_name(wid, b0 // bs)
+                    arr = np.ascontiguousarray(
+                        rows_w[b0:min(b0 + bs, n_owned)])
+                    enc = encode_block(arr, codec_req)
+                    blk_codec = None
+                    if enc is not None:
+                        arr, blk_codec = enc
+                    digest = atomic_save_npy(os.path.join(outdir, fname),
+                                             arr)
+                    block_meta[fname] = {"digest": digest,
+                                         "shape": list(arr.shape),
+                                         "dtype": str(arr.dtype)}
+                    if blk_codec is not None:
+                        block_meta[fname]["codec"] = blk_codec
             del rows_w
-        write_index_manifest(outdir, self.dc,
-                             rows_per_worker=int(self.targets_wr.shape[1]),
-                             block_meta=block_meta)
+        if primary:
+            write_index_manifest(
+                outdir, self.dc,
+                rows_per_worker=int(self.targets_wr.shape[1]),
+                block_meta=block_meta)
 
     def load(self, outdir: str, heal: bool = True) -> "CPDOracle":
-        """Load a saved index onto the device, checking the manifest
+        """Load a saved index onto the device(s), checking the manifest
         against the controller's partition and every block's digest,
-        shape and codec as it loads. Compressed containers inflate: the
-        oracle is raw-resident. Rows no block covers stay ``-1``.
+        shape and codec as it loads. Only the held workers' blocks load.
+        Compressed containers inflate: the oracle is raw-resident. Rows no
+        block covers stay ``-1``.
 
         ``heal=True`` (default): a missing or corrupt block is
         quarantined (``<file>.quarantined``) and rebuilt in place from
-        the graph on the oracle's device (:func:`heal_block`), then
+        the graph on its part's device (:func:`heal_block`), then
         reloaded; the manifest entry is refreshed only when the rebuilt
         digest differs. ``heal=False`` raises ``ValueError`` with the
         per-block diagnostic on the first bad block."""
@@ -1789,12 +1914,18 @@ class CPDOracle:
         validate_manifest(manifest, self.dc, outdir)
         blocks_meta = manifest.get("blocks", {})
         r = self.targets_wr.shape[1]
-        fm = torch.full((self.dc.maxworker, r, self.graph.n), -1,
-                        dtype=torch.int8, device=self.device)
+        tables = [torch.full((len(p.workers), r, self.graph.n), -1,
+                             dtype=torch.int8, device=p.device)
+                  for p in self.parts]
         bs = self.dc.block_size
         for fname in manifest["files"]:
             _, wpart, bpart = fname[:-len(".npy")].split("-")
             wid, bid = int(wpart[1:]), int(bpart[1:])
+            held = [(t, int(np.flatnonzero(p.workers == wid)[0]), p.device)
+                    for p, t in zip(self.parts, tables)
+                    if (p.workers == wid).any()]
+            if not held:
+                continue
             rows, status, reason = load_verified_block(
                 os.path.join(outdir, fname), blocks_meta.get(fname))
             if rows is None:
@@ -1804,14 +1935,15 @@ class CPDOracle:
                                      f"{status}: {reason}")
                 rows = heal_block(outdir, manifest, fname, wid, self.graph,
                                   self.dc, status=status, reason=reason,
-                                  device=self.device)
+                                  device=held[0][2])
             elif status == "ok":
                 # only digest-checked blocks count as verified
                 COUNTERS["cpd_blocks_verified_total"] += 1
-            rows = maybe_decode_rows(rows)
-            fm[wid, bid * bs: bid * bs + len(rows)] = torch.from_numpy(
-                np.ascontiguousarray(rows)).to(self.device)
-        self.fm = fm
+            rows = torch.from_numpy(np.ascontiguousarray(
+                maybe_decode_rows(rows)))
+            for t, pos, dev in held:
+                t[pos, bid * bs: bid * bs + len(rows)] = rows.to(dev)
+        self.fm = self._store(tables)
         return self
 
     # ------------------------------------------------------------- query
@@ -1819,16 +1951,18 @@ class CPDOracle:
         return length_estimate(self.graph, queries[:, 0], queries[:, 1])
 
     def route(self, queries: np.ndarray, active_worker: int = -1):
-        """Pack (s, t) queries into ``[D, W, Q]`` arrays, ``D`` = 1.
+        """Pack (s, t) queries into ``[D, W, Q]`` arrays, ``D`` the
+        grid's data rows (1 without a mesh).
 
         Returns ``(t_rows, s, t, valid, scatter)`` where ``scatter`` maps
         each input query to its (d, w, q) slot for unpacking results.
         Within each worker group, queries are ordered by expected walk
-        length (:meth:`_length_estimate`); ``Q`` is the largest group
-        padded to a power of two."""
+        length (:meth:`_length_estimate`) and dealt round-robin over the
+        data rows; ``Q`` is the largest share padded to a power of
+        two."""
         queries = np.asarray(queries, np.int64)
         nq = len(queries)
-        d = 1
+        d = self.n_data
         w = self.dc.maxworker
         wids = self.dc.worker_of(queries[:, 1])
         rows = self.dc.owned_index_of(queries[:, 1])
@@ -1889,25 +2023,67 @@ class CPDOracle:
             outs.append(out)
         return outs
 
+    def _merge(self, *arrays):
+        """Join the processes' results (a no-op on one controller): each
+        routed lane is answered by exactly one process and is zero
+        elsewhere, so the all-gathered copies sum (bools: any) to the
+        whole answer on every process."""
+        if self.pcount == 1:
+            return arrays
+        out = []
+        for a in arrays:
+            g = gather_to_host(a)
+            out.append(g.any(axis=0) if a.dtype == np.bool_
+                       else g.sum(axis=0, dtype=a.dtype))
+        return tuple(out)
+
+    def _on_parts(self, run, lanes, outs, lead=()):
+        """One call of ``run(part, table index, flat lanes...)`` a part,
+        on ``part``'s lanes of the routed ``[D, W, Q]`` arrays ``lanes``
+        (``t_rows`` first; ``parallel.sharded.gather_cells``); its
+        results scattered into ``outs`` (numpy, zero-filled, ``[..., D,
+        W, Q, ...]``; the indexes in ``lead`` carry a per-diff axis) and
+        merged across processes."""
+        r = self.targets_wr.shape[1]
+        for i, part in enumerate(self.parts):
+            got = run(part, i, *gather_cells(part, r, *lanes))
+            for j, (o, g) in enumerate(zip(outs, got)):
+                scatter_cells(part, o, g, lead=j in lead)
+        return self._merge(*outs)
+
+    @staticmethod
+    def _one_worker(t: torch.Tensor) -> torch.Tensor:
+        """A ``[Wp, R, ...]`` table viewed as one ``[1, Wp·R, ...]``
+        worker (the routed lanes of :meth:`_on_parts` are offset for
+        it)."""
+        return t.view(1, t.shape[0] * t.shape[1], *t.shape[2:])
+
+    def _flat(self, tbl, i: int) -> torch.Tensor:
+        """Part ``i``'s table of ``tbl`` as one worker."""
+        return self._one_worker(self._tables(tbl)[i])
+
     def _weights_for(self, w_query: np.ndarray | None,
-                     w_key: str | None = None
+                     w_key: str | None = None, device=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(w_pad, pair)`` for one weight set: the padded query-time
-        weights on the device and the walk's pair table built from them,
-        cached together under ``w_key`` when the caller names the weights,
-        else under the weights' digest."""
+        """``(w_pad, pair)`` for one weight set on ``device`` (None: the
+        oracle's first device): the padded query-time weights and the
+        walk's pair table built from them, cached together under
+        ``w_key`` when the caller names the weights, else under the
+        weights' digest."""
+        dev = self.device if device is None else device
         key = None if w_query is None else w_key if w_key is not None \
             else hashlib.blake2b(
                 np.ascontiguousarray(w_query, np.int32).tobytes(),
                 digest_size=16).digest()
-        if key in self._weights:
-            self._weights.move_to_end(key)
-            return self._weights[key]
-        w_pad = self.dg.w_pad if w_query is None else torch.as_tensor(
+        if (key, dev) in self._weights:
+            self._weights.move_to_end((key, dev))
+            return self._weights[(key, dev)]
+        dg = self._dg_on(dev)
+        w_pad = dg.w_pad if w_query is None else torch.as_tensor(
             self.graph.padded_weights(w_query), dtype=torch.int32,
-            device=self.device)
-        entry = (w_pad, walk_pairs(self.dg, w_pad))
-        self._weights[key] = entry
+            device=dev)
+        entry = (w_pad, walk_pairs(dg, w_pad))
+        self._weights[(key, dev)] = entry
         while len(self._weights) > self._weight_keep:
             self._weights.popitem(last=False)
         return entry
@@ -1915,7 +2091,7 @@ class CPDOracle:
     def query(self, queries: np.ndarray, w_query: np.ndarray | None = None,
               k_moves: int = -1, active_worker: int = -1,
               max_steps: int = 0):
-        """Answer queries in input order, every worker in one walk.
+        """Answer queries in input order, one walk a device.
 
         ``w_query``: perturbed edge weights (file order), None = free
         flow. Returns ``(cost, plen, finished)`` int64/bool arrays [Q];
@@ -1926,12 +2102,18 @@ class CPDOracle:
             raise RuntimeError("build() or load() before query()")
         r_arr, s_arr, t_arr, valid, scatter = self.route(
             queries, active_worker)
-        w_pad, pair = self._weights_for(w_query)
-        outs = query_sharded(self.dg, self.fm, r_arr, s_arr, t_arr, valid,
-                             w_pad, k_moves=k_moves, max_steps=max_steps,
-                             pair=pair)
-        return tuple(self._unroute(scatter, len(queries),
-                                   [o.cpu().numpy() for o in outs]))
+
+        def run(part, i, rows, s, t, v):
+            w_pad, pair = self._weights_for(w_query, device=part.device)
+            return query_sharded(self._dg_on(part.device),
+                                 self._flat(self.fm, i), rows, s, t, v,
+                                 w_pad, k_moves=k_moves,
+                                 max_steps=max_steps, pair=pair)
+        outs = self._on_parts(run, (r_arr, s_arr, t_arr, valid),
+                              [np.zeros(r_arr.shape, np.int64),
+                               np.zeros(r_arr.shape, np.int64),
+                               np.zeros(r_arr.shape, bool)])
+        return tuple(self._unroute(scatter, len(queries), outs))
 
     def query_paths(self, queries: np.ndarray, k: int,
                     active_worker: int = -1):
@@ -1948,20 +2130,25 @@ class CPDOracle:
             raise ValueError("k must be positive")
         r_arr, s_arr, t_arr, _valid, scatter = self.route(
             queries, active_worker)
-        outs = query_paths_sharded(self.dg, self.fm, r_arr, s_arr, t_arr,
-                                   k=k)
-        return tuple(self._unroute(scatter, len(queries),
-                                   [o.cpu().numpy() for o in outs]))
+        outs = self._on_parts(
+            lambda part, i, rows, s, t: query_paths_sharded(
+                self._dg_on(part.device), self._flat(self.fm, i), rows, s,
+                t, k=k),
+            (r_arr, s_arr, t_arr),
+            [np.zeros(r_arr.shape + (k + 1,), np.int64),
+             np.zeros(r_arr.shape, np.int64)])
+        return tuple(self._unroute(scatter, len(queries), outs))
 
     # ------------------------------------------------- multi-diff, mat
-    def _pads_multi(self, w_diffs) -> torch.Tensor:
+    def _pads_multi(self, w_diffs, device) -> torch.Tensor:
         return torch.as_tensor(self.graph.padded_weights_multi(w_diffs),
-                               dtype=torch.int32, device=self.device)
+                               dtype=torch.int32, device=device)
 
     def query_multi(self, queries: np.ndarray,
                     w_diffs: list[np.ndarray | None],
                     active_worker: int = -1, max_steps: int = 0):
-        """Answer queries under D congestion diffs in ONE fused walk.
+        """Answer queries under D congestion diffs in ONE fused walk a
+        device.
 
         The reference campaign runs one round per diff file over the same
         scenario (``process_query.py:178``), re-walking every query each
@@ -1979,22 +2166,31 @@ class CPDOracle:
             raise ValueError("w_diffs must name at least one round")
         r_arr, s_arr, t_arr, valid, scatter = self.route(
             queries, active_worker)
-        if self._eid_pair is None:
-            self._eid_pair = walk_eid_pairs(self.dg)
-        outs = query_multi_sharded(self.dg, self.fm, r_arr, s_arr, t_arr,
-                                   valid, self._pads_multi(w_diffs),
-                                   max_steps=max_steps, pair=self._eid_pair)
-        return tuple(self._unroute(scatter, len(queries),
-                                   [o.cpu().numpy() for o in outs],
+
+        def run(part, i, rows, s, t, v):
+            dev = part.device
+            if dev not in self._eid_pair:
+                self._eid_pair[dev] = walk_eid_pairs(self._dg_on(dev))
+            return query_multi_sharded(
+                self._dg_on(dev), self._flat(self.fm, i), rows, s, t, v,
+                self._pads_multi(w_diffs, dev), max_steps=max_steps,
+                pair=self._eid_pair[dev])
+        outs = self._on_parts(run, (r_arr, s_arr, t_arr, valid),
+                              [np.zeros((len(w_diffs),) + r_arr.shape,
+                                        np.int64),
+                               np.zeros(r_arr.shape, np.int64),
+                               np.zeros(r_arr.shape, bool)], lead=(0,))
+        return tuple(self._unroute(scatter, len(queries), outs,
                                    (True, False, False)))
 
     def query_mat(self, s: int, targets,
                   w_query: np.ndarray | None = None,
                   w_key: str | None = None):
-        """One ``mat`` family row — one source, K targets — in one walk
-        over every worker's rows, the answers scattered into a dense row
-        in target order on the device (``parallel.sharded.
-        query_mat_sharded``; the JAX oracle's on-mesh join).
+        """One ``mat`` family row — one source, K targets — in one walk a
+        device, the answers scattered into a dense row in target order on
+        the device (``parallel.sharded.query_mat_sharded``; the JAX
+        oracle's on-mesh join) and the devices' rows summed on the host
+        (each target lives in exactly one slot).
 
         ``w_key``: a stable identity for ``w_query`` (the diff file path)
         — given one, the padded weights and their pair table are cached
@@ -2026,15 +2222,24 @@ class CPDOracle:
         _active, sd, sw, sq = scatter
         slots = np.full(r_arr.shape, -1, np.int32)
         slots[sd, sw, sq] = np.arange(len(tgts), dtype=np.int32)
-        w_pad, pair = self._weights_for(w_query, w_key)
         # the row width pads to the next power of two (the JAX oracle's
         # stable-shape rule); pad slots never receive an answer
         k_pad = 1 << (len(tgts) - 1).bit_length()
-        row_c, row_f = query_mat_sharded(
-            self.dg, self.fm, r_arr, s_arr, t_arr, valid, slots, w_pad,
-            k_out=k_pad, pair=pair)
-        cost[ok] = row_c.cpu().numpy().astype(np.int64)[:len(tgts)]
-        fin[ok] = row_f.cpu().numpy()[:len(tgts)]
+        row_c = np.zeros(k_pad, np.int64)
+        row_f = np.zeros(k_pad, bool)
+        r = self.targets_wr.shape[1]
+        for i, part in enumerate(self.parts):
+            rows, s_l, t_l, v_l, sl_l = gather_cells(
+                part, r, r_arr, s_arr, t_arr, valid, slots)
+            w_pad, pair = self._weights_for(w_query, w_key, part.device)
+            c, f = query_mat_sharded(
+                self._dg_on(part.device), self._flat(self.fm, i), rows,
+                s_l, t_l, v_l, sl_l, w_pad, k_out=k_pad, pair=pair)
+            row_c += c.cpu().numpy()
+            row_f |= f.cpu().numpy()
+        row_c, row_f = self._merge(row_c, row_f)
+        cost[ok] = row_c[:len(tgts)]
+        fin[ok] = row_f[:len(tgts)]
         return cost, fin
 
     def query_dist(self, queries: np.ndarray, active_worker: int = -1):
@@ -2048,7 +2253,10 @@ class CPDOracle:
                 "distance table not resident; build(store_dists=True)")
         r_arr, s_arr, _t_arr, _valid, scatter = self.route(
             queries, active_worker)
-        cost = query_dist_sharded(self.dists, r_arr, s_arr).cpu().numpy()
+        (cost,) = self._on_parts(
+            lambda part, i, rows, s: (query_dist_sharded(
+                self._flat(self.dists, i), rows, s),),
+            (r_arr, s_arr), [np.zeros(r_arr.shape, np.int64)])
         nq = len(queries)
         active, sd, sw, sq = scatter
         out_c = np.zeros(nq, np.int64)
@@ -2061,12 +2269,14 @@ class CPDOracle:
 
     # ------------------------------------------------- prepared tables
     def _table_need(self, per_entry: int) -> int:
-        w, r = self.targets_wr.shape
-        return w * r * self.graph.n * per_entry
+        """Bytes of prepared tables on the busiest device."""
+        rows = max(len(p.workers) for p in self.parts)
+        return rows * self.targets_wr.shape[1] * self.graph.n * per_entry
 
     def table_memory_bytes(self) -> int:
-        """Device bytes the prepared tables will occupy: int32 cost +
-        sign-packed plen (int16 when N < 2^15) per (worker, row, node)."""
+        """Device bytes the prepared tables will occupy on the busiest
+        device: int32 cost + sign-packed plen (int16 when N < 2^15) per
+        (held worker, row, node)."""
         return self._table_need(
             4 + torch.iinfo(plen_dtype(self.graph.n)).bits // 8)
 
@@ -2087,15 +2297,17 @@ class CPDOracle:
         gather — the amortization path for large campaigns, congestion-
         diffed rounds included, where :meth:`query_dist` does not apply.
 
-        Memory: 6-8 bytes an entry, 6-8x the fm table. One device holds
-        every worker's tables, so the whole need is held against the
-        budget (``DOS_TABLE_BUDGET_GB``, default 8): the JAX gate with one
-        worker shard. Over it, the call raises with the math instead of
-        faulting mid-campaign. ``chunk`` bounds the rows a worker doubles
-        at once (two ``[chunk, N, 4]`` int32 record buffers live).
+        Memory: 6-8 bytes an entry, 6-8x the fm table. A device holds the
+        tables of every worker it holds, so that need is held against the
+        budget (``DOS_TABLE_BUDGET_GB``, default 8): the JAX gate with
+        one worker shard. Over it, the call raises with the math instead
+        of faulting mid-campaign. ``chunk`` bounds the rows a worker
+        doubles at once (two ``[chunk, N, 4]`` int32 record buffers
+        live).
 
-        Returns a tables handle ``(cost [W, R, N], plen_packed [W, R,
-        N])`` for :meth:`query_table`."""
+        Returns a tables handle, laid out as ``fm``: ``(cost [W, R, N],
+        plen_packed [W, R, N])``, or a tuple of the parts' pairs on a
+        split grid, for :meth:`query_table`."""
         if self.fm is None:
             raise RuntimeError("build() or load() before prepare_weights()")
         need = self.table_memory_bytes()
@@ -2105,45 +2317,53 @@ class CPDOracle:
             raise ValueError(
                 f"prepared tables need {need / 1e9:.1f} GB "
                 f"({w}x{r}x{self.graph.n} entries x "
-                f"{need // (w * r * self.graph.n)} B, sharded over 1 "
+                f"{need // self._table_need(1)} B, sharded over 1 "
                 f"worker shard(s) = {need / 1e9:.1f} GB/device) — "
                 f"over the {budget / 1e9:.1f} GB/device budget "
                 "(DOS_TABLE_BUDGET_GB). At this scale serve via the walk "
                 "or StreamedCPDOracle instead (models.streamed).")
-        w_pad, _pair = self._weights_for(w_query)
-        w, r = self.targets_wr.shape
-        out = (torch.empty((w, r, self.graph.n), dtype=torch.int32,
-                           device=self.device),
-               torch.empty((w, r, self.graph.n),
-                           dtype=plen_dtype(self.graph.n),
-                           device=self.device))
-        return self._chunked_tables(
-            lambda fm_, tw_, o: build_tables_sharded(
-                self.dg, fm_, tw_, w_pad, max_len=max_len, out=o,
-                order=self._order()),
-            chunk, out)
+        r, n = self.targets_wr.shape[1], self.graph.n
+        handles = []
+        for part, fm in zip(self.parts, self._tables(self.fm)):
+            dev, wp = part.device, len(part.workers)
+            w_pad, _pair = self._weights_for(w_query, device=dev)
+            out = (torch.empty((wp, r, n), dtype=torch.int32, device=dev),
+                   torch.empty((wp, r, n), dtype=plen_dtype(n),
+                               device=dev))
+            handles.append(self._chunked_tables(
+                lambda fm_, tw_, o, dev=dev, w_pad=w_pad:
+                    build_tables_sharded(
+                        self._dg_on(dev), fm_, tw_, w_pad, max_len=max_len,
+                        out=o, order=self._order(dev)),
+                chunk, out, fm, self.targets_wr[part.workers]))
+        return self._store(handles)
 
-    def _order(self) -> torch.Tensor:
-        """The doubling records' layout, a Z-order of the coordinates
-        (``ops.pointer_doubling.record_order``), made once."""
-        if self._record_order is None:
-            self._record_order = record_order(self.graph, self.device)
-        return self._record_order
+    def _order(self, dev=None) -> torch.Tensor:
+        """The doubling records' layout on ``dev`` (None: the oracle's
+        first device), a Z-order of the coordinates
+        (``ops.pointer_doubling.record_order``), made once a device."""
+        dev = self.device if dev is None else dev
+        if dev not in self._record_order:
+            self._record_order[dev] = record_order(self.graph, dev)
+        return self._record_order[dev]
 
-    def _chunked_tables(self, build_one, chunk: int, out):
-        """Run a table builder over row chunks of the target axis, each
-        chunk's rows written into ``out``'s — the shared scaffolding of
-        :meth:`prepare_weights` and :meth:`prepare_weights_multi`. As in
-        the JAX oracle every chunk is ``chunk`` rows: a short tail is
-        padded with -1 targets and -1 fm rows and trimmed."""
-        r = self.targets_wr.shape[1]
+    @staticmethod
+    def _chunked_tables(build_one, chunk: int, out, fm_all, targets_wr):
+        """Run a table builder over row chunks of the target axis of one
+        device's table ``fm_all`` (``[Wp, R, N]``, targets
+        ``targets_wr``), each chunk's rows written into ``out``'s — the
+        shared scaffolding of :meth:`prepare_weights` and
+        :meth:`prepare_weights_multi`. As in the JAX oracle every chunk
+        is ``chunk`` rows: a short tail is padded with -1 targets and -1
+        fm rows and trimmed."""
+        r = targets_wr.shape[1]
         if chunk <= 0 or chunk >= r:
-            return build_one(self.fm, self.targets_wr, out)
-        w, _, n = self.fm.shape
+            return build_one(fm_all, targets_wr, out)
+        w, _, n = fm_all.shape
         for i in range(0, r, chunk):
             c = min(chunk, r - i)
-            fm = self.fm[:, i:i + c]
-            tw = self.targets_wr[:, i:i + c]
+            fm = fm_all[:, i:i + c]
+            tw = targets_wr[:, i:i + c]
             if c == chunk:
                 build_one(fm, tw, tuple(o[:, i:i + c] for o in out))
                 continue
@@ -2163,9 +2383,15 @@ class CPDOracle:
         same weights, by one gather a query."""
         r_arr, s_arr, _t_arr, valid, scatter = self.route(
             queries, active_worker)
-        outs = query_tables_sharded(tables, r_arr, s_arr, valid)
-        return tuple(self._unroute(scatter, len(queries),
-                                   [o.cpu().numpy() for o in outs]))
+        handles = self._tables(tables)
+        outs = self._on_parts(
+            lambda part, i, rows, s, v: query_tables_sharded(
+                tuple(self._one_worker(t) for t in handles[i]), rows, s, v),
+            (r_arr, s_arr, valid),
+            [np.zeros(r_arr.shape, np.int64),
+             np.zeros(r_arr.shape, np.int64),
+             np.zeros(r_arr.shape, bool)])
+        return tuple(self._unroute(scatter, len(queries), outs))
 
     def prepare_weights_multi(self, w_diffs: list[np.ndarray | None],
                               max_len: int = 0, chunk: int = 1024):
@@ -2178,7 +2404,8 @@ class CPDOracle:
         record widens by the D costs.
 
         Returns a tables handle ``(costs [W, R, N, D], plen_packed [W, R,
-        N])`` for :meth:`query_table_multi`."""
+        N])`` (a tuple of the parts' pairs on a split grid) for
+        :meth:`query_table_multi`."""
         if self.fm is None:
             raise RuntimeError(
                 "build() or load() before prepare_weights_multi()")
@@ -2196,18 +2423,22 @@ class CPDOracle:
                 f"{budget / 1e9:.1f} GB/device budget "
                 "(DOS_TABLE_BUDGET_GB). Prepare fewer diffs per call or "
                 "serve via the fused walk (query_multi) instead.")
-        w_pads = self._pads_multi(w_diffs)
-        w, r = self.targets_wr.shape
-        out = (torch.empty((w, r, self.graph.n, d), dtype=torch.int32,
-                           device=self.device),
-               torch.empty((w, r, self.graph.n),
-                           dtype=plen_dtype(self.graph.n),
-                           device=self.device))
-        return self._chunked_tables(
-            lambda fm_, tw_, o: build_tables_multi_sharded(
-                self.dg, fm_, tw_, w_pads, max_len=max_len, out=o,
-                order=self._order()),
-            chunk, out)
+        r, n = self.targets_wr.shape[1], self.graph.n
+        handles = []
+        for part, fm in zip(self.parts, self._tables(self.fm)):
+            dev, wp = part.device, len(part.workers)
+            w_pads = self._pads_multi(w_diffs, dev)
+            out = (torch.empty((wp, r, n, d), dtype=torch.int32,
+                               device=dev),
+                   torch.empty((wp, r, n), dtype=plen_dtype(n),
+                               device=dev))
+            handles.append(self._chunked_tables(
+                lambda fm_, tw_, o, dev=dev, w_pads=w_pads:
+                    build_tables_multi_sharded(
+                        self._dg_on(dev), fm_, tw_, w_pads,
+                        max_len=max_len, out=o, order=self._order(dev)),
+                chunk, out, fm, self.targets_wr[part.workers]))
+        return self._store(handles)
 
     def query_table_multi(self, tables, queries: np.ndarray,
                           active_worker: int = -1):
@@ -2217,7 +2448,14 @@ class CPDOracle:
         d's tables."""
         r_arr, s_arr, _t_arr, valid, scatter = self.route(
             queries, active_worker)
-        outs = query_tables_multi_sharded(tables, r_arr, s_arr, valid)
-        return tuple(self._unroute(scatter, len(queries),
-                                   [o.cpu().numpy() for o in outs],
+        handles = self._tables(tables)
+        d = handles[0][0].shape[-1]
+        outs = self._on_parts(
+            lambda part, i, rows, s, v: query_tables_multi_sharded(
+                tuple(self._one_worker(t) for t in handles[i]), rows, s, v),
+            (r_arr, s_arr, valid),
+            [np.zeros((d,) + r_arr.shape, np.int64),
+             np.zeros(r_arr.shape, np.int64),
+             np.zeros(r_arr.shape, bool)], lead=(0,))
+        return tuple(self._unroute(scatter, len(queries), outs,
                                    (True, False, False)))

@@ -32,9 +32,30 @@ worker axis is a loop (build) or a row offset (walk):
 
 Padding convention as in the JAX module: targets pad with -1, queries
 with ``valid=False`` lanes (which come back cost 0, plen 0, unfinished).
+
+Spread over several devices (``parallel.mesh``):
+
+* worker lanes — one worker's work over the devices it drives:
+  :func:`build_fm_lanes` (lane ``l`` builds the ``l``-th contiguous part
+  of a build chunk's targets through :func:`chunk_compute` on its
+  device) and :func:`lane_walk_program` / :func:`walk_lanes` (lane ``l``
+  walks the ``l``-th contiguous part of a length-sorted batch, one
+  ``cuda_walk_batch`` call a lane on its device: one B1 launch a lane on
+  the card); the results join in lane order, bit-identical to one call;
+* the campaign grid — :func:`grid_parts` groups a ``[D, W]`` grid's
+  cells by device: each device holds the rows of the workers whose
+  column names it (once, however many cells it has) and walks the lanes
+  of its cells; :func:`gather_cells` / :func:`scatter_cells` move routed
+  ``[D, W, Q]`` arrays to one device's flat lane set and the answers
+  back, so every program above runs unchanged on each device's part
+  (its table viewed as one ``[Wp·R, N]`` worker). A grid that names one
+  device throughout is not split: the oracle keeps the single-table
+  path.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +72,7 @@ from ..ops.pointer_doubling import (
 )
 from ..ops.shift_relax import build_fm_columns_shift
 from ..ops.table_search import extract_paths
+from .mesh import canonical, distinct
 
 
 def pad_targets(controller, dtype=np.int32) -> np.ndarray:
@@ -313,3 +335,164 @@ def query_tables_multi_sharded(tables, t_rows, s, valid):
                                   plen_packed.view(w * r, n), rows, s_d,
                                   v_d)
     return c.reshape(d, *shape), p.view(shape), f.view(shape)
+
+
+# ------------------------------------------------------- worker lanes
+
+def _place_graph(dg: DeviceGraph, dev: torch.device) -> DeviceGraph:
+    """``dg`` on ``dev``: itself when it is there already, else a copy."""
+    return dg if dg.device == dev else DeviceGraph(*(a.to(dev) for a in dg))
+
+
+def build_fm_lanes(dg: DeviceGraph, pad, mesh, kind: str, structure,
+                   max_iters: int = 0, out: torch.Tensor | None = None,
+                   computes: dict | None = None) -> torch.Tensor:
+    """One build chunk's target pad (int32 ``[C]``, -1-padded) built
+    across the worker's lanes (``mesh``, a list of L devices): lane l
+    builds the contiguous rows ``pad[l*C/L:(l+1)*C/L]`` through
+    :func:`chunk_compute` on its device. Returns the int8 ``[C, N]``
+    block in target order on ``dg``'s device, or writes its first
+    ``len(out)`` rows into ``out`` — the contract of the single-device
+    chunk compute, so the pipelined build is unchanged. Lanes whose rows
+    all lie past ``len(out)`` hold only pad targets and are not run.
+
+    ``computes``: a dict, device → build closure, kept by the caller
+    across chunks; lanes on one device share one closure (one graph and
+    CSR upload). ``C`` must divide by L (callers gate)."""
+    lanes = len(mesh)
+    pad = torch.as_tensor(np.asarray(pad, np.int32)
+                          if not torch.is_tensor(pad) else pad)
+    c = int(pad.shape[0])
+    if c % lanes:
+        raise ValueError(f"chunk {c} does not divide over {lanes} lanes")
+    per = c // lanes
+    res = out if out is not None else torch.empty(
+        (c, dg.n), dtype=torch.int8, device=dg.device)
+    rows = res.shape[0]
+    computes = {} if computes is None else computes
+    for lane, dev in enumerate(mesh):
+        lo, hi = lane * per, min((lane + 1) * per, rows)
+        if lo >= hi:
+            break
+        if dev not in computes:
+            computes[dev] = chunk_compute(_place_graph(dg, dev),
+                                          (kind, structure), max_iters)
+        tg = pad[lane * per:(lane + 1) * per].to(dev)
+        if res.device == dev:
+            computes[dev](tg, out=res[lo:hi])
+        else:
+            res[lo:hi].copy_(computes[dev](tg)[:hi - lo])
+    return res
+
+
+def lane_walk_program(dg: DeviceGraph, fm: torch.Tensor, t_rows, s, t,
+                      valid, w_pad: torch.Tensor, mesh, k_moves: int = -1,
+                      max_steps: int = 0, pair: torch.Tensor | None = None,
+                      placed: dict | None = None):
+    """The calls of one lane-split walk: ``[(device, args, kwargs)]``,
+    lane l's ``cuda_walk_batch`` call on the contiguous slice ``[l*Q/L,
+    (l+1)*Q/L)`` of the flat ``[Q]`` arrays (numpy or tensors), its
+    inputs on its device. :func:`walk_lanes` makes exactly these calls;
+    they are split out so a caller can time each lane's launch.
+
+    ``placed``: device → ``(dg, fm, w_pad, pair)`` copies the caller
+    keeps (an engine keeps one set a distinct lane device); a lane whose
+    device is not in it reads ``dg``/``fm``/``w_pad``/``pair`` there, or
+    a copy when they lie elsewhere. Lanes that share a device share one
+    copy. ``Q`` must divide by the lane count (callers pad)."""
+    lanes = len(mesh)
+    q = int(len(s))
+    if q % lanes:
+        raise ValueError(f"batch {q} does not divide over {lanes} lanes")
+    per = q // lanes
+    calls = []
+    for lane, dev in enumerate(mesh):
+        if placed is not None and dev in placed:
+            dg_l, fm_l, w_l, p_l = placed[dev]
+        else:
+            dg_l, fm_l, w_l = _place_graph(dg, dev), fm.to(dev), \
+                w_pad.to(dev)
+            p_l = None if pair is None else pair.to(dev)
+        sl = slice(lane * per, (lane + 1) * per)
+        q_l = [torch.as_tensor(a[sl]).to(dev) for a in (t_rows, s, t)]
+        calls.append((dev, (dg_l, fm_l, *q_l, w_l),
+                      dict(valid=torch.as_tensor(valid[sl]).to(dev),
+                           k_moves=k_moves, max_steps=max_steps,
+                           pair=p_l)))
+    return calls
+
+
+def walk_lanes(dg: DeviceGraph, fm: torch.Tensor, t_rows, s, t, valid,
+               w_pad: torch.Tensor, mesh, k_moves: int = -1,
+               max_steps: int = 0, pair: torch.Tensor | None = None,
+               placed: dict | None = None):
+    """Split one worker's walk batch across its lanes
+    (:func:`lane_walk_program`): flat ``[Q]`` inputs, the engine's
+    length-sorted, padded batch. Each lane walks its contiguous slice in
+    one ``cuda_walk_batch`` call — one B1 launch on the card, the plain
+    walk on the CPU — and the answers join in lane order on the first
+    lane's device. The step bound depends only on ``max_steps`` or N and
+    lanes are independent, so the answers are bit-identical to one call
+    over the whole batch. Returns ``(cost, plen, finished)`` ``[Q]``."""
+    calls = lane_walk_program(dg, fm, t_rows, s, t, valid, w_pad, mesh,
+                              k_moves=k_moves, max_steps=max_steps,
+                              pair=pair, placed=placed)
+    outs = [cuda_walk_batch(*args, **kw) for _dev, args, kw in calls]
+    home = calls[0][0]
+    return tuple(torch.cat([o[i].to(home) for o in outs])
+                 for i in range(3))
+
+
+# ------------------------------------------------------- campaign grid
+
+class GridPart(NamedTuple):
+    """One device's share of a campaign grid: ``workers``, the global ids
+    (ascending) of the workers whose column names ``device``, whose rows
+    it holds once; ``cells``, the ``[C, 2]`` ``(d, w)`` grid cells whose
+    routed lanes it walks."""
+    device: torch.device
+    workers: np.ndarray
+    cells: np.ndarray
+
+
+def grid_parts(grid, workers) -> list[GridPart]:
+    """The devices of a ``[D, W]`` grid's columns ``workers`` (the ones
+    this process holds), each with the workers and cells it serves, in
+    first-seen order of the row-major cells."""
+    grid = np.asarray(grid, dtype=object)
+    cells = [(d, w) for d in range(grid.shape[0]) for w in workers]
+    parts = []
+    for dev in distinct([grid[d, w] for d, w in cells]):
+        mine = np.array([c for c in cells if canonical(grid[c]) == dev],
+                        np.int64)
+        parts.append(GridPart(dev, np.unique(mine[:, 1]), mine))
+    return parts
+
+
+def gather_cells(part: GridPart, r: int, t_rows: np.ndarray,
+                 *lanes: np.ndarray):
+    """``part``'s routed lanes as one worker: ``[1, 1, C·Q]`` arrays, the
+    row ids offset by each cell's worker's position in ``part.workers``
+    times ``r`` — the lane set of ``part``'s table viewed as one ``[1,
+    Wp·R, N]`` worker."""
+    d, w = part.cells[:, 0], part.cells[:, 1]
+    pos = np.searchsorted(part.workers, w)
+    rows = (np.asarray(t_rows, np.int64)[d, w]
+            + (pos * r)[:, None]).astype(np.int32)
+    return tuple(np.ascontiguousarray(a).reshape(1, 1, -1)
+                 for a in (rows, *(np.asarray(x)[d, w] for x in lanes)))
+
+
+def scatter_cells(part: GridPart, dst: np.ndarray, src, lead: bool = False):
+    """Write ``part``'s flat answers ``src`` (``[..., 1, 1, C·Q, ...]``,
+    a tensor or numpy; with ``lead`` a leading per-diff axis) into the
+    routed ``dst`` ``[..., D, W, Q, ...]`` at its cells."""
+    src = src.cpu().numpy() if torch.is_tensor(src) else np.asarray(src)
+    d, w = part.cells[:, 0], part.cells[:, 1]
+    q = dst.shape[3] if lead else dst.shape[2]
+    if lead:
+        src = src.reshape(src.shape[0], len(d), q, *src.shape[4:])
+        dst[:, d, w] = src
+    else:
+        src = src.reshape(len(d), q, *src.shape[3:])
+        dst[d, w] = src

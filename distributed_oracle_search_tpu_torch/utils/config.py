@@ -22,8 +22,10 @@ the same canned ``-t`` config, so one conf file drives both packages.
 manifests that both packages read carry it; in this package it means the
 in-process device path: every worker's rows resident on one card.
 ``mesh_shape``/``mesh_axes`` are parsed and validated as the JAX package
-validates them (:func:`mesh_layout`); the port runs on one device, so
-the ``data`` axis it routes over has size 1.
+validates them (:func:`mesh_layout`); ``parallel.mesh.mesh_from_config``
+lays the campaign oracle over that ``[D, W]`` grid of devices.
+``multihost`` joins several campaign controllers
+(``parallel.multihost.initialize_from_conf``).
 """
 
 from __future__ import annotations
@@ -57,8 +59,8 @@ class ClusterConfig:
     # in-process extensions (ignored by host mode)
     mesh_shape: Sequence[int] | None = None
     mesh_axes: Sequence[str] | None = None
-    # the JAX package's multi-host settings: parsed; the campaign
-    # refuses a conf that sets them (multi-host is not ported)
+    # multi-controller settings (parallel.multihost): coordinator,
+    # num_processes, optional process_id and cpu_devices_per_process
     multihost: dict | None = None
 
     @property

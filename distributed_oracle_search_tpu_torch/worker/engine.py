@@ -48,8 +48,20 @@ publishes them as the promoted table; a batch that names that epoch's
 fused diff (``fused-e<N>.diff``) walks it, every other batch the base
 table (:meth:`ShardEngine._fm_for`). Promotion is monotone in the epoch.
 
-Not ported: worker lane meshes and the lane placement of replica
-engines (A13), path signatures (``sig_k``), promotion by the diff-epoch
+Worker lanes (``mesh=``, else ``DOS_MESH_DEVICES``:
+``parallel.mesh.make_worker_mesh``): the PRIMARY ``table-search`` engine
+of a worker that drives L lanes pads each batch to at least L and splits
+every walk call — the whole batch, or each deadline chunk — over them
+(``parallel.sharded.walk_lanes``: lane l walks the l-th contiguous part
+of the length-sorted batch, one B1 launch a lane on its card). The
+rows, graph and weights live once a distinct lane device; lanes on one
+device share them. A compressed table under lanes inflates the batch's
+distinct rows and walks them raw (the pack4 kernel does not run under
+lanes). A replica engine (rank r > 0) does not split: it pins its table
+to lane ``r % L``'s device; A* engines keep one device. Answers are
+bit-identical to the single-device engine's.
+
+Not ported: path signatures (``sig_k``), promotion by the diff-epoch
 manager with the serving cache's flush, the resident scrubber and the
 observability hooks (A14).
 """
@@ -78,7 +90,11 @@ from ..ops.batched_astar import astar_batch_np
 from ..ops.cuda_walk import cuda_walk_batch
 from ..ops.device_graph import DeviceGraph
 from ..ops.table_search import extract_paths, walk_pairs
+from ..parallel.mesh import (
+    canonical, distinct, local_devices, make_worker_mesh,
+)
 from ..parallel.partition import DistributionController
+from ..parallel.sharded import walk_lanes
 from ..transport.wire import RuntimeConfig, StatsRow
 from ..utils.device import resolve_device
 from ..utils.env import env_cast
@@ -177,11 +193,18 @@ class ShardEngine:
     replicas. ``replica``: the block set the rows load from (None → the
     rank with which ``wid`` holds ``shard``, 0 for its own). The load
     gets the graph and the controller, so a missing or corrupt block is
-    rebuilt on ``device`` (``load_shard_rows``)."""
+    rebuilt on ``device`` (``load_shard_rows``).
+
+    ``mesh``: the worker's lanes, a list of devices that may repeat one
+    (None → ``DOS_MESH_DEVICES`` over ``device``'s devices,
+    ``parallel.mesh.make_worker_mesh``). The primary engine then lives on
+    lane 0's device and splits its walks over the lanes; a replica of
+    rank r lives on lane ``r % L``'s device (see the module note)."""
 
     def __init__(self, graph: Graph, dc: DistributionController, wid: int,
                  outdir: str, alg: str = "table-search", device=None,
-                 shard: int | None = None, replica: int | None = None):
+                 shard: int | None = None, replica: int | None = None,
+                 mesh=None):
         if alg not in ("table-search", "astar"):
             raise ValueError(f"unknown algorithm {alg!r}")
         self.device = resolve_device(device)
@@ -196,6 +219,26 @@ class ShardEngine:
         else:
             self.replica = (dc.replica_rank(self.shard, wid)
                             if self.shard != wid else 0)
+        #: the worker's lane list (an explicit ``mesh=`` wins over
+        #: ``DOS_MESH_DEVICES``); None: one device
+        self.mesh = mesh if mesh is not None else make_worker_mesh(
+            devices=local_devices(self.device))
+        if self.mesh is not None:
+            self.mesh = [canonical(d) for d in self.mesh]
+        self.n_lanes = len(self.mesh) if self.mesh is not None else 1
+        #: REPLICA LANE: replica rank r serves from lane r % L's device;
+        #: the primary keeps every lane and splits its batches instead
+        self._lane_device = (self.mesh[self.replica % self.n_lanes]
+                             if self.mesh is not None and self.replica
+                             else None)
+        if self._lane_device is not None:
+            self.device = self._lane_device
+        elif self._lane_split:
+            self.device = self.mesh[0]
+        #: (id, device) -> (tensor, its copy on another lane device),
+        #: least recently used dropped first
+        self._lane_copies: OrderedDict = OrderedDict()
+        self._dgs: dict = {}
         self.resident_codec = "raw"
         self.resident_bytes = 0
         #: diff epoch of the PROMOTED table (0: none yet); the gate itself
@@ -216,6 +259,7 @@ class ShardEngine:
                     "mismatch")
             self.fm = self._make_resident(rows)
             self.dg = DeviceGraph.from_graph(graph, device=self.device)
+            self._dgs[self.device] = self.dg
         #: per-diff weights, LRU-bounded (≥ 2: the double buffer an epoch
         #: swap needs): the walk's device weights with the ``(next, w)``
         #: pair table built from them once, and A*'s raw host weights
@@ -233,6 +277,44 @@ class ShardEngine:
         self._astar_ctx: dict = {}
         #: path prefixes of the most recent extract batch (see answer())
         self.last_paths: tuple[np.ndarray, np.ndarray] | None = None
+
+    # ------------------------------------------------------------- lanes
+    @property
+    def _lane_split(self) -> bool:
+        """Whether this engine splits its walk batches over lanes: the
+        PRIMARY ``table-search`` engine of a worker that drives several;
+        replica engines pin to their lane's device and A* keeps one."""
+        return (self.mesh is not None and not self.replica
+                and self.alg == "table-search")
+
+    def _copy_to(self, x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        """``x`` on lane device ``dev``: itself when it lies there, else
+        one copy kept while ``x`` is among the recently used."""
+        if x.device == dev:
+            return x
+        key = (id(x), dev)
+        hit = self._lane_copies.get(key)
+        if hit is not None and hit[0] is x:
+            self._lane_copies.move_to_end(key)
+            return hit[1]
+        self._lane_copies[key] = (x, x.to(dev))
+        while len(self._lane_copies) > 8 * self.n_lanes:
+            self._lane_copies.popitem(last=False)
+        return self._lane_copies[key][1]
+
+    def _placed(self, fm_walk, w_pad, pair) -> dict:
+        """A batch's walk operands ``(dg, fm, w_pad, pair)`` on each
+        distinct lane device (one copy a device; none on this engine's
+        own device)."""
+        out = {}
+        for dev in distinct(self.mesh):
+            if dev not in self._dgs:
+                self._dgs[dev] = DeviceGraph(
+                    *(self._copy_to(a, dev) for a in self.dg))
+            out[dev] = (self._dgs[dev], self._copy_to(fm_walk, dev),
+                        self._copy_to(w_pad, dev),
+                        self._copy_to(pair, dev))
+        return out
 
     def _make_resident(self, rows: np.ndarray):
         """The resident table under ``DOS_CPD_RESIDENT``: the raw int8
@@ -431,8 +513,12 @@ class ShardEngine:
             kind="stable")
         unsort = np.argsort(order)
         qsorted = uniq[order]
-        # pad to the next power of two: a few stable batch shapes
+        # pad to the next power of two: a few stable batch shapes; under
+        # lanes to at least the lane count, so every batch splits evenly
+        # (the extra rows are valid=False lanes)
         qpad = 1 << (nu - 1).bit_length()
+        if self._lane_split:
+            qpad = max(qpad, self.n_lanes)
         s = np.zeros(qpad, np.int32)
         t = np.zeros(qpad, np.int32)
         valid = np.zeros(qpad, bool)
@@ -445,14 +531,16 @@ class ShardEngine:
         # the table is epoch-gated a batch: a promoted epoch's table
         # serves only the batches naming its fused diff (_fm_for).
         # Compressed residency: a pack4 table feeds the pack4 kernel
-        # directly; every other compressed batch (rle, or pack4 with
-        # extraction) inflates exactly the batch's distinct target rows
-        # once and remaps the row ids onto that dense block — bounded by
-        # the batch, freed with it, bit-identical to the raw table
+        # directly; every other compressed batch (rle, pack4 with
+        # extraction, any batch under lanes) inflates exactly the batch's
+        # distinct target rows once and remaps the row ids onto that
+        # dense block — bounded by the batch, freed with it,
+        # bit-identical to the raw table
         fm_walk = fm_tbl = self._fm_for(difffile)
         packed4 = False
         if isinstance(fm_tbl, CompressedFM):
-            if fm_tbl.codec == "pack4" and not extracting:
+            if fm_tbl.codec == "pack4" and not extracting \
+                    and not self._lane_split:
                 fm_walk, packed4 = fm_tbl.packed, True
             else:
                 urows, rinv = np.unique(rows[:nu], return_inverse=True)
@@ -463,7 +551,16 @@ class ShardEngine:
                 rows = np.zeros(qpad, np.int32)
                 rows[:nu] = rinv.reshape(-1)
 
+        placed = (self._placed(fm_walk, w_pad, pair) if self._lane_split
+                  else None)
+
         def run_walk(sl: slice):
+            if placed is not None:
+                # one walk call a lane, on its slice of the sorted batch
+                return walk_lanes(
+                    self.dg, fm_walk, rows[sl], s[sl], t[sl], valid[sl],
+                    w_pad, self.mesh, k_moves=config.k_moves, pair=pair,
+                    placed=placed)
             return cuda_walk_batch(
                 self.dg, fm_walk, self._dev(rows[sl]), self._dev(s[sl]),
                 self._dev(t[sl]), w_pad, valid=self._dev(valid[sl]),

@@ -5,6 +5,7 @@ and diff weights; ``min_cost_per_unit`` is equal."""
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.data import Graph as JGraph  # noqa: E402
 from distributed_oracle_search_tpu.data import read_diff as j_read_diff  # noqa: E402

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.data.graph import Graph as JGraph  # noqa: E402
 from distributed_oracle_search_tpu.data.synth import synth_city_graph  # noqa: E402

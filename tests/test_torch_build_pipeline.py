@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.data import Graph as JGraph  # noqa: E402
 from distributed_oracle_search_tpu.models import cpd as jcpd  # noqa: E402

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu_torch.data import (  # noqa: E402
     synth_diff, synth_road_network, synth_scenario,
@@ -30,6 +31,15 @@ from distributed_oracle_search_tpu_torch.parallel import (  # noqa: E402
 )
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _card():
+    """Skip the whole module without a card, before the module-scoped
+    ``index`` builds anything (an autouse fixture of a scope is set up
+    before the other fixtures of that scope)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
 
 
 @pytest.fixture

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu import data as jdata  # noqa: E402
 from distributed_oracle_search_tpu.ops import DeviceGraph as JDeviceGraph  # noqa: E402

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.cli import make_cpds as j_make  # noqa: E402
 from distributed_oracle_search_tpu.data import Graph as JGraph  # noqa: E402

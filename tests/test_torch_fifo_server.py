@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.utils.config import (  # noqa: E402
     ClusterConfig as JClusterConfig,

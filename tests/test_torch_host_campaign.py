@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.cli import process_query as j_pq  # noqa: E402
 from distributed_oracle_search_tpu.models.cpd import (  # noqa: E402

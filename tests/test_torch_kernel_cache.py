@@ -13,6 +13,7 @@ import textwrap
 import pytest
 
 pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

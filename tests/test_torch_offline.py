@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.cli import offline as j_off  # noqa: E402
 from distributed_oracle_search_tpu.cli.args import (  # noqa: E402

@@ -3,12 +3,14 @@ imports JAX or the JAX package; and the port's entry points refuse to run
 without a GPU unless the caller asks for the CPU."""
 
 import ast
+import glob
 import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu_torch.data import (  # noqa: E402
     synth_city_graph, write_xy,
@@ -30,7 +32,10 @@ FORBIDDEN = ("jax", "jaxlib", "distributed_oracle_search_tpu")
 
 
 def _port_sources():
+    """The port's modules, ``chip_smoke.py`` and the port-only worker
+    scripts the multi-process tests spawn."""
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += glob.glob(os.path.join(ROOT, "tests", "torch_multihost_*.py"))
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)

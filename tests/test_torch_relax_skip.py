@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.data import (  # noqa: E402
     synth_city_graph as jcity, synth_road_network as jroad,

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.data import synth_diff  # noqa: E402
 from distributed_oracle_search_tpu.models import table_search_walk  # noqa: E402

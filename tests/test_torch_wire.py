@@ -13,6 +13,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from distributed_oracle_search_tpu.transport import fifo as j_fifo  # noqa: E402
 from distributed_oracle_search_tpu.transport import wire as j_wire  # noqa: E402
