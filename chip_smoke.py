@@ -100,8 +100,8 @@ points a user calls, then the compressed-residency path:
    ``ShardEngine`` over ``[cuda:0] * L`` for L = 2 and 4 answers the
    road rounds (free flow, the diff, ``k_moves=8`` with extraction) with
    the one-lane engine's answers and paths, one ``table_search_walk``
-   launch a lane a call (counts zeroed before, read after; no plain
-   walk) and the peak device memory of one copy of the rows; each lane's
+   launch a lane a call and a lane an ``obs.device`` capture of a new
+   program key (counts zeroed before, read after; no plain walk) and the peak device memory of one copy of the rows; each lane's
    launch of the free-flow round against the plain walk on its inputs,
    timed by CUDA events beside the one-lane launch and the lane's
    distinct-sector bound; block 0 built by ``build_fm_lanes`` over 2
@@ -113,11 +113,17 @@ points a user calls, then the compressed-residency path:
    lines byte-equal every time, each timed with its split and peak
    memory; an epoch-1 build rebuilds only a block journaled under
    another epoch, then resumes all; a block write that fails raises,
-   leaves no temp file and the blocks before it journaled;
+   leaves no temp file and the blocks before it journaled; beside these
+   builds, a ``worker.build`` process of a small index (a 4,096-node
+   road network, 2 ``mod`` workers, blocks of 256) under
+   ``DOS_FAULTS=crash-build;wid=0;times=1`` exits 86 after its first
+   block, and its rerun resumes that block: the blocks and ledger equal
+   an uncrashed build's byte for byte, K2 launched for the lost blocks
+   only;
 3. compressed path (``[compressed]`` lines), on
    ``synth_city_graph(514, 514, seed=0, shortcut_frac=0.0)`` (264,196
-   nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 32
-   workers: build worker 0's 8,257 rows on the card with
+   nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 64
+   workers: build worker 0's 4,129 rows on the card with
    ``codec="pack4"`` (``method="auto"`` must resolve ``sweep``: the sweep
    and extraction kernels; the blocks must be pack4 containers); load three
    engines from that one index with ``DOS_CPD_RESIDENT`` raw, pack4 and
@@ -284,6 +290,23 @@ points a user calls, then the compressed-residency path:
    Recorded, beside the card's name and power limit: the verify and
    scrub seconds, the replicated build's wall time, each heal split into
    quarantine, rebuild and reload, the anti-entropy seconds;
+7b. RPC path (``[rpc]`` lines), on ``[heal]``'s healed replicated
+   index: 8 port ``worker.server`` processes with RPC listeners on Unix
+   sockets under the run's directory (``DOS_TRANSPORT=rpc``), each with
+   ``--metrics-dump``, worker 5 with ``--obs-port``, worker 3 under
+   ``DOS_FAULTS=kill-mid-batch;wid=3;times=1``; ``process_query
+   --backend host`` over RPC (the rounds with ``--trace`` and
+   ``--metrics-dump``, then ``-k 8 --extract``). Worker 3 must exit 86;
+   ``failover_total`` must count shard 3's 4 batches, each answered by
+   worker 4 from its replica; worker 3's breaker open; ``parts.csv`` and
+   ``paths.csv`` equal ``[host]``'s; per-query answers of one RPC batch
+   a shard equal the campaign's; each dump B1 launches == batches served
+   + its ``obs.device`` captures (one launch a program key), no plain
+   walk, an ``obs.device`` entry timed by CUDA events; the
+   trace holds the servers' ``worker.search`` spans under the head's
+   trace ids; ``/metrics`` answers Prometheus text; the other servers
+   exit 0 on their token. Recorded: RPC beside FIFO round q/s, the
+   failover's seconds, the phase's wall time;
 8. reorder path (``[reorder]`` lines): ``cli.reorder.main`` with
    ``--order rcm`` on the campaign's ``.xy``/``.scen``/``.diff``; the
    scenario must come back relabelled; ``auto`` must resolve
@@ -354,9 +377,11 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import socket
 import threading
 import time
 import traceback
+import urllib.request
 
 import numpy as np
 import torch
@@ -377,6 +402,9 @@ from distributed_oracle_search_tpu_torch.models import streamed
 from distributed_oracle_search_tpu_torch.models.cpd import (
     build_worker_shard, write_index_manifest,
 )
+from distributed_oracle_search_tpu_torch.obs import device as obs_device
+from distributed_oracle_search_tpu_torch.obs import metrics as obs_metrics
+from distributed_oracle_search_tpu_torch.obs import trace as obs_trace
 from distributed_oracle_search_tpu_torch.ops import (
     bellman_ford, cuda_build_kernels as cbk, ell_split, frontier_relax,
     grid_sweep,
@@ -397,8 +425,10 @@ from distributed_oracle_search_tpu_torch.ops.table_search import (
 from distributed_oracle_search_tpu_torch.parallel import (
     DistributionController, sharded,
 )
+from distributed_oracle_search_tpu_torch.testing.faults import KILL_EXIT_CODE
 from distributed_oracle_search_tpu_torch.transport import RuntimeConfig
 from distributed_oracle_search_tpu_torch.transport import fifo as fifo_transport
+from distributed_oracle_search_tpu_torch.transport import resilience, rpc
 from distributed_oracle_search_tpu_torch.transport.wire import (
     read_results_file, results_file_for,
 )
@@ -416,8 +446,10 @@ SEED = 0
 N_NODES = 264_000
 GRID_SIDE = 514
 MAXWORKER = 32
-#: the grid phase's workers: as the road's (worker 0 builds 8,257 rows)
-GRID_MAXWORKER = 32
+#: the grid phase's workers: twice the road's, so worker 0 builds 4,129
+#: rows (a depth cut: the shard, its three engines' loads and the rle
+#: rounds scale with its rows; the row width stays the grid's 264,196)
+GRID_MAXWORKER = 64
 WID = 0
 CHUNK = 512
 N_QUERIES = 20_000
@@ -450,6 +482,10 @@ HOST_WORKERS = 8
 HOST_SEND_TIMEOUT_S = 60
 HOST_READY_S = 300
 HOST_STOP_S = 60
+#: the rpc phase: the worker killed mid-batch (its shard's replica is on
+#: the next worker) and the worker serving --obs-port
+RPC_KILLED = 3
+RPC_OBS_WORKER = 5
 #: the build kind ``method="auto"`` must resolve to on each path
 EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit",
                  "serving": "ellsplit", "offline": "ellsplit"}
@@ -527,6 +563,11 @@ PIPE_KEYS = ("build_compute_seconds", "build_flush_seconds",
              "build_pipeline_stall_seconds", "build_stage_overlap_seconds",
              "build_rows_staged_total")
 PIPE_FAULT_BLOCK = 3
+#: the crash-build run in [pipeline]: a small road network over 2 ``mod``
+#: workers in blocks of CRASH_BLOCK rows (worker 0: 8 blocks), built by
+#: ``worker.build`` processes, the first killed after its first block
+CRASH_NODES = 4096
+CRASH_BLOCK = 256
 # a delta epoch slows one entrance edge (x DELTA_MULT) of this many of
 # worker 0's targets, each in a block of its own (``detour_targets``)
 DELTA_TARGETS = 3
@@ -1788,6 +1829,107 @@ def delta_path(g, dc, outdir: str, engine, queries: np.ndarray,
             "full_build_s": full_s}
 
 
+def crash_build_cmd(xy: str, outdir: str, dump: str = "") -> list[str]:
+    """``worker.build`` of worker 0 of the crash-build index."""
+    cmd = [sys.executable, "-m",
+           "distributed_oracle_search_tpu_torch.worker.build", "--input", xy,
+           "--partmethod", "mod", "--partkey", "2", "--workerid", "0",
+           "--maxworker", "2", "--outdir", outdir, "--block-size",
+           str(CRASH_BLOCK), "--chunk", str(CRASH_BLOCK), "--device", "cuda"]
+    return cmd + (["--metrics-dump", dump] if dump else [])
+
+
+class CrashBuild:
+    """The ``crash-build`` run beside ``[pipeline]``'s builds: worker 0 of
+    a small index built by a ``worker.build`` process under
+    ``DOS_FAULTS=crash-build;wid=0;times=1`` (it must exit 86 after its
+    first block), then again with no fault, resuming; the blocks and the
+    ledger must be byte-equal to an uncrashed build in this process, and
+    the rerun's dump must show one block resumed and K2 launched only for
+    the blocks that were lost. The processes run while the phase's own
+    builds do."""
+
+    def __init__(self, work: str):
+        self.dir = os.path.join(work, "crash")
+        os.makedirs(self.dir)
+        g = synth_road_network(CRASH_NODES, seed=SEED)
+        self.xy = os.path.join(self.dir, "crash.xy")
+        write_xy(self.xy, g.xs, g.ys, g.src, g.dst, g.w)
+        self.g = Graph.from_xy(self.xy)
+        self.out = os.path.join(self.dir, "index")
+        self.dump = os.path.join(self.dir, "rerun.json")
+        env = {**os.environ, "DOS_FAULTS": "crash-build;wid=0;times=1"}
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(crash_build_cmd(self.xy, self.out),
+                                     env=env, cwd=ROOT,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+
+    def rerun(self) -> None:
+        """Wait for the crashed build, check what it left, start the
+        rerun."""
+        out, _ = self.proc.communicate(timeout=300)
+        self.crash_s = time.perf_counter() - self.t0
+        dc = DistributionController("mod", 2, 2, self.g.n,
+                                    block_size=CRASH_BLOCK)
+        self.names = [cpd.shard_block_name(0, b) for b in range(
+            -(-dc.n_owned(0) // CRASH_BLOCK))]
+        left = sorted(f for f in os.listdir(self.out) if f.endswith(".npy"))
+        journaled = list(cpd.BuildLedger(self.out, 0).entries())
+        if (self.proc.returncode != KILL_EXIT_CODE
+                or left != self.names[:1] or journaled != self.names[:1]):
+            raise AssertionError(f"[pipeline] crash-build: exit "
+                                 f"{self.proc.returncode}, blocks {left}, "
+                                 f"journaled {journaled}\n{out[-2000:]}")
+        self.t1 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            crash_build_cmd(self.xy, self.out, self.dump), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def check(self) -> dict:
+        """Wait for the rerun; hold its blocks, ledger and launches to an
+        uncrashed build of the same worker in this process."""
+        out, _ = self.proc.communicate(timeout=300)
+        rerun_s = time.perf_counter() - self.t1
+        if self.proc.returncode != 0:
+            raise AssertionError(f"[pipeline] crash-build rerun: exit "
+                                 f"{self.proc.returncode}\n{out[-2000:]}")
+        ref = os.path.join(self.dir, "uncrashed")
+        dc = DistributionController("mod", 2, 2, self.g.n,
+                                    block_size=CRASH_BLOCK)
+        k0 = read_build_launches()
+        build_worker_shard(self.g, dc, 0, ref, chunk=CRASH_BLOCK,
+                           device="cuda")
+        k1 = read_build_launches()
+        per_block = (k1["first_moves"] - k0["first_moves"]) / len(self.names)
+
+        def files(d):
+            return {f: open(os.path.join(d, f), "rb").read()
+                    for f in sorted(os.listdir(d))
+                    if f.endswith((".npy", ".ledger"))}
+
+        got, want = files(self.out), files(ref)
+        with open(self.dump) as f:
+            c = json.load(f)["counters"]
+        lost = len(self.names) - 1
+        if (got != want or len(want) != len(self.names) + 1
+                or c["build_blocks_resumed_total"] != 1
+                or c["first_moves.launches"] != per_block * lost
+                or c["relax_jacobi.launches"] <= 0):
+            raise AssertionError(f"[pipeline] crash-build: blocks/ledger "
+                                 f"equal {got == want}, rerun counters {c}")
+        log(f"[pipeline] crash-build: worker.build under DOS_FAULTS="
+            f"crash-build;wid=0;times=1 exited {KILL_EXIT_CODE} after "
+            f"block 0 ({self.crash_s:.2f} s), leaving it journaled; the "
+            f"rerun ({rerun_s:.2f} s) resumed 1 block and built {lost} "
+            f"(K2 {c['first_moves.launches']} launches = {per_block:g} a "
+            f"block, K1 {c['relax_jacobi.launches']}); the {len(self.names)}"
+            " blocks and the ledger byte-equal to an uncrashed build")
+        return {"crash_s": self.crash_s, "rerun_s": rerun_s,
+                "rerun_k2": c["first_moves.launches"],
+                "rerun_k1": c["relax_jacobi.launches"]}
+
+
 def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
     """``[pipeline]``: worker 0 of the campaign graph
     (``synth_road_network(65_536, seed=0)``, ``tpu`` over 8 workers:
@@ -1829,6 +1971,7 @@ def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
     # the compute setup (graph upload, kind, CSR) once, outside the runs
     cpd._compute_ctx(ctx, g, "auto", 0, torch.device("cuda"))
     zero_launches()
+    crash = CrashBuild(work)
     runs = []
     ref = pipe_dir = None
     try:
@@ -1849,6 +1992,8 @@ def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
                 pipe_dir = d            # kept for the epoch checks
             else:
                 shutil.rmtree(d)
+            if i == 1:
+                crash.rerun()
         # epoch keys on a pipelined index journaled under epoch 1
         ledger = cpd.BuildLedger(pipe_dir, WID)
         ent = dict(ledger.entries()[names[PIPE_FAULT_BLOCK]])
@@ -1899,6 +2044,7 @@ def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
                                  f"journaled {journaled}")
         log(f"{tag} no temp file left; blocks {stand} stand, journaled in "
             "order")
+        crash_run = crash.check()
     finally:
         if prior is None:
             os.environ.pop("DOS_BUILD_PIPELINE", None)
@@ -1912,7 +2058,8 @@ def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
         f"{mean[False] / mean[True]:.4f}; build kernel launches in the "
         f"phase: {launches}")
     return {"runs": runs, "serial_s": mean[False],
-            "pipelined_s": mean[True], "blocks": n_blocks}, launches
+            "pipelined_s": mean[True], "blocks": n_blocks,
+            "crash_build": crash_run}, launches
 
 
 def lanes_path(g, dc, outdir: str, ref: dict, one_lane_ms: float) -> dict:
@@ -1956,6 +2103,7 @@ def lanes_path(g, dc, outdir: str, ref: dict, one_lane_ms: float) -> dict:
 
         qps = {}
         plain0 = cw.cuda_walk_batch.plain
+        programs0 = set(obs_device.snapshot())
         eng.walk_lanes = recording
         zero_launches()
         try:
@@ -1976,19 +2124,23 @@ def lanes_path(g, dc, outdir: str, ref: dict, one_lane_ms: float) -> dict:
             eng.walk_lanes = real_lanes
         peak = torch.cuda.max_memory_allocated() - base
         calls = 2 * len(rounds)
+        # the engine's obs.device entry of each new program key: one
+        # more call over the lanes, after the first batch's timed interval
+        captured = len(set(obs_device.snapshot()) - programs0)
         log(f"{tag} L={n_lanes}: engine over {n_lanes} lanes on {dev0} "
             f"loaded in {load_s:.2f} s; rounds "
             + ", ".join(f"{k} {v:.1f} q/s" for k, v in qps.items())
             + f" — answers and paths equal the one-lane engine's; walk "
-            f"launches {launches} ({calls} calls x {n_lanes} lanes), plain "
+            f"launches {launches} ({calls} calls + {captured} obs.device "
+            f"captures, x {n_lanes} lanes), plain "
             f"walks {plain}; peak device memory above the start "
             f"{peak / 2**30:.3f} GiB for a {fm_bytes / 2**30:.3f} GiB "
             f"table ({n_lanes} copies would be "
             f"{n_lanes * fm_bytes / 2**30:.3f} GiB)")
-        if launches != calls * n_lanes or plain:
+        if launches != (calls + captured) * n_lanes or plain:
             raise AssertionError(f"{tag} L={n_lanes}: {launches} walk "
                                  f"launches, {plain} plain walks; want "
-                                 f"{calls * n_lanes} and 0")
+                                 f"{(calls + captured) * n_lanes} and 0")
         if len(recorded) != calls:
             raise AssertionError(f"{tag} L={n_lanes}: {len(recorded)} "
                                  f"lane walks for {calls} calls")
@@ -2365,8 +2517,10 @@ def run() -> list[dict]:
         log(f"[host] done at {time.perf_counter() - T_START:.1f} s")
         heal, build_launches["heal"] = heal_path(
             ref, handoff, os.path.join(outdir, "index"))
-        del handoff
         log(f"[heal] done at {time.perf_counter() - T_START:.1f} s")
+        rpc_run = rpc_path(ref, handoff, host["round_s"])
+        del handoff
+        log(f"[rpc] done at {time.perf_counter() - T_START:.1f} s")
         reorder, build_launches["reorder"] = reorder_path(outdir, ref)
         log(f"[reorder] done at {time.perf_counter() - T_START:.1f} s")
         astar = astar_path(outdir, ref)
@@ -2381,6 +2535,7 @@ def run() -> list[dict]:
         "offline": offline["launches"],
         "offline-local": offline["local_launches"],
         "host": host["launches"], "heal": heal["launches"],
+        "rpc": rpc_run["launches"],
         "lanes": lanes["launches"], "multihost": mh["launches"]}
     raw_kernel["launches"] = sum(raw_kernel["launches_by_path"].values())
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
@@ -2395,6 +2550,7 @@ def run() -> list[dict]:
     raw_kernel["campaign"] = campaign
     raw_kernel["host"] = host
     raw_kernel["heal"] = heal
+    raw_kernel["rpc"] = rpc_run
     raw_kernel["lanes"] = lanes
     raw_kernel["multihost"] = mh
     raw_kernel["reorder"] = reorder
@@ -4588,6 +4744,318 @@ def heal_path(ref: dict, host: dict, campaign_index: str
             "rounds": per_round}, counts
 
 
+# ------------------------------------------------------------------ rpc path
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def socket_dir(path: str) -> str:
+    """``path`` as this process and its servers reach it: absolute while
+    a socket name under it fits a Unix socket address (108 bytes), else
+    relative to the working directory every process shares."""
+    return path if len(path) < 80 else os.path.relpath(path)
+
+
+def rpc_path(ref: dict, host: dict, host_round_s: list) -> dict:
+    """``[rpc]``, on ``[heal]``'s healed replicated index (8 ``mod``
+    workers, ``replication: 2``, one 512 MiB block a shard and a
+    replica): 8 port ``worker.server`` processes with RPC listeners on
+    Unix sockets under the run's directory (``DOS_TRANSPORT=rpc``,
+    ``DOS_RPC_SOCKET_DIR``), each with ``--metrics-dump``, one with
+    ``--obs-port``; worker 3's environment arms
+    ``kill-mid-batch;wid=3;times=1`` (exit 86). ``process_query
+    --backend host`` over RPC — the rounds, then ``-k 8 --extract``, with
+    ``--trace`` and ``--metrics-dump`` (breaker threshold 1, no retry).
+    Checked: worker 3 exits 86 on its first batch; ``failover_total``
+    counts every batch of shard 3, each answered by worker 4 (its
+    ``server_replica_batches_total``); worker 3's breaker is open at the
+    close and in the head's dump; ``parts.csv`` rows and ``paths.csv``
+    equal ``[host]``'s FIFO campaign's, every query finished; per-query
+    answers of an RPC batch a shard (shard 3's to worker 4) equal the
+    campaign's; every dump shows B1 launches equal to its batches plus
+    its ``obs.device`` captures (one launch a program key) and no plain
+    walk, and an ``obs.device`` ``table-search[cuda]`` entry;
+    the trace holds the servers' ``worker.search`` spans under the
+    head's batch trace ids; ``obs_metrics.json``; a ``/metrics`` scrape
+    in Prometheus text; the other servers stop on their token and exit
+    0, and ``nvidia-smi`` lists none of their PIDs. Logged, not claimed:
+    RPC round q/s beside ``[host]``'s FIFO q/s, the failover's seconds,
+    the phase's wall time."""
+    tag = "[rpc]"
+    t_phase = time.perf_counter()
+    card_txt = card_line()
+    card = torch.cuda.get_device_name(0)
+    g, queries = ref["g"], ref["queries"]
+    w, dead, holder = HOST_WORKERS, RPC_KILLED, (RPC_KILLED + 1) % HOST_WORKERS
+    conf = host["conf"][:-len(".json")] + "-r2.json"
+    run_dir = os.path.dirname(conf)
+    nfs = ClusterConfig.load(conf).nfs
+    socks = os.path.join(run_dir, "rpc-socks")
+    os.makedirs(socks)
+    fifos = {x: os.path.join(run_dir, f"rpc-worker{x}.fifo")
+             for x in range(w)}
+    dump = os.path.join(run_dir, "rpc-serve")
+    head_dump = os.path.join(run_dir, "rpc-head.json")
+    trace_path = os.path.join(run_dir, "rpc.trace.json")
+    out_rounds = os.path.join(run_dir, "rpc-rounds")
+    out_k = os.path.join(run_dir, f"rpc-k{CAMPAIGN_K}")
+    obs_port = free_port()
+    knobs = {"DOS_TRANSPORT": "rpc", "DOS_RPC_SOCKET_DIR": socket_dir(socks),
+             "DOS_CIRCUIT_THRESHOLD": "1", "DOS_RETRY_MAX": "0",
+             "DOS_SEND_TIMEOUT_S": str(HOST_SEND_TIMEOUT_S)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    fifo_names = (make_fifos.command_fifo_path,
+                  process_query.command_fifo_path)
+    make_fifos.command_fifo_path = process_query.command_fifo_path = \
+        fifos.__getitem__
+    procs: dict = {}
+    exits: dict = {}
+    breakers: list = []
+    real_shutdown = resilience.BreakerRegistry.shutdown
+
+    def shutdown(self, *a, **kw):
+        breakers.append(self.snapshot())
+        return real_shutdown(self, *a, **kw)
+
+    try:
+        os.environ.update(knobs)
+        t_launch = time.perf_counter()
+        for x in range(w):
+            cmd = make_fifos.worker_server_cmd(x, conf, device="cuda",
+                                               metrics_dump=dump)
+            if x == RPC_OBS_WORKER:
+                cmd += f" --obs-port {obs_port}"
+            env = dict(os.environ)
+            if x == dead:
+                env["DOS_FAULTS"] = f"kill-mid-batch;wid={dead};times=1"
+            with open(os.path.join(nfs, f"rpc-{x}.log"), "w") as lf:
+                procs[x] = subprocess.Popen(cmd.split(), env=env, cwd=ROOT,
+                                            stdout=lf,
+                                            stderr=subprocess.STDOUT)
+        ready = wait_ready(fifos, procs, nfs, t_launch, HOST_READY_S)
+        if len(ready) != w:
+            raise AssertionError(f"{tag} servers {sorted(set(fifos) - set(ready))}"
+                                 f" did not answer a ping within "
+                                 f"{HOST_READY_S} s")
+        pids = {x: p.pid for x, p in procs.items()}
+        ready_s = max(s for _, s in ready.values())
+        log(f"{tag} 8 servers (port worker.server, RPC listeners on Unix "
+            f"sockets) ready {ready_s:.2f} s after launch")
+        c0 = obs_metrics.REGISTRY.snapshot()["counters"]
+        resilience.BreakerRegistry.shutdown = shutdown
+        with RoundTimer() as rt:
+            rcs = [process_query.main(["-c", conf, "-o", out_rounds,
+                                       "--trace", trace_path,
+                                       "--metrics-dump", head_dump])]
+            # --trace turned span collection on for the process: off
+            # again, so no later run records spans
+            obs_trace.enable(False)
+            obs_trace.set_trace_id(None)
+            obs_trace.clear()
+            rcs.append(process_query.main(
+                ["-c", conf, "-o", out_k, "-k", str(CAMPAIGN_K),
+                 "--extract"]))
+        c1 = obs_metrics.REGISTRY.snapshot()["counters"]
+        procs[dead].wait(timeout=60)
+        if procs[dead].returncode != KILL_EXIT_CODE:
+            raise AssertionError(f"{tag} worker {dead} exit code "
+                                 f"{procs[dead].returncode}, not "
+                                 f"{KILL_EXIT_CODE}")
+        # one RPC batch a shard with its per-query answers: shard 3's to
+        # worker 4, the holder of its replica
+        owner = host["dc"].worker_of(queries[:, 1])
+        per_query = {}
+        for shard in range(w):
+            mine = np.ascontiguousarray(queries[owner == shard], np.int64)
+            to = holder if shard == dead else shard
+            client = rpc.RpcClient(rpc.endpoint_for(to), timeout_s=120.0)
+            try:
+                fr = client.call({"kind": "req", "config": {"results": True},
+                                  "diff": "-"}, [mine])
+            finally:
+                client.close()
+            per_query[shard] = [np.array(a) for a in fr.arrays]
+            want = [np.asarray(a)[owner == shard]
+                    for a in ref["direct"]["free-flow"]]
+            for got_a, want_a in zip(per_query[shard], want):
+                if not np.array_equal(got_a.astype(np.int64),
+                                      np.asarray(want_a).astype(np.int64)):
+                    raise AssertionError(f"{tag} shard {shard}'s RPC "
+                                         "answers differ from the "
+                                         "campaign's")
+        scrape = urllib.request.urlopen(
+            f"http://127.0.0.1:{obs_port}/metrics", timeout=30)
+        body, ctype = scrape.read().decode(), scrape.headers["Content-Type"]
+        apps = compute_apps()
+    except BaseException:
+        log_tails(nfs)
+        raise
+    finally:
+        resilience.BreakerRegistry.shutdown = real_shutdown
+        live = {x: p for x, p in procs.items() if x != dead}
+        exits = stop_servers({x: fifos[x] for x in live}, live)
+        if dead in procs and procs[dead].poll() is None:
+            procs[dead].kill()
+            procs[dead].wait(timeout=30)
+        make_fifos.command_fifo_path, process_query.command_fifo_path = \
+            fifo_names
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if any(exits.values()):
+        raise AssertionError(f"{tag} server exit codes {exits}")
+    after = set(compute_apps() or {}) & set(pids.values())
+    if after:
+        raise AssertionError(f"{tag} nvidia-smi still lists {sorted(after)}")
+    if rcs != [0, 0]:
+        raise AssertionError(f"{tag} process_query exit codes {rcs}")
+    log(f"{tag} worker {dead} exited {KILL_EXIT_CODE} on its first batch "
+        f"(kill-mid-batch); the other servers stopped on their token and "
+        f"exited 0; nvidia-smi lists none of their PIDs")
+
+    # failover: every batch of shard 3 went to worker 4
+    shard_batches = 2 * 2
+    delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in (
+        "failover_total", "head_circuit_open_total",
+        "head_circuit_rejected_total", "head_batches_failed_total")}
+    with open(head_dump) as f:
+        hd = json.load(f)
+    key3 = repr(("localhost", dead))
+    if (delta["failover_total"] != shard_batches
+            or delta["head_batches_failed_total"] != 0
+            or len(breakers) != 2
+            or any(b[key3]["state"] != "open" for b in breakers)
+            or hd["gauges"]["head_circuits_open"] < 1
+            or hd["counters"]["failover_total"] < 2):
+        raise AssertionError(f"{tag} failover: {delta}, breakers "
+                             f"{breakers}, head dump gauges {hd['gauges']}")
+    log(f"{tag} failover_total {delta['failover_total']} == the "
+        f"{shard_batches} batches of shard {dead} (2 runs x 2 rounds); "
+        f"breaker of worker {dead} open at each run's close "
+        f"(head_circuit_open_total +{delta['head_circuit_open_total']}, "
+        f"rejected +{delta['head_circuit_rejected_total']}); the head's "
+        f"dump: head_circuits_open {hd['gauges']['head_circuits_open']}")
+
+    # answers: parts.csv and paths.csv equal [host]'s FIFO campaign
+    def rows(path):
+        return [{k: v for k, v in r.items() if not k.startswith("t_")}
+                for r in read_parts(path)]
+    for got_p, want_p in ((os.path.join(out_rounds, "parts.csv"),
+                           host["parts"]),
+                          (os.path.join(out_k, "parts.csv"),
+                           host["parts_k"])):
+        want_rows = [{k: v for k, v in r.items() if not k.startswith("t_")}
+                     for r in want_p]
+        if rows(got_p) != want_rows:
+            raise AssertionError(f"{tag} {got_p} != [host]'s rows")
+    rpc_paths = np.loadtxt(os.path.join(out_k, "paths.csv"), delimiter=",",
+                           skiprows=1, dtype=np.int64)
+    order = np.concatenate([np.flatnonzero(owner == x) for x in range(w)])
+    in_order = np.empty_like(rpc_paths)
+    in_order[order] = rpc_paths
+    if not np.array_equal(in_order, host["paths_in_order"]):
+        raise AssertionError(f"{tag} paths.csv != [host]'s")
+    if not os.path.exists(os.path.join(out_rounds, "obs_metrics.json")):
+        raise AssertionError(f"{tag} no obs_metrics.json")
+    n = len(queries)
+    log(f"{tag} parts.csv of both runs equals [host]'s FIFO campaign row "
+        f"for row (timers aside; {n} queries, every one finished), "
+        f"paths.csv in query order equals [host]'s; per-query answers of "
+        f"one RPC batch a shard (shard {dead}'s to worker {holder}) equal "
+        "the campaign's; obs_metrics.json written")
+
+    # the servers' dumps
+    launches, served, programs = 0, {}, {}
+    for x in range(w):
+        if x == dead:
+            continue
+        with open(f"{dump}.w{x}.json") as f:
+            sv = json.load(f)
+        c = sv["counters"]
+        progs = {k: v for k, v in sv["device_programs"].items()
+                 if k.startswith("table-search[cuda]")}
+        if (sv["device"]["name"] != card or sv["pid"] != pids[x]
+                or c["cuda_walk_batch.launches"]
+                != c["worker_batches_total"] + len(sv["device_programs"])
+                or c["cuda_walk_batch.plain"] != 0
+                or c["rpc_server_batches_total"] != c["worker_batches_total"]
+                or not progs or not all(
+                    {"bytes_accessed", "hbm_bytes", "kernel_ms"} <= set(e)
+                    and e["timer"] == "cuda-events"
+                    for e in progs.values())):
+            raise AssertionError(f"{tag} server {x} dump: {c}, {progs}")
+        launches += c["cuda_walk_batch.launches"]
+        served[x] = (c["worker_batches_total"],
+                     c["server_replica_batches_total"])
+        programs[x] = progs
+    if served[holder][1] != shard_batches + 1:
+        raise AssertionError(f"{tag} worker {holder} replica batches "
+                             f"{served[holder]}")
+    first, e = min(programs[0].items())
+    log(f"{tag} server dumps: B1 launches == batches served + obs.device "
+        f"captures (one launch a program key) in each (total {launches}), "
+        f"0 plain walks; batches, replica batches by "
+        f"worker {served}; worker {holder} answered shard {dead}'s "
+        f"{shard_batches} campaign batches and the direct one as its "
+        f"replica; obs.device {first}: bytes_accessed "
+        f"{e['bytes_accessed']:.4g} (closed-form upper count), hbm_bytes "
+        f"{e['hbm_bytes']}, kernel_ms {e['kernel_ms']:.4f} (CUDA events) "
+        f"on {card_txt}")
+
+    # the trace: the servers' worker.search spans under the head's ids
+    with open(trace_path) as f:
+        evs = json.load(f)["traceEvents"]
+    head_ids = {ev["args"].get("trace_id") for ev in evs
+                if ev["name"] == "head.send"}
+    searches = [ev for ev in evs if ev["name"] == "worker.search"]
+    if (not searches or any(ev["args"].get("trace_id") not in head_ids
+                            for ev in searches)
+            or {ev["pid"] for ev in searches} & {os.getpid()}
+            or len({ev["pid"] for ev in searches}) != w - 1):
+        raise AssertionError(f"{tag} trace: {len(searches)} worker.search "
+                             f"spans, pids {sorted({e['pid'] for e in searches})}")
+    sends = [ev for ev in evs if ev["name"] == "head.send"
+             and ev["args"].get("shard") == dead]
+    fail_ms = [ev["dur"] / 1e3 for ev in sends if ev["args"]["wid"] == dead]
+    over_ms = [ev["dur"] / 1e3 for ev in sends if ev["args"]["wid"] != dead]
+    log(f"{tag} trace: {len(searches)} worker.search spans from {w - 1} "
+        f"server pids, each under a head.send trace id of the head "
+        f"({len(evs)} events); shard {dead}'s sends: to worker {dead} "
+        f"{fail_ms} ms (the batch it died on), to worker {holder} "
+        f"{[round(x, 3) for x in over_ms]} ms")
+    if not (ctype.startswith("text/plain; version=0.0.4")
+            and "# TYPE rpc_server_batches_total counter" in body
+            and "device_program_bytes_accessed{" in body):
+        raise AssertionError(f"{tag} /metrics answered {ctype}: "
+                             f"{body[:300]}")
+    log(f"{tag} /metrics of worker {RPC_OBS_WORKER} (--obs-port): "
+        f"Prometheus text ({ctype}), {len(body.splitlines())} lines")
+
+    names = ["free-flow", "diff", f"k{CAMPAIGN_K} free-flow",
+             f"k{CAMPAIGN_K} diff"]
+    for name, sec, fifo_s in zip(names, rt.seconds, host_round_s):
+        log(f"{tag} round {name}: {n} queries in {sec:.4f} s = "
+            f"{n / sec:.1f} q/s over RPC on the host clock ([host] FIFO "
+            f"{n / fifo_s:.1f} q/s)")
+    wall = time.perf_counter() - t_phase
+    log(f"{tag} failover: round free-flow {rt.seconds[0]:.4f} s with the "
+        f"death and the replica's first load, round diff "
+        f"{rt.seconds[1]:.4f} s: {rt.seconds[0] - rt.seconds[1]:.4f} s "
+        f"added; phase wall time {wall:.1f} s on {card_txt}")
+    return {"launches": launches, "round_s": rt.seconds[:4],
+            "fifo_round_s": list(host_round_s), "ready_s": ready_s,
+            "failover_total": delta["failover_total"],
+            "failover_added_s": rt.seconds[0] - rt.seconds[1],
+            "failed_send_ms": fail_ms, "failover_send_ms": over_ms,
+            "program": {first: e}, "wall_s": wall,
+            "served": {str(k): v for k, v in served.items()}}
+
+
 # -------------------------------------------------------------- reorder path
 
 def reorder_path(outdir: str, ref: dict) -> tuple[dict, dict[str, int]]:
@@ -6054,7 +6522,8 @@ def offline_local(outdir: str, tag: str) -> dict:
     campaign's: the server's one-worker index is built and saved by
     ``offline.LocalEngine``, and the ``--local`` run's counts must equal
     the in-process run's on the same files, one B1 launch a part and
-    round in the server."""
+    round in the server, and one an ``obs.device`` capture of a new
+    program key."""
     d = os.path.join(outdir, "offline-local")
     os.makedirs(d, exist_ok=True)
     g0 = synth_road_network(OFFLINE_LOCAL_NODES, seed=SEED)
@@ -6092,6 +6561,7 @@ def offline_local(outdir: str, tag: str) -> dict:
     offline_cli.DEFAULT_ANSWER_FIFO = os.path.join(d, "offline.answer")
     out = os.path.join(d, "out-local")
     plain0 = cw.cuda_walk_batch.plain
+    programs0 = set(obs_device.snapshot())
     zero_launches()
     try:
         t0 = time.perf_counter()
@@ -6100,6 +6570,9 @@ def offline_local(outdir: str, tag: str) -> dict:
         local_s = time.perf_counter() - t0
         launches = read_launches()[0]
         plain = cw.cuda_walk_batch.plain - plain0
+        # the server engine's obs.device entry of each new program key:
+        # one more launch, after the key's first batch
+        captured = len(set(obs_device.snapshot()) - programs0)
     finally:
         offline_cli.DEFAULT_ANSWER_FIFO = real_answer
         stopped = wserver.stop_server(fifo)
@@ -6112,8 +6585,10 @@ def offline_local(outdir: str, tag: str) -> dict:
         f"{g.n}-node road network: its one-worker index built and saved by "
         f"LocalEngine in {build_s:.3f} s, loaded by the server in "
         f"{load_s:.3f} s; rc {rc}, {len(got)} rows in {local_s:.3f} s; "
-        f"walk launches in the server {launches}, plain {plain}")
-    if (rc or got != want or launches != 2 * OFFLINE_PARTS or plain
+        f"walk launches in the server {launches} ({2 * OFFLINE_PARTS} "
+        f"batches + {captured} obs.device captures), plain {plain}")
+    if (rc or got != want or launches != 2 * OFFLINE_PARTS + captured
+            or plain
             or sum(x[1] for x in got) != 2 * N_QUERIES):
         raise AssertionError(f"{tag} --local: rc {rc}, counts {got} != "
                              f"the in-process run's {want}, launches "

@@ -8,9 +8,10 @@ parse in both packages, unknown flags pass through
 ``--device {cuda,cpu}`` (default ``cuda``), the device the in-process
 CLIs build and walk on.
 
-Flags whose machinery is not ported (``--profile``, ``--trace``,
-``--metrics-dump``, ``--obs-port``, the host-backend and FIFO flags)
-still parse; the CLIs refuse them where they would have acted.
+Flags whose machinery is not ported still parse; the CLIs refuse them
+where they would have acted. ``--profile`` records with
+``torch.profiler`` (a Chrome trace in the directory) where the JAX
+package uses ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -150,8 +151,8 @@ def build_parser(prog: str | None = None) -> argparse.ArgumentParser:
                           "conf's partmethod ('tpu' = the in-process "
                           "device path, the name conf files carry).")
     new.add_argument("--profile", type=str, default="",
-                     help="Write a profiler trace to this directory "
-                          "(not ported).")
+                     help="Write a torch.profiler Chrome trace of the "
+                          "campaign to this directory.")
     new.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                      help="Device the in-process CLIs build and walk "
                           "on (default: cuda; raises without a GPU).")

@@ -31,13 +31,32 @@ Two backends behind one stats schema:
   2-line request through each worker's command FIFO, one CSV stats line
   back (``transport.fifo``), driven concurrently by a thread pool, with
   explicit failure rows and retries. The resident ``worker.server``
-  processes (``make_fifos``) answer on their own devices. A failed batch
-  is booked in ``degraded.json`` and sets the exit code.
+  processes (``make_fifos``) answer on their own devices. With
+  ``DOS_TRANSPORT=rpc`` (or ``auto``: RPC, each lane with no listener
+  falling back to the FIFO wire for the rest of the process) each batch
+  rides one persistent socket a worker instead (``transport.rpc``: a
+  raw int64 frame segment, no query file; paths and trace payloads
+  land as the same sidecar files). Every worker has a circuit breaker
+  (``transport.resilience``; probed through its command FIFO), and with
+  ``replication`` R > 1 a shard's batch walks its replica chain
+  (``send_failover``): a dead or failed primary's batch goes to the next
+  holder of the shard's replica (``failover_total``). A batch every
+  candidate refused or failed is booked in ``degraded.json`` and sets
+  the exit code.
 
 Artifacts (``-o DIR``): ``metrics.json`` (phase timings), ``data.json``
-(full arg dump), ``parts.csv`` (per-worker rows), ``degraded.json`` when
-a batch failed and, with ``--extract -k K``, ``paths.csv`` — reference
+(full arg dump), ``parts.csv`` (per-worker rows), ``obs_metrics.json``
+(the metrics registry's snapshot), ``degraded.json`` when a batch failed
+and, with ``--extract -k K``, ``paths.csv`` — reference
 ``process_query.py:230-239``, with its multi-worker CSV crash fixed.
+
+Observability (``obs``): ``--trace PATH`` writes a Chrome trace of the
+head's spans with the workers' spans merged in (each host batch carries
+a trace id on the wire); ``--metrics-dump PATH`` the registry's
+snapshot; ``--obs-port P`` (``DOS_OBS_PORT``) serves ``/metrics``,
+``/healthz`` and ``/statusz`` while the campaign runs; ``--profile DIR``
+records the campaign with ``torch.profiler`` (CPU and, on the card, CUDA
+activity) and writes a Chrome trace into ``DIR``.
 
 Multi-controller campaigns (a ``multihost`` key in the conf, the process
 id from it or ``$DOS_PROCESS_ID``; ``parallel.multihost``, gloo): every
@@ -51,11 +70,9 @@ must share. The conf's ``mesh_shape`` lays the resident oracle over a
 every cell names it and a round stays one walk.
 
 Not ported, and refused with the ``ROADMAP.md`` item that ports each:
-``--alg ch`` (native engine, A15) in-process,
-``--trace``/``--metrics-dump``/``--profile``/``--obs-port`` with
-``obs_metrics.json`` (A14), and on the host backend the RPC lanes
-(``DOS_TRANSPORT=rpc/auto``), breakers, membership re-reads and the
-failover over replicas that replication above 1 needs (A14).
+``--alg ch`` (native engine, A15) in-process, and on the host backend an
+elastic fleet's ``membership.json`` with its per-round re-reads
+(A14.3).
 
     python -m distributed_oracle_search_tpu_torch.cli.process_query \\
         -c conf.json -o out/
@@ -63,7 +80,9 @@ failover over replicas that replication above 1 needs (A14).
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import dataclasses
 import os
 import sys
 import time
@@ -72,6 +91,9 @@ import numpy as np
 
 from .args import get_time_ns, parse_args
 from ..data.formats import read_diff, read_scen, xy_node_count
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..obs.http import start_obs_server
 from ..ops.batched_astar import astar_batch_np
 from ..parallel.mesh import device_pool, mesh_from_config
 from ..parallel.multihost import (
@@ -79,6 +101,8 @@ from ..parallel.multihost import (
 )
 from ..parallel.partition import DistributionController
 from ..transport import fifo as fifo_transport
+from ..transport import resilience
+from ..transport import rpc as rpc_transport
 from ..transport.fifo import answer_fifo_path, command_fifo_path, fan_out
 from ..transport.wire import (
     STATS_HEADER, Request, RuntimeConfig, StatsRow, paths_file_for,
@@ -88,7 +112,7 @@ from ..utils.atomicio import (
     atomic_write_json, atomic_writer, sweep_stale_artifacts,
 )
 from ..utils.config import ClusterConfig, mesh_layout, test_config
-from ..utils.env import env_cast, env_flag, env_str
+from ..utils.env import env_cast, env_flag
 from ..utils.log import get_logger, set_verbosity
 from ..utils.timer import Timer
 
@@ -100,6 +124,21 @@ log = get_logger(__name__)
 EXIT_CLEAN = 0
 EXIT_DEGRADED = 3
 EXIT_FAILED = 4
+
+# head-side phase metrics (obs/__init__.py maps these against the
+# worker-side histograms and the wire stats fields)
+H_PREPARE = obs_metrics.histogram(
+    "head_prepare_seconds", "per-batch query-file write")
+H_SEND = obs_metrics.histogram(
+    "head_send_seconds",
+    "FIFO round-trip: request push until the stats line lands")
+H_PARTITION = obs_metrics.histogram(
+    "head_partition_seconds", "campaign partition/workload setup")
+H_SEARCH = obs_metrics.histogram(
+    "head_search_seconds", "in-process per-round search call")
+H_BATCHES = obs_metrics.counter("head_batches_total")
+H_BATCH_FAIL = obs_metrics.counter(
+    "head_batches_failed_total", "batches whose stats row came back FAIL")
 
 
 def runtime_config(args) -> RuntimeConfig:
@@ -373,13 +412,18 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
     # sequential rounds (the fused walk serves the unlimited default).
     fused = None
     if not use_astar and len(diffs) > 1 and args.k_moves < 0:
-        with Timer() as fprep:
+        with Timer() as fprep, obs_trace.span("head.prepare", fused=True):
             w_list = [None if d == "-"
                       else graph.weights_with_diff(read_diff(d))
                       for d in diffs]
-        with Timer() as fsearch:
+        with Timer() as fsearch, obs_trace.span("head.search", fused=True,
+                                                rounds=len(diffs)):
             f_cost, f_plen, f_fin = oracle.query_multi(
                 queries, w_list, active_worker=args.worker)
+        # the histogram stays per round, like the stats rows: one equal
+        # share per fused round
+        for _ in diffs:
+            H_SEARCH.observe(fsearch.interval / len(diffs))
         fused = (f_cost, f_plen, f_fin, fprep.interval / len(diffs),
                  fsearch.interval / len(diffs))
         log.info("fused %d diff rounds in one walk (%.3fs)", len(diffs),
@@ -392,10 +436,13 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
             cost, plen, fin = fused[0][di], fused[1], fused[2]
             prep_iv, search_iv = fused[3], fused[4]
         else:
-            with Timer() as prep:
+            with Timer() as prep, obs_trace.span("head.prepare",
+                                                 diff=diff):
                 w_query = (None if diff == "-"
                            else graph.weights_with_diff(read_diff(diff)))
-            with Timer() as search:
+            with Timer() as search, obs_trace.span(
+                    "head.search", diff=diff,
+                    alg="astar" if use_astar else "table-search"):
                 if use_astar:
                     deadline = (time.perf_counter() + time_ns / 1e9
                                 if time_ns else None)
@@ -419,6 +466,7 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
                         queries, w_query=w_query, k_moves=args.k_moves,
                         active_worker=args.worker)
             prep_iv, search_iv = prep.interval, search.interval
+            H_SEARCH.observe(search_iv)
         total_moves = int(plen[active].sum())
         total_size = int(active.sum())
         rows = []
@@ -475,33 +523,127 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
 
 # ----------------------------------------------------------------- host path
 
+#: DOS_TRANSPORT=auto lanes that proved to have no RPC listener — sticky
+#: for the process: a pure-FIFO fleet pays ONE failed dial and ONE
+#: warning a lane, not a connect attempt a batch
+_RPC_FALLBACK_LANES: set = set()
+
+
 def send_queries(host: str, wid: int, part: np.ndarray, rconf: RuntimeConfig,
                  nfs: str, diff: str, t_partition: float = 0.0,
                  timeout: float | None = fifo_transport.DEFAULT_TIMEOUT,
-                 round_idx: int = 0,
-                 policy: fifo_transport.RetryPolicy | None = None):
+                 trace_id: str = "", round_idx: int = 0,
+                 policy: fifo_transport.RetryPolicy | None = None,
+                 registry: resilience.BreakerRegistry | None = None,
+                 candidates=None):
     """One shard's batch: write the query file, push the request through
     the command FIFO, read the stats line (parity: reference
-    ``process_query.py:82-111``). The batch goes to the shard's primary
-    worker only.
+    ``process_query.py:82-111``) — or, under ``DOS_TRANSPORT=rpc/auto``,
+    send it over the worker's persistent socket. A non-empty
+    ``trace_id`` stamps the batch's head-side spans AND rides the wire so
+    the worker captures its half under the same id.
 
-    Returns ``(row_list, failure)``: ``failure`` is None on success, else
-    a dict describing the failed batch for ``degraded.json``."""
-    qfile = os.path.join(nfs, f"query.{host}{wid}")
-    with Timer() as prep:
-        write_query_file(qfile, part)
-    req = Request(rconf, qfile, answer_fifo_path(nfs, host, wid), diff)
-    row = fifo_transport.send_with_retry(
-        host, req, command_fifo_path(wid), timeout=timeout, policy=policy)
-    out = row.as_list(t_prepare=prep.interval, t_partition=t_partition,
-                      size=len(part))
-    if row.ok:
-        return out, None
-    log.error("worker %d on %s failed its batch (round %d)", wid, host,
-              round_idx)
-    return out, {"wid": wid, "host": host, "round": round_idx,
-                 "diff": diff, "size": int(len(part)),
-                 "reason": "send-failed"}
+    ``candidates``: the shard's replica chain as ``(host, wid)`` pairs in
+    failover order (default: just the primary — the R=1 behavior). A
+    candidate whose circuit breaker is OPEN is skipped without a send,
+    and when the retries are spent on one candidate the batch goes to
+    the next (``failover_total``); only a batch every replica refused or
+    failed is booked degraded.
+
+    Returns ``(row_list, failure, served)``: ``failure`` is None on
+    success or a dict describing the failed batch for ``degraded.json``,
+    and ``served`` is ``(host, wid, queryfile)`` of the worker that
+    answered (None on failure) — the paths and trace collectors read the
+    sidecars beside the query file that worker saw."""
+    prep_total = [0.0]
+    last_qfile = [""]
+
+    def _attempt(key):
+        c_host, c_wid = key
+        # a re-routed batch must NOT share another batch's file or FIFO
+        # names: shard w's failed-over batch and the serving worker's own
+        # batch run in the same round. Bare names are kept for the
+        # worker's own shard; any other pairing suffixes the shard id and
+        # the (always 0, static-fleet) membership epoch, as the JAX head
+        # does
+        suffix = ("" if c_wid == wid
+                  else f".s{wid}.e{getattr(rconf, 'epoch', 0)}")
+        qfile = os.path.join(nfs, f"query.{c_host}{c_wid}{suffix}")
+        rc = (dataclasses.replace(rconf, trace_id=trace_id)
+              if trace_id else rconf)
+        # streaming lane: the batch rides a persistent socket as a raw
+        # int64 frame segment — no query file, no transfer script, no
+        # FIFO rendezvous; paths and trace payloads still land as the
+        # sidecars NEXT TO the (never written) query-file name. `auto`
+        # falls through to the FIFO wire for a worker with no listener
+        mode = rpc_transport.resolve_transport()
+        if mode in ("rpc", "auto") and (
+                mode == "rpc"
+                or (c_host, c_wid) not in _RPC_FALLBACK_LANES):
+            try:
+                with Timer() as send, obs_trace.span(
+                        "head.send", wid=c_wid, shard=wid, diff=diff,
+                        trace_id=trace_id):
+                    row = rpc_transport.send_batch_with_retry(
+                        c_host, c_wid, part, rc, diff, timeout=timeout,
+                        policy=policy, sidecar_base=qfile)
+                H_SEND.observe(send.interval)
+                last_qfile[0] = qfile
+                return row
+            except rpc_transport.RpcUnavailable as e:
+                if mode == "rpc":
+                    log.error("worker %d on %s has no rpc listener "
+                              "(DOS_TRANSPORT=rpc): %s", c_wid, c_host, e)
+                    return StatsRow.failed()
+                _RPC_FALLBACK_LANES.add((c_host, c_wid))
+                log.warning("worker %d on %s has no rpc listener; lane "
+                            "falls back to the FIFO wire", c_wid, c_host)
+        with Timer() as prep, obs_trace.span("head.prepare", wid=c_wid,
+                                             shard=wid, trace_id=trace_id):
+            write_query_file(qfile, part)
+        H_PREPARE.observe(prep.interval)
+        prep_total[0] += prep.interval
+        last_qfile[0] = qfile
+        req = Request(rc, qfile,
+                      answer_fifo_path(nfs, c_host, c_wid) + suffix, diff)
+        with Timer() as send, obs_trace.span("head.send", wid=c_wid,
+                                             shard=wid, diff=diff,
+                                             trace_id=trace_id):
+            row = fifo_transport.send_with_retry(
+                c_host, req, command_fifo_path(c_wid), timeout=timeout,
+                policy=policy, wid=c_wid)
+        H_SEND.observe(send.interval)
+        return row
+
+    candidates = list(candidates) if candidates else [(host, wid)]
+    row, served, reasons = resilience.send_failover(
+        candidates, _attempt, registry=registry)
+    H_BATCHES.inc()
+    if row is None:
+        row = StatsRow.failed()
+    if served is not None:
+        if served != candidates[0]:
+            log.warning("shard %d batch failed over %s -> worker %d on %s",
+                        wid, list(reasons), served[1], served[0])
+        return (row.as_list(t_prepare=prep_total[0],
+                            t_partition=t_partition, size=len(part)),
+                None, (served[0], served[1], last_qfile[0]))
+    H_BATCH_FAIL.inc()
+    # "circuit-open" when no candidate was even attempted, else
+    # "send-failed"; the per-candidate trail rides along
+    reason = ("circuit-open"
+              if all(r == "circuit-open" for _, r in reasons)
+              else "send-failed")
+    log.error("shard %d batch failed on every replica: %s", wid,
+              [(k[1], r) for k, r in reasons])
+    failure = {"wid": wid, "host": host, "round": round_idx,
+               "diff": diff, "size": int(len(part)), "reason": reason}
+    if len(candidates) > 1:
+        failure["replicas_tried"] = [
+            {"host": k[0], "wid": k[1], "reason": r} for k, r in reasons]
+    return (row.as_list(t_prepare=prep_total[0],
+                        t_partition=t_partition, size=len(part)),
+            failure, None)
 
 
 def send_timeout_s(args) -> float:
@@ -517,39 +659,104 @@ def send_timeout_s(args) -> float:
                (get_time_ns(args) / 1e9) * 10)
 
 
+def replica_candidates(conf: ClusterConfig, dc: DistributionController,
+                       shard: int) -> list[tuple[str, int]]:
+    """``shard``'s failover order as ``(host, wid)`` pairs: its replica
+    chain, owner first (the JAX head's ``membership.route_candidates`` on
+    a static fleet)."""
+    out: list[int] = []
+    for c in dc.replica_workers(shard):
+        if int(c) not in out:
+            out.append(int(c))
+    return [(conf.workers[c % len(conf.workers)], c) for c in out]
+
+
 def run_host(conf: ClusterConfig, args, queries, dc, diffs,
              t_partition: float = 0.0):
-    """Every diff round over the resident FIFO servers, each round's
-    batches sent concurrently; returns ``(stats, paths, failures)``."""
-    transport = (env_str("DOS_TRANSPORT", "fifo") or "fifo").strip().lower()
-    if transport in ("rpc", "auto"):
-        raise SystemExit(f"DOS_TRANSPORT={transport}: the RPC lanes are "
-                         "not ported (ROADMAP.md A14)")
+    """Every diff round over the resident servers, each round's batches
+    sent concurrently; returns ``(stats, paths, failures)``."""
     rconf = runtime_config(args)
     groups = dc.group_queries(queries, active_worker=args.worker)
     timeout = send_timeout_s(args)
-    policy = fifo_transport.RetryPolicy.from_env()
+    transport_mode = rpc_transport.resolve_transport()
+    if transport_mode != "fifo":
+        log.info("campaign data plane: DOS_TRANSPORT=%s (persistent "
+                 "sockets%s)", transport_mode,
+                 "; per-lane FIFO fallback" if transport_mode == "auto"
+                 else "")
     # a killed transfer script never reaches its `rm -f`: stale answer
-    # FIFOs go before the first batch, stale build debris with them
+    # FIFOs go before the first batch, stale build debris with them;
+    # retries follow the env-tuned backoff policy, and each worker gets
+    # a circuit breaker whose background probes ping through the same
+    # command FIFO the batches use
     fifo_transport.clean_stale_answer_fifos(conf.nfs)
     sweep_stale_artifacts(conf.outdir)
-    jobs = [(conf.workers[wid], wid, part)
-            for wid, part in sorted(groups.items())]
+    policy = fifo_transport.RetryPolicy.from_env()
+    registry = resilience.BreakerRegistry(
+        probe_fn=lambda key: fifo_transport.probe(
+            key[0], key[1], command_fifo=command_fifo_path(key[1]),
+            nfs=conf.nfs))
+    # per-batch trace ids: campaign id + worker + round, stamped on the
+    # head spans and sent over the wire (obs.trace wire extension)
+    tracing = obs_trace.enabled()
+    base_tid = (obs_trace.current_trace_id()
+                or obs_trace.new_trace_id()) if tracing else ""
     stats, paths, failures = [], None, []
+    try:
+        stats, paths, failures = _run_host_rounds(
+            conf, args, dc, diffs, groups, rconf, t_partition, timeout,
+            tracing, base_tid, policy, registry)
+    finally:
+        registry.shutdown()
+        # persistent RPC connections live for the whole campaign
+        rpc_transport.close_clients()
+    if failures:
+        log.error("campaign degraded: %d failed batch(es) across "
+                  "workers %s", len(failures),
+                  sorted({f["wid"] for f in failures}))
+    return stats, paths, failures
+
+
+def _run_host_rounds(conf, args, dc, diffs, groups, rconf, t_partition,
+                     timeout, tracing, base_tid, policy, registry):
+    stats, paths, failures = [], None, []
+    jobs = [(conf.workers[int(dc.owner_of(wid)) % len(conf.workers)], wid,
+             part) for wid, part in sorted(groups.items())]
     for di, diff in enumerate(diffs):
         results = fan_out(jobs, lambda j: send_queries(
             j[0], j[1], j[2], rconf, conf.nfs, diff,
-            t_partition=t_partition, timeout=timeout, round_idx=di,
-            policy=policy))
-        stats.append([row for row, _failure in results])
-        failures.extend(f for _row, f in results if f is not None)
+            t_partition=t_partition, timeout=timeout,
+            trace_id=f"{base_tid}/w{j[1]}.d{di}" if tracing else "",
+            round_idx=di, policy=policy, registry=registry,
+            candidates=replica_candidates(conf, dc, j[1])))
+        stats.append([row for row, _failure, _served in results])
+        failures.extend(f for _row, f, _served in results if f is not None)
+        served_by = {wid: served for (_h, wid, _p), (_r, _f, served)
+                     in zip(jobs, results) if served is not None}
+
+        def served_qfile(host, wid):
+            # sidecars sit next to the query file of the worker that
+            # SERVED the batch, which failover may have moved
+            return served_by.get(wid, (host, wid, os.path.join(
+                conf.nfs, f"query.{host}{wid}")))[2]
+
+        if tracing:
+            # merge the workers' span sidecars for this round (absent
+            # when a worker predates the wire extension: skip quietly)
+            for host, wid, _part in jobs:
+                sidecar = obs_trace.trace_sidecar_for(served_qfile(host,
+                                                                   wid))
+                try:
+                    obs_trace.ingest(obs_trace.read_events(sidecar))
+                    os.remove(sidecar)
+                except (OSError, ValueError):
+                    log.debug("no trace sidecar from worker %d", wid)
         if rconf.extract and paths is None:
             # prefixes follow free-flow moves -> diff-invariant; collect
             # each worker's .paths file from the first round only
             parts = []
             for host, wid, part in jobs:
-                pfile = paths_file_for(
-                    os.path.join(conf.nfs, f"query.{host}{wid}"))
+                pfile = paths_file_for(served_qfile(host, wid))
                 try:
                     nodes, moves = read_paths_file(pfile)
                 except (OSError, ValueError) as e:
@@ -560,10 +767,6 @@ def run_host(conf: ClusterConfig, args, queries, dc, diffs,
                     [part, moves[:, None], nodes], axis=1))
             if parts:
                 paths = np.concatenate(parts, axis=0)
-    if failures:
-        log.error("campaign degraded: %d failed batch(es) across "
-                  "workers %s", len(failures),
-                  sorted({f["wid"] for f in failures}))
     return stats, paths, failures
 
 
@@ -581,33 +784,31 @@ def run(conf: ClusterConfig, args):
             "the reordered files (build + serve then agree by "
             "construction).")
     scen = conf.scenfile or args.scenario
-    with Timer() as t_read:
+    with Timer() as t_read, obs_trace.span("head.read", scen=scen):
         queries = read_scen(scen)
     log.info("read %d queries from %s", len(queries), scen)
 
-    with Timer() as t_workload:
+    with Timer() as t_workload, obs_trace.span("head.partition"):
         partmethod, partkey = effective_partition(conf, args)
         nodenum = xy_node_count(conf.xy_file)
         use_tpu = args.backend == "tpu" or (args.backend == "auto"
                                             and partmethod == "tpu")
+        # replication is a host-wire concept (replica block sets on
+        # distinct workers, failover over the wire): the in-process
+        # campaign routes every query to its primary owner
+        replication = 1 if use_tpu else conf.effective_replication()
         if use_tpu:
             mesh_layout(conf)
-            # replication is a host-wire concept: the in-process
-            # campaign routes every query to its primary owner
             if conf.effective_replication() > 1:
                 log.info("replication=%d ignored on the in-process "
                          "campaign (queries route to primary owners "
                          "only)", conf.effective_replication())
-        else:
-            if conf.effective_replication() > 1:
-                raise SystemExit("replicated host campaigns (replication "
-                                 "> 1: the head's failover over replicas) "
-                                 "are not ported (ROADMAP.md A14)")
-            if os.path.exists(os.path.join(conf.outdir, "membership.json")):
-                raise SystemExit("elastic membership (membership.json) is "
-                                 "not ported (ROADMAP.md A14)")
+        elif os.path.exists(os.path.join(conf.outdir, "membership.json")):
+            raise SystemExit("elastic membership (membership.json) is "
+                             "not ported (ROADMAP.md A14.3)")
         dc = DistributionController(partmethod, partkey, conf.maxworker,
-                                    nodenum)
+                                    nodenum, replication=replication)
+    H_PARTITION.observe(t_workload.interval)
     diffs = list(conf.diffs) if conf.diffs else list(args.diffs)
     if use_tpu:
         initialize_from_conf(conf)
@@ -689,6 +890,9 @@ def output(data, stats, args, paths=None) -> None:
         writer.writerow(STATS_HEADER)
         writer.writerows([i, *row] for i, expe in enumerate(stats)
                          for row in expe)
+    # the registry's snapshot next to the stats CSV: the campaign's
+    # counters and per-phase histograms (obs.metrics)
+    obs_metrics.REGISTRY.dump_json(os.path.join(dirname, "obs_metrics.json"))
     if data.get("failed_batches"):
         path = write_degraded_manifest(dirname, data, stats)
         log.error("degraded campaign: manifest written to %s", path)
@@ -714,29 +918,78 @@ def test(args):
     return data, stats
 
 
+def _finish_obs(args) -> None:
+    """Write the ``--trace`` / ``--metrics-dump`` artifacts (process 0
+    only — every controller ran the identical campaign)."""
+    if not is_primary():
+        return
+    if args.trace:
+        obs_trace.write_trace(args.trace)
+        log.info("wrote %d trace events to %s (open in Perfetto)",
+                 len(obs_trace.events()), args.trace)
+    if args.metrics_dump:
+        obs_metrics.REGISTRY.dump_json(args.metrics_dump)
+        log.info("wrote metrics snapshot to %s", args.metrics_dump)
+
+
+@contextlib.contextmanager
+def profiled(outdir: str):
+    """``--profile DIR``: the campaign under ``torch.profiler`` (CPU
+    activity, and CUDA activity where a card is present), written as a
+    Chrome trace ``DIR/campaign-<pid>.pt.trace.json`` — the port's
+    counterpart of the JAX package's ``jax.profiler.trace``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(outdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    path = os.path.join(outdir, f"campaign-{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.info("wrote the profiler trace to %s", path)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv, prog="process_query")
     set_verbosity(args.verbose)
     if args.debug:
         # deterministic repro mode (parity: reference offline.py:143-147)
         args.omp, args.verbose = 1, max(args.verbose, 2)
-    for flag, value in (("--trace", args.trace),
-                        ("--metrics-dump", args.metrics_dump),
-                        ("--profile", args.profile),
-                        ("--obs-port", args.obs_port is not None)):
-        if value:
-            raise SystemExit(f"{flag} (observability) is not ported "
-                             "(ROADMAP.md A14)")
-    if args.test:
-        data, stats = test(args)
-    else:
-        conf = ClusterConfig.load(args.c)
-        data, stats, paths = run(conf, args)
-        # multi-controller: every process ran the identical campaign;
-        # only process 0 writes or prints the shared artifacts
-        if is_primary():
-            output(data, stats, args, paths)
-    return campaign_exit_code(data, stats)
+    if args.trace:
+        obs_trace.enable()
+        obs_trace.set_trace_id(obs_trace.new_trace_id())
+    # live scrape endpoints for the campaign's lifetime (opt-in)
+    obs_srv = start_obs_server(args.obs_port)
+    trace = profiled(args.profile) if args.profile \
+        else contextlib.nullcontext()
+    try:
+        with trace:
+            if args.test:
+                data, stats = test(args)
+            else:
+                conf = ClusterConfig.load(args.c)
+                data, stats, paths = run(conf, args)
+                # multi-controller: every process ran the identical
+                # campaign; only process 0 writes or prints the shared
+                # artifacts
+                if is_primary():
+                    output(data, stats, args, paths)
+            _finish_obs(args)
+    finally:
+        if obs_srv is not None:
+            obs_srv.close()
+    code = campaign_exit_code(data, stats)
+    if code != EXIT_CLEAN:
+        log.error("campaign finished %s (exit %d): %d/%d batches failed%s",
+                  "DEGRADED" if code == EXIT_DEGRADED else "FAILED",
+                  code, len(data.get("failed_batches", [])),
+                  sum(len(expe) for expe in stats),
+                  f"; manifest at {os.path.join(args.output, 'degraded.json')}"
+                  if args.output else "")
+    return code
 
 
 if __name__ == "__main__":

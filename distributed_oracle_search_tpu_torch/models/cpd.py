@@ -46,6 +46,13 @@ oracle:
   primaries, else recomputed), :func:`anti_entropy` (replica digests
   against their primary's) and :func:`adopt_shard_blocks` (an adopter's
   catch-up); each event adds to :data:`COUNTERS`.
+* the ``crash-build`` fault point (``DOS_FAULTS``, ``testing.faults``)
+  fires where the JAX package's does: after a block's atomic write and
+  ledger line, before the next block — in the build's flush (the
+  pipelined flush thread and the serial loop land blocks through it)
+  and after each block a delta lands. ``mode=exit`` (the default) ends
+  the process with exit code 86, ``mode=raise`` raises; a rerun resumes
+  from the ledger.
 * :class:`CPDOracle` — every worker's rows as one ``[W, R, N]`` tensor on
   one device, or spread over a ``[D, W]`` device grid (``mesh=``) and
   over the processes of a multi-controller run: ``build`` (any method;
@@ -88,6 +95,7 @@ from ..ops.table_search import walk_eid_pairs, walk_pairs
 from ..parallel.partition import DistributionController
 from ..parallel.mesh import local_devices, make_worker_mesh
 from ..parallel.multihost import gather_to_host, is_primary, process_info
+from ..testing import faults
 from ..parallel.sharded import (
     build_fm_lanes, build_fm_sharded, build_tables_multi_sharded,
     build_tables_sharded, chunk_compute, gather_cells, grid_parts,
@@ -517,6 +525,17 @@ class _BackgroundStager:
                 val[-1].abort()
 
 
+def crash_point(wid: int) -> None:
+    """The ``crash-build`` fault point, between block flushes: the
+    process exits 86 (``mode=exit``) or the build raises
+    (``mode=raise``) when a ``DOS_FAULTS`` rule for ``wid`` fires."""
+    rule = faults.inject("crash-build", wid=wid)
+    if rule is not None:
+        if rule.mode == "exit":
+            os._exit(faults.KILL_EXIT_CODE)
+        raise RuntimeError("crash-build fault injected")
+
+
 class _BlockFlusher:
     """The flush side of the pipelined build: ONE thread that lands the
     computed blocks in block order — wait for the block's device-to-host
@@ -751,6 +770,7 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
         # un-journaled file, which the resume check accepts if it parses
         ledger.record(fname, digest, arr.shape, str(arr.dtype),
                       epoch=epoch, codec=blk_codec)
+        crash_point(wid)
 
     pipelined = build_pipeline_enabled() and len(missing) > 1
     depth = build_stage_depth()
@@ -1041,6 +1061,7 @@ def delta_build_worker_shard(graph_new: Graph, dc: DistributionController,
                               epoch=epoch, codec=out_codec)
                 report["blocks_skipped"] += 1
                 COUNTERS["build_delta_skipped_blocks_total"] += 1
+                crash_point(wid)
                 continue
         else:
             n_new = int(bmask.sum())
@@ -1077,6 +1098,7 @@ def delta_build_worker_shard(graph_new: Graph, dc: DistributionController,
                       epoch=epoch, codec=out_codec)
         report["rows_recomputed"] += n_new
         COUNTERS["build_delta_rows_recomputed_total"] += n_new
+        crash_point(wid)
     return report
 
 

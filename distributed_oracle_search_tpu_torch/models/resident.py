@@ -46,10 +46,26 @@ import json
 import numpy as np
 import torch
 
+from ..obs import metrics as obs_metrics
 from ..utils.env import env_cast, env_str
 from ..utils.log import get_logger
 
 log = get_logger(__name__)
+
+M_RESIDENT_BYTES = obs_metrics.gauge(
+    "cpd_resident_bytes",
+    "device bytes of the most recently materialized resident first-move"
+    " table after codec selection (raw bytes when the codec degraded)")
+M_RESIDENT_DEGRADED = obs_metrics.counter(
+    "cpd_resident_degraded_total",
+    "resident tables whose requested DOS_CPD_RESIDENT codec was not "
+    "viable (escape slots for pack4, incompressible runs for rle) and "
+    "were served raw instead — a degrade, never a fault")
+M_DECOMPRESS = obs_metrics.histogram(
+    "cpd_decompress_seconds",
+    "per-batch decompress-at-use of a compressed-resident shard's "
+    "target rows (rle run-start search, or pack4 rows inflated for "
+    "extraction or lanes) before the walk kernel runs")
 
 #: accepted DOS_CPD_RESIDENT spellings; anything else degrades to raw
 RESIDENT_CODECS = ("raw", "pack4", "rle", "auto")
@@ -283,7 +299,8 @@ def make_resident(rows: np.ndarray, codec: str | None = None,
 
     Returns ``(table, codec_used)`` — ``table`` is the raw int8 tensor
     for ``raw``, a :class:`CompressedFM` otherwise. A requested codec
-    that is not viable DEGRADES to raw with a warning, never a fault."""
+    that is not viable DEGRADES to raw with a warning and books
+    ``cpd_resident_degraded_total`` — never a fault."""
     req = resident_choice() if codec is None else str(codec)
     if req not in RESIDENT_CODECS:
         raise ValueError(f"unknown resident codec {req!r}")
@@ -293,7 +310,9 @@ def make_resident(rows: np.ndarray, codec: str | None = None,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     if req == "raw":
-        return place(rows), "raw"
+        out = place(rows)
+        M_RESIDENT_BYTES.set(int(out.nbytes))
+        return out, "raw"
     rle, p4 = _pick_auto(
         encode_rle(rows) if req in ("rle", "auto") else None,
         encode_pack4(rows) if req in ("pack4", "auto") else None)
@@ -310,7 +329,11 @@ def make_resident(rows: np.ndarray, codec: str | None = None,
         log.warning("DOS_CPD_RESIDENT=%s not viable for this %dx%d "
                     "shard (escape slots / incompressible runs); "
                     "serving raw", req, *rows.shape)
-        return place(rows), "raw"
+        M_RESIDENT_DEGRADED.inc()
+        out = place(rows)
+        M_RESIDENT_BYTES.set(int(out.nbytes))
+        return out, "raw"
+    M_RESIDENT_BYTES.set(fm.nbytes)
     log.info("resident %s: %dx%d fm %.1f MB -> %.1f MB (%.1fx)",
              fm.codec, rows.shape[0], rows.shape[1],
              rows.nbytes / 2**20, fm.nbytes / 2**20,

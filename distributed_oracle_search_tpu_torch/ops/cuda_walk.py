@@ -98,7 +98,10 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
 
     Each raw kernel launch adds one to ``cuda_walk_batch.launches``, each
     pack4 launch one to ``cuda_walk_batch.launches_pack4``, and each walk
-    on CPU tensors (the plain version) one to ``cuda_walk_batch.plain``."""
+    on CPU tensors (the plain version) one to ``cuda_walk_batch.plain``.
+    :func:`walk_launch_cost` gives a launch's closed-form operations and
+    bytes (an upper count at the move budget, not ``chip_smoke.py``'s
+    distinct-sector bound)."""
     if s.device.type == "cpu":
         cuda_walk_batch.plain += 1
         return table_search_batch(dg, fm, t_rows, s, t, w_query_pad,
@@ -135,6 +138,49 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
         launch_walk(fm, n, t_rows, s, t, valid, pair, steps, budget, cost,
                     plen, fin, packed4)
     return cost, plen, fin
+
+
+#: the lanes a walk reads the head of a node's next-node row for in one
+#: round trip (the kernel's ``kHead``: two 16-byte loads)
+ROW_HEAD = 8
+
+
+def walk_launch_cost(q: int, n: int, k: int, fm_nbytes: int,
+                     k_moves: int = -1, max_steps: int = 0,
+                     unroll: int = 8) -> dict:
+    """Closed-form count of one B1 or B1′ launch over ``q`` lanes on an
+    ``n``-node graph of out-degree ``k``: ``{"flops", "bytes_accessed",
+    "hbm_bytes"}`` for ``obs.device``.
+
+    With ``M`` the move bound of :func:`.table_search.walk_budget` (the
+    budget when one applies, else the step bound) and ``K'`` = ``k``
+    rounded up to 4 (the pair table's row width)::
+
+        bytes_accessed = q * (13 + 9 + M * move + 1)
+        move = 1 + 4 * min(K', 8) + 4 * [K' > 8] + 4
+        flops = q * M * 2
+
+    per lane: the ``t_rows``, ``s``, ``t`` (int32) and ``valid`` (bool)
+    reads (13 B); the outputs (9 B: ``cost``, ``plen`` int32, ``fin``
+    bool); per move the fm byte (a pack4 nibble is read as its byte),
+    the head of the node's next-node row, one slot past the head where
+    ``K'`` passes it, and the move's weight; the fm byte at the last
+    node. Operations: the cost add and the ``plen`` step a move. It is
+    an UPPER count — every lane walks its whole budget, and no read is
+    shared — not ``chip_smoke.py``'s distinct-sector bound, which
+    replays the moves a run's data really makes. ``hbm_bytes`` is the
+    operand and output tensors' bytes: ``fm_nbytes``, the int32
+    ``[2, n, K']`` pair table, and the lanes' inputs and outputs."""
+    steps, budget = walk_budget(n, int(k_moves), int(max_steps), unroll)
+    moves = steps if budget is None else min(steps, int(budget))
+    kp = k + -k % 4
+    move = 1 + 4 * min(kp, ROW_HEAD) + 4 * (kp > ROW_HEAD) + 4
+    return {
+        "flops": float(q * moves * 2),
+        "bytes_accessed": float(q * (13 + 9 + moves * move + 1)),
+        "hbm_bytes": int(fm_nbytes + 2 * n * kp * 4 + q * (13 + 9)),
+        "moves": int(moves),
+    }
 
 
 def launch_walk(fm: torch.Tensor, n: int, t_rows: torch.Tensor,

@@ -1,9 +1,7 @@
 """Head-side transport: push a request to a worker, read its answer.
 
-A port of the JAX package's ``transport/fifo.py``; the scripts it runs
-are byte-equal to that module's, so either package's head drives either
-package's servers. Mechanism parity with the reference
-(``process_query.py:66-111``): the head generates a small bash script —
+Mechanism parity with the reference (``process_query.py:66-111``,
+``offline.py:70-125``): the head generates a small bash script —
 
     mkfifo <answer>
     cat > /tmp/worker<wid>.fifo <<EOF
@@ -12,29 +10,39 @@ package's servers. Mechanism parity with the reference
     cat <answer>
     rm <answer>
 
-— and pipes it through ``ssh <host> 'bash -s'`` (a local ``bash -s`` for
-``localhost``). The blocking FIFO opens are the rendezvous: the script
-blocks until the resident worker reads the command, and ``cat <answer>``
-blocks until the worker writes its one CSV stats line.
+— and pipes it through ``ssh <host> 'bash -s'``. The blocking FIFO opens are
+the rendezvous: the script blocks until the resident worker reads the
+command, and ``cat <answer>`` blocks until the worker writes its one CSV
+stats line.
 
-Over the reference: a dead worker yields ``StatsRow.failed()`` (and an
-optional retry), not a garbage row; every blocking step has a timeout;
-each retry attempt reads its own answer FIFO (``<answer>.a<attempt>``),
-so a late reply can never satisfy a newer attempt; :func:`probe` pushes a
-``__DOS_PING__`` control frame and returns the server's health line.
+Improvements over the reference (SURVEY.md §2.1 quirks):
 
-Not ported: fault injection points (ROADMAP.md A15), the transport's
-metrics counters and the membership-epoch file sweep (A14).
+* **real local path everywhere** — ``localhost``/``127.0.0.1`` runs the same
+  script via a local ``bash -s`` subprocess, no ssh round-trip (the reference
+  only had this in the legacy ``offline.py`` driver);
+* **explicit failure** — a dead worker yields ``StatsRow.failed()`` (and an
+  optional retry), not a garbage row silently entering the CSV
+  (reference ``process_query.py:107-109``);
+* timeouts on every blocking step;
+* **per-attempt answer FIFOs** — each retry attempt reads a uniquely named
+  FIFO (``<answer>.a<attempt>``), so a late reply from a timed-out attempt
+  can never satisfy (or corrupt) the retry — the worker replies to the
+  FIFO named in the request it actually read;
+* **liveness probes** — :func:`probe` pushes a ``__DOS_PING__`` control
+  frame and returns the server's :class:`~.wire.HealthStatus` line.
+
+A copy of the JAX package's ``transport/fifo.py`` (the scripts it runs
+are byte-equal, so either package's head drives either package's
+servers) without ``clean_stale_epoch_files``, the sweep of a membership
+migration window's wire files (ROADMAP.md A14.3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import glob
 import itertools
 import os
 import random
-import stat
 import subprocess
 import time
 import zlib
@@ -42,14 +50,26 @@ from multiprocessing.dummy import Pool
 
 from .launch import LOCAL_HOSTS
 from .wire import HealthStatus, PING_TOKEN, Request, StatsRow
+from ..obs import metrics as obs_metrics
+from ..testing import faults
 from ..utils.env import env_cast
 from ..utils.log import get_logger
 
 log = get_logger(__name__)
 
-#: default transport timeout: generous enough for a cold first batch
-#: over a slow link, finite so a dead worker cannot hang the campaign
+#: default transport timeout: generous enough for a cold-compile first
+#: batch over a slow link, finite so a dead worker cannot hang the campaign
 DEFAULT_TIMEOUT = 600.0
+
+M_RETRIES = obs_metrics.counter(
+    "head_retries_total", "batch send attempts beyond the first")
+M_STALE_CLEANED = obs_metrics.counter(
+    "head_stale_fifos_cleaned_total",
+    "leftover answer FIFOs removed at campaign start")
+M_PROBES = obs_metrics.counter(
+    "head_probes_total", "liveness pings sent to workers")
+M_PROBE_FAILURES = obs_metrics.counter(
+    "head_probe_failures_total", "liveness pings that got no health line")
 
 
 def command_fifo_path(wid: int) -> str:
@@ -66,21 +86,26 @@ def clean_stale_answer_fifos(nfs: str) -> int:
 
     A killed transfer script never reaches its ``rm -f``, so crashed runs
     accumulate stale answer FIFOs; campaigns call this once at start.
-    Only FIFOs are touched, and ``answer.ping.*`` probe FIFOs are
-    skipped: a prober using the same dir may have one in flight.
+    Only FIFOs are touched — regular files matching the glob are not
+    ours, and ``answer.ping.*`` probe FIFOs are skipped: a supervisor
+    pinging through the same nfs dir may have one in flight right now.
     """
+    import glob as _glob
+    import stat as _stat
+
     n = 0
-    for p in glob.glob(os.path.join(nfs, "answer.*")):
+    for p in _glob.glob(os.path.join(nfs, "answer.*")):
         if os.path.basename(p).startswith("answer.ping."):
             continue
         try:
-            if stat.S_ISFIFO(os.stat(p).st_mode):
+            if _stat.S_ISFIFO(os.stat(p).st_mode):
                 os.remove(p)
                 n += 1
         except OSError:
             continue
     if n:
         log.info("cleaned %d stale answer FIFO(s) in %s", n, nfs)
+        M_STALE_CLEANED.inc(n)
     return n
 
 
@@ -92,7 +117,8 @@ class RetryPolicy:
     first, default 1), ``DOS_RETRY_BASE_S`` (first backoff, default 0.2),
     ``DOS_RETRY_CAP_S`` (backoff ceiling, default 5), ``DOS_RETRY_JITTER``
     (fractional spread, default 0.5). Jitter is seeded from the answer
-    FIFO path (crc32, not ``hash``), so a rerun backs off identically."""
+    FIFO path (crc32, not ``hash`` — ``PYTHONHASHSEED`` randomizes that),
+    so a rerun backs off identically: campaigns stay reproducible."""
 
     retries: int = 1
     base_s: float = 0.2
@@ -118,19 +144,28 @@ class RetryPolicy:
 
 
 def make_script(request: Request, command_fifo: str,
+                corrupt: bool = False,
                 answer_wait_s: float | None = None) -> str:
     """The transfer script run on the worker host (local or over ssh).
 
     Guards the command FIFO with ``[ -p ... ]``: if no server is resident,
     the reference's script shape would create a regular file and then block
-    forever on the answer; this one fails fast with exit code 3 instead.
-    ``answer_wait_s`` bounds the ``cat <answer>`` read itself, so a
-    ``cat`` orphaned by a timed-out head cannot hold the answer FIFO open
-    forever on a dead worker.
+    forever on the answer; we fail fast with a distinct exit code instead.
+
+    ``answer_wait_s`` bounds the ``cat <answer>`` read itself: when the
+    head's ssh/bash wrapper is killed on timeout, the orphaned ``cat``
+    would otherwise hold the answer FIFO open forever on a dead worker.
+    ``corrupt`` garbles the frame (the ``corrupt-frame`` fault point).
     """
     payload = request.encode()
+    if corrupt:
+        # breaks line 1's JSON shape: the server must count the frame
+        # malformed and FAIL the answer FIFO instead of wedging the head
+        payload = "CORRUPT " + payload
     fifo = request.answerfifo
-    # never render `timeout 0`: GNU timeout treats 0 as "no timeout"
+    # never render `timeout 0` — GNU timeout treats 0 as "no timeout",
+    # which would silently disarm the orphan-cat bound for sub-second
+    # deadlines
     catcmd = (f"timeout {max(1, int(round(answer_wait_s)))} cat {fifo}"
               if answer_wait_s else f"cat {fifo}")
     return (
@@ -156,9 +191,12 @@ def _run_script(host: str, script: str,
 
 
 def send(host: str, request: Request, command_fifo: str,
-         timeout: float | None = DEFAULT_TIMEOUT) -> StatsRow:
+         timeout: float | None = DEFAULT_TIMEOUT,
+         wid: int | None = None) -> StatsRow:
     """Run the transfer script on ``host`` and parse the stats line."""
-    script = make_script(request, command_fifo, answer_wait_s=timeout)
+    corrupt = faults.inject("corrupt-frame", wid=wid) is not None
+    script = make_script(request, command_fifo, corrupt=corrupt,
+                         answer_wait_s=timeout)
     proc = _run_script(host, script, timeout)
     if proc.returncode != 0:
         log.error("worker transfer on %s failed (rc=%d): %s",
@@ -178,13 +216,15 @@ def send(host: str, request: Request, command_fifo: str,
 def send_with_retry(host: str, request: Request, command_fifo: str,
                     timeout: float | None = DEFAULT_TIMEOUT,
                     retries: int | None = None,
-                    policy: RetryPolicy | None = None) -> StatsRow:
+                    policy: RetryPolicy | None = None,
+                    wid: int | None = None) -> StatsRow:
     """``send`` with capped-exponential-backoff retries.
 
     Each attempt reads its own answer FIFO (``<base>.a<attempt>``): the
     worker replies to the FIFO named in the request it actually read, so
     a late reply from a timed-out attempt lands in that attempt's FIFO
-    and can never satisfy or corrupt a newer attempt.
+    (draining into the orphaned, dying ``cat``) and can never satisfy or
+    corrupt a newer attempt — the stale-reply race of a shared FIFO name.
     """
     policy = policy or RetryPolicy.from_env()
     if retries is not None:
@@ -193,6 +233,7 @@ def send_with_retry(host: str, request: Request, command_fifo: str,
     row = StatsRow.failed()
     for attempt in range(policy.retries + 1):
         if attempt:
+            M_RETRIES.inc()
             delay = policy.backoff_s(attempt - 1, seed=base_fifo)
             log.warning("retrying worker on %s (attempt %d) in %.2fs",
                         host, attempt, delay)
@@ -200,7 +241,7 @@ def send_with_retry(host: str, request: Request, command_fifo: str,
         req = dataclasses.replace(request,
                                   answerfifo=f"{base_fifo}.a{attempt}")
         try:
-            row = send(host, req, command_fifo, timeout=timeout)
+            row = send(host, req, command_fifo, timeout=timeout, wid=wid)
         except subprocess.TimeoutExpired:
             log.error("worker on %s timed out (attempt %d)", host, attempt)
             row = StatsRow.failed()
@@ -218,7 +259,7 @@ def ping_script(command_fifo: str, answerfifo: str,
                 wait_s: float) -> str:
     """Transfer script for one liveness probe: push the ping control
     frame, read one health line. Both blocking FIFO opens are bounded by
-    ``timeout``: a hard-crashed server leaves its command FIFO behind
+    ``timeout`` — a hard-crashed server leaves its command FIFO behind
     with no reader, and an unbounded ``> fifo`` open would wedge the
     probe exactly like the failure it is trying to detect."""
     w = max(1, int(wait_s))
@@ -249,29 +290,33 @@ def probe(host: str, wid: int, command_fifo: str | None = None,
     command_fifo = command_fifo or command_fifo_path(wid)
     answer = (f"{nfs.rstrip('/')}/answer.ping.{host}{wid}"
               f".{os.getpid()}.{next(_PROBE_SEQ)}")
+    M_PROBES.inc()
     script = ping_script(command_fifo, answer, timeout)
     try:
         proc = _run_script(host, script, timeout + 5.0)
     except (subprocess.TimeoutExpired, OSError) as e:
         log.warning("probe of worker %d on %s errored: %s", wid, host, e)
+        M_PROBE_FAILURES.inc()
         return None
     lines = proc.stdout.strip().splitlines()
     if proc.returncode != 0 or not lines:
-        log.debug("probe of worker %d on %s failed (rc=%d): %s", wid,
-                  host, proc.returncode, proc.stderr.strip())
+        log.warning("probe of worker %d on %s failed (rc=%d): %s", wid,
+                    host, proc.returncode, proc.stderr.strip())
+        M_PROBE_FAILURES.inc()
         return None
     try:
         return HealthStatus.from_json(lines[-1])
     except (ValueError, TypeError) as e:
         log.warning("bad health line from worker %d on %s: %s", wid,
                     host, e)
+        M_PROBE_FAILURES.inc()
         return None
 
 
 def fan_out(jobs, fn, pool_size: int | None = None) -> list:
-    """Drive all workers concurrently, one thread per worker (parity with
-    the reference's ``multiprocessing.dummy.Pool``,
-    ``process_query.py:180-185``)."""
+    """Drive all workers concurrently, one thread per worker (parity with the
+    reference's ``multiprocessing.dummy.Pool``, ``process_query.py:180-185``).
+    """
     if not jobs:
         return []
     with Pool(pool_size or len(jobs)) as pool:

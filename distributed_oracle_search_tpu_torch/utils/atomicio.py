@@ -32,9 +32,14 @@ import zlib
 
 import numpy as np
 
+from ..obs import metrics as obs_metrics
 from .log import get_logger
 
 log = get_logger(__name__)
+
+M_SWEPT = obs_metrics.counter(
+    "artifacts_swept_total",
+    "stale *.tmp / *.quarantined artifact files removed at start")
 
 #: suffix family of in-flight atomic writes (pid-qualified so concurrent
 #: writers in the same dir never collide on the temp name)
@@ -233,6 +238,7 @@ def sweep_stale_artifacts(dirname: str,
                 continue
     if n:
         log.info("swept %d stale artifact file(s) in %s", n, dirname)
+        M_SWEPT.inc(n)
     return n
 
 

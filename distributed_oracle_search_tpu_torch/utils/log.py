@@ -8,7 +8,9 @@ convention: handlers are attached to our own namespace only).
 Multi-worker runs interleave all workers' records on one stream, so
 every record carries a worker id: ``set_worker_id`` tags the **current
 thread**, and the handler's filter stamps ``[w<id>]`` into the format —
-``-`` for untagged threads.
+``-`` for untagged threads. While a traced batch is in flight the tag
+carries its trace id too (``[w3 t:5f1c...]``), the key of its spans in
+Perfetto.
 """
 
 from __future__ import annotations
@@ -32,11 +34,20 @@ def get_worker_id() -> int | str | None:
 
 
 class _WorkerIdFilter(logging.Filter):
-    """Stamp the thread's worker id (``-`` if unset) onto every record."""
+    """Stamp the thread's worker id (``-`` if unset) and, when a traced
+    batch is in flight, its trace id onto every record."""
 
     def filter(self, record: logging.LogRecord) -> bool:
         wid = getattr(_ctx, "wid", None)
         record.worker = "-" if wid is None else wid
+        # lazy import: obs.trace is further up the import graph and the
+        # filter must work even if the obs package is mid-import
+        try:
+            from ..obs.trace import current_trace_id
+            tid = current_trace_id()
+        except ImportError:
+            tid = None
+        record.trace = f" t:{tid}" if tid else ""
         return True
 
 
@@ -48,7 +59,7 @@ def _ensure_handler(root: logging.Logger) -> None:
     if not root.handlers:
         handler = logging.StreamHandler()
         handler.setFormatter(logging.Formatter(
-            "%(asctime)s %(name)s [w%(worker)s] %(levelname)s: "
+            "%(asctime)s %(name)s [w%(worker)s%(trace)s] %(levelname)s: "
             "%(message)s"))
         handler.addFilter(_WorkerIdFilter())
         root.addHandler(handler)

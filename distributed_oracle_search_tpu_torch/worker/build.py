@@ -25,9 +25,13 @@ this worker hosts, copied from digest-valid primaries or recomputed.
 ``--adopt-shard SHARD`` builds nothing of its own: it digest-verifies the
 named shard's primary blocks and heals any that are missing or corrupt
 (``models.cpd.adopt_shard_blocks``). ``--metrics-dump`` writes, on exit,
-the build's seconds and blocks, the build kernels' launches beside the
-index counters (``models.cpd.COUNTERS``), the device and its peak
-allocated bytes as JSON.
+the metrics registry's snapshot (``counters``/``gauges``/``histograms``)
+with the build kernels' launches and the index counters
+(``models.cpd.COUNTERS``) mirrored into its ``counters`` under their
+names, beside the build's seconds, blocks and rows, the device and its
+peak allocated bytes, as JSON. ``DOS_FAULTS="crash-build;wid=W"`` ends
+the build of worker W after a block lands (exit code 86); the rerun
+resumes from the ledger.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 
 from ..data.graph import Graph
 from ..models import cpd
+from ..obs import metrics as obs_metrics
 from ..ops import cuda_build_kernels as cbk
 from ..parallel.partition import DistributionController
 from ..utils.atomicio import atomic_write_json
@@ -99,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to build on (default: cuda)")
     p.add_argument("--metrics-dump", default="",
                    help="write the build's seconds, blocks, build kernel "
-                        "launches, index counters, device and peak device "
+                        "launches, index counters (in the metrics "
+                        "registry's snapshot), device and peak device "
                         "memory as JSON to this path on exit")
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
@@ -159,13 +165,15 @@ def main(argv=None) -> int:
     if args.metrics_dump:
         dev = resolve_device(args.device)
         on_card = dev.type == "cuda"
+        obs_metrics.mirror_counts(
+            {**{f"{fn.__name__}.launches": fn.launches
+                for fn in (cbk.relax_jacobi, cbk.first_moves,
+                           cbk.grid_sweep)},
+             **cpd.COUNTERS})
         atomic_write_json(args.metrics_dump, {
+            **obs_metrics.REGISTRY.snapshot(),
             "wid": args.workerid, "pid": os.getpid(), "seconds": seconds,
             "blocks": len(written), "rows": dc.n_owned(args.workerid),
-            "counters": {**{f"{fn.__name__}.launches": fn.launches
-                            for fn in (cbk.relax_jacobi, cbk.first_moves,
-                                       cbk.grid_sweep)},
-                         **cpd.COUNTERS},
             "device": {
                 "type": dev.type,
                 "name": (torch.cuda.get_device_name(dev) if on_card

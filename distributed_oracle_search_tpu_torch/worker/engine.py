@@ -61,9 +61,25 @@ lanes). A replica engine (rank r > 0) does not split: it pins its table
 to lane ``r % L``'s device; A* engines keep one device. Answers are
 bit-identical to the single-device engine's.
 
+Observability (``obs``): the JAX engine's histograms and counters under
+its names (the wire stats fields ``t_receive``/``t_astar``/``t_search``
+decompose into ``worker_receive_seconds``, ``worker_weights_load_seconds``
+and ``worker_search_seconds``); ``walk_pallas_batches_total`` counts the
+batches the hand kernel answered (B1/B1′ on the card) and
+``walk_xla_batches_total`` those the plain walk answered. The
+``worker.weights`` and ``worker.search`` spans and the load's
+``cpd.verify`` spans land in an open trace capture. The first batch at
+each walk program key (raw, pack4 or lanes; its batch width and move
+budget) books ``worker_jit_compile_seconds`` instead of the steady-state
+histogram and records the key's ``obs.device`` entry: the wrapper's
+closed-form cost and one more launch, timed with CUDA events on the card,
+made after the batch's timed interval (counted among the kernel's
+launches like any other). The ``corrupt-resident`` fault point flips row 0 of the loaded
+rows after their digests verified, as in JAX.
+
 Not ported: path signatures (``sig_k``), promotion by the diff-epoch
-manager with the serving cache's flush, the resident scrubber and the
-observability hooks (A14).
+manager with the serving cache's flush and the resident scrubber
+(ROADMAP.md A14.4, A14.5).
 """
 
 from __future__ import annotations
@@ -85,22 +101,71 @@ from ..models.cpd import (
     length_estimate, load_verified_block, read_manifest, shard_block_name,
 )
 from ..models.astar import AstarStats, astar, min_cost_per_unit
-from ..models.resident import CompressedFM, make_resident, maybe_decode_rows
+from ..models.resident import (
+    M_DECOMPRESS, CompressedFM, make_resident, maybe_decode_rows,
+)
+from ..obs import device as obs_device
+from ..obs import metrics as obs_metrics
+from ..obs import quantiles as obs_quantiles
+from ..obs import trace as obs_trace
+from ..ops import cuda_walk as cuda_walk_ops
 from ..ops.batched_astar import astar_batch_np
-from ..ops.cuda_walk import cuda_walk_batch
+from ..ops.cuda_walk import cuda_walk_batch, walk_launch_cost
 from ..ops.device_graph import DeviceGraph
 from ..ops.table_search import extract_paths, walk_pairs
 from ..parallel.mesh import (
     canonical, distinct, local_devices, make_worker_mesh,
 )
 from ..parallel.partition import DistributionController
-from ..parallel.sharded import walk_lanes
+from ..parallel.sharded import lane_walk_program, walk_lanes
+from ..testing import faults
 from ..transport.wire import RuntimeConfig, StatsRow
 from ..utils.device import resolve_device
 from ..utils.env import env_cast
 from ..utils.log import get_logger, set_worker_id
 
 log = get_logger(__name__)
+
+# declared at import so a snapshot shows the engine's phase histograms
+# even before the first batch (obs/__init__.py maps these to the wire
+# stats fields t_receive/t_astar/t_search)
+M_RECEIVE = obs_metrics.histogram(
+    "worker_receive_seconds", "batch prep incl. weights (t_receive)")
+M_WEIGHTS = obs_metrics.histogram(
+    "worker_weights_load_seconds", "diff read + device weight upload")
+M_SEARCH = obs_metrics.histogram(
+    "worker_search_seconds", "steady-state search call (t_astar)")
+M_JIT = obs_metrics.histogram(
+    "worker_jit_compile_seconds",
+    "first call at a new (alg, shape, knobs) key — the kernel's load and "
+    "first launch, split out so steady-state latency stays clean")
+M_BATCHES = obs_metrics.counter("worker_batches_total")
+M_QUERIES = obs_metrics.counter("worker_queries_total")
+M_DUPS = obs_metrics.counter(
+    "worker_duplicate_queries_total",
+    "queries answered from another identical (s, t) pair in the same "
+    "batch — the kernel only runs each distinct pair once")
+M_WALK_PALLAS = obs_metrics.counter(
+    "walk_pallas_batches_total",
+    "table-search batches answered by the hand-written walk kernel "
+    "(B1/B1', csrc/table_search_walk.cu, on CUDA tensors)")
+M_WALK_XLA = obs_metrics.counter(
+    "walk_xla_batches_total",
+    "table-search batches answered by the plain torch walk (CPU "
+    "tensors)")
+M_MESH_DEVICES = obs_metrics.gauge(
+    "mesh_devices",
+    "lanes of this worker's engine (DOS_MESH_DEVICES resolution; 1 = "
+    "the single-device engine)")
+M_MESH_WALK = obs_metrics.counter(
+    "mesh_walk_batches_total",
+    "table-search batches split across the worker's lanes (one walk "
+    "launch a lane, bit-identical join)")
+M_WALK_COMPRESSED = obs_metrics.counter(
+    "walk_compressed_batches_total",
+    "table-search batches answered from a compressed-resident CPD "
+    "shard (DOS_CPD_RESIDENT: pack4 walked packed by B1', or the "
+    "batch's rows inflated first)")
 
 
 def _block_id(path: str) -> int:
@@ -155,8 +220,9 @@ def load_shard_rows(outdir: str, wid: int,
     parts = []
     for path in files:
         fname = os.path.basename(path)
-        rows, status, reason = load_verified_block(path,
-                                                   blocks_meta.get(fname))
+        with obs_trace.span("cpd.verify", file=fname, wid=wid):
+            rows, status, reason = load_verified_block(
+                path, blocks_meta.get(fname))
         if rows is None:
             COUNTERS["cpd_blocks_corrupt_total"] += 1
             if not heal or graph is None or dc is None:
@@ -226,6 +292,7 @@ class ShardEngine:
         if self.mesh is not None:
             self.mesh = [canonical(d) for d in self.mesh]
         self.n_lanes = len(self.mesh) if self.mesh is not None else 1
+        M_MESH_DEVICES.set(self.n_lanes)
         #: REPLICA LANE: replica rank r serves from lane r % L's device;
         #: the primary keeps every lane and splits its batches instead
         self._lane_device = (self.mesh[self.replica % self.n_lanes]
@@ -251,6 +318,11 @@ class ShardEngine:
         if alg == "table-search":         # A* needs no first-move shard
             rows = load_shard_rows(outdir, self.shard, dc=dc, graph=graph,
                                    replica=self.replica, device=self.device)
+            if faults.inject("corrupt-resident", self.shard) is not None:
+                # flip row 0 AFTER the digest-verified load: in-memory
+                # rot no manifest check can see
+                rows = np.array(rows, np.int8, copy=True)
+                rows[0, :] = np.where(rows[0, :] <= 0, 1, 0)
             owned = dc.owned(self.shard)
             if len(owned) != rows.shape[0]:
                 raise ValueError(
@@ -277,6 +349,10 @@ class ShardEngine:
         self._astar_ctx: dict = {}
         #: path prefixes of the most recent extract batch (see answer())
         self.last_paths: tuple[np.ndarray, np.ndarray] | None = None
+        #: program keys (alg, batch width, knobs, walk variant) whose
+        #: first batch has run: the first books the compile histogram
+        #: and the key's obs.device entry, the rest the steady one
+        self._programs_seen: set[tuple] = set()
 
     # ------------------------------------------------------------- lanes
     @property
@@ -480,7 +556,10 @@ class ShardEngine:
         nq = len(queries)
         extracting = config.extract and config.k_moves > 0
         if self.alg == "table-search":
-            w_pad, pair = self._weights_for(difffile, config.no_cache)
+            with obs_trace.span("worker.weights", wid=self.wid,
+                                difffile=difffile):
+                w_pad, pair = self._weights_for(difffile, config.no_cache)
+            M_WEIGHTS.observe(time.perf_counter() - t0)
         if nq == 0:
             if extracting:
                 self.last_paths = (
@@ -492,6 +571,9 @@ class ShardEngine:
             # the raw batch: A*'s counters measure the work done for
             # every query sent, duplicates included
             t1 = time.perf_counter()
+            M_RECEIVE.observe(t1 - t0)
+            key = ("astar", min(nq, self.time_chunk))
+            first_call = key not in self._programs_seen
             deadline = t1 + config.time / 1e9 if config.time else None
             for _ in range(max(config.itrs, 1)):
                 cost, plen, fin, counters = self._answer_astar(
@@ -499,6 +581,7 @@ class ShardEngine:
                 if deadline is not None and time.perf_counter() > deadline:
                     break
             t2 = time.perf_counter()
+            self._finish_search(key, first_call, nq, t2 - t1)
             return cost, plen, fin, StatsRow(
                 **counters, t_receive=t1 - t0, t_astar=t2 - t1,
                 t_search=t2 - t0)
@@ -507,6 +590,8 @@ class ShardEngine:
         uniq, inverse = np.unique(queries, axis=0, return_inverse=True)
         inverse = inverse.reshape(-1)
         nu = len(uniq)
+        if nu < nq:
+            M_DUPS.inc(nq - nu)
         # order by expected walk length (answers are unsorted back)
         order = np.argsort(
             length_estimate(self.graph, uniq[:, 0], uniq[:, 1]),
@@ -528,6 +613,7 @@ class ShardEngine:
         rows = np.zeros(qpad, np.int32)
         rows[:nu] = self.dc.owned_index_of(qsorted[:, 1])
         t1 = time.perf_counter()
+        M_RECEIVE.observe(t1 - t0)
         # the table is epoch-gated a batch: a promoted epoch's table
         # serves only the batches naming its fused diff (_fm_for).
         # Compressed residency: a pack4 table feeds the pack4 kernel
@@ -538,7 +624,10 @@ class ShardEngine:
         # bit-identical to the raw table
         fm_walk = fm_tbl = self._fm_for(difffile)
         packed4 = False
-        if isinstance(fm_tbl, CompressedFM):
+        compressed = isinstance(fm_tbl, CompressedFM)
+        if compressed:
+            M_WALK_COMPRESSED.inc()
+            td0 = time.perf_counter()
             if fm_tbl.codec == "pack4" and not extracting \
                     and not self._lane_split:
                 fm_walk, packed4 = fm_tbl.packed, True
@@ -550,6 +639,20 @@ class ShardEngine:
                 fm_walk = fm_tbl.decompress_rows(self._dev(rows_u))
                 rows = np.zeros(qpad, np.int32)
                 rows[:nu] = rinv.reshape(-1)
+            M_DECOMPRESS.observe(time.perf_counter() - td0)
+        on_card = self.device.type == "cuda"
+        (M_WALK_PALLAS if on_card else M_WALK_XLA).inc()
+        if self._lane_split:
+            M_MESH_WALK.inc()
+        # the walk program a batch runs: its width (a chunk under a
+        # deadline), move budget and variant
+        cap_n = (self.time_chunk if config.time and qpad > self.time_chunk
+                 else qpad)
+        variant = ("pack4" if packed4 else "raw",
+                   self.n_lanes if self._lane_split else 1,
+                   int(fm_walk.shape[0]) if compressed else 0)
+        key = (self.alg, cap_n, config.k_moves, extracting, variant)
+        first_call = key not in self._programs_seen
 
         placed = (self._placed(fm_walk, w_pad, pair) if self._lane_split
                   else None)
@@ -607,6 +710,10 @@ class ShardEngine:
             moves = moves.cpu().numpy()[:nu].astype(np.int64)[unsort]
             self.last_paths = (nodes[inverse], moves[inverse])
         t2 = time.perf_counter()
+        self._finish_search(key, first_call, nq, t2 - t1)
+        if first_call and obs_device.enabled():
+            self._capture_program(fm_walk, rows, s, t, valid, w_pad, pair,
+                                  cap_n, config.k_moves, packed4, placed)
 
         cost = np.asarray(cost[:nu], np.int64)[unsort][inverse]
         plen = np.asarray(plen[:nu], np.int64)[unsort][inverse]
@@ -622,6 +729,68 @@ class ShardEngine:
             t_search=t2 - t0,
         )
         return cost, plen, fin, stats
+
+    def _finish_search(self, key: tuple, first_call: bool, nq: int,
+                       seconds: float) -> None:
+        """Book one batch's search interval: the first batch at a new
+        program key goes to the compile histogram, repeats to the
+        steady-state one and its live window; the span mirrors it."""
+        self._programs_seen.add(key)
+        (M_JIT if first_call else M_SEARCH).observe(seconds)
+        if not first_call:
+            obs_quantiles.observe(
+                "worker_search_seconds", seconds,
+                trace_id=obs_trace.current_trace_id())
+        M_BATCHES.inc()
+        M_QUERIES.inc(nq)
+        obs_trace.add_span("worker.search", seconds, wid=self.wid,
+                           alg=self.alg, queries=nq,
+                           first_call=first_call)
+
+    def _capture_program(self, fm_walk, rows, s, t, valid, w_pad, pair,
+                         cap_n: int, k_moves: int, packed4: bool,
+                         placed) -> None:
+        """The ``obs.device`` entry of the walk program this batch ran
+        (its first ``cap_n`` lanes): the wrapper's closed-form cost
+        summed over the launches a call makes, and the call run once
+        more, timed (CUDA events on the card) and counted in the
+        wrapper's launch counts; it is called through ``ops.cuda_walk``
+        itself, so a caller that wraps this module's ``cuda_walk_batch``
+        records the batch's calls only.
+        Keys: ``table-search[cuda]``, ``[cuda-pack4]``, lanes add
+        ``[lanes<L>]``; ``[plain]`` on the CPU."""
+        sl = slice(0, cap_n)
+        tag = ("cuda" if self.device.type == "cuda" else "plain") \
+            + ("-pack4" if packed4 else "")
+        if placed is not None:
+            calls = lane_walk_program(
+                self.dg, fm_walk, rows[sl], s[sl], t[sl], valid[sl], w_pad,
+                self.mesh, k_moves=k_moves, pair=pair, placed=placed)
+            cost: dict = {}
+            for _dev, args, _kw in calls:
+                part = walk_launch_cost(
+                    int(args[3].shape[0]), self.dg.n, self.dg.k,
+                    int(args[1].nbytes), k_moves=k_moves)
+                for f in ("flops", "bytes_accessed", "hbm_bytes"):
+                    cost[f] = cost.get(f, 0) + part[f]
+
+            def launch():
+                for _dev, args, kw in calls:
+                    cuda_walk_ops.cuda_walk_batch(*args, **kw)
+            key = (f"table-search[{tag}][lanes{self.n_lanes}]"
+                   f"/q{cap_n}/k{k_moves}")
+        else:
+            cost = walk_launch_cost(cap_n, self.dg.n, self.dg.k,
+                                    int(fm_walk.nbytes), k_moves=k_moves)
+            args = (self.dg, fm_walk, self._dev(rows[sl]),
+                    self._dev(s[sl]), self._dev(t[sl]), w_pad)
+            kw = dict(valid=self._dev(valid[sl]), k_moves=k_moves,
+                      packed4=packed4, pair=pair)
+
+            def launch():
+                cuda_walk_ops.cuda_walk_batch(*args, **kw)
+            key = f"table-search[{tag}]/q{cap_n}/k{k_moves}"
+        obs_device.capture(key, launch, cost=cost, device=self.device)
 
     def _answer_astar(self, queries: np.ndarray, config: RuntimeConfig,
                       difffile: str = "-", deadline: float | None = None):

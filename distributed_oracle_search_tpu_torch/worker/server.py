@@ -16,46 +16,79 @@ requests.
 * an engine error (a refused kernel launch included) answers the
   ``FAIL`` sentinel, never a silent zero row, and never leaves the head
   blocked on ``cat <answer>``;
-* ``--metrics-dump PATH`` writes the server's counters, the walk
-  kernel's and the A* kernels' launches and plain runs, the device name
-  and the peak device memory as JSON on clean shutdown.
+* the streaming RPC lane (:class:`RpcServeLoop`, the JAX package's): on
+  under ``DOS_TRANSPORT=rpc``/``auto`` or with ``--rpc-socket`` /
+  ``--rpc-port`` (``DOS_RPC_PORT`` + wid), it answers length-prefixed
+  frames on a Unix socket (``DOS_RPC_SOCKET_DIR/dos-rpc-worker<wid>
+  .sock``) or TCP port BESIDE the FIFO loop, from the same engine (so by
+  B1/B1′ on the card), with a credit window (``DOS_RPC_CREDIT``) and
+  explicit ``busy`` frames;
+* fault points (``DOS_FAULTS``, ``testing.faults``): ``kill-mid-batch``
+  (``mode=exit`` exits 86, ``mode=raise`` ends the loop),
+  ``crash-engine`` (answered ``FAIL``), ``delay`` and ``drop-reply``, in
+  both loops;
+* observability: the serve loops' counters and histograms under the JAX
+  package's names in ``obs.metrics.REGISTRY``; a request with a
+  ``trace_id`` has its spans captured and shipped back (a
+  ``<queryfile>.trace`` sidecar, or the RPC reply's ``trace`` header);
+  ``--obs-port`` (``DOS_OBS_PORT``) serves ``/metrics``, ``/healthz``
+  and ``/statusz``;
+* ``--metrics-dump PATH`` writes ``REGISTRY``'s snapshot
+  (``counters``/``gauges``/``histograms``) on clean shutdown, the kernel
+  wrappers' launch and plain-run counts mirrored into ``counters`` under
+  their names (``cuda_walk_batch.launches``, ...), beside the ``alg``,
+  the ``device`` (its name and peak allocated bytes), the
+  ``device_programs`` (``obs.device`` entries), ``wid`` and ``pid``.
 
     python -m distributed_oracle_search_tpu_torch.worker.server \\
         -c conf.json --workerid N [--alg astar] [--device cpu] \\
-        [--metrics-dump m.json]
+        [--metrics-dump m.json] [--rpc-socket S | --rpc-port P] \\
+        [--obs-port P]
 
 Serves a static fleet. With ``replication`` R > 1 a batch whose targets
 all lie in a shard this worker hosts as a replica is answered by a
 replica engine made on first use from that shard's replica block set
 (:meth:`FifoServer.engine_for_shard`; counted in
-``server_replica_batches_total``); a batch for a shard it does not host
-fails the routing invariant. The head's failover over replicas is not
-ported (A14). Not ported, and refused with the ``ROADMAP.md`` item that
-ports each: adoption engines and the membership epoch gate (A14), the
-worker L2 cache and ``--traffic-dir`` (A14), the RPC serve loop,
-``--rpc-*``, ``--obs-port`` and telemetry (A14), answer fingerprints
-(A14).
+``server_replica_batches_total``) — the head's failover sends them here;
+a batch for a shard it does not host fails the routing invariant. Not
+ported, and refused with the ``ROADMAP.md`` item that ports each:
+adoption engines and the membership epoch gate, the worker L2 cache
+(``DOS_GATEWAY_L2_BYTES``), ``--traffic-dir`` and answer fingerprints
+(A14.3), the telemetry
+publisher (``DOS_TELEMETRY_INTERVAL_S``, A14.5).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import errno
 import fcntl
+import json
 import os
 import select
+import socket
 import stat
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 from ..data.graph import Graph
+from ..models.cpd import BuildLedger
+from ..obs import device as obs_device
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..obs.http import start_obs_server
 from ..ops.batched_astar import astar_batch
 from ..ops.cuda_astar import astar_heuristic, astar_sweep
-from ..ops.cuda_walk import cuda_walk_batch
+from ..ops.cuda_walk import cuda_walk_batch, cuda_walk_multi
 from ..parallel.partition import DistributionController
+from ..testing import faults
+from ..transport import frames
+from ..transport import rpc as rpc_transport
 from ..transport.fifo import command_fifo_path
 from ..transport.wire import (
     HealthStatus, PING_TOKEN, STOP_TOKEN, Request, StatsRow,
@@ -65,13 +98,62 @@ from ..transport.wire import (
 from ..utils.atomicio import atomic_write_json
 from ..utils.config import ClusterConfig
 from ..utils.env import env_cast
+from ..utils.locks import OrderedLock
 from ..utils.log import get_logger, set_verbosity, set_worker_id
 from .engine import ShardEngine
 
 log = get_logger(__name__)
 
-#: the serve loop's counters (``FifoServer.counters``), under the JAX
-#: package's metric names
+# serve-loop health counters, declared at import so a snapshot shows the
+# failure paths at zero even when they never fired
+M_FRAMES = obs_metrics.counter(
+    "server_frames_received_total", "frame starts seen on the command FIFO")
+M_MALFORMED = obs_metrics.counter(
+    "server_frames_malformed_total",
+    "stray non-frame lines + undecodable 2-line requests")
+M_HALF = obs_metrics.counter(
+    "server_frames_half_total",
+    "frames whose second line never arrived (timeout or config-only)")
+M_BATCH_FAIL = obs_metrics.counter(
+    "server_batches_failed_total", "engine exceptions answered with FAIL")
+M_REPLIES = obs_metrics.counter(
+    "server_replies_sent_total", "stats lines written to answer FIFOs")
+M_DROPPED = obs_metrics.counter(
+    "server_replies_dropped_total",
+    "replies dropped: no reader within the deadline, or reader vanished")
+M_REPLY_WAIT = obs_metrics.histogram(
+    "server_reply_open_wait_seconds",
+    "time a reply waited for the head to open its answer-FIFO reader")
+M_PINGS = obs_metrics.counter(
+    "server_pings_answered_total",
+    "__DOS_PING__ control frames answered with a health line")
+M_PING_DROPS = obs_metrics.counter(
+    "server_ping_replies_dropped_total",
+    "health replies dropped (prober gone) — kept separate from "
+    "server_replies_dropped_total so data-plane drop alerts stay clean")
+M_REPLICA_BATCHES = obs_metrics.counter(
+    "server_replica_batches_total",
+    "batches answered from a hosted REPLICA shard (failover/hedge "
+    "traffic re-routed off the shard's primary)")
+G_RPC_CONNS = obs_metrics.gauge(
+    "rpc_server_connections",
+    "live client connections on this worker's RPC accept loop")
+M_RPC_BATCHES = obs_metrics.counter(
+    "rpc_server_batches_total",
+    "batches answered over the socket transport (the RPC twin of "
+    "server_replies_sent_total)")
+M_RPC_DROPPED = obs_metrics.counter(
+    "rpc_server_replies_dropped_total",
+    "RPC replies dropped (drop-reply fault, or the client vanished "
+    "before the reply frame)")
+M_RPC_MALFORMED = obs_metrics.counter(
+    "rpc_server_frames_malformed_total",
+    "request frames whose config was undecodable (answered FAIL, "
+    "never a wedge) — the socket twin of server_frames_malformed_total")
+
+#: the serve loops' per-server counts (``FifoServer.counters``), under
+#: the JAX package's metric names. Each also adds to the registry
+#: counter of its name, except the two the engine books there itself
 COUNTER_NAMES = (
     "worker_batches_total",              # batches answered (not FAIL)
     "worker_queries_total",              # queries in those batches
@@ -84,6 +166,26 @@ COUNTER_NAMES = (
     "server_pings_answered_total",       # health lines written
     "server_replica_batches_total",      # batches a replica engine answered
 )
+_ENGINE_BOOKED = ("worker_batches_total", "worker_queries_total")
+
+
+def kernel_counts() -> dict:
+    """The kernel wrappers' launch and plain-run counts by name: the
+    walk's (raw, pack4, plain), K4's and the A* kernels' (K6: the
+    sweep, its launches without the skip, the heuristic; the plain batch
+    loop and heuristic)."""
+    return {
+        "cuda_walk_batch.launches": cuda_walk_batch.launches,
+        "cuda_walk_batch.launches_pack4": cuda_walk_batch.launches_pack4,
+        "cuda_walk_batch.plain": cuda_walk_batch.plain,
+        "cuda_walk_multi.launches": cuda_walk_multi.launches,
+        "cuda_walk_multi.plain": cuda_walk_multi.plain,
+        "astar_sweep.launches": astar_sweep.launches,
+        "astar_sweep.dense": astar_sweep.dense,
+        "astar_batch.plain": astar_batch.plain,
+        "astar_heuristic.launches": astar_heuristic.launches,
+        "astar_heuristic.plain": astar_heuristic.plain,
+    }
 
 
 class FifoServer:
@@ -91,8 +193,14 @@ class FifoServer:
 
     ``device``: None → ``cuda`` (raises without a GPU unless ``"cpu"``);
     the shard, the graph and every walk live there. ``counters`` holds
-    the serve loop's counts (:data:`COUNTER_NAMES`); only the thread in
-    :meth:`serve_forever` changes them."""
+    this server's serve-loop counts (:data:`COUNTER_NAMES`); each adds
+    to ``obs.metrics.REGISTRY`` as well. The JAX server keeps the
+    registry only. The port keeps both because the registry is one per
+    process: in-thread fleets (several servers in one process, as the
+    port's CPU tests run them against the JAX package's) need each
+    server's own counts apart, and the health line reports them. An :class:`RpcServeLoop` may
+    serve the same engines beside the FIFO loop: answers are serialized
+    by :attr:`answer_lock`."""
 
     #: bound on the gap between a frame's two lines (one atomic writer
     #: write puts both in the pipe together; only garbage arrives alone)
@@ -112,11 +220,12 @@ class FifoServer:
         if os.path.exists(os.path.join(conf.outdir, "membership.json")):
             raise ValueError(
                 f"{conf.outdir} holds a membership state: elastic fleets "
-                "are not ported (ROADMAP.md A14)")
+                "are not ported (ROADMAP.md A14.3)")
         self.conf = conf
         self.wid = wid
         self.alg = alg
         self.counters = dict.fromkeys(COUNTER_NAMES, 0)
+        self._counters_lock = threading.Lock()
         self.command_fifo = command_fifo or command_fifo_path(wid)
         self.graph = Graph.from_xy(conf.xy_file)
         self.dc = DistributionController(
@@ -128,10 +237,26 @@ class FifoServer:
         #: engines by shard: this worker's own, and the replica engines
         #: made on first use for the shards it hosts
         self._replica_engines: dict[int, ShardEngine] = {wid: self.engine}
+        #: serializes engine answers across the FIFO and RPC serve loops
+        #: (one engine set, two transports over it)
+        self.answer_lock = OrderedLock("worker.FifoServer.answer")
+        #: the RPC serve loop beside the FIFO loop (its /statusz section)
+        self.rpc_loop = None
+        self._t_start = time.monotonic()
+        self._last_error = ""
         # preload the first diff's weights like the reference server
         # does (make_fifos.py:18 loads only diffs[0])
         if conf.diffs:
             self.engine.preload(conf.diffs[0])
+
+    def _count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to this server's count ``name`` and to the registry
+        counter of that name (the engine books the two batch counts in
+        the registry itself)."""
+        with self._counters_lock:
+            self.counters[name] += n
+        if name not in _ENGINE_BOOKED:
+            obs_metrics.counter(name).inc(n)
 
     def engine_for_shard(self, shard: int) -> ShardEngine:
         """The engine serving ``shard``'s rows: this worker's own engine
@@ -161,7 +286,25 @@ class FifoServer:
         os.mkfifo(self.command_fifo)
 
     def handle(self, req: Request) -> StatsRow:
-        queries = read_query_file(req.queryfile)
+        """One FIFO request. A ``trace_id`` on the wire (``obs.trace``)
+        captures this batch's spans under it and ships them back as a
+        ``<queryfile>.trace`` sidecar, like ``.paths``."""
+        if req.config.trace_id:
+            with obs_trace.capture(req.config.trace_id) as cap:
+                stats = self._handle(req)
+            try:
+                obs_trace.write_events(
+                    obs_trace.trace_sidecar_for(req.queryfile), cap.events)
+            except OSError as e:
+                log.error("cannot write trace sidecar for %s: %s",
+                          req.queryfile, e)
+            return stats
+        return self._handle(req)
+
+    def _handle(self, req: Request) -> StatsRow:
+        with obs_trace.span("worker.receive", wid=self.wid,
+                            queryfile=req.queryfile):
+            queries = read_query_file(req.queryfile)
         cost, plen, fin, stats, paths = self.answer_queries(
             queries, req.config, req.difffile)
         if paths is not None:
@@ -175,20 +318,27 @@ class FifoServer:
     def answer_queries(self, queries: np.ndarray, config, difffile: str):
         """One batch on the engine of the shard its targets lie in:
         ``(cost, plen, fin, stats, paths)`` with ``paths =
-        engine.last_paths`` (None unless extracting). A batch for one
-        shard this worker hosts as a replica goes to that shard's
-        replica engine; any other batch meets its engine's routing
-        invariant."""
+        engine.last_paths`` (None unless extracting). Shared by the FIFO
+        loop (query and sidecar files around it) and the RPC loop (the
+        same outputs as reply segments). A batch for one shard this
+        worker hosts as a replica goes to that shard's replica engine;
+        any other batch meets its engine's routing invariant."""
         engine = self.engine
         if len(queries):
             shards = np.unique(self.dc.worker_of(
                 np.asarray(queries, np.int64).reshape(-1, 2)[:, 1]))
             if len(shards) == 1 and int(shards[0]) != engine.shard:
                 engine = self.engine_for_shard(int(shards[0]))
-                self.counters["server_replica_batches_total"] += 1
+                self._count("server_replica_batches_total")
         cost, plen, fin, stats = engine.answer(queries, config, difffile)
-        self.counters["worker_queries_total"] += len(queries)
+        self._count("worker_queries_total", len(queries))
         return cost, plen, fin, stats, engine.last_paths
+
+    def _batch_failed(self, e: BaseException) -> StatsRow:
+        """Book a batch whose answer raised; its ``FAIL`` row."""
+        self._count("server_batches_failed_total")
+        self._last_error = f"{type(e).__name__}: {e}"
+        return StatsRow.failed()
 
     def serve_forever(self) -> None:
         """Framed request loop over a PERSISTENT command-FIFO read session.
@@ -207,7 +357,6 @@ class FifoServer:
         set_worker_id(self.wid)
         log.info("worker %d serving on %s", self.wid, self.command_fifo)
         self._t_start = time.monotonic()
-        self._last_error = ""
         fd = os.open(self.command_fifo, os.O_RDWR)
         self._rdbuf = b""
         try:
@@ -222,20 +371,20 @@ class FifoServer:
                     # single-line control frame: never a data frame
                     self._answer_ping(line1)
                     continue
-                self.counters["server_frames_received_total"] += 1
+                self._count("server_frames_received_total")
                 if not line1.lstrip().startswith("{"):
                     # a config line is always a JSON object, a paths line
                     # never is: a stray line is handled alone so it can
                     # never eat the next writer's config line
                     log.error("stray non-frame line: %r", line1)
-                    self.counters["server_frames_malformed_total"] += 1
+                    self._count("server_frames_malformed_total")
                     self._answer_malformed(line1)
                     continue
                 line2 = self._next_line(fd, timeout=self.FRAME_TIMEOUT_S)
                 if line2 is None:
                     log.error("half frame (no line 2 within %.1fs): %r",
                               self.FRAME_TIMEOUT_S, line1)
-                    self.counters["server_frames_half_total"] += 1
+                    self._count("server_frames_half_total")
                     continue
                 if STOP_TOKEN in line2:
                     # a stop chasing a truncated request still wins
@@ -245,7 +394,7 @@ class FifoServer:
                     # the previous writer truncated: this config line
                     # starts the next frame
                     log.error("config-only half frame: %r", line1)
-                    self.counters["server_frames_half_total"] += 1
+                    self._count("server_frames_half_total")
                     self._rdbuf = line2.encode() + self._rdbuf
                     continue
                 text = line1 + line2
@@ -253,19 +402,37 @@ class FifoServer:
                     req = Request.decode(text)
                 except ValueError as e:
                     log.error("bad request: %s", e)
-                    self.counters["server_frames_malformed_total"] += 1
+                    self._count("server_frames_malformed_total")
                     self._answer_malformed(text)
                     continue
+                kill = faults.inject("kill-mid-batch", wid=self.wid)
+                if kill is not None:
+                    # the injected analog of a worker crash between
+                    # reading a request and answering it
+                    log.error("fault: worker %d dying mid-batch", self.wid)
+                    if kill.mode == "exit":
+                        os._exit(faults.KILL_EXIT_CODE)
+                    return  # mode=raise: in-thread server dies quietly
                 try:
-                    stats = self.handle(req)
-                    self.counters["worker_batches_total"] += 1
+                    if faults.inject("crash-engine",
+                                     wid=self.wid) is not None:
+                        raise RuntimeError("injected fault: crash-engine")
+                    with self.answer_lock:
+                        stats = self.handle(req)
+                    self._count("worker_batches_total")
                 except Exception as e:  # noqa: BLE001 — never leave the
                     # head blocked on `cat answer`: answer FAIL. A CUDA
                     # error is sticky, so every later batch fails too
                     log.exception("batch failed: %s", e)
-                    self.counters["server_batches_failed_total"] += 1
-                    self._last_error = f"{type(e).__name__}: {e}"
-                    stats = StatsRow.failed()
+                    stats = self._batch_failed(e)
+                delay = faults.inject("delay", wid=self.wid)
+                if delay is not None:
+                    log.warning("fault: delaying reply %.2fs", delay.delay)
+                    time.sleep(delay.delay)
+                if faults.inject("drop-reply", wid=self.wid) is not None:
+                    log.error("fault: dropping reply to %s", req.answerfifo)
+                    self._count("server_replies_dropped_total")
+                    continue
                 self._reply(req.answerfifo, stats.encode_wire() + "\n")
         finally:
             os.close(fd)
@@ -308,16 +475,27 @@ class FifoServer:
 
     def _reply(self, answerfifo: str, line: str,
                deadline_s: float | None = None,
-               count_drop: bool = True) -> bool:
+               data_plane: bool = True) -> bool:
         """Write one line without ever wedging the server: a blocking
         ``open(fifo, 'w')`` would hang forever if the head's ``cat`` died
         before opening its end. Non-blocking open with a bounded
-        deadline; the reply is dropped (logged, and counted unless
-        ``count_drop`` is False) if no reader appears. Returns True iff
-        the line was written."""
+        deadline; the reply is dropped (logged and counted) if no reader
+        appears. ``data_plane`` False (a health reply) books a drop under
+        ``server_ping_replies_dropped_total`` and a write under neither
+        count, so data-plane drop alerts stay clean. Returns True iff the
+        line was written."""
         wait_s = (deadline_s if deadline_s is not None
                   else self.reply_deadline_s)
-        deadline = time.monotonic() + wait_s
+        t_wait0 = time.monotonic()
+        deadline = t_wait0 + wait_s
+
+        def dropped():
+            if data_plane:
+                self._count("server_replies_dropped_total")
+            else:
+                M_PING_DROPS.inc()
+            return False
+
         fd = -1
         while fd < 0:
             try:
@@ -327,24 +505,21 @@ class FifoServer:
                         or time.monotonic() > deadline):
                     log.error("no reader on %s (%s); dropping reply",
                               answerfifo, e)
-                    if count_drop:
-                        self.counters["server_replies_dropped_total"] += 1
-                    return False
+                    return dropped()
                 time.sleep(0.05)
+        M_REPLY_WAIT.observe(time.monotonic() - t_wait0)
         try:
             # reader present: restore blocking mode for the write itself
             fcntl.fcntl(fd, fcntl.F_SETFL,
                         fcntl.fcntl(fd, fcntl.F_GETFL) & ~os.O_NONBLOCK)
             os.write(fd, line.encode())
-            if count_drop:
-                self.counters["server_replies_sent_total"] += 1
+            if data_plane:
+                self._count("server_replies_sent_total")
             return True
         except OSError as e:
             # reader vanished between open and write: drop, never crash
             log.error("reply to %s failed: %s", answerfifo, e)
-            if count_drop:
-                self.counters["server_replies_dropped_total"] += 1
-            return False
+            return dropped()
         finally:
             os.close(fd)
 
@@ -371,10 +546,12 @@ class FifoServer:
             return
         if self._reply(toks[1], self._health_status().to_json() + "\n",
                        deadline_s=self.PING_REPLY_DEADLINE_S,
-                       count_drop=False):
-            self.counters["server_pings_answered_total"] += 1
+                       data_plane=False):
+            self._count("server_pings_answered_total")
 
     def _health_status(self) -> HealthStatus:
+        """One health truth for every probe: the ``__DOS_PING__`` line,
+        the RPC ``health`` frame and ``/healthz``."""
         c = self.counters
         return HealthStatus(
             ok=True, wid=self.wid, pid=os.getpid(),
@@ -386,32 +563,56 @@ class FifoServer:
             last_error=self._last_error,
         )
 
+    def health(self) -> dict:
+        """``/healthz`` payload: the health line a ping gets."""
+        return dataclasses.asdict(self._health_status())
+
+    def statusz(self) -> dict:
+        """``/statusz`` section: serve-loop health plus what this worker
+        hosts — its shard, its lanes, its resident codec and bytes, the
+        replica engines loaded (is failover traffic landing here?), the
+        RPC loop's state and the build ledger's journaled blocks."""
+        out = dict(self.health())
+        eng = self.engine
+        out["alg"] = self.alg
+        out["command_fifo"] = self.command_fifo
+        out["shard"] = self.wid
+        out["mesh"] = {"devices": int(eng.n_lanes), "axis": "lane"}
+        out["resident"] = {"codec": str(eng.resident_codec),
+                           "bytes": int(eng.resident_bytes)}
+        out["replica_shards_loaded"] = sorted(
+            s for s in self._replica_engines if s != self.wid)
+        if self.dc.replication > 1:
+            out["replica_shards_hosted"] = sorted(
+                int(s) for s in self.dc.replica_shards(self.wid))
+        out["epoch"] = 0
+        if self.rpc_loop is not None:
+            out["transport"] = self.rpc_loop.statusz()
+        try:
+            out["build_ledger_blocks"] = len(
+                BuildLedger(self.conf.outdir, self.wid).entries())
+        except (OSError, ValueError):
+            out["build_ledger_blocks"] = 0
+        return out
+
     def stop_file(self) -> None:
         """Write the stop token into our own FIFO (for another process)."""
         stop_server(self.command_fifo)
 
     # ------------------------------------------------------------ metrics
     def metrics_snapshot(self) -> dict:
-        """The ``--metrics-dump`` payload: the serve loop's counters, the
-        walk's kernel launches (raw, pack4) and plain walks, the A*
-        kernels' launches (K6: the sweep, its launches without the skip,
-        the heuristic) and plain runs (the batch loop, the heuristic),
-        and the device with its peak allocated bytes."""
+        """The ``--metrics-dump`` payload: ``obs.metrics.REGISTRY``'s
+        snapshot with the kernel wrappers' counts mirrored into its
+        ``counters`` (:func:`kernel_counts`), and beside it the
+        algorithm, the device with its peak allocated bytes and the
+        resident codec, the ``obs.device`` entries of the programs this
+        process ran (``device_programs``), the worker id and the pid."""
+        obs_metrics.mirror_counts(
+            kernel_counts(), help="kernel wrapper launch / plain counts")
         dev = self.engine.device
         on_card = dev.type == "cuda"
         return {
-            "counters": {
-                **self.counters,
-                "cuda_walk_batch.launches": cuda_walk_batch.launches,
-                "cuda_walk_batch.launches_pack4":
-                    cuda_walk_batch.launches_pack4,
-                "cuda_walk_batch.plain": cuda_walk_batch.plain,
-                "astar_sweep.launches": astar_sweep.launches,
-                "astar_sweep.dense": astar_sweep.dense,
-                "astar_batch.plain": astar_batch.plain,
-                "astar_heuristic.launches": astar_heuristic.launches,
-                "astar_heuristic.plain": astar_heuristic.plain,
-            },
+            **obs_metrics.REGISTRY.snapshot(),
             "alg": self.alg,
             "device": {
                 "type": dev.type,
@@ -423,9 +624,277 @@ class FifoServer:
                 "resident_codec": self.engine.resident_codec,
                 "resident_bytes": self.engine.resident_bytes,
             },
+            "device_programs": obs_device.snapshot(),
             "wid": self.wid,
             "pid": os.getpid(),
         }
+
+
+class RpcServeLoop:
+    """The socket accept loop beside the FIFO serve loop (the JAX
+    package's, without the membership and diff epoch gates, the L2 cache,
+    answer fingerprints and the telemetry broadcast: ROADMAP.md A14.3,
+    A14.5).
+
+    One :class:`FifoServer` (engines, health state, fault points) served
+    over persistent connections: length-prefixed frames
+    (:mod:`..transport.frames`), multiplexed by frame id, queries and
+    answers as raw ndarray payload segments instead of shared-dir files.
+    Each connection gets a ``hello`` frame advertising the credit window;
+    requests past the window answer an explicit ``busy`` frame. ``ping``
+    frames answer the same :class:`~..transport.wire.HealthStatus` the
+    ``__DOS_PING__`` control frame does.
+
+    The FIFO loop's fault points fire here too — ``crash-engine``
+    (answered FAIL), ``delay``, ``drop-reply`` (the reply frame is
+    withheld; the client times out, retryable), ``kill-mid-batch``
+    (``mode=exit`` exits 86; ``mode=raise`` tears the transport down,
+    the in-thread analog of a crash)."""
+
+    def __init__(self, server: FifoServer, socket_path: str | None = None,
+                 tcp_port: int | None = None, credit: int | None = None):
+        self.fs = server
+        self.socket_path = (socket_path if socket_path is not None
+                            else rpc_transport.rpc_socket_path(server.wid))
+        self.tcp_port = tcp_port
+        self.credit = (credit if credit is not None
+                       else max(1, env_cast("DOS_RPC_CREDIT", 8, int)))
+        self.endpoint = ""
+        self._listener = None
+        self._threads: list = []
+        self._conns: list = []
+        self._stop = threading.Event()
+        self._lock = OrderedLock("worker.RpcServeLoop")
+        self._inflight = 0
+        self._served = 0
+
+    # ---------------------------------------------------------- lifecycle
+    def start(self) -> "RpcServeLoop":
+        if self.tcp_port is not None:
+            lst = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            lst.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            lst.bind(("0.0.0.0", int(self.tcp_port)))
+            self.endpoint = f"tcp:*:{lst.getsockname()[1]}"
+        else:
+            if os.path.exists(self.socket_path):
+                os.remove(self.socket_path)
+            lst = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            lst.bind(self.socket_path)
+            self.endpoint = f"unix:{self.socket_path}"
+        lst.listen(16)
+        self._listener = lst
+        self.fs.rpc_loop = self     # the /statusz transport section
+        t = threading.Thread(target=self._accept_loop, daemon=True,
+                             name=f"dos-rpc-accept-w{self.fs.wid}")
+        self._threads.append(t)
+        t.start()
+        log.info("worker %d rpc serving on %s (credit %d)", self.fs.wid,
+                 self.endpoint, self.credit)
+        return self
+
+    def stop(self, join_s: float = 5.0) -> None:
+        self._stop.set()
+        lst, self._listener = self._listener, None
+        if lst is not None:
+            rpc_transport.shutdown_close(lst)
+        with self._lock:
+            conns, self._conns = list(self._conns), []
+        for c in conns:
+            rpc_transport.shutdown_close(c)
+        with self._lock:
+            threads, self._threads = list(self._threads), []
+        for t in threads:
+            t.join(timeout=join_s)
+        if self.tcp_port is None and os.path.exists(self.socket_path):
+            try:
+                os.remove(self.socket_path)
+            except OSError as e:
+                log.debug("rpc socket unlink failed: %s", e)
+
+    # ------------------------------------------------------------ serving
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                sock, _ = self._listener.accept()
+            except (OSError, AttributeError):
+                return      # listener closed by stop()
+            with self._lock:
+                self._conns.append(sock)
+            G_RPC_CONNS.add(1)
+            t = threading.Thread(
+                target=self._conn_loop, args=(sock,), daemon=True,
+                name=f"dos-rpc-conn-w{self.fs.wid}")
+            with self._lock:
+                self._threads.append(t)
+            t.start()
+
+    def _conn_loop(self, sock) -> None:
+        reader = frames.FrameReader(sock)
+        writer = frames.FrameWriter(sock)
+        try:
+            writer.send({"kind": "hello", "wid": self.fs.wid,
+                         "credit": self.credit})
+            while not self._stop.is_set():
+                fr = reader.read()
+                if fr is None:
+                    return                  # clean client hangup
+                if fr.kind == "ping":
+                    self._answer_ping(fr, writer)
+                elif fr.kind == "req":
+                    if not self._serve_req(fr, writer):
+                        return              # kill-mid-batch mode=raise
+                else:
+                    # unknown kinds are the schema-tolerance rule
+                    # applied to frames: skip, never kill the session
+                    log.warning("ignoring unknown rpc frame kind %r",
+                                fr.kind)
+        except frames.TransportError as e:
+            log.warning("rpc connection to worker %d died: %s",
+                        self.fs.wid, e)
+        except frames.FrameSchemaError as e:
+            log.error("rpc peer speaks a newer frame schema: %s", e)
+        finally:
+            rpc_transport.shutdown_close(sock)
+            me = threading.current_thread()
+            with self._lock:
+                if sock in self._conns:
+                    self._conns.remove(sock)
+                # prune this handler from the join list: every breaker
+                # probe opens a fresh connection
+                if me in self._threads:
+                    self._threads.remove(me)
+            G_RPC_CONNS.add(-1)
+
+    def _answer_ping(self, fr, writer) -> None:
+        status = self.fs._health_status()
+        try:
+            writer.send({"kind": "health", "id": fr.header.get("id"),
+                         "status": json.loads(status.to_json())})
+            self.fs._count("server_pings_answered_total")
+        except frames.TransportError as e:
+            log.warning("rpc health reply failed: %s", e)
+            M_PING_DROPS.inc()
+
+    def _serve_req(self, fr, writer) -> bool:
+        """Answer one ``req`` frame; False tears the transport down (the
+        ``kill-mid-batch`` in-thread analog)."""
+        fs = self.fs
+        fid = fr.header.get("id")
+        with self._lock:
+            busy = self._inflight >= self.credit
+            if not busy:
+                self._inflight += 1
+        if busy:
+            # explicit backpressure: the client books BUSY now instead
+            # of discovering a saturated worker by timeout
+            rpc_transport.M_BUSY.inc()
+            try:
+                writer.send({"kind": "busy", "id": fid})
+            except frames.TransportError as e:
+                log.warning("rpc busy reply failed: %s", e)
+            return True
+        try:
+            try:
+                rconf = rpc_transport.config_from_wire(
+                    fr.header.get("config"))
+                queries = (np.asarray(fr.arrays[0], np.int64)
+                           .reshape(-1, 2) if fr.arrays
+                           else np.zeros((0, 2), np.int64))
+            except (ValueError, TypeError) as e:
+                log.error("malformed rpc request: %s", e)
+                M_RPC_MALFORMED.inc()
+                self._reply(writer, {"kind": "rep", "id": fid,
+                                     "stats": StatsRow.failed()
+                                     .encode_wire()})
+                return True
+            diff = str(fr.header.get("diff") or "-")
+            kill = faults.inject("kill-mid-batch", wid=fs.wid)
+            if kill is not None:
+                log.error("fault: worker %d dying mid-batch (rpc)", fs.wid)
+                if kill.mode == "exit":
+                    os._exit(faults.KILL_EXIT_CODE)
+                # mode=raise: the in-thread server dies — stop accepting,
+                # close the listener so new connects are refused; the
+                # torn socket is the client's signal
+                self._stop.set()
+                lst, self._listener = self._listener, None
+                if lst is not None:
+                    rpc_transport.shutdown_close(lst)
+                return False
+            header = {"kind": "rep", "id": fid}
+            arrays: list = []
+            try:
+                if faults.inject("crash-engine", wid=fs.wid) is not None:
+                    raise RuntimeError("injected fault: crash-engine")
+                cost, plen, fin, stats, paths = self._answer(
+                    rconf, queries, diff, header)
+                fs._count("worker_batches_total")
+                if rconf.results:
+                    header["res"] = True
+                    arrays += [np.asarray(cost, np.int64),
+                               np.asarray(plen, np.int64),
+                               np.asarray(fin).astype(np.uint8)]
+                if paths is not None:
+                    header["paths"] = True
+                    arrays += [np.asarray(paths[0], np.int64),
+                               np.asarray(paths[1], np.int64)]
+            except Exception as e:  # noqa: BLE001 — never leave the
+                # client waiting on a reply that cannot come; FAIL it
+                log.exception("rpc batch failed: %s", e)
+                stats = fs._batch_failed(e)
+                header = {"kind": "rep", "id": fid}
+                arrays = []
+            delay = faults.inject("delay", wid=fs.wid)
+            if delay is not None:
+                log.warning("fault: delaying rpc reply %.2fs", delay.delay)
+                time.sleep(delay.delay)
+            if faults.inject("drop-reply", wid=fs.wid) is not None:
+                log.error("fault: dropping rpc reply id=%r", fid)
+                M_RPC_DROPPED.inc()
+                return True
+            header["stats"] = stats.encode_wire()
+            self._reply(writer, header, arrays)
+            M_RPC_BATCHES.inc()
+            with self._lock:
+                self._served += 1
+            return True
+        finally:
+            with self._lock:
+                self._inflight -= 1
+
+    def _answer(self, rconf, queries, diff, header):
+        """The engine answer under the cross-transport mutex, with the
+        worker's spans captured and shipped back IN the reply header
+        (``trace`` events) instead of a ``.trace`` sidecar file."""
+        fs = self.fs
+        if rconf.trace_id:
+            with obs_trace.capture(rconf.trace_id) as cap:
+                with fs.answer_lock:
+                    out = fs.answer_queries(queries, rconf, diff)
+            header["trace"] = cap.events
+            return out
+        with fs.answer_lock:
+            return fs.answer_queries(queries, rconf, diff)
+
+    def _reply(self, writer, header, arrays=()) -> None:
+        try:
+            writer.send(header, arrays)
+        except frames.TransportError as e:
+            # client vanished before the reply: drop, never crash the
+            # conn loop (its next recv sees the same dead socket)
+            log.warning("rpc reply dropped: %s", e)
+            M_RPC_DROPPED.inc()
+
+    # ------------------------------------------------------------- status
+    def statusz(self) -> dict:
+        with self._lock:
+            return {
+                "endpoint": self.endpoint,
+                "connections": len(self._conns),
+                "inflight": int(self._inflight),
+                "credit": int(self.credit),
+                "served": int(self._served),
+            }
 
 
 def stop_server(command_fifo: str, deadline_s: float = 2.0) -> bool:
@@ -467,10 +936,7 @@ def stop_server(command_fifo: str, deadline_s: float = 2.0) -> bool:
 #: flags of the JAX server that parse here and are refused, with the item
 #: that ports each
 REFUSED_FLAGS = {
-    "traffic_dir": ("--traffic-dir", "A14"),
-    "rpc_socket": ("--rpc-socket", "A14"),
-    "rpc_port": ("--rpc-port", "A14"),
-    "obs_port": ("--obs-port", "A14"),
+    "traffic_dir": ("--traffic-dir", "A14.3"),
 }
 
 
@@ -492,9 +958,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: cuda; raises without a GPU)")
     p.add_argument("-v", "--verbose", action="count", default=0)
     p.add_argument("--metrics-dump", default="",
-                   help="write the server's counters, walk launches, "
-                        "device and peak device memory as JSON to this "
-                        "path on clean shutdown")
+                   help="write the metrics registry's snapshot (with the "
+                        "kernel launch counts), the device and its peak "
+                        "device memory as JSON to this path on clean "
+                        "shutdown")
+    p.add_argument("--obs-port", type=int, default=None,
+                   help="serve live /metrics /healthz /statusz on this "
+                        "port (0 = ephemeral; default off; DOS_OBS_PORT)")
+    p.add_argument("--rpc-socket", default=None,
+                   help="unix socket for the streaming RPC serve loop "
+                        "(default under DOS_TRANSPORT=rpc/auto: "
+                        "DOS_RPC_SOCKET_DIR/dos-rpc-worker<wid>.sock)")
+    p.add_argument("--rpc-port", type=int, default=None,
+                   help="TCP port for the RPC serve loop (cross-host; "
+                        "DOS_RPC_PORT+wid when the env base is set)")
     for dest, (flag, _item) in REFUSED_FLAGS.items():
         p.add_argument(flag, dest=dest, default=None,
                        help=argparse.SUPPRESS)
@@ -506,14 +983,39 @@ def main(argv=None) -> int:
     for dest, (flag, item) in REFUSED_FLAGS.items():
         if getattr(args, dest) is not None:
             raise SystemExit(f"{flag} is not ported (ROADMAP.md {item})")
+    if env_cast("DOS_TELEMETRY_INTERVAL_S", 0.0, float) > 0:
+        raise SystemExit("DOS_TELEMETRY_INTERVAL_S: the telemetry "
+                         "publisher is not ported (ROADMAP.md A14.5)")
+    if env_cast("DOS_GATEWAY_L2_BYTES", 0, int) > 0:
+        raise SystemExit("DOS_GATEWAY_L2_BYTES: the worker L2 cache is "
+                         "not ported (ROADMAP.md A14.3)")
     set_verbosity(args.verbose)
     set_worker_id(args.workerid)
     conf = ClusterConfig.load(args.c)
     server = FifoServer(conf, args.workerid, command_fifo=args.fifo,
                         alg=args.alg, device=args.device)
+    # the streaming data plane serves BESIDE the FIFO loop (same
+    # engines): on under DOS_TRANSPORT=rpc/auto or when an explicit
+    # endpoint flag names one; off under the default DOS_TRANSPORT=fifo
+    rpc_loop = None
+    if (args.rpc_socket is not None or args.rpc_port is not None
+            or rpc_transport.resolve_transport() != "fifo"):
+        port = args.rpc_port
+        if port is None:
+            base = env_cast("DOS_RPC_PORT", 0, int)
+            port = base + args.workerid if base > 0 else None
+        rpc_loop = RpcServeLoop(server, socket_path=args.rpc_socket,
+                                tcp_port=port).start()
+    obs_srv = start_obs_server(
+        args.obs_port, health_fn=server.health,
+        status_providers={"worker": server.statusz})
     try:
         server.serve_forever()
     finally:
+        if rpc_loop is not None:
+            rpc_loop.stop()
+        if obs_srv is not None:
+            obs_srv.close()
         if args.metrics_dump:
             atomic_write_json(args.metrics_dump, server.metrics_snapshot())
     return 0

@@ -160,7 +160,16 @@ def test_artifacts_equal(campaigns, tag):
     assert metrics[1]["failed_batches"] == []
     with open(os.path.join(tdir, "data.json")) as f:
         assert json.load(f)["device"] == "cpu"
-    assert not os.path.exists(os.path.join(tdir, "obs_metrics.json"))
+    # the metrics registry's snapshot beside parts.csv, as in JAX: the
+    # same three sections and the head's histograms
+    obs = []
+    for d in (jdir, tdir):
+        with open(os.path.join(d, "obs_metrics.json")) as f:
+            obs.append(json.load(f))
+    assert sorted(obs[1]) == sorted(obs[0]) == ["counters", "gauges",
+                                                "histograms"]
+    for name in ("head_partition_seconds", "head_search_seconds"):
+        assert name in obs[1]["histograms"] and name in obs[0]["histograms"]
     if tag == "k8":
         with open(os.path.join(jdir, "paths.csv"), "rb") as f:
             want = f.read()
@@ -228,16 +237,97 @@ def test_build_if_missing_and_print_mode(tmp_path, capsys):
     assert not os.path.exists(os.path.join(root, "metrics.json"))
 
 
+def _head_spans(path) -> list:
+    with open(path) as f:
+        doc = json.load(f)
+    assert sorted(doc) == ["displayTimeUnit", "traceEvents"]
+    evs = doc["traceEvents"]
+    for ev in evs:
+        assert {"name", "ph", "ts", "dur", "pid", "tid", "args"} <= set(ev)
+        assert ev["ph"] == "X"
+    return sorted(ev["name"] for ev in evs if ev["name"].startswith("head."))
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--alg", "ch"], "A15"), (["--trace", "t.json"], "A14"),
     (["--metrics-dump", "m.json"], "A14"), (["--profile", "p"], "A14"),
     (["--obs-port", "0"], "A14"),
 ])
-def test_process_query_refusals_name_roadmap(tmp_path, argv, item):
-    root = str(tmp_path)
-    conf = _conf(root, _copy_data(root))
-    with pytest.raises(SystemExit, match=item):
-        t_pq.main(["-c", conf, "--device", "cpu", *argv])
+def test_process_query_refusals_name_roadmap(campaigns, tmp_path,
+                                             monkeypatch, argv, item):
+    """``--alg ch`` is still refused, naming its ``ROADMAP.md`` item
+    (A15). The observability flags, refused until A14 ported them, now
+    act as in the JAX package on each package's campaign: ``--trace``
+    writes a Chrome trace with the same head spans, ``--metrics-dump``
+    the registry's sections with the same head histograms, ``--profile``
+    a ``torch.profiler`` Chrome trace in its directory (the JAX package
+    writes ``jax.profiler``'s there), and ``--obs-port`` serves
+    ``/metrics`` while the campaign runs; the rows stay equal."""
+    if argv[0] == "--alg":
+        root = str(tmp_path)
+        conf = _conf(root, _copy_data(root))
+        with pytest.raises(SystemExit, match=item):
+            t_pq.main(["-c", conf, "--device", "cpu", *argv])
+        return
+    got = {}
+    for name, (_make, pq) in PACKAGES.items():
+        if argv[0] == "--profile" and name == "jax":
+            continue                 # jax.profiler: not the port's tool
+        root = campaigns[name][0]
+        out = str(tmp_path / name)
+        flag = [argv[0], str(tmp_path / f"{name}-{argv[1]}")
+                if argv[0] != "--obs-port" else argv[1]]
+        scraped = []
+        if argv[0] == "--obs-port":
+            # the JAX head imports start_obs_server inside main()
+            from distributed_oracle_search_tpu.obs import http as j_http
+            owner = pq if hasattr(pq, "start_obs_server") else j_http
+            real_start, real_run = owner.start_obs_server, pq.run
+            servers = []
+
+            def start(port, *a, _real=real_start, **kw):
+                servers.append(_real(port, *a, **kw))
+                return servers[-1]
+
+            def run(*a, _real=real_run, **kw):
+                import urllib.request
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{servers[0].port}/metrics",
+                        timeout=10) as r:
+                    scraped.append((r.status, r.read().decode()))
+                return _real(*a, **kw)
+
+            monkeypatch.setattr(owner, "start_obs_server", start)
+            monkeypatch.setattr(pq, "run", run)
+        rc = pq.main(["-c", os.path.join(root, "conf.json"), "-o", out,
+                      "--device", "cpu", *flag])
+        art = flag[1]
+        if argv[0] == "--trace":
+            res = _head_spans(art)
+        elif argv[0] == "--metrics-dump":
+            with open(art) as f:
+                snap = json.load(f)
+            res = (sorted(snap),
+                   {h: snap["histograms"][h]["count"] > 0
+                    for h in ("head_partition_seconds",
+                              "head_search_seconds")})
+        elif argv[0] == "--profile":
+            files = os.listdir(art)
+            assert len(files) == 1 and files[0].endswith(".pt.trace.json")
+            with open(os.path.join(art, files[0])) as f:
+                assert json.load(f)["traceEvents"]
+            res = None
+        else:
+            assert len(scraped) == 1 and scraped[0][0] == 200
+            res = "# TYPE head_search_seconds histogram" in scraped[0][1]
+        got[name] = (rc, res, _parts(os.path.join(out, "parts.csv")))
+    if argv[0] == "--profile":
+        want = _parts(os.path.join(campaigns["jax"][0], "rounds",
+                                   "parts.csv"))
+        assert got["torch"] == (0, None, want)
+        return
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == 0 and got["torch"][1]
 
 
 def _counts(stats):

@@ -26,6 +26,7 @@ from distributed_oracle_search_tpu_torch.models.cpd import (  # noqa: E402
     CPDOracle, build_worker_shard,
 )
 from distributed_oracle_search_tpu_torch.ops import DeviceGraph  # noqa: E402
+from distributed_oracle_search_tpu_torch.obs import device as obs_device  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import cuda_walk as cw  # noqa: E402
 from distributed_oracle_search_tpu_torch.parallel import (  # noqa: E402
     DistributionController, mesh, sharded,
@@ -85,6 +86,9 @@ def test_lane_engine_equals_one_lane_and_cpu(shard, lanes, name, cfg,
     lane = ShardEngine(g, dc, 0, d, mesh=[torch.device("cuda:0")] * lanes)
     one.time_chunk = lane.time_chunk = cpu.time_chunk = 512
     want = cpu.answer(q, cfg, f)
+    # each engine's first batch records its key's obs.device entry: one
+    # more call, over the lanes for the lane engine
+    obs_device.reset()
     _zero()
     got1 = one.answer(q, cfg, f)
     calls1 = cw.cuda_walk_batch.launches
@@ -117,9 +121,10 @@ def test_replica_pins_to_its_lane(shard, rank):
     lanes = [torch.device("cuda:0")] * 4
     eng = ShardEngine(g, dc, 0, d, mesh=lanes, replica=rank)
     assert eng.fm.device == lanes[rank % 4] and not eng._lane_split
+    obs_device.reset()
     _zero()
     got = eng.answer(q, RuntimeConfig())
-    assert cw.cuda_walk_batch.launches == 1
+    assert cw.cuda_walk_batch.launches == 1 + 1       # + the capture's
     want = ShardEngine(g, dc, 0, d, device="cpu").answer(q, RuntimeConfig())
     for a, b in zip(want[:3], got[:3]):
         np.testing.assert_array_equal(a, b)

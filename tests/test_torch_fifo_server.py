@@ -8,12 +8,15 @@ never opens does not wedge the loop; an engine error answers ``FAIL``.
 A served batch's stats line, paths and results files equal the JAX
 package's server's on the same request (deterministic fields exactly).
 ``--metrics-dump`` carries the counters, the walk's launches and plain
-walks, and the device; refused flags name their ``ROADMAP.md`` item."""
+walks, and the device; the one refused flag names its ``ROADMAP.md``
+item, and the RPC and scrape flags serve as the JAX server's do."""
 
 import json
 import os
+import socket
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -36,6 +39,7 @@ from distributed_oracle_search_tpu_torch.parallel import (  # noqa: E402
     DistributionController,
 )
 from distributed_oracle_search_tpu_torch.transport import fifo as t_fifo  # noqa: E402
+from distributed_oracle_search_tpu_torch.transport import rpc as t_rpc  # noqa: E402
 from distributed_oracle_search_tpu_torch.transport.wire import (  # noqa: E402
     HealthStatus, Request, RuntimeConfig, StatsRow, read_paths_file,
     read_results_file, write_query_file,
@@ -361,15 +365,119 @@ def test_main_writes_metrics_dump(cluster, tmp_path):
     assert "server_pings_answered_total" in snap["counters"]
 
 
+def _free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _main_server(pkg, conf, fifo, extra):
+    """Run package ``pkg``'s ``worker.server.main`` in a thread until its
+    FIFO answers a ping; returns ``(thread, exit codes)``."""
+    mod = t_server if pkg == "torch" else j_server
+    dev = ["--device", "cpu"] if pkg == "torch" else []
+    rcs = []
+    th = threading.Thread(target=lambda: rcs.append(mod.main(
+        ["-c", conf, "-w", "0", "--fifo", fifo, *dev, *extra])),
+        daemon=True)
+    th.start()
+    nfs = os.path.dirname(fifo)
+    for _ in range(300):
+        if (os.path.exists(fifo) and t_fifo.probe(
+                "localhost", 0, command_fifo=fifo, nfs=nfs,
+                timeout=2.0) is not None):
+            return th, rcs
+        time.sleep(0.05)
+    pytest.fail(f"{pkg} server never answered a ping")
+
+
+def _rpc_batch(endpoint, mine):
+    client = t_rpc.RpcClient(endpoint, timeout_s=30.0)
+    try:
+        fr = client.call({"kind": "req", "config": {"results": True},
+                          "diff": "-"}, [np.asarray(mine, np.int64)])
+    finally:
+        client.close()
+    return (fr.header["stats"], fr.header.get("res"),
+            [np.array(a) for a in fr.arrays])
+
+
+def _scrape(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.status, r.headers["Content-Type"], r.read().decode()
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--traffic-dir", "x"], "A14"), (["--rpc-socket", "s"], "A14"),
-    (["--rpc-port", "9"], "A14"), (["--obs-port", "0"], "A14"),
+    (["--traffic-dir", "x"], "A14"), (["--rpc-socket", "{sock}"], "A14"),
+    (["--rpc-port", "{port}"], "A14"), (["--obs-port", "{port}"], "A14"),
 ])
 def test_server_refused_flags_name_roadmap(cluster, tmp_path, argv, item):
+    """Of the JAX server's flags only ``--traffic-dir`` is still refused,
+    naming its ``ROADMAP.md`` item (A14.3). ``--rpc-socket``,
+    ``--rpc-port`` and ``--obs-port``, refused until A14 ported them,
+    now serve as the JAX server's do: one batch over the RPC lane gets
+    the same stats line and answers from both packages' servers, and
+    ``/healthz`` / ``/metrics`` answer with the same keys and types."""
+    if argv[0] == "--traffic-dir":
+        with pytest.raises(SystemExit, match=item):
+            t_server.main(["-c", cluster[0], "-w", "0", "--fifo",
+                           str(tmp_path / "r.fifo"), "--device", "cpu",
+                           *argv])
+        assert not os.path.exists(tmp_path / "r.fifo")
+        return
+    mine = _mine(cluster)
+    got = {}
+    for pkg in ("torch", "jax"):
+        sock = str(tmp_path / f"{pkg}.sock")
+        port = _free_port()
+        extra = [a.format(sock=sock, port=port) for a in argv]
+        fifo = str(tmp_path / f"{pkg}.fifo")
+        th, rcs = _main_server(pkg, cluster[0], fifo, extra)
+        try:
+            if argv[0] == "--rpc-socket":
+                got[pkg] = _rpc_batch(("unix", sock, None), mine)
+            elif argv[0] == "--rpc-port":
+                got[pkg] = _rpc_batch(("tcp", "127.0.0.1", port), mine)
+            else:
+                code, ctype, body = _scrape(port, "/healthz")
+                m_code, m_type, metrics = _scrape(port, "/metrics")
+                got[pkg] = (code, sorted(json.loads(body)), m_code,
+                            m_type, "server_pings_answered_total" in metrics)
+        finally:
+            t_server.stop_server(fifo)
+            th.join(timeout=20)
+        assert rcs == [0], pkg
+    if argv[0] == "--obs-port":
+        assert got["torch"] == got["jax"]
+        assert got["torch"][0] == 200 and got["torch"][-1]
+        return
+    (t_stats, t_res, t_arr), (j_stats, j_res, j_arr) = \
+        got["torch"], got["jax"]
+    trow, jrow = StatsRow.decode(t_stats), StatsRow.decode(j_stats)
+    for f in DETERMINISTIC:
+        assert getattr(trow, f) == getattr(jrow, f), f
+    assert trow.ok and trow.finished == len(mine) and t_res == j_res
+    assert len(t_arr) == len(j_arr) == 3
+    for a, b in zip(t_arr, j_arr):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("knob,value,item", [
+    ("DOS_TELEMETRY_INTERVAL_S", "0.5", "A14.5"),
+    ("DOS_GATEWAY_L2_BYTES", "4096", "A14.3"),
+])
+def test_server_refuses_unported_knobs(cluster, tmp_path, monkeypatch,
+                                       knob, value, item):
+    """A nonzero ``DOS_TELEMETRY_INTERVAL_S`` asks for the telemetry
+    publisher, a positive ``DOS_GATEWAY_L2_BYTES`` for the worker L2
+    cache; neither is ported: refused, naming its ROADMAP.md item,
+    before any FIFO or socket is made."""
+    monkeypatch.setenv(knob, value)
     with pytest.raises(SystemExit, match=item):
         t_server.main(["-c", cluster[0], "-w", "0", "--fifo",
-                       str(tmp_path / "r.fifo"), "--device", "cpu", *argv])
-    assert not os.path.exists(tmp_path / "r.fifo")
+                       str(tmp_path / "t.fifo"), "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "t.fifo")
 
 
 def test_server_without_gpu_raises(cluster, tmp_path, monkeypatch):

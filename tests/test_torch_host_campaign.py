@@ -14,8 +14,11 @@ and query file under ``tmp_path``. Held equal, exactly:
 (d) ``make_fifos`` + ``process_query`` with real ``worker.server``
     subprocesses answer every query and stop cleanly; a dead worker
     degrades the campaign (``FAIL`` row, ``degraded.json``, exit 3);
-(e) each refused flag names its ``ROADMAP.md`` item (a replicated host
-    campaign A14: the head's failover over replicas)."""
+(e) the cases A14 refused now act as the JAX package's do: the RPC lane
+    (``DOS_TRANSPORT=rpc``), the per-lane FIFO fallback (``auto``) and a
+    replicated campaign failing over off a dead worker give the JAX
+    head's rows; an elastic fleet's ``membership.json`` is still refused,
+    naming its ``ROADMAP.md`` item (A14.3)."""
 
 import csv
 import json
@@ -70,6 +73,27 @@ SERVERS = {"torch": (t_server, ClusterConfig),
            "jax": (j_server, JClusterConfig)}
 HEADS = {"torch": t_pq, "jax": j_pq}
 DEV = ["--device", "cpu"]     # the JAX parser passes it through
+#: the registry metrics a ``worker.build`` process registers (its
+#: ``--metrics-dump`` holds these, plus the mirrored counts in counters)
+BUILD_REGISTRY_COUNTERS = (
+    "artifacts_swept_total", "cpd_resident_degraded_total",
+    "failover_total", "faults_injected_total", "head_circuit_closed_total",
+    "head_circuit_half_open_total", "head_circuit_open_total",
+    "head_circuit_rejected_total", "head_probe_failures_total",
+    "head_probes_total", "head_retries_total",
+    "head_stale_fifos_cleaned_total", "mesh_walk_batches_total",
+    "recorder_events_total", "recorder_records_total",
+    "recorder_segments_total", "recorder_torn_lines_total",
+    "walk_compressed_batches_total", "walk_pallas_batches_total",
+    "walk_xla_batches_total", "worker_batches_total",
+    "worker_duplicate_queries_total", "worker_queries_total")
+BUILD_REGISTRY_GAUGES = (
+    "cpd_resident_bytes", "device_programs_analyzed", "head_circuits_open",
+    "mesh_devices", "recorder_ring_bytes")
+BUILD_REGISTRY_HISTOGRAMS = (
+    "cpd_decompress_seconds", "worker_jit_compile_seconds",
+    "worker_receive_seconds", "worker_search_seconds",
+    "worker_weights_load_seconds")
 
 
 def _write_conf(d, data, **extra) -> str:
@@ -120,14 +144,20 @@ class Fleet:
     """In-thread servers of one package, one per worker, on FIFOs under
     ``tmp_path``; both heads' ``command_fifo_path`` point at them."""
 
-    def __init__(self, pkg, conf, tmp_path, monkeypatch):
+    def __init__(self, pkg, conf, tmp_path, monkeypatch, rpc=False):
         mod, conf_cls = SERVERS[pkg]
+        self.mod = mod
         self.fifos = _fifos(tmp_path, pkg)
         kw = {"device": "cpu"} if pkg == "torch" else {}
         self.servers = [mod.FifoServer(conf_cls.load(conf), w,
                                        command_fifo=self.fifos[w], **kw)
                         for w in range(W)]
         self.stop = mod.stop_server
+        # RPC listeners beside the FIFO loops, on sockets under tmp_path
+        # (DOS_RPC_SOCKET_DIR names them for both heads)
+        self.rpc = rpc
+        self.loops = []
+        monkeypatch.setenv("DOS_RPC_SOCKET_DIR", str(tmp_path))
         for head in HEADS.values():
             monkeypatch.setattr(head, "command_fifo_path",
                                 lambda w: self.fifos[w])
@@ -142,6 +172,9 @@ class Fleet:
                 if os.path.exists(f):
                     break
                 time.sleep(0.02)
+        if self.rpc:
+            self.loops = [self.mod.RpcServeLoop(s).start()
+                          for s in self.servers]
         return self
 
     def __exit__(self, *exc):
@@ -149,6 +182,8 @@ class Fleet:
             self.stop(f)
         for t in self.threads:
             t.join(timeout=10)
+        for loop in self.loops:
+            loop.stop()
         assert not any(t.is_alive() for t in self.threads)
 
 
@@ -252,10 +287,14 @@ def test_make_cpds_host_subprocess_blocks_equal_jax(dataset, tmp_path):
         assert snap["wid"] == wid and snap["rows"] == dc.n_owned(wid)
         assert snap["blocks"] >= 1 and snap["seconds"] > 0
         assert snap["device"]["type"] == "cpu"
-        assert set(snap["counters"]) == {"relax_jacobi.launches",
-                                         "first_moves.launches",
-                                         "grid_sweep.launches",
-                                         *cpd.COUNTERS}
+        # the registry's snapshot: the metrics a build process registers,
+        # with the build kernels' launches and the index counters
+        # mirrored into its counters
+        assert set(snap["counters"]) == {
+            *BUILD_REGISTRY_COUNTERS, "relax_jacobi.launches",
+            "first_moves.launches", "grid_sweep.launches", *cpd.COUNTERS}
+        assert set(snap["gauges"]) == set(BUILD_REGISTRY_GAUGES)
+        assert set(snap["histograms"]) == set(BUILD_REGISTRY_HISTOGRAMS)
     jout = str(tmp_path / "jax-index")
     for wid in range(W):
         assert j_wbuild.main([
@@ -427,16 +466,60 @@ def test_make_fifos_tpu_conf_needs_no_servers(tmp_path, dataset, capsys):
     ("rpc", "A14"), ("auto", "A14"), ("replication", "A14"),
     ("membership", "A14"),
 ])
-def test_process_query_host_refusals_name_roadmap(dataset, tmp_path,
+def test_process_query_host_refusals_name_roadmap(cluster, dataset,
+                                                  jax_campaign, tmp_path,
                                                   monkeypatch, case, item):
-    extra = {"replication": 2} if case == "replication" else {}
-    conf = _write_conf(tmp_path, dataset, **extra)
-    if case in ("rpc", "auto"):
-        monkeypatch.setenv("DOS_TRANSPORT", case)
+    """(e) ``membership`` is still refused, naming its ``ROADMAP.md`` item
+    (A14.3). The other cases, refused until A14 ported them, give the
+    JAX campaign's rows: ``rpc`` over the port servers' sockets (no
+    query file written), ``auto`` against servers with no listener (each
+    lane falls back to the FIFO wire), and ``replication`` 2 with worker
+    1 never resident — its batches fail over to worker 2, the holder of
+    its replica, under the port's head and the JAX head alike."""
     if case == "membership":
+        conf = _write_conf(tmp_path, dataset)
         os.makedirs(tmp_path / "index")
         with open(tmp_path / "index" / "membership.json", "w") as f:
             f.write("{}")
-    monkeypatch.setattr(t_pq, "send_queries", None)       # never sends
-    with pytest.raises(SystemExit, match=item):
-        t_pq.main(["-c", conf, *DEV])
+        monkeypatch.setattr(t_pq, "send_queries", None)    # never sends
+        with pytest.raises(SystemExit, match=item):
+            t_pq.main(["-c", conf, *DEV])
+        return
+    monkeypatch.setattr(t_pq, "_RPC_FALLBACK_LANES", set())
+    if case in ("rpc", "auto"):
+        monkeypatch.setenv("DOS_TRANSPORT", case)
+        nfs = ClusterConfig.load(cluster).nfs
+        before = set(os.listdir(nfs))
+        with Fleet("torch", cluster, tmp_path, monkeypatch,
+                   rpc=case == "rpc"):
+            got = _campaign("torch", cluster, str(tmp_path / "rounds"))
+        assert got == jax_campaign[0]
+        written = set(os.listdir(nfs)) - before
+        if case == "rpc":
+            assert not [f for f in written if f.startswith("query.")]
+            assert t_pq._RPC_FALLBACK_LANES == set()
+        else:
+            assert t_pq._RPC_FALLBACK_LANES == {("localhost", w)
+                                                for w in range(W)}
+        return
+    with open(cluster) as f:
+        conf_d = json.load(f)
+    conf_d.update(replication=2, nfs=str(tmp_path / "nfs"))
+    os.makedirs(conf_d["nfs"])
+    conf = str(tmp_path / "conf-r2.json")
+    with open(conf, "w") as f:
+        json.dump(conf_d, f)
+    monkeypatch.setenv("DOS_RETRY_MAX", "0")
+    monkeypatch.setenv("DOS_SEND_TIMEOUT_S", "10")
+    got = {}
+    for head in ("torch", "jax"):
+        fleet = Fleet("torch", conf, tmp_path / head, monkeypatch) \
+            if (tmp_path / head).mkdir() is None else None
+        fleet.servers[1].serve_forever = lambda: None      # never resident
+        with fleet:
+            got[head] = _campaign(head, conf, str(tmp_path / head / "out"))
+        assert fleet.servers[2].counters[
+            "server_replica_batches_total"] == 2
+        assert not os.path.exists(tmp_path / head / "out" / "degraded.json")
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == 0 and got["torch"][1] == jax_campaign[0][1]

@@ -51,6 +51,7 @@ from distributed_oracle_search_tpu_torch.models import cpd  # noqa: E402
 from distributed_oracle_search_tpu_torch.models.cpd import (  # noqa: E402
     CPDOracle, build_worker_shard,
 )
+from distributed_oracle_search_tpu_torch.obs import device as obs_device  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import cuda_walk as cw  # noqa: E402
 from distributed_oracle_search_tpu_torch.parallel import mesh  # noqa: E402
 from distributed_oracle_search_tpu_torch.parallel import sharded  # noqa: E402
@@ -177,12 +178,14 @@ def test_walk_parity(monkeypatch, tg, dcs, shard_dir, walk_queries,
                      diff_file, jax_engine, lanes, diffed):
     """Lane counts 1/2/4/8 answer as the JAX single-device engine, free
     flow and diffed, duplicates and zero-length pairs included, with one
-    walk call a lane."""
+    walk call a lane (and one a lane for the key's ``obs.device``
+    capture, the engine's first batch at it)."""
     diff = diff_file if diffed else "-"
     eng = _lane_engine(monkeypatch, lanes, tg, dcs[1], shard_dir)
+    obs_device.reset()
     cw.cuda_walk_batch.plain = 0
     got = eng.answer(walk_queries, RuntimeConfig(), diff)
-    assert cw.cuda_walk_batch.plain == lanes
+    assert cw.cuda_walk_batch.plain == 2 * lanes
     _same(jax_engine.answer(walk_queries, JConfig(), diff), got)
 
 
@@ -204,9 +207,10 @@ def test_tiny_batch_pads_to_lanes(monkeypatch, tg, dcs, shard_dir,
     """A batch smaller than the lane count pads up (valid=False lanes)
     instead of leaving the lane path or crashing."""
     eng = _lane_engine(monkeypatch, 8, tg, dcs[1], shard_dir)
+    obs_device.reset()
     cw.cuda_walk_batch.plain = 0
     got = eng.answer(walk_queries[:n], RuntimeConfig())
-    assert cw.cuda_walk_batch.plain == 8
+    assert cw.cuda_walk_batch.plain == 8 + 8          # + the capture's
     _same(jax_engine.answer(walk_queries[:n], JConfig()), got)
 
 
@@ -218,10 +222,12 @@ def test_deadline_chunks_under_lanes(monkeypatch, toy_graph, tg, dcs,
     base.astar_chunk = 16
     eng = _lane_engine(monkeypatch, 4, tg, dcs[1], shard_dir)
     eng.time_chunk = 16
+    obs_device.reset()
     cw.cuda_walk_batch.plain = 0
     got = eng.answer(walk_queries, RuntimeConfig(time=10**13))
     qpad = 1 << (len(np.unique(walk_queries, axis=0)) - 1).bit_length()
-    assert cw.cuda_walk_batch.plain == 4 * (qpad // 16)
+    # one walk a lane a chunk, and the capture's of one chunk
+    assert cw.cuda_walk_batch.plain == 4 * (qpad // 16) + 4
     _same(base.answer(walk_queries, JConfig(time=10**13)), got)
 
 
@@ -355,9 +361,10 @@ def test_replica_lane_pinning(monkeypatch, tg, dcs, shard_dir, walk_queries,
                       replica=rank, mesh=lanes)
     assert not eng._lane_split
     assert eng.device == lanes[rank % 4] and eng.fm.device == eng.device
+    obs_device.reset()
     cw.cuda_walk_batch.plain = 0
     got = eng.answer(walk_queries, RuntimeConfig())
-    assert cw.cuda_walk_batch.plain == 1
+    assert cw.cuda_walk_batch.plain == 1 + 1          # + the capture's
     _same(jax_engine.answer(walk_queries, JConfig()), got)
 
 
