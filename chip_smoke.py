@@ -140,7 +140,7 @@ points a user calls, then the compressed-residency path:
    1 and 2 cycles and at convergence, with the plain loop's cycle count)
    and the extraction kernel against the plain extraction, and time one
    cycle for each count of columns a block may own, beside both bounds,
-   and the build's one-launch loop, a cycle each; on a 6,000 x 6 lattice
+   and the build's one-launch loop, a cycle each; on a 2,800 x 12 lattice
    (rows past a block's shared memory, swept in pieces) ``auto`` must
    resolve ``sweep`` and the sweep must equal the plain loop at
    convergence with its cycle count;
@@ -305,8 +305,47 @@ points a user calls, then the compressed-residency path:
    walk, an ``obs.device`` entry timed by CUDA events; the
    trace holds the servers' ``worker.search`` spans under the head's
    trace ids; ``/metrics`` answers Prometheus text; the other servers
-   exit 0 on their token. Recorded: RPC beside FIFO round q/s, the
-   failover's seconds, the phase's wall time;
+   exit 0 on their token. Before they stop, the epoch leg: the port's
+   ``MembershipController`` commits worker 3's leave (shard 3 to worker
+   4, ``membership.json`` epoch 1) and one more ``process_query`` run
+   over RPC stamps epoch 1 on every batch: the servers refresh, worker 4
+   answers shard 3 as its owner, the rows equal ``[host]``'s and
+   ``failover_total`` does not grow; an RPC batch with ``answer_fp``
+   carries the fingerprint of its answers on the reply header; then
+   ``dos-serve --backend host`` under ``DOS_TRANSPORT=rpc``,
+   ``DOS_ANSWER_FP=1`` and ``DOS_HEDGE_BUDGET=0.01`` answers 4,096 lines
+   from stdin over the live servers: the campaign's answers, 0
+   fingerprint mismatches, a hedge issued, exit 0.
+   Recorded: RPC beside FIFO round q/s, the failover's seconds, the
+   epoch leg's seconds, the phase's wall time;
+7c. serve path (``[serve]`` lines), on the same index with the servers
+   gone: ``python -m distributed_oracle_search_tpu_torch.cli.serve
+   --backend inproc --ingress socket --traffic-dir <run>/traffic
+   --obs-port 0 --metrics-dump`` under ``DOS_ANSWER_FP=1``,
+   ``DOS_HEDGE_BUDGET=0.01`` and ``DOS_TRAFFIC_SIG_MOVES=16`` (8
+   in-process engines on the card, B1; hedges on, a few). Over its Unix
+   socket: the campaign's 20,000 queries (their answers equal the campaign's), a zipf repeat pool of
+   2,000 (``traffic.scenarios.zipf_queries``, seed 0; its second half's
+   repeats from the cache; equal to 8 ``ShardEngine``s loaded here), 64
+   each of ``mat`` (k = 8), ``alt`` (k = 3) and ``rev`` (equal to their
+   definition computed from those engines' walks); three epochs of
+   ``rush_hour_trace`` written into the traffic directory while 512
+   requests are in flight (no shed; after each swap 512 answers equal
+   the engines' on the fused ``.diff``); two scoped swaps of 64 corridor
+   edges (to the peak and back): 256 pairs a few moves long, cached
+   before them, come back from the cache re-keyed, and they and 512
+   campaign queries equal the engines' on each fused ``.diff``; a
+   membership leave of worker 3
+   driven from here (``plan_leave``, ``begin``, shard 3's primary block
+   corrupted, ``catch_up`` healing it by K1/K2 on the card, ``commit``)
+   with shard 3's answers through the window, and theirs and 512
+   others after the commit, equal to the static fleet's and
+   ``/statusz`` showing epoch 1; SIGTERM, exit 0; its dump names this
+   card, B1 launches == the engines' batches + their ``obs.device``
+   program keys, no plain walk, hedges issued, scoped invalidations and
+   re-keys counted. Logged, not claimed: q/s and p50/p99 on
+   the host clock, the cache hit rate, the mean batch fill, the swap and
+   catch-up seconds, the peak device memory;
 8. reorder path (``[reorder]`` lines): ``cli.reorder.main`` with
    ``--order rcm`` on the campaign's ``.xy``/``.scen``/``.diff``; the
    scenario must come back relabelled; ``auto`` must resolve
@@ -374,6 +413,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -422,10 +462,16 @@ from distributed_oracle_search_tpu_torch.ops.table_search import (
     fm_slot, table_search_batch, table_search_multi, walk_budget, walk_pairs,
     weights_t, weights_width,
 )
+from distributed_oracle_search_tpu_torch.integrity.fingerprint import (
+    answer_fingerprint,
+)
 from distributed_oracle_search_tpu_torch.parallel import (
-    DistributionController, sharded,
+    DistributionController, membership, sharded,
 )
 from distributed_oracle_search_tpu_torch.testing.faults import KILL_EXIT_CODE
+from distributed_oracle_search_tpu_torch.traffic import (
+    scenarios, write_segment,
+)
 from distributed_oracle_search_tpu_torch.transport import RuntimeConfig
 from distributed_oracle_search_tpu_torch.transport import fifo as fifo_transport
 from distributed_oracle_search_tpu_torch.transport import resilience, rpc
@@ -486,6 +532,40 @@ HOST_STOP_S = 60
 #: the next worker) and the worker serving --obs-port
 RPC_KILLED = 3
 RPC_OBS_WORKER = 5
+#: the rpc phase's epoch leg: the lines of its ``dos-serve --backend
+#: host`` burst
+RPC_BURST = 4_096
+#: the serve phase: the zipf repeat pool, the requests of each family
+#: (``mat`` over k targets, ``alt`` with k alternatives, ``rev``), the
+#: rush-hour epochs swapped in live, the queries held to the engines
+#: after each swap, the worker drained by the membership leave, the
+#: frontend's knobs, and the wait for the service to come up
+SERVE_ZIPF = 2_000
+SERVE_FAMILIES = 64
+SERVE_MAT_K = 8
+SERVE_ALT_K = 3
+SERVE_EPOCHS = 3
+SERVE_CHECK = 512
+SERVE_LEAVE = 3
+SERVE_KNOBS = ("--max-batch", "1024", "--max-wait-ms", "20",
+               "--queue-depth", "65536", "--deadline-ms", "120000")
+#: path-signature moves a cached entry keeps (``DOS_TRAFFIC_SIG_MOVES``,
+#: default 64): every swap of the serve phase's rush-hour trace (5,251
+#: corridor edges, past ``DOS_TRAFFIC_SCOPED_MAX`` 4,096) flushes the
+#: whole cache, and the pairs its scoped swaps keep walk a few moves, so
+#: longer signatures would buy nothing but the extraction scan a batch
+SERVE_SIG_MOVES = "16"
+#: the scoped swaps: the corridor edges their two segments change (under
+#: ``DOS_TRAFFIC_SCOPED_MAX``) and the pairs a few moves long cached
+#: before them, whose entries carry whole path signatures
+SERVE_SCOPED_EDGES = 64
+SERVE_SHORT = 256
+#: the hedge-rate budget of ``[serve]`` and ``[rpc]``'s burst
+#: (``DOS_HEDGE_BUDGET``, default 0.1): hedges stay on, but past the
+#: tracker's grace of 2 a run of ~200 batches hedges about twice more,
+#: so the phase pays for a few replica engines' loads and not all 8
+SERVE_HEDGE_BUDGET = "0.01"
+SERVE_READY_S = 180
 #: the build kind ``method="auto"`` must resolve to on each path
 EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit",
                  "serving": "ellsplit", "offline": "ellsplit"}
@@ -532,8 +612,9 @@ RELAX_CUT = 4
 SWEEP_CUTS = (1, 2)
 #: a lattice (width, height) past the row a sweep block holds in shared
 #: memory (2,552 cells at one column a block), so the kernel sweeps each
-#: row in pieces; ``auto`` builds it by sweep. Its batch of targets.
-WIDE_GRID = (6000, 6)
+#: row in pieces (two); ``auto`` builds it by sweep. Its batch of
+#: targets.
+WIDE_GRID = (2800, 12)
 WIDE_BATCH = 64
 #: the A* phase: the first campaign queries it answers (4 chunks of
 #: 1,024, the engines' chunk); the knobs at which K6 is held to the
@@ -2519,8 +2600,10 @@ def run() -> list[dict]:
             ref, handoff, os.path.join(outdir, "index"))
         log(f"[heal] done at {time.perf_counter() - T_START:.1f} s")
         rpc_run = rpc_path(ref, handoff, host["round_s"])
-        del handoff
         log(f"[rpc] done at {time.perf_counter() - T_START:.1f} s")
+        serve, build_launches["serve"] = serve_path(ref, handoff)
+        del handoff
+        log(f"[serve] done at {time.perf_counter() - T_START:.1f} s")
         reorder, build_launches["reorder"] = reorder_path(outdir, ref)
         log(f"[reorder] done at {time.perf_counter() - T_START:.1f} s")
         astar = astar_path(outdir, ref)
@@ -2535,7 +2618,7 @@ def run() -> list[dict]:
         "offline": offline["launches"],
         "offline-local": offline["local_launches"],
         "host": host["launches"], "heal": heal["launches"],
-        "rpc": rpc_run["launches"],
+        "rpc": rpc_run["launches"], "serve": serve["launches"],
         "lanes": lanes["launches"], "multihost": mh["launches"]}
     raw_kernel["launches"] = sum(raw_kernel["launches_by_path"].values())
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
@@ -2551,6 +2634,7 @@ def run() -> list[dict]:
     raw_kernel["host"] = host
     raw_kernel["heal"] = heal
     raw_kernel["rpc"] = rpc_run
+    raw_kernel["serve"] = serve
     raw_kernel["lanes"] = lanes
     raw_kernel["multihost"] = mh
     raw_kernel["reorder"] = reorder
@@ -4859,6 +4943,7 @@ def rpc_path(ref: dict, host: dict, host_round_s: list) -> dict:
                 ["-c", conf, "-o", out_k, "-k", str(CAMPAIGN_K),
                  "--extract"]))
         c1 = obs_metrics.REGISTRY.snapshot()["counters"]
+        resilience.BreakerRegistry.shutdown = real_shutdown
         procs[dead].wait(timeout=60)
         if procs[dead].returncode != KILL_EXIT_CODE:
             raise AssertionError(f"{tag} worker {dead} exit code "
@@ -4889,6 +4974,7 @@ def rpc_path(ref: dict, host: dict, host_round_s: list) -> dict:
         scrape = urllib.request.urlopen(
             f"http://127.0.0.1:{obs_port}/metrics", timeout=30)
         body, ctype = scrape.read().decode(), scrape.headers["Content-Type"]
+        epoch_leg = rpc_epoch_leg(conf, ref, host, obs_port)
         apps = compute_apps()
     except BaseException:
         log_tails(nfs)
@@ -4993,16 +5079,24 @@ def rpc_path(ref: dict, host: dict, host_round_s: list) -> dict:
         served[x] = (c["worker_batches_total"],
                      c["server_replica_batches_total"])
         programs[x] = progs
-    if served[holder][1] != shard_batches + 1:
+    # beyond shard 3's batches and the direct one on worker 4, the
+    # replica batches are the epoch leg's hedged duplicates, each on the
+    # replica it went to (one still in flight when its burst ended may
+    # not have landed)
+    extra = sum(r for _, r in served.values()) - (shard_batches + 1)
+    if (served[holder][1] < shard_batches + 1
+            or not 0 <= extra <= epoch_leg["hedges"]):
         raise AssertionError(f"{tag} worker {holder} replica batches "
-                             f"{served[holder]}")
+                             f"{served[holder]}, {extra} more in all for "
+                             f"{epoch_leg['hedges']} hedges")
     first, e = min(programs[0].items())
     log(f"{tag} server dumps: B1 launches == batches served + obs.device "
         f"captures (one launch a program key) in each (total {launches}), "
         f"0 plain walks; batches, replica batches by "
         f"worker {served}; worker {holder} answered shard {dead}'s "
         f"{shard_batches} campaign batches and the direct one as its "
-        f"replica; obs.device {first}: bytes_accessed "
+        f"replica, the replicas {extra} of the burst's "
+        f"{epoch_leg['hedges']} hedges; obs.device {first}: bytes_accessed "
         f"{e['bytes_accessed']:.4g} (closed-form upper count), hbm_bytes "
         f"{e['hbm_bytes']}, kernel_ms {e['kernel_ms']:.4f} (CUDA events) "
         f"on {card_txt}")
@@ -5052,8 +5146,663 @@ def rpc_path(ref: dict, host: dict, host_round_s: list) -> dict:
             "failover_total": delta["failover_total"],
             "failover_added_s": rt.seconds[0] - rt.seconds[1],
             "failed_send_ms": fail_ms, "failover_send_ms": over_ms,
-            "program": {first: e}, "wall_s": wall,
+            "program": {first: e}, "wall_s": wall, "epoch_leg": epoch_leg,
             "served": {str(k): v for k, v in served.items()}}
+
+
+def parse_pair_lines(lines: list[str], tag: str) -> np.ndarray:
+    """``[Q, 3]`` int64 ``(cost, plen, finished)`` of the line protocol's
+    ``OK <s> <t> <cost> <plen> <finished> [cached]`` answers; any other
+    status fails the phase."""
+    out = np.zeros((len(lines), 3), np.int64)
+    for i, line in enumerate(lines):
+        tok = line.split()
+        if len(tok) < 6 or tok[0] != "OK":
+            raise AssertionError(f"{tag} answer {i}: {line!r}")
+        out[i] = (int(tok[3]), int(tok[4]), int(tok[5]))
+    return out
+
+
+def held_to(got: np.ndarray, want, what: str, tag: str) -> None:
+    """``got`` ([Q, 3] from :func:`parse_pair_lines`) equal to ``want``
+    (``(cost, plen, finished)`` arrays), else the phase fails."""
+    want = np.stack([np.asarray(a).astype(np.int64) for a in want[:3]],
+                    axis=1)
+    if not np.array_equal(got, want):
+        bad = int((got != want).any(axis=1).sum())
+        raise AssertionError(f"{tag} {what}: {bad} of {len(got)} answers "
+                             "differ")
+
+
+def rpc_epoch_leg(conf: str, ref: dict, host: dict, obs_port: int) -> dict:
+    """``[rpc]``'s epoch leg, over its live servers: the committed leave
+    of worker 3 (dead since its first batch) written by the port's
+    ``MembershipController`` (shard 3 to worker 4, epoch 1), one more
+    ``process_query`` run over RPC (every batch stamped epoch 1; the
+    servers refresh; the rows equal ``[host]``'s; no failover), one RPC
+    batch with ``answer_fp`` whose reply header carries its answers'
+    fingerprint, and a ``dos-serve --backend host`` burst of
+    ``RPC_BURST`` lines under ``DOS_TRANSPORT=rpc``, ``DOS_ANSWER_FP=1``
+    and hedges on: exit 0, the campaign's answers, 0 fingerprint
+    mismatches, a hedge issued. Leaves the fleet static again
+    (``membership.json`` removed) for ``[serve]``."""
+    tag = "[rpc]"
+    t0 = time.perf_counter()
+    g, queries = ref["g"], ref["queries"]
+    w, dead = HOST_WORKERS, RPC_KILLED
+    holder = (dead + 1) % w
+    run_dir = os.path.dirname(conf)
+    dc = DistributionController("mod", w, w, g.n, replication=2)
+    mc = membership.MembershipController(ClusterConfig.load(conf), dc,
+                                         graph=g, device="cuda")
+    state = mc.leave(dead, live=[x for x in range(w) if x != dead])
+    if state.epoch != 1 or state.owners[dead] != holder:
+        raise AssertionError(f"{tag} leave of worker {dead}: "
+                             f"{state.to_dict()}")
+    t_commit = time.perf_counter() - t0
+    c0 = obs_metrics.REGISTRY.snapshot()["counters"]
+    out_epoch = os.path.join(run_dir, "rpc-epoch1")
+    t1 = time.perf_counter()
+    rc = process_query.main(["-c", conf, "-o", out_epoch])
+    t_round = time.perf_counter() - t1
+    c1 = obs_metrics.REGISTRY.snapshot()["counters"]
+    grown = c1.get("failover_total", 0) - c0.get("failover_total", 0)
+
+    def rows(parts):
+        return [{k: v for k, v in r.items() if not k.startswith("t_")}
+                for r in parts]
+    if rc != 0 or grown or rows(read_parts(os.path.join(
+            out_epoch, "parts.csv"))) != rows(host["parts"]):
+        raise AssertionError(f"{tag} epoch-1 run: exit code {rc}, "
+                             f"failover_total +{grown}, or rows differ "
+                             "from [host]'s")
+    with urllib.request.urlopen(f"http://127.0.0.1:{obs_port}/statusz",
+                                timeout=30) as r:
+        worker_epoch = json.load(r)["worker"]["epoch"]
+    if worker_epoch != 1:
+        raise AssertionError(f"{tag} worker {RPC_OBS_WORKER} /statusz "
+                             f"epoch {worker_epoch}")
+    # the fingerprint on an RPC reply header: shard 3's batch to its
+    # owner now, worker 4
+    owner = host["dc"].worker_of(queries[:, 1])
+    mine = np.ascontiguousarray(queries[owner == dead], np.int64)
+    client = rpc.RpcClient(rpc.endpoint_for(holder), timeout_s=120.0)
+    try:
+        fr = client.call({"kind": "req", "diff": "-", "config": {
+            "results": True, "answer_fp": True, "epoch": 1}}, [mine])
+    finally:
+        client.close()
+    fp = fr.header.get("fp")
+    if fp is None or int(fp) != answer_fingerprint(*fr.arrays[:3]):
+        raise AssertionError(f"{tag} reply header fingerprint {fp!r}")
+    # dos-serve --backend host over the live servers, fingerprints on
+    burst = queries[:RPC_BURST]
+    dump = os.path.join(run_dir, "rpc-serve-burst.json")
+    # the head's campaign knobs (breaker threshold 1, no retry) stay
+    # with the campaign; the burst runs the service's defaults, with a
+    # small hedge budget (a hedge makes a server load a replica engine,
+    # 512 MiB)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DOS_CIRCUIT_THRESHOLD", "DOS_RETRY_MAX",
+                        "DOS_SEND_TIMEOUT_S")}
+    env.update(DOS_TRANSPORT="rpc", DOS_ANSWER_FP="1",
+               DOS_HEDGE_BUDGET=SERVE_HEDGE_BUDGET)
+    t2 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_oracle_search_tpu_torch.cli."
+         "serve", "-c", conf, "-v", "--backend", "host", "--metrics-dump",
+         dump, *SERVE_KNOBS],
+        input="".join(f"{s} {t}\n" for s, t in burst), text=True,
+        capture_output=True, cwd=ROOT, env=env, timeout=300)
+    t_burst = time.perf_counter() - t2
+    split = log_split(proc.stderr, ("ingress closed", "drained and stopped"))
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} dos-serve --backend host exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    got = parse_pair_lines(proc.stdout.splitlines(), f"{tag} burst")
+    held_to(got, [np.asarray(a)[:RPC_BURST]
+                  for a in ref["direct"]["free-flow"]],
+            "dos-serve --backend host", tag)
+    with open(dump) as f:
+        c = json.load(f)["counters"]
+    if (c.get("answer_fp_mismatch_total", 0) != 0
+            or c.get("serve_requests_ok_total") != len(burst)
+            or not c.get("hedges_issued_total", 0)):
+        raise AssertionError(f"{tag} burst dump: {c}")
+    os.remove(membership.state_path(ClusterConfig.load(conf).outdir))
+    wall = time.perf_counter() - t0
+    log(f"{tag} epoch leg: worker {dead}'s leave committed (shard {dead} "
+        f"to worker {holder}, epoch 1) in {t_commit:.3f} s; process_query "
+        f"over RPC at epoch 1 in {t_round:.3f} s: rows == [host]'s, "
+        f"failover_total +0, worker {RPC_OBS_WORKER} /statusz epoch 1; an "
+        f"answer_fp batch to worker {holder}: reply header fp "
+        f"{int(fp):08x} == the answers' crc32; dos-serve --backend host "
+        f"(DOS_TRANSPORT=rpc, DOS_ANSWER_FP=1, DOS_HEDGE_BUDGET="
+        f"{SERVE_HEDGE_BUDGET}) answered {len(burst)} lines in "
+        f"{t_burst:.3f} s wall (exit 0, == the campaign's, "
+        f"answer_fp_mismatch_total 0, hedges issued "
+        f"{c['hedges_issued_total']}, won {c.get('hedges_won_total', 0)}; "
+        f"its log from the first line to "
+        f"'ingress closed' / 'drained': {split}); leg {wall:.2f} s")
+    return {"commit_s": t_commit, "round_s": t_round, "burst_s": t_burst,
+            "burst_log_s": split, "burst_lines": len(burst),
+            "hedges": c["hedges_issued_total"], "wall_s": wall}
+
+
+def log_split(text: str, marks: tuple[str, ...]) -> list[float | None]:
+    """Seconds from a ``-v`` log's first timestamped line to the first
+    line holding each of ``marks`` (None where a mark is missing)."""
+    stamps = []
+    for line in text.splitlines():
+        hit = re.match(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) ", line)
+        if hit:
+            t = time.mktime(time.strptime(hit.group(1),
+                                          "%Y-%m-%d %H:%M:%S"))
+            stamps.append((t + int(hit.group(2)) / 1e3, line))
+    if not stamps:
+        return [None] * len(marks)
+    t0 = stamps[0][0]
+    return [next((round(t - t0, 3) for t, line in stamps if m in line), None)
+            for m in marks]
+
+
+
+# ---------------------------------------------------------------- serve path
+
+class ServeClient:
+    """One connection to ``dos-serve --ingress socket``: the request
+    lines go out on a thread, one answer line comes back per request
+    line, in order."""
+
+    def __init__(self, path: str, timeout_s: float = 300.0):
+        self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self.sock.settimeout(timeout_s)
+        self.sock.connect(path)
+        self.rfile = self.sock.makefile("r")
+
+    def ask(self, lines: list[str]) -> list[str]:
+        data = "".join(f"{ln}\n" for ln in lines).encode()
+        sender = threading.Thread(target=self.sock.sendall, args=(data,),
+                                  daemon=True)
+        sender.start()
+        out = [self.rfile.readline().rstrip("\n") for _ in lines]
+        sender.join(timeout=60)
+        return out
+
+    def close(self) -> None:
+        self.rfile.close()
+        self.sock.close()
+
+
+def engine_answers(engines: dict, dc, q: np.ndarray, difffile: str = "-"):
+    """``(cost, plen, finished)`` of ``q`` by the engines of the shards
+    its targets lie in."""
+    owner = dc.worker_of(q[:, 1])
+    cost = np.zeros(len(q), np.int64)
+    plen = np.zeros(len(q), np.int64)
+    fin = np.zeros(len(q), bool)
+    for x, e in engines.items():
+        m = owner == x
+        if m.any():
+            cost[m], plen[m], fin[m], _ = e.answer(
+                np.ascontiguousarray(q[m]), RuntimeConfig(), difffile)
+    return cost, plen, fin
+
+
+def family_lines(queries: np.ndarray, rng) -> list[tuple[str, tuple]]:
+    """``SERVE_FAMILIES`` requests of each family, from the campaign's
+    queries: ``mat`` from a source to ``SERVE_MAT_K`` targets, ``alt``
+    with ``SERVE_ALT_K`` alternatives, ``rev``."""
+    out = []
+    pick = rng.choice(len(queries), 3 * SERVE_FAMILIES, replace=False)
+    for i in pick[:SERVE_FAMILIES]:
+        s = int(queries[i, 0])
+        ts = [int(x) for x in queries[rng.integers(0, len(queries),
+                                                   SERVE_MAT_K), 1]]
+        out.append(("mat", (s, ts)))
+    for i in pick[SERVE_FAMILIES:2 * SERVE_FAMILIES]:
+        out.append(("alt", (int(queries[i, 0]), int(queries[i, 1]))))
+    for i in pick[2 * SERVE_FAMILIES:]:
+        out.append(("rev", (int(queries[i, 0]), int(queries[i, 1]))))
+    return out
+
+
+def family_reference(g, engines: dict, dc, fams) -> list[str]:
+    """Each family's answer line by its definition, from the engines'
+    walks under free flow: ``mat`` the pair costs (-1 where unfinished),
+    ``alt`` the ``SERVE_ALT_K`` cheapest first edge + the walk from its
+    head, ``rev`` the walk back."""
+    pairs = []
+    for kind, (s, arg) in fams:
+        if kind == "mat":
+            pairs += [(s, t) for t in arg]
+        elif kind == "alt":
+            nbrs, _eids = g.out_edges(s)
+            pairs += [(int(v), arg) for v in nbrs]
+        else:
+            pairs.append((arg, s))
+    q = np.asarray(pairs, np.int64)
+    cost, plen, fin = engine_answers(engines, dc, q)
+    lines, i = [], 0
+    for kind, (s, arg) in fams:
+        if kind == "mat":
+            k = len(arg)
+            costs = [int(c) if f else -1
+                     for c, f in zip(cost[i:i + k], fin[i:i + k])]
+            lines.append(" ".join(["MAT", str(s), str(k)]
+                                  + [str(c) for c in costs]))
+            i += k
+        elif kind == "alt":
+            nbrs, eids = g.out_edges(s)
+            alts = sorted((int(g.w[e]) + int(cost[i + j]), int(v))
+                          for j, (v, e) in enumerate(zip(nbrs, eids))
+                          if fin[i + j])[:SERVE_ALT_K]
+            lines.append(" ".join(["ALT", str(s), str(arg), str(len(alts))]
+                                  + [str(c) for c, _v in alts]))
+            i += len(nbrs)
+        else:
+            lines.append(f"REV {s} {arg} {cost[i]} {plen[i]} "
+                         f"{int(fin[i])}")
+            i += 1
+    return lines
+
+
+def family_request(kind: str, args) -> str:
+    s, arg = args
+    if kind == "mat":
+        return "mat " + " ".join(str(x) for x in (s, *arg))
+    if kind == "alt":
+        return f"alt {s} {arg} {SERVE_ALT_K}"
+    return f"rev {s} {arg}"
+
+
+def statusz(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/statusz",
+                                timeout=30) as r:
+        return json.load(r)
+
+
+def window_quantiles(port: int, name: str) -> dict[str, float | None]:
+    """``p50``/``p99`` of ``name``'s live window on ``/metrics`` (the
+    ``<name>_window{quantile=...}`` gauges)."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for label, q in (("p50", "0.5"), ("p99", "0.99")):
+        hit = re.search(rf'^{name}_window{{quantile="{q}"}} (\S+)$', text,
+                        re.M)
+        out[label] = float(hit.group(1)) if hit else None
+    return out
+
+
+def serve_path(ref: dict, host: dict) -> tuple[dict, dict[str, int]]:
+    """``[serve]``: ``dos-serve`` (``cli.serve``, ``--backend inproc`` on
+    the card) over ``[rpc]``'s healed replicated index, driven through
+    its Unix socket ingress. Returns the phase's entry and the build
+    kernels' launches of its catch-up (this process)."""
+    tag = "[serve]"
+    t_phase = time.perf_counter()
+    card_txt = card_line()
+    card = torch.cuda.get_device_name(0)
+    g, queries = ref["g"], ref["queries"]
+    w, leaver = HOST_WORKERS, SERVE_LEAVE
+    adopter = (leaver + 1) % w
+    conf = host["conf"][:-len(".json")] + "-r2.json"
+    cconf = ClusterConfig.load(conf)
+    run_dir = os.path.dirname(conf)
+    dc = DistributionController("mod", w, w, g.n, replication=2)
+    traffic = os.path.join(run_dir, "traffic")
+    os.makedirs(traffic)
+    sock = socket_dir(os.path.join(run_dir, "serve.sock"))
+    dump = os.path.join(run_dir, "serve-dump.json")
+    log_path = os.path.join(run_dir, "serve.log")
+    cmd = [sys.executable, "-m", "distributed_oracle_search_tpu_torch.cli."
+           "serve", "-c", conf, "-v", "--backend", "inproc", "--ingress",
+           "socket", "--socket", sock, "--traffic-dir", traffic,
+           "--obs-port", "0", "--metrics-dump", dump, *SERVE_KNOBS]
+    # hedges on, with a small budget: a hedge makes the in-process
+    # dispatcher load a replica engine (512 MiB) under its one lock,
+    # stalling every shard's lane
+    env = dict(os.environ, DOS_ANSWER_FP="1",
+               DOS_HEDGE_BUDGET=SERVE_HEDGE_BUDGET,
+               DOS_TRAFFIC_SIG_MOVES=SERVE_SIG_MOVES)
+    out: dict = {"card": card_txt}
+    with open(log_path, "w") as lf, MemorySampler() as mem:
+        t_launch = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
+                                stderr=subprocess.STDOUT)
+        try:
+            # this process's engines, the reference of every answer the
+            # service gives (loaded while the service starts)
+            engines = {x: eng.ShardEngine(g, dc, x, cconf.outdir,
+                                          device="cuda")
+                       for x in range(w)}
+            out["engines_s"] = time.perf_counter() - t_launch
+            log(f"{tag} {w} reference engines loaded here in "
+                f"{out['engines_s']:.2f} s (dos-serve starting beside)")
+            port = None
+            deadline = time.perf_counter() + SERVE_READY_S
+            while port is None or not os.path.exists(sock):
+                if proc.poll() is not None or time.perf_counter() > deadline:
+                    raise AssertionError(f"{tag} dos-serve exited "
+                                         f"{proc.returncode} or was not "
+                                         "up in time")
+                with open(log_path, errors="replace") as f:
+                    hit = re.search(r"obs endpoints up on :(\d+)", f.read())
+                port = int(hit.group(1)) if hit else None
+                time.sleep(0.1)
+            out["ready_s"] = time.perf_counter() - t_launch
+            client = ServeClient(sock)
+            direct = ref["direct"]["free-flow"]
+            out.update(serve_traffic(client, port, g, queries, direct,
+                                     engines, dc, traffic, tag))
+            zero_launches()
+            out.update(serve_leave(client, port, cconf, dc, g, queries,
+                                   direct, leaver, adopter, tag))
+            build_counts = read_build_launches()
+            lat = window_quantiles(port, "serve_request_seconds")
+            client.close()
+            del engines
+            gc.collect()
+            torch.cuda.empty_cache()
+            t_stop = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            out["drain_s"] = time.perf_counter() - t_stop
+        except BaseException:
+            with open(log_path, errors="replace") as f:
+                log(f"{tag} --- serve.log (last 3000 characters) ---\n"
+                    f"{f.read()[-3000:]}")
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    if rc != 0:
+        raise AssertionError(f"{tag} dos-serve exited {rc} on SIGTERM")
+    with open(dump) as f:
+        sv = json.load(f)
+    c = sv["counters"]
+    check_serve_phase_dump(sv, card, tag)
+    if not (c.get("hedges_issued_total", 0)
+            and c.get("serve_cache_invalidated_scoped_total", 0)
+            and c.get("serve_cache_rekeyed_total", 0)):
+        raise AssertionError(f"{tag} no hedge, scoped invalidation or "
+                             f"re-key in the dump: {c}")
+    hits = c.get("serve_cache_hits_total", 0)
+    misses = c.get("serve_cache_misses_total", 0)
+    fill = sv["histograms"]["serve_batch_fill"]
+    swap = sv["histograms"].get("traffic_swap_seconds", {})
+    out.update(
+        launches=c["cuda_walk_batch.launches"],
+        batches=c["worker_batches_total"],
+        programs=len(sv["device_programs"]),
+        requests=c.get("serve_requests_total", 0),
+        cache_hit_rate=hits / max(hits + misses, 1),
+        mean_batch_fill=fill["sum"] / max(fill["count"], 1),
+        swap_s_mean=swap.get("sum", 0.0) / max(swap.get("count", 0), 1),
+        scoped=c.get("serve_cache_invalidated_scoped_total", 0),
+        full=c.get("serve_cache_invalidated_full_total", 0),
+        rekeyed=c.get("serve_cache_rekeyed_total", 0),
+        hedges=c.get("hedges_issued_total", 0),
+        hedges_won=c.get("hedges_won_total", 0),
+        p50_ms=(lat["p50"] or 0.0) * 1e3, p99_ms=(lat["p99"] or 0.0) * 1e3,
+        serve_peak_bytes=sv["device"]["max_memory_allocated"],
+        card_peak_mib=mem.peak_mib, build_launches=build_counts,
+        wall_s=time.perf_counter() - t_phase)
+    log(f"{tag} SIGTERM: exit 0 in {out['drain_s']:.2f} s, every accepted "
+        f"request answered; dump on {card}: {out['requests']} requests, "
+        f"0 shed, B1 launches {out['launches']} == {out['batches']} "
+        f"batches walked + {len(sv['device_programs'])} obs.device program "
+        f"keys, 0 plain walks, 0 pack4, answer_fp_mismatch_total 0")
+    log(f"{tag} host clock (logged, not claimed): request latency in the "
+        f"frontend (serve_request_seconds, its /metrics window) p50 "
+        f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms; "
+        f"cache hit rate {out['cache_hit_rate']:.4f}; mean batch fill "
+        f"{out['mean_batch_fill']:.2f}; swap {out['swap_s_mean']:.4f} s "
+        f"mean; invalidations scoped {out['scoped']} full {out['full']} "
+        f"(re-keyed {out['rekeyed']}); hedges issued {out['hedges']}, won "
+        f"{out['hedges_won']}; peak device memory: dos-serve "
+        f"{out['serve_peak_bytes'] / 2**30:.2f} GiB allocated, the card "
+        f"{out['card_peak_mib']} MiB used (nvidia-smi, every process); "
+        f"ready {out['ready_s']:.2f} s after launch; phase wall time "
+        f"{out['wall_s']:.1f} s on {card_txt}")
+    return out, build_counts
+
+
+def check_serve_phase_dump(sv: dict, card: str, tag: str) -> None:
+    """``dos-serve``'s dump: this card; B1 launches == the batches its
+    engines walked + its ``obs.device`` program keys (one launch a key),
+    with a ``table-search[cuda]`` key; no plain walk, no pack4; nothing
+    shed, timed out or errored; no fingerprint mismatch."""
+    c = sv["counters"]
+    shed = [c.get(k, 0) for k in (
+        "serve_shed_busy_total", "serve_shed_unavailable_total",
+        "serve_timeouts_total", "serve_errors_total",
+        "answer_fp_mismatch_total")]
+    if (sv["device"]["name"] != card
+            or c["cuda_walk_batch.launches"]
+            != c["worker_batches_total"] + len(sv["device_programs"])
+            or c["cuda_walk_batch.plain"] or c["cuda_walk_batch.launches_pack4"]
+            or not any(k.startswith("table-search[cuda]")
+                       for k in sv["device_programs"]) or any(shed)):
+        raise AssertionError(f"{tag} dump: {c}, programs "
+                             f"{sorted(sv['device_programs'])}")
+
+
+def serve_traffic(client: ServeClient, port: int, g, queries, direct,
+                  engines, dc, traffic: str, tag: str) -> dict:
+    """The static fleet's traffic (the campaign's queries held to the
+    campaign's answers ``direct``, the zipf pool and the families to the
+    engines), then ``SERVE_EPOCHS`` live swaps."""
+    out: dict = {}
+    # the campaign's queries with the zipf pool's first half, then its
+    # second half (its repeats of the first half's hot pairs from the
+    # cache), then the families
+    zipf = scenarios.zipf_queries(g.n, SERVE_ZIPF, seed=0)
+    lines = [f"{s} {t}" for s, t in queries]
+    zl = [f"{s} {t}" for s, t in zipf]
+    half = len(zl) // 2
+    t0 = time.perf_counter()
+    got = client.ask(lines + zl[:half])
+    again = client.ask(zl[half:])
+    t_pairs = time.perf_counter() - t0
+    n_pairs = len(lines) + len(zl)
+    held_to(parse_pair_lines(got[:len(lines)], f"{tag} campaign"), direct,
+            "the campaign queries", tag)
+    out["pairs_qps"] = n_pairs / t_pairs
+    zw = parse_pair_lines(got[len(lines):] + again, f"{tag} zipf")
+    held_to(zw, engine_answers(engines, dc, zipf), "the zipf pool", tag)
+    cached = sum(ln.endswith(" cached") for ln in again)
+    rng = np.random.default_rng(SEED)
+    fams = family_lines(queries, rng)
+    t0 = time.perf_counter()
+    fgot = client.ask([family_request(k, a) for k, a in fams])
+    out["families_s"] = time.perf_counter() - t0
+    fref = family_reference(g, engines, dc, fams)
+    if fgot != fref:
+        bad = [(a, b) for a, b in zip(fgot, fref) if a != b][:3]
+        raise AssertionError(f"{tag} families differ: {bad}")
+    log(f"{tag} {len(lines)} campaign queries + the zipf pool of "
+        f"{len(zl)}: {n_pairs} answers in {t_pairs:.3f} s = "
+        f"{out['pairs_qps']:.1f} q/s on the host clock, equal to the "
+        f"campaign's and to {len(engines)} engines loaded here; the "
+        f"pool's second half {cached}/{len(zl) - half} from the cache; "
+        f"{SERVE_FAMILIES} each of mat (k = {SERVE_MAT_K}), alt (k = "
+        f"{SERVE_ALT_K}), rev in {out['families_s']:.3f} s, every line "
+        "equal to its definition from the engines' walks")
+    # three live swaps, each written while a batch is in flight
+    trace = scenarios.rush_hour_trace(g, epochs=SERVE_EPOCHS)
+    swaps = []
+    for i, seg in enumerate(trace):
+        e = seg["epoch"]
+        fly = queries[SERVE_CHECK * i:][:SERVE_CHECK]
+        box: dict = {}
+        th = threading.Thread(target=lambda: box.update(
+            got=client.ask([f"{s} {t}" for s, t in fly])))
+        th.start()
+        t0 = time.perf_counter()
+        write_segment(traffic, e, seg["src"], seg["dst"], seg["w"])
+        while statusz(port)["serving"]["diff_epoch"] != e:
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError(f"{tag} epoch {e} never swapped in")
+            time.sleep(0.01)
+        seen_s = time.perf_counter() - t0
+        th.join(timeout=300)
+        parse_pair_lines(box["got"], f"{tag} in flight at epoch {e}")
+        fused = os.path.join(traffic, "fused", f"fused-e{e:06d}.diff")
+        check = queries[-SERVE_CHECK * (i + 1):][:SERVE_CHECK]
+        ans = parse_pair_lines(client.ask([f"{s} {t}" for s, t in check]),
+                               f"{tag} epoch {e}")
+        held_to(ans, engine_answers(engines, dc, check, fused),
+                f"epoch {e} vs the engines on {os.path.basename(fused)}",
+                tag)
+        st = statusz(port)["serving"]
+        swaps.append({"epoch": e, "seen_s": seen_s, "edges": len(seg["w"]),
+                      "diff": st["diff"]})
+        log(f"{tag} epoch {e} ({len(seg['w'])} corridor edges) written "
+            f"while {len(fly)} requests were in flight (all answered OK); "
+            f"/statusz showed it after {seen_s:.3f} s; {len(check)} "
+            f"answers == {len(engines)} engines on "
+            f"{os.path.basename(fused)}")
+    out["swaps"] = swaps
+    out["scoped_swaps"] = serve_scoped(client, port, g, queries, engines,
+                                       dc, traffic, trace, tag)
+    return out
+
+
+def short_pairs(g, n: int, seed: int) -> np.ndarray:
+    """``n`` pairs ``(s, t)`` with ``t`` two edges from ``s``: walks of a
+    few moves, whose cached entries carry whole path signatures."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in rng.permutation(g.n):
+        nbrs, _ = g.out_edges(int(s))
+        far = [int(t) for v in nbrs[:1] for t in g.out_edges(int(v))[0]
+               if int(t) != int(s)]
+        if far:
+            out.append((int(s), far[0]))
+            if len(out) == n:
+                break
+    return np.asarray(out, np.int64)
+
+
+def serve_scoped(client: ServeClient, port: int, g, queries, engines, dc,
+                 traffic: str, trace: list[dict], tag: str) -> list[dict]:
+    """Two live segments under ``DOS_TRAFFIC_SCOPED_MAX``: the trace's
+    first ``SERVE_SCOPED_EDGES`` corridor edges at its peak, then back at
+    free flow. ``SERVE_SHORT`` short pairs are cached before them; after
+    each swap those of their entries that the scan kept (re-keyed) come
+    back from the cache, and they with ``SERVE_CHECK`` campaign queries
+    equal the engines on the fused ``.diff``."""
+    short = short_pairs(g, SERVE_SHORT, SEED + 2)
+    check = queries[:SERVE_CHECK]
+    both = np.concatenate([short, check])
+    lines = [f"{s} {t}" for s, t in both]
+    epoch = trace[-1]["epoch"]
+    fused = os.path.join(traffic, "fused", f"fused-e{epoch:06d}.diff")
+    held_to(parse_pair_lines(client.ask(lines[:len(short)]),
+                             f"{tag} short pairs"),
+            engine_answers(engines, dc, short, fused),
+            f"short pairs at epoch {epoch}", tag)
+    k = SERVE_SCOPED_EDGES
+    src, dst = trace[0]["src"][:k], trace[0]["dst"][:k]
+    peak = max(trace, key=lambda seg: int(seg["w"][:k].sum()))["w"][:k]
+    swaps = []
+    for w in (peak, trace[0]["w"][:k]):
+        epoch += 1
+        t0 = time.perf_counter()
+        write_segment(traffic, epoch, src, dst, w)
+        while statusz(port)["serving"]["diff_epoch"] != epoch:
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError(f"{tag} epoch {epoch} never swapped "
+                                     "in")
+            time.sleep(0.01)
+        seen_s = time.perf_counter() - t0
+        got = client.ask(lines)
+        cached = sum(ln.endswith(" cached") for ln in got[:len(short)])
+        fused = os.path.join(traffic, "fused", f"fused-e{epoch:06d}.diff")
+        held_to(parse_pair_lines(got, f"{tag} epoch {epoch}"),
+                engine_answers(engines, dc, both, fused),
+                f"epoch {epoch} vs the engines on "
+                f"{os.path.basename(fused)}", tag)
+        if not cached:
+            raise AssertionError(f"{tag} epoch {epoch}: no short pair "
+                                 "came back from the cache")
+        swaps.append({"epoch": epoch, "seen_s": seen_s, "edges": k,
+                      "cached": cached})
+        log(f"{tag} epoch {epoch} ({k} corridor edges, under "
+            f"DOS_TRAFFIC_SCOPED_MAX): /statusz showed it after "
+            f"{seen_s:.3f} s; {cached}/{len(short)} short pairs from the "
+            f"cache (re-keyed); they and {len(check)} campaign queries == "
+            f"{len(engines)} engines on {os.path.basename(fused)}")
+    return swaps
+
+
+def serve_leave(client: ServeClient, port: int, cconf, dc, g, queries,
+                direct, leaver: int, adopter: int, tag: str) -> dict:
+    """A membership leave of ``leaver`` while serving, driven from here;
+    its catch-up heals shard ``leaver``'s corrupted primary block on the
+    card (K1/K2). The answers through the window and after the commit
+    are held to the static fleet's, ``direct`` (the last swapped epoch
+    is back at free flow)."""
+    out: dict = {}
+    mc = membership.MembershipController(cconf, dc, graph=g,
+                                         device="cuda")
+    mig = mc.begin(mc.plan_leave(leaver))
+    if mig.moves != [[leaver, leaver, adopter]]:
+        raise AssertionError(f"{tag} leave plan {mig.moves}")
+    block = os.path.join(cconf.outdir, cpd.shard_block_name(leaver, 0))
+    with open(block, "r+b") as f:
+        f.seek(1 << 20)
+        f.write(b"\x55" * 64)
+    owner = dc.worker_of(queries[:, 1])
+    ref_all = [np.asarray(a) for a in direct]
+    window = np.flatnonzero(owner == leaver)
+    got = parse_pair_lines(client.ask(
+        [f"{s} {t}" for s, t in queries[window]]), f"{tag} window")
+    held_to(got, [a[window] for a in ref_all], "the window", tag)
+    t0 = time.perf_counter()
+    mc.catch_up(mig)
+    out["catchup_s"] = time.perf_counter() - t0
+    launches = read_build_launches()
+    if not (launches["relax_jacobi"] and launches["first_moves"]):
+        raise AssertionError(f"{tag} the catch-up healed without K1/K2: "
+                             f"{launches}")
+    t0 = time.perf_counter()
+    state = mc.commit(mig)
+    out["commit_s"] = time.perf_counter() - t0
+    if state.epoch != 1 or state.owners[leaver] != adopter:
+        raise AssertionError(f"{tag} commit: {state.to_dict()}")
+    deadline = time.perf_counter() + 30
+    while statusz(port)["serving"]["epoch"] != 1:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{tag} /statusz never showed epoch 1")
+        client.ask([f"{queries[0][0]} {queries[0][1]}"])
+        time.sleep(0.1)
+    # after the commit: shard 3's queries (now routed to the adopter)
+    # and a few of the others
+    post = np.concatenate([window, np.flatnonzero(owner != leaver)[
+        :SERVE_CHECK]])
+    got = parse_pair_lines(client.ask(
+        [f"{s} {t}" for s, t in queries[post]]), f"{tag} epoch 1")
+    held_to(got, [a[post] for a in ref_all], "after the commit", tag)
+    st = statusz(port)["serving"]
+    if st["shards"][str(leaver)]["replicas"][0] != adopter:
+        raise AssertionError(f"{tag} shard {leaver}'s chain "
+                             f"{st['shards'][str(leaver)]}")
+    log(f"{tag} leave of worker {leaver} while serving: begin (window: "
+        f"{len(window)} queries of shard {leaver} answered as the static "
+        f"fleet), shard {leaver}'s primary block corrupted, catch_up "
+        f"healed it on the card in {out['catchup_s']:.3f} s (K1 "
+        f"{launches['relax_jacobi']}, K2 {launches['first_moves']} "
+        f"launches), commit in {out['commit_s']:.3f} s (epoch 1, shard "
+        f"{leaver} to worker {adopter}); /statusz epoch 1, chain "
+        f"{st['shards'][str(leaver)]['replicas']}; after the commit "
+        f"{len(post)} campaign queries ({len(window)} of shard {leaver}) "
+        "== the static fleet's")
+    return out
 
 
 # -------------------------------------------------------------- reorder path

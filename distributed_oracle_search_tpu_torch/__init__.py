@@ -29,13 +29,19 @@ Package layout:
 
 ``data/``      graph + scenario + diff file formats, synthetic road networks
 ``parallel/``  partitioning (DistributionController), the whole index on
-               one device (``sharded``)
+               one device (``sharded``), elastic membership
+               (``membership``)
+``serving/``   the online frontend (queues, micro-batcher, cache, hedging,
+               dispatchers, line-protocol ingress) behind ``cli.serve``
+``traffic/``   live congestion diffs (segments, epochs) and the query
+               families ``mat``/``alt``/``rev``
+``integrity/`` answer fingerprints; ``gateway/`` the worker L2's knobs
 ``ops/``       device graph, Bellman-Ford build, table-search walk + kernel
 ``models/``    CPD shard build/persist/load, ``CPDOracle``, CPU reference
 ``transport/`` the engine's runtime-config and stats records
 ``worker/``    per-shard query engine, per-worker build CLI
 ``cli/``       campaign CLIs: ``make_cpds``, ``process_query``,
-               ``gen_distribute_conf``
+               ``gen_distribute_conf``; ``serve`` (``dos-serve``)
 ``utils/``     logging, env knobs, atomic artifact IO, cluster config,
                timers, device + kernel build
 ``csrc/``      CUDA sources, compiled at first use

@@ -69,10 +69,16 @@ must share. The conf's ``mesh_shape`` lays the resident oracle over a
 ``[D, W]`` grid of the process's cards (``parallel.mesh``); on one card
 every cell names it and a round stays one walk.
 
-Not ported, and refused with the ``ROADMAP.md`` item that ports each:
-``--alg ch`` (native engine, A15) in-process, and on the host backend an
-elastic fleet's ``membership.json`` with its per-round re-reads
-(A14.3).
+Elastic membership (host backend): a committed ``membership.json``
+beside the index overrides the conf's owners and roster, and every round
+re-reads it (:func:`_round_membership`), so a join or leave committed
+mid-campaign flips the next round's routing; a moving shard's batches go
+to its owner first, then its adopter, and carry the epoch
+(``RuntimeConfig.epoch``). Epoch-suffixed wire files an aborted window
+left behind are swept at the start of a campaign.
+
+Not ported, and refused with the ``ROADMAP.md`` item that ports it:
+``--alg ch`` (native engine, A15).
 
     python -m distributed_oracle_search_tpu_torch.cli.process_query \\
         -c conf.json -o out/
@@ -94,6 +100,7 @@ from ..data.formats import read_diff, read_scen, xy_node_count
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..obs.http import start_obs_server
+from ..parallel import membership as fleet
 from ..ops.batched_astar import astar_batch_np
 from ..parallel.mesh import device_pool, mesh_from_config
 from ..parallel.multihost import (
@@ -564,8 +571,10 @@ def send_queries(host: str, wid: int, part: np.ndarray, rconf: RuntimeConfig,
         # names: shard w's failed-over batch and the serving worker's own
         # batch run in the same round. Bare names are kept for the
         # worker's own shard; any other pairing suffixes the shard id and
-        # the (always 0, static-fleet) membership epoch, as the JAX head
-        # does
+        # the membership epoch (epoch 0 included: the first window opens
+        # before the first bump), so an aborted window's files are
+        # attributable to their table and swept by
+        # transport.fifo.clean_stale_epoch_files
         suffix = ("" if c_wid == wid
                   else f".s{wid}.e{getattr(rconf, 'epoch', 0)}")
         qfile = os.path.join(nfs, f"query.{c_host}{c_wid}{suffix}")
@@ -659,20 +668,8 @@ def send_timeout_s(args) -> float:
                (get_time_ns(args) / 1e9) * 10)
 
 
-def replica_candidates(conf: ClusterConfig, dc: DistributionController,
-                       shard: int) -> list[tuple[str, int]]:
-    """``shard``'s failover order as ``(host, wid)`` pairs: its replica
-    chain, owner first (the JAX head's ``membership.route_candidates`` on
-    a static fleet)."""
-    out: list[int] = []
-    for c in dc.replica_workers(shard):
-        if int(c) not in out:
-            out.append(int(c))
-    return [(conf.workers[c % len(conf.workers)], c) for c in out]
-
-
 def run_host(conf: ClusterConfig, args, queries, dc, diffs,
-             t_partition: float = 0.0):
+             t_partition: float = 0.0, mstate=None):
     """Every diff round over the resident servers, each round's batches
     sent concurrently; returns ``(stats, paths, failures)``."""
     rconf = runtime_config(args)
@@ -685,12 +682,14 @@ def run_host(conf: ClusterConfig, args, queries, dc, diffs,
                  "; per-lane FIFO fallback" if transport_mode == "auto"
                  else "")
     # a killed transfer script never reaches its `rm -f`: stale answer
-    # FIFOs go before the first batch, stale build debris with them;
+    # FIFOs go before the first batch, stale build debris and the
+    # epoch-suffixed wire files of an aborted migration window with them;
     # retries follow the env-tuned backoff policy, and each worker gets
     # a circuit breaker whose background probes ping through the same
     # command FIFO the batches use
     fifo_transport.clean_stale_answer_fifos(conf.nfs)
     sweep_stale_artifacts(conf.outdir)
+    fifo_transport.clean_stale_epoch_files(conf.nfs)
     policy = fifo_transport.RetryPolicy.from_env()
     registry = resilience.BreakerRegistry(
         probe_fn=lambda key: fifo_transport.probe(
@@ -705,7 +704,7 @@ def run_host(conf: ClusterConfig, args, queries, dc, diffs,
     try:
         stats, paths, failures = _run_host_rounds(
             conf, args, dc, diffs, groups, rconf, t_partition, timeout,
-            tracing, base_tid, policy, registry)
+            tracing, base_tid, policy, registry, mstate=mstate)
     finally:
         registry.shutdown()
         # persistent RPC connections live for the whole campaign
@@ -717,18 +716,96 @@ def run_host(conf: ClusterConfig, args, queries, dc, diffs,
     return stats, paths, failures
 
 
+def _round_membership(conf, dc, last=None):
+    """One round's live routing view: the durable membership state (or
+    None on a static fleet), the matching controller, the host roster,
+    and the round's epoch-stamped knobs. Re-read EVERY round so a
+    reconfiguration committed mid-campaign flips the very next round's
+    routing — this is what makes a campaign survive a live join/leave
+    without draining.
+
+    ``last`` is the previous round's (state, controller, roster)
+    triple: a read that fails — or a state file that VANISHES after an
+    elastic view was already in effect — degrades to that last-good
+    view, never to a mix. The table and the roster must come from the
+    same state: ``dc`` may already carry a committed owner table whose
+    joined worker ids are past the static conf roster, and pairing it
+    with ``conf.workers`` would wrap those ids onto the wrong hosts."""
+    try:
+        mview = fleet.load_state(conf.outdir)
+    except ValueError as e:
+        if last is not None:
+            log.error("membership state unreadable (%s); keeping the "
+                      "previous round's table", e)
+            return last
+        log.error("membership state unreadable (%s); keeping the "
+                  "current table", e)
+        mview = None
+    if (mview is None and last is not None and last[0] is not None):
+        log.error("membership state vanished; keeping the previous "
+                  "round's table")
+        return last
+    if last is not None and last[0] is not None and mview is not None:
+        if mview.epoch < last[0].epoch:
+            # epochs are monotone: a lagging read (NFS cache, a
+            # restored stale file) must not roll routing back to a
+            # drained owner — the refresh()/worker-gate rule
+            log.error("membership state read epoch %d behind round's "
+                      "%d; keeping the previous round's table",
+                      mview.epoch, last[0].epoch)
+            return last
+        if mview.to_dict() == last[0].to_dict():
+            # unchanged: reuse the controller instead of re-running
+            # the O(N) node assignment every round
+            return last
+    try:
+        dc_r = fleet.apply_state(dc, mview) if mview is not None else dc
+    except ValueError as e:
+        # an owners table that does not fit this partition (conf
+        # mismatch, hand edit) degrades instead of crashing the round
+        if last is not None:
+            log.error("membership state does not apply (%s); keeping "
+                      "the previous round's table", e)
+            return last
+        log.error("membership state does not apply (%s); keeping the "
+                  "static table", e)
+        mview, dc_r = None, dc
+    hosts = (list(mview.workers) if mview is not None and mview.workers
+             else list(conf.workers))
+    return mview, dc_r, hosts
+
+
 def _run_host_rounds(conf, args, dc, diffs, groups, rconf, t_partition,
-                     timeout, tracing, base_tid, policy, registry):
+                     timeout, tracing, base_tid, policy, registry,
+                     mstate=None):
     stats, paths, failures = [], None, []
-    jobs = [(conf.workers[int(dc.owner_of(wid)) % len(conf.workers)], wid,
-             part) for wid, part in sorted(groups.items())]
+    # last-good (state, table, roster) triple: seeded from the startup
+    # view so even a ROUND-0 read failure under an elastic table keeps
+    # the roster that names the joined workers' hosts
+    last = None
+    if mstate is not None:
+        last = (mstate, dc,
+                list(mstate.workers) if mstate.workers
+                else list(conf.workers))
     for di, diff in enumerate(diffs):
+        mview, dc_r, hosts = _round_membership(conf, dc, last=last)
+        last = (mview, dc_r, hosts)
+        rconf_r = (dataclasses.replace(rconf, epoch=dc_r.epoch)
+                   if dc_r.epoch else rconf)
+
+        def _host_of(c: int) -> str:
+            return hosts[c] if c < len(hosts) else hosts[c % len(hosts)]
+
+        jobs = [(_host_of(dc_r.owner_of(wid)), wid, part)
+                for wid, part in sorted(groups.items())]
         results = fan_out(jobs, lambda j: send_queries(
-            j[0], j[1], j[2], rconf, conf.nfs, diff,
+            j[0], j[1], j[2], rconf_r, conf.nfs, diff,
             t_partition=t_partition, timeout=timeout,
             trace_id=f"{base_tid}/w{j[1]}.d{di}" if tracing else "",
             round_idx=di, policy=policy, registry=registry,
-            candidates=replica_candidates(conf, dc, j[1])))
+            candidates=[(_host_of(c), c)
+                        for c in fleet.route_candidates(mview, dc_r,
+                                                        j[1])]))
         stats.append([row for row, _failure, _served in results])
         failures.extend(f for _row, f, _served in results if f is not None)
         served_by = {wid: served for (_h, wid, _p), (_r, _f, served)
@@ -803,11 +880,22 @@ def run(conf: ClusterConfig, args):
                 log.info("replication=%d ignored on the in-process "
                          "campaign (queries route to primary owners "
                          "only)", conf.effective_replication())
-        elif os.path.exists(os.path.join(conf.outdir, "membership.json")):
-            raise SystemExit("elastic membership (membership.json) is "
-                             "not ported (ROADMAP.md A14.3)")
         dc = DistributionController(partmethod, partkey, conf.maxworker,
                                     nodenum, replication=replication)
+        # elastic membership (host wire only, like replication: the
+        # in-process campaign has no per-worker placement to reassign):
+        # a committed epoch's owner table overrides the conf's static
+        # identity, and each round re-reads it
+        mstate = None
+        if not use_tpu:
+            mstate = fleet.load_state(conf.outdir)
+            if mstate is not None:
+                dc = fleet.apply_state(dc, mstate)
+                log.info("membership epoch %d in effect (%d worker(s) "
+                         "in roster)", dc.epoch, len(mstate.workers))
+        elif fleet.current_epoch(conf.outdir):
+            log.info("membership state ignored on the in-process "
+                     "campaign (its placement is the device grid)")
     H_PARTITION.observe(t_workload.interval)
     diffs = list(conf.diffs) if conf.diffs else list(args.diffs)
     if use_tpu:
@@ -823,7 +911,7 @@ def run(conf: ClusterConfig, args):
         else:
             stats, paths, failures = run_host(
                 conf, args, queries, dc, diffs,
-                t_partition=t_workload.interval)
+                t_partition=t_workload.interval, mstate=mstate)
 
     data = {
         "num_queries": int(len(queries)),

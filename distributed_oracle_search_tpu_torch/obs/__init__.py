@@ -67,6 +67,36 @@ books:
   ``rpc_busy_frames_total``, ``rpc_server_connections`` (gauge),
   ``rpc_server_batches_total``, ``rpc_server_replies_dropped_total``,
   ``rpc_server_frames_malformed_total``;
+* membership and version gates (``parallel.membership``,
+  ``worker.server``) — ``reshard_epoch`` (gauge),
+  ``reshard_migrations_total``, ``reshard_shards_moved_total``,
+  ``reshard_aborted_total``, ``reshard_leave_refused_total``,
+  ``reshard_catchup_seconds``; ``server_stale_epoch_total``,
+  ``server_stale_diff_total``; the worker L2 ``worker_l2_hits_total``,
+  ``worker_l2_misses_total``, ``gateway_l2_admit_denied_total``;
+* online serving (``serving``) — ``serve_requests_total``,
+  ``serve_requests_ok_total``, ``serve_request_seconds``,
+  ``serve_queue_depth`` (gauge), ``serve_batches_total``,
+  ``serve_batches_in_flight`` (gauge), ``serve_batch_fill``,
+  ``serve_time_to_flush_seconds``, ``serve_flush_full_total``,
+  ``serve_flush_wait_total``, ``serve_dispatch_seconds``,
+  ``serve_shed_busy_total``, ``serve_shed_unavailable_total``,
+  ``serve_shed_family_total``, ``serve_timeouts_total``,
+  ``serve_errors_total``; the cache ``serve_cache_hits_total``,
+  ``serve_cache_misses_total``, ``serve_cache_evictions_total``,
+  ``serve_cache_entries`` and ``serve_cache_bytes`` (gauges),
+  ``serve_cache_invalidated_scoped_total``,
+  ``serve_cache_invalidated_full_total``, ``serve_cache_rekeyed_total``;
+  hedging ``hedges_issued_total``, ``hedges_won_total``,
+  ``hedges_budget_denied_total``; the dispatchers
+  ``serve_hedge_qfile_reused_total``, ``rpc_dispatch_seconds``;
+  families ``serve_matrix_requests_total``, ``serve_alt_requests_total``,
+  ``serve_reverse_requests_total``;
+* live traffic (``traffic``) — ``traffic_epoch`` (gauge),
+  ``traffic_segments_applied_total``, ``traffic_edges_updated_total``,
+  ``traffic_swap_seconds``;
+* integrity — ``answer_fp_mismatch_total``,
+  ``cache_fingerprint_mismatch_total``;
 * fault harness — ``faults_injected_total``;
 * artifacts — ``artifacts_swept_total``; the index counters of
   ``models.cpd.COUNTERS`` (``cpd_blocks_*``, ``build_*``,

@@ -48,6 +48,10 @@ G_PROGRAMS = obs_metrics.gauge(
     "compiled programs with a captured XLA cost/memory analysis")
 
 _COSTS: dict[str, dict] = {}
+#: guards ``_COSTS``; ``capture`` holds it across its launch, so threads
+#: that reach one program key at once (the serving frontend's batcher
+#: threads, one a shard) make one timed launch between them, not one
+#: each — the launch counts stay "batches + program keys" under threads
 _lock = threading.Lock()
 
 
@@ -102,14 +106,12 @@ def capture(key, fn, *args, cost: dict | None = None, device=None,
         return None
     skey = key if isinstance(key, str) else repr(key)
     with _lock:
-        if skey in _COSTS:
-            return _COSTS[skey]
-    entry = analyze(fn, *args, cost=cost, device=device, **kwargs)
-    if entry is None:
-        return None
-    with _lock:
-        _COSTS.setdefault(skey, entry)
-        G_PROGRAMS.set(len(_COSTS))
+        if skey not in _COSTS:
+            entry = analyze(fn, *args, cost=cost, device=device, **kwargs)
+            if entry is None:
+                return None
+            _COSTS[skey] = entry
+            G_PROGRAMS.set(len(_COSTS))
         return _COSTS[skey]
 
 

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..data.graph import INF
+from ..utils.counts import bump
 from ..utils.device import resolve_device
 
 JINF = int(INF)
@@ -358,7 +359,7 @@ def astar_batch(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale, cpu,
     receives ``sweeps``, ``launches``, ``counts`` and ``exact``."""
     kw = dict(valid=valid, max_iters=max_iters, w_in=w_in, info=info)
     if in_nbr.device.type == "cpu":
-        astar_batch.plain += 1
+        bump(astar_batch, "plain")
         return astar_batch_plain(in_nbr, in_eid, w_pad, xs, ys, s, t,
                                  hscale, fscale, cpu, **kw)
     if in_nbr.device.type != "cuda":

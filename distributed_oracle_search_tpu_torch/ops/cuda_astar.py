@@ -41,6 +41,7 @@ from .batched_astar import (
     init_state, n_groups,
 )
 from .cuda_walk import _check
+from ..utils.counts import bump
 
 #: the CUDA source (``csrc/<KERNEL_NAME>.cu``) and its entry points
 KERNEL_NAME = "batched_astar"
@@ -85,7 +86,7 @@ def astar_heuristic(xs: torch.Tensor, ys: torch.Tensor, t: torch.Tensor,
     ``astar_heuristic.launches``, each call on CPU tensors (the plain
     version) one to ``astar_heuristic.plain``."""
     if xs.device.type == "cpu":
-        astar_heuristic.plain += 1
+        bump(astar_heuristic, "plain")
         return heuristic_plain(xs, ys, t, cpu, hscale)
     if xs.device.type != "cuda":
         raise ValueError(f"no heuristic for tensors on {xs.device}")
@@ -103,7 +104,7 @@ def astar_heuristic(xs: torch.Tensor, ys: torch.Tensor, t: torch.Tensor,
                                stream)
     if err != 0:
         raise RuntimeError(f"{ENTRY_H} launch failed: CUDA error {err}")
-    astar_heuristic.launches += 1
+    bump(astar_heuristic, "launches")
     return h
 
 
@@ -179,9 +180,9 @@ def astar_sweep(in_nbr: torch.Tensor, w_in: torch.Tensor,
             stream)
     if err != 0:
         raise RuntimeError(f"{ENTRY_SWEEP} launch failed: CUDA error {err}")
-    astar_sweep.launches += 1
+    bump(astar_sweep, "launches")
     if not skip:
-        astar_sweep.dense += 1
+        bump(astar_sweep, "dense")
 
 
 astar_sweep.launches = 0

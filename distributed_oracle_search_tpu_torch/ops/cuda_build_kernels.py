@@ -31,7 +31,8 @@ Every wrapper picks by the device its tensors lie on, as the walk does:
 CPU tensors take the plain torch version of the same function (how the
 CPU tests run it), CUDA tensors launch the kernel or raise — no fallback
 from a failed build or launch. Each launch adds one to the wrapper's
-``launches`` count, and nothing else does.
+``launches`` count, and nothing else does; each call on CPU tensors adds
+one to its ``plain`` count (``utils.counts.bump``: exact under threads).
 
 :func:`jacobi_dist` and :func:`sweep_dist` are the host loops with the
 JAX ``while_loop`` semantics (``while changed and i < limit``), reading
@@ -53,6 +54,7 @@ import torch
 
 from .bellman_ford import first_move_from_dist, init_dist
 from .device_graph import DeviceGraph, TINF
+from ..utils.counts import bump
 
 #: the CUDA source (``csrc/<KERNEL_NAME>.cu``)
 KERNEL_NAME = "cpd_build"
@@ -355,6 +357,7 @@ def relax_jacobi(csr: EdgeCSR, d: torch.Tensor, out: torch.Tensor,
     on_cuda = _on_cuda(d, "relax")
     vec = _pick_vec(d, out, vec)
     if not on_cuda:
+        bump(relax_jacobi, "plain")
         return _relax_cpu(csr, d, out, flag, chg_prev, chg_cur, active,
                           32 * vec)
     dev = d.device
@@ -391,7 +394,7 @@ def relax_jacobi(csr: EdgeCSR, d: torch.Tensor, out: torch.Tensor,
             csr.wt.data_ptr(), ptr(csr.order), ptr(csr.span), d.data_ptr(),
             out.data_ptr(), flag.data_ptr(), ptr(chg_prev), ptr(chg_cur),
             ptr(active), n, b, vec)
-    relax_jacobi.launches += 1
+    bump(relax_jacobi, "launches")
     return out
 
 
@@ -439,6 +442,7 @@ def first_moves(dg: DeviceGraph, targets: torch.Tensor,
     columns, narrowed to the alignment."""
     n = dg.n
     if not _on_cuda(dist_nb, "first-move extraction"):
+        bump(first_moves, "plain")
         return write_rows(first_move_from_dist(dg, targets, dist_nb.T), out)
     dev = dist_nb.device
     b = dist_nb.shape[1] if dist_nb.dim() == 2 else -1
@@ -457,7 +461,7 @@ def first_moves(dg: DeviceGraph, targets: torch.Tensor,
     _launch(FIRST_MOVES_ENTRY, dev, csr.row_ptr.data_ptr(),
             csr.col.data_ptr(), csr.wt.data_ptr(), dist_nb.data_ptr(),
             targets.data_ptr(), out.data_ptr(), n, b, out.shape[0], vec)
-    first_moves.launches += 1
+    bump(first_moves, "launches")
     return out
 
 
@@ -515,6 +519,7 @@ def grid_sweep(gd, d: torch.Tensor, flag: torch.Tensor, *, cycles: int = 1,
     if cycles < 1:
         raise ValueError(f"cycles must be at least 1, got {cycles}")
     if not _on_cuda(d, "grid sweep"):
+        bump(grid_sweep, "plain")
         _sweep_cpu(gd, d, flag, cycles, counter, cols)
         return d
     dev = d.device
@@ -531,13 +536,16 @@ def grid_sweep(gd, d: torch.Tensor, flag: torch.Tensor, *, cycles: int = 1,
             transposed.data_ptr(), flag.data_ptr(),
             None if counter is None else counter.data_ptr(),
             h, w, b, cols, cycles)
-    grid_sweep.launches += 1
+    bump(grid_sweep, "launches")
     return d
 
 
 relax_jacobi.launches = 0
 first_moves.launches = 0
 grid_sweep.launches = 0
+relax_jacobi.plain = 0
+first_moves.plain = 0
+grid_sweep.plain = 0
 
 
 # ---------------------------------------------------------------- loops

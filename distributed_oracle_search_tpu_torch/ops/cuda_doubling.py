@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from .cuda_walk import _check
+from ..utils.counts import bump
 from .pointer_doubling import double_rows, record_width, sweep_records
 
 #: the CUDA source (``csrc/<KERNEL_NAME>.cu``) and its entry points
@@ -101,7 +102,7 @@ def doubling_rows(rec: torch.Tensor, d: int, sweeps: int,
     Each kernel launch adds one to ``doubling_rows.launches``, each call
     on CPU tensors (the plain version) one to ``doubling_rows.plain``."""
     if rec.device.type == "cpu":
-        doubling_rows.plain += 1
+        bump(doubling_rows, "plain")
         return double_rows(rec, d, sweeps, fixed)
     if rec.device.type != "cuda":
         raise ValueError(f"no doubling for tensors on {rec.device}")
@@ -145,7 +146,7 @@ def launch_rows(rec: torch.Tensor, d: int, sweeps: int, fixed: bool,
                  live.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{ENTRY_ROWS} launch failed: CUDA error {err}")
-    doubling_rows.launches += 1
+    bump(doubling_rows, "launches")
 
 
 doubling_rows.launches = 0
@@ -164,7 +165,7 @@ def doubling_sweep(cur: torch.Tensor, out: torch.Tensor,
     sweep on CPU tensors (the plain version) one to
     ``doubling_sweep.plain``."""
     if cur.device.type == "cpu":
-        doubling_sweep.plain += 1
+        bump(doubling_sweep, "plain")
         new, changed = sweep_records(cur)
         out.copy_(new)
         if changed:
@@ -206,7 +207,7 @@ def launch_sweep(cur: torch.Tensor, out: torch.Tensor,
                  p // 4, stream)
     if err != 0:
         raise RuntimeError(f"{ENTRY} launch failed: CUDA error {err}")
-    doubling_sweep.launches += 1
+    bump(doubling_sweep, "launches")
 
 
 doubling_sweep.launches = 0

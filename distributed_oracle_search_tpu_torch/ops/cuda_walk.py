@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from .device_graph import DeviceGraph
+from ..utils.counts import bump
 from .table_search import (
     table_search_batch, table_search_multi, walk_budget, walk_eid_pairs,
     walk_pairs, weights_t, weights_width,
@@ -103,7 +104,7 @@ def cuda_walk_batch(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
     bytes (an upper count at the move budget, not ``chip_smoke.py``'s
     distinct-sector bound)."""
     if s.device.type == "cpu":
-        cuda_walk_batch.plain += 1
+        bump(cuda_walk_batch, "plain")
         return table_search_batch(dg, fm, t_rows, s, t, w_query_pad,
                                   valid=valid, k_moves=k_moves,
                                   max_steps=max_steps, unroll=unroll,
@@ -205,9 +206,9 @@ def launch_walk(fm: torch.Tensor, n: int, t_rows: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     if packed4:
-        cuda_walk_batch.launches_pack4 += 1
+        bump(cuda_walk_batch, "launches_pack4")
     else:
-        cuda_walk_batch.launches += 1
+        bump(cuda_walk_batch, "launches")
 
 
 cuda_walk_batch.launches = 0
@@ -231,7 +232,7 @@ def cuda_walk_multi(dg: DeviceGraph, fm: torch.Tensor, t_rows: torch.Tensor,
     ``cuda_walk_multi.plain``); CUDA tensors launch the kernel (counted
     in ``cuda_walk_multi.launches``) or raise."""
     if s.device.type == "cpu":
-        cuda_walk_multi.plain += 1
+        bump(cuda_walk_multi, "plain")
         return table_search_multi(dg, fm, t_rows, s, t, w_pads, valid=valid,
                                   max_steps=max_steps, pair=pair)
     if s.device.type != "cuda":
@@ -294,7 +295,7 @@ def launch_walk_multi(fm: torch.Tensor, n: int, t_rows: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME_MULTI} launch failed: CUDA error "
                            f"{err}")
-    cuda_walk_multi.launches += 1
+    bump(cuda_walk_multi, "launches")
 
 
 cuda_walk_multi.launches = 0

@@ -31,10 +31,9 @@ Improvements over the reference (SURVEY.md §2.1 quirks):
 * **liveness probes** — :func:`probe` pushes a ``__DOS_PING__`` control
   frame and returns the server's :class:`~.wire.HealthStatus` line.
 
-A copy of the JAX package's ``transport/fifo.py`` (the scripts it runs
+A copy of the JAX package's ``transport/fifo.py``: the scripts it runs
 are byte-equal, so either package's head drives either package's
-servers) without ``clean_stale_epoch_files``, the sweep of a membership
-migration window's wire files (ROADMAP.md A14.3).
+servers.
 """
 
 from __future__ import annotations
@@ -141,6 +140,44 @@ class RetryPolicy:
             return max(raw, 0.0)
         rnd = random.Random(zlib.crc32(f"{seed}:{attempt}".encode()))
         return raw * (1.0 + self.jitter * (2 * rnd.random() - 1.0))
+
+
+def clean_stale_epoch_files(nfs: str,
+                            min_age_s: float | None = None) -> int:
+    """Remove epoch-suffixed ``query.*``/``answer.*`` wire files
+    (names carrying ``.e<epoch>`` — the dual-read migration window's
+    re-routed batch names) left behind by an aborted or crashed
+    reconfiguration: unlike a normal batch, a window torn down
+    mid-dispatch has no surviving owner to sweep its files on the next
+    round. Age-gated like the artifact sweep — a young file may be a
+    LIVE dual-read batch of a concurrent campaign — and counted by
+    ``artifacts_swept_total`` (these are artifact debris, not FIFOs in
+    rendezvous; stale epoch-suffixed answer FIFOs are removed too)."""
+    import glob as _glob
+    import re as _re
+
+    from ..utils.atomicio import M_SWEPT, SWEEP_MIN_AGE_S
+
+    if min_age_s is None:
+        min_age_s = SWEEP_MIN_AGE_S
+    pat = _re.compile(r"\.e\d+(\.|$)")
+    now = time.time()
+    n = 0
+    for stem in ("query.*", "answer.*"):
+        for p in _glob.glob(os.path.join(nfs, stem)):
+            if not pat.search(os.path.basename(p)):
+                continue
+            try:
+                if now - os.path.getmtime(p) >= min_age_s:
+                    os.remove(p)
+                    n += 1
+            except OSError:
+                continue
+    if n:
+        log.info("swept %d stale epoch-suffixed wire file(s) in %s",
+                 n, nfs)
+        M_SWEPT.inc(n)
+    return n
 
 
 def make_script(request: Request, command_fifo: str,

@@ -23,7 +23,9 @@ without sleeping; probe threads are named ``dos-probe-*`` and joined by
 :meth:`BreakerRegistry.shutdown` so the test suite's leak check can prove
 no campaign leaves one behind.
 
-A copy of the JAX package's ``transport/resilience.py``.
+A copy of the JAX package's ``transport/resilience.py``, except that a
+probe thread starts under the registry's lock, so ``shutdown`` never
+joins a thread that was not started (ROADMAP.md C10).
 """
 
 from __future__ import annotations
@@ -328,9 +330,13 @@ class BreakerRegistry:
 
         t = threading.Thread(target=loop, daemon=True,
                              name=f"dos-probe-{br.key}")
+        # started under the lock: a shutdown racing this call either
+        # finds no thread or a started one to join (the JAX copy appends,
+        # releases the lock and starts, so a shutdown between the two
+        # joins a thread that was never started and raises)
         with self._lock:
             self._threads.append(t)
-        t.start()
+            t.start()
 
     def shutdown(self, join_s: float = 5.0) -> None:
         """Stop probe loops and join their threads (campaign end)."""

@@ -21,8 +21,7 @@ exactly:
   sentinel instead.
 
 Everything here is pure encode/decode plus the query, paths and results
-file helpers. Answer fingerprints (the integrity extension, ROADMAP.md
-A14) are not ported: a results file that carries one is refused.
+file helpers, answer fingerprints (the integrity extension) included.
 """
 
 from __future__ import annotations
@@ -47,10 +46,25 @@ HEAD_STAT_FIELDS = ("t_prepare", "t_partition", "size")
 #: 10-field CSV line and can never equal this)
 FAIL_LINE = "FAIL"
 
-#: answer-FIFO sentinels of the JAX package's version gates (membership
-#: epoch, diff epoch): this package's servers never send them (a static
-#: fleet has no epochs), but its head decodes them as failed rows
+#: answer-FIFO sentinel for the fleet-membership version gate: a worker
+#: whose partition-table epoch is OLDER than the request's
+#: ``RuntimeConfig.epoch`` (and that stayed older after refreshing its
+#: membership state) refuses the batch with this line instead of
+#: serving rows it may no longer own. New heads read it as a failed row
+#: with ``stale_epoch`` set (failover walks on to the next candidate);
+#: old heads see an undecodable line and book the same failed row —
+#: the sentinel only ever appears when a NEW head stamped a nonzero
+#: epoch, so legacy deployments never meet it.
 STALE_EPOCH_LINE = "STALE_EPOCH"
+
+#: answer-FIFO sentinel for the live-traffic version gate: a worker
+#: whose DIFF epoch is OLDER than the request's
+#: ``RuntimeConfig.diff_epoch`` (and that stayed older after refreshing
+#: its segment stream) refuses the batch rather than read a fused diff
+#: file its filesystem view may not have yet. Same compat shape as
+#: ``STALE_EPOCH``: new heads read a failed row with ``stale_diff``
+#: set; the sentinel only appears when a new head stamped a nonzero
+#: diff epoch, so legacy deployments never meet it.
 STALE_DIFF_LINE = "STALE_DIFF"
 
 #: liveness control frame: ``__DOS_PING__ <answerfifo>`` as a single
@@ -72,11 +86,19 @@ class RuntimeConfig:
     """Per-batch engine knobs (wire line 1). Same fields, defaults and
     JSON as the JAX package's, wire extensions included; ``from_json``
     drops keys it does not know, so peers of either age read each
-    other's lines. Of the fields the port's server reads ``time``,
+    other's lines. The port's server reads every field: ``time``,
     ``itrs``, ``k_moves``, ``no_cache``, ``extract`` (path prefixes into
-    ``<queryfile>.paths``) and ``results`` (per-query answers into
-    ``<queryfile>.results``); the others ride the wire unread, as an
-    older server leaves an extension it predates."""
+    ``<queryfile>.paths``), ``results`` (per-query answers into
+    ``<queryfile>.results``), ``trace_id``, ``epoch`` (the membership
+    version gate: a batch routed under a NEWER table than the worker's,
+    even after a refresh, is refused with ``STALE_EPOCH``), ``diff_epoch``
+    (the same gate on the live-traffic stream, ``STALE_DIFF``),
+    ``sig_k`` (a path signature of ``sig_k`` moves beside the answers,
+    through the ``.paths`` sidecar; the walk and its move budget stay
+    ``k_moves``'s) and ``answer_fp`` (a crc32 answer fingerprint on the
+    results header, ``fp=<hex8>``, or the RPC reply header's ``fp``,
+    re-checked by the dispatcher: a mismatch is a dispatch error, never
+    a served answer)."""
 
     hscale: float = 1.0
     fscale: float = 0.0
@@ -274,14 +296,23 @@ def results_file_for(queryfile: str) -> str:
 
 
 def write_results_file(path: str, cost: np.ndarray, plen: np.ndarray,
-                       finished: np.ndarray) -> None:
+                       finished: np.ndarray,
+                       fp: int | None = None) -> None:
     """``Q`` header, then one ``cost plen finished`` row per query, in
-    the query file's order."""
+    the query file's order.
+
+    ``fp`` (the ``RuntimeConfig.answer_fp`` extension) rides the header
+    line as an extra ``fp=<hex8>`` token — old readers take
+    ``int(header[0])`` and ignore trailing tokens, so a fingerprinting
+    server stays readable by a pre-integrity head."""
     cost = np.asarray(cost, np.int64)
     plen = np.asarray(plen, np.int64)
     fin = np.asarray(finished).astype(np.int64)
     buf = io.BytesIO()
-    buf.write(f"{len(cost)}\n".encode())
+    header = f"{len(cost)}"
+    if fp is not None:
+        header += f" fp={int(fp) & 0xFFFFFFFF:08x}"
+    buf.write((header + "\n").encode())
     np.savetxt(buf, np.stack([cost, plen, fin], axis=1), fmt="%d")
     atomic_replace_bytes(path, buf.getvalue())
 
@@ -290,21 +321,24 @@ def read_results_file(path: str) -> tuple[np.ndarray, np.ndarray,
                                           np.ndarray]:
     """Returns ``(cost [Q] int64, plen [Q] int64, finished [Q] bool)``.
 
-    A header that carries an ``fp=`` answer fingerprint (the JAX
-    package's integrity extension) is refused: this package does not
-    verify fingerprints (ROADMAP.md A14), and an unverified answer is
-    never handed up as if it had been checked."""
+    When the header carries an ``fp=`` fingerprint token the answer
+    bytes are re-checked before being returned; a mismatch raises
+    :class:`~..integrity.fingerprint.FingerprintError` (a ``ValueError``
+    subclass, so pre-integrity decode-error handlers still fail over)
+    and books ``answer_fp_mismatch_total`` — a corrupted sidecar is
+    never handed up."""
     with open(path) as f:
         header = f.readline().split()
         if not header:
             # a worker killed between creating the sidecar and writing
-            # the header leaves a zero-byte file — a decode error, not
-            # an opaque IndexError
+            # the header leaves a zero-byte file — a decode error the
+            # dispatcher translates, not an opaque IndexError
             raise ValueError(f"{path}: empty results file")
         count = int(header[0])
-        if any(tok.startswith("fp=") for tok in header[1:]):
-            raise ValueError(f"{path}: answer fingerprints are not "
-                             "verified by this package (ROADMAP.md A14)")
+        fp_want = None
+        for tok in header[1:]:
+            if tok.startswith("fp="):
+                fp_want = int(tok[3:], 16)
         if count == 0:
             out = np.zeros((0, 3), np.int64)
         else:
@@ -312,7 +346,20 @@ def read_results_file(path: str) -> tuple[np.ndarray, np.ndarray,
     if out.shape != (count, 3):
         raise ValueError(f"{path}: header says {(count, 3)}, "
                          f"found {out.shape}")
-    return out[:, 0], out[:, 1], out[:, 2] != 0
+    cost, plen, fin = out[:, 0], out[:, 1], out[:, 2] != 0
+    if fp_want is not None:
+        # lazy import: legacy (fingerprint-less) decode stays free of
+        # the integrity package entirely
+        from ..integrity.fingerprint import (
+            FingerprintError, M_FP_MISMATCH, answer_fingerprint)
+        got = answer_fingerprint(cost, plen, fin)
+        if got != fp_want:
+            M_FP_MISMATCH.inc()
+            raise FingerprintError(
+                f"{path}: answer fingerprint mismatch (header "
+                f"{fp_want:08x}, computed {got:08x}) — corrupted "
+                "results sidecar")
+    return cost, plen, fin
 
 
 # ----------------------------------------------------------- query files

@@ -77,9 +77,17 @@ made after the batch's timed interval (counted among the kernel's
 launches like any other). The ``corrupt-resident`` fault point flips row 0 of the loaded
 rows after their digests verified, as in JAX.
 
-Not ported: path signatures (``sig_k``), promotion by the diff-epoch
-manager with the serving cache's flush and the resident scrubber
-(ROADMAP.md A14.4, A14.5).
+Path signatures (``RuntimeConfig.sig_k``, the serving cache's scoped
+invalidation): a batch that asks for them and does not extract gets the
+first ``sig_k`` path nodes of each query on ``last_paths``, by the same
+extraction scan (``ops.table_search.extract_paths``, plain torch) over
+the walked table, after the walk; the walk, its move budget
+(``k_moves``) and every answer are untouched. As in JAX such a batch
+walks a pack4 table inflated, and its program key carries ``sig_k``.
+
+Not ported: the resident scrubber (ROADMAP.md A14.5). As in JAX, no
+caller promotes an index on a diff-epoch swap: a swap's fused diff is
+served through the per-diff weight LRU.
 """
 
 from __future__ import annotations
@@ -539,7 +547,8 @@ class ShardEngine:
 
         With ``config.extract`` and ``k_moves > 0`` the extracted path
         prefixes land on ``self.last_paths`` as ``(nodes [Q, k+1],
-        moves [Q])``.
+        moves [Q])``; else with ``config.sig_k > 0`` the path signatures
+        do (``[Q, sig_k+1]``).
         """
         set_worker_id(self.wid)
         t0 = time.perf_counter()
@@ -560,10 +569,12 @@ class ShardEngine:
                                 difffile=difffile):
                 w_pad, pair = self._weights_for(difffile, config.no_cache)
             M_WEIGHTS.observe(time.perf_counter() - t0)
+        sig_k = int(config.sig_k) if config.sig_k > 0 else 0
         if nq == 0:
-            if extracting:
+            if extracting or sig_k:
                 self.last_paths = (
-                    np.zeros((0, config.k_moves + 1), np.int64),
+                    np.zeros((0, (config.k_moves if extracting else sig_k)
+                              + 1), np.int64),
                     np.zeros(0, np.int64))
             return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                     np.zeros(0, bool), StatsRow())
@@ -629,7 +640,7 @@ class ShardEngine:
             M_WALK_COMPRESSED.inc()
             td0 = time.perf_counter()
             if fm_tbl.codec == "pack4" and not extracting \
-                    and not self._lane_split:
+                    and not sig_k and not self._lane_split:
                 fm_walk, packed4 = fm_tbl.packed, True
             else:
                 urows, rinv = np.unique(rows[:nu], return_inverse=True)
@@ -651,7 +662,8 @@ class ShardEngine:
         variant = ("pack4" if packed4 else "raw",
                    self.n_lanes if self._lane_split else 1,
                    int(fm_walk.shape[0]) if compressed else 0)
-        key = (self.alg, cap_n, config.k_moves, extracting, variant)
+        key = (self.alg, cap_n, config.k_moves, extracting, sig_k,
+               variant)
         first_call = key not in self._programs_seen
 
         placed = (self._placed(fm_walk, w_pad, pair) if self._lane_split
@@ -702,10 +714,11 @@ class ShardEngine:
                     _land(pending)
             if deadline is not None and time.perf_counter() > deadline:
                 break
-        if extracting:
+        if extracting or sig_k:
+            # a signature is the same scan as --extract, at sig_k moves
             nodes, moves = extract_paths(
                 self.dg, fm_walk, self._dev(rows), self._dev(s),
-                self._dev(t), k=config.k_moves)
+                self._dev(t), k=config.k_moves if extracting else sig_k)
             nodes = nodes.cpu().numpy()[:nu].astype(np.int64)[unsort]
             moves = moves.cpu().numpy()[:nu].astype(np.int64)[unsort]
             self.last_paths = (nodes[inverse], moves[inverse])

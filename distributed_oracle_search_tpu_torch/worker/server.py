@@ -43,24 +43,31 @@ requests.
     python -m distributed_oracle_search_tpu_torch.worker.server \\
         -c conf.json --workerid N [--alg astar] [--device cpu] \\
         [--metrics-dump m.json] [--rpc-socket S | --rpc-port P] \\
-        [--obs-port P]
+        [--obs-port P] [--traffic-dir D]
 
-Serves a static fleet. With ``replication`` R > 1 a batch whose targets
-all lie in a shard this worker hosts as a replica is answered by a
-replica engine made on first use from that shard's replica block set
-(:meth:`FifoServer.engine_for_shard`; counted in
-``server_replica_batches_total``) — the head's failover sends them here;
-a batch for a shard it does not host fails the routing invariant. Not
-ported, and refused with the ``ROADMAP.md`` item that ports each:
-adoption engines and the membership epoch gate, the worker L2 cache
-(``DOS_GATEWAY_L2_BYTES``), ``--traffic-dir`` and answer fingerprints
-(A14.3), the telemetry
-publisher (``DOS_TELEMETRY_INTERVAL_S``, A14.5).
+With ``replication`` R > 1 a batch whose targets all lie in a shard this
+worker hosts as a replica is answered by an engine made on first use
+from that shard's replica block set (:meth:`FifoServer.engine_for_shard`;
+counted in ``server_replica_batches_total``) — the head's failover sends
+them here. Elastic membership: a ``membership.json`` beside the index
+overrides the conf's owners; a fresh joiner starts engine-less, a worker
+adopting a shard in a migration window serves it from its primary block
+set, and a request stamped with a newer epoch (``RuntimeConfig.epoch``)
+than the worker sees, even after re-reading the state, is refused with
+``STALE_EPOCH`` (fault point ``stale-epoch-reply``). ``--traffic-dir``
+gates the diff epoch the same way (``STALE_DIFF``). ``DOS_GATEWAY_L2_
+BYTES`` > 0 enables the shard-owner L2 result cache before the kernel
+(``DOS_GATEWAY_L2_ADMIT``: ``all`` or ``second-hit``; rekeyed on a swap,
+flushed on an epoch). ``answer_fp`` fingerprints the answers on the
+results header or the RPC reply header (fault point ``corrupt-answer``).
+Not ported, and refused with the ``ROADMAP.md`` item that ports it: the
+telemetry publisher (``DOS_TELEMETRY_INTERVAL_S``, A14.5).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import errno
 import fcntl
@@ -77,6 +84,7 @@ import numpy as np
 import torch
 
 from ..data.graph import Graph
+from ..integrity.fingerprint import answer_fingerprint
 from ..models.cpd import BuildLedger
 from ..obs import device as obs_device
 from ..obs import metrics as obs_metrics
@@ -85,6 +93,7 @@ from ..obs.http import start_obs_server
 from ..ops.batched_astar import astar_batch
 from ..ops.cuda_astar import astar_heuristic, astar_sweep
 from ..ops.cuda_walk import cuda_walk_batch, cuda_walk_multi
+from ..parallel import membership
 from ..parallel.partition import DistributionController
 from ..testing import faults
 from ..transport import frames
@@ -124,6 +133,27 @@ M_DROPPED = obs_metrics.counter(
 M_REPLY_WAIT = obs_metrics.histogram(
     "server_reply_open_wait_seconds",
     "time a reply waited for the head to open its answer-FIFO reader")
+M_STALE_EPOCH = obs_metrics.counter(
+    "server_stale_epoch_total",
+    "batches refused with STALE_EPOCH: the request was routed under a "
+    "NEWER partition-table epoch than this worker has, even after a "
+    "membership refresh")
+M_STALE_DIFF = obs_metrics.counter(
+    "server_stale_diff_total",
+    "batches refused with STALE_DIFF: the request named a fused diff "
+    "from a NEWER traffic epoch than this worker's segment stream "
+    "shows, even after a refresh")
+M_L2_HITS = obs_metrics.counter(
+    "worker_l2_hits_total",
+    "queries answered from the shard-owner L2 cache before the kernel")
+M_L2_MISSES = obs_metrics.counter(
+    "worker_l2_misses_total",
+    "L2 lookups that fell through to the kernel")
+M_L2_ADMIT_DENIED = obs_metrics.counter(
+    "gateway_l2_admit_denied_total",
+    "L2 inserts withheld by the second-hit admission doorkeeper "
+    "(DOS_GATEWAY_L2_ADMIT=second-hit): first-miss keys only mark the "
+    "ghost list, one-hit wonders never churn the byte budget")
 M_PINGS = obs_metrics.counter(
     "server_pings_answered_total",
     "__DOS_PING__ control frames answered with a health line")
@@ -214,13 +244,44 @@ class FifoServer:
 
     def __init__(self, conf: ClusterConfig, wid: int,
                  command_fifo: str | None = None,
-                 alg: str = "table-search", device=None):
+                 alg: str = "table-search", device=None,
+                 traffic_dir: str | None = None):
         if alg not in ("table-search", "astar"):
             raise ValueError(f"unknown algorithm {alg!r}")
-        if os.path.exists(os.path.join(conf.outdir, "membership.json")):
-            raise ValueError(
-                f"{conf.outdir} holds a membership state: elastic fleets "
-                "are not ported (ROADMAP.md A14.3)")
+        #: live-traffic gate (``--traffic-dir``): a gate-only epoch
+        #: manager over the shared segment stream — it never materializes
+        #: fused files (the head did), it only tracks the stream's epoch
+        #: so a request stamped with a NEWER diff epoch triggers a
+        #: refresh-then-refuse instead of a failed open() on a fused file
+        #: this worker's filesystem view has not seen yet
+        self.traffic = None
+        if traffic_dir:
+            from ..traffic import DiffEpochManager
+
+            self.traffic = DiffEpochManager(traffic_dir, materialize=False)
+            self.traffic.refresh()
+        #: shard-owner L2 result cache (``DOS_GATEWAY_L2_BYTES``): hot
+        #: (s, t) entries answered BEFORE the kernel, keyed like the
+        #: frontend L1 (diff path + knob fingerprint + both epochs).
+        #: Default 0 keeps the worker as it was
+        from ..gateway.config import GatewayConfig
+        from ..serving.cache import ResultCache
+
+        gconf = GatewayConfig.from_env()
+        self.l2 = ResultCache(gconf.l2_bytes)
+        #: L2 admission policy (``DOS_GATEWAY_L2_ADMIT``): ``all`` inserts
+        #: every miss; ``second-hit`` keeps a ghost list of once-missed
+        #: keys and admits only on the second miss
+        self._l2_admit = gconf.l2_admit
+        self._l2_seen: collections.OrderedDict = collections.OrderedDict()
+        self._l2_seen_lock = OrderedLock("worker.FifoServer.l2_admit")
+        if self.l2.enabled and self.traffic is not None:
+            # scoped invalidation LOCAL to the shard owning the updated
+            # edges: the gate-only manager still computes each swap's
+            # affected-edge delta, so the L2 re-keys its provably-safe
+            # survivors exactly like the head's L1 does
+            self._l2_prev = self.traffic.active()[:2]
+            self.traffic.on_swap = self._l2_on_swap
         self.conf = conf
         self.wid = wid
         self.alg = alg
@@ -232,11 +293,32 @@ class FifoServer:
             conf.partmethod, conf.partkey, conf.maxworker, self.graph.n,
             replication=conf.effective_replication())
         self.device = device
-        self.engine = ShardEngine(self.graph, self.dc, wid, conf.outdir,
-                                  alg=alg, device=device)
-        #: engines by shard: this worker's own, and the replica engines
-        #: made on first use for the shards it hosts
-        self._replica_engines: dict[int, ShardEngine] = {wid: self.engine}
+        # elastic membership: the durable assignment (epoch + shard
+        # owners) beside the index overrides the conf's static identity
+        # — absent for a static fleet (epoch 0)
+        self._membership_state = membership.load_state(conf.outdir)
+        if self._membership_state is not None:
+            self.dc = membership.apply_state(self.dc,
+                                             self._membership_state)
+        self.epoch = self.dc.epoch
+        #: engines by shard: the eager one, and the engines made on first
+        #: use for the shards it hosts as a replica or is adopting
+        self._replica_engines: dict[int, ShardEngine] = {}
+        # the eager engine serves the first shard this worker OWNS (its
+        # own wid on a static fleet). A fresh joiner owns nothing until
+        # its first epoch commits: it starts engine-less and loads
+        # adopted shards lazily through engine_for_shard
+        own = next((sh for sh in range(self.dc.maxworker)
+                    if self.dc.owner_of(sh) == wid), None)
+        self.engine: ShardEngine | None = None
+        if own is not None:
+            self.engine = ShardEngine(self.graph, self.dc, wid, conf.outdir,
+                                      alg=alg, device=device, shard=own)
+            self._replica_engines[own] = self.engine
+        else:
+            log.info("worker %d owns no shard at epoch %d (fresh joiner); "
+                     "engines load lazily on adoption traffic", wid,
+                     self.epoch)
         #: serializes engine answers across the FIFO and RPC serve loops
         #: (one engine set, two transports over it)
         self.answer_lock = OrderedLock("worker.FifoServer.answer")
@@ -246,7 +328,7 @@ class FifoServer:
         self._last_error = ""
         # preload the first diff's weights like the reference server
         # does (make_fifos.py:18 loads only diffs[0])
-        if conf.diffs:
+        if conf.diffs and self.engine is not None:
             self.engine.preload(conf.diffs[0])
 
     def _count(self, name: str, n: int = 1) -> None:
@@ -259,23 +341,41 @@ class FifoServer:
             obs_metrics.counter(name).inc(n)
 
     def engine_for_shard(self, shard: int) -> ShardEngine:
-        """The engine serving ``shard``'s rows: this worker's own engine
-        for its shard, a replica engine (made on first use from the
-        shard's replica block set) for a shard it hosts as a replica,
-        and a routing-invariant error naming the hosted shards for any
-        other."""
+        """The engine serving ``shard``'s rows: the eager engine for its
+        shard, an engine made on first use for a shard this worker hosts
+        as a replica, owns, or is ADOPTING during a membership migration
+        window (``membership.hosted_shards``), and a routing-invariant
+        error naming the hosted shards for any other. A hosted miss first
+        re-reads the membership state: a window opens without an epoch
+        bump, so a worker started before ``begin`` learns it is the
+        adopter only when dual-read traffic lands here."""
         eng = self._replica_engines.get(shard)
         if eng is None:
-            hosted = sorted(int(x) for x in self.dc.replica_shards(self.wid))
+            def _hosted():
+                return membership.hosted_shards(
+                    self._membership_state, self.dc, self.wid)
+
+            hosted = _hosted()
+            if shard not in hosted:
+                self._refresh_membership()
+                hosted = _hosted()
             if shard not in hosted:
                 raise ValueError(
                     f"worker {self.wid} hosts no replica of shard {shard} "
-                    f"(hosted: {hosted}) — routing invariant violated")
-            log.info("worker %d: loading shard %d's replica for failover "
+                    f"(hosted: {sorted(hosted)}) — routing invariant "
+                    "violated")
+            log.info("worker %d: loading shard %d for failover/adoption "
                      "traffic", self.wid, shard)
+            try:
+                rank = self.dc.replica_rank(shard, self.wid)
+            except ValueError:
+                # mid-adoption: not in the shard's replica chain yet —
+                # serve the primary block set the catch-up verified
+                rank = 0
             eng = ShardEngine(self.graph, self.dc, self.wid,
                               self.conf.outdir, alg=self.alg,
-                              device=self.device, shard=shard)
+                              device=self.device, shard=shard,
+                              replica=rank)
             self._replica_engines[shard] = eng
         return eng
 
@@ -310,9 +410,22 @@ class FifoServer:
         if paths is not None:
             # extraction rides the shared dir, not the stats FIFO
             write_paths_file(paths_file_for(req.queryfile), *paths)
-        if req.config.results:
+        if req.config.results and (len(queries)
+                                   or self.engine is not None):
+            # per-query answers for the online serving frontend (an
+            # engine-less empty batch answers the empty row without a
+            # sidecar, as in JAX)
+            fp = None
+            if req.config.answer_fp:
+                # fingerprint at answer birth; the corrupt-answer fault
+                # fires AFTER, so the head's verifier must catch the rot
+                fp = answer_fingerprint(cost, plen, fin)
+                if faults.inject("corrupt-answer", self.wid) is not None:
+                    cost = np.array(cost, np.int64, copy=True)
+                    if len(cost):
+                        cost[0] ^= 1
             write_results_file(results_file_for(req.queryfile),
-                               cost, plen, fin)
+                               cost, plen, fin, fp=fp)
         return stats
 
     def answer_queries(self, queries: np.ndarray, config, difffile: str):
@@ -324,15 +437,138 @@ class FifoServer:
         worker hosts as a replica goes to that shard's replica engine;
         any other batch meets its engine's routing invariant."""
         engine = self.engine
+        queries = np.asarray(queries, np.int64).reshape(-1, 2)
         if len(queries):
-            shards = np.unique(self.dc.worker_of(
-                np.asarray(queries, np.int64).reshape(-1, 2)[:, 1]))
-            if len(shards) == 1 and int(shards[0]) != engine.shard:
+            # the scan runs on every batch: it is also how a worker
+            # started before a migration window learns it is the adopter
+            # (engine_for_shard refreshes membership on a hosted miss)
+            shards = np.unique(self.dc.worker_of(queries[:, 1]))
+            if len(shards) == 1 and (engine is None
+                                     or int(shards[0]) != engine.shard):
                 engine = self.engine_for_shard(int(shards[0]))
-                self._count("server_replica_batches_total")
-        cost, plen, fin, stats = engine.answer(queries, config, difffile)
+                if (engine is not self.engine
+                        and int(self.dc.owner_of(int(shards[0])))
+                        != self.wid):
+                    # only re-routed traffic: after a leave consolidates
+                    # two OWNED shards here, the second one's batches
+                    # are authoritative, not failover
+                    self._count("server_replica_batches_total")
+        if engine is None:
+            if len(queries):
+                # a fresh joiner got a multi-shard batch it has no engine
+                # for: FAIL it so failover walks on
+                raise ValueError(
+                    f"worker {self.wid} owns no shard and the batch spans "
+                    f"shards "
+                    f"{np.unique(self.dc.worker_of(queries[:, 1])).tolist()}"
+                    " — routing invariant violated")
+            return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                    np.zeros(0, bool), StatsRow(), None)
+        if self.l2.enabled and not (config.extract and config.k_moves > 0):
+            # extraction batches need the REAL per-move prefixes on the
+            # paths sidecar; everything else can short-circuit
+            out = self._answer_l2(engine, queries, config, difffile)
+        else:
+            cost, plen, fin, stats = engine.answer(queries, config,
+                                                   difffile)
+            out = (cost, plen, fin, stats, engine.last_paths)
         self._count("worker_queries_total", len(queries))
-        return cost, plen, fin, stats, engine.last_paths
+        return out
+
+    def _answer_l2(self, engine, queries: np.ndarray, config,
+                   difffile: str):
+        """The worker half of the two-level cache: per-query L2 lookups
+        before the kernel, the kernel only over the misses, results
+        merged back in query order. Keys mirror the frontend L1 (diff
+        path, knob fingerprint, membership epoch, diff epoch) so an entry
+        never outlives the state that computed it; for a caller asking
+        for signatures a hit fabricates its paths row from the stored
+        signature (``moves = -1`` when it cannot — the frontend then
+        treats the entry as signature-less)."""
+        from ..serving.cache import knob_fingerprint
+
+        l2 = self.l2
+        fp = knob_fingerprint(config)
+        depoch = int(config.diff_epoch or 0)
+        q = queries
+        n = len(q)
+        keys = [(int(q[i, 0]), int(q[i, 1]), str(difffile), fp,
+                 int(self.epoch), depoch) for i in range(n)]
+        sig_k = int(config.sig_k or 0)
+        width = sig_k + 1 if sig_k > 0 else 0
+        cost = np.zeros(n, np.int64)
+        plen = np.zeros(n, np.int64)
+        fin = np.zeros(n, bool)
+        nodes = np.zeros((n, width), np.int64) if width else None
+        moves = np.full(n, -1, np.int64) if width else None
+        miss_idx = []
+        for i, key in enumerate(keys):
+            hit = l2.get_with_sig(key)
+            if hit is None:
+                miss_idx.append(i)
+                continue
+            (c, p, f), sig = hit
+            cost[i], plen[i], fin[i] = int(c), int(p), bool(f)
+            if (width and sig is not None and 0 < len(sig) <= width
+                    and len(sig) - 1 == int(p)):
+                srt = sorted(sig)
+                nodes[i, :len(srt)] = srt
+                moves[i] = len(srt) - 1
+        M_L2_HITS.inc(n - len(miss_idx))
+        M_L2_MISSES.inc(len(miss_idx))
+        stats = StatsRow()
+        if miss_idx:
+            idx = np.asarray(miss_idx)
+            c2, p2, f2, stats = engine.answer(
+                np.ascontiguousarray(q[idx]), config, difffile)
+            cost[idx], plen[idx], fin[idx] = c2, p2, f2
+            lp = engine.last_paths
+            lp_ok = (width and lp is not None
+                     and lp[0].shape[1] == width)
+            if lp_ok:
+                nodes[idx] = lp[0]
+                moves[idx] = lp[1]
+            for j, i in enumerate(miss_idx):
+                sig = None
+                if lp_ok and int(lp[1][j]) == int(p2[j]):
+                    sig = frozenset(
+                        int(x) for x in lp[0][j, :int(lp[1][j]) + 1])
+                if self._l2_admit_key(keys[i]):
+                    l2.put(keys[i],
+                           (int(c2[j]), int(p2[j]), bool(f2[j])), sig)
+        paths = (nodes, moves) if width else None
+        return cost, plen, fin, stats, paths
+
+    def _l2_admit_key(self, key) -> bool:
+        """Admission doorkeeper for one missed key: ``all`` admits
+        everything; ``second-hit`` admits only a key whose FIRST miss
+        already marked the ghost list (a bounded FIFO of keys)."""
+        if self._l2_admit != "second-hit":
+            return True
+        cap = max(1024, int(self.l2.max_bytes) // 256)
+        with self._l2_seen_lock:
+            if self._l2_seen.pop(key, None) is not None:
+                return True
+            self._l2_seen[key] = True
+            while len(self._l2_seen) > cap:
+                self._l2_seen.popitem(last=False)
+        M_L2_ADMIT_DENIED.inc()
+        return False
+
+    def _l2_on_swap(self, epoch: int, difffile: str, affected) -> None:
+        """Diff-epoch swap hook (the gate-only epoch manager): scoped
+        invalidation of this shard's L2 — entries whose cached walk
+        provably avoids every updated edge re-key to the new fusion, the
+        rest drop. Runs on whichever thread refreshed the stream,
+        outside the manager's lock."""
+        old_epoch, old_diff = int(self._l2_prev[0]), str(self._l2_prev[1])
+        self._l2_prev = (epoch, difffile)
+        dropped, kept, reason = self.l2.invalidate_scoped(
+            affected, difffile, epoch, max_edges=self.traffic.scoped_max,
+            old_diff=old_diff, old_depoch=old_epoch)
+        log.info("worker %d L2 swap epoch %d -> %d: %d dropped (%s), "
+                 "%d re-keyed", self.wid, old_epoch, epoch, dropped,
+                 reason, kept)
 
     def _batch_failed(self, e: BaseException) -> StatsRow:
         """Book a batch whose answer raised; its ``FAIL`` row."""
@@ -404,6 +640,14 @@ class FifoServer:
                     log.error("bad request: %s", e)
                     self._count("server_frames_malformed_total")
                     self._answer_malformed(text)
+                    continue
+                stale = (self._epoch_gate(req.config)
+                         or self._traffic_gate(req.config))
+                if stale is not None:
+                    # version-gated refusal: the head routed this batch
+                    # under a NEWER table than this worker can see —
+                    # answer the sentinel so failover walks on
+                    self._reply(req.answerfifo, stale.encode_wire() + "\n")
                     continue
                 kill = faults.inject("kill-mid-batch", wid=self.wid)
                 if kill is not None:
@@ -577,15 +821,34 @@ class FifoServer:
         out["alg"] = self.alg
         out["command_fifo"] = self.command_fifo
         out["shard"] = self.wid
-        out["mesh"] = {"devices": int(eng.n_lanes), "axis": "lane"}
-        out["resident"] = {"codec": str(eng.resident_codec),
-                           "bytes": int(eng.resident_bytes)}
+        out["mesh"] = {"devices": int(eng.n_lanes if eng else 1),
+                       "axis": "lane"}
+        out["resident"] = {
+            "codec": str(eng.resident_codec if eng else "raw"),
+            "bytes": int(eng.resident_bytes if eng else 0)}
         out["replica_shards_loaded"] = sorted(
             s for s in self._replica_engines if s != self.wid)
         if self.dc.replication > 1:
             out["replica_shards_hosted"] = sorted(
                 int(s) for s in self.dc.replica_shards(self.wid))
-        out["epoch"] = 0
+        # which table version this worker serves under, its live-traffic
+        # diff epoch (only when it gates the stream), its L2 (only when
+        # enabled) and, during a reconfiguration, the window
+        out["epoch"] = int(self.epoch)
+        if self.traffic is not None:
+            out["diff_epoch"] = int(self.traffic.epoch)
+        if self.l2.enabled:
+            out["l2"] = {
+                "entries": len(self.l2),
+                "max_bytes": self.l2.max_bytes,
+                "hits": int(self.l2.hits),
+                "misses": int(self.l2.misses),
+                "hit_rate": round(self.l2.hit_rate(), 4),
+                "admit": str(self._l2_admit),
+            }
+        state = self._membership_state
+        if state is not None and state.migration is not None:
+            out["migration"] = dict(state.migration)
         if self.rpc_loop is not None:
             out["transport"] = self.rpc_loop.statusz()
         try:
@@ -599,6 +862,81 @@ class FifoServer:
         """Write the stop token into our own FIFO (for another process)."""
         stop_server(self.command_fifo)
 
+    # -------------------------------------------------- membership gate
+    def _epoch_gate(self, config) -> StatsRow | None:
+        """The version gate on routing state: a request stamped with a
+        NEWER partition-table epoch than ours first triggers a membership
+        refresh (the commit may simply not have been read yet), and only
+        if we are STILL older is it refused with ``STALE_EPOCH``. Requests
+        from older epochs are always served (the dual-read window needs
+        it). The ``stale-epoch-reply`` fault point refuses regardless.
+        Returns the refusal row, or None to proceed."""
+        if faults.inject("stale-epoch-reply", wid=self.wid) is not None:
+            log.error("fault: worker %d replying STALE_EPOCH", self.wid)
+            M_STALE_EPOCH.inc()
+            return StatsRow(ok=False, stale_epoch=True)
+        req_epoch = int(config.epoch or 0)
+        if req_epoch <= self.epoch:
+            return None
+        self._refresh_membership()
+        if req_epoch <= self.epoch:
+            return None
+        M_STALE_EPOCH.inc()
+        log.warning("worker %d at epoch %d refusing batch from epoch %d "
+                    "(membership state has no newer commit)", self.wid,
+                    self.epoch, req_epoch)
+        return StatsRow(ok=False, stale_epoch=True)
+
+    def _traffic_gate(self, config) -> StatsRow | None:
+        """The same rule on the DIFF epoch (``RuntimeConfig.diff_epoch``):
+        a request fused at a NEWER traffic epoch than our segment stream
+        shows first refreshes the stream, and only if we are STILL older
+        is it refused with ``STALE_DIFF``. Workers without
+        ``--traffic-dir`` never gate."""
+        if self.traffic is None:
+            return None
+        req_depoch = int(config.diff_epoch or 0)
+        if req_depoch <= self.traffic.epoch:
+            return None
+        self.traffic.refresh()
+        if req_depoch <= self.traffic.epoch:
+            return None
+        M_STALE_DIFF.inc()
+        log.warning("worker %d at diff epoch %d refusing batch from diff "
+                    "epoch %d (segment stream has no newer segment)",
+                    self.wid, self.traffic.epoch, req_depoch)
+        return StatsRow(ok=False, stale_diff=True)
+
+    def _refresh_membership(self) -> None:
+        """Re-read the durable membership state and swap in a controller
+        reflecting it. A same-epoch state still applies when its CONTENT
+        changed (``begin`` opens a window without bumping the epoch, and
+        the adopter must see it); an older epoch never applies. Loaded
+        engines keep serving — the node→shard map never changes, only
+        ownership. A new epoch flushes the L2 (its keys carry the
+        epoch)."""
+        try:
+            state = membership.load_state(self.conf.outdir)
+        except ValueError as e:
+            log.error("membership refresh failed: %s", e)
+            return
+        if state is None or state.epoch < self.epoch:
+            return
+        cur = self._membership_state
+        if cur is not None and state.to_dict() == cur.to_dict():
+            return
+        self._membership_state = state
+        self.dc = membership.apply_state(self.dc, state)
+        old_epoch = self.epoch
+        self.epoch = state.epoch
+        if self.l2.enabled and state.epoch != old_epoch:
+            n = self.l2.invalidate()
+            log.info("worker %d L2 flushed %d entries on epoch %d -> %d",
+                     self.wid, n, old_epoch, state.epoch)
+        log.info("worker %d refreshed membership (epoch %d%s)", self.wid,
+                 self.epoch, ", migration window open"
+                 if state.migration is not None else "")
+
     # ------------------------------------------------------------ metrics
     def metrics_snapshot(self) -> dict:
         """The ``--metrics-dump`` payload: ``obs.metrics.REGISTRY``'s
@@ -609,7 +947,10 @@ class FifoServer:
         process ran (``device_programs``), the worker id and the pid."""
         obs_metrics.mirror_counts(
             kernel_counts(), help="kernel wrapper launch / plain counts")
-        dev = self.engine.device
+        eng = self.engine or next(iter(self._replica_engines.values()),
+                                  None)
+        dev = eng.device if eng is not None else torch.device(
+            self.device or "cuda")
         on_card = dev.type == "cuda"
         return {
             **obs_metrics.REGISTRY.snapshot(),
@@ -621,8 +962,8 @@ class FifoServer:
                 "max_memory_allocated": (
                     int(torch.cuda.max_memory_allocated(dev)) if on_card
                     else 0),
-                "resident_codec": self.engine.resident_codec,
-                "resident_bytes": self.engine.resident_bytes,
+                "resident_codec": eng.resident_codec if eng else "raw",
+                "resident_bytes": eng.resident_bytes if eng else 0,
             },
             "device_programs": obs_device.snapshot(),
             "wid": self.wid,
@@ -632,9 +973,9 @@ class FifoServer:
 
 class RpcServeLoop:
     """The socket accept loop beside the FIFO serve loop (the JAX
-    package's, without the membership and diff epoch gates, the L2 cache,
-    answer fingerprints and the telemetry broadcast: ROADMAP.md A14.3,
-    A14.5).
+    package's, with the membership and diff epoch gates, the L2 and
+    answer fingerprints on the reply header, without the telemetry
+    broadcast: ROADMAP.md A14.5).
 
     One :class:`FifoServer` (engines, health state, fault points) served
     over persistent connections: length-prefixed frames
@@ -808,6 +1149,11 @@ class RpcServeLoop:
                                      .encode_wire()})
                 return True
             diff = str(fr.header.get("diff") or "-")
+            stale = fs._epoch_gate(rconf) or fs._traffic_gate(rconf)
+            if stale is not None:
+                self._reply(writer, {"kind": "rep", "id": fid,
+                                     "stats": stale.encode_wire()})
+                return True
             kill = faults.inject("kill-mid-batch", wid=fs.wid)
             if kill is not None:
                 log.error("fault: worker %d dying mid-batch (rpc)", fs.wid)
@@ -831,9 +1177,21 @@ class RpcServeLoop:
                 fs._count("worker_batches_total")
                 if rconf.results:
                     header["res"] = True
-                    arrays += [np.asarray(cost, np.int64),
-                               np.asarray(plen, np.int64),
-                               np.asarray(fin).astype(np.uint8)]
+                    cost = np.asarray(cost, np.int64)
+                    plen = np.asarray(plen, np.int64)
+                    fin_u8 = np.asarray(fin).astype(np.uint8)
+                    if rconf.answer_fp:
+                        # fingerprint the segments at birth, on the reply
+                        # header; the corrupt-answer fault fires AFTER so
+                        # the head's check is what must catch it
+                        header["fp"] = answer_fingerprint(cost, plen,
+                                                          fin_u8)
+                        if faults.inject("corrupt-answer",
+                                         fs.wid) is not None:
+                            cost = cost.copy()
+                            if len(cost):
+                                cost[0] ^= 1
+                    arrays += [cost, plen, fin_u8]
                 if paths is not None:
                     header["paths"] = True
                     arrays += [np.asarray(paths[0], np.int64),
@@ -933,13 +1291,6 @@ def stop_server(command_fifo: str, deadline_s: float = 2.0) -> bool:
         os.close(fd)
 
 
-#: flags of the JAX server that parse here and are refused, with the item
-#: that ports each
-REFUSED_FLAGS = {
-    "traffic_dir": ("--traffic-dir", "A14.3"),
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("-c", default="./example-cluster-conf.json",
@@ -972,28 +1323,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rpc-port", type=int, default=None,
                    help="TCP port for the RPC serve loop (cross-host; "
                         "DOS_RPC_PORT+wid when the env base is set)")
-    for dest, (flag, _item) in REFUSED_FLAGS.items():
-        p.add_argument(flag, dest=dest, default=None,
-                       help=argparse.SUPPRESS)
+    p.add_argument("--traffic-dir", default=None,
+                   help="diff segment stream directory: refuse batches "
+                        "fused at a newer diff epoch than the stream "
+                        "shows (STALE_DIFF) and scope the L2's "
+                        "invalidation to each swap's edges")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for dest, (flag, item) in REFUSED_FLAGS.items():
-        if getattr(args, dest) is not None:
-            raise SystemExit(f"{flag} is not ported (ROADMAP.md {item})")
     if env_cast("DOS_TELEMETRY_INTERVAL_S", 0.0, float) > 0:
         raise SystemExit("DOS_TELEMETRY_INTERVAL_S: the telemetry "
                          "publisher is not ported (ROADMAP.md A14.5)")
-    if env_cast("DOS_GATEWAY_L2_BYTES", 0, int) > 0:
-        raise SystemExit("DOS_GATEWAY_L2_BYTES: the worker L2 cache is "
-                         "not ported (ROADMAP.md A14.3)")
     set_verbosity(args.verbose)
     set_worker_id(args.workerid)
     conf = ClusterConfig.load(args.c)
     server = FifoServer(conf, args.workerid, command_fifo=args.fifo,
-                        alg=args.alg, device=args.device)
+                        alg=args.alg, device=args.device,
+                        traffic_dir=args.traffic_dir)
     # the streaming data plane serves BESIDE the FIFO loop (same
     # engines): on under DOS_TRANSPORT=rpc/auto or when an explicit
     # endpoint flag names one; off under the default DOS_TRANSPORT=fifo

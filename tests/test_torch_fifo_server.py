@@ -8,8 +8,10 @@ never opens does not wedge the loop; an engine error answers ``FAIL``.
 A served batch's stats line, paths and results files equal the JAX
 package's server's on the same request (deterministic fields exactly).
 ``--metrics-dump`` carries the counters, the walk's launches and plain
-walks, and the device; the one refused flag names its ``ROADMAP.md``
-item, and the RPC and scrape flags serve as the JAX server's do."""
+walks, and the device; ``--traffic-dir`` gates diff epochs, the L2
+(``DOS_GATEWAY_L2_BYTES``) answers repeats, and the RPC and scrape flags
+serve as the JAX server's do; the one refused knob names its
+``ROADMAP.md`` item."""
 
 import json
 import os
@@ -408,34 +410,54 @@ def _scrape(port, path):
         return r.status, r.headers["Content-Type"], r.read().decode()
 
 
+def _fifo_batch(tmp_path, fifo, tag, queries, config):
+    """One FIFO request to a running server; ``(stats line, results)``
+    with ``results`` None when the server wrote no sidecar."""
+    req = _request(tmp_path, queries, tag, config)
+    _push(fifo, req.encode())
+    line = _answer(req.answerfifo)
+    res = (read_results_file(req.queryfile + ".results")
+           if os.path.exists(req.queryfile + ".results") else None)
+    return line, res
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--traffic-dir", "x"], "A14"), (["--rpc-socket", "{sock}"], "A14"),
+    (["--traffic-dir", "{traffic}"], "A14"),
+    (["--rpc-socket", "{sock}"], "A14"),
     (["--rpc-port", "{port}"], "A14"), (["--obs-port", "{port}"], "A14"),
 ])
 def test_server_refused_flags_name_roadmap(cluster, tmp_path, argv, item):
-    """Of the JAX server's flags only ``--traffic-dir`` is still refused,
-    naming its ``ROADMAP.md`` item (A14.3). ``--rpc-socket``,
-    ``--rpc-port`` and ``--obs-port``, refused until A14 ported them,
-    now serve as the JAX server's do: one batch over the RPC lane gets
-    the same stats line and answers from both packages' servers, and
-    ``/healthz`` / ``/metrics`` answer with the same keys and types."""
-    if argv[0] == "--traffic-dir":
-        with pytest.raises(SystemExit, match=item):
-            t_server.main(["-c", cluster[0], "-w", "0", "--fifo",
-                           str(tmp_path / "r.fifo"), "--device", "cpu",
-                           *argv])
-        assert not os.path.exists(tmp_path / "r.fifo")
-        return
+    """The JAX server's flags, refused until A14 ported them, serve as
+    the JAX server's do: ``--traffic-dir`` gates the diff epoch (a batch
+    fused at an epoch the stream does not show yet answers ``STALE_DIFF``
+    from both packages; once the segment lands the same batch is served,
+    with equal answers), one batch over the RPC lane gets the same stats
+    line and answers from both packages' servers, and ``/healthz`` /
+    ``/metrics`` answer with the same keys and types."""
+    from distributed_oracle_search_tpu_torch.traffic import write_segment
+
     mine = _mine(cluster)
     got = {}
+    g = cluster[1]
     for pkg in ("torch", "jax"):
         sock = str(tmp_path / f"{pkg}.sock")
         port = _free_port()
-        extra = [a.format(sock=sock, port=port) for a in argv]
+        traffic = str(tmp_path / f"{pkg}-traffic")
+        os.makedirs(traffic)
+        extra = [a.format(sock=sock, port=port, traffic=traffic)
+                 for a in argv]
         fifo = str(tmp_path / f"{pkg}.fifo")
         th, rcs = _main_server(pkg, cluster[0], fifo, extra)
         try:
-            if argv[0] == "--rpc-socket":
+            if argv[0] == "--traffic-dir":
+                cfg = RuntimeConfig(results=True, diff_epoch=1)
+                stale = _fifo_batch(tmp_path, fifo, f"{pkg}-s", mine, cfg)
+                write_segment(traffic, 1, g.src[:3], g.dst[:3],
+                              g.w[:3] + 5)
+                served = _fifo_batch(tmp_path, fifo, f"{pkg}-ok", mine,
+                                     cfg)
+                got[pkg] = (stale, served)
+            elif argv[0] == "--rpc-socket":
                 got[pkg] = _rpc_batch(("unix", sock, None), mine)
             elif argv[0] == "--rpc-port":
                 got[pkg] = _rpc_batch(("tcp", "127.0.0.1", port), mine)
@@ -448,6 +470,16 @@ def test_server_refused_flags_name_roadmap(cluster, tmp_path, argv, item):
             t_server.stop_server(fifo)
             th.join(timeout=20)
         assert rcs == [0], pkg
+    if argv[0] == "--traffic-dir":
+        (t_stale, t_ok), (j_stale, j_ok) = got["torch"], got["jax"]
+        assert t_stale == j_stale == ("STALE_DIFF", None)
+        trow, jrow = StatsRow.decode(t_ok[0]), StatsRow.decode(j_ok[0])
+        assert trow.ok and trow.finished == len(mine)
+        for f in DETERMINISTIC:
+            assert getattr(trow, f) == getattr(jrow, f), f
+        for a, b in zip(t_ok[1], j_ok[1]):
+            np.testing.assert_array_equal(a, b)
+        return
     if argv[0] == "--obs-port":
         assert got["torch"] == got["jax"]
         assert got["torch"][0] == 200 and got["torch"][-1]
@@ -470,10 +502,49 @@ def test_server_refused_flags_name_roadmap(cluster, tmp_path, argv, item):
 def test_server_refuses_unported_knobs(cluster, tmp_path, monkeypatch,
                                        knob, value, item):
     """A nonzero ``DOS_TELEMETRY_INTERVAL_S`` asks for the telemetry
-    publisher, a positive ``DOS_GATEWAY_L2_BYTES`` for the worker L2
-    cache; neither is ported: refused, naming its ROADMAP.md item,
-    before any FIFO or socket is made."""
+    publisher, which is not ported: refused, naming its ROADMAP.md item,
+    before any FIFO or socket is made. A positive ``DOS_GATEWAY_L2_BYTES``
+    (refused until A14.3 ported the worker L2) enables the L2 in both
+    packages' servers: a repeated batch gets the same answers and
+    stats line from each, the repeat from the L2 (hits booked, no walk
+    in the port)."""
     monkeypatch.setenv(knob, value)
+    if knob == "DOS_GATEWAY_L2_BYTES":
+        from distributed_oracle_search_tpu.obs import metrics as j_metrics
+        from distributed_oracle_search_tpu_torch.obs import (
+            metrics as t_metrics)
+        from distributed_oracle_search_tpu_torch.ops import cuda_walk
+
+        mine = _mine(cluster, n=8)
+        cfg = RuntimeConfig(results=True)
+        got = {}
+        for pkg, reg in (("torch", t_metrics), ("jax", j_metrics)):
+            fifo = str(tmp_path / f"{pkg}.fifo")
+            th, rcs = _main_server(pkg, cluster[0], fifo, [])
+            hits0 = reg.counter("worker_l2_hits_total").value
+            try:
+                first = _fifo_batch(tmp_path, fifo, f"{pkg}-1", mine, cfg)
+                walks = cuda_walk.cuda_walk_batch.plain
+                again = _fifo_batch(tmp_path, fifo, f"{pkg}-2", mine, cfg)
+                walks = cuda_walk.cuda_walk_batch.plain - walks
+            finally:
+                t_server.stop_server(fifo)
+                th.join(timeout=20)
+            assert rcs == [0], pkg
+            hits = reg.counter("worker_l2_hits_total").value - hits0
+            got[pkg] = (first, again, hits, walks)
+        (t1, t2, t_hits, t_walks), (j1, j2, j_hits, _) = (got["torch"],
+                                                          got["jax"])
+        assert t_hits == j_hits == len(mine) and t_walks == 0
+        for (tl, tr), (jl, jr) in ((t1, j1), (t2, j2)):
+            for f in DETERMINISTIC:
+                assert (getattr(StatsRow.decode(tl), f)
+                        == getattr(StatsRow.decode(jl), f)), f
+            for a, b in zip(tr, jr):
+                np.testing.assert_array_equal(a, b)
+        for a, b in zip(t1[1], t2[1]):
+            np.testing.assert_array_equal(a, b)
+        return
     with pytest.raises(SystemExit, match=item):
         t_server.main(["-c", cluster[0], "-w", "0", "--fifo",
                        str(tmp_path / "t.fifo"), "--device", "cpu"])

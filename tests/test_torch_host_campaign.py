@@ -469,21 +469,43 @@ def test_make_fifos_tpu_conf_needs_no_servers(tmp_path, dataset, capsys):
 def test_process_query_host_refusals_name_roadmap(cluster, dataset,
                                                   jax_campaign, tmp_path,
                                                   monkeypatch, case, item):
-    """(e) ``membership`` is still refused, naming its ``ROADMAP.md`` item
-    (A14.3). The other cases, refused until A14 ported them, give the
-    JAX campaign's rows: ``rpc`` over the port servers' sockets (no
-    query file written), ``auto`` against servers with no listener (each
-    lane falls back to the FIFO wire), and ``replication`` 2 with worker
-    1 never resident — its batches fail over to worker 2, the holder of
-    its replica, under the port's head and the JAX head alike."""
+    """The four cases, refused until A14 ported them, give the JAX
+    campaign's rows: ``rpc`` over the port servers' sockets (no query
+    file written), ``auto`` against servers with no listener (each lane
+    falls back to the FIFO wire), ``replication`` 2 with worker 1 never
+    resident — its batches fail over to worker 2, the holder of its
+    replica, under the port's head and the JAX head alike — and
+    ``membership``: on a copy of the index, the port's controller
+    commits worker 1's leave (epoch 1, ``membership.json``), and both
+    heads route shard 1 to its new owner, whose port server adopts it,
+    stamping epoch 1 on every batch; the rows equal the static fleet's
+    and the departed worker answers nothing."""
     if case == "membership":
+        import shutil
+
+        from distributed_oracle_search_tpu_torch.parallel import (
+            membership as t_membership)
+
+        base = ClusterConfig.load(cluster)
+        index = tmp_path / "index"
+        shutil.copytree(base.outdir, index)
         conf = _write_conf(tmp_path, dataset)
-        os.makedirs(tmp_path / "index")
-        with open(tmp_path / "index" / "membership.json", "w") as f:
-            f.write("{}")
-        monkeypatch.setattr(t_pq, "send_queries", None)    # never sends
-        with pytest.raises(SystemExit, match=item):
-            t_pq.main(["-c", conf, *DEV])
+        n = Graph.from_xy(dataset["xy_file"]).n
+        mc = t_membership.MembershipController(
+            ClusterConfig.load(conf), DistributionController("mod", W, W, n),
+            device="cpu")
+        state = mc.leave(1)
+        assert state.epoch == 1 and 1 not in state.owners
+        got = {}
+        for head in ("torch", "jax"):
+            (tmp_path / head).mkdir()
+            fleet = Fleet("torch", conf, tmp_path / head, monkeypatch)
+            with fleet:
+                got[head] = _campaign(head, conf,
+                                      str(tmp_path / head / "out"))
+            assert fleet.servers[1].counters["worker_batches_total"] == 0
+            assert all(s.epoch == 1 for s in fleet.servers)
+        assert got["torch"] == got["jax"] == jax_campaign[0]
         return
     monkeypatch.setattr(t_pq, "_RPC_FALLBACK_LANES", set())
     if case in ("rpc", "auto"):

@@ -221,11 +221,34 @@ def test_results_files_equal(tmp_path, q):
 
 
 def test_results_file_with_fingerprint_refused(tmp_path):
-    p = str(tmp_path / "q.results")
-    j_wire.write_results_file(p, np.array([5]), np.array([2]),
-                              np.array([True]), fp=123)
-    with pytest.raises(ValueError, match="A14"):
-        t_wire.read_results_file(p)
+    """A fingerprinted results file (the ``answer_fp`` extension): the
+    two packages write the same bytes and read each other's; a header
+    whose ``fp=`` does not match the answers is refused by both with
+    ``FingerprintError`` and books ``answer_fp_mismatch_total``."""
+    from distributed_oracle_search_tpu.integrity import (
+        fingerprint as j_fp)
+    from distributed_oracle_search_tpu_torch.integrity import (
+        fingerprint as t_fp)
+
+    cost, plen, fin = np.array([5, 7]), np.array([2, 3]), np.array(
+        [True, False])
+    fp = t_fp.answer_fingerprint(cost, plen, fin)
+    assert fp == j_fp.answer_fingerprint(cost, plen, fin)
+    pj, pt = str(tmp_path / "j.results"), str(tmp_path / "t.results")
+    j_wire.write_results_file(pj, cost, plen, fin, fp=fp)
+    t_wire.write_results_file(pt, cost, plen, fin, fp=fp)
+    with open(pj, "rb") as fj, open(pt, "rb") as ft:
+        assert fj.read() == ft.read()
+    for w, r in ((pj, t_wire), (pt, j_wire)):
+        got = r.read_results_file(w)
+        assert all((a == b).all() for a, b in zip(got, (cost, plen, fin)))
+    bad = str(tmp_path / "bad.results")
+    j_wire.write_results_file(bad, cost, plen, fin, fp=fp ^ 1)
+    for r, mod in ((t_wire, t_fp), (j_wire, j_fp)):
+        before = mod.M_FP_MISMATCH.value
+        with pytest.raises(mod.FingerprintError, match="mismatch"):
+            r.read_results_file(bad)
+        assert mod.M_FP_MISMATCH.value == before + 1
 
 
 @pytest.mark.parametrize("body,match", [
