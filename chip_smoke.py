@@ -133,7 +133,11 @@ points a user calls, then the compressed-residency path:
    rounds, the extract round inflates rows instead); hold the pack4
    kernel against its plain version on those two rounds' exact inputs;
    time ``decompress_rows`` of a batch's distinct rows under pack4 and
-   rle; free-flow costs must equal reverse-Dijkstra; the build's sweep
+   rle; the resident scrubber (``integrity.scrub.scrub_engine_table``)
+   on the pack4 and rle engines: a clean pass each, then a row rotted on
+   the card, found by the next pass and re-bound from disk, after which
+   each engine's walk equals the raw engine's;
+   free-flow costs must equal reverse-Dijkstra; the build's sweep
    launches must be one a chunk (the lattice has no off-lattice edges,
    so a launch runs its chunk's cycles to convergence); hold the sweep
    kernel against the plain sweep on worker 0's first 512 targets (after
@@ -166,8 +170,9 @@ points a user calls, then the compressed-residency path:
    kernel equals the plain walk on the oracle's routed inputs of the
    free-flow and diff rounds (timed as in step 2); the build
    (``method="auto"`` must resolve ``ellsplit``) and its relax and
-   extraction kernels held against their plain versions and timed on
-   worker 0's 8,192 targets, as in step 2;
+   extraction kernels held against their plain versions (the relax
+   loop's plain side on the first 2,048 targets) and timed on worker
+   0's 8,192 targets, as in step 2;
 5. serving path (``[serving]`` lines), the oracle's serving methods on
    the campaign's oracle at full size, with ``DOS_TABLE_BUDGET_GB`` set
    to 60 for the phase (the default 8 refuses the cell's tables):
@@ -294,7 +299,8 @@ points a user calls, then the compressed-residency path:
    index: 8 port ``worker.server`` processes with RPC listeners on Unix
    sockets under the run's directory (``DOS_TRANSPORT=rpc``), each with
    ``--metrics-dump``, worker 5 with ``--obs-port``, worker 3 under
-   ``DOS_FAULTS=kill-mid-batch;wid=3;times=1``; ``process_query
+   ``DOS_FAULTS=kill-mid-batch;wid=3;times=1``, every server publishing
+   telemetry (``DOS_TELEMETRY_INTERVAL_S=1``); ``process_query
    --backend host`` over RPC (the rounds with ``--trace`` and
    ``--metrics-dump``, then ``-k 8 --extract``). Worker 3 must exit 86;
    ``failover_total`` must count shard 3's 4 batches, each answered by
@@ -315,7 +321,10 @@ points a user calls, then the compressed-residency path:
    ``dos-serve --backend host`` under ``DOS_TRANSPORT=rpc``,
    ``DOS_ANSWER_FP=1`` and ``DOS_HEDGE_BUDGET=0.01`` answers 4,096 lines
    from stdin over the live servers: the campaign's answers, 0
-   fingerprint mismatches, a hedge issued, exit 0.
+   fingerprint mismatches, a hedge issued, exit 0; each live server's
+   FIFO sidecar holds its ticks, an RPC connection receives its
+   ``telemetry`` frames, and the ``dos-serve``'s ``/statusz`` shows ticks
+   of every live server.
    Recorded: RPC beside FIFO round q/s, the failover's seconds, the
    epoch leg's seconds, the phase's wall time;
 7c. serve path (``[serve]`` lines), on the same index with the servers
@@ -346,6 +355,36 @@ points a user calls, then the compressed-residency path:
    re-keys counted. Logged, not claimed: q/s and p50/p99 on
    the host clock, the cache hit rate, the mean batch fill, the swap and
    catch-up seconds, the peak device memory;
+7d. planes (``[planes]`` lines), on the same index: ``dos-serve
+   --backend inproc`` with every plane on (``PLANE_ENV``: the resident
+   scrubber each second, the audit on every batch, telemetry, one
+   latency objective in ``DOS_SLO_SPECS``, the control daemon, the
+   flight recorder under ``--recorder-dir``) and ``corrupt-resident``
+   armed on shard 5 (row 0 of the primary engine flips after its
+   digests verified); 4,000 pairs aimed at shards 5 and 6 (a tenth at
+   the rotted row) held against this process's engines, the wrong ones
+   before the quarantine counted, not held to 0; then, on ``/statusz``
+   and ``/metrics``: the audit's divergence on shard 5, the daemon's
+   quarantine and re-admission, the scrubber's corrupt block and
+   re-bind; 2,000 more pairs equal to the engines; ``/statusz`` holds
+   ``telemetry``, ``slo``, ``control`` and ``integrity``, ``/slo``
+   answers 200; SIGTERM, exit 0; the tape holds ``audit_divergence``,
+   ``scrub_corrupt``, ``control_divergence_quarantine`` and
+   ``control_readmit``; its dump: B1 launches == serve batches +
+   program keys + the audit's batches walked by B1, no plain walk;
+7e. gateway (``[gateway]`` lines), on the same index: ``cli.gateway``
+   process A (``--replicas 2``; ``lease-freeze`` and ``blackhole-conn``
+   armed on its frontend 1) and process B (``--join --replicas 1``),
+   leased in ``gateway.json``, driven by the port's ``DosClient``: each
+   replica warmed by one frame a shard (the load logged apart); the
+   blackholed first connection to f1 gives up and resubmits on f0; f1's
+   lease expires while it still serves and discovery stops choosing
+   it; 8,000 pairs in frames of 250 across the three replicas, a mat,
+   alt and rev frame, a repeat from the cache; two raw connections
+   past the credit window (only answers and ``busy``); B SIGKILLed
+   with frames in flight, its client failing over to f0; every answer
+   equal to this process's engines; SIGTERM to A, exit 0, its leases
+   gone; its dump: B1 == batches + program keys, no plain walk;
 8. reorder path (``[reorder]`` lines): ``cli.reorder.main`` with
    ``--order rcm`` on the campaign's ``.xy``/``.scen``/``.diff``; the
    scenario must come back relabelled; ``auto`` must resolve
@@ -444,6 +483,7 @@ from distributed_oracle_search_tpu_torch.models.cpd import (
 )
 from distributed_oracle_search_tpu_torch.obs import device as obs_device
 from distributed_oracle_search_tpu_torch.obs import metrics as obs_metrics
+from distributed_oracle_search_tpu_torch.obs import recorder as obs_recorder
 from distributed_oracle_search_tpu_torch.obs import trace as obs_trace
 from distributed_oracle_search_tpu_torch.ops import (
     bellman_ford, cuda_build_kernels as cbk, ell_split, frontier_relax,
@@ -462,6 +502,14 @@ from distributed_oracle_search_tpu_torch.ops.table_search import (
     fm_slot, table_search_batch, table_search_multi, walk_budget, walk_pairs,
     weights_t, weights_width,
 )
+from distributed_oracle_search_tpu_torch import gateway as gw
+from distributed_oracle_search_tpu_torch.gateway import (
+    protocol as gw_protocol, registry as gw_registry,
+)
+from distributed_oracle_search_tpu_torch.gateway.client import (
+    pair_rows as gw_pair_rows,
+)
+from distributed_oracle_search_tpu_torch.integrity import scrub as scrub_mod
 from distributed_oracle_search_tpu_torch.integrity.fingerprint import (
     answer_fingerprint,
 )
@@ -474,6 +522,7 @@ from distributed_oracle_search_tpu_torch.traffic import (
 )
 from distributed_oracle_search_tpu_torch.transport import RuntimeConfig
 from distributed_oracle_search_tpu_torch.transport import fifo as fifo_transport
+from distributed_oracle_search_tpu_torch.transport import frames as frames_mod
 from distributed_oracle_search_tpu_torch.transport import resilience, rpc
 from distributed_oracle_search_tpu_torch.transport.wire import (
     read_results_file, results_file_for,
@@ -535,6 +584,17 @@ RPC_OBS_WORKER = 5
 #: the rpc phase's epoch leg: the lines of its ``dos-serve --backend
 #: host`` burst
 RPC_BURST = 4_096
+#: the servers' telemetry cadence (``DOS_TELEMETRY_INTERVAL_S``)
+RPC_TELEMETRY_S = "1"
+#: ``dos-serve`` whose worker FIFOs are ``<argv[1]>/rpc-worker<wid>.fifo``
+#: (``[rpc]``'s servers), so its sidecar poller reads their
+#: ``.telemetry`` files there; the rest of argv is ``cli.serve``'s
+SERVE_WITH_FIFOS = (
+    "import os, sys\n"
+    "from distributed_oracle_search_tpu_torch.cli import serve\n"
+    "serve.command_fifo_path = lambda wid: os.path.join(\n"
+    "    sys.argv[1], f'rpc-worker{wid}.fifo')\n"
+    "sys.exit(serve.main(sys.argv[2:]))\n")
 #: the serve phase: the zipf repeat pool, the requests of each family
 #: (``mat`` over k targets, ``alt`` with k alternatives, ``rev``), the
 #: rush-hour epochs swapped in live, the queries held to the engines
@@ -566,6 +626,51 @@ SERVE_SHORT = 256
 #: so the phase pays for a few replica engines' loads and not all 8
 SERVE_HEDGE_BUDGET = "0.01"
 SERVE_READY_S = 180
+#: ``[planes]`` and ``[gateway]``: the shards their pairs aim at (each
+#: replica loads an engine, 512 MiB, for every shard its traffic
+#: reaches; ``[serve]`` covers all 8), the shard ``corrupt-resident``
+#: rots in ``[planes]`` (its chain, 5 then 6, has a clean replica), the
+#: share of pairs aimed at the rotted row's node
+PLANE_SHARDS = (5, 6)
+PLANE_ROT = 5
+PLANE_ROT_SHARE = 0.1
+PLANE_PAIRS = (4_000, 2_000)
+PLANE_HEAL_S = 90
+#: every plane on: the scrubber each second, the audit on every batch
+#: (its reference lane for batches of up to 8 queries), telemetry twice
+#: a second, the control daemon ticking twice a second; hedges off, so
+#: the batches walked beyond the frontend's are the audit's
+PLANE_ENV = {"DOS_SCRUB_INTERVAL_S": "1", "DOS_AUDIT_RATE": "1000",
+             "DOS_AUDIT_MAX_REFERENCE": "8",
+             "DOS_TELEMETRY_INTERVAL_S": "0.5", "DOS_CONTROL": "1",
+             "DOS_CONTROL_INTERVAL_S": "0.5", "DOS_HEDGE_DISABLE": "1",
+             "DOS_ANSWER_FP": "1"}
+#: the one latency objective of ``DOS_SLO_SPECS``
+PLANE_SLO = {"name": "serve_latency", "kind": "latency",
+             "window": "serve_request_seconds", "threshold_s": 0.5,
+             "objective": 0.99}
+#: no result cache: a wrong answer served before the quarantine must
+#: not come back from it after the heal
+PLANE_KNOBS = ("--max-batch", "1024", "--max-wait-ms", "20",
+               "--queue-depth", "65536", "--deadline-ms", "120000",
+               "--cache-bytes", "0")
+GATEWAY_PAIRS = 8_000
+GATEWAY_FRAME = 250
+GATEWAY_BURST_FRAME = 64
+GATEWAY_CREDIT = 8
+GATEWAY_LEASE_S = 2.0
+#: a client's wait for one reply before it gives up on the connection
+#: (fails over and resubmits; on the blackholed connection, the short
+#: one), and its give-up on a frame
+GATEWAY_WAIT_S = 10.0
+GATEWAY_HOLE_WAIT_S = 2.0
+GATEWAY_GIVE_UP_S = 60.0
+GATEWAY_KNOBS = ("--max-batch", "1024", "--max-wait-ms", "20",
+                 "--queue-depth", "65536", "--deadline-ms", "120000")
+#: process A's faults: frontend 1 stops renewing its lease at its first
+#: heartbeat, and its first connection is blackholed
+GATEWAY_FAULTS = ("lease-freeze;wid=1;times=1,"
+                  "blackhole-conn;wid=1;times=1")
 #: the build kind ``method="auto"`` must resolve to on each path
 EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit",
                  "serving": "ellsplit", "offline": "ellsplit"}
@@ -609,6 +714,9 @@ SWEEP_ROWS_WIDE = 512
 #: the cuts at which each build kernel is held against its plain version
 #: (Jacobi steps; sweep cycles), before the check at convergence
 RELAX_CUT = 4
+#: targets of a chunk the plain relax loop runs on (the campaign's chunk
+#: of 8,192 is cut to these; the road's 512 run whole)
+RELAX_PLAIN_TARGETS = 2048
 SWEEP_CUTS = (1, 2)
 #: a lattice (width, height) past the row a sweep block holds in shared
 #: memory (2,552 cells at one column a block), so the kernel sweeps each
@@ -1254,9 +1362,10 @@ def relax_loop_profile(csr, t) -> dict:
 def relax_vs_plain(tag: str, dg, csr, st, t) -> tuple[dict, torch.Tensor]:
     """The relax kernel (``jacobi_dist`` over the full out-edge CSR, the
     skip loop as the build runs it) against the plain split relaxation
-    on one chunk: after RELAX_CUT steps, at a mid cut (half the steps)
-    and at convergence, equal element by element and with the plain
-    loop's step count. Timed: one all-active step (no changed map,
+    on one chunk's first ``RELAX_PLAIN_TARGETS`` targets: after RELAX_CUT
+    steps, at a mid cut (half the steps) and at convergence, equal
+    element by element and with the plain loop's step count. Timed on
+    the whole chunk: one all-active step (no changed map,
     CUDA events, back to back) at each column group width, the nodes in
     the CSR's visit order and by id, beside the dense bound; the whole
     loop to convergence as the build runs it (the skip, the default
@@ -1264,27 +1373,32 @@ def relax_vs_plain(tag: str, dg, csr, st, t) -> tuple[dict, torch.Tensor]:
     Returns the entry and the converged ``[N, B]`` distances."""
     n, b, m = dg.n, int(t.shape[0]), int(csr.col.numel())
     t0 = time.perf_counter()
-    _, steps = cbk.jacobi_dist(csr, t)
-    mid = max(steps // 2, RELAX_CUT + 1)
+    # the plain loop runs on the chunk's first RELAX_PLAIN_TARGETS targets
+    tc = t[:RELAX_PLAIN_TARGETS]
+    _, steps_c = cbk.jacobi_dist(csr, tc)
+    mid = max(steps_c // 2, RELAX_CUT + 1)
     plain_at, plain_conv, plain_steps = plain_relax_loop(
-        st, t, (RELAX_CUT, mid))
-    if steps != plain_steps:
-        raise AssertionError(f"{tag} relax_jacobi: {steps} steps to "
+        st, tc, (RELAX_CUT, mid))
+    if steps_c != plain_steps:
+        raise AssertionError(f"{tag} relax_jacobi: {steps_c} steps to "
                              f"converge, the plain loop {plain_steps}")
     for cut in (RELAX_CUT, mid):
-        d_cut, steps_cut = cbk.jacobi_dist(csr, t, cut)
+        d_cut, steps_cut = cbk.jacobi_dist(csr, tc, cut)
         if steps_cut != cut:
             raise AssertionError(f"{tag} relax_jacobi: {steps_cut} steps "
                                  f"at cut {cut}")
         same_dist("relax_jacobi", d_cut, plain_at[cut].T, f"{tag} cut {cut}")
-    d_conv, _ = cbk.jacobi_dist(csr, t)
+    d_conv, _ = cbk.jacobi_dist(csr, tc)
     same_dist("relax_jacobi", d_conv, plain_conv.T, f"{tag} converged")
-    del plain_at, plain_conv
+    del plain_at, plain_conv, d_conv
+    d_conv, steps = cbk.jacobi_dist(csr, t)
     d_cut, _ = cbk.jacobi_dist(csr, t, RELAX_CUT)
     torch.cuda.synchronize()
-    log(f"{tag} relax_jacobi: B={b} N={n} M={m}: equal to the plain split "
-        f"relaxation after {RELAX_CUT} and {mid} steps and at convergence, "
-        f"{steps} steps as the plain loop ({time.perf_counter() - t0:.1f} s)")
+    log(f"{tag} relax_jacobi: B={b} N={n} M={m}: on the first "
+        f"{int(tc.shape[0])} targets equal to the plain split relaxation "
+        f"after {RELAX_CUT} and {mid} steps and at convergence, {steps_c} "
+        f"steps as the plain loop; all {b} converge in {steps} steps "
+        f"({time.perf_counter() - t0:.1f} s)")
     default = cbk.relax_vec(b)
     by_id = csr._replace(order=None, span=None)
     vecs = [v for v in cbk.RELAX_VECS if b % v == 0]
@@ -2602,8 +2716,16 @@ def run() -> list[dict]:
         rpc_run = rpc_path(ref, handoff, host["round_s"])
         log(f"[rpc] done at {time.perf_counter() - T_START:.1f} s")
         serve, build_launches["serve"] = serve_path(ref, handoff)
-        del handoff
         log(f"[serve] done at {time.perf_counter() - T_START:.1f} s")
+        p_engines, p_dc, p_conf = plane_engines(ref, handoff)
+        planes = planes_path(ref, handoff, p_engines, p_dc, p_conf,
+                             serve["pairs_qps"])
+        log(f"[planes] done at {time.perf_counter() - T_START:.1f} s")
+        gateway = gateway_path(ref, handoff, p_engines, p_dc, p_conf)
+        del handoff, p_engines
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[gateway] done at {time.perf_counter() - T_START:.1f} s")
         reorder, build_launches["reorder"] = reorder_path(outdir, ref)
         log(f"[reorder] done at {time.perf_counter() - T_START:.1f} s")
         astar = astar_path(outdir, ref)
@@ -2619,6 +2741,7 @@ def run() -> list[dict]:
         "offline-local": offline["local_launches"],
         "host": host["launches"], "heal": heal["launches"],
         "rpc": rpc_run["launches"], "serve": serve["launches"],
+        "planes": planes["launches"], "gateway": gateway["launches"],
         "lanes": lanes["launches"], "multihost": mh["launches"]}
     raw_kernel["launches"] = sum(raw_kernel["launches_by_path"].values())
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
@@ -2635,6 +2758,8 @@ def run() -> list[dict]:
     raw_kernel["heal"] = heal
     raw_kernel["rpc"] = rpc_run
     raw_kernel["serve"] = serve
+    raw_kernel["planes"] = planes
+    raw_kernel["gateway"] = gateway
     raw_kernel["lanes"] = lanes
     raw_kernel["multihost"] = mh
     raw_kernel["reorder"] = reorder
@@ -3028,6 +3153,8 @@ def compressed_path(g, dc, outdir):
         log(f"{tag} decompress_rows {codec}: {len(rows_u)} rows "
             f"({len(urows)} distinct) x {n} in {ms:.3f} ms")
     del dense_raw
+    scrubbed = compressed_scrub(engines, outdir, queries,
+                                answers["raw"]["free-flow"], tag)
 
     golden_dijkstra(g, queries, answers["raw"]["free-flow"][0],
                     answers["raw"]["free-flow"][2], f"{tag} golden")
@@ -3051,6 +3178,7 @@ def compressed_path(g, dc, outdir):
         "parity": "bit-identical",
         "rounds": per_round,
         "raw_kernel_same_lanes_ms": raw_same_ms,
+        "scrub": scrubbed,
     }, cmp, build_counts
 
 
@@ -4912,7 +5040,7 @@ def rpc_path(ref: dict, host: dict, host_round_s: list) -> dict:
                                                metrics_dump=dump)
             if x == RPC_OBS_WORKER:
                 cmd += f" --obs-port {obs_port}"
-            env = dict(os.environ)
+            env = dict(os.environ, DOS_TELEMETRY_INTERVAL_S=RPC_TELEMETRY_S)
             if x == dead:
                 env["DOS_FAULTS"] = f"kill-mid-batch;wid={dead};times=1"
             with open(os.path.join(nfs, f"rpc-{x}.log"), "w") as lf:
@@ -5174,6 +5302,57 @@ def held_to(got: np.ndarray, want, what: str, tag: str) -> None:
                              "differ")
 
 
+def rpc_telemetry_lanes(run_dir: str, live: list, holder: int,
+                        tag: str) -> dict:
+    """Both lanes of the servers' telemetry: each live server's FIFO
+    sidecar (``<fifo>.telemetry``) holds ticks of its own source, and an
+    RPC connection opened here to ``holder`` receives a ``telemetry``
+    frame of ``holder``'s."""
+    from distributed_oracle_search_tpu_torch.obs import telemetry
+
+    out = {"sidecar_ticks": {}}
+    for x in live:
+        side = os.path.join(run_dir, f"rpc-worker{x}.fifo"
+                            + telemetry.SIDECAR_SUFFIX)
+        ticks = telemetry.read_sidecar(side) if os.path.exists(side) else []
+        if not ticks or any(t["source"] != f"w{x}" for t in ticks):
+            raise AssertionError(f"{tag} worker {x}'s sidecar: "
+                                 f"{[t.get('source') for t in ticks]}")
+        out["sidecar_ticks"][x] = len(ticks)
+    seen: list = []
+    rpc.set_telemetry_sink(seen.append)
+    client = rpc.RpcClient(rpc.endpoint_for(holder), timeout_s=120.0)
+    try:
+        t0 = time.perf_counter()
+        client.call({"kind": "ping"})
+        while not any(t.get("source") == f"w{holder}" for t in seen):
+            if time.perf_counter() - t0 > 10 * float(RPC_TELEMETRY_S):
+                raise AssertionError(f"{tag} no telemetry frame from "
+                                     f"worker {holder} over RPC")
+            time.sleep(0.05)
+        out["rpc_frame_s"] = time.perf_counter() - t0
+    finally:
+        client.close()
+        rpc.set_telemetry_sink(None)
+    return out
+
+
+def wait_telemetry_sources(port: int, live: list, tag: str) -> list:
+    """``/statusz``'s telemetry sources once every live server's
+    (``w<wid>``) is among them."""
+    t0 = time.perf_counter()
+    want = {f"w{x}" for x in live}
+    while True:
+        sources = statusz(port).get("telemetry", {}).get("sources", {})
+        if want <= set(sources):
+            break
+        if time.perf_counter() - t0 > 30:
+            raise AssertionError(f"{tag} dos-serve's telemetry sources "
+                                 f"{sorted(sources)}, want {sorted(want)}")
+        time.sleep(0.1)
+    return sorted(sources)
+
+
 def rpc_epoch_leg(conf: str, ref: dict, host: dict, obs_port: int) -> dict:
     """``[rpc]``'s epoch leg, over its live servers: the committed leave
     of worker 3 (dead since its first batch) written by the port's
@@ -5247,19 +5426,43 @@ def rpc_epoch_leg(conf: str, ref: dict, host: dict, obs_port: int) -> dict:
                         "DOS_SEND_TIMEOUT_S")}
     env.update(DOS_TRANSPORT="rpc", DOS_ANSWER_FP="1",
                DOS_HEDGE_BUDGET=SERVE_HEDGE_BUDGET)
+    live = [x for x in range(w) if x != dead]
+    tele = rpc_telemetry_lanes(run_dir, live, holder, tag)
+    out_path = os.path.join(run_dir, "rpc-serve-burst.out")
+    err_path = os.path.join(run_dir, "rpc-serve-burst.log")
     t2 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "distributed_oracle_search_tpu_torch.cli."
-         "serve", "-c", conf, "-v", "--backend", "host", "--metrics-dump",
-         dump, *SERVE_KNOBS],
-        input="".join(f"{s} {t}\n" for s, t in burst), text=True,
-        capture_output=True, cwd=ROOT, env=env, timeout=300)
+    with open(out_path, "w") as fo, open(err_path, "w") as fe:
+        # dos-serve polls the servers' .telemetry sidecars beside their
+        # FIFOs, under this run's directory
+        proc = subprocess.Popen(
+            [sys.executable, "-c", SERVE_WITH_FIFOS, run_dir, "-c", conf,
+             "-v", "--backend", "host", "--metrics-dump", dump,
+             "--obs-port", "0", *SERVE_KNOBS],
+            stdin=subprocess.PIPE, stdout=fo, stderr=fe, text=True,
+            cwd=ROOT, env=env)
+        try:
+            proc.stdin.write("".join(f"{s} {t}\n" for s, t in burst))
+            proc.stdin.flush()
+            port = wait_obs_port(proc, err_path, (), tag, SERVE_READY_S)
+            t_up = time.perf_counter()
+            tele["serve"] = wait_telemetry_sources(port, live, tag)
+            tele["serve_s"] = time.perf_counter() - t_up
+            proc.stdin.close()
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
     t_burst = time.perf_counter() - t2
-    split = log_split(proc.stderr, ("ingress closed", "drained and stopped"))
-    if proc.returncode != 0:
+    with open(err_path, errors="replace") as f:
+        stderr = f.read()
+    with open(out_path) as f:
+        stdout = f.read()
+    split = log_split(stderr, ("ingress closed", "drained and stopped"))
+    if rc != 0:
         raise AssertionError(f"{tag} dos-serve --backend host exited "
-                             f"{proc.returncode}: {proc.stderr[-2000:]}")
-    got = parse_pair_lines(proc.stdout.splitlines(), f"{tag} burst")
+                             f"{rc}: {stderr[-2000:]}")
+    got = parse_pair_lines(stdout.splitlines(), f"{tag} burst")
     held_to(got, [np.asarray(a)[:RPC_BURST]
                   for a in ref["direct"]["free-flow"]],
             "dos-serve --backend host", tag)
@@ -5284,7 +5487,16 @@ def rpc_epoch_leg(conf: str, ref: dict, host: dict, obs_port: int) -> dict:
         f"{c['hedges_issued_total']}, won {c.get('hedges_won_total', 0)}; "
         f"its log from the first line to "
         f"'ingress closed' / 'drained': {split}); leg {wall:.2f} s")
+    log(f"{tag} telemetry (DOS_TELEMETRY_INTERVAL_S={RPC_TELEMETRY_S} on "
+        f"the servers): a .telemetry sidecar beside each live server's "
+        f"FIFO ({tele['sidecar_ticks']} ticks), a telemetry frame from "
+        f"worker {holder} on an RPC connection opened here after "
+        f"{tele['rpc_frame_s']:.2f} s; dos-serve's /statusz telemetry "
+        f"showed ticks from all {len(live)} live servers "
+        f"({sorted(tele['serve'])}) {tele['serve_s']:.2f} s after it was "
+        "up, ingested from the RPC frames and the polled sidecars")
     return {"commit_s": t_commit, "round_s": t_round, "burst_s": t_burst,
+            "telemetry": {k: v for k, v in tele.items() if k != "serve"},
             "burst_log_s": split, "burst_lines": len(burst),
             "hedges": c["hedges_issued_total"], "wall_s": wall}
 
@@ -5802,6 +6014,707 @@ def serve_leave(client: ServeClient, port: int, cconf, dc, g, queries,
         f"{st['shards'][str(leaver)]['replicas']}; after the commit "
         f"{len(post)} campaign queries ({len(window)} of shard {leaver}) "
         "== the static fleet's")
+    return out
+
+
+# ------------------------------------------------- planes and gateway paths
+
+def plane_pairs(g, dc, n: int, seed: int) -> np.ndarray:
+    """``n`` pairs with uniform sources and targets in ``PLANE_SHARDS``:
+    a ``PLANE_ROT_SHARE`` of them at the rotted row's node (shard
+    ``PLANE_ROT``'s first owned node), the rest uniform over the
+    shards' owned nodes."""
+    rng = np.random.default_rng(seed)
+    owned = np.concatenate([dc.owned(x) for x in PLANE_SHARDS])
+    t = owned[rng.integers(0, len(owned), n)]
+    t[rng.random(n) < PLANE_ROT_SHARE] = dc.owned(PLANE_ROT)[0]
+    s = rng.integers(0, g.n, n)
+    return np.stack([s, t], axis=1).astype(np.int64)
+
+
+def plane_engines(ref: dict, host: dict) -> tuple[dict, object, str]:
+    """``[planes]``' and ``[gateway]``'s reference: this process's
+    engines of ``PLANE_SHARDS`` on ``[serve]``'s index (clean: no fault
+    is armed here), the replicated controller and the ``-r2`` conf."""
+    g, w = ref["g"], HOST_WORKERS
+    conf = host["conf"][:-len(".json")] + "-r2.json"
+    dc = DistributionController("mod", w, w, g.n, replication=2)
+    outdir = ClusterConfig.load(conf).outdir
+    return ({x: eng.ShardEngine(g, dc, x, outdir, device="cuda")
+             for x in PLANE_SHARDS}, dc, conf)
+
+
+def wait_obs_port(proc, log_path: str, paths: tuple, tag: str,
+                  deadline_s: float) -> int:
+    """The ``--obs-port 0`` port a ``-v`` process logged, once every one
+    of ``paths`` exists; fails when the process exits first."""
+    deadline = time.perf_counter() + deadline_s
+    port = None
+    while port is None or not all(os.path.exists(p) for p in paths):
+        if proc.poll() is not None or time.perf_counter() > deadline:
+            raise AssertionError(f"{tag} process exited {proc.returncode} "
+                                 "or was not up in time")
+        with open(log_path, errors="replace") as f:
+            hit = re.search(r"obs endpoints up on :(\d+)", f.read())
+        port = int(hit.group(1)) if hit else None
+        time.sleep(0.1)
+    return port
+
+
+def metric_value(port: int, name: str) -> float:
+    """``name``'s value on ``/metrics`` (0 when it is not there yet)."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        hit = re.search(rf"^{name} (\S+)$", r.read().decode(), re.M)
+    return float(hit.group(1)) if hit else 0.0
+
+
+def planes_path(ref: dict, host: dict, engines: dict, dc, conf: str,
+                serve_qps: float) -> dict:
+    """``[planes]``: ``dos-serve --backend inproc`` over ``[serve]``'s
+    index with every plane on (``PLANE_ENV``: the scrubber each second,
+    the audit on every batch, telemetry, one latency objective, the
+    control daemon, the flight recorder) and ``corrupt-resident`` armed
+    on shard ``PLANE_ROT``: row 0 of the first engine that loads it,
+    the primary, flips after its digests verified. The audit's replica
+    lane finds the divergence, the daemon quarantines the shard,
+    scrubs it and re-admits it after clean probes, the scrubber
+    re-binds the table from disk on the card; the pairs after equal
+    this process's engines."""
+    tag = "[planes]"
+    t_phase = time.perf_counter()
+    card_txt = card_line()
+    card = torch.cuda.get_device_name(0)
+    g = ref["g"]
+    run_dir = os.path.dirname(conf)
+    sock = socket_dir(os.path.join(run_dir, "planes.sock"))
+    dump = os.path.join(run_dir, "planes-dump.json")
+    tape = os.path.join(run_dir, "planes-tape")
+    specs = os.path.join(run_dir, "planes-slo.json")
+    log_path = os.path.join(run_dir, "planes.log")
+    with open(specs, "w") as f:
+        json.dump([PLANE_SLO], f)
+    cmd = [sys.executable, "-m", "distributed_oracle_search_tpu_torch.cli."
+           "serve", "-c", conf, "-v", "--backend", "inproc", "--ingress",
+           "socket", "--socket", sock, "--obs-port", "0", "--metrics-dump",
+           dump, "--recorder-dir", tape, *PLANE_KNOBS]
+    env = dict(os.environ, **PLANE_ENV, DOS_SLO_SPECS=specs,
+               DOS_FAULTS=f"corrupt-resident;wid={PLANE_ROT};times=1")
+    q1 = plane_pairs(g, dc, PLANE_PAIRS[0], seed=1)
+    q2 = plane_pairs(g, dc, PLANE_PAIRS[1], seed=2)
+    truth1, truth2 = (engine_answers(engines, dc, q) for q in (q1, q2))
+    out: dict = {"card": card_txt}
+    with open(log_path, "w") as lf, MemorySampler() as mem:
+        t_launch = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
+                                stderr=subprocess.STDOUT)
+        try:
+            port = wait_obs_port(proc, log_path, (sock,), tag,
+                                 SERVE_READY_S)
+            out["ready_s"] = time.perf_counter() - t_launch
+            client = ServeClient(sock)
+            t0 = time.perf_counter()
+            got1 = parse_pair_lines(client.ask([f"{s} {t}" for s, t in q1]),
+                                    f"{tag} first pairs")
+            out["first_s"] = time.perf_counter() - t0
+            want1 = np.stack([np.asarray(a).astype(np.int64)
+                              for a in truth1], axis=1)
+            wrong = (got1 != want1).any(axis=1)
+            out["wrong_before"] = int(wrong.sum())
+            rot_node = int(dc.owned(PLANE_ROT)[0])
+            out["wrong_off_row"] = int((wrong & (q1[:, 1] != rot_node)).sum())
+            # detection -> quarantine -> scrub -> re-admission
+            t0 = time.perf_counter()
+            while True:
+                st = statusz(port)
+                integ = st.get("integrity", {})
+                div = integ.get("audit", {}).get("divergent", {})
+                scrub = integ.get("scrub", {})
+                quar = metric_value(port,
+                                    "control_divergence_quarantines_total")
+                readmit = metric_value(port, "control_readmissions_total")
+                if (div.get(str(PLANE_ROT), 0) >= 1
+                        and scrub.get("corrupt_blocks", 0) >= 1
+                        and quar >= 1 and readmit >= 1
+                        and not st["control"]["quarantined"]
+                        and not integ["audit"]["queued"]):
+                    break
+                if time.perf_counter() - t0 > PLANE_HEAL_S:
+                    raise AssertionError(
+                        f"{tag} no detection, quarantine, scrub and "
+                        f"re-admission within {PLANE_HEAL_S} s: "
+                        f"divergent {div}, scrub {scrub}, quarantines "
+                        f"{quar}, readmissions {readmit}, control "
+                        f"{st['control']}")
+                time.sleep(0.1)
+            out["heal_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got2 = parse_pair_lines(client.ask([f"{s} {t}" for s, t in q2]),
+                                    f"{tag} after the heal")
+            out["second_s"] = time.perf_counter() - t0
+            held_to(got2, truth2, "the pairs after the re-admission", tag)
+            st = statusz(port)
+            missing = [k for k in ("telemetry", "slo", "control",
+                                   "integrity") if k not in st]
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/slo",
+                                        timeout=30) as r:
+                slo_code, slo = r.status, json.load(r)
+            if (missing or slo_code != 200
+                    or "head" not in st["telemetry"]["sources"]):
+                raise AssertionError(f"{tag} /statusz missing {missing} or "
+                                     f"/slo {slo_code} {slo}, telemetry "
+                                     f"{st.get('telemetry')}")
+            client.close()
+            t_stop = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            out["drain_s"] = time.perf_counter() - t_stop
+        except BaseException:
+            with open(log_path, errors="replace") as f:
+                log(f"{tag} --- planes.log (last 3000 characters) ---\n"
+                    f"{f.read()[-3000:]}")
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    if rc != 0:
+        raise AssertionError(f"{tag} dos-serve exited {rc} on SIGTERM")
+    with open(dump) as f:
+        sv = json.load(f)
+    c, h = sv["counters"], sv["histograms"]
+    kinds = [r["kind"] for r in obs_recorder.replay(tape)
+             if r.get("rec") == "event"]
+    for kind in ("audit_divergence", "scrub_corrupt",
+                 "control_divergence_quarantine", "control_readmit"):
+        if kind not in kinds:
+            raise AssertionError(f"{tag} the tape lacks {kind}: "
+                                 f"{sorted(set(kinds))}")
+    batches = c["serve_batches_total"]
+    audited = c.get("audit_batches_total", 0)
+    nonref = c["worker_batches_total"] - batches
+    programs = len(sv["device_programs"])
+    if (sv["device"]["name"] != card
+            or c["cuda_walk_batch.launches"] != batches + programs + nonref
+            or c["cuda_walk_batch.plain"]
+            or not 0 <= nonref <= audited
+            or c.get("scrub_blocks_corrupt_total", 0) < 1
+            or c.get("audit_divergence_total", 0) < 1
+            or c.get("answer_fp_mismatch_total", 0)
+            or c.get("hedges_issued_total", 0)):
+        raise AssertionError(f"{tag} dump: {c}, programs "
+                             f"{sorted(sv['device_programs'])}")
+    scrub_h = h.get("scrub_pass_seconds", {})
+    lane_h = h.get("audit_lane_seconds", {})
+    shard_bytes = dc.n_owned(PLANE_ROT) * g.n
+    checked = c.get("scrub_blocks_checked_total", 0)
+    out.update(
+        launches=c["cuda_walk_batch.launches"], batches=batches,
+        programs=programs, audited=audited, audit_nonref=nonref,
+        audit_reference=audited - nonref,
+        divergences=c["audit_divergence_total"],
+        quarantines=c.get("control_divergence_quarantines_total", 0),
+        readmissions=c.get("control_readmissions_total", 0),
+        scrub_passes=c.get("scrub_passes_total", 0),
+        scrub_checked=checked,
+        scrub_corrupt=c["scrub_blocks_corrupt_total"],
+        scrub_s=scrub_h.get("sum", 0.0),
+        audit_lane_s=lane_h.get("sum", 0.0),
+        telemetry_ticks=c.get("telemetry_ticks_published_total", 0),
+        qps_first=len(q1) / out["first_s"],
+        qps_second=len(q2) / out["second_s"],
+        serve_peak_bytes=sv["device"]["max_memory_allocated"],
+        card_peak_mib=mem.peak_mib,
+        wall_s=time.perf_counter() - t_phase)
+    out["scrub_gib_s"] = (checked * shard_bytes / 2**30
+                          / max(out["scrub_s"], 1e-9))
+    log(f"{tag} dos-serve with every plane on, corrupt-resident on shard "
+        f"{PLANE_ROT}: {len(q1)} pairs ({out['wrong_before']} answered "
+        f"wrong before the quarantine, {out['wrong_off_row']} of them off "
+        f"the rotted row {rot_node}; not held to 0), the audit's replica "
+        f"lane flagged shard {PLANE_ROT} ({out['divergences']} "
+        f"divergences), the daemon quarantined it "
+        f"({out['quarantines']}) and re-admitted it "
+        f"({out['readmissions']}) after clean probes, the scrubber found "
+        f"{out['scrub_corrupt']} corrupt block(s) and re-bound the table "
+        f"from disk on the card, {out['heal_s']:.2f} s from the first "
+        f"answers to the re-admission; {len(q2)} pairs after == {len(engines)} "
+        f"engines loaded here; /statusz telemetry, slo, control and "
+        f"integrity sections, /slo 200; the tape holds audit_divergence, "
+        f"scrub_corrupt, control_divergence_quarantine, control_readmit")
+    log(f"{tag} SIGTERM: exit 0 in {out['drain_s']:.2f} s; dump on {card}: "
+        f"B1 launches {out['launches']} == {batches} serve batches + "
+        f"{programs} obs.device program keys + {nonref} audit batches "
+        f"walked by B1 (of {audited} audited; {out['audit_reference']} on "
+        f"the reference lane), 0 plain walks, no hedge, "
+        f"answer_fp_mismatch_total 0")
+    log(f"{tag} host clock (logged, not claimed): q/s with the planes on "
+        f"{out['qps_first']:.1f} (first {len(q1)}, engines loading), "
+        f"{out['qps_second']:.1f} (after the heal) vs [serve] "
+        f"{serve_qps:.1f}; scrub {out['scrub_passes']} passes, "
+        f"{checked} blocks of {shard_bytes / 2**20:.0f} MiB in "
+        f"{out['scrub_s']:.2f} s = {out['scrub_gib_s']:.2f} GiB/s; audit "
+        f"lanes {out['audit_lane_s']:.2f} s for {audited} batches (by "
+        f"lane: {nonref} replica/recompute, {out['audit_reference']} "
+        f"reference); {out['telemetry_ticks']} telemetry ticks; peak "
+        f"device memory: dos-serve "
+        f"{out['serve_peak_bytes'] / 2**30:.2f} GiB allocated (old and "
+        f"re-bound tables together), the card {out['card_peak_mib']} MiB "
+        f"used (nvidia-smi); ready {out['ready_s']:.2f} s after launch; "
+        f"phase wall time {out['wall_s']:.1f} s on {card_txt}")
+    return out
+
+
+def gateway_frames(g, dc, n: int, seed: int) -> list[np.ndarray]:
+    """``n`` pairs aimed at ``PLANE_SHARDS`` in frames of
+    ``GATEWAY_FRAME``."""
+    q = plane_pairs(g, dc, n, seed)
+    return [q[i:i + GATEWAY_FRAME] for i in range(0, n, GATEWAY_FRAME)]
+
+
+def frame_truth(engines: dict, dc, frames) -> list[list[tuple]]:
+    """The ``(status, cost, plen, finished)`` rows a frame must get."""
+    q = np.concatenate(frames)
+    cost, plen, fin = engine_answers(engines, dc, q)
+    rows = [("OK", int(c), int(p), bool(f))
+            for c, p, f in zip(cost, plen, fin)]
+    out, i = [], 0
+    for fr in frames:
+        out.append(rows[i:i + len(fr)])
+        i += len(fr)
+    return out
+
+
+def collect(client, fids: list, tag: str, what: str,
+            wait_s: float = GATEWAY_WAIT_S) -> list[list[tuple]]:
+    """Every frame's rows, re-waiting through the client's own
+    failovers (a wait past ``wait_s`` fails a client with somewhere else
+    to go over and resubmits; the re-wait collects the answer)."""
+    out = []
+    for fid in fids:
+        give_up = time.perf_counter() + GATEWAY_GIVE_UP_S
+        while True:
+            try:
+                rows = gw_pair_rows(client.wait(fid, timeout=wait_s))
+                break
+            except TimeoutError:
+                if time.perf_counter() > give_up:
+                    raise AssertionError(f"{tag} {what}: frame {fid} "
+                                         "never answered")
+        out.append([tuple(r[:4]) for r in rows])
+    return out
+
+
+def gateway_path(ref: dict, host: dict, engines: dict, dc,
+                 conf: str) -> dict:
+    """``[gateway]``: ``dos-gateway`` (``cli.gateway``) over ``[serve]``'s
+    index, process A with ``--replicas 2`` (``lease-freeze`` and
+    ``blackhole-conn`` armed on its frontend 1) and process B started
+    with ``--join --replicas 1``, driven by the port's ``DosClient``
+    through ``gateway.json``. Every answer equals this process's
+    engines."""
+    tag = "[gateway]"
+    t_phase = time.perf_counter()
+    card_txt = card_line()
+    card = torch.cuda.get_device_name(0)
+    g = ref["g"]
+    run_dir = os.path.dirname(conf)
+    reg_dir = os.path.join(run_dir, "gw-registry")
+    socks = os.path.join(run_dir, "gw-socks")
+    os.makedirs(reg_dir)
+    os.makedirs(socks)
+    dump_a = os.path.join(run_dir, "gateway-a.json")
+    common = ["-c", conf, "-v", "--device", "cuda", "--registry-dir",
+              reg_dir, "--socket-dir", socket_dir(socks), "--credit",
+              str(GATEWAY_CREDIT), "--lease-s", str(GATEWAY_LEASE_S),
+              "--obs-port", "0", *GATEWAY_KNOBS]
+    base = [sys.executable, "-m",
+            "distributed_oracle_search_tpu_torch.cli.gateway"]
+    # no hedges: a hedge's losing walk may still run when a process
+    # dumps, and each dump holds B1 to the batches walked
+    env_a = dict(os.environ, DOS_FAULTS=GATEWAY_FAULTS,
+                 DOS_HEDGE_DISABLE="1")
+    env_b = {k: v for k, v in env_a.items() if k != "DOS_FAULTS"}
+    logs = {p: os.path.join(run_dir, f"gateway-{p}.log") for p in "ab"}
+    procs: dict = {}
+    clients: list = []
+    out: dict = {"card": card_txt}
+    frames = gateway_frames(g, dc, GATEWAY_PAIRS, seed=3)
+    truth = frame_truth(engines, dc, frames)
+    warm = [np.asarray([(0, int(dc.owned(x)[1])) for x in PLANE_SHARDS],
+                       np.int64)]
+    warm_truth = frame_truth(engines, dc, warm)
+    t_launch = time.perf_counter()
+    with MemorySampler() as mem:
+        try:
+            with open(logs["a"], "w") as lf:
+                procs["a"] = subprocess.Popen(
+                    base + common + ["--replicas", "2", "--metrics-dump",
+                                     dump_a],
+                    cwd=ROOT, env=env_a, stdout=lf, stderr=subprocess.STDOUT)
+            port_a = wait_obs_port(procs["a"], logs["a"],
+                                   (gw_registry.registry_path(reg_dir),),
+                                   tag, SERVE_READY_S)
+            eps = registry_endpoints(reg_dir, 2, tag)
+            out["a_ready_s"] = time.perf_counter() - t_launch
+            # B joins: fresh frontend ids above A's
+            with open(logs["b"], "w") as lf:
+                procs["b"] = subprocess.Popen(
+                    base + common + ["--join", "--replicas", "1"],
+                    cwd=ROOT, env=env_b, stdout=lf, stderr=subprocess.STDOUT)
+            # warm f0 (its engines load on its first frame) from a client
+            # with nowhere else to go, then the first connection to f1:
+            # blackhole-conn takes it (the client's hello is f1's first
+            # frame), the client gives up after its wait and resubmits
+            # on f0
+            t0 = time.perf_counter()
+            warm0 = gw.DosClient(eps[0])
+            clients.append(warm0)
+            if collect(warm0, [warm0.submit_pairs(warm[0])], tag,
+                       "warm f0") != warm_truth:
+                raise AssertionError(f"{tag} f0's warm frame")
+            out["load_f0_s"] = time.perf_counter() - t0
+            hole = gw.DosClient(endpoints=[eps[1], eps[0]])
+            clients.append(hole)
+            t0 = time.perf_counter()
+            got = collect(hole, [hole.submit_pairs(fr) for fr in frames[:2]],
+                          tag, "blackholed client", GATEWAY_HOLE_WAIT_S)
+            out["blackhole_s"] = time.perf_counter() - t0
+            with open(logs["a"], errors="replace") as f:
+                fired = re.findall(r"fault injected: ([\w-]+)", f.read())
+            if (got != truth[:2] or hole.failovers != 1
+                    or hole.endpoint != eps[0]
+                    or "blackhole-conn" not in fired):
+                raise AssertionError(f"{tag} blackholed client: failovers "
+                                     f"{hole.failovers}, at "
+                                     f"{hole.endpoint}, answers equal "
+                                     f"{got == truth[:2]}, A's faults "
+                                     f"{fired}")
+            # lease-freeze: f1's lease stops renewing and expires, while
+            # f1 still serves; discovery stops choosing it
+            t0 = time.perf_counter()
+            reg = gw_registry.GatewayRegistry(reg_dir)
+            while any(lease.fid == 1 for lease in reg.live()):
+                if time.perf_counter() - t0 > 3 * GATEWAY_LEASE_S:
+                    raise AssertionError(f"{tag} f1's lease never expired")
+                time.sleep(0.05)
+            f1 = next(lease for lease in reg.leases() if lease.fid == 1)
+            out["lease_stale_s"] = time.time() - f1.renewed
+            out["lease_frozen_s"] = f1.renewed - f1.started
+            with open(logs["a"], errors="replace") as f:
+                if "fault injected: lease-freeze" not in f.read():
+                    raise AssertionError(f"{tag} lease-freeze never fired")
+            c1 = gw.DosClient(eps[1])
+            clients.append(c1)
+            t0 = time.perf_counter()
+            if collect(c1, [c1.submit_pairs(warm[0])], tag, "warm f1") \
+                    != warm_truth:
+                raise AssertionError(f"{tag} f1's warm frame")
+            out["load_f1_s"] = time.perf_counter() - t0
+            found = gw.DosClient(registry_dir=reg_dir)
+            clients.append(found)
+            if found.endpoint == eps[1] or eps[1] in \
+                    gw_registry.live_endpoints(reg_dir):
+                raise AssertionError(f"{tag} discovery still chose the "
+                                     f"frozen f1: {found.endpoint}")
+            found.close()
+            # B up: its lease in gateway.json, its engines warm
+            eps = registry_endpoints(reg_dir, 3, tag)
+            out["b_ready_s"] = time.perf_counter() - t_launch
+            c0 = gw.DosClient(eps[0])
+            clients.append(c0)
+            c2 = gw.DosClient(endpoints=[eps[2], eps[0]])
+            clients.append(c2)
+            t0 = time.perf_counter()
+            if collect(c2, [c2.submit_pairs(warm[0])], tag, "warm f2") \
+                    != warm_truth:
+                raise AssertionError(f"{tag} f2's warm frame")
+            out["load_f2_s"] = time.perf_counter() - t0
+            # 1. the pairs across the three replicas, one thread each
+            mine = {0: (c0, frames[2::3]), 1: (c1, frames[3::3]),
+                    2: (c2, frames[4::3])}
+            box: dict = {}
+
+            def drive(f):
+                cl, frs = mine[f]
+                t = time.perf_counter()
+                box[f] = (collect(cl, [cl.submit_pairs(fr) for fr in frs],
+                                  tag, f"f{f}'s pairs"),
+                          time.perf_counter() - t)
+            ths = [threading.Thread(target=drive, args=(f,)) for f in mine]
+            t0 = time.perf_counter()
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=300)
+            out["pairs_s"] = time.perf_counter() - t0
+            for f, (_cl, frs) in mine.items():
+                want = truth[2 + f::3]
+                if box[f][0] != want:
+                    raise AssertionError(f"{tag} f{f}'s answers differ")
+            out["qps_by_replica"] = {
+                f"f{f}": sum(len(x) for x in mine[f][1]) / box[f][1]
+                for f in mine}
+            # the families, and repeats from the cache
+            fq = plane_pairs(g, dc, SERVE_MAT_K + 2, seed=4)
+            # mat and alt walk to targets in the shards; rev walks back
+            # to its source, so its source is one of their nodes
+            picks = [(int(fq[0, 0]), [int(t) for t in fq[:SERVE_MAT_K, 1]]),
+                     (int(fq[-2, 0]), int(fq[-2, 1])),
+                     (int(fq[-1, 1]), int(fq[-1, 0]))]
+            fref = family_reference(g, engines, dc, [
+                ("mat", picks[0]), ("alt", picks[1]), ("rev", picks[2])])
+            s, ts = picks[0]
+            mat = c0.matrix(s, ts, timeout=GATEWAY_GIVE_UP_S)
+            alt = c0.alternatives(*picks[1], SERVE_ALT_K,
+                                  timeout=GATEWAY_GIVE_UP_S)
+            rev = c0.reverse(*picks[2], timeout=GATEWAY_GIVE_UP_S)
+            got_lines = [
+                " ".join(["MAT", str(s), str(len(ts))]
+                         + [str(x) for x in mat]),
+                " ".join(["ALT", *map(str, picks[1]), str(len(alt))]
+                         + [str(c) for c, _v in alt]),
+                f"REV {picks[2][0]} {picks[2][1]} {rev[1]} {rev[2]} "
+                f"{int(rev[3])}"]
+            if got_lines != fref:
+                raise AssertionError(f"{tag} families: {got_lines} != {fref}")
+            again = gw_pair_rows(c0.wait(c0.submit_pairs(frames[2]),
+                                         timeout=GATEWAY_GIVE_UP_S))
+            if not all(r[4] for r in again) \
+                    or [tuple(r[:4]) for r in again] != truth[2]:
+                raise AssertionError(f"{tag} a repeated frame did not come "
+                                     "back cached")
+            # 2. past the credit window from two raw connections, on
+            # pairs no replica has cached (a cached frame answers at once)
+            busy = credit_burst(eps[0], plane_pairs(
+                g, dc, 2 * 3 * GATEWAY_CREDIT * GATEWAY_BURST_FRAME, seed=6),
+                tag)
+            # 3. B dies mid-burst, on pairs no replica has cached: its
+            # client fails over to f0
+            killed = gateway_frames(
+                g, dc, 2 * GATEWAY_CREDIT * GATEWAY_FRAME, seed=7)
+            fids = [c2.submit_pairs(fr) for fr in killed[:GATEWAY_CREDIT]]
+            used = int(nvidia_smi("memory.used")[0][0])
+            procs["b"].send_signal(signal.SIGKILL)
+            procs["b"].wait(timeout=30)
+            time.sleep(0.5)
+            out["b_freed_mib"] = used - int(nvidia_smi("memory.used")[0][0])
+            fids += [c2.submit_pairs(fr, timeout=GATEWAY_GIVE_UP_S)
+                     for fr in killed[GATEWAY_CREDIT:]]
+            got = collect(c2, fids, tag, "across B's death")
+            want = frame_truth(engines, dc, killed)
+            if (got != want or c2.failovers < 1
+                    or c2.unmatched or hole.unmatched or c0.unmatched):
+                raise AssertionError(f"{tag} B's client: failovers "
+                                     f"{c2.failovers}, unmatched "
+                                     f"{c2.unmatched}, answers equal "
+                                     f"{got == want}")
+            st = statusz(port_a)["gateway"]
+            for cl in clients:
+                cl.close()
+            clients.clear()
+            # 5. SIGTERM A: exit 0, its leases gone from gateway.json
+            t0 = time.perf_counter()
+            procs["a"].send_signal(signal.SIGTERM)
+            rc = procs["a"].wait(timeout=120)
+            out["drain_s"] = time.perf_counter() - t0
+        except BaseException:
+            for p, path in logs.items():
+                if os.path.exists(path):
+                    with open(path, errors="replace") as f:
+                        log(f"{tag} --- gateway-{p}.log (last 3000 "
+                            f"characters) ---\n{f.read()[-3000:]}")
+            raise
+        finally:
+            for cl in clients:
+                cl.close()
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+    if rc != 0:
+        raise AssertionError(f"{tag} process A exited {rc} on SIGTERM")
+    left = [lease.fid for lease in
+            gw_registry.GatewayRegistry(reg_dir).leases()]
+    if 0 in left or 1 in left:
+        raise AssertionError(f"{tag} gateway.json still leases {left}")
+    with open(dump_a) as f:
+        sv = json.load(f)
+    c = sv["counters"]
+    programs = len(sv["device_programs"])
+    if (sv["device"]["name"] != card
+            or c["cuda_walk_batch.launches"]
+            != c["worker_batches_total"] + programs
+            or c["cuda_walk_batch.plain"]
+            or c.get("gateway_busy_total", 0) < 1
+            or c.get("gateway_failover_frames_total", 0) < 1):
+        raise AssertionError(f"{tag} A's dump: {c}, programs "
+                             f"{sorted(sv['device_programs'])}")
+    out.update(
+        launches=c["cuda_walk_batch.launches"],
+        batches=c["worker_batches_total"], programs=programs,
+        busy=c["gateway_busy_total"], busy_frames=busy,
+        failover_frames=c["gateway_failover_frames_total"],
+        deduped=c.get("gateway_resubmits_deduped_total", 0),
+        client_failovers=c.get("gateway_client_failovers_total", 0),
+        a_peak_bytes=sv["device"]["max_memory_allocated"],
+        card_peak_mib=mem.peak_mib, replicas=st.get("replicas"),
+        wall_s=time.perf_counter() - t_phase)
+    log(f"{tag} A (--replicas 2) and B (--join --replicas 1) served "
+        f"{GATEWAY_PAIRS} pairs in frames of {GATEWAY_FRAME} across f0, "
+        f"f1, f2 == {len(engines)} engines loaded here; one mat, alt and "
+        f"rev frame each == their definitions; a repeated frame came back "
+        f"cached; {busy} of the burst's frames answered busy "
+        f"(gateway_busy_total {out['busy']}), no other error; "
+        f"blackhole-conn took f1's first connection and its client "
+        f"resubmitted on f0 after {out['blackhole_s']:.2f} s "
+        f"(gateway_failover_frames_total {out['failover_frames']}); "
+        f"lease-freeze: f1's lease stopped renewing "
+        f"{out['lease_frozen_s']:.2f} s after it registered and read "
+        f"expired (--lease-s {GATEWAY_LEASE_S}; {out['lease_stale_s']:.2f} "
+        f"s since its last renewal at the read) while f1 still served, "
+        f"discovery chose f0; B SIGKILLed with "
+        f"{GATEWAY_CREDIT} frames in flight: its client failed over to f0, "
+        f"every pair answered once (0 unmatched; "
+        f"gateway_resubmits_deduped_total {out['deduped']})")
+    log(f"{tag} SIGTERM: A exit 0 in {out['drain_s']:.2f} s, f0 and f1 "
+        f"gone from gateway.json (left {left}); A's dump on {card}: B1 "
+        f"launches {out['launches']} == {out['batches']} batches + "
+        f"{programs} obs.device program keys, 0 plain walks")
+    log(f"{tag} host clock (logged, not claimed): q/s by replica "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["qps_by_replica"].items())
+        + f"; engine loads (one frame a shard): f0 {out['load_f0_s']:.2f} "
+        f"s, f1 {out['load_f1_s']:.2f} s, f2 {out['load_f2_s']:.2f} s; "
+        f"peak device memory: A {out['a_peak_bytes'] / 2**30:.2f} GiB "
+        f"allocated (its dump), B's ~{out['b_freed_mib']} MiB (the card's "
+        f"used memory it freed when killed), the card "
+        f"{out['card_peak_mib']} MiB (nvidia-smi, every process); A "
+        f"ready {out['a_ready_s']:.2f} s, B {out['b_ready_s']:.2f} s after "
+        f"A's launch; phase wall time {out['wall_s']:.1f} s on {card_txt}")
+    return out
+
+
+def registry_endpoints(reg_dir: str, n: int, tag: str) -> list[str]:
+    """The endpoints of frontends 0..n-1 once ``gateway.json`` holds a
+    lease of every one (live or not) and their sockets exist."""
+    deadline = time.perf_counter() + SERVE_READY_S
+    while True:
+        try:
+            reg = gw_registry.GatewayRegistry(reg_dir)
+            leases = {lease.fid: lease.endpoint for lease in reg.leases()}
+        except (OSError, ValueError):
+            leases = {}
+        if all(f in leases and os.path.exists(leases[f])
+               for f in range(n)):
+            return [leases[f] for f in range(n)]
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{tag} gateway.json never leased "
+                                 f"{n} frontends: {leases}")
+        time.sleep(0.1)
+
+
+def credit_burst(endpoint: str, pairs: np.ndarray, tag: str) -> int:
+    """Two raw connections each send ``3 * GATEWAY_CREDIT`` query frames
+    of ``GATEWAY_BURST_FRAME`` of ``pairs`` without reading; every reply
+    is an answer or ``busy`` (nothing else). Returns the busy count."""
+    socks = []
+    kinds: list[str] = []
+    try:
+        for _ in range(2):
+            sk = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            sk.settimeout(GATEWAY_GIVE_UP_S)
+            sk.connect(endpoint)
+            reader, writer = frames_mod.FrameReader(sk), \
+                frames_mod.FrameWriter(sk)
+            if reader.read().kind != "hello":
+                raise AssertionError(f"{tag} burst: no hello")
+            socks.append((sk, reader, writer))
+        chunks = iter(np.split(pairs, 2 * 3 * GATEWAY_CREDIT))
+        for i in range(3 * GATEWAY_CREDIT):
+            for _sk, _r, writer in socks:
+                h, a = gw_protocol.encode_pairs(i, next(chunks))
+                writer.send(h, a)
+        for _sk, reader, _w in socks:
+            for _ in range(3 * GATEWAY_CREDIT):
+                kinds.append(reader.read().kind)
+    finally:
+        for sk, _r, _w in socks:
+            sk.close()
+    if set(kinds) - {"r", "busy"} or "busy" not in kinds:
+        raise AssertionError(f"{tag} burst replies {sorted(set(kinds))}")
+    return kinds.count("busy")
+
+
+def rot_resident_row(fm) -> str:
+    """Flip resident row 0 of a compressed table on the card to valid
+    but wrong moves, as ``corrupt-resident`` flips a raw row (0 and the
+    target marker to 1, the rest to 0): pack4's nibbles of row 0, or the
+    values of rle's runs of cell (row group 0, source 0)."""
+    if fm.codec == "pack4":
+        p = fm.arrays["packed"][0].to(torch.int32)
+        lo, hi = p & 0xF, p >> 4
+        lo = torch.where((lo == 0) | (lo == 15), 1, 0)
+        hi = torch.where((hi == 0) | (hi == 15), 1, 0)
+        fm.arrays["packed"][0] = (lo | (hi << 4)).to(fm.arrays["packed"].dtype)
+        return "row 0's nibbles"
+    off = fm.arrays["offsets"]
+    lo, hi = int(off[0]), int(off[1])
+    v = fm.arrays["vals"][lo:hi]
+    fm.arrays["vals"][lo:hi] = torch.where(v <= 0, 1, 0).to(v.dtype)
+    return f"the {hi - lo} run(s) of cell (group 0, source 0)"
+
+
+def compressed_scrub(engines: dict, outdir: str, queries: np.ndarray,
+                     want, tag: str) -> dict:
+    """The resident scrubber on ``[compressed]``'s pack4 and rle engines:
+    one clean pass each, then a resident row rotted on the card, which
+    the next pass finds and re-binds from disk; the engine's next walk
+    equals the raw engine's (``want``, its free-flow answers)."""
+    out = {}
+    prior = os.environ.get("DOS_CPD_RESIDENT")
+    try:
+        for codec in ("pack4", "rle"):
+            e = engines[codec]
+            t0 = time.perf_counter()
+            rep, _ = scrub_mod.scrub_engine_table(e, outdir, e.fm, None)
+            clean_s = time.perf_counter() - t0
+            if rep["corrupt"] or rep["errors"] or not rep["checked"]:
+                raise AssertionError(f"{tag} scrub of {codec}: {rep}")
+            what = rot_resident_row(e.fm)
+            # the re-bind re-makes the table under the resident policy
+            os.environ["DOS_CPD_RESIDENT"] = codec
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            rep, _ = scrub_mod.scrub_engine_table(e, outdir, e.fm, None)
+            torch.cuda.synchronize()
+            rot_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            if (not rep["corrupt"] or not rep["rebound"]
+                    or e.resident_codec != codec):
+                raise AssertionError(f"{tag} rotted {codec}: {rep}, "
+                                     f"resident {e.resident_codec}")
+            cost, plen, fin, _ = e.answer(queries, RuntimeConfig(), "-")
+            for x, y, label in zip(want[:3], (cost, plen, fin),
+                                   ("cost", "plen", "fin")):
+                if not np.array_equal(np.asarray(x), np.asarray(y)):
+                    raise AssertionError(f"{tag} {codec} after the "
+                                         f"re-bind: {label} differs from "
+                                         "the raw engine")
+            out[codec] = {"clean_s": clean_s, "rot_s": rot_s,
+                          "rebind_peak_bytes": peak,
+                          "blocks": rep["checked"]}
+            log(f"{tag} scrub {codec}: a clean pass of {rep['checked']} "
+                f"block(s) in {clean_s:.2f} s; {what} flipped on the "
+                f"card, the next pass found {rep['corrupt']} and re-bound "
+                f"from disk in {rot_s:.2f} s (device memory above the "
+                f"engines during it: {peak / 2**30:.2f} GiB); the next "
+                f"walk == the raw engine's ({len(queries)} queries)")
+    finally:
+        if prior is None:
+            os.environ.pop("DOS_CPD_RESIDENT", None)
+        else:
+            os.environ["DOS_CPD_RESIDENT"] = prior
     return out
 
 

@@ -33,13 +33,14 @@ allocated bytes).
 
 ``--traffic-dir`` swaps congestion diffs live, the membership hook
 follows ``membership.json`` (a static fleet included), and
-``DOS_ANSWER_FP`` fingerprints answers. Refused, each naming the
-ROADMAP.md item that ports it (A14.5): the resident scrubber and the
-answer audit (``DOS_SCRUB_INTERVAL_S``, ``DOS_AUDIT_RATE``), the
-telemetry publisher (``DOS_TELEMETRY_INTERVAL_S``), the control daemon
-(``DOS_CONTROL``) and the flight recorder (``--recorder-dir``,
-``DOS_RECORDER_DIR``), whose tape records telemetry ticks; so ``/slo``
-is not served.
+``DOS_ANSWER_FP`` fingerprints answers. The planes are the JAX
+package's: the resident scrubber (``DOS_SCRUB_INTERVAL_S``; it reads
+and re-binds the engines' tables on their device) and the answer audit
+(``DOS_AUDIT_RATE``; its replica and recompute lanes walk with B1 from
+the audit thread), the telemetry bus (``DOS_TELEMETRY_INTERVAL_S``;
+``/statusz`` ``telemetry``), the SLO engine (``DOS_SLO_SPECS``;
+``/slo``), the control daemon (``DOS_CONTROL``) and the flight recorder
+(``--recorder-dir``, ``DOS_RECORDER_DIR``).
 """
 
 from __future__ import annotations
@@ -61,10 +62,10 @@ from ..transport import fifo as fifo_transport
 from ..transport import resilience
 from ..transport import rpc as rpc_transport
 from ..transport.fifo import command_fifo_path
-from ..transport.wire import RuntimeConfig
+from ..transport.wire import HealthStatus, RuntimeConfig
 from ..utils.atomicio import atomic_write_json
 from ..utils.config import ClusterConfig, test_config
-from ..utils.env import env_cast, env_flag, env_str
+from ..utils.env import env_flag
 from ..utils.log import get_logger, set_verbosity
 
 log = get_logger(__name__)
@@ -128,26 +129,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "port (0 = OS-assigned ephemeral; default off; "
                         "DOS_OBS_PORT env)")
     p.add_argument("--recorder-dir", default=None,
-                   help=argparse.SUPPRESS)
+                   help="flight-recorder tape directory: keep a bounded "
+                        "on-disk ring of telemetry ticks + structured "
+                        "events for dos-obs replay (DOS_RECORDER_DIR "
+                        "env; default off)")
     return p
-
-
-def refusals(args) -> list[str]:
-    """The knobs of the JAX entry point this port does not serve yet,
-    each with the ROADMAP.md item that ports it."""
-    out = []
-    if env_cast("DOS_SCRUB_INTERVAL_S", 0.0, float) > 0:
-        out.append("DOS_SCRUB_INTERVAL_S: the resident scrubber")
-    if env_cast("DOS_AUDIT_RATE", 0, int) > 0:
-        out.append("DOS_AUDIT_RATE: the answer audit")
-    if env_cast("DOS_TELEMETRY_INTERVAL_S", 0.0, float) > 0:
-        out.append("DOS_TELEMETRY_INTERVAL_S: the telemetry publisher")
-    if env_flag("DOS_CONTROL", False):
-        out.append("DOS_CONTROL: the control daemon")
-    if args.recorder_dir or env_str("DOS_RECORDER_DIR"):
-        out.append("--recorder-dir / DOS_RECORDER_DIR: the flight "
-                   "recorder's telemetry tape")
-    return [f"{r} is not ported (ROADMAP.md A14.5)" for r in out]
 
 
 def build_frontend(conf: ClusterConfig, args):
@@ -206,6 +192,7 @@ def build_frontend(conf: ClusterConfig, args):
         dispatcher = EngineDispatcher(conf, alg=args.alg,
                                       build_missing=args.test,
                                       device=args.device)
+        registry, breaker_key = _inproc_breakers()
     dc = dispatcher.dc if args.backend == "inproc" else _dc_for(conf)
     # elastic membership: a committed epoch's owner table (and any
     # in-flight migration's dual-read window) overrides the conf's
@@ -264,11 +251,69 @@ def build_frontend(conf: ClusterConfig, args):
     return frontend, registry, families
 
 
+def _inproc_breakers():
+    """The in-process backend's breaker registry: one when the control
+    daemon is on (``DOS_CONTROL``), else none (the JAX package's inproc
+    frontend never has one). The daemon quarantines a shard by forcing
+    its breaker open, and the JAX package's ``--backend inproc`` serve
+    has no breaker to force, so its divergence quarantine fails; here
+    each shard id is its own breaker key, and a probe answers healthy:
+    the engines live in this process, with no worker to lose. A
+    re-admitted shard whose table still diverges is quarantined again
+    by the next audit."""
+    from ..control import ControlConfig
+
+    if not ControlConfig.from_env().enabled:
+        return None, None
+    reg = resilience.BreakerRegistry(
+        probe_fn=lambda key: HealthStatus(ok=True, wid=int(key)))
+    return reg, (lambda wid: wid)
+
+
 def _build_integrity(frontend, dispatcher, icfg, backend: str) -> None:
-    """The integrity plane's ported slice: answer fingerprints, which
-    the dispatchers and the cache apply themselves. The scrubber and
-    the audit are refused before the frontend starts (:func:`refusals`,
-    ROADMAP.md A14.5)."""
+    """Construct whatever slice of the integrity plane is enabled and
+    hang it off the frontend (``frontend.auditor`` /
+    ``frontend.scrubber`` — ``/statusz`` and the control daemon's
+    providers read them there). With every knob at its default this
+    constructs nothing."""
+    if not icfg.any_enabled:
+        return
+    if icfg.scrub_interval_s > 0:
+        if backend == "inproc":
+            from ..integrity.scrub import TableScrubber
+
+            # the dispatcher builds engines lazily on first dispatch;
+            # re-listing every pass picks up late arrivals
+            scrubber = TableScrubber(
+                lambda: list(dispatcher._engines.values()),
+                icfg.scrub_interval_s, icfg.scrub_blocks_per_pass)
+            scrubber.start()
+            frontend.scrubber = scrubber
+            log.info("resident scrubber on: every %.1fs, %s blocks/pass",
+                     icfg.scrub_interval_s,
+                     icfg.scrub_blocks_per_pass or "all")
+        else:
+            log.warning("DOS_SCRUB_INTERVAL_S ignored: the host "
+                        "backend's resident tables live in the worker "
+                        "processes, not here")
+    if icfg.audit_rate > 0:
+        from ..integrity.audit import AnswerAuditor, make_reference_fn
+
+        reference_fn = describe_fn = None
+        if backend == "inproc":
+            reference_fn = make_reference_fn(dispatcher.graph)
+
+            def describe_fn(wid, via):
+                eng = dispatcher._engines.get((int(wid), via))
+                return {"codec": getattr(eng, "resident_codec", None)
+                        } if eng is not None else {}
+        frontend.auditor = AnswerAuditor(
+            dispatcher, icfg.audit_rate, reference_fn=reference_fn,
+            describe_fn=describe_fn,
+            max_reference=icfg.audit_max_reference)
+        log.info("answer audit on: %d per mille, reference lane %s",
+                 icfg.audit_rate,
+                 "available" if reference_fn else "unavailable")
     if icfg.answer_fp:
         log.info("answer fingerprints on: replies and cache entries "
                  "carry crc32 checks")
@@ -355,9 +400,6 @@ def metrics_snapshot(dispatcher) -> dict:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     set_verbosity(args.verbose)
-    refused = refusals(args)
-    if refused:
-        raise SystemExit("; ".join(refused))
     if args.test:
         from ..data.synth import ensure_synth_dataset
 
@@ -371,6 +413,7 @@ def main(argv=None) -> int:
     frontend, registry, families = build_frontend(conf, args)
     frontend.start()
     obs_srv = None
+    head_pub = poller = slo_engine = recorder = daemon = None
     # graceful drain: SIGTERM (the orchestrator's stop signal) and
     # SIGINT both stop ingress — the event ends the socket/tail loops,
     # the exception unwinds a blocking stdin read — then the finally
@@ -397,17 +440,79 @@ def main(argv=None) -> int:
         # walk programs' device costs. Inside the try: a bind failure
         # (port taken) must drain the started frontend, not leave its
         # batcher threads running behind a traceback
+        from ..obs import recorder as obs_recorder
+        from ..obs import slo as obs_slo
+        from ..obs import telemetry as obs_telemetry
+        from ..obs import timeseries as obs_timeseries
         from ..obs.http import start_obs_server
-
+        from ..utils.env import env_str
+        # the fleet telemetry plane: workers push ticks here (telemetry
+        # frames on the RPC lane, polled .telemetry sidecars on the
+        # FIFO lane), the head publishes its OWN serve-side windows and
+        # shed counters into the same store, and the SLO engine burns
+        # budgets against the merged view. All of it optional: with
+        # DOS_TELEMETRY_INTERVAL_S=0 the serve runs exactly as before.
+        store = obs_timeseries.TimeseriesStore()
+        recorder = None
+        rec_dir = args.recorder_dir or env_str("DOS_RECORDER_DIR")
+        if rec_dir:
+            recorder = obs_recorder.FlightRecorder(rec_dir)
+            obs_recorder.set_recorder(recorder)
+        tele_ingest = obs_telemetry.TelemetryIngest(store,
+                                                    recorder=recorder)
+        rpc_transport.set_telemetry_sink(tele_ingest.ingest)
+        poller = None
+        if args.backend == "host":
+            poller = obs_telemetry.SidecarPoller(
+                os.path.dirname(command_fifo_path(0)) or ".",
+                tele_ingest).start()
+        head_pub = None
+        if obs_telemetry.interval_s() > 0:
+            head_pub = obs_telemetry.TelemetryPublisher(
+                source="head", sinks=[tele_ingest.ingest]).start()
+        slo_engine = obs_slo.SLOEngine(store).start()
+        # closed-loop control (DOS_CONTROL=1): the policy daemon senses
+        # this head's SLO burn, queues, breakers and worker telemetry,
+        # and executes the brownout/quarantine/repair/warming ladder
+        # against the same in-process handles. Off by default: nothing
+        # is constructed and serving is byte-identical legacy.
+        from ..control import maybe_daemon
+        probe_fn = None
+        if registry is not None and registry.probe_fn is not None:
+            def probe_fn(wid):
+                st = registry.probe_fn(frontend._breaker_key(wid))
+                return st is not None and getattr(st, "ok", False)
+        daemon = maybe_daemon(
+            slo=slo_engine, frontend=frontend, registry=registry,
+            membership=frontend.membership, ingest=tele_ingest,
+            probe_fn=probe_fn, integrity=frontend.auditor,
+            scrub_fn=(frontend.scrubber.scrub_now
+                      if frontend.scrubber is not None else None))
+        status_providers = {
+            "serving": frontend.statusz,
+            "device_programs": obs_device.snapshot,
+            "telemetry": tele_ingest.statusz,
+            "slo": slo_engine.statusz,
+        }
+        if daemon is not None:
+            status_providers["control"] = daemon.statusz
+        if (frontend.auditor is not None
+                or frontend.scrubber is not None):
+            def _integrity_status(fe=frontend):
+                out = {}
+                if fe.auditor is not None:
+                    out["audit"] = fe.auditor.statusz()
+                if fe.scrubber is not None:
+                    out["scrub"] = fe.scrubber.statusz()
+                return out
+            status_providers["integrity"] = _integrity_status
         obs_srv = start_obs_server(
             args.obs_port,
             health_fn=lambda: {
                 "ok": frontend._started and not frontend._closed,
                 "role": "dos-serve", "backend": args.backend},
-            status_providers={
-                "serving": frontend.statusz,
-                "device_programs": obs_device.snapshot,
-            })
+            status_providers=status_providers,
+            slo_provider=slo_engine.payload)
         if args.ingress == "stdin":
             n = ingress.serve_stdin(frontend, families=families)
         elif args.ingress == "socket":
@@ -425,9 +530,27 @@ def main(argv=None) -> int:
         log.info("interrupted; draining")
     finally:
         stop_evt.set()
+        if daemon is not None:
+            daemon.stop()
         frontend.stop()
+        # integrity plane after the frontend: no new batches are being
+        # served, so the auditor drains its queue tail and exits
+        if frontend.auditor is not None:
+            frontend.auditor.stop()
+        if frontend.scrubber is not None:
+            frontend.scrubber.stop()
         if obs_srv is not None:
             obs_srv.close()
+        # telemetry plane teardown: stop the loops, detach the global
+        # sinks (they outlive main() otherwise), seal the tape durably
+        rpc_transport.set_telemetry_sink(None)
+        for t in (head_pub, poller, slo_engine):
+            if t is not None:
+                t.stop()
+        if recorder is not None:
+            from ..obs import recorder as obs_recorder
+            obs_recorder.set_recorder(None)
+            recorder.close()
         if registry is not None:
             registry.shutdown()
         if args.metrics_dump:

@@ -84,6 +84,7 @@ import numpy as np
 import torch
 
 from ..data.graph import Graph
+from ..obs import metrics as obs_metrics
 from ..ops import cuda_build_kernels as cbk
 from ..ops.device_graph import TINF, DeviceGraph
 from ..ops.ell_split import ell_split_graph, split_ratio
@@ -123,6 +124,11 @@ log = get_logger(__name__)
 #: bump is MAJOR only when existing keys change meaning — v1 indexes
 #: load under v2 code, v(N+1) indexes are rejected by vN code.
 INDEX_VERSION = 2
+
+M_MESH_COLLECTIVE = obs_metrics.histogram(
+    "mesh_collective_seconds",
+    "on-mesh collective join per mat-family row (query_mat: walk + "
+    "scatter + psum, replacing the head-side fan-out/join)")
 
 #: index and build counters, under the JAX package's metric names: every
 #: verify, corruption, rebuild, resume, replica divergence, replica copy
@@ -2219,9 +2225,9 @@ class CPDOracle:
         under it (the oracle's weight cache, least recently used dropped
         first), so many rows under one diff pay one upload and no digest
         of the vector; rows under one key walk the weights first cached
-        for it, as the JAX oracle's. The JAX oracle's
-        collective-time histogram (``M_MESH_COLLECTIVE``) is
-        observability, which waits for ``ROADMAP.md`` A14.
+        for it, as the JAX oracle's. The join (every part's walk and
+        scatter, and the host sum) books ``mesh_collective_seconds``
+        (``M_MESH_COLLECTIVE``), as the JAX oracle's on-mesh join does.
 
         Returns ``(cost [K] int64, finished [K] bool)`` in target order;
         an out-of-range target comes back unfinished with cost 0 (the
@@ -2247,6 +2253,7 @@ class CPDOracle:
         # the row width pads to the next power of two (the JAX oracle's
         # stable-shape rule); pad slots never receive an answer
         k_pad = 1 << (len(tgts) - 1).bit_length()
+        t0 = time.perf_counter()
         row_c = np.zeros(k_pad, np.int64)
         row_f = np.zeros(k_pad, bool)
         r = self.targets_wr.shape[1]
@@ -2260,6 +2267,7 @@ class CPDOracle:
             row_c += c.cpu().numpy()
             row_f |= f.cpu().numpy()
         row_c, row_f = self._merge(row_c, row_f)
+        M_MESH_COLLECTIVE.observe(time.perf_counter() - t0)
         cost[ok] = row_c[:len(tgts)]
         fin[ok] = row_f[:len(tgts)]
         return cost, fin

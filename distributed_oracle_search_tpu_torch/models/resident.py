@@ -425,6 +425,18 @@ def encode_block(rows: np.ndarray, codec: str | None):
     return np.frombuffer(payload, np.uint8).copy(), header["codec"]
 
 
+def _pack4_pairs() -> np.ndarray:
+    """[256] int16 whose two bytes are the int8 entries a pack4 byte
+    holds, low nibble first (the marker nibble decodes to -1)."""
+    b = np.arange(256)
+    pairs = np.stack([b & 0xF, b >> 4], axis=1)
+    return np.where(pairs == PACK4_MARKER, -1, pairs).astype(
+        np.int8).view(np.int16).reshape(256)
+
+
+_PACK4_PAIRS = _pack4_pairs()
+
+
 def decode_block_rows(arr) -> np.ndarray:
     """Container payload -> the raw [C, N] int8 rows it encodes
     (host-side; bit-identical to what was encoded). Raises ValueError on
@@ -435,18 +447,18 @@ def decode_block_rows(arr) -> np.ndarray:
         size = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
         if off + size > arr.shape[0]:
             raise ValueError(f"compressed block truncated at {name!r}")
+        # a view of the payload's bytes, not a copy
         got[name] = np.frombuffer(
-            bytes(np.asarray(arr[off:off + size], np.uint8)),
+            np.asarray(arr[off:off + size], np.uint8),
             dtype).reshape(shape)
         off += size
     r, n = (int(x) for x in header["shape"])
     codec = header.get("codec")
     if codec == "pack4":
-        packed = got["packed"]
-        lo = (packed & 0xF).astype(np.int8)
-        hi = ((packed >> 4) & 0xF).astype(np.int8)
-        v = np.stack([lo, hi], axis=-1).reshape(r, -1)[:, :n]
-        return np.where(v == PACK4_MARKER, np.int8(-1), v)
+        # one table lookup a byte: its two decoded int8 entries, held
+        # as one int16 (marker nibble -> -1)
+        v = _PACK4_PAIRS[got["packed"]].view(np.int8).reshape(r, -1)
+        return np.ascontiguousarray(v[:, :n])
     if codec != "rle":
         raise ValueError(f"unknown compressed block codec {codec!r}")
     starts = got["starts"].astype(np.int64)

@@ -32,9 +32,9 @@ by :meth:`ObsServer.close` (the test suite's leak check holds every
 ``dos-*`` thread to that contract). Handlers are deliberately read-only
 — scraping a production fleet must never mutate it.
 
-A copy of the JAX package's ``obs/http.py``. The ``/slo`` section needs
-``obs/slo.py``, which is not ported (ROADMAP.md A14.5): no process of
-the port passes an ``slo_provider``, so ``/slo`` answers 404.
+A copy of the JAX package's ``obs/http.py``. ``dos-serve`` and
+``dos-gateway`` pass their ``obs.slo.SLOEngine`` as ``slo_provider``
+when ``DOS_SLO_SPECS`` names an objective, which serves ``/slo``.
 """
 
 from __future__ import annotations

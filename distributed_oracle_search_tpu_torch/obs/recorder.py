@@ -33,8 +33,8 @@ Env knobs: ``DOS_RECORDER_BYTES`` (ring budget, default 4 MiB),
 default 16).
 
 A copy of the JAX package's ``obs/recorder.py``: tapes are byte-equal.
-Nothing of the port installs a recorder or drains the pending ring yet:
-the telemetry publisher and ``dos-obs`` are ROADMAP.md A14.5 and A15.
+``dos-serve --recorder-dir`` and ``dos-gateway --recorder-dir`` install
+it; the telemetry publisher drains the pending ring.
 """
 
 from __future__ import annotations
@@ -304,22 +304,11 @@ def replay(dirname: str, since: float | None = None,
     return records
 
 
-def _events_of(path: str) -> list[dict]:
-    """Events from either container format: a full Chrome trace doc
-    (``{"traceEvents": [...]}``) or a bare sidecar list (the JAX
-    package's ``obs.fleet._events_of``; ``obs.fleet`` is not ported)."""
-    with open(path) as f:
-        doc = json.load(f)
-    evs = doc.get("traceEvents", []) if isinstance(doc, dict) else doc
-    if not isinstance(evs, list):
-        raise ValueError(f"{path}: no trace events found")
-    return evs
-
-
 def _trace_entries(trace_paths, trace_ids: set) -> list[dict]:
     """Perfetto events from ``merge_traces``-style inputs whose
     ``trace_id`` matches a record on the tape, as timeline rows
     (trace ``ts`` is wall-clock microseconds)."""
+    from .fleet import _events_of
     out = []
     for path in trace_paths:
         paths = (sorted(glob.glob(os.path.join(path, "*.trace")))

@@ -18,15 +18,17 @@ A list or a grid may name one device more than once: the CPU is one
 torch device, and a machine with one card runs ``[cuda:0] * L``. Lanes or
 cells that share a device share one copy of what they read (the graph,
 a shard's rows); nothing is copied per lane.
+
+``torch`` is imported by the functions that place devices, not by the
+module: a host-backend ``dos-serve`` reads :func:`mesh_devices` for its
+``/statusz`` and must not load torch for it.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..utils.config import DATA_AXIS, WORKER_AXIS, mesh_layout
-from ..utils.device import resolve_device
 from ..utils.env import env_cast
 from ..utils.log import get_logger
 
@@ -50,6 +52,8 @@ def canonical(device) -> torch.device:
     """``device`` as a ``torch.device`` with the index a tensor on it
     reports (``cuda`` → ``cuda:<current>``), so that equal devices
     compare equal."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
@@ -62,6 +66,10 @@ def local_devices(device=None) -> list[torch.device]:
     every visible card for ``cuda``, or the CPU once for each of its
     device slots (:data:`CPU_DEVICE_SLOTS`, or what
     ``parallel.multihost.initialize`` set)."""
+    import torch
+
+    from ..utils.device import resolve_device
+
     dev = resolve_device(device)
     if dev.type == "cuda":
         return [torch.device("cuda", i)
@@ -137,7 +145,11 @@ def mesh_devices(avail: int | None = None) -> int:
     n = env_cast("DOS_MESH_DEVICES", 1, int)
     if n <= 1:
         return 1
-    have = torch.cuda.device_count() if avail is None else int(avail)
+    if avail is None:
+        import torch
+
+        avail = torch.cuda.device_count()
+    have = int(avail)
     if n > have:
         log.warning("DOS_MESH_DEVICES=%d but only %d device(s) present; "
                     "clamping", n, have)

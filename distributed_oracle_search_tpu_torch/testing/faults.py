@@ -77,10 +77,12 @@ points, ``DOS_FAULTS_STATE`` and the exit code are the same. The port
 arms ``crash-build`` (``models.cpd``), ``corrupt-resident``
 (``worker.engine``), and ``drop-reply``, ``delay``, ``crash-engine``,
 ``kill-mid-batch`` and ``corrupt-frame`` (``transport.fifo``,
-``transport.rpc`` and both serve loops of ``worker.server``). No call
-site arms ``stale-epoch-reply``, ``kill-during-reshard`` or
-``corrupt-answer`` (ROADMAP.md A14.3) nor ``blackhole-conn`` and
-``lease-freeze`` (A14.5, the gateway) yet.
+``transport.rpc`` and both serve loops of ``worker.server``),
+``stale-epoch-reply`` (both serve loops' epoch gate),
+``kill-during-reshard`` (``parallel.membership``'s catch-up),
+``corrupt-answer`` (the FIFO results file, the RPC reply and the
+in-process dispatcher), and ``lease-freeze`` and ``blackhole-conn``
+(``gateway.server``). Every point of the grammar has its call site.
 """
 
 from __future__ import annotations

@@ -85,9 +85,11 @@ the walked table, after the walk; the walk, its move budget
 (``k_moves``) and every answer are untouched. As in JAX such a batch
 walks a pack4 table inflated, and its program key carries ``sig_k``.
 
-Not ported: the resident scrubber (ROADMAP.md A14.5). As in JAX, no
-caller promotes an index on a diff-epoch swap: a swap's fused diff is
-served through the per-diff weight LRU.
+The resident scrubber (``integrity.scrub``) re-binds ``fm`` or the
+promoted pair from disk through :meth:`ShardEngine._make_resident`; a
+batch reads its table once (``_fm_for``), so one in flight finishes on
+the old tensor. As in JAX, no caller promotes an index on a diff-epoch
+swap: a swap's fused diff is served through the per-diff weight LRU.
 """
 
 from __future__ import annotations

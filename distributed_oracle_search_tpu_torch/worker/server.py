@@ -60,8 +60,10 @@ BYTES`` > 0 enables the shard-owner L2 result cache before the kernel
 (``DOS_GATEWAY_L2_ADMIT``: ``all`` or ``second-hit``; rekeyed on a swap,
 flushed on an epoch). ``answer_fp`` fingerprints the answers on the
 results header or the RPC reply header (fault point ``corrupt-answer``).
-Not ported, and refused with the ``ROADMAP.md`` item that ports it: the
-telemetry publisher (``DOS_TELEMETRY_INTERVAL_S``, A14.5).
+``DOS_TELEMETRY_INTERVAL_S`` > 0 starts the telemetry publisher in
+``main``: ticks go to the FIFO's ``.telemetry`` sidecar and, when the
+RPC loop serves, as a ``telemetry`` frame on every live connection
+(``RpcServeLoop.broadcast``); ``/statusz`` gains a ``telemetry`` column.
 """
 
 from __future__ import annotations
@@ -324,6 +326,8 @@ class FifoServer:
         self.answer_lock = OrderedLock("worker.FifoServer.answer")
         #: the RPC serve loop beside the FIFO loop (its /statusz section)
         self.rpc_loop = None
+        #: the telemetry publisher ``main`` starts (its /statusz column)
+        self.telemetry = None
         self._t_start = time.monotonic()
         self._last_error = ""
         # preload the first diff's weights like the reference server
@@ -851,6 +855,10 @@ class FifoServer:
             out["migration"] = dict(state.migration)
         if self.rpc_loop is not None:
             out["transport"] = self.rpc_loop.statusz()
+        # telemetry column: present only when this worker publishes
+        # ticks (pre-telemetry workers omit it; consumers blank it)
+        if self.telemetry is not None:
+            out["telemetry"] = self.telemetry.statusz()
         try:
             out["build_ledger_blocks"] = len(
                 BuildLedger(self.conf.outdir, self.wid).entries())
@@ -973,9 +981,8 @@ class FifoServer:
 
 class RpcServeLoop:
     """The socket accept loop beside the FIFO serve loop (the JAX
-    package's, with the membership and diff epoch gates, the L2 and
-    answer fingerprints on the reply header, without the telemetry
-    broadcast: ROADMAP.md A14.5).
+    package's, with the membership and diff epoch gates, the L2, answer
+    fingerprints on the reply header and the telemetry broadcast).
 
     One :class:`FifoServer` (engines, health state, fault points) served
     over persistent connections: length-prefixed frames
@@ -1004,6 +1011,7 @@ class RpcServeLoop:
         self._listener = None
         self._threads: list = []
         self._conns: list = []
+        self._writers: dict = {}    # sock -> FrameWriter (broadcasts)
         self._stop = threading.Event()
         self._lock = OrderedLock("worker.RpcServeLoop")
         self._inflight = 0
@@ -1072,6 +1080,8 @@ class RpcServeLoop:
     def _conn_loop(self, sock) -> None:
         reader = frames.FrameReader(sock)
         writer = frames.FrameWriter(sock)
+        with self._lock:
+            self._writers[sock] = writer    # telemetry broadcast lane
         try:
             writer.send({"kind": "hello", "wid": self.fs.wid,
                          "credit": self.credit})
@@ -1098,6 +1108,7 @@ class RpcServeLoop:
             rpc_transport.shutdown_close(sock)
             me = threading.current_thread()
             with self._lock:
+                self._writers.pop(sock, None)
                 if sock in self._conns:
                     self._conns.remove(sock)
                 # prune this handler from the join list: every breaker
@@ -1243,6 +1254,19 @@ class RpcServeLoop:
             log.warning("rpc reply dropped: %s", e)
             M_RPC_DROPPED.inc()
 
+    def broadcast(self, tick: dict) -> None:
+        """Push one telemetry tick on every live connection — fire and
+        forget, no ``id``, no reply. A dead socket just drops its copy
+        (its conn loop is already on the way out); the FrameWriter lock
+        keeps the push from interleaving with an in-flight reply."""
+        with self._lock:
+            writers = list(self._writers.values())
+        for w in writers:
+            try:
+                w.send({"kind": "telemetry", "tick": tick})
+            except frames.TransportError as e:
+                log.debug("telemetry broadcast dropped: %s", e)
+
     # ------------------------------------------------------------- status
     def statusz(self) -> dict:
         with self._lock:
@@ -1333,9 +1357,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if env_cast("DOS_TELEMETRY_INTERVAL_S", 0.0, float) > 0:
-        raise SystemExit("DOS_TELEMETRY_INTERVAL_S: the telemetry "
-                         "publisher is not ported (ROADMAP.md A14.5)")
     set_verbosity(args.verbose)
     set_worker_id(args.workerid)
     conf = ClusterConfig.load(args.c)
@@ -1357,9 +1378,25 @@ def main(argv=None) -> int:
     obs_srv = start_obs_server(
         args.obs_port, health_fn=server.health,
         status_providers={"worker": server.statusz})
+    # fleet telemetry: push this worker's counters/gauges/windows to the
+    # head on the DOS_TELEMETRY_INTERVAL_S cadence — over the RPC lane
+    # when it serves (a `telemetry` frame on every live connection) and
+    # always via the FIFO sidecar file the head polls
+    from ..obs import telemetry as obs_telemetry
+    publisher = None
+    if obs_telemetry.interval_s() > 0:
+        sinks = [obs_telemetry.sidecar_sink(
+            server.command_fifo + obs_telemetry.SIDECAR_SUFFIX)]
+        if rpc_loop is not None:
+            sinks.append(rpc_loop.broadcast)
+        publisher = obs_telemetry.TelemetryPublisher(
+            source=f"w{args.workerid}", sinks=sinks).start()
+        server.telemetry = publisher
     try:
         server.serve_forever()
     finally:
+        if publisher is not None:
+            publisher.stop()
         if rpc_loop is not None:
             rpc_loop.stop()
         if obs_srv is not None:

@@ -501,9 +501,10 @@ def test_server_refused_flags_name_roadmap(cluster, tmp_path, argv, item):
 ])
 def test_server_refuses_unported_knobs(cluster, tmp_path, monkeypatch,
                                        knob, value, item):
-    """A nonzero ``DOS_TELEMETRY_INTERVAL_S`` asks for the telemetry
-    publisher, which is not ported: refused, naming its ROADMAP.md item,
-    before any FIFO or socket is made. A positive ``DOS_GATEWAY_L2_BYTES``
+    """A nonzero ``DOS_TELEMETRY_INTERVAL_S`` (refused until A14.5
+    ported the telemetry publisher) starts the publisher in both
+    packages' servers: each ticks into its FIFO's ``.telemetry``
+    sidecar, which the other package reads tick for tick. A positive ``DOS_GATEWAY_L2_BYTES``
     (refused until A14.3 ported the worker L2) enables the L2 in both
     packages' servers: a repeated batch gets the same answers and
     stats line from each, the repeat from the L2 (hits booked, no walk
@@ -545,10 +546,31 @@ def test_server_refuses_unported_knobs(cluster, tmp_path, monkeypatch,
         for a, b in zip(t1[1], t2[1]):
             np.testing.assert_array_equal(a, b)
         return
-    with pytest.raises(SystemExit, match=item):
-        t_server.main(["-c", cluster[0], "-w", "0", "--fifo",
-                       str(tmp_path / "t.fifo"), "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "t.fifo")
+    # the telemetry publisher (A14.5): each package's server ticks into
+    # its FIFO's .telemetry sidecar, which the other package reads
+    from distributed_oracle_search_tpu.obs import telemetry as j_tele
+    from distributed_oracle_search_tpu_torch.obs import telemetry as t_tele
+
+    ticks = {}
+    for pkg, mine, other in (("torch", t_tele, j_tele),
+                             ("jax", j_tele, t_tele)):
+        fifo = str(tmp_path / f"{pkg}.fifo")
+        th, rcs = _main_server(pkg, cluster[0], fifo, [])
+        side = fifo + mine.SIDECAR_SUFFIX
+        try:
+            deadline = time.monotonic() + 60
+            while not (os.path.exists(side) and other.read_sidecar(side)):
+                assert time.monotonic() < deadline, f"{pkg}: no tick"
+                time.sleep(0.05)
+        finally:
+            t_server.stop_server(fifo)
+            th.join(timeout=20)
+        assert rcs == [0], pkg
+        ticks[pkg] = other.read_sidecar(side)
+        assert ticks[pkg] == mine.read_sidecar(side)
+    for pkg, got in ticks.items():
+        assert got[0]["source"] == "w0" and got[0]["full"], pkg
+        assert set(got[0]) == set(ticks["jax"][0]), pkg
 
 
 def test_server_without_gpu_raises(cluster, tmp_path, monkeypatch):

@@ -91,7 +91,8 @@ BUILD_REGISTRY_GAUGES = (
     "cpd_resident_bytes", "device_programs_analyzed", "head_circuits_open",
     "mesh_devices", "recorder_ring_bytes")
 BUILD_REGISTRY_HISTOGRAMS = (
-    "cpd_decompress_seconds", "worker_jit_compile_seconds",
+    "cpd_decompress_seconds", "mesh_collective_seconds",
+    "worker_jit_compile_seconds",
     "worker_receive_seconds", "worker_search_seconds",
     "worker_weights_load_seconds")
 

@@ -8,9 +8,9 @@ tables and wire lines, ``membership.json`` bytes after every step (each
 package reading the other's), plans, candidate chains, journals, counter
 deltas, healed block bytes, epoch-gate rows, frontend answers and sheds,
 and campaign rows under a committed epoch. The mirror of
-``tests/test_membership.py`` without its ``slow`` chaos drill and
-without ``test_top_tolerates_mixed_statusz_schemas`` (``obs.fleet``'s
-``dos-obs top`` is not ported: ROADMAP.md A14.5).
+``tests/test_membership.py`` without its ``slow`` chaos drill; its
+``test_top_tolerates_mixed_statusz_schemas`` runs over the port
+(``torch_port_cases``).
 """
 
 import csv
@@ -806,3 +806,11 @@ def test_campaign_routes_by_committed_epoch(world, tmp_path, monkeypatch,
             assert all(s.epoch == 1 for s in srv.values())
     assert _answer_columns(out["static"]) == _answer_columns(
         out["elastic"])
+
+
+# the JAX case of ``dos-obs top``'s table over mixed /statusz schemas
+# (obs.fleet.render_top, ported in A14.5)
+from torch_port_cases import load_cases  # noqa: E402
+
+globals().update(load_cases("test_membership.py", __name__, drop={}, only=(
+    "test_top_tolerates_mixed_statusz_schemas",)))

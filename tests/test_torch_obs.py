@@ -244,11 +244,15 @@ def test_scrape_endpoints_equal_jax(path, monkeypatch):
 
 
 def test_obs_package_lazy_and_unported_modules():
+    """The port's ``obs`` exports what the JAX package's does, the
+    modules A14.5 ported included, lazily where JAX's are lazy."""
     assert t_obs.recorder is t_rec
+    assert sorted(t_obs.__all__) == sorted(j_obs.__all__)
     for mod in ("fleet", "slo", "telemetry", "timeseries"):
-        with pytest.raises(AttributeError, match="A14.5"):
-            getattr(t_obs, mod)
+        assert getattr(t_obs, mod).__name__ == f"{t_obs.__name__}.{mod}"
         assert getattr(j_obs, mod) is not None
+    with pytest.raises(AttributeError):
+        t_obs.no_such_module  # noqa: B018
 
 
 def test_device_entries_keys_and_names(tmp_path, monkeypatch):
@@ -386,6 +390,15 @@ def test_metrics_registered_in_obs_catalog():
     import distributed_oracle_search_tpu_torch.obs.http  # noqa: F401
     import distributed_oracle_search_tpu_torch.obs.recorder  # noqa: F401
     import distributed_oracle_search_tpu_torch.worker.server  # noqa: F401
+    # the planes (A14.5)
+    import distributed_oracle_search_tpu_torch.cli.gateway  # noqa: F401
+    import distributed_oracle_search_tpu_torch.control  # noqa: F401
+    import distributed_oracle_search_tpu_torch.gateway  # noqa: F401
+    import distributed_oracle_search_tpu_torch.integrity.audit  # noqa: F401
+    import distributed_oracle_search_tpu_torch.integrity.scrub  # noqa: F401
+    import distributed_oracle_search_tpu_torch.obs.slo  # noqa: F401
+    import distributed_oracle_search_tpu_torch.obs.telemetry  # noqa: F401
+    import distributed_oracle_search_tpu_torch.obs.timeseries  # noqa: F401
     from distributed_oracle_search_tpu_torch.models import cpd
 
     snap = t_metrics.REGISTRY.snapshot()

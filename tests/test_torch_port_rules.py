@@ -189,3 +189,56 @@ def test_serving_path_reads_no_file_of_the_jax_package(small, monkeypatch,
     o.query_table_multi(o.prepare_weights_multi(ws), q)
     o.save(str(tmp_path))
     assert opened and not any(p.startswith(JAX_DIR) for p in opened)
+
+
+#: the modules A14.5 ported: every one is scanned by the import rule
+PLANE_MODULES = ("obs/timeseries.py", "obs/telemetry.py", "obs/slo.py",
+                 "obs/fleet.py", "integrity/scrub.py", "integrity/audit.py",
+                 "control/__init__.py", "control/config.py",
+                 "control/signals.py", "control/policy.py",
+                 "control/actuators.py", "control/daemon.py",
+                 "gateway/__init__.py", "gateway/protocol.py",
+                 "gateway/registry.py", "gateway/client.py",
+                 "gateway/server.py", "cli/gateway.py", "cli/serve.py")
+#: of those, the copies: the JAX package's code
+PLANE_COPIES = tuple(m for m in PLANE_MODULES
+                     if m not in ("integrity/scrub.py", "cli/gateway.py",
+                                  "cli/serve.py"))
+
+
+def code_of(source: str) -> str:
+    """``source``'s syntax tree without its docstrings (comments are not
+    in the tree): what a module runs."""
+    tree = ast.parse(source)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef)) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+def test_code_of_ignores_docstrings_and_comments_only():
+    assert code_of('"""a"""\nx = 1  # b\n') == code_of("x = 1\n")
+    assert code_of("def f():\n    'd'\n    return 1\n") == code_of(
+        "def f():\n    return 1\n")
+    assert code_of("x = 1\n") != code_of("x = 2\n")
+    assert code_of("x = 'a'\n") != code_of("x = 'b'\n")
+
+
+def test_plane_modules_are_scanned():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert set(PLANE_MODULES) <= scanned
+
+
+@pytest.mark.parametrize("rel", PLANE_COPIES)
+def test_plane_copies_equal_the_jax_package(rel):
+    """The planes' host modules are copies: their relative imports name
+    the port's own modules, so the code is the JAX package's (the
+    docstrings and comments may differ)."""
+    with open(os.path.join(PORT, rel)) as f, \
+            open(os.path.join(JAX_DIR, rel)) as g:
+        assert code_of(f.read()) == code_of(g.read()), rel

@@ -2,8 +2,9 @@
 over a built index answers stdin lines of every family as the JAX
 package's ``cli.serve`` does over the same index, drains to exit 0 on
 SIGTERM with every accepted request answered, and dumps its metrics with
-the plain walks counted; the knobs of A14.5 are refused, naming it, and
-an in-process backend asked for the card raises without one.
+the plain walks counted; each plane's knob (A14.5) builds its plane and
+still serves, and an in-process backend asked for the card raises
+without one.
 """
 
 import json
@@ -133,15 +134,68 @@ def test_sigterm_drains_to_exit_0(world, tmp_path):
     ("DOS_TELEMETRY_INTERVAL_S", "5", []), ("DOS_CONTROL", "1", []),
     (None, None, ["--recorder-dir", "tape"]),
 ])
-def test_unported_planes_refused(world, monkeypatch, knob, value, argv):
-    conf, _ = world
+def test_unported_planes_refused(world, monkeypatch, capsys, tmp_path,
+                                 knob, value, argv):
+    """The planes' knobs are refused no more: ``main`` serves a stdin
+    line with each one on, exits 0, and builds that plane (the scrubber,
+    the auditor, the head's telemetry publisher, the control daemon with
+    its in-process breakers, the flight recorder's tape)."""
+    import io
+    import signal as _signal
+
+    from distributed_oracle_search_tpu_torch import control
+    from distributed_oracle_search_tpu_torch.obs import telemetry
+
+    conf, queries = world
     for k in ("DOS_SCRUB_INTERVAL_S", "DOS_AUDIT_RATE",
               "DOS_TELEMETRY_INTERVAL_S", "DOS_CONTROL", "DOS_RECORDER_DIR"):
         monkeypatch.delenv(k, raising=False)
     if knob:
         monkeypatch.setenv(knob, value)
-    with pytest.raises(SystemExit, match="A14.5"):
-        t_serve.main(["-c", conf, "--device", "cpu", *argv])
+    seen = {}
+    real_build, real_daemon = t_serve.build_frontend, control.maybe_daemon
+    real_start = telemetry.TelemetryPublisher.start
+
+    def build(cf, args):
+        seen["frontend"], seen["registry"], fam = real_build(cf, args)
+        return seen["frontend"], seen["registry"], fam
+
+    def daemon(**kw):
+        seen["daemon"] = real_daemon(**kw)
+        return seen["daemon"]
+
+    def start(pub):
+        seen["publisher"] = pub.source
+        return real_start(pub)
+
+    monkeypatch.setattr(t_serve, "build_frontend", build)
+    monkeypatch.setattr(control, "maybe_daemon", daemon)
+    monkeypatch.setattr(telemetry.TelemetryPublisher, "start", start)
+    s, t = map(int, queries[0])
+    monkeypatch.setattr("sys.stdin", io.StringIO(f"{s} {t}\n"))
+    monkeypatch.chdir(tmp_path)
+    handlers = {sig: _signal.getsignal(sig)
+                for sig in (_signal.SIGTERM, _signal.SIGINT)}
+    try:
+        rc = t_serve.main(["-c", conf, "--device", "cpu", *argv])
+    finally:
+        for sig, h in handlers.items():
+            _signal.signal(sig, h)
+    assert rc == 0
+    assert capsys.readouterr().out.startswith("OK ")
+    fe = seen["frontend"]
+    if knob == "DOS_SCRUB_INTERVAL_S":
+        assert fe.scrubber is not None and fe.auditor is None
+    elif knob == "DOS_AUDIT_RATE":
+        assert fe.auditor is not None and fe.scrubber is None
+    elif knob == "DOS_TELEMETRY_INTERVAL_S":
+        assert seen["publisher"] == "head"
+    elif knob == "DOS_CONTROL":
+        assert seen["daemon"] is not None and seen["registry"] is not None
+    else:
+        assert (tmp_path / "tape").is_dir()
+    if knob != "DOS_CONTROL":
+        assert seen["daemon"] is None and seen["registry"] is None
 
 
 def test_inproc_on_cuda_raises_without_gpu(world, monkeypatch):

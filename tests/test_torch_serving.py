@@ -564,14 +564,23 @@ def test_fault_points_include_corruption_pair():
 
 
 def test_unported_integrity_and_gateway_modules_name_a14_5():
-    with pytest.raises(ImportError, match="A14.5"):
-        import distributed_oracle_search_tpu_torch.integrity.scrub  # noqa
-    with pytest.raises(ImportError, match="A14.5"):
-        import distributed_oracle_search_tpu_torch.integrity.audit  # noqa
+    """A14.5 ported the scrubber, the audit and the gateway's modules:
+    each imports, and the packages export the JAX package's names."""
+    import distributed_oracle_search_tpu.gateway as j_gateway
+    import distributed_oracle_search_tpu.integrity as j_integrity
     import distributed_oracle_search_tpu_torch.gateway as t_gateway
+    import distributed_oracle_search_tpu_torch.integrity as t_integrity
+    from distributed_oracle_search_tpu_torch.integrity import (  # noqa
+        audit, scrub,
+    )
+
+    assert callable(scrub.scrub_engine_table)
+    assert callable(audit.AnswerAuditor)
     for name in ("client", "protocol", "registry", "server"):
-        with pytest.raises(AttributeError, match="A14.5"):
-            getattr(t_gateway, name)
+        assert getattr(t_gateway, name).__name__ == \
+            f"{t_gateway.__name__}.{name}"
+    assert sorted(t_gateway.__all__) == sorted(j_gateway.__all__)
+    assert set(j_integrity.__all__) <= set(t_integrity.__all__)
 
 
 

@@ -10,8 +10,8 @@ cache keys, the diff-epoch gate, the query families (held to the CPU
 reference walk as in JAX), the live-swap smoke, the scenario generator,
 and ``sig_k`` signatures equal with the answers unchanged. The mirror of
 ``tests/test_traffic.py`` without its ``slow`` replay drill and without
-the two bench-waiver cases (``cli.obs``/``obs.fleet`` are not ported:
-ROADMAP.md A14.5).
+the bench-waiver case that drives ``cli.obs`` (ROADMAP.md A15); the other
+waiver case runs over the port (``torch_port_cases``).
 """
 
 import glob
@@ -724,3 +724,11 @@ def test_live_swap_smoke(traffic_world, tmp_path):
         tmp_path / "jax" / "stream" / "fused" / "fused-e000001.diff")))
     ref = _reference_answers(g, pool[:12], w_new)
     assert [r[1:] for r in t["post"][:12]] == ref
+
+
+# the JAX case of the bench waivers that needs obs.fleet only (ported in
+# A14.5); its other waiver case drives cli.obs (ROADMAP.md A15)
+from torch_port_cases import load_cases  # noqa: E402
+
+globals().update(load_cases("test_traffic.py", __name__, drop={}, only=(
+    "test_bench_waiver_file_unreadable_fails_closed",)))

@@ -28,6 +28,15 @@ class Pkg:
         "graph": "data.graph", "formats": "data.formats",
         "resilience": "transport.resilience",
         "integrity": "integrity", "fingerprint": "integrity.fingerprint",
+        "scrub": "integrity.scrub", "audit": "integrity.audit",
+        "control": "control", "policy": "control.policy",
+        "signals": "control.signals", "slo": "obs.slo",
+        "telemetry": "obs.telemetry", "timeseries": "obs.timeseries",
+        "obsfleet": "obs.fleet", "recorder": "obs.recorder",
+        "gateway": "gateway", "protocol": "gateway.protocol",
+        "registry": "gateway.registry", "frames": "transport.frames",
+        "request": "serving.request", "reference": "models.reference",
+        "build": "worker.build", "obs_quantiles": "obs.quantiles",
     }
 
     def __init__(self, name):
