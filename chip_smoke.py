@@ -14,7 +14,10 @@ points a user calls, then the compressed-residency path:
    kernels (``pointer_doubling.cu``: on chip, and the wide sweep) and
    the batched A* (``batched_astar.cu``: the sweep, the heuristic);
 2. road path, at the size of the USA-road-d.NY stand-in
-   (``synth_road_network(264_000, seed=0)``, ``mod`` over 32 workers;
+   (``synth_road_network(264_000, seed=0)``, read through DIMACS: written
+   as ``.gr``/``.co``, 1-indexed, converted by ``python -m
+   distributed_oracle_search_tpu_torch.data.dimacs``, the ``.xy`` byte-equal
+   to ``write_xy``'s of the same graph; ``mod`` over 32 workers;
    worker 0 owns 8,250 targets, a 2.18 GB int8 first-move table): build
    worker 0's shard on the card (``build_worker_shard``, 512-row chunks,
    ``method="auto"``, which must resolve ``ellsplit``: the relax and
@@ -97,7 +100,7 @@ points a user calls, then the compressed-residency path:
    codecs that ran, its seconds split (host read, encode, sidecar read
    and write, staging, H2D, decode, walk, drain) and the peak memory;
 2a'. worker lanes (``[lanes]`` lines), on the road shard's index: a
-   ``ShardEngine`` over ``[cuda:0] * L`` for L = 2 and 4 answers the
+   ``ShardEngine`` over ``[cuda:0] * L`` for L = 2 answers the
    road rounds (free flow, the diff, ``k_moves=8`` with extraction) with
    the one-lane engine's answers and paths, one ``table_search_walk``
    launch a lane a call and a lane an ``obs.device`` capture of a new
@@ -134,9 +137,9 @@ points a user calls, then the compressed-residency path:
    kernel against its plain version on those two rounds' exact inputs;
    time ``decompress_rows`` of a batch's distinct rows under pack4 and
    rle; the resident scrubber (``integrity.scrub.scrub_engine_table``)
-   on the pack4 and rle engines: a clean pass each, then a row rotted on
-   the card, found by the next pass and re-bound from disk, after which
-   each engine's walk equals the raw engine's;
+   on the pack4 and rle engines: a clean pass each, then a pack4 row
+   rotted on the card, found by the next pass and re-bound from disk,
+   after which the engine's walk equals the raw engine's;
    free-flow costs must equal reverse-Dijkstra; the build's sweep
    launches must be one a chunk (the lattice has no off-lattice edges,
    so a launch runs its chunk's cycles to convergence); hold the sweep
@@ -213,7 +216,9 @@ points a user calls, then the compressed-residency path:
 5b. streamed campaign (``[streamed-campaign]`` lines): ``process_query
    -c conf`` with ``DOS_SERVE_STREAMED=1`` on the campaign's index (5
    compacted chunks at this density): the conf's fused rounds (K4 once a
-   chunk), then ``-k 8 --extract`` (B1 once a chunk a round); counts
+   chunk; the chunks RLE-encoded on the host), then ``-k 8 --extract``
+   under ``DOS_STREAM_RLE=0`` (chunks uploaded raw; B1 once a chunk a
+   round); counts
    zeroed before and read after, no plain walk; ``parts.csv`` (every
    column but the timers) and ``paths.csv`` equal the resident
    campaign's;
@@ -222,8 +227,8 @@ points a user calls, then the compressed-residency path:
    (``chip_smoke.py --multihost-worker``) on ``cuda:0``, joined by gloo
    through a free port on 127.0.0.1, on the campaign's conf plus a
    ``multihost`` key, ``-k 8 --extract``: resident (each holds and walks
-   4 of the 8 workers), then streamed (each streams its own workers'
-   range chunks, uploaded raw); process 0 alone writes, its
+   4 of the 8 workers) and streamed (each streams its own workers'
+   range chunks, uploaded raw), the two pairs at once; process 0 alone writes, its
    ``parts.csv`` and ``paths.csv`` equal ``[campaign]``'s and
    ``[streamed-campaign]``'s; each controller reports the card and its
    B1 launches (no plain walk); the streamed controllers' wire bytes sum
@@ -267,6 +272,42 @@ points a user calls, then the compressed-residency path:
    each build's seconds, server launch-to-ready, each round's q/s on the
    host clock beside the campaign's, ``t_search`` per worker row, the
    card's peak used memory over all processes (``nvidia-smi``);
+6a. supervise path (``[supervise]`` lines), on ``[host]``'s index (no
+   rebuild): ``make_fifos -c conf --supervise --device cuda --obs-port P
+   --metrics-dump D`` as a subprocess (its FIFOs and the servers'
+   telemetry sidecars, ``DOS_TELEMETRY_INTERVAL_S=1``, in the run's
+   directory), the 8 port servers ready by the supervisor's pings; a
+   ``process_query --backend host`` round of the 20,000 campaign queries
+   whose rows equal ``[host]``'s; worker 3's server SIGKILLed as the
+   second round starts: the round either ends degraded (exit 3,
+   ``degraded.json`` naming worker 3 alone) or is served after the
+   respawn with the first round's rows (logged which); the supervisor
+   respawns worker 3 within its first backoff step,
+   ``supervisor_respawns_total`` 1 on ``/metrics``; a third round, with
+   ``--trace``, served by all 8 equals the first; ``dos-control --once
+   --dry-run`` over the FIFO directory ticks with no decision, and each
+   server answers its ``transport.fifo.probe``; ``dos-obs top`` renders
+   the supervisor's ``/statusz`` (alive 8, respawns 1); SIGINT: the
+   supervisor exits 0 and none of its server processes is left; every
+   dump (the respawned server's is its own) names this card, B1
+   launches == batches + program keys, no plain walk; ``dos-obs
+   merge-metrics`` of the 8 dumps sums their B1 launches and ``dos-obs
+   merge-traces`` writes the third round's trace as one Perfetto
+   document with the 8 live servers' ``worker.search`` spans;
+6b. native path (``[native]`` lines): ``make -C native fast`` builds
+   the repo's C++ sources (seconds and the host's cores logged); on a
+   16,384-node road network ``mod`` over 8 ``localhost`` workers,
+   ``make_cpds --engine native`` (``make_cpd_auto``, OpenMP on the host)
+   and ``make_cpds --backend host`` (8 ``worker.build`` processes, K1/K2
+   on the card) write byte-equal blocks and manifest digests;
+   ``make_fifos --engine native`` and a ``process_query --backend host``
+   round of 20,000 queries: each worker's row equals the port's
+   ``ShardEngine`` walking the native index on the card (B1 == 8
+   batches + program keys, no plain walk); an ``--alg ch`` round on
+   ``fifo_auto`` finishes every query, and on the queries to 256 seeded
+   targets the hierarchy's costs (``ch_check``) and the walk's (scipy's
+   Dijkstra) equal Dijkstra's. A cut of the campaign graph: the host
+   builder of all 65,536 targets would take minutes;
 7. heal path (``[heal]`` lines), verify, heal and replicas on the host
    cell's index at full size (8 blocks of 512 MiB): ``make_cpds
    --verify`` (exit 0, ok == total == 8); the conf rewritten with
@@ -468,6 +509,8 @@ import torch
 from distributed_oracle_search_tpu_torch.cli import (
     make_cpds, make_fifos, process_query,
 )
+from distributed_oracle_search_tpu_torch.cli import control as control_cli
+from distributed_oracle_search_tpu_torch.cli import obs as obs_cli
 from distributed_oracle_search_tpu_torch.cli import offline as offline_cli
 from distributed_oracle_search_tpu_torch.cli import reorder as reorder_cli
 from distributed_oracle_search_tpu_torch.data import (
@@ -479,7 +522,7 @@ from distributed_oracle_search_tpu_torch.models import (
 )
 from distributed_oracle_search_tpu_torch.models import streamed
 from distributed_oracle_search_tpu_torch.models.cpd import (
-    build_worker_shard, write_index_manifest,
+    build_worker_shard, read_manifest, write_index_manifest,
 )
 from distributed_oracle_search_tpu_torch.obs import device as obs_device
 from distributed_oracle_search_tpu_torch.obs import metrics as obs_metrics
@@ -527,7 +570,7 @@ from distributed_oracle_search_tpu_torch.transport import resilience, rpc
 from distributed_oracle_search_tpu_torch.transport.wire import (
     read_results_file, results_file_for,
 )
-from distributed_oracle_search_tpu_torch.utils import cuda_build
+from distributed_oracle_search_tpu_torch.utils import cuda_build, nativebin
 from distributed_oracle_search_tpu_torch.utils.atomicio import digest_file
 from distributed_oracle_search_tpu_torch.utils.config import ClusterConfig
 from distributed_oracle_search_tpu_torch.worker import engine as eng
@@ -577,6 +620,32 @@ HOST_WORKERS = 8
 HOST_SEND_TIMEOUT_S = 60
 HOST_READY_S = 300
 HOST_STOP_S = 60
+#: the supervise phase: the worker SIGKILLed as its second round starts,
+#: the seconds its respawn may take to answer a ping, the servers'
+#: telemetry cadence, and the head's send timeout (a batch whose write
+#: to the killed server's FIFO waits it out retries on the respawn's)
+SUP_KILLED = 3
+SUP_RESPAWN_S = 180
+SUP_TELEMETRY_S = "1"
+SUP_SEND_TIMEOUT_S = 8
+#: ``make_fifos`` whose command FIFOs are ``<argv[1]>/worker<wid>.fifo``
+#: (the supervisor names its servers' FIFOs by
+#: ``transport.fifo.command_fifo_path``), so the supervised fleet's
+#: FIFOs and telemetry sidecars live in this run's directory, not at the
+#: fixed ``/tmp`` paths; the rest of argv is ``cli.make_fifos``'s
+SUPERVISE_IN_DIR = (
+    "import os, sys\n"
+    "from distributed_oracle_search_tpu_torch.cli import make_fifos\n"
+    "from distributed_oracle_search_tpu_torch.transport import fifo\n"
+    "fifo.command_fifo_path = lambda wid: os.path.join(\n"
+    "    sys.argv[1], f'worker{wid}.fifo')\n"
+    "sys.exit(make_fifos.main(sys.argv[2:]))\n")
+#: the native phase: ``mod`` over 8 workers of an ``OFFLINE_LOCAL_NODES``
+#: road network (the campaign graph's 65,536 targets would take the host
+#: builder minutes), and the seeded targets whose queries hold the
+#: hierarchy's and the walk's costs to Dijkstra
+NATIVE_WORKERS = 8
+NATIVE_GOLDEN_TARGETS = 256
 #: the rpc phase: the worker killed mid-batch (its shard's replica is on
 #: the next worker) and the worker serving --obs-port
 RPC_KILLED = 3
@@ -781,9 +850,10 @@ DECODE_REPS = 5
 #: server loads: 268 MB, not the campaign's 4 GiB)
 OFFLINE_PARTS = 4
 OFFLINE_LOCAL_NODES = 16_384
-#: the lanes phase: the road engine over [cuda:0] * L for each L, the
-#: lane count of the one-block lane build, the replica rank pinned
-LANE_COUNTS = (2, 4)
+#: the lanes phase: the road engine over [cuda:0] * L for each L (L = 4
+#: cut: on one card L lanes cost ~L launches, PERF.md §6), the lane
+#: count of the one-block lane build, the replica rank pinned
+LANE_COUNTS = (2,)
 LANE_BUILD_LANES = 2
 LANE_REPLICA = 1
 #: the multihost phase: controllers, and the seconds each may run
@@ -2496,9 +2566,10 @@ def multihost_path(outdir: str, ref: dict) -> dict:
     """``[multihost]``: two ``process_query`` controllers, new
     interpreters on ``cuda:0`` joined by gloo through a free port on
     127.0.0.1, run the campaign's conf plus a ``multihost`` key with ``-k
-    8 --extract``: resident (each holds and walks 4 of the 8 workers),
-    then streamed (each streams its own workers' rows, range chunks
-    uploaded raw). Process 0 alone writes the artifacts, equal to the
+    8 --extract``: resident (each holds and walks 4 of the 8 workers)
+    and streamed (each streams its own workers' rows, range chunks
+    uploaded raw), the two pairs at once. Process 0 alone writes the
+    artifacts, equal to the
     single controller's of ``[campaign]`` and ``[streamed-campaign]``;
     each controller's log names the card and its B1 launches (one a
     round resident, one a chunk streamed; no plain walk); the streamed
@@ -2536,17 +2607,42 @@ def multihost_path(outdir: str, ref: dict) -> dict:
                          os.path.join(outdir, f"out-streamed-k{CAMPAIGN_K}",
                                       "paths.csv"))}
     out: dict = {"launches": 0, "single_bytes": single_bytes, "plans": {}}
-    for plan, env_add in (("resident", {}),
-                          ("streamed", MULTIHOST_STREAM_KNOBS)):
-        mconf = os.path.join(outdir, f"conf-mh-{plan}.json")
-        with open(mconf, "w") as f:
+    # the two plans' controller pairs run at once, each pair its own gloo
+    # group on its own port
+    plans = (("resident", {}), ("streamed", MULTIHOST_STREAM_KNOBS))
+    ran: dict = {}
+    ports: list[int] = []
+    while len(ports) < len(plans):
+        port = _free_port()
+        if port not in ports:
+            ports.append(port)
+    for (plan, _), port in zip(plans, ports):
+        with open(os.path.join(outdir, f"conf-mh-{plan}.json"), "w") as f:
             json.dump(dict(conf, multihost={
-                "coordinator": f"127.0.0.1:{_free_port()}",
+                "coordinator": f"127.0.0.1:{port}",
                 "num_processes": MULTIHOST_PROCS}), f)
+
+    def run_plan(plan, env_add):
+        mconf = os.path.join(outdir, f"conf-mh-{plan}.json")
         t0 = time.perf_counter()
-        reports = run_controllers(tag, mconf, outdir, plan, k_args, env_add)
-        wall = time.perf_counter() - t0
-        card = card_line()
+        try:
+            ran[plan] = (run_controllers(tag, mconf, outdir, plan, k_args,
+                                         env_add),
+                         time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            ran[plan] = e
+
+    threads = [threading.Thread(target=run_plan, args=p) for p in plans]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for plan, _ in plans:
+        if isinstance(ran[plan], BaseException):
+            raise ran[plan]
+    card = card_line()
+    for plan, _ in plans:
+        reports, wall = ran[plan]
         for pid, rep in enumerate(reports):
             if (rep["process"], rep["processes"]) != (pid, MULTIHOST_PROCS):
                 raise AssertionError(f"{tag} {plan}: controller {pid} "
@@ -2592,7 +2688,8 @@ def multihost_path(outdir: str, ref: dict) -> dict:
                 raise AssertionError(f"{tag} wire bytes {wire} do not split "
                                      f"one controller's {single_bytes}")
             entry["wire_bytes"] = wire
-        log(f"{tag} {plan}: two controllers in {wall:.2f} s; process 0's "
+        log(f"{tag} {plan}: two controllers in {wall:.2f} s (both plans' "
+            f"pairs at once); process 0's "
             "parts.csv (every column but the timers) and paths.csv equal "
             "the single controller's; process 1 wrote nothing")
         out["launches"] += sum(entry["walk_launches"])
@@ -2601,8 +2698,23 @@ def multihost_path(outdir: str, ref: dict) -> dict:
 
 
 def run() -> list[dict]:
-    # ---- 1. card + kernel builds: one nvcc a source, started together
+    # ---- 1. card + kernel builds: one nvcc a source, started together;
+    # beside them, host work that needs no card: the native engine's
+    # build and [road]'s graph read through DIMACS
     log(card_line())
+    work = os.path.join(ROOT, "build")
+    os.makedirs(work, exist_ok=True)
+    native_make = NativeMake().start()
+    dimacs: dict = {}
+
+    def read_dimacs():
+        try:
+            dimacs["g"] = road_graph_via_dimacs(work)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            dimacs["error"] = e
+
+    th_dimacs = threading.Thread(target=read_dimacs)
+    th_dimacs.start()
     t0 = time.perf_counter()
     sources = (cw.KERNEL_NAME, cbk.KERNEL_NAME, cd.KERNEL_NAME,
                ca.KERNEL_NAME)
@@ -2629,12 +2741,13 @@ def run() -> list[dict]:
         log(f"[build] {name}: nvcc {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
             log(f"[build]   {line.strip()}")
-    work = os.path.join(ROOT, "build")
-    os.makedirs(work, exist_ok=True)
 
-    # ---- 2. road path
+    # ---- 2. road path, its graph read through DIMACS
+    th_dimacs.join()
+    if "error" in dimacs:
+        raise dimacs["error"]
+    g = dimacs.pop("g")
     t0 = time.perf_counter()
-    g = synth_road_network(N_NODES, seed=SEED)
     dc = DistributionController("mod", MAXWORKER, MAXWORKER, g.n,
                                 block_size=ROAD_BLOCK)
     log(f"[graph] n={g.n} m={g.m} K={g.max_out_degree} "
@@ -2710,6 +2823,18 @@ def run() -> list[dict]:
         log(f"[offline] done at {time.perf_counter() - T_START:.1f} s")
         host, build_launches["host"], handoff = host_path(outdir, ref)
         log(f"[host] done at {time.perf_counter() - T_START:.1f} s")
+        native_out: dict = {}
+
+        def native_phase():
+            native_out["entry"], native_out["counts"] = native_path(
+                outdir, native_make)
+            log(f"[native] done at {time.perf_counter() - T_START:.1f} s")
+
+        # [native] runs while the supervisor starts its servers
+        supervised = supervise_path(ref, handoff, during=native_phase)
+        log(f"[supervise] done at {time.perf_counter() - T_START:.1f} s")
+        native, build_launches["native"] = (native_out["entry"],
+                                            native_out["counts"])
         heal, build_launches["heal"] = heal_path(
             ref, handoff, os.path.join(outdir, "index"))
         log(f"[heal] done at {time.perf_counter() - T_START:.1f} s")
@@ -2739,7 +2864,8 @@ def run() -> list[dict]:
         "streamed-campaign": stream_campaign["launches"],
         "offline": offline["launches"],
         "offline-local": offline["local_launches"],
-        "host": host["launches"], "heal": heal["launches"],
+        "host": host["launches"], "supervise": supervised["launches"],
+        "native": native["launches"], "heal": heal["launches"],
         "rpc": rpc_run["launches"], "serve": serve["launches"],
         "planes": planes["launches"], "gateway": gateway["launches"],
         "lanes": lanes["launches"], "multihost": mh["launches"]}
@@ -2755,6 +2881,8 @@ def run() -> list[dict]:
     raw_kernel["offline"] = offline
     raw_kernel["campaign"] = campaign
     raw_kernel["host"] = host
+    raw_kernel["supervise"] = supervised
+    raw_kernel["native"] = native
     raw_kernel["heal"] = heal
     raw_kernel["rpc"] = rpc_run
     raw_kernel["serve"] = serve
@@ -2852,6 +2980,65 @@ def check_build_launches(path: str, tag: str) -> dict[str, int]:
         if counts[name] <= 0:
             raise AssertionError(f"{tag} the build never launched {name}")
     return counts
+
+
+def write_dimacs(g, gr: str, co: str) -> None:
+    """``g`` as DIMACS 9th-challenge ``.gr``/``.co`` files, 1-indexed
+    (``p sp n m`` and ``a u v w`` lines; ``p aux sp co n`` and ``v i x
+    y`` lines), as the JAX package's test helper writes them."""
+    with open(gr, "w") as f:
+        f.write(f"c synthetic road, DIMACS format\np sp {g.n} {g.m}\n")
+        np.savetxt(f, np.stack([g.src + 1, g.dst + 1, g.w], axis=1),
+                   fmt="a %d %d %d")
+    with open(co, "w") as f:
+        f.write(f"p aux sp co {g.n}\n")
+        np.savetxt(f, np.stack([np.arange(1, g.n + 1), g.xs, g.ys],
+                               axis=1), fmt="v %d %d %d")
+
+
+def road_graph_via_dimacs(work: str):
+    """``[road]``'s graph, read through DIMACS: the USA-road-d.NY
+    stand-in written as ``.gr``/``.co``, converted by the port's
+    ``python -m ...data.dimacs``, the ``.xy`` held byte-equal to
+    ``write_xy`` of the same graph; the graph read from that ``.xy``
+    (array by array the generator's)."""
+    t_all = time.perf_counter()
+    g0 = synth_road_network(N_NODES, seed=SEED)
+    d = tempfile.mkdtemp(prefix="chip-smoke-dimacs-", dir=work)
+    try:
+        gr, co, xy, direct = (os.path.join(d, f) for f in (
+            "road.gr", "road.co", "road.xy", "direct.xy"))
+        t0 = time.perf_counter()
+        write_dimacs(g0, gr, co)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        conv = subprocess.run(
+            [sys.executable, "-m", "distributed_oracle_search_tpu_torch.data."
+             "dimacs", "--gr", gr, "--co", co, "-o", xy],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        conv_s = time.perf_counter() - t0
+        if conv.returncode:
+            raise AssertionError(f"[road] DIMACS conversion: rc "
+                                 f"{conv.returncode}\n{conv.stderr[-2000:]}")
+        write_xy(direct, g0.xs, g0.ys, g0.src, g0.dst, g0.w)
+        with open(xy, "rb") as f, open(direct, "rb") as h:
+            if f.read() != h.read():
+                raise AssertionError("[road] the DIMACS .xy differs from "
+                                     "write_xy's of the same graph")
+        sizes = (os.path.getsize(gr), os.path.getsize(co))
+        g = Graph.from_xy(xy)
+        for name in ("xs", "ys", "src", "dst", "w"):
+            if not np.array_equal(getattr(g, name), getattr(g0, name)):
+                raise AssertionError(f"[road] the graph read from the "
+                                     f"DIMACS .xy differs in {name}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[road] graph read through DIMACS: .gr/.co of {sizes[0]} + "
+        f"{sizes[1]} B written in {write_s:.2f} s, converted by "
+        f"data.dimacs in {conv_s:.2f} s ({conv.stdout.strip()}); the .xy "
+        "byte-equal to write_xy's, the graph read from it array by array "
+        f"the generator's ({time.perf_counter() - t_all:.2f} s in all)")
+    return g
 
 
 def road_path(g, dc, outdir):
@@ -4520,6 +4707,665 @@ def host_path(outdir: str, ref: dict) -> tuple[dict, dict[str, int], dict]:
                 "paths_in_order": in_order}
 
 
+# ------------------------------------------------------------ supervise path
+
+def parts_rows(path: str, expe: str = "0") -> list[dict]:
+    """One round's ``parts.csv`` rows (a worker's a row, in worker
+    order), without the timer columns."""
+    return [{k: v for k, v in r.items() if not k.startswith("t_")}
+            for r in read_parts(path) if r["expe"] == expe]
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether ``pid`` is a live process (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def wait_supervisor(port: int, sup, w: int, deadline_s: float) -> dict:
+    """The supervisor's ``/statusz`` section once it answers: its obs
+    server starts only after every worker answered its ping."""
+    deadline = time.perf_counter() + deadline_s
+    while time.perf_counter() < deadline:
+        if sup.poll() is not None:
+            raise AssertionError(f"[supervise] the supervisor exited "
+                                 f"{sup.returncode} before its workers "
+                                 "were ready")
+        try:
+            st = statusz(port)["supervisor"]
+        except OSError:
+            time.sleep(0.2)
+            continue
+        if st["alive"] == w and all(x["healthy_once"]
+                                    for x in st["workers"].values()):
+            return st
+        time.sleep(0.2)
+    raise AssertionError(f"[supervise] no ready fleet on /statusz within "
+                         f"{deadline_s} s")
+
+
+def supervise_path(ref: dict, host: dict, during=None) -> dict:
+    """``make_fifos --supervise --device cuda`` as a subprocess over
+    ``[host]``'s built index (``mod`` over 8 ``localhost`` workers, no
+    rebuild): the supervisor launches the 8 port servers on the card and
+    pings them; a ``process_query --backend host`` round equals
+    ``[host]``'s; worker 3's server is SIGKILLed as the second round
+    starts, and that round either ends degraded naming worker 3 (exit
+    ``EXIT_DEGRADED``) or is served after the respawn; the supervisor
+    respawns worker 3 (``supervisor_respawns_total`` 1 on ``/metrics``)
+    and a third round, traced, equals the first; ``dos-control --once
+    --dry-run`` over the fleet's FIFO directory; ``dos-obs top`` renders
+    the supervisor's ``/statusz``; SIGINT stops the supervisor and every
+    child; the servers' dumps (the respawned one's too) show the card, B1
+    launches == batches + program keys and no plain walk, and ``dos-obs
+    merge-metrics`` sums them; ``dos-obs merge-traces`` writes the third
+    round's trace as one Perfetto document. ``during()``, when given,
+    runs while the supervisor starts its servers (a thread reads
+    ``/statusz`` meanwhile for the fleet's ready time)."""
+    tag = "[supervise]"
+    t_phase = time.perf_counter()
+    w = HOST_WORKERS
+    card = torch.cuda.get_device_name(0)
+    run_dir = tempfile.mkdtemp(prefix="supervise-",
+                               dir=os.path.dirname(host["index"]))
+    nfs = os.path.join(run_dir, "nfs")
+    os.makedirs(nfs)
+    conf = os.path.join(run_dir, "conf.json")
+    with open(conf, "w") as f:
+        json.dump({"workers": ["localhost"] * w, "partmethod": "mod",
+                   "partkey": w, "outdir": host["index"], "nfs": nfs,
+                   "projectdir": ROOT, "xy_file": ref["xy"],
+                   "scenfile": ref["scen"], "diffs": ["-"]}, f)
+    fifos = {x: os.path.join(run_dir, f"worker{x}.fifo") for x in range(w)}
+    dump = os.path.join(run_dir, "serve")
+    outs = [os.path.join(run_dir, f"round{i}") for i in (1, 2, 3)]
+    trace = os.path.join(run_dir, "round3.trace.json")
+    port = free_port()
+    env = dict(os.environ, DOS_TELEMETRY_INTERVAL_S=SUP_TELEMETRY_S)
+    env.pop("DOS_OBS_PORT", None)
+    sup_log = os.path.join(run_dir, "supervisor.log")
+    prior_timeout = os.environ.get("DOS_SEND_TIMEOUT_S")
+    real = (process_query.command_fifo_path, fifo_transport.command_fifo_path,
+            process_query.fan_out)
+    pids: set[int] = set()
+    sup = None
+    try:
+        t_launch = time.perf_counter()
+        with open(sup_log, "w") as lf:
+            sup = subprocess.Popen(
+                [sys.executable, "-c", SUPERVISE_IN_DIR, run_dir, "-c", conf,
+                 "--supervise", "--device", "cuda", "--obs-port", str(port),
+                 "--metrics-dump", dump],
+                cwd=ROOT, env=env, stdout=lf, stderr=subprocess.STDOUT)
+        up: dict = {}
+        if during is not None:
+            stop_up = threading.Event()
+
+            def watch_up():
+                while not stop_up.wait(0.2):
+                    try:
+                        statusz(port)
+                    except OSError:
+                        continue
+                    up.setdefault("s", time.perf_counter() - t_launch)
+                    return
+
+            th_up = threading.Thread(target=watch_up, daemon=True)
+            th_up.start()
+            try:
+                during()
+            finally:
+                stop_up.set()
+                th_up.join(timeout=30)
+        st = wait_supervisor(port, sup, w, HOST_READY_S)
+        ready_s = up.get("s", time.perf_counter() - t_launch)
+        os.environ["DOS_SEND_TIMEOUT_S"] = str(SUP_SEND_TIMEOUT_S)
+        process_query.command_fifo_path = fifos.__getitem__
+        fifo_transport.command_fifo_path = fifos.__getitem__
+        first = {int(x): v["pid"] for x, v in st["workers"].items()}
+        pids |= set(first.values())
+        log(f"{tag} make_fifos --supervise --device cuda: {w} servers "
+            f"ready by the supervisor's pings {ready_s:.2f} s after its "
+            f"launch{' ([native] running meanwhile)' if during else ''} "
+            f"(pids {sorted(first.values())}); ping every "
+            f"{st['ping_interval_s']} s")
+
+        # round 1: the fleet answers as [host]'s did
+        t0 = time.perf_counter()
+        rcs = [process_query.main(["-c", conf, "-o", outs[0]])]
+        round_s = [time.perf_counter() - t0]
+        rows1 = parts_rows(os.path.join(outs[0], "parts.csv"))
+        want = [{k: v for k, v in r.items() if not k.startswith("t_")}
+                for r in host["parts"] if r["expe"] == "0"]
+        if rcs[0] or rows1 != want:
+            raise AssertionError(f"{tag} round 1: rc {rcs[0]}, rows "
+                                 f"{rows1} != [host]'s {want}")
+
+        # round 2: worker 3's server SIGKILLed as the round's sends start;
+        # a thread reads /statusz from then on: when the respawn started
+        # (a new pid) and when it first answered the supervisor's ping
+        victim = first[SUP_KILLED]
+        killed: dict = {}
+        seen: dict = {}
+        stop_watch = threading.Event()
+
+        def watch():
+            while not stop_watch.wait(0.1):
+                try:
+                    x = statusz(port)["supervisor"]["workers"][
+                        str(SUP_KILLED)]
+                except OSError:
+                    continue
+                now = time.perf_counter() - killed["t"]
+                if x["pid"] != victim:
+                    seen.setdefault("spawned", (now, x["pid"]))
+                    if x["healthy_once"]:
+                        seen.setdefault("healthy", now)
+
+        def kill_then_fan_out(jobs, fn, *a, **kw):
+            if not killed:
+                # a reader held on the server's FIFO: the head's write of
+                # its batch there then completes (the transfer script
+                # goes on to its bounded answer read) instead of blocking
+                # for ever in open() once the server is dead and its
+                # respawn has replaced the FIFO
+                killed["hold"] = os.open(fifos[SUP_KILLED],
+                                         os.O_RDONLY | os.O_NONBLOCK)
+                os.kill(victim, signal.SIGKILL)
+                killed["t"] = time.perf_counter()
+                watcher.start()
+            return real[2](jobs, fn, *a, **kw)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        process_query.fan_out = kill_then_fan_out
+        try:
+            t0 = time.perf_counter()
+            rcs.append(process_query.main(["-c", conf, "-o", outs[1]]))
+            round_s.append(time.perf_counter() - t0)
+        finally:
+            process_query.fan_out = real[2]
+            if "hold" in killed:
+                os.close(killed["hold"])
+        degraded = os.path.join(outs[1], "degraded.json")
+        if rcs[1] == process_query.EXIT_DEGRADED:
+            with open(degraded) as f:
+                dj = json.load(f)
+            if dj["failed_workers"] != [SUP_KILLED] or dj["exit_code"] != 3:
+                raise AssertionError(f"{tag} round 2's degraded.json: {dj}")
+            how = (f"ended degraded (exit {rcs[1]}, degraded.json names "
+                   f"worker {SUP_KILLED} only)")
+        elif rcs[1] == 0 and not os.path.exists(degraded):
+            rows2 = parts_rows(os.path.join(outs[1], "parts.csv"))
+            if rows2 != rows1:
+                raise AssertionError(f"{tag} round 2 {rows2} != round 1")
+            how = ("was served after the respawn (exit 0, rows equal "
+                   "round 1's)")
+        else:
+            raise AssertionError(f"{tag} round 2 exit {rcs[1]}")
+
+        # the respawn: a new pid, answering the supervisor's pings
+        deadline = time.perf_counter() + SUP_RESPAWN_S
+        while "healthy" not in seen:
+            if sup.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"{tag} worker {SUP_KILLED} not "
+                                     f"respawned: {seen}")
+            time.sleep(0.1)
+        stop_watch.set()
+        watcher.join(timeout=30)
+        st = statusz(port)["supervisor"]
+        s3 = st["workers"][str(SUP_KILLED)]
+        spawned_s, new_pid = seen["spawned"]
+        respawn_s = seen["healthy"]
+        pids.add(new_pid)
+        respawns = metric_value(port, "supervisor_respawns_total")
+        alive = metric_value(port, "supervisor_workers_alive")
+        # the respawn starts within the first backoff step: the monitor
+        # tick that sees the death schedules it 0.5 s out, a later tick
+        # spawns it (a tick waits the ping interval, then pings each
+        # live server in turn)
+        late = spawned_s > 4 * st["ping_interval_s"] + 0.5
+        if (respawns != 1 or st["alive"] != w or s3["respawns"] != 1
+                or s3["pid"] != new_pid or late):
+            raise AssertionError(f"{tag} /metrics supervisor_respawns_total "
+                                 f"{respawns}, respawn after {spawned_s:.2f}"
+                                 f" s, /statusz {st}")
+        log(f"{tag} worker {SUP_KILLED} (pid {victim}) SIGKILLed as round "
+            f"2 started; round 2 {how} in {round_s[1]:.2f} s; the "
+            f"supervisor spawned pid {new_pid} {spawned_s:.2f} s after "
+            f"the kill (a ping every {st['ping_interval_s']} s, then the "
+            f"0.5 s first backoff step), answering its ping "
+            f"{respawn_s:.2f} s after it; /metrics "
+            f"supervisor_respawns_total {respawns:g}, "
+            f"supervisor_workers_alive {alive:g}")
+
+        # round 3, traced: every worker answers, rows equal round 1's
+        t0 = time.perf_counter()
+        rcs.append(process_query.main(["-c", conf, "-o", outs[2],
+                                       "--trace", trace]))
+        round_s.append(time.perf_counter() - t0)
+        obs_trace.enable(False)
+        obs_trace.set_trace_id(None)
+        obs_trace.clear()
+        rows3 = parts_rows(os.path.join(outs[2], "parts.csv"))
+        if (rcs[2] or rows3 != rows1 or len(rows3) != w
+                or any(r["finished"] != r["size"] for r in rows3)):
+            raise AssertionError(f"{tag} round 3: rc {rcs[2]}, rows "
+                                 f"{rows3} != round 1's {rows1}")
+        log(f"{tag} round 3 served by all {w} workers, rows equal round "
+            f"1's; rounds {', '.join(f'{x:.3f}' for x in round_s)} s "
+            f"({len(ref['queries'])} queries each)")
+
+        # dos-control, standalone over the fleet's FIFO directory
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = control_cli.main(["-c", conf, "--once", "--dry-run",
+                                   "--fifo-dir", run_dir])
+        ctl_s = time.perf_counter() - t0
+        said = buf.getvalue().strip()
+        probes = {x: fifo_transport.probe("localhost", x,
+                                          command_fifo=fifos[x], nfs=nfs,
+                                          timeout=10.0)
+                  for x in range(w)}
+        if rc or said != "no action" or not all(
+                p is not None and p.ok for p in probes.values()):
+            raise AssertionError(f"{tag} dos-control: rc {rc}, {said!r}; "
+                                 f"probes {probes}")
+        log(f"{tag} dos-control --once --dry-run --fifo-dir: rc 0, one "
+            f"tick with no decision ({said!r}) in {ctl_s:.2f} s; the 8 "
+            "servers each answer its transport.fifo.probe healthy (pids "
+            f"{sorted(p.pid for p in probes.values())})")
+
+        # dos-obs top over the supervisor's /statusz
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = obs_cli.main(["top", "--endpoints", f"127.0.0.1:{port}"])
+        table = buf.getvalue().strip().splitlines()
+        cols = table[0].split()
+        row = table[-1].split()
+        top = dict(zip(cols, row))
+        if rc or top.get("alive") != str(w) or top.get("respawns") != "1":
+            raise AssertionError(f"{tag} dos-obs top: rc {rc}, {table}")
+        log(f"{tag} dos-obs top --endpoints 127.0.0.1:{port}: "
+            + " | ".join(table))
+        live = {int(x): v["pid"] for x, v in st["workers"].items()}
+
+        # SIGINT: the supervisor stops every server on its token
+        t0 = time.perf_counter()
+        sup.send_signal(signal.SIGINT)
+        sup_rc = sup.wait(timeout=HOST_STOP_S)
+        stop_s = time.perf_counter() - t0
+        left = sorted(p for p in pids if pid_alive(p))
+        if sup_rc != 0 or left:
+            raise AssertionError(f"{tag} SIGINT: supervisor exit {sup_rc}, "
+                                 f"processes left {left}")
+        log(f"{tag} SIGINT: the supervisor exited 0 in {stop_s:.2f} s; "
+            f"none of its {len(pids)} server processes is left")
+    except BaseException:
+        if os.path.exists(sup_log):
+            with open(sup_log, errors="replace") as f:
+                log(f"{tag} --- supervisor log (last 3000 characters) "
+                    f"---\n{f.read()[-3000:]}")
+        raise
+    finally:
+        (process_query.command_fifo_path, fifo_transport.command_fifo_path,
+         process_query.fan_out) = real
+        if prior_timeout is None:
+            os.environ.pop("DOS_SEND_TIMEOUT_S", None)
+        else:
+            os.environ["DOS_SEND_TIMEOUT_S"] = prior_timeout
+        if sup is not None and sup.poll() is None:
+            sup.send_signal(signal.SIGINT)
+            try:
+                sup.wait(timeout=HOST_STOP_S)
+            except subprocess.TimeoutExpired:
+                sup.kill()
+                sup.wait(timeout=30)
+        for p in pids:
+            if pid_alive(p):
+                os.kill(p, signal.SIGKILL)
+
+    # the dumps: each server on the card, B1 = batches + program keys
+    dumps = [f"{dump}.w{x}.json" for x in range(w)]
+    launches, batches = 0, []
+    for x, path in enumerate(dumps):
+        with open(path) as f:
+            sv = json.load(f)
+        c = sv["counters"]
+        if (sv["device"]["type"] != "cuda" or sv["device"]["name"] != card
+                or sv["pid"] != live[x]
+                or c["cuda_walk_batch.launches"]
+                != c["worker_batches_total"] + len(sv["device_programs"])
+                or c["cuda_walk_batch.plain"] != 0):
+            raise AssertionError(f"{tag} server {x}'s dump: pid "
+                                 f"{sv['pid']}, device {sv['device']}, {c}")
+        launches += c["cuda_walk_batch.launches"]
+        batches.append(c["worker_batches_total"])
+    with open(dumps[SUP_KILLED]) as f:
+        re3 = json.load(f)
+    log(f"{tag} the respawned worker {SUP_KILLED}'s dump (pid "
+        f"{re3['pid']}): device {re3['device']['name']!r}, B1 launches "
+        f"{re3['counters']['cuda_walk_batch.launches']} == "
+        f"{re3['counters']['worker_batches_total']} batches + "
+        f"{len(re3['device_programs'])} program key(s), plain walks 0; "
+        f"batches a server {batches}, B1 launches over all {launches}")
+
+    # dos-obs: the dumps merged, the trace written as one document
+    fleet_doc = os.path.join(run_dir, "fleet.json")
+    merged = os.path.join(run_dir, "merged.trace.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rcs_obs = [obs_cli.main(["merge-metrics", *dumps, "-o", fleet_doc]),
+                   obs_cli.main(["merge-traces", trace, "-o", merged])]
+    with open(fleet_doc) as f:
+        doc = json.load(f)
+    with open(merged) as f:
+        evs = json.load(f)["traceEvents"]
+    searches = {ev["pid"] for ev in evs if ev["name"] == "worker.search"}
+    summed = doc["fleet"]["counters"]["cuda_walk_batch.launches"]
+    if (rcs_obs != [0, 0] or doc["n_workers"] != w or summed != launches
+            or searches != set(live.values())):
+        raise AssertionError(f"{tag} dos-obs: rc {rcs_obs}, {doc['n_workers']}"
+                             f" snapshots, B1 {summed} != {launches}; "
+                             f"worker.search pids {sorted(searches)}")
+    log(f"{tag} dos-obs merge-metrics of the {w} dumps: B1 launches "
+        f"{summed} (their sum); merge-traces: one Perfetto document of "
+        f"{len(evs)} events, worker.search spans from the {w} live "
+        f"servers' pids; phase {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return {"launches": launches, "ready_s": ready_s, "round_s": round_s,
+            "round2": how, "spawned_s": spawned_s, "respawn_s": respawn_s,
+            "stop_s": stop_s, "control_s": ctl_s,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+# ------------------------------------------------------------ native path
+
+def native_servers(conf: str, fifos: dict, alg: str, out: str,
+                   tag: str) -> tuple[int, float, float]:
+    """``make_fifos --engine native`` (``fifo_auto`` a worker, tracked)
+    serving ``alg``, one ``process_query --backend host`` round over
+    them into ``out``, then every server stopped on its token. Returns
+    (the round's exit code, seconds to every FIFO, the round's
+    seconds)."""
+    for f in fifos.values():
+        if os.path.exists(f):
+            os.remove(f)
+    t0 = time.perf_counter()
+    procs = dict(make_fifos.launch_servers(
+        ClusterConfig.load(conf), conf, track=True, alg=alg,
+        engine="native"))
+    try:
+        deadline = time.perf_counter() + HOST_READY_S
+        while not all(os.path.exists(f) for f in fifos.values()):
+            dead = {x: p.poll() for x, p in procs.items()
+                    if p.poll() is not None}
+            if dead or time.perf_counter() > deadline:
+                raise AssertionError(f"{tag} fifo_auto --alg {alg}: exited "
+                                     f"{dead} before its FIFO")
+            time.sleep(0.05)
+        ready_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc = process_query.main(["-c", conf, "-o", out])
+        round_s = time.perf_counter() - t0
+    finally:
+        exits = stop_servers(fifos, procs)
+    if any(exits.values()):
+        raise AssertionError(f"{tag} fifo_auto --alg {alg} exit codes "
+                             f"{exits}")
+    return rc, ready_s, round_s
+
+
+class NativeMake:
+    """``make -C native fast`` on a thread of its own, with the
+    Makefile's own compiler (``CXX ?= g++``: a CXX the environment sets
+    may name a toolchain without OpenMP's runtime): the repo's C++
+    sources built into ``native/build/``. :meth:`wait` returns the
+    finished process, its seconds and the compiler's version line."""
+
+    def __init__(self):
+        self.result: tuple | BaseException | None = None
+        # not a daemon: the interpreter waits for make at exit, so a
+        # phase that fails before [native] leaves no build running
+        self._thread = threading.Thread(target=self._run)
+
+    def _run(self):
+        try:
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("CXX", "CC")}
+            cxx = subprocess.run(["g++", "--version"], capture_output=True,
+                                 text=True, env=env,
+                                 timeout=60).stdout.split("\n")[0]
+            t0 = time.perf_counter()
+            mk = subprocess.run(
+                ["make", "-C", os.path.join(ROOT, "native"), "fast",
+                 f"-j{os.cpu_count()}"], capture_output=True, text=True,
+                env=env, timeout=900)
+            self.result = (mk, time.perf_counter() - t0, cxx)
+        except BaseException as e:  # noqa: BLE001 — re-raised by wait()
+            self.result = e
+
+    def start(self) -> "NativeMake":
+        self._thread.start()
+        return self
+
+    def wait(self) -> tuple:
+        self._thread.join()
+        if isinstance(self.result, BaseException):
+            raise self.result
+        return self.result
+
+
+def native_path(outdir: str, native_make: NativeMake
+                ) -> tuple[dict, dict[str, int]]:
+    """The native C++ engine beside the card, on a road network of
+    ``OFFLINE_LOCAL_NODES`` nodes ``mod`` over 8 ``localhost`` workers:
+    ``make -C native fast`` builds the repo's sources; ``make_cpds
+    --engine native`` (``make_cpd_auto`` a worker, OpenMP on the host)
+    and ``make_cpds --backend host`` (the port's ``worker.build`` a
+    worker, K1/K2 on the card) write byte-equal blocks and manifest
+    digests; ``make_fifos --engine native`` and a ``process_query
+    --backend host`` round over the 20,000 queries give the rows of the
+    port's engines walking the native index on the card (B1, launches ==
+    8 batches + new program keys, no plain walk); an ``--alg ch`` round
+    on ``fifo_auto`` finishes every query, and on the queries to seeded
+    targets the hierarchy's costs (``ch_check``) and the walk's
+    (scipy's Dijkstra) both equal Dijkstra's. Returns the phase's entry
+    and the build kernels' launches of the card's build processes."""
+    tag = "[native]"
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    cores = os.cpu_count()
+    mk, make_s, cxx = native_make.wait()
+    if mk.returncode:
+        raise AssertionError(f"{tag} make -C native fast: rc "
+                             f"{mk.returncode}\n{mk.stderr[-3000:]}")
+    bins = {n: nativebin.require_binary(n)
+            for n in ("make_cpd_auto", "fifo_auto", "ch_check")}
+    log(f"{tag} make -C native fast (run beside the kernel builds): "
+        f"{make_s:.2f} s on {cores} cores with {cxx!r} (the environment's "
+        f"CXX {os.environ.get('CXX')!r} left out); binaries "
+        f"{sorted(set(os.path.dirname(b) for b in bins.values()))}")
+
+    d = os.path.join(outdir, "native")
+    os.makedirs(d)
+    g0 = synth_road_network(OFFLINE_LOCAL_NODES, seed=SEED)
+    xy = os.path.join(d, "road.xy")
+    write_xy(xy, g0.xs, g0.ys, g0.src, g0.dst, g0.w)
+    g = Graph.from_xy(xy)
+    queries = make_queries(np.arange(g.n), g.n)
+    scen = os.path.join(d, "road.scen")
+    write_scen(scen, queries)
+    w = NATIVE_WORKERS
+    dc = DistributionController("mod", w, w, g.n)
+    nfs = os.path.join(d, "nfs")
+    os.makedirs(nfs)
+    confs, index = {}, {}
+    for name in ("native", "card"):
+        index[name] = os.path.join(d, f"index-{name}")
+        confs[name] = os.path.join(d, f"{name}.json")
+        with open(confs[name], "w") as f:
+            json.dump({"workers": ["localhost"] * w, "partmethod": "mod",
+                       "partkey": w, "outdir": index[name], "nfs": nfs,
+                       "projectdir": ROOT, "xy_file": xy,
+                       "scenfile": scen, "diffs": ["-"]}, f)
+
+    # the two builds: blocks byte-equal, manifests' digests equal
+    # the two builds at once: the native one on the host's cores, the
+    # card's in its 8 worker.build processes
+    build_dump = os.path.join(d, "build")
+    built: dict = {}
+
+    def build(name, argv):
+        t0 = time.perf_counter()
+        try:
+            built[name] = (make_cpds.main(argv), time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            built[name] = (e, time.perf_counter() - t0)
+
+    th = threading.Thread(target=build, args=("native", [
+        "-c", confs["native"], "--backend", "host", "--engine", "native"]))
+    th.start()
+    build("card", ["-c", confs["card"], "--backend", "host", "--device",
+                   "cuda", "--metrics-dump", build_dump])
+    th.join()
+    for rc, _ in built.values():
+        if isinstance(rc, BaseException):
+            raise rc
+    rcs = [built["native"][0], built["card"][0]]
+    native_s, card_s = built["native"][1], built["card"][1]
+    if rcs != [0, 0]:
+        raise AssertionError(f"{tag} make_cpds exit codes {rcs}")
+    blocks = {name: sorted(f for f in os.listdir(index[name])
+                           if f.startswith("cpd-") and f.endswith(".npy"))
+              for name in index}
+    if blocks["native"] != blocks["card"] or len(blocks["card"]) < w:
+        raise AssertionError(f"{tag} block files {blocks}")
+    for fname in blocks["card"]:
+        with open(os.path.join(index["native"], fname), "rb") as a, \
+                open(os.path.join(index["card"], fname), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{tag} {fname}: make_cpd_auto's "
+                                     "block differs from worker.build's")
+    digests = {name: read_manifest(index[name])["blocks"] for name in index}
+    if digests["native"] != digests["card"]:
+        raise AssertionError(f"{tag} manifest digests differ")
+    build_counts = {"relax_jacobi": 0, "first_moves": 0,
+                    "grid_sweep_cycle": 0}
+    for x in range(w):
+        with open(f"{build_dump}.w{x}.json") as f:
+            b = json.load(f)
+        check_build_dump(b, card)
+        build_counts["relax_jacobi"] += b["counters"]["relax_jacobi.launches"]
+        build_counts["first_moves"] += b["counters"]["first_moves.launches"]
+        build_counts["grid_sweep_cycle"] += \
+            b["counters"]["grid_sweep.launches"]
+    log(f"{tag} {g.n}-node road network, mod over {w}, the two builds at "
+        f"once: make_cpds --engine native (make_cpd_auto, {w} processes) "
+        f"{native_s:.2f} s; make_cpds --backend host on the card ({w} "
+        f"worker.build processes) {card_s:.2f} s, build kernel launches "
+        f"{build_counts}; "
+        f"the {len(blocks['card'])} block files byte-equal and the "
+        "manifests' digests equal")
+
+    # fifo_auto serving the native index; the port's engines walk it
+    fifos = {x: os.path.join(d, f"worker{x}.fifo") for x in range(w)}
+    names = (make_fifos.command_fifo_path, process_query.command_fifo_path)
+    make_fifos.command_fifo_path = process_query.command_fifo_path = \
+        fifos.__getitem__
+    outs = {alg: os.path.join(d, f"out-{alg}") for alg in ("walk", "ch")}
+    try:
+        rc, ready_s, round_s = native_servers(
+            confs["native"], fifos, "table-search", outs["walk"], tag)
+        rc_ch, ready_ch_s, round_ch_s = native_servers(
+            confs["native"], fifos, "ch", outs["ch"], tag)
+    except BaseException:
+        log_tails(nfs)
+        raise
+    finally:
+        make_fifos.command_fifo_path, process_query.command_fifo_path = \
+            names
+    if [rc, rc_ch] != [0, 0]:
+        raise AssertionError(f"{tag} process_query exit codes {rc}, {rc_ch}")
+    rows = {alg: parts_rows(os.path.join(out, "parts.csv"))
+            for alg, out in outs.items()}
+    owner = dc.worker_of(queries[:, 1])
+    cost = np.zeros(len(queries), np.int64)
+    plain0 = cw.cuda_walk_batch.plain
+    programs0 = set(obs_device.snapshot())
+    zero_launches()
+    t0 = time.perf_counter()
+    for x in range(w):
+        e = eng.ShardEngine(g, dc, x, index["native"], device="cuda")
+        sel = owner == x
+        c, _, _, stats = e.answer(queries[sel], RuntimeConfig(), "-")
+        cost[sel] = np.asarray(c)
+        row = rows["walk"][x]
+        got = (int(row["size"]), int(row["plen"]), int(row["finished"]))
+        if got != (int(sel.sum()), stats.plen, stats.finished):
+            raise AssertionError(f"{tag} worker {x}: fifo_auto's row {got} "
+                                 f"!= the port's engine {stats}")
+        del e
+    torch.cuda.synchronize()
+    engines_s = time.perf_counter() - t0
+    launches = read_launches()[0]
+    captured = len(set(obs_device.snapshot()) - programs0)
+    plain = cw.cuda_walk_batch.plain - plain0
+    if launches != w + captured or plain:
+        raise AssertionError(f"{tag} B1 launches {launches} (want {w} "
+                             f"batches + {captured} keys), plain {plain}")
+    log(f"{tag} make_fifos --engine native: {w} fifo_auto servers up in "
+        f"{ready_s:.2f} s, a process_query --backend host round of "
+        f"{len(queries)} queries in {round_s:.3f} s; each worker's row "
+        f"(size, plen, finished) equals the port's ShardEngine on the card "
+        f"over the native index ({engines_s:.2f} s for the 8 loads and "
+        f"walks; B1 launches {launches} = {w} batches + {captured} program "
+        f"keys, plain walks {plain})")
+
+    # --alg ch: every query finished; costs held to Dijkstra, as the walk's
+    sizes = [r["size"] for r in rows["walk"]]
+    if (any(r["size"] != r["finished"] for r in rows["ch"])
+            or [r["size"] for r in rows["ch"]] != sizes):
+        raise AssertionError(f"{tag} --alg ch rows {rows['ch']}")
+    rng = np.random.default_rng(SEED + 7)
+    tgts = rng.choice(np.unique(queries[:, 1]), NATIVE_GOLDEN_TARGETS,
+                      replace=False)
+    sel = np.isin(queries[:, 1], tgts)
+    golden = os.path.join(d, "golden.scen")
+    write_scen(golden, queries[sel])
+    t0 = time.perf_counter()
+    chk = subprocess.run([bins["ch_check"], xy, golden], capture_output=True,
+                         text=True, timeout=600)
+    check_s = time.perf_counter() - t0
+    dij = scipy_dijkstra(g, g.w, queries[sel])
+    if chk.returncode or not chk.stdout.startswith("CH_OK"):
+        raise AssertionError(f"{tag} ch_check: rc {chk.returncode} "
+                             f"{chk.stdout} {chk.stderr[-2000:]}")
+    if not np.array_equal(cost[sel], dij):
+        raise AssertionError(f"{tag} the walk's costs differ from "
+                             f"Dijkstra's on {int((cost[sel] != dij).sum())}"
+                             " golden queries")
+    hops = sum(int(r["plen"]) for r in rows["ch"])
+    log(f"{tag} --alg ch on fifo_auto: servers up in {ready_ch_s:.2f} s "
+        f"(the hierarchy built in each), a round in {round_ch_s:.3f} s, "
+        f"every query finished (hops {hops} beside the walk's "
+        f"{sum(int(r['plen']) for r in rows['walk'])}: equal-cost paths "
+        f"may differ in hops); on the {int(sel.sum())} queries to "
+        f"{NATIVE_GOLDEN_TARGETS} seeded targets the hierarchy's costs "
+        f"equal Dijkstra's (ch_check, {check_s:.2f} s: "
+        f"{chk.stdout.strip()}) and so do the walk's (scipy): the "
+        f"hierarchy's costs equal the free-flow walk's; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "make_s": make_s, "cores": cores,
+            "native_build_s": native_s, "card_build_s": card_s,
+            "ready_s": ready_s, "round_s": round_s, "ch_round_s": round_ch_s,
+            "phase_s": time.perf_counter() - t_phase}, build_counts
+
+
 # ----------------------------------------------------------------- heal path
 
 class HealTimer:
@@ -4817,40 +5663,9 @@ def heal_path(ref: dict, host: dict, campaign_index: str
             f"costs == the campaign's, paths == paths.csv) ({card_txt})")
         del engine
 
-        # 6. --adopt-shard in a process of its own heals the missing
-        # block; worker 6's flipped block heals through its engine
-        adopt_dump = os.path.join(os.path.dirname(conf), "heal-adopt.json")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m",
-             "distributed_oracle_search_tpu_torch.worker.build",
-             "--input", ref["xy"], "--partmethod", "mod", "--partkey",
-             str(w), "--workerid", "5", "--maxworker", str(w), "--outdir",
-             index, "--adopt-shard", "5", "--device", "cuda",
-             "--metrics-dump", adopt_dump],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        out["adopt_s"] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"{tag} --adopt-shard 5: rc "
-                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
-        with open(adopt_dump) as f:
-            adopt = json.load(f)
-        ac = adopt["counters"]
-        if (ac["reshard_blocks_adopted_total"] != 1
-                or ac["cpd_blocks_rebuilt_total"] != 1
-                or ac["relax_jacobi.launches"] <= 0
-                or ac["first_moves.launches"] <= 0
-                or adopt["device"]["name"] != card
-                or digest_file(os.path.join(index, name(5, 0)))
-                != orig[name(5, 0)]):
-            raise AssertionError(f"{tag} --adopt-shard 5 dump: {adopt}")
-        log(f"{tag} worker.build --adopt-shard 5 (its own process): "
-            f"{out['adopt_s']:.3f} s wall, {adopt['seconds']:.3f} s in "
-            f"adopt_shard_blocks; dump: device {adopt['device']['name']!r},"
-            f" K1 {ac['relax_jacobi.launches']}, K2 "
-            f"{ac['first_moves.launches']} launches, "
-            "reshard_blocks_adopted_total 1, cpd_blocks_rebuilt_total 1; "
-            f"crc32 == the manifest's ({card_txt})")
+        # 6. worker 6's flipped block heals through its engine; then
+        # --adopt-shard in a process of its own heals the missing block
+        # while step 7 runs here (the campaign index, another directory)
         eng.ShardEngine(g, dc, 6, index, device="cuda")
         w6_heal = ht.heals[-1]
         if (w6_heal["file"] != name(6, 0)
@@ -4863,35 +5678,84 @@ def heal_path(ref: dict, host: dict, campaign_index: str
             f" s; crc32 == the manifest's ({card_txt})")
         gc.collect()
         torch.cuda.empty_cache()
-
-        # 7. the in-process oracle on the campaign index
-        cdc = DistributionController("tpu", CAMPAIGN_WORKERS,
-                                     CAMPAIGN_WORKERS, g.n)
-        victim = os.path.join(campaign_index, name(2, 0))
-        c_digest = cpd.read_manifest(campaign_index)["blocks"][name(2, 0)][
-            "digest"]
-        truncate_half(victim)
+        adopt_dump = os.path.join(os.path.dirname(conf), "heal-adopt.json")
+        adopt_log = os.path.join(os.path.dirname(conf), "heal-adopt.log")
         t0 = time.perf_counter()
-        healed = cpd.CPDOracle(g, cdc, device="cuda").load(campaign_index,
-                                                           heal=True)
-        out["oracle_load_heal_s"] = time.perf_counter() - t0
-        oracle_heal = ht.heals[-1]
-        rows = np.load(victim)
-        if (digest_file(victim) != c_digest
-                or not np.array_equal(
-                    healed.fm[2, :len(rows)].cpu().numpy(), rows)):
-            raise AssertionError(f"{tag} CPDOracle.load(heal=True): the "
-                                 "healed block differs from the one before "
-                                 "the fault")
-        del rows
-        got = healed.query(queries)
-        for x, want in zip(got, ref["direct"]["free-flow"]):
-            if not np.array_equal(x, want):
-                raise AssertionError(f"{tag} the healed oracle's free-flow "
-                                     "answers differ from the campaign's")
-        del healed
-        gc.collect()
-        torch.cuda.empty_cache()
+        with open(adopt_log, "w") as lf:
+            adopt_proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "distributed_oracle_search_tpu_torch.worker.build",
+                 "--input", ref["xy"], "--partmethod", "mod", "--partkey",
+                 str(w), "--workerid", "5", "--maxworker", str(w),
+                 "--outdir", index, "--adopt-shard", "5", "--device", "cuda",
+                 "--metrics-dump", adopt_dump],
+                cwd=ROOT, stdout=lf, stderr=subprocess.STDOUT)
+
+        try:
+            # 7. the in-process oracle on the campaign index (the adopt
+            # process running beside it)
+            cdc = DistributionController("tpu", CAMPAIGN_WORKERS,
+                                         CAMPAIGN_WORKERS, g.n)
+            victim = os.path.join(campaign_index, name(2, 0))
+            c_digest = cpd.read_manifest(campaign_index)["blocks"][name(2, 0)][
+                "digest"]
+            truncate_half(victim)
+            t0 = time.perf_counter()
+            healed = cpd.CPDOracle(g, cdc, device="cuda").load(campaign_index,
+                                                               heal=True)
+            out["oracle_load_heal_s"] = time.perf_counter() - t0
+            oracle_heal = ht.heals[-1]
+            rows = np.load(victim)
+            if (digest_file(victim) != c_digest
+                    or not np.array_equal(
+                        healed.fm[2, :len(rows)].cpu().numpy(), rows)):
+                raise AssertionError(f"{tag} CPDOracle.load(heal=True): "
+                                     "the healed block differs from the "
+                                     "one before the fault")
+            del rows
+            got = healed.query(queries)
+            for x, want in zip(got, ref["direct"]["free-flow"]):
+                if not np.array_equal(x, want):
+                    raise AssertionError(f"{tag} the healed oracle's "
+                                         "free-flow answers differ from the "
+                                         "campaign's")
+            del healed
+            gc.collect()
+            torch.cuda.empty_cache()
+        except BaseException:
+            if adopt_proc.poll() is None:
+                adopt_proc.kill()
+                adopt_proc.wait(timeout=30)
+            raise
+        try:
+            adopt_rc = adopt_proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            adopt_proc.kill()
+            adopt_proc.wait(timeout=30)
+            raise
+        out["adopt_s"] = time.perf_counter() - t0
+        if adopt_rc != 0:
+            with open(adopt_log, errors="replace") as f:
+                raise AssertionError(f"{tag} --adopt-shard 5: rc {adopt_rc}"
+                                     f"\n{f.read()[-3000:]}")
+        with open(adopt_dump) as f:
+            adopt = json.load(f)
+        ac = adopt["counters"]
+        if (ac["reshard_blocks_adopted_total"] != 1
+                or ac["cpd_blocks_rebuilt_total"] != 1
+                or ac["relax_jacobi.launches"] <= 0
+                or ac["first_moves.launches"] <= 0
+                or adopt["device"]["name"] != card
+                or digest_file(os.path.join(index, name(5, 0)))
+                != orig[name(5, 0)]):
+            raise AssertionError(f"{tag} --adopt-shard 5 dump: {adopt}")
+        log(f"{tag} worker.build --adopt-shard 5 (its own process, beside "
+            f"the oracle's load): {out['adopt_s']:.3f} s wall, "
+            f"{adopt['seconds']:.3f} s in adopt_shard_blocks; dump: device "
+            f"{adopt['device']['name']!r}, K1 {ac['relax_jacobi.launches']}, "
+            f"K2 {ac['first_moves.launches']} launches, "
+            "reshard_blocks_adopted_total 1, cpd_blocks_rebuilt_total 1; "
+            f"crc32 == the manifest's ({card_txt})")
     second = os.path.join(campaign_index, name(0, 0))
     with open(second, "rb") as f:
         second_bytes = f.read()
@@ -6646,30 +7510,26 @@ def credit_burst(endpoint: str, pairs: np.ndarray, tag: str) -> int:
 
 
 def rot_resident_row(fm) -> str:
-    """Flip resident row 0 of a compressed table on the card to valid
-    but wrong moves, as ``corrupt-resident`` flips a raw row (0 and the
-    target marker to 1, the rest to 0): pack4's nibbles of row 0, or the
-    values of rle's runs of cell (row group 0, source 0)."""
-    if fm.codec == "pack4":
-        p = fm.arrays["packed"][0].to(torch.int32)
-        lo, hi = p & 0xF, p >> 4
-        lo = torch.where((lo == 0) | (lo == 15), 1, 0)
-        hi = torch.where((hi == 0) | (hi == 15), 1, 0)
-        fm.arrays["packed"][0] = (lo | (hi << 4)).to(fm.arrays["packed"].dtype)
-        return "row 0's nibbles"
-    off = fm.arrays["offsets"]
-    lo, hi = int(off[0]), int(off[1])
-    v = fm.arrays["vals"][lo:hi]
-    fm.arrays["vals"][lo:hi] = torch.where(v <= 0, 1, 0).to(v.dtype)
-    return f"the {hi - lo} run(s) of cell (group 0, source 0)"
+    """Flip resident row 0 of a pack4 table on the card to valid but
+    wrong moves, as ``corrupt-resident`` flips a raw row (0 and the
+    target marker to 1, the rest to 0)."""
+    p = fm.arrays["packed"][0].to(torch.int32)
+    lo, hi = p & 0xF, p >> 4
+    lo = torch.where((lo == 0) | (lo == 15), 1, 0)
+    hi = torch.where((hi == 0) | (hi == 15), 1, 0)
+    fm.arrays["packed"][0] = (lo | (hi << 4)).to(fm.arrays["packed"].dtype)
+    return "row 0's nibbles"
 
 
 def compressed_scrub(engines: dict, outdir: str, queries: np.ndarray,
                      want, tag: str) -> dict:
     """The resident scrubber on ``[compressed]``'s pack4 and rle engines:
-    one clean pass each, then a resident row rotted on the card, which
-    the next pass finds and re-binds from disk; the engine's next walk
-    equals the raw engine's (``want``, its free-flow answers)."""
+    one clean pass each; then, on the pack4 engine, a resident row
+    rotted on the card, which the next pass finds and re-binds from
+    disk, and the engine's next walk equals the raw engine's (``want``,
+    its free-flow answers). The rle engine's re-bind (the host re-encode
+    of its load, ~20 s) is not repeated here: the re-bind path is the
+    same for both codecs."""
     out = {}
     prior = os.environ.get("DOS_CPD_RESIDENT")
     try:
@@ -6680,6 +7540,11 @@ def compressed_scrub(engines: dict, outdir: str, queries: np.ndarray,
             clean_s = time.perf_counter() - t0
             if rep["corrupt"] or rep["errors"] or not rep["checked"]:
                 raise AssertionError(f"{tag} scrub of {codec}: {rep}")
+            if codec == "rle":
+                out[codec] = {"clean_s": clean_s, "blocks": rep["checked"]}
+                log(f"{tag} scrub {codec}: a clean pass of "
+                    f"{rep['checked']} block(s) in {clean_s:.2f} s")
+                continue
             what = rot_resident_row(e.fm)
             # the re-bind re-makes the table under the resident policy
             os.environ["DOS_CPD_RESIDENT"] = codec
@@ -8046,8 +8911,11 @@ def read_parts_counts(path: str) -> list[dict]:
 
 def streamed_campaign(outdir: str, ref: dict) -> dict:
     """``process_query -c conf`` under ``DOS_SERVE_STREAMED=1`` on the
-    campaign's index: the conf's fused rounds, then ``-k 8 --extract``;
-    ``parts.csv`` and ``paths.csv`` equal the resident campaign's."""
+    campaign's index: the conf's fused rounds (the default codecs: RLE
+    encoded on the host), then ``-k 8 --extract`` with
+    ``DOS_STREAM_RLE=0`` (chunks uploaded raw: the host RLE encode, ~47 s
+    a cold run on the card's host, is paid once); ``parts.csv`` and
+    ``paths.csv`` equal the resident campaign's."""
     tag = "[streamed-campaign]"
     conf = os.path.join(outdir, "conf.json")
     outs = (os.path.join(outdir, "out-streamed-rounds"),
@@ -8061,8 +8929,13 @@ def streamed_campaign(outdir: str, ref: dict) -> dict:
             t0 = time.perf_counter()
             rcs = [process_query.main(["-c", conf, "-o", outs[0]])]
             t1 = time.perf_counter()
-            rcs.append(process_query.main(["-c", conf, "-o", outs[1], "-k",
-                                           str(CAMPAIGN_K), "--extract"]))
+            os.environ["DOS_STREAM_RLE"] = "0"
+            try:
+                rcs.append(process_query.main(
+                    ["-c", conf, "-o", outs[1], "-k", str(CAMPAIGN_K),
+                     "--extract"]))
+            finally:
+                del os.environ["DOS_STREAM_RLE"]
             t2 = time.perf_counter()
             launches = read_launches()[0]
             multi_launches = cw.cuda_walk_multi.launches

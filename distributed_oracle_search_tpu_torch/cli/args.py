@@ -141,8 +141,8 @@ def build_parser(prog: str | None = None) -> argparse.ArgumentParser:
                            "hard-codes table-search (make_fifos.py:20); "
                            "astar serves the hscale/fscale family, ch the "
                            "congestion-free contraction hierarchy "
-                           "(native engine only). This package serves "
-                           "table-search and astar.")
+                           "(native engine only: make_fifos --engine "
+                           "native, process_query --backend host).")
 
     new = p.add_argument_group("in-process backend (new in this framework)")
     new.add_argument("--backend", choices=["auto", "tpu", "host"],

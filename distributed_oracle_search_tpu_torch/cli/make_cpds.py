@@ -38,8 +38,12 @@ rebuild on ``--device`` instead of building
 graph; one JSON report line, exit 0, or 4 when ``OLD`` has no readable
 manifest.
 
-Not ported, and refused with the ``ROADMAP.md`` item that ports it: on
-the host backend ``--engine native`` (A15).
+On the host backend ``--engine native`` runs the repo's C++ builder,
+``make_cpd_auto`` (``native/``, built by ``make -C native fast`` or
+``./install.sh``; found by ``utils.nativebin``), one process a worker on
+the host's cores: its blocks are byte-equal to ``worker.build``'s. It
+ignores ``--chunk``, ``--codec`` and ``--device``, and writes primaries
+only (a replicated conf's replica sets are built here afterwards).
 
     python -m distributed_oracle_search_tpu_torch.cli.make_cpds -c conf.json
 """
@@ -81,13 +85,28 @@ def run_tpu(conf: ClusterConfig, args) -> None:
 
 def worker_build_cmd(wid: int, conf: ClusterConfig, chunk: int = 0,
                      codec: str | None = None, device: str = "cuda",
-                     metrics_dump: str = "", resume: bool = True) -> str:
+                     metrics_dump: str = "", resume: bool = True,
+                     engine: str = "python") -> str:
     """The shell command a host-mode worker runs (our ``make_cpd_auto``):
     the port's ``worker.build`` on ``device``, with its metrics dump at
-    ``<metrics_dump>.w<wid>.json`` when ``metrics_dump`` is set."""
+    ``<metrics_dump>.w<wid>.json`` when ``metrics_dump`` is set; with
+    ``engine="native"`` the native ``make_cpd_auto`` binary."""
     partkey = (" ".join(str(b) for b in conf.partkey)
                if isinstance(conf.partkey, (list, tuple))
                else str(conf.partkey))
+    if engine == "native":
+        from ..utils.nativebin import require_binary
+        if chunk:
+            log.warning("--chunk is a device-builder staging knob; the "
+                        "native builder works block-by-block and ignores "
+                        "it")
+        if codec:
+            log.warning("--codec is a device-builder knob; the native "
+                        "builder writes raw blocks and ignores it")
+        return (f"{require_binary('make_cpd_auto')}"
+                f" --input {conf.xy_file} --partmethod {conf.partmethod}"
+                f" --partkey {partkey} --workerid {wid}"
+                f" --maxworker {conf.maxworker} --outdir {conf.outdir}")
     cmd = (f"{sys.executable} -m "
            "distributed_oracle_search_tpu_torch.worker.build"
            f" --input {conf.xy_file} --partmethod {conf.partmethod}"
@@ -109,14 +128,16 @@ def worker_build_cmd(wid: int, conf: ClusterConfig, chunk: int = 0,
 
 def call_worker(wid: int, conf: ClusterConfig, chunk: int = 0,
                 codec: str | None = None, device: str = "cuda",
-                metrics_dump: str = "", resume: bool = True):
+                metrics_dump: str = "", resume: bool = True,
+                engine: str = "python"):
     """Launch one worker's build (parity: reference ``make_cpds.py:10-25``).
 
     Returns a Popen handle when the build runs as a tracked local
     subprocess, else None (tmux/ssh detached)."""
     host = conf.workers[wid]
     cmd = worker_build_cmd(wid, conf, chunk, codec=codec, device=device,
-                           metrics_dump=metrics_dump, resume=resume)
+                           metrics_dump=metrics_dump, resume=resume,
+                           engine=engine)
     log.info("launch build w%d on %s: %s", wid, host, cmd)
     session = session_name("worker", wid)
     # prefer_track: builds are finite jobs — await local ones so the index
@@ -242,8 +263,6 @@ def run_host(conf: ClusterConfig, args) -> None:
     """One ``worker.build`` process per worker; the manifest once every
     local build has exited 0 (with R > 1: any replica set still missing
     built here, the replicated manifest, one anti-entropy pass)."""
-    if args.engine != "python":
-        raise SystemExit("--engine native is not ported (ROADMAP.md A15)")
     from ..data.formats import xy_node_count
     from ..data.graph import Graph
     from ..models.cpd import (
@@ -262,7 +281,7 @@ def run_host(conf: ClusterConfig, args) -> None:
         proc = call_worker(wid, conf, chunk=args.chunk, codec=args.codec,
                            device=args.device,
                            metrics_dump=args.metrics_dump,
-                           resume=not args.no_resume)
+                           resume=not args.no_resume, engine=args.engine)
         if proc is not None:
             procs.append((wid, proc))
     failures = 0
@@ -278,7 +297,8 @@ def run_host(conf: ClusterConfig, args) -> None:
         graph = None
         if dc.replication > 1:
             # backstop for replica sets a worker's build left missing on
-            # disk (an existence scan only: the builds digest-checked
+            # disk (the native engine writes primaries only; an existence
+            # scan only: the builds digest-checked
             # what they wrote, the anti-entropy pass below checks all)
             graph = Graph.from_xy(conf.xy_file)
             bs = dc.block_size

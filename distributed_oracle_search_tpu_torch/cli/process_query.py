@@ -77,8 +77,10 @@ to its owner first, then its adopter, and carry the epoch
 (``RuntimeConfig.epoch``). Epoch-suffixed wire files an aborted window
 left behind are swept at the start of a campaign.
 
-Not ported, and refused with the ``ROADMAP.md`` item that ports it:
-``--alg ch`` (native engine, A15).
+``--alg ch`` (contraction hierarchies) is served by the native engine
+only: the host backend sends its rounds to ``make_fifos --engine native``
+servers (``fifo_auto``) over the FIFO wire; the in-process backend
+refuses it, as the JAX package does.
 
     python -m distributed_oracle_search_tpu_torch.cli.process_query \\
         -c conf.json -o out/
@@ -383,8 +385,10 @@ def run_tpu(conf: ClusterConfig, args, queries, dc, diffs):
 
     if args.alg == "ch":
         raise SystemExit(
-            "--alg ch is served by the native engine only, which is not "
-            "ported (ROADMAP.md A15)")
+            "--alg ch is served by the native engine only "
+            "(--backend host with make_fifos --engine native); the "
+            "hierarchy is a pointer-chasing CPU structure with no "
+            "device analog here")
     graph = Graph.from_xy(conf.xy_file)
     if process_info()[1] == 1:
         # debris of killed atomic writes goes before the build-if-missing

@@ -26,7 +26,7 @@ is the instrumentation every layer books into:
 * :mod:`.slo` — multi-window burn-rate objectives (``DOS_SLO_SPECS``),
   served on ``/slo``;
 * :mod:`.fleet` — snapshot merges, ``top`` rendering and the bench
-  comparison (the ``dos-obs`` CLI is ROADMAP.md A15);
+  comparison, driven by the ``dos-obs`` CLI (``cli.obs``);
 * :mod:`.device` — one entry a walk program key: the kernel wrapper's
   closed-form flops and bytes, the operand bytes and one launch timed
   with CUDA events (the JAX package reads XLA's cost analysis instead).
@@ -86,7 +86,8 @@ books:
   ``worker_l2_misses_total``, ``gateway_l2_admit_denied_total``;
 * online serving (``serving``) — ``serve_requests_total``,
   ``serve_requests_ok_total``, ``serve_request_seconds``,
-  ``serve_queue_depth`` (gauge), ``serve_batches_total``,
+  ``serve_queue_depth`` (gauge) and its per-shard
+  ``serve_queue_depth_w<wid>`` gauges, ``serve_batches_total``,
   ``serve_batches_in_flight`` (gauge), ``serve_batch_fill``,
   ``serve_time_to_flush_seconds``, ``serve_flush_full_total``,
   ``serve_flush_wait_total``, ``serve_dispatch_seconds``,
@@ -222,8 +223,14 @@ README "Closed-loop control"):
   registered warmers run ahead of the pump cadence);
 * gateway HA arm — ``control_gateway_kicks_total`` (dead gateway
   frontends kicked for respawn after their ``gateway.json`` endpoint
-  lease expired; the respawn seam waits for ``worker.supervisor``,
-  ROADMAP.md A15).
+  lease expired: the actuator calls a ``gateway_respawn_fn`` when one
+  is passed — as in the JAX package no caller passes one — else the
+  worker supervisor's ``kick``);
+* supervision (``worker.supervisor``, ``make_fifos --supervise``) —
+  ``supervisor_respawns_total``, ``supervisor_pings_total``,
+  ``supervisor_ping_failures_total``, ``supervisor_workers_alive``
+  (gauge); the daemon's quarantine kick clears a dead worker's backoff
+  through the supervisor's ``kick``.
 
 Answer-integrity plane (``integrity/`` — resident-table scrubbing,
 sampled dual-execution audit, and wire/cache answer fingerprints,

@@ -81,6 +81,9 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _loaded:
             return _loaded[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
+        # the per-name lock is held on purpose: a second caller of this
+        # source waits here for the one nvcc run and then loads its .so
+        # dos-lint: disable=lock-scope -- one build a source, callers wait
         with open(src, "rb") as f:
             code = f.read()
         tag = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()
@@ -91,6 +94,10 @@ def load_library(name: str) -> ctypes.CDLL:
             if not os.path.exists(so):
                 tmp = f"{so}.tmp.{os.getpid()}"
                 t0 = time.perf_counter()
+                # both locks are held across nvcc on purpose: every other
+                # thread and process that needs this source waits for
+                # the one .so it writes
+                # dos-lint: disable=lock-scope -- one nvcc run a source
                 proc = subprocess.run(
                     [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                     capture_output=True, text=True)

@@ -249,14 +249,16 @@ def _head_spans(path) -> list:
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--alg", "ch"], "A15"), (["--trace", "t.json"], "A14"),
+    (["--alg", "ch"], "no device analog"), (["--trace", "t.json"], "A14"),
     (["--metrics-dump", "m.json"], "A14"), (["--profile", "p"], "A14"),
     (["--obs-port", "0"], "A14"),
 ])
 def test_process_query_refusals_name_roadmap(campaigns, tmp_path,
                                              monkeypatch, argv, item):
-    """``--alg ch`` is still refused, naming its ``ROADMAP.md`` item
-    (A15). The observability flags, refused until A14 ported them, now
+    """``--alg ch`` is refused in-process with the JAX package's words
+    (the hierarchy is a CPU structure served by the native engine, on
+    the host backend). The observability flags, refused until A14
+    ported them, now
     act as in the JAX package on each package's campaign: ``--trace``
     writes a Chrome trace with the same head spans, ``--metrics-dump``
     the registry's sections with the same head histograms, ``--profile``
@@ -266,8 +268,11 @@ def test_process_query_refusals_name_roadmap(campaigns, tmp_path,
     if argv[0] == "--alg":
         root = str(tmp_path)
         conf = _conf(root, _copy_data(root))
-        with pytest.raises(SystemExit, match=item):
+        with pytest.raises(SystemExit, match=item) as t_err:
             t_pq.main(["-c", conf, "--device", "cpu", *argv])
+        with pytest.raises(SystemExit, match=item) as j_err:
+            j_pq.main(["-c", conf, *argv])
+        assert str(t_err.value) == str(j_err.value)
         return
     got = {}
     for name, (_make, pq) in PACKAGES.items():
@@ -459,14 +464,19 @@ def test_make_cpds_refusals_name_roadmap(tmp_path, argv, item, capsys):
     assert not os.path.exists(os.path.join(root, "index"))
 
 
-def test_make_cpds_host_partmethod_refused(tmp_path):
-    """A host partmethod builds through worker processes now; what that
-    backend does not port yet is refused before any process starts."""
+def test_make_cpds_host_partmethod_refused(tmp_path, monkeypatch):
+    """A host partmethod builds through worker processes; ``--engine
+    native`` runs the native builder, and without its binary it fails
+    as the JAX package does, naming ``./install.sh``, before any
+    process starts."""
+    from distributed_oracle_search_tpu_torch.utils import nativebin
+
+    monkeypatch.setattr(nativebin, "SEARCH_DIRS", (str(tmp_path / "nb"),))
     root = str(tmp_path)
     data = _copy_data(root)
     conf = _conf(root, data, partmethod="mod",
                  workers=["localhost"] * 8)
-    with pytest.raises(SystemExit, match="A15"):
+    with pytest.raises(FileNotFoundError, match="install.sh"):
         t_make.main(["-c", conf, "--device", "cpu", "--engine", "native"])
     assert not os.path.exists(os.path.join(root, "index"))
 

@@ -2,9 +2,9 @@
 the JAX package's.
 
 The JAX package's ``tests/test_control.py`` cases run over the port
-(``torch_port_cases``), on CPU engines. The cases that drive a
-``WorkerSupervisor`` wait for ``worker/supervisor.py`` (ROADMAP.md
-A15)."""
+(``torch_port_cases``), on CPU engines, all of them: the cases that
+drive a ``WorkerSupervisor`` run over the port's
+``worker/supervisor.py``."""
 
 import pytest
 
@@ -12,22 +12,7 @@ torch = pytest.importorskip("torch")
 import torch_threads  # noqa: E402,F401  (one intra-op thread)
 from torch_port_cases import load_cases  # noqa: E402
 
-SUPERVISOR = "drives a WorkerSupervisor (ROADMAP.md A15)"
-
-globals().update(load_cases("test_control.py", __name__, drop={
-    name: SUPERVISOR for name in (
-        "test_dry_run_books_every_decision_and_executes_nothing",
-        "test_quarantine_executes_pin_and_kick_then_readmits",
-        "test_budget_denied_books_the_decision_without_acting",
-        "test_actuator_error_is_counted_and_loop_survives",
-        "test_kick_schedules_immediate_respawn_past_backoff",
-        "test_hung_worker_respawn_driven_through_quarantine_decision",
-        "test_core_drill_kill_quarantine_respawn_readmit")},
-    replace={"""from distributed_oracle_search_tpu.worker import supervisor as sup_mod
-from distributed_oracle_search_tpu.worker.supervisor import (
-    WorkerSupervisor,
-)
-""": ""}))
+globals().update(load_cases("test_control.py", __name__, drop={}))
 
 
 # ------------------------------------------- across the two packages

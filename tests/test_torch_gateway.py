@@ -13,8 +13,6 @@ from torch_port_cases import load_cases  # noqa: E402
 TIMING = ("asserts on wall-clock time, which fails on a loaded host "
           "(ROADMAP.md C1); the deadline path is held by the cases that "
           "wait on counters")
-KICK = ("the gateway respawn seam needs worker.supervisor (ROADMAP.md "
-        "A15)")
 
 globals().update(load_cases("test_gateway.py", __name__, drop={
     "test_gateway_busy_at_credit_window": TIMING,

@@ -435,25 +435,51 @@ def test_worker_commands_name_the_port(cluster):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--engine", "native"], "A15"),
+    (["--engine", "native"], "install.sh"),
 ])
 def test_make_cpds_host_refusals_name_roadmap(dataset, tmp_path, argv,
-                                              item):
+                                              item, monkeypatch):
+    """``--engine native`` runs ``make_cpd_auto``; without the binary
+    it fails as the JAX package does (``utils.nativebin``), before any
+    build process starts."""
+    from distributed_oracle_search_tpu_torch.utils import nativebin
+
+    monkeypatch.setattr(nativebin, "SEARCH_DIRS", (str(tmp_path / "nb"),))
     conf = _write_conf(tmp_path, dataset)
-    with pytest.raises(SystemExit, match=item):
+    with pytest.raises(FileNotFoundError, match=item):
         t_make.main(["-c", conf, *DEV, *argv])
     assert not os.path.exists(tmp_path / "index")
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--supervise"], "A15"), (["--engine", "native"], "A15"),
-    (["--alg", "ch"], "A15"),
+    (["--supervise", "--engine", "native"], "python worker.server"),
+    (["--engine", "native"], "install.sh"),
+    (["--alg", "ch"], "add --engine native"),
 ])
 def test_make_fifos_refusals_name_roadmap(cluster, argv, item,
-                                          monkeypatch):
-    monkeypatch.setattr(t_fifos, "call_worker", None)    # never launches
-    with pytest.raises(SystemExit, match=item):
-        t_fifos.main(["-c", cluster, *DEV, *argv])
+                                          monkeypatch, tmp_path):
+    """What ``make_fifos`` still refuses, in the JAX package's words:
+    ``--alg ch`` without the native engine, a supervised native fleet,
+    and (through ``utils.nativebin``) a native launch whose binary is
+    missing; nothing is launched."""
+    from distributed_oracle_search_tpu.cli import make_fifos as j_fifos
+    from distributed_oracle_search_tpu.utils import nativebin as j_nb
+    from distributed_oracle_search_tpu_torch.utils import nativebin
+
+    for nb in (nativebin, j_nb):
+        monkeypatch.setattr(nb, "SEARCH_DIRS", (str(tmp_path / "nb"),))
+    monkeypatch.setattr(t_fifos, "launch", None)         # never launches
+    monkeypatch.setattr(j_fifos, "launch", None)
+    errors = {}
+    for name, main, dev in (("torch", t_fifos.main, DEV),
+                            ("jax", j_fifos.main, [])):
+        with pytest.raises((SystemExit, FileNotFoundError),
+                           match=item) as err:
+            main(["-c", cluster, *dev, *argv])
+        errors[name] = (type(err.value), str(err.value))
+    assert errors["torch"][0] == errors["jax"][0]
+    if errors["torch"][0] is SystemExit:
+        assert errors["torch"] == errors["jax"]
 
 
 def test_make_fifos_tpu_conf_needs_no_servers(tmp_path, dataset, capsys):

@@ -384,25 +384,33 @@ def test_mesh_metrics_move_only_on_mesh(tmp_path):
 def test_metrics_registered_in_obs_catalog():
     """Every metric the port's modules declare at import is named in the
     ``obs`` package's catalog (the JAX package's metric-registry
-    contract); counts mirrored from elsewhere keep their own names."""
-    import distributed_oracle_search_tpu_torch.cli.process_query  # noqa: F401
-    import distributed_oracle_search_tpu_torch.models.resident  # noqa: F401
-    import distributed_oracle_search_tpu_torch.obs.http  # noqa: F401
-    import distributed_oracle_search_tpu_torch.obs.recorder  # noqa: F401
-    import distributed_oracle_search_tpu_torch.worker.server  # noqa: F401
-    # the planes (A14.5)
-    import distributed_oracle_search_tpu_torch.cli.gateway  # noqa: F401
-    import distributed_oracle_search_tpu_torch.control  # noqa: F401
-    import distributed_oracle_search_tpu_torch.gateway  # noqa: F401
-    import distributed_oracle_search_tpu_torch.integrity.audit  # noqa: F401
-    import distributed_oracle_search_tpu_torch.integrity.scrub  # noqa: F401
-    import distributed_oracle_search_tpu_torch.obs.slo  # noqa: F401
-    import distributed_oracle_search_tpu_torch.obs.telemetry  # noqa: F401
-    import distributed_oracle_search_tpu_torch.obs.timeseries  # noqa: F401
-    from distributed_oracle_search_tpu_torch.models import cpd
+    contract); counts mirrored from elsewhere keep their own names. The
+    imports run in a fresh interpreter: what other tests of this process
+    set on the registry is not what the modules declare."""
+    import subprocess
+    import sys
 
-    snap = t_metrics.REGISTRY.snapshot()
-    names = {n for kind in snap.values() for n in kind
-             if "." not in n and n not in cpd.COUNTERS}
+    modules = (
+        "cli.process_query", "models.resident", "obs.http", "obs.recorder",
+        "worker.server",
+        # the planes (A14.5)
+        "cli.gateway", "control", "gateway", "integrity.audit",
+        "integrity.scrub", "obs.slo", "obs.telemetry", "obs.timeseries",
+        # the tools (A15)
+        "worker.supervisor", "cli.control", "cli.obs", "cli.lint")
+    code = "\n".join(
+        [f"import distributed_oracle_search_tpu_torch.{m}" for m in modules]
+        + ["import json",
+           "from distributed_oracle_search_tpu_torch.models import cpd",
+           "from distributed_oracle_search_tpu_torch.obs import metrics",
+           "snap = metrics.REGISTRY.snapshot()",
+           "print(json.dumps(sorted({n for kind in snap.values() for n in "
+           "kind if '.' not in n and n not in cpd.COUNTERS})))"])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "supervisor_respawns_total" in names
     missing = sorted(n for n in names if n not in t_obs.__doc__)
     assert missing == []

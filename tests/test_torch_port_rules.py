@@ -5,6 +5,7 @@ without a GPU unless the caller asks for the CPU."""
 import ast
 import glob
 import os
+import re
 
 import numpy as np
 import pytest
@@ -242,3 +243,60 @@ def test_plane_copies_equal_the_jax_package(rel):
     with open(os.path.join(PORT, rel)) as f, \
             open(os.path.join(JAX_DIR, rel)) as g:
         assert code_of(f.read()) == code_of(g.read()), rel
+
+
+#: the modules A15 ported, each a copy of the JAX package's file
+TOOL_COPIES = ("analysis/__init__.py", "analysis/core.py",
+               "analysis/rules.py", "cli/control.py", "cli/obs.py",
+               "cli/lint.py", "data/dimacs.py", "utils/nativebin.py",
+               "worker/supervisor.py")
+#: the port's code differences from each copy, beyond the package's
+#: name: JAX snippet -> port snippet (every snippet must occur). The
+#: supervisor spawns its servers on ``device`` and can give each a
+#: metrics dump; the rest differ in the package name alone (the lint
+#: rules' package-relative paths, the spawned module)
+TOOL_DIFFERENCES = {
+    "worker/supervisor.py": {
+        """                 rpc_dir: str | None = None):""":
+        """                 rpc_dir: str | None = None,
+                 device: str = "cuda", metrics_dump: str = ""):""",
+        """        self.rpc_dir = rpc_dir
+""": """        self.rpc_dir = rpc_dir
+        self.device = device
+        self.metrics_dump = metrics_dump
+""",
+        """               "--fifo", w.fifo, "--alg", self.alg]
+""": """               "--fifo", w.fifo, "--alg", self.alg,
+               "--device", self.device]
+        if self.metrics_dump:
+            cmd += ["--metrics-dump", f"{self.metrics_dump}.w{w.wid}.json"]
+""",
+        """                      traffic_dir: str | None = None) -> int:""":
+        """                      traffic_dir: str | None = None,
+                      device: str = "cuda", metrics_dump: str = "") -> int:""",
+        """                           traffic_dir=traffic_dir)""":
+        """                           traffic_dir=traffic_dir, device=device,
+                           metrics_dump=metrics_dump)""",
+    },
+}
+_JAX_NAME = re.compile(r"\bdistributed_oracle_search_tpu\b(?!_torch)")
+
+
+def test_tool_modules_are_scanned():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert set(TOOL_COPIES) <= scanned
+
+
+@pytest.mark.parametrize("rel", TOOL_COPIES)
+def test_tool_copies_equal_the_jax_package(rel):
+    """The A15 tools are copies: their code, docstrings aside, is the
+    JAX package's with the package's name replaced and the differences
+    :data:`TOOL_DIFFERENCES` names, and nothing else."""
+    with open(os.path.join(PORT, rel)) as f, \
+            open(os.path.join(JAX_DIR, rel)) as g:
+        port, jax_src = f.read(), g.read()
+    for old, new in TOOL_DIFFERENCES.get(rel, {}).items():
+        assert jax_src.count(old) == 1, (rel, old)
+        jax_src = jax_src.replace(old, new)
+    assert code_of(port) == code_of(_JAX_NAME.sub(
+        "distributed_oracle_search_tpu_torch", jax_src)), rel

@@ -2,8 +2,10 @@
 (``obs/{telemetry,timeseries,slo,fleet}.py``) against the JAX package's.
 
 The JAX package's ``tests/test_telemetry.py`` and ``test_obs_plane.py``
-cases run over the port (``torch_port_cases``), on CPU engines. The
-cases of the ``dos-obs`` CLI and of the supervisor wait for A15."""
+cases run over the port (``torch_port_cases``), on CPU engines: the
+``dos-obs`` CLI's and the supervisor's among them. Left out: XLA's cost
+capture (the port's ``obs.device`` is its own) and a read of the JAX
+package's benchmark records."""
 
 import pytest
 
@@ -11,17 +13,23 @@ torch = pytest.importorskip("torch")
 import torch_threads  # noqa: E402,F401  (one intra-op thread)
 from torch_port_cases import load_cases  # noqa: E402
 
-OBS_CLI = "drives the dos-obs CLI, cli/obs.py (ROADMAP.md A15)"
+#: the drill waits for tick 3's seq, but the RPC read loop that ingested
+#: it books the tick's events on the tape just after the seq (outside
+#: the ingest lock): the port's case also waits for the event itself
+#: before it replays the tape, else it races that thread
+_DRILL_WAIT = (
+    """        assert ingest.statusz()["sources"]["w0"]["seq"] >= tick3["seq"]
+""", """        assert ingest.statusz()["sources"]["w0"]["seq"] >= tick3["seq"]
+        deadline = time.time() + 5.0
+        while time.time() < deadline and not any(
+                r.get("kind") == "breaker_open"
+                for r in (rec.flush() or obs_recorder.replay(tape))):
+            time.sleep(0.02)
+""")
 
-globals().update(load_cases("test_telemetry.py", __name__, drop={
-    "test_e2e_fleet_telemetry_drill": OBS_CLI,
-}))
+globals().update(load_cases("test_telemetry.py", __name__, drop={},
+                            replace=dict([_DRILL_WAIT])))
 globals().update(load_cases("test_obs_plane.py", __name__, drop={
-    "test_supervisor_spawn_strips_obs_port_from_child_env":
-        "drives a WorkerSupervisor (ROADMAP.md A15)",
-    "test_dos_obs_cli_merge_commands": OBS_CLI,
-    "test_bench_diff_gates_regressions": OBS_CLI,
-    "test_bench_diff_with_fewer_than_two_records": OBS_CLI,
     "test_device_cost_capture_on_host_backend":
         "captures an XLA program's cost analysis; the port's obs.device "
         "entries are held in tests/test_torch_obs.py",
@@ -237,3 +245,65 @@ def test_recorder_tape_of_ticks_read_across_packages(writer, reader,
     assert got == W.recorder.replay(tapes["w"])
     assert got == R.recorder.replay(tapes["r"])
     assert {r.get("rec") for r in got} >= {"tick"}
+
+
+def _snapshots(tmp_path, seed: int) -> list[str]:
+    """Seeded per-worker snapshots in the port server's dump shape
+    (registry sections, mirrored kernel counts, ``device``)."""
+    rng = np.random.default_rng(seed)
+    paths = []
+    for wid in range(4):
+        snap = {
+            "counters": {"worker_batches_total": int(rng.integers(1, 50)),
+                         "cuda_walk_batch.launches":
+                             int(rng.integers(1, 60)),
+                         "cuda_walk_batch.plain": 0,
+                         f"server_frames_received_total_w{wid}":
+                             int(rng.integers(0, 9))},
+            "gauges": {"supervisor_workers_alive": 8,
+                       f"serve_queue_depth_w{wid}":
+                           int(rng.integers(0, 5))},
+            "histograms": {"worker_search_seconds": {
+                "count": 3, "sum": float(rng.random()),
+                "buckets": {"0.01": 1, "0.1": 3, "+Inf": 3}}},
+            "device": {"type": "cuda", "name": "card"}, "wid": wid}
+        d = tmp_path / f"w{wid}"
+        d.mkdir(exist_ok=True)
+        p = str(d / "dump.json")
+        with open(p, "w") as f:
+            json.dump(snap, f)
+        paths.append(p)
+    return paths
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dos_obs_merge_documents_equal_jax(tmp_path, seed):
+    """``dos-obs merge-metrics`` of the same snapshots and
+    ``merge-traces`` of the same sidecars write the same documents,
+    byte for byte, from both packages' CLIs."""
+    snaps = _snapshots(tmp_path, seed)
+    traces = tmp_path / "traces"
+    traces.mkdir()
+    for wid in range(3):
+        with open(traces / f"w{wid}.trace", "w") as f:
+            json.dump([{"name": "worker.batch", "ph": "X",
+                        "ts": 100 * (3 - wid) + seed, "dur": 5,
+                        "pid": wid, "tid": 1}], f)
+
+    def run(P):
+        out_m = str(tmp_path / f"{P.name}-fleet.json")
+        out_t = str(tmp_path / f"{P.name}-trace.json")
+        assert P.obscli.main(["merge-metrics", *snaps, "-o", out_m]) == 0
+        assert P.obscli.main(["merge-traces", str(traces), "-o",
+                              out_t]) == 0
+        with open(out_m, "rb") as f, open(out_t, "rb") as g:
+            return f.read(), g.read()
+
+    got = both(run)
+    assert got["torch"] == got["jax"]
+    doc = json.loads(got["torch"][0])
+    want = sum(json.load(open(p))["counters"]["cuda_walk_batch.launches"]
+               for p in snaps)
+    assert doc["n_workers"] == 4
+    assert doc["fleet"]["counters"]["cuda_walk_batch.launches"] == want
+    assert len(json.loads(got["torch"][1])["traceEvents"]) == 3

@@ -9,9 +9,9 @@ cache invalidations with their re-keys, the frontend's epoch-folded
 cache keys, the diff-epoch gate, the query families (held to the CPU
 reference walk as in JAX), the live-swap smoke, the scenario generator,
 and ``sig_k`` signatures equal with the answers unchanged. The mirror of
-``tests/test_traffic.py`` without its ``slow`` replay drill and without
-the bench-waiver case that drives ``cli.obs`` (ROADMAP.md A15); the other
-waiver case runs over the port (``torch_port_cases``).
+``tests/test_traffic.py`` without its ``slow`` replay drill; its two
+bench-waiver cases (one drives ``dos-obs bench-diff`` on records it
+writes under ``tmp_path``) run over the port (``torch_port_cases``).
 """
 
 import glob
@@ -726,9 +726,10 @@ def test_live_swap_smoke(traffic_world, tmp_path):
     assert [r[1:] for r in t["post"][:12]] == ref
 
 
-# the JAX case of the bench waivers that needs obs.fleet only (ported in
-# A14.5); its other waiver case drives cli.obs (ROADMAP.md A15)
+# the JAX cases of the bench waivers: obs.fleet's waiver file and the
+# dos-obs bench-diff gate over it (cli.obs)
 from torch_port_cases import load_cases  # noqa: E402
 
 globals().update(load_cases("test_traffic.py", __name__, drop={}, only=(
-    "test_bench_waiver_file_unreadable_fails_closed",)))
+    "test_bench_waiver_file_unreadable_fails_closed",
+    "test_bench_diff_waiver_gate")))

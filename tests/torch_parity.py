@@ -37,6 +37,9 @@ class Pkg:
         "registry": "gateway.registry", "frames": "transport.frames",
         "request": "serving.request", "reference": "models.reference",
         "build": "worker.build", "obs_quantiles": "obs.quantiles",
+        "analysis": "analysis", "dimacs": "data.dimacs",
+        "obscli": "cli.obs", "supervisor": "worker.supervisor",
+        "nativebin": "utils.nativebin", "make_cpds": "cli.make_cpds",
     }
 
     def __init__(self, name):

@@ -18,13 +18,18 @@ Two fixtures come with them:
   plain torch path because its tensors lie on the CPU;
 * ``_port_reset`` (autouse) resets the port's fault injector and flight
   recorder after each case, as the root conftest does for the JAX
-  package's.
+  package's;
+* ``_keep_package_loggers`` (autouse, per module) puts both packages'
+  root loggers back after the module: a CLI's ``set_verbosity`` gives
+  one a handler and stops it propagating, which later modules of the
+  process that read logs through ``caplog`` would otherwise miss.
 
 Imports nothing of JAX; the rewritten cases import the port only.
 """
 
 import ast
 import importlib
+import logging
 import os
 import pkgutil
 import re
@@ -97,6 +102,19 @@ def _port_reset():
     recorder.set_recorder(None)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _keep_package_loggers():
+    saved = []
+    for name in ("dos_tpu", "dos_torch"):
+        lg = logging.getLogger(name)
+        saved.append((lg, list(lg.handlers), lg.propagate, lg.level))
+    yield
+    for lg, handlers, propagate, level in saved:
+        lg.handlers[:] = handlers
+        lg.propagate = propagate
+        lg.setLevel(level)
+
+
 def load_cases(jax_file: str, module_name: str, drop: dict,
                replace: dict | None = None, only=()) -> dict:
     """The cases of ``tests/<jax_file>`` over the port, as a namespace
@@ -127,7 +145,9 @@ def load_cases(jax_file: str, module_name: str, drop: dict,
     exec(compile(tree, f"{path} (over {PORT})", "exec"), ns)
     ns["_port_on_cpu"] = _port_on_cpu
     ns["_port_reset"] = _port_reset
+    ns["_keep_package_loggers"] = _keep_package_loggers
     if only:
         assert set(only) <= names, (jax_file, sorted(set(only) - names))
-        return {k: ns[k] for k in (*only, "_port_reset")}
+        return {k: ns[k] for k in (*only, "_port_reset",
+                                   "_keep_package_loggers")}
     return {k: v for k, v in ns.items() if not k.startswith("__")}
