@@ -11,8 +11,11 @@ points a user calls, then the compressed-residency path:
    ``nvcc`` a source, started together: the walk (raw, pack4 and fused
    multi-diff entries), the build (``cpd_build.cu``: the Jacobi relax,
    the first-move extraction, the grid sweep cycle), the doubling
-   kernels (``pointer_doubling.cu``: on chip, and the wide sweep) and
-   the batched A* (``batched_astar.cu``: the sweep, the heuristic);
+   kernels (``pointer_doubling.cu``: on chip, and the wide sweep), the
+   batched A* (``batched_astar.cu``: the sweep, the heuristic) and the
+   build's compressed fetch (``fm_rle.cu``, K7: the run count, the
+   encode); a spawned process starts the plain CPU rows ``[shift]``
+   checks against (step 2d);
 2. road path, at the size of the USA-road-d.NY stand-in
    (``synth_road_network(264_000, seed=0)``, read through DIMACS: written
    as ``.gr``/``.co``, 1-indexed, converted by ``python -m
@@ -110,11 +113,28 @@ points a user calls, then the compressed-residency path:
    distinct-sector bound; block 0 built by ``build_fm_lanes`` over 2
    lanes == the road build's block file; a rank-1 replica engine's table
    on lane ``1 % L``;
+2a''. the build's compressed fetch (``[fetch]`` lines): every build logs
+   its fetch (blocks coded, wire and raw bytes, the host expansion's
+   seconds; the road shard codes 8 of its 9 blocks, the last, 58 rows,
+   is under the gate, and [road]'s build must have launched K7 twice
+   for each of the 8); the road shard built again raw
+   (``DOS_FETCH_RLE=0``) as [road] built it: blocks and ledger
+   byte-equal to [road]'s, no K7 launch, its seconds and split beside
+   [road]'s coded build; K7's
+   count and encode against their plain versions (counts, total, lens
+   and vals equal element by element) and ``fetch_fm`` equal to the
+   block, on the road index's block 0 (1,024 x 264,000) and on an
+   8,192 x 264,000 block made on the card (past 2**31 cells), each
+   entry timed by CUDA events beside its byte bound, its plain version
+   and ``torch.unique_consecutive`` on the transposed block (the
+   nearest library call; it does not break runs at column starts, and
+   CUB refuses the block past 2**31 items);
 2b. pipeline (``[pipeline]`` lines): worker 0 of the campaign graph
    (8,192 rows, 8 blocks of 1,024) built under epoch 1 serially and
-   pipelined in turns through one compute context, blocks and ledger
-   lines byte-equal every time, each timed with its split and peak
-   memory; an epoch-1 build rebuilds only a block journaled under
+   pipelined, with the fetch coded and raw, in turns through one
+   compute context, blocks and ledger lines byte-equal every time, K7
+   twice a block on each coded build and never on a raw one, each
+   timed with its split, its fetch and peak memory; an epoch-1 build rebuilds only a block journaled under
    another epoch, then resumes all; a block write that fails raises,
    leaves no temp file and the blocks before it journaled; beside these
    builds, a ``worker.build`` process of a small index (a 4,096-node
@@ -123,6 +143,14 @@ points a user calls, then the compressed-residency path:
    block, and its rerun resumes that block: the blocks and ledger equal
    an uncrashed build's byte for byte, K2 launched for the lost blocks
    only;
+2d. the ``shift`` build kind (``[shift]`` lines):
+   ``synth_city_graph(176, 176, seed=0)`` (30,976 nodes, under
+   ``SWEEP_MIN_NODES``), where ``method="auto"`` must resolve
+   ``shift``; worker 0 of ``mod`` over 8 (3,872 rows, 4 blocks of
+   1,024) built on the card (K1 over the full CSR, K2, K7), its blocks
+   byte-equal to a ``method="ell"`` build's, 64 seeded rows equal to
+   the plain CPU shift build's, 4,096 queries answered by B1 with costs
+   equal to K1's exact distances;
 3. compressed path (``[compressed]`` lines), on
    ``synth_city_graph(514, 514, seed=0, shortcut_frac=0.0)`` (264,196
    nodes, max out-degree 4, so every slot fits a nibble), ``mod`` over 64
@@ -460,8 +488,9 @@ points a user calls, then the compressed-residency path:
    references' costs against K6's;
 9. print the card's name and power limit again on the ``[done]`` line,
    then the kernel table as one JSON line (the raw and pack4 walks, the
-   three build kernels, the fused walk, the on-chip doubling, the
-   wide doubling sweep, K6's sweep and heuristic, each with
+   three build kernels, K7's count and encode, the fused walk, the
+   on-chip doubling, the wide doubling sweep, K6's sweep and heuristic,
+   each with
    its launches in the main runs — the wide sweep's in the road shard's
    tables; the raw walk's ``launches_by_path``
    holds the streamed, streamed-campaign, offline and offline-local
@@ -538,6 +567,7 @@ from distributed_oracle_search_tpu_torch.ops.frontier_relax import (
 from distributed_oracle_search_tpu_torch.ops import batched_astar as ba
 from distributed_oracle_search_tpu_torch.ops import cuda_astar as ca
 from distributed_oracle_search_tpu_torch.ops import cuda_doubling as cd
+from distributed_oracle_search_tpu_torch.ops import cuda_fm_rle as fr
 from distributed_oracle_search_tpu_torch.ops import cuda_walk as cw
 from distributed_oracle_search_tpu_torch.ops import pointer_doubling as pd
 from distributed_oracle_search_tpu_torch.ops.device_graph import DeviceGraph
@@ -579,7 +609,9 @@ from distributed_oracle_search_tpu_torch.worker import server as wserver
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUILD_FNS = {"relax_jacobi": cbk.relax_jacobi,
              "first_moves": cbk.first_moves,
-             "grid_sweep_cycle": cbk.grid_sweep}
+             "grid_sweep_cycle": cbk.grid_sweep,
+             "fm_run_count": fr.fm_run_count,
+             "fm_rle_encode": fr.fm_rle_encode}
 SEED = 0
 N_NODES = 264_000
 GRID_SIDE = 514
@@ -742,7 +774,8 @@ GATEWAY_FAULTS = ("lease-freeze;wid=1;times=1,"
                   "blackhole-conn;wid=1;times=1")
 #: the build kind ``method="auto"`` must resolve to on each path
 EXPECTED_KIND = {"road": "ellsplit", "grid": "sweep", "campaign": "ellsplit",
-                 "serving": "ellsplit", "offline": "ellsplit"}
+                 "serving": "ellsplit", "offline": "ellsplit",
+                 "shift": "shift"}
 #: the serving phase, on the campaign's oracle: three more congestion
 #: diffs (seeds) for the D = 5 fused walk, 8 mat rows of 4,096 targets,
 #: and the device budget it sets for the prepared tables (the fused D = 2
@@ -874,6 +907,27 @@ BUILD_KERNELS = {
     "grid_sweep_cycle": "distributed_oracle_search_tpu/ops/grid_sweep.py:215 "
                         "(XLA cycle, four quadrant scans)",
 }
+#: K7's two entries in the kernel table (the build's compressed fetch)
+FETCH_KERNELS = {
+    "fm_run_count": "distributed_oracle_search_tpu/models/cpd.py:141 "
+                    "(XLA _fm_run_count, no pallas_call)",
+    "fm_rle_encode": "distributed_oracle_search_tpu/models/cpd.py:154 "
+                     "(XLA _fm_rle_encode_impl, no pallas_call)",
+}
+#: the fetch's running sums in ``cpd.FETCH_STATS``
+FETCH_KEYS = ("build_fetch_encoded_total", "build_fetch_raw_bytes_total",
+              "build_fetch_wire_bytes_total", "build_fetch_expand_seconds")
+#: [fetch]'s block past 2**31 cells: C2_ROWS x N_NODES, values drawn once
+#: every FETCH_BIG_RUN rows (runs of 16 along the target axis)
+FETCH_BIG_RUN = 16
+#: [shift]: a lattice under SWEEP_MIN_NODES (176 x 176 = 30,976 nodes),
+#: ``mod`` over 8 workers in blocks of ROAD_BLOCK rows (worker 0: 3,872
+#: rows, 4 blocks), its rows checked against the plain CPU shift build,
+#: and queries answered by B1
+SHIFT_SIDE = 176
+SHIFT_WORKERS = 8
+SHIFT_CHECK_ROWS = 64
+SHIFT_QUERIES = 4096
 
 
 def log(msg: str) -> None:
@@ -957,7 +1011,8 @@ def make_queries(targets: np.ndarray, n: int) -> np.ndarray:
 def zero_launches() -> None:
     """Every kernel's launch count to 0: the three walks (raw, pack4,
     fused multi-diff), the on-chip doubling, the doubling sweep, the
-    three build kernels and K6 (with the plain A* runs)."""
+    three build kernels, K7's two entries and K6 (with the plain A*
+    runs)."""
     cw.cuda_walk_batch.launches = 0
     cw.cuda_walk_batch.launches_pack4 = 0
     cw.cuda_walk_multi.launches = 0
@@ -1228,6 +1283,27 @@ def pipeline_split(c0: dict) -> dict:
     return {k: cpd.COUNTERS[k] - c0[k] for k in PIPE_KEYS}
 
 
+def counters() -> dict:
+    """A snapshot of the build's running sums: ``cpd.COUNTERS`` and the
+    fetch's ``cpd.FETCH_STATS``."""
+    return {**cpd.COUNTERS, **cpd.FETCH_STATS}
+
+
+def fetch_split(c0: dict) -> dict:
+    """The build fetch's running sums since the :func:`counters` snapshot
+    ``c0``: blocks coded, raw and wire bytes, host expansion seconds."""
+    return {k: cpd.FETCH_STATS[k] - c0[k] for k in FETCH_KEYS}
+
+
+def fetch_line(f: dict) -> str:
+    raw = f["build_fetch_raw_bytes_total"]
+    wire = f["build_fetch_wire_bytes_total"]
+    return (f"fetch: {f['build_fetch_encoded_total']} block(s) coded, "
+            f"{wire} wire bytes of {raw} raw "
+            f"({wire / raw if raw else 0.0:.4f}), host expansion "
+            f"{f['build_fetch_expand_seconds']:.3f} s")
+
+
 def split_line(split: dict) -> str:
     return (f"main thread compute {split['build_compute_seconds']:.3f} s, "
             f"flush thread busy {split['build_flush_seconds']:.3f} s, "
@@ -1243,7 +1319,7 @@ def build_index(g, dc, outdir: str, tag: str, codec: str | None = None,
     and its peak device memory logged (and kept in ``stats``), then its
     manifest."""
     torch.cuda.reset_peak_memory_stats()
-    c0 = dict(cpd.COUNTERS)
+    c0 = counters()
     t0 = time.perf_counter()
     written = build_worker_shard(g, dc, WID, outdir, chunk=CHUNK,
                                  device="cuda", codec=codec)
@@ -1251,16 +1327,18 @@ def build_index(g, dc, outdir: str, tag: str, codec: str | None = None,
     build_s = time.perf_counter() - t0
     rows = dc.n_owned(WID)
     split = pipeline_split(c0)
+    fetch = fetch_split(c0)
     peak = torch.cuda.max_memory_allocated()
     pipelined = cpd.build_pipeline_enabled() and len(written) > 1
     log(f"{tag} rows={rows} chunk={CHUNK} blocks={len(written)} of "
         f"{dc.block_size} rows ({'pipelined' if pipelined else 'serial'})"
         f" seconds={build_s:.3f} rows/s={rows / build_s:.2f} peak device "
         f"memory {peak / 2**30:.2f} GiB")
-    log(f"{tag} split: {split_line(split)}")
+    log(f"{tag} split: {split_line(split)}; {fetch_line(fetch)}")
     if stats is not None:
         stats.update(seconds=build_s, blocks=len(written),
-                     pipelined=pipelined, peak_bytes=peak, **split)
+                     pipelined=pipelined, peak_bytes=peak, fetch=fetch,
+                     **split)
     return write_index_manifest(outdir, dc, workers=[WID])
 
 
@@ -1822,6 +1900,7 @@ def delta_epoch(g, dc, old_dir: str, fused: str, epoch: int,
     rebuild every row by the pipelined build, each ledger line keyed to
     ``epoch``. Returns its report, seconds and the shard's dirty share."""
     old_man = cpd.read_manifest(old_dir)
+    c0 = counters()
     with DeltaProbe() as probe:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1829,6 +1908,8 @@ def delta_epoch(g, dc, old_dir: str, fused: str, epoch: int,
                                     chunk=CHUNK, device="cuda")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+    fetch = fetch_split(c0)
+    log(f"{tag} epoch {epoch}: {fetch_line(fetch)}")
     write_index_manifest(rep["outdir"], dc,
                          rows_per_worker=old_man["rows_per_worker"],
                          workers=[WID],
@@ -1862,7 +1943,7 @@ def delta_epoch(g, dc, old_dir: str, fused: str, epoch: int,
             f"under epoch {epoch}, in {seconds:.3f} s (affected pass "
             f"{stages['delta_affected_targets']:.3f} s) -> {rep['outdir']}")
         return {**rep, "seconds": seconds, "spliced": 0,
-                "dirty_share": share, "stages_s": stages}
+                "dirty_share": share, "stages_s": stages, "fetch": fetch}
     if (rep["epoch"] != epoch or rep["degraded_full"]
             or rep["blocks_skipped"] < 1 or spliced < 1):
         raise AssertionError(f"{tag} epoch {epoch}: expected a splice with "
@@ -1877,7 +1958,7 @@ def delta_epoch(g, dc, old_dir: str, fused: str, epoch: int,
         f"{stages['atomic_copy_file']:.3f} s, spliced writes "
         f"{stages['atomic_save_npy']:.3f} s) -> {rep['outdir']}")
     return {**rep, "seconds": seconds, "spliced": spliced,
-            "dirty_share": share, "stages_s": stages}
+            "dirty_share": share, "stages_s": stages, "fetch": fetch}
 
 
 def radius_hotspot(g, rng) -> tuple[np.ndarray, int, float]:
@@ -2200,9 +2281,12 @@ def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
     (``synth_road_network(65_536, seed=0)``, ``tpu`` over 8 workers:
     8,192 rows, 8 blocks of ROAD_BLOCK) built on the card under epoch 1
     through one compute context (set up before the runs), serially
-    (``DOS_BUILD_PIPELINE=0``) and pipelined in turns (serial, pipelined,
-    pipelined, serial): the blocks and ledger lines of every build
-    byte-equal, each timed with the pipeline's split and peak memory.
+    (``DOS_BUILD_PIPELINE=0``) and pipelined, the fetch coded (the
+    default: every block is past the gate) and raw (``DOS_FETCH_RLE=0``),
+    in turns (serial, pipelined, pipelined raw, serial raw): the blocks
+    and ledger lines of every build byte-equal, K7 launched twice a
+    block by each coded build and never by a raw one, each timed with
+    the pipeline's split, its fetch and peak memory.
     Then on a pipelined index: a block journaled under another epoch is
     rebuilt alone by an epoch-1 build, a rerun resumes all; a write that
     fails on block PIPE_FAULT_BLOCK raises, leaves no temp file, and
@@ -2214,24 +2298,31 @@ def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
     n_blocks = -(-dc.n_owned(WID) // ROAD_BLOCK)
     names = [cpd.shard_block_name(WID, b) for b in range(n_blocks)]
     ctx: dict = {}
-    prior = os.environ.get("DOS_BUILD_PIPELINE")
+    prior = {k: os.environ.get(k)
+             for k in ("DOS_BUILD_PIPELINE", "DOS_FETCH_RLE")}
 
     def files(d):
         return {f: open(os.path.join(d, f), "rb").read()
                 for f in sorted(os.listdir(d))}
 
-    def build(d, pipe: str, **kw):
+    def build(d, pipe: str, fetch: str = "1", **kw):
         os.environ["DOS_BUILD_PIPELINE"] = pipe
+        os.environ["DOS_FETCH_RLE"] = fetch
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        c0 = dict(cpd.COUNTERS)
+        c0 = counters()
+        k0 = read_build_launches()
         t0 = time.perf_counter()
         written = build_worker_shard(g, dc, WID, d, chunk=CHUNK,
                                      device="cuda", ctx=ctx, **kw)
         torch.cuda.synchronize()
-        return written, {"s": time.perf_counter() - t0,
+        s = time.perf_counter() - t0
+        k1 = read_build_launches()
+        return written, {"s": s,
                          "peak_bytes": torch.cuda.max_memory_allocated(),
-                         **pipeline_split(c0)}
+                         "k7_launches": sum(k1[k] - k0[k]
+                                            for k in FETCH_KERNELS),
+                         "fetch": fetch_split(c0), **pipeline_split(c0)}
 
     # the compute setup (graph upload, kind, CSR) once, outside the runs
     cpd._compute_ctx(ctx, g, "auto", 0, torch.device("cuda"))
@@ -2240,19 +2331,33 @@ def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
     runs = []
     ref = pipe_dir = None
     try:
-        for i, pipe in enumerate(("0", "1", "1", "0")):
+        for i, (pipe, fetch) in enumerate((("0", "1"), ("1", "1"),
+                                           ("1", "0"), ("0", "0"))):
             d = os.path.join(work, f"run{i}")
-            written, stats = build(d, pipe, epoch=1)
+            written, stats = build(d, pipe, fetch, epoch=1)
             got = files(d)
             ref = got if ref is None else ref
             if written != names or got != ref:
-                raise AssertionError(f"{tag} run {i} (pipeline {pipe}): "
-                                     "blocks or ledger differ from run 0's")
-            runs.append({"pipelined": pipe == "1", **stats})
+                raise AssertionError(f"{tag} run {i} (pipeline {pipe}, "
+                                     f"fetch {fetch}): blocks or ledger "
+                                     "differ from run 0's")
+            want_k7 = 2 * n_blocks if fetch == "1" else 0
+            coded = stats["fetch"]["build_fetch_encoded_total"]
+            if stats["k7_launches"] != want_k7 or \
+                    coded != (n_blocks if fetch == "1" else 0):
+                raise AssertionError(f"{tag} run {i} (fetch {fetch}): K7 "
+                                     f"launched {stats['k7_launches']} "
+                                     f"times, {coded} blocks coded; "
+                                     f"expected {want_k7} launches")
+            runs.append({"pipelined": pipe == "1", "coded": fetch == "1",
+                         **stats})
             log(f"{tag} run {i} {'pipelined' if pipe == '1' else 'serial'}"
-                f": {stats['s']:.3f} s, peak device memory "
+                f" {'coded' if fetch == '1' else 'raw'} fetch: "
+                f"{stats['s']:.3f} s, peak device memory "
                 f"{stats['peak_bytes'] / 2**30:.2f} GiB; {split_line(stats)}"
-                "; blocks and ledger byte-equal to run 0's")
+                f"; {fetch_line(stats['fetch'])}; K7 launches "
+                f"{stats['k7_launches']}; blocks and ledger byte-equal to "
+                "run 0's")
             if pipe == "1" and pipe_dir is None:
                 pipe_dir = d            # kept for the epoch checks
             else:
@@ -2311,20 +2416,373 @@ def pipeline_path(work: str) -> tuple[dict, dict[str, int]]:
             "order")
         crash_run = crash.check()
     finally:
-        if prior is None:
-            os.environ.pop("DOS_BUILD_PIPELINE", None)
-        else:
-            os.environ["DOS_BUILD_PIPELINE"] = prior
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     launches = read_build_launches()
-    mean = {p: float(np.mean([r["s"] for r in runs if r["pipelined"] == p]))
-            for p in (False, True)}
-    log(f"{tag} build seconds, serial / pipelined (2 runs each, in turns): "
-        f"{mean[False]:.3f} / {mean[True]:.3f} = "
-        f"{mean[False] / mean[True]:.4f}; build kernel launches in the "
-        f"phase: {launches}")
-    return {"runs": runs, "serial_s": mean[False],
-            "pipelined_s": mean[True], "blocks": n_blocks,
+    mean = {(r["pipelined"], r["coded"]): r["s"] for r in runs}
+    log(f"{tag} build seconds, serial / pipelined: coded fetch "
+        f"{mean[False, True]:.3f} / {mean[True, True]:.3f} = "
+        f"{mean[False, True] / mean[True, True]:.4f}; raw fetch "
+        f"{mean[False, False]:.3f} / {mean[True, False]:.3f}; "
+        f"pipelined coded / raw {mean[True, True] / mean[True, False]:.4f}; "
+        f"build kernel launches in the phase: {launches}")
+    return {"runs": runs, "serial_s": mean[False, True],
+            "pipelined_s": mean[True, True],
+            "serial_raw_s": mean[False, False],
+            "pipelined_raw_s": mean[True, False], "blocks": n_blocks,
             "crash_build": crash_run}, launches
+
+
+def k7_vs_plain(tag: str, fm: torch.Tensor) -> dict:
+    """K7 on the int8 block ``fm`` on the card: the count and the encode
+    equal their plain versions element by element, ``fetch_fm`` codes the
+    block and gives it back byte for byte (host expansion timed); each
+    entry's ms by CUDA events (bare launches back to back) beside its
+    byte bound, the plain version's ms and, as the nearest library call,
+    ``torch.unique_consecutive(return_counts=True)`` on the transposed
+    flat block (it does not break runs at column starts: a yardstick,
+    not the same function)."""
+    c, n = fm.shape
+    counts = fr.fm_run_count(fm)
+    want_counts = fr.fm_run_count_plain(fm)
+    err_count = int((counts.long() - want_counts.long()).abs().max())
+    if err_count:
+        raise AssertionError(f"{tag} fm_run_count differs from the plain "
+                             f"count (max abs err {err_count})")
+    del want_counts
+    offsets, runs = fr.run_offsets(counts)
+    wire = torch.empty(3 * runs, dtype=torch.uint8, device=fm.device)
+    lens, vals = fr.wire_views(wire, runs)
+    fr.fm_rle_encode(fm, offsets, lens, vals)
+    want_l, want_v = fr.fm_rle_encode_plain(fm)
+    if want_l.numel() != runs:
+        raise AssertionError(f"{tag} the plain encode has {want_l.numel()} "
+                             f"runs, the count {runs}")
+    err_encode = max(int((lens.int() - want_l.int()).abs().max()),
+                     int((vals.int() - want_v.int()).abs().max()))
+    if err_encode:
+        raise AssertionError(f"{tag} fm_rle_encode differs from the plain "
+                             f"encode (max abs err {err_encode})")
+    del want_l, want_v
+    log(f"{tag} [{c}, {n}] block ({c * n} cells): {runs} runs; K7's "
+        "counts, total, lens and vals equal the plain version's element "
+        "by element")
+    c0 = counters()
+    t0 = time.perf_counter()
+    host = cpd.fetch_fm(fm)
+    fetch_s = time.perf_counter() - t0
+    fetch = fetch_split(c0)
+    if fetch["build_fetch_encoded_total"] != 1:
+        raise AssertionError(f"{tag} fetch_fm did not code the block")
+    if not torch.equal(torch.from_numpy(host).to(fm.device), fm):
+        raise AssertionError(f"{tag} fetch_fm's block differs")
+    del host
+    log(f"{tag} fetch_fm == the block byte for byte in {fetch_s:.3f} s; "
+        f"{fetch_line(fetch)}")
+    count_ms = time_bare(lambda: fr.fm_run_count(fm, counts), KERNEL_REPS)
+    encode_ms = time_bare(lambda: fr.fm_rle_encode(fm, offsets, lens, vals),
+                          KERNEL_REPS)
+    plain_count_ms = time_cuda(lambda: fr.fm_run_count_plain(fm),
+                               PLAIN_REPS)
+    plain_encode_ms = time_cuda(lambda: fr.fm_rle_encode_plain(fm),
+                                PLAIN_REPS)
+    library_ms = None           # CUB's scan takes at most 2**31 - 1 items
+    if c * n < 2**31:
+        flat = fm.T.contiguous().view(-1)
+        library_ms = time_cuda(
+            lambda: torch.unique_consecutive(flat, return_counts=True),
+            PLAIN_REPS)
+        del flat
+    count_bound = bound(c * n + 4 * n, c * n)
+    encode_bound = bound(c * n + 8 * n + 3 * runs, c * n)
+    log(f"{tag} fm_run_count {count_ms:.4f} ms (bound {count_bound[0]:.4f}"
+        f" ms by {count_bound[1]}, x{count_ms / count_bound[0]:.2f}; plain "
+        f"{plain_count_ms:.4f} ms); fm_rle_encode {encode_ms:.4f} ms "
+        f"(bound {encode_bound[0]:.4f} ms by {encode_bound[1]}, "
+        f"x{encode_ms / encode_bound[0]:.2f}; plain {plain_encode_ms:.4f} "
+        f"ms); torch.unique_consecutive on the transposed block "
+        + (f"{library_ms:.4f} ms" if library_ms is not None else
+           "not run (CUB refuses 2**31 items or more)"))
+    shape = {"rows": c, "cols": n, "runs": runs,
+             "wire_bytes": 3 * runs, "raw_bytes": c * n,
+             "fetch_s": fetch_s,
+             "expand_s": fetch["build_fetch_expand_seconds"]}
+    return {"fm_run_count": {"ms": count_ms, "plain_ms": plain_count_ms,
+                             "bound_ms": count_bound[0],
+                             "bound_by": count_bound[1],
+                             "library_ms": library_ms,
+                             "max_abs_err": err_count, **shape},
+            "fm_rle_encode": {"ms": encode_ms, "plain_ms": plain_encode_ms,
+                              "bound_ms": encode_bound[0],
+                              "bound_by": encode_bound[1],
+                              "library_ms": library_ms,
+                              "max_abs_err": err_encode, **shape}}
+
+
+def blocky_past_2_31(rows: int, n: int, run: int, seed: int) -> torch.Tensor:
+    """An int8 ``[rows, n]`` block on the card past 2**31 cells: values in
+    -1..7 drawn by ``torch.Generator(seed)`` once every ``run`` rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    vals = torch.randint(-1, 8, (-(-rows // run), n), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    return vals.repeat_interleave(run, dim=0)[:rows].contiguous()
+
+
+def fetch_path(g, dc, outdir: str, work: str, road: dict,
+               road_counts: dict[str, int]) -> tuple[dict, dict[str, int]]:
+    """``[fetch]``: the road shard built again on the card with the fetch
+    raw (``DOS_FETCH_RLE=0``), as [road] built it (a compute setup of its
+    own): blocks and ledger byte-equal to [road]'s coded build, no K7
+    launch, its seconds, split and wire bytes beside [road]'s
+    (``road``: its build stats; ``road_counts``: its launches, K7 twice
+    a block past the gate) — the main run: counts zeroed before, read
+    after; then K7 against its plain version (:func:`k7_vs_plain`) on
+    [road]'s block 0 (1,024 x 264,000) and on a C2_ROWS x N_NODES block
+    made on the card (past 2**31 cells)."""
+    tag = "[fetch]"
+    prior = os.environ.get("DOS_FETCH_RLE")
+    n_blocks = -(-dc.n_owned(WID) // dc.block_size)
+    names = [cpd.shard_block_name(WID, b) for b in range(n_blocks)]
+
+    def files(d):
+        ledger = cpd.BuildLedger(d, WID).entries()
+        return {f: (open(os.path.join(d, f), "rb").read(), ledger.get(f))
+                for f in names}
+
+    eligible = sum(cpd._fetch_rle_eligible(
+        (min(dc.block_size, dc.n_owned(WID) - b * dc.block_size), g.n))
+        for b in range(n_blocks))
+    road_k7 = sum(road_counts[k] for k in FETCH_KERNELS)
+    coded = road["fetch"]["build_fetch_encoded_total"]
+    if road_k7 != 2 * eligible or coded != eligible:
+        raise AssertionError(f"{tag} [road]'s build launched K7 {road_k7} "
+                             f"times and coded {coded} blocks; "
+                             f"{eligible} are past the gate")
+    zero_launches()
+    d = os.path.join(work, "raw")
+    os.environ["DOS_FETCH_RLE"] = "0"
+    try:
+        torch.cuda.synchronize()
+        c0 = counters()
+        t0 = time.perf_counter()
+        build_worker_shard(g, dc, WID, d, chunk=CHUNK, device="cuda")
+        torch.cuda.synchronize()
+        raw_s = time.perf_counter() - t0
+    finally:
+        if prior is None:
+            os.environ.pop("DOS_FETCH_RLE", None)
+        else:
+            os.environ["DOS_FETCH_RLE"] = prior
+    launches = read_build_launches()
+    same = files(d) == files(outdir)
+    shutil.rmtree(d)
+    k7 = sum(launches[k] for k in FETCH_KERNELS)
+    if not same or k7:
+        raise AssertionError(f"{tag} raw fetch: blocks equal [road]'s: "
+                             f"{same}; K7 launches {k7}")
+    raw = {"s": raw_s, "fetch": fetch_split(c0), **pipeline_split(c0)}
+    builds = {"raw": raw, "coded": {
+        "s": road["seconds"], "fetch": road["fetch"],
+        **{k: road[k] for k in PIPE_KEYS}}}
+    log(f"{tag} road build, raw fetch: {raw_s:.3f} s; {split_line(raw)}; "
+        f"{fetch_line(raw['fetch'])}; no K7 launch; blocks and ledger "
+        "byte-equal to [road]'s coded build")
+    log(f"{tag} road build seconds, coded ([road]) / raw fetch: "
+        f"{road['seconds']:.3f} / {raw_s:.3f} = {road['seconds'] / raw_s:.4f}"
+        f" ({eligible} of {n_blocks} blocks past the gate, K7 launched "
+        f"{road_k7} times by [road]'s build); build kernel launches "
+        f"{launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    block = np.load(os.path.join(outdir, cpd.shard_block_name(WID, 0)))
+    if block.shape != (dc.block_size, g.n) or block.dtype != np.int8:
+        raise AssertionError(f"{tag} block 0 is {block.dtype} "
+                             f"{block.shape}")
+    fm = torch.from_numpy(block).to("cuda")
+    del block
+    block0 = k7_vs_plain(f"{tag} road block 0", fm)
+    del fm
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    big = blocky_past_2_31(C2_ROWS, N_NODES, FETCH_BIG_RUN, SEED)
+    torch.cuda.synchronize()
+    log(f"{tag} a [{C2_ROWS}, {N_NODES}] block ({big.numel()} cells, past "
+        f"2**31) made on the card in {time.perf_counter() - t0:.3f} s")
+    past = k7_vs_plain(f"{tag} past 2**31", big)
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"road": block0, "past_2_31": past, "builds": builds,
+            "eligible_blocks": eligible}, launches
+
+
+def fetch_entries(fetch: dict, launches: dict[str, dict[str, int]]
+                  ) -> list[dict]:
+    """K7's two entries of the kernel table: launches summed over the
+    paths' main runs (the smoke process's builds; a build process's are
+    not in its dump), the headline numbers from [fetch]'s road block, the
+    block past 2**31 cells under ``past_2_31``."""
+    entries = []
+    for name, replaces in FETCH_KERNELS.items():
+        by_path = {p: c.get(name, 0) for p, c in launches.items()}
+        head = fetch["road"][name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_oracle_search_tpu_torch/csrc/fm_rle.cu",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(head["max_abs_err"],
+                               fetch["past_2_31"][name]["max_abs_err"]),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "parity": "bit-identical", "road_block": head,
+            "past_2_31": fetch["past_2_31"][name],
+            "road_builds": fetch["builds"]})
+        if entries[-1]["launches"] <= 0:
+            raise AssertionError(f"the main path never launched {name}")
+    return entries
+
+
+def shift_plain_rows(side: int, workers: int, k: int, seed: int
+                     ) -> tuple[np.ndarray, np.ndarray, float]:
+    """``k`` seeded rows of worker 0's shard of the ``side`` x ``side``
+    lattice (``mod`` over ``workers``) by the plain CPU ``shift`` build:
+    ``(row indices, int8 [k, N] rows, seconds)``. Runs in a spawned
+    process (:class:`ShiftReference`), on two host threads."""
+    torch.set_num_threads(2)
+    g = synth_city_graph(side, side, seed=seed)
+    owned = DistributionController("mod", workers, workers, g.n).owned(WID)
+    rows = np.sort(np.random.default_rng(seed + 5).choice(
+        len(owned), k, replace=False))
+    compute = sharded.chunk_compute(DeviceGraph.from_graph(g, device="cpu"),
+                                    cpd.pick_build_kernel(g, "shift"))
+    t0 = time.perf_counter()
+    fm = compute(torch.as_tensor(owned[rows].astype(np.int32))).numpy()
+    return rows, fm, time.perf_counter() - t0
+
+
+#: processes to stop when the smoke ends, however it ends
+CLOSE_AT_EXIT: list = []
+
+
+class ShiftReference:
+    """``[shift]``'s plain CPU rows (:func:`shift_plain_rows`), computed
+    in one spawned process from the smoke's start, beside the card's
+    earlier phases: the plain build of 64 rows takes ~35 s of host time.
+    The process is stopped when the rows are read, or at exit."""
+
+    def __init__(self):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.job = self.pool.apply_async(
+            shift_plain_rows, (SHIFT_SIDE, SHIFT_WORKERS, SHIFT_CHECK_ROWS,
+                               SEED))
+        CLOSE_AT_EXIT.append(self.close)
+
+    def get(self, timeout: float = 600.0):
+        try:
+            return self.job.get(timeout)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+def shift_path(work: str, ref: ShiftReference
+               ) -> tuple[dict, dict[str, int]]:
+    """``[shift]``: the ``shift`` build kind on the card. On
+    ``synth_city_graph(SHIFT_SIDE, SHIFT_SIDE, seed=0)`` (30,976 nodes,
+    under ``SWEEP_MIN_NODES``) ``pick_build_kernel(g, "auto")`` must
+    resolve ``shift``; worker 0 of ``mod`` over SHIFT_WORKERS (3,872
+    rows, blocks of ROAD_BLOCK) built by ``build_worker_shard(method=
+    "auto")`` (K1 over the full CSR, K2, the fetch; counts zeroed before,
+    read after) has the blocks of a ``method="ell"`` build byte for byte;
+    SHIFT_CHECK_ROWS seeded rows equal the plain CPU shift build's
+    (``ref``: computed in a process of its own since the smoke began); a
+    ``ShardEngine`` answers SHIFT_QUERIES queries by B1, costs equal
+    K1's exact distances."""
+    tag = "[shift]"
+    g = synth_city_graph(SHIFT_SIDE, SHIFT_SIDE, seed=SEED)
+    kind = cpd.pick_build_kernel(g, "auto")[0]
+    if kind != "shift" or g.n >= cpd.SWEEP_MIN_NODES:
+        raise AssertionError(f"{tag} auto resolved {kind!r} on {g.n} nodes")
+    dc = DistributionController("mod", SHIFT_WORKERS, SHIFT_WORKERS, g.n,
+                                block_size=ROAD_BLOCK)
+    owned = dc.owned(WID)
+    auto_dir = os.path.join(work, "auto")
+    ell_dir = os.path.join(work, "ell")
+    zero_launches()
+    t0 = time.perf_counter()
+    with KindProbe() as kinds:
+        written = build_worker_shard(g, dc, WID, auto_dir, chunk=CHUNK,
+                                     device="cuda", method="auto")
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    kinds.check("shift", tag)
+    counts = read_build_launches()
+    log(f"{tag} n={g.n} m={g.m}: worker {WID}'s {len(owned)} rows in "
+        f"{len(written)} blocks by method=auto in {auto_s:.3f} s; build "
+        f"kernel launches {counts}")
+    if counts["relax_jacobi"] <= 0 or counts["first_moves"] <= 0 or \
+            counts["grid_sweep_cycle"]:
+        raise AssertionError(f"{tag} the shift build's launches: {counts}")
+    t0 = time.perf_counter()
+    build_worker_shard(g, dc, WID, ell_dir, chunk=CHUNK, device="cuda",
+                       method="ell")
+    torch.cuda.synchronize()
+    ell_s = time.perf_counter() - t0
+    for name in written:
+        with open(os.path.join(auto_dir, name), "rb") as a, \
+                open(os.path.join(ell_dir, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{tag} {name} differs from the ell "
+                                     "build's")
+    log(f"{tag} the {len(written)} blocks equal a method=ell build's byte "
+        f"for byte (ell build {ell_s:.3f} s)")
+    write_index_manifest(auto_dir, dc, workers=[WID])
+    engine = eng.ShardEngine(g, dc, WID, auto_dir, device="cuda")
+    rng = np.random.default_rng(SEED + 6)
+    queries = np.stack([rng.integers(0, g.n, SHIFT_QUERIES),
+                        owned[rng.integers(0, len(owned), SHIFT_QUERIES)]],
+                       axis=1).astype(np.int64)
+    walk0 = cw.cuda_walk_batch.launches
+    t0 = time.perf_counter()
+    cost, _, fin, _ = engine.answer(queries, RuntimeConfig(), "-")
+    torch.cuda.synchronize()
+    answer_s = time.perf_counter() - t0
+    walks = cw.cuda_walk_batch.launches - walk0
+    if walks <= 0:
+        raise AssertionError(f"{tag} B1 never launched")
+    golden_costs(g, queries, cost, fin, None, tag)
+    del engine
+    t0 = time.perf_counter()
+    rows, plain_fm, plain_s = ref.get()
+    wait_s = time.perf_counter() - t0
+    bs = dc.block_size
+    got = np.stack([np.load(os.path.join(
+        auto_dir, cpd.shard_block_name(WID, int(r) // bs)),
+        mmap_mode="r")[int(r) % bs] for r in rows])
+    if not np.array_equal(got, plain_fm):
+        raise AssertionError(f"{tag} rows differ from the plain CPU shift "
+                             "build")
+    log(f"{tag} {SHIFT_CHECK_ROWS} seeded rows equal the plain CPU shift "
+        f"build's ({plain_s:.3f} s in its own process since the smoke "
+        f"began; {wait_s:.3f} s waited for it here); "
+        f"{SHIFT_QUERIES} queries answered in {answer_s:.3f} s, {walks} B1 "
+        "launches")
+    shutil.rmtree(auto_dir)
+    shutil.rmtree(ell_dir)
+    return {"nodes": g.n, "rows": len(owned), "blocks": len(written),
+            "auto_s": auto_s, "ell_s": ell_s, "answer_s": answer_s,
+            "plain_rows_s": plain_s, "plain_wait_s": wait_s,
+            "walk_launches": walks}, counts
 
 
 def lanes_path(g, dc, outdir: str, ref: dict, one_lane_ms: float) -> dict:
@@ -2715,9 +3173,10 @@ def run() -> list[dict]:
 
     th_dimacs = threading.Thread(target=read_dimacs)
     th_dimacs.start()
+    shift_ref = ShiftReference()
     t0 = time.perf_counter()
     sources = (cw.KERNEL_NAME, cbk.KERNEL_NAME, cd.KERNEL_NAME,
-               ca.KERNEL_NAME)
+               ca.KERNEL_NAME, fr.KERNEL_NAME)
     errors: list[BaseException] = []
 
     def build_one(name):
@@ -2768,6 +3227,17 @@ def run() -> list[dict]:
         lanes = lanes_path(g, dc, outdir, road_ref, raw_kernel["kernel_ms"])
         log(f"[lanes] done at {time.perf_counter() - T_START:.1f} s")
         del road_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- 2c. the build's compressed fetch on the road shard
+        fetch_dir = tempfile.mkdtemp(prefix="chip-smoke-fetch-", dir=work)
+        try:
+            fetch, build_launches["fetch"] = fetch_path(
+                g, dc, outdir, fetch_dir, delta["full_build"],
+                build_launches["road"])
+        finally:
+            shutil.rmtree(fetch_dir, ignore_errors=True)
+        log(f"[fetch] done at {time.perf_counter() - T_START:.1f} s")
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     build_launches["delta"] = {k: delta["launches"][k] for k in BUILD_FNS}
@@ -2783,6 +3253,14 @@ def run() -> list[dict]:
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     log(f"[pipeline] done at {time.perf_counter() - T_START:.1f} s")
+
+    # ---- 2d. the shift build kind
+    outdir = tempfile.mkdtemp(prefix="chip-smoke-shift-", dir=work)
+    try:
+        shift, build_launches["shift"] = shift_path(outdir, shift_ref)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    log(f"[shift] done at {time.perf_counter() - T_START:.1f} s")
 
     # ---- 3. compressed path
     t0 = time.perf_counter()
@@ -2868,7 +3346,8 @@ def run() -> list[dict]:
         "native": native["launches"], "heal": heal["launches"],
         "rpc": rpc_run["launches"], "serve": serve["launches"],
         "planes": planes["launches"], "gateway": gateway["launches"],
-        "lanes": lanes["launches"], "multihost": mh["launches"]}
+        "lanes": lanes["launches"], "multihost": mh["launches"],
+        "shift": shift["walk_launches"]}
     raw_kernel["launches"] = sum(raw_kernel["launches_by_path"].values())
     raw_kernel["max_abs_err"] = max(raw_kernel["max_abs_err"],
                                     stream["max_abs_err"],
@@ -2895,6 +3374,7 @@ def run() -> list[dict]:
     next(e for e in build if e["name"] == "first_moves")["reorder"] = reorder
     relax = next(e for e in build if e["name"] == "relax_jacobi")
     relax["pipeline"], relax["delta"] = pipeline, delta
+    relax["shift"] = shift
     for entry in build:
         if entry["launches"] <= 0:
             raise AssertionError(f"the main path never launched "
@@ -2905,7 +3385,8 @@ def run() -> list[dict]:
         {"streamed": stream["multi_launches"],
          "streamed-campaign": stream_campaign["multi_launches"]})
     multi["launches"] = sum(multi["launches_by_path"].values())
-    return [raw_kernel, pack4_kernel, *build, *served, *astar]
+    return [raw_kernel, pack4_kernel, *build,
+            *fetch_entries(fetch, build_launches), *served, *astar]
 
 
 def serving_entries(campaign: dict, serving: dict, road: dict
@@ -9152,6 +9633,9 @@ def main() -> int:
     except Exception:  # noqa: BLE001 — any failed phase fails the smoke
         traceback.print_exc()
         return 1
+    finally:
+        for close in CLOSE_AT_EXIT:
+            close()
     log(f"[done] {time.perf_counter() - T_START:.1f} s on {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,11 @@ oracle:
   ``epoch`` keys the ledger lines, and a ``ctx`` dict keeps the compute
   setup across builds. With ``DOS_MESH_DEVICES`` above 1 each chunk is
   built across the worker's lanes (``parallel.sharded.build_fm_lanes``;
-  the same bytes). No device-side RLE fetch. On the card every stage
-  runs through the hand build kernels (``ops.cuda_build_kernels``).
+  the same bytes). Each block comes to the host through
+  :func:`fetch_fm`'s choice: its target-axis runs when that pays
+  (``DOS_FETCH_RLE``, the JAX package's gate; K7, ``ops.cuda_fm_rle``, on
+  the card), else its raw rows. On the card every stage runs through the
+  hand build kernels (``ops.cuda_build_kernels``).
 * delta rebuilds: :func:`delta_affected_targets` (the tense-edge pass,
   K1 on the transposed graph on the card), :func:`delta_build_worker_shard`
   and :func:`delta_build_index` (``make_cpds --delta-from``): an old
@@ -86,6 +89,9 @@ import torch
 from ..data.graph import Graph
 from ..obs import metrics as obs_metrics
 from ..ops import cuda_build_kernels as cbk
+from ..ops.cuda_fm_rle import (
+    expand_runs, fm_rle_encode, fm_run_count, run_offsets, wire_views,
+)
 from ..ops.device_graph import TINF, DeviceGraph
 from ..ops.ell_split import ell_split_graph, split_ratio
 from ..ops.frontier_relax import frontier_graph, locality_fraction
@@ -156,6 +162,13 @@ COUNTERS = dict.fromkeys((
                                          # and the copy-out queued
     "build_flush_seconds",               # encode, write, fsync, ledger
 ), 0)
+
+#: :func:`fetch_fm`'s running sums (the port's own): blocks fetched as
+#: their runs, the fetched blocks' bytes, the bytes the fetches copied
+#: out, and the host expansion's seconds
+FETCH_STATS = dict.fromkeys((
+    "build_fetch_encoded_total", "build_fetch_raw_bytes_total",
+    "build_fetch_wire_bytes_total", "build_fetch_expand_seconds"), 0)
 
 
 def shard_block_name(wid: int, bid: int, replica: int = 0) -> str:
@@ -379,6 +392,103 @@ def pick_build_kernel(graph: Graph, method: str = "auto"):
     return "shift", ShiftGraph(shifts, w_shift, nbr_left, w_left, graph.n)
 
 
+# ------------------------------------------------------ compressed fetch
+
+#: compressed device->host fm fetch below this raw size is not worth the
+#: extra device round trip (the count pass) — plain fetch instead
+FETCH_RLE_MIN_BYTES = 16 << 20
+
+
+def _fetch_rle_eligible(shape) -> bool:
+    """The JAX package's gate of the compressed fetch: ``DOS_FETCH_RLE``
+    (default on), 2 to 65,535 rows (a run's uint16 length) and at least
+    :data:`FETCH_RLE_MIN_BYTES` cells."""
+    c, n = shape
+    return (env_flag("DOS_FETCH_RLE", True) and c >= 2
+            and c <= 65535 and c * n >= FETCH_RLE_MIN_BYTES)
+
+
+def _fetch_runs(dev: torch.Tensor, counts: torch.Tensor | None = None):
+    """The fetch's choice for the int8 ``[C, N]`` block ``dev``:
+    ``(offsets, n_runs)`` when its runs cross the wire, None for a plain
+    copy (the gate fails, or the block is incompressible: ``3 * cap >= C
+    * N`` with ``cap`` the power of two at or above ``n_runs``, the JAX
+    rule). ``counts``: :func:`fm_run_count` of ``dev`` when the caller
+    has it. Reading the run total waits for the work queued on ``dev``."""
+    c, n = dev.shape
+    if not _fetch_rle_eligible((c, n)):
+        return None
+    offsets, n_runs = run_offsets(fm_run_count(dev) if counts is None
+                                  else counts)
+    cap = 1 << max(n_runs - 1, 0).bit_length()
+    if 3 * cap >= c * n:          # incompressible: plain wins
+        return None
+    return offsets, n_runs
+
+
+def _note_fetch(raw: int, wire: int, encoded: bool) -> None:
+    FETCH_STATS["build_fetch_encoded_total"] += int(encoded)
+    FETCH_STATS["build_fetch_raw_bytes_total"] += raw
+    FETCH_STATS["build_fetch_wire_bytes_total"] += wire
+
+
+def _expand(lens: torch.Tensor, vals: torch.Tensor, c: int,
+            n: int) -> np.ndarray:
+    """Host runs -> the ``[C, N]`` block, timed into :data:`FETCH_STATS`."""
+    t0 = time.perf_counter()
+    out = expand_runs(lens.numpy(), vals.numpy(), c, n)
+    FETCH_STATS["build_fetch_expand_seconds"] += time.perf_counter() - t0
+    return out
+
+
+def fetch_fm(dev: torch.Tensor, count_dev: torch.Tensor | None = None
+             ) -> np.ndarray:
+    """Device int8 ``[C, N]`` fm block -> host numpy, run-length coded
+    over the wire when it pays (the JAX package's ``fetch_fm``).
+
+    fm rows run long along the target axis, so the device codes the
+    transposed block (3 bytes a run: K7, ``ops.cuda_fm_rle``, on the
+    card; its plain torch version on a CPU block) and the host expands
+    the runs — many times fewer bytes over a slow link. A plain copy
+    for blocks :func:`_fetch_rle_eligible` refuses, incompressible
+    blocks and ``DOS_FETCH_RLE=0``. The result is byte-equal to a plain
+    copy either way, and never aliases ``dev``. A kernel that fails to
+    build or launch raises; nothing falls back to the plain copy.
+
+    ``count_dev``: :func:`fm_run_count` of ``dev``, when the caller has
+    launched it already."""
+    c, n = dev.shape
+    buf = torch.empty((c, n), dtype=torch.int8)
+    runs = _queue_fetch(dev, buf, count_dev)
+    if dev.device.type == "cuda":
+        torch.cuda.current_stream(dev.device).synchronize()
+    return (buf.numpy() if runs is None
+            else _expand(*wire_views(buf, runs), c, n))
+
+
+def _queue_fetch(src: torch.Tensor, buf: torch.Tensor,
+                 counts: torch.Tensor | None = None) -> int | None:
+    """Queue block ``src``'s fetch into the host buffer ``buf`` (at
+    least ``src``'s bytes) on the current stream: its runs, laid out as
+    :func:`~..ops.cuda_fm_rle.wire_views` reads them (``3 * n_runs < C *
+    N`` bytes: they fit), returning ``n_runs``, or its raw rows,
+    returning None. The runs' total is read on the host first, so the
+    caller waits here for the block's kernels."""
+    c, n = src.shape
+    plan = _fetch_runs(src, counts)
+    if plan is None:
+        buf[:c].copy_(src, non_blocking=True)
+        _note_fetch(c * n, c * n, False)
+        return None
+    offsets, n_runs = plan
+    wire = torch.empty(3 * n_runs, dtype=torch.uint8, device=src.device)
+    fm_rle_encode(src, offsets, *wire_views(wire, n_runs))
+    buf.view(-1).view(torch.uint8)[:3 * n_runs].copy_(wire,
+                                                      non_blocking=True)
+    _note_fetch(c * n, 3 * n_runs, True)
+    return n_runs
+
+
 # ------------------------------------------------------- build pipeline
 
 def build_pipeline_enabled() -> bool:
@@ -545,8 +655,9 @@ def crash_point(wid: int) -> None:
 class _BlockFlusher:
     """The flush side of the pipelined build: ONE thread that lands the
     computed blocks in block order — wait for the block's device-to-host
-    copy (the event recorded after it), encode, atomic write with fsync,
-    ledger line — while the build loop drives the next block's kernels.
+    copy (the event recorded after it), expand its runs when the fetch
+    was run-length coded, encode, atomic write with fsync, ledger line —
+    while the build loop drives the next block's kernels.
 
     The host rows come from a pool of ``depth`` block buffers (pinned
     on the card, so the copy queued after a block's extraction runs
@@ -604,10 +715,11 @@ class _BlockFlusher:
         return buf
 
     def submit(self, fname: str, rows: int, buf: torch.Tensor, event,
-               writer) -> None:
-        """Hand block ``fname`` (its first ``rows`` rows of ``buf``, ready
-        once ``event`` completes) and its pre-opened writer over."""
-        item = (fname, rows, buf, event, writer)
+               writer, runs: int | None = None) -> None:
+        """Hand block ``fname`` (its first ``rows`` rows of ``buf``, or
+        its ``runs`` runs at the start of ``buf`` (:func:`_queue_fetch`),
+        ready once ``event`` completes) and its pre-opened writer over."""
+        item = (fname, rows, buf, event, writer, runs)
         if self._thread is None:
             self._land(item)
             return
@@ -615,12 +727,14 @@ class _BlockFlusher:
         self._q.put(item)
 
     def _land(self, item) -> None:
-        fname, rows, buf, event, writer = item
+        fname, rows, buf, event, writer, runs = item
         try:
             if event is not None:
                 event.synchronize()
             t0 = time.perf_counter()
-            self._flush_fn(fname, buf[:rows].numpy(), writer)
+            arr = (buf[:rows].numpy() if runs is None
+                   else _expand(*wire_views(buf, runs), rows, buf.shape[1]))
+            self._flush_fn(fname, arr, writer)
             COUNTERS["build_flush_seconds"] += time.perf_counter() - t0
         except BaseException:
             writer.abort()
@@ -701,8 +815,13 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
     after every relax step, so a copy issued after the next block's
     launches would wait for them: the copy goes first, the flush runs
     beside. Blocks and ledger lines are the serial loop's, byte for byte.
-    (The JAX package's ``DOS_BUILD_DONATE`` has no counterpart: a drained
-    block's device rows are one buffer the next block overwrites.)
+    The copy is :func:`fetch_fm`'s choice for the block (its runs, coded
+    by K7 on the card, when ``DOS_FETCH_RLE``'s gate passes and they pay;
+    the flush thread expands them), queued the same way: the run total's
+    host read, the encode and the copy of the runs all precede the next
+    block's kernels. (The JAX package's ``DOS_BUILD_DONATE`` has no
+    counterpart: a drained block's device rows are one buffer the next
+    block overwrites.)
 
     ``epoch``: key the ledger lines to a diff epoch (delta rebuilds): a
     resume skips only blocks journaled under the SAME epoch with a
@@ -785,10 +904,10 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
     flusher = _BlockFlusher(flush, (rows_max, graph.n), pin=on_card,
                             depth=depth if pipelined else 1,
                             threaded=pipelined, wid=wid)
-    # on the card a block's rows land in one device buffer, reused: the
-    # copy out of it precedes the next block's kernels in stream order
-    dev_rows = (torch.empty((rows_max, graph.n), dtype=torch.int8,
-                            device=dev) if on_card else None)
+    # a block's rows land in one device buffer, reused: the fetch out of
+    # it precedes the next block's kernels in stream order
+    dev_rows = torch.empty((rows_max, graph.n), dtype=torch.int8,
+                           device=dev)
     stager = (_BackgroundStager(missing, stage, depth, wid)
               if pipelined else None)
     staged = iter(stager) if stager is not None \
@@ -800,21 +919,19 @@ def build_worker_shard(graph: Graph, dc: DistributionController, wid: int,
             try:
                 t0 = time.perf_counter()
                 rows = sum(n for _, n in pads)
-                buf = None if on_card else flusher.acquire()
-                dst = dev_rows if on_card else buf
                 off = 0
                 for pad, n in pads:
-                    compute(pad, out=dst[off:off + n])
+                    compute(pad, out=dev_rows[off:off + n])
                     off += n
-                event = None
                 COUNTERS["build_compute_seconds"] += (
                     time.perf_counter() - t0)
+                buf = flusher.acquire()
+                runs = _queue_fetch(dev_rows[:rows], buf)
+                event = None
                 if on_card:
-                    buf = flusher.acquire()
-                    buf[:rows].copy_(dev_rows[:rows], non_blocking=True)
                     event = torch.cuda.Event()
                     event.record()
-                flusher.submit(fname, rows, buf, event, writer)
+                flusher.submit(fname, rows, buf, event, writer, runs)
             except BaseException:
                 writer.abort()        # never handed to the flusher
                 raise
@@ -913,7 +1030,8 @@ def _compute_rows_batched(compute, tgts: np.ndarray, chunk_rows: int,
     """First-move rows of an arbitrary target list in ``chunk_rows``
     batches — the delta paths' recompute. The final partial batch pads to
     its own power of two (capped at the chunk), so a handful of dirty
-    rows never pays a whole chunk's solve."""
+    rows never pays a whole chunk's solve. Each batch comes to the host
+    through :func:`fetch_fm`."""
     parts = []
     for i in range(0, len(tgts), chunk_rows):
         part = tgts[i:i + chunk_rows]
@@ -921,7 +1039,7 @@ def _compute_rows_batched(compute, tgts: np.ndarray, chunk_rows: int,
         pad = np.full(csize, -1, np.int32)
         pad[:len(part)] = part
         fm = compute(torch.from_numpy(pad).to(dev))
-        parts.append(fm[:len(part)].cpu().numpy())
+        parts.append(fetch_fm(fm)[:len(part)])
     return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
 

@@ -300,3 +300,50 @@ def test_tool_copies_equal_the_jax_package(rel):
         jax_src = jax_src.replace(old, new)
     assert code_of(port) == code_of(_JAX_NAME.sub(
         "distributed_oracle_search_tpu_torch", jax_src)), rel
+
+
+#: the other modules the port copied from the JAX package: their code,
+#: docstrings aside, is the JAX package's with the package's name
+#: replaced, as for TOOL_COPIES
+COPIED_MODULES = (
+    "__init__.py", "cli/__init__.py", "cli/gen_distribute_conf.py",
+    "data/formats.py", "data/graph.py", "data/synth.py",
+    "gateway/config.py", "integrity/config.py", "integrity/fingerprint.py",
+    "models/__init__.py", "models/astar.py", "models/reference.py",
+    "obs/__init__.py", "obs/quantiles.py", "obs/recorder.py",
+    "obs/trace.py", "parallel/partition.py",
+    "serving/__init__.py", "serving/batcher.py", "serving/cache.py",
+    "serving/config.py", "serving/frontend.py", "serving/hedge.py",
+    "serving/ingress.py", "serving/queue.py", "serving/request.py",
+    "testing/__init__.py", "testing/faults.py",
+    "traffic/__init__.py", "traffic/epochs.py", "traffic/families.py",
+    "traffic/scenarios.py", "traffic/segments.py", "traffic/stream.py",
+    "transport/__init__.py", "transport/frames.py", "transport/rpc.py",
+    "utils/env.py", "utils/locks.py", "utils/timer.py")
+
+
+def _same_code_as_jax(rel: str) -> bool:
+    """The port's ``rel`` runs the JAX package's code, the package's name
+    replaced (docstrings and comments may differ)."""
+    with open(os.path.join(PORT, rel)) as f, \
+            open(os.path.join(JAX_DIR, rel)) as g:
+        return code_of(f.read()) == code_of(_JAX_NAME.sub(
+            "distributed_oracle_search_tpu_torch", g.read()))
+
+
+@pytest.mark.parametrize("rel", COPIED_MODULES)
+def test_copied_modules_equal_the_jax_package(rel):
+    assert _same_code_as_jax(rel), rel
+
+
+def test_every_copy_is_held_to_the_jax_package():
+    """A module whose code equals the JAX package's today is in one of the
+    three copy lists, so a drift on a path no parity case drives fails
+    here; and no module is in two of them."""
+    listed = [*PLANE_COPIES, *TOOL_COPIES, *COPIED_MODULES]
+    assert len(listed) == len(set(listed))
+    equal = {rel for rel in (os.path.relpath(p, PORT)
+                             for p in _port_sources() if p.startswith(PORT))
+             if os.path.exists(os.path.join(JAX_DIR, rel))
+             and _same_code_as_jax(rel)}
+    assert sorted(equal - set(listed)) == []
