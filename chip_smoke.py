@@ -11,7 +11,8 @@ points a user calls, then the compressed-residency path:
    ``nvcc`` a source, started together: the walk (raw, pack4 and fused
    multi-diff entries), the build (``cpd_build.cu``: the Jacobi relax,
    the first-move extraction, the grid sweep cycle), the doubling
-   kernels (``pointer_doubling.cu``: on chip, and the wide sweep), the
+   kernels (``pointer_doubling.cu``: on chip by a cluster or a team,
+   and the wide sweep), the
    batched A* (``batched_astar.cu``: the sweep, the heuristic) and the
    build's compressed fetch (``fm_rle.cu``, K7: the run count, the
    encode); a spawned process starts the plain CPU rows ``[shift]``
@@ -42,13 +43,16 @@ points a user calls, then the compressed-residency path:
    worker 0's free-flow doubling tables (``[road-tables]`` lines) through
    the sharded layer ``CPDOracle.prepare_weights`` calls
    (``build_tables_sharded``, 2,048 rows a call, the oracle's Z-order),
-   the wide path by the shape rule (a 264,000-node row is past the
-   largest cluster): doubling counts zeroed just before and read just
-   after (no on-chip launch, one sweep launch a sweep), prepare seconds
-   and peak memory, the ``query_tables_sharded`` answers equal to the
-   engine's free-flow walk, and the wide sweep on the first chunk equal
-   to the plain sweep, sweep by sweep, timed beside ``torch.gather`` and
-   the plain sweep; then ``[delta]``: three epochs on the shard — epoch
+   the team tier by the shape rule (a 264,000-node row is past the
+   largest cluster: 33 blocks a row): doubling counts zeroed just before
+   and read just after (one team launch a chunk, no on-chip cluster
+   launch, no sweep launch), prepare seconds and peak memory, the
+   ``query_tables_sharded`` answers equal to the engine's free-flow
+   walk; on the first chunk the team tier's whole doubling equal to the
+   plain ``double_rows`` and to the records of the old wide path's
+   sweep loop (each sweep equal to the plain sweep), timed beside that
+   loop's sweeps, ``torch.gather`` of each sweep's records, the plain
+   ``double_rows`` and the bound; then ``[delta]``: three epochs on the shard — epoch
    1 slows one entrance edge (x3) of 3 of worker 0's targets that lie on
    no shortest path between their two neighbours, epoch 2 (chained from
    the epoch-1 index) restores them and slows 3 others (diffs built so
@@ -216,7 +220,8 @@ points a user calls, then the compressed-residency path:
    table freed before the next, host seconds and peak device memory a
    step; counts zeroed before and read after (two fused walk launches,
    one walk launch a query and a mat row, one on-chip doubling launch a
-   chunk plus its logged reruns and no wide sweep, 320 / 320 / 640
+   chunk plus its logged reruns and no team or wide sweep, 320 / 320 /
+   640
    sweeps, or the smoke fails). Checks:
    ``query_multi`` equals D single queries, ``query_mat`` equals
    ``query`` on the same pairs, ``query_dist`` equals the free-flow walk
@@ -233,7 +238,7 @@ points a user calls, then the compressed-residency path:
    loop on plain sweeps there and on a corrupted copy with a 2-cycle
    and a 3-cycle (max_len 0 and a cut, on chip and on the wide path),
    and ``ops.doubled_tables_multi`` at D = 14 on those 512 rows (a row
-   past the largest cluster: the wide path; a comparison, not a launch
+   past the largest cluster: the team tier; a comparison, not a launch
    of the main path); timed on the 2,048 rows, all on the same Z-order
    records the kernel doubles: the whole on-chip doubling, the wide
    path's sweeps, the plain ``double_rows``, ``torch.gather`` of each
@@ -489,10 +494,11 @@ points a user calls, then the compressed-residency path:
 9. print the card's name and power limit again on the ``[done]`` line,
    then the kernel table as one JSON line (the raw and pack4 walks, the
    three build kernels, K7's count and encode, the fused walk, the
-   on-chip doubling, the wide doubling sweep, K6's sweep and heuristic,
-   each with
-   its launches in the main runs — the wide sweep's in the road shard's
-   tables; the raw walk's ``launches_by_path``
+   on-chip doubling, its team tier, the wide doubling sweep, K6's sweep
+   and heuristic, each with
+   its launches in the main runs — the team tier's in the road shard's
+   tables, the wide sweep's 0 (no main path has a row past the card's
+   teams); the raw walk's ``launches_by_path``
    holds the streamed, streamed-campaign, offline and offline-local
    runs', the host servers' launches read from their dumps and the heal
    phase's, the fused walk's the streamed runs' too, the build kernels'
@@ -789,11 +795,12 @@ WIDE_DIFF_SEEDS = tuple(range(6, 18))
 K4_WIDE_DS = (8, 9, 16, 17)
 #: a doubled_tables_multi comparison past the largest cluster (not a
 #: launch of the main path): a row of 65,536 nodes x 16 fields (4 MiB)
-#: takes the wide path
+#: takes the team tier (19 blocks of 3,450 nodes)
 K5_WIDE_D = 14
 #: the road shard's doubling tables, rows a call (prepare_weights'
 #: chunk): a row of 264,000 nodes x 16 bytes (4.2 MB) is past the
-#: largest cluster (3.7 MB), so every chunk takes the wide path
+#: largest cluster (2.1 MB at 8,192 nodes a block), so every chunk takes
+#: the team tier (33 blocks of 8,000 nodes a row)
 ROAD_TABLE_CHUNK = 2048
 #: the sweeps each prepare of the campaign cell runs: 32 chunks of 2,048
 #: rows (8 workers x 8,192 targets) x 10 sweeps, 64 chunks of 1,024 for
@@ -1010,13 +1017,14 @@ def make_queries(targets: np.ndarray, n: int) -> np.ndarray:
 
 def zero_launches() -> None:
     """Every kernel's launch count to 0: the three walks (raw, pack4,
-    fused multi-diff), the on-chip doubling, the doubling sweep, the
-    three build kernels, K7's two entries and K6 (with the plain A*
-    runs)."""
+    fused multi-diff), the on-chip doubling, its team tier, the doubling
+    sweep, the three build kernels, K7's two entries and K6 (with the
+    plain A* runs)."""
     cw.cuda_walk_batch.launches = 0
     cw.cuda_walk_batch.launches_pack4 = 0
     cw.cuda_walk_multi.launches = 0
     cd.doubling_rows.launches = 0
+    cd.doubling_team.launches = 0
     cd.doubling_sweep.launches = 0
     for fn in BUILD_FNS.values():
         fn.launches = 0
@@ -3392,10 +3400,12 @@ def run() -> list[dict]:
 def serving_entries(campaign: dict, serving: dict, road: dict
                     ) -> list[dict]:
     """The kernel table's entries of K4 (the fused multi-diff walk) and
-    K5 (the on-chip doubling and the wide path's sweep): launches in the
-    main runs (the campaign's and the serving phase's; the road shard's
-    tables for the wide sweep), the headline numbers from the serving
-    phase (K4, the on-chip doubling) and the road shard (the wide
+    K5 (the on-chip cluster doubling, the team tier and the wide path's
+    sweep): launches in the main runs (the campaign's and the serving
+    phase's; the road shard's tables for the team tier, and for the
+    sweep, which no main path runs: 0), the headline numbers from the
+    serving phase (K4, the on-chip doubling) and the road shard (the
+    team tier's whole doubling of a chunk, the sweep loop's mean
     sweep)."""
     k4 = serving["k4"][0]
     multi = {"name": cw.KERNEL_NAME_MULTI, "route": "cuda",
@@ -3432,21 +3442,33 @@ def serving_entries(campaign: dict, serving: dict, road: dict
             "parity": "bit-identical", "chunk": k5,
             "wide": serving["k5_wide"], "sweeps_by_prepare": serving["sweeps"],
             "qps": serving["qps"]}
+    team = {"name": cd.ENTRY_TEAM, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": road["launches"],
+            "launches_by_path": {"road": road["launches"]},
+            "max_abs_err": k5_err,
+            **{k: road[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "sweep_loop_ms",
+                                    "timed_sweeps", "plan")},
+            "parity": "bit-identical",
+            "road": {k: v for k, v in road.items() if k != "sweep"},
+            "past_the_largest_cluster": serving["k5_main_wide"]}
+    # no main path of the smoke has a row past the card's teams (about a
+    # million nodes): the sweep is held to its plain version sweep by
+    # sweep on the road chunk and on the cycles' wide-path tables
     sweep = {"name": cd.ENTRY, "route": "cuda", "source": source,
-             "replaces": replaces, "launches": road["launches"],
-             "launches_by_path": {"road": road["launches"]},
+             "replaces": replaces, "launches": road["sweep_launches"],
+             "launches_by_path": {"road": road["sweep_launches"]},
              "max_abs_err": k5_err,
-             **{k: road[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms",
-                                     "ms_by_sweep")},
-             "parity": "bit-identical", "road": road,
-             "campaign_chunk": k5["sweep"],
-             "past_the_largest_cluster": serving["k5_main_wide"]}
-    for entry in (multi, rows, sweep):
+             **{k: road["sweep"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms",
+                                              "ms_by_sweep")},
+             "parity": "bit-identical", "road_chunk": road["sweep"],
+             "campaign_chunk": k5["sweep"]}
+    for entry in (multi, rows, team):
         if entry["launches"] <= 0:
             raise AssertionError(f"the main path never launched "
                                  f"{entry['name']}")
-    return [multi, rows, sweep]
+    return [multi, rows, team, sweep]
 
 
 def check_build_launches(path: str, tag: str) -> dict[str, int]:
@@ -3615,26 +3637,32 @@ def road_path(g, dc, outdir):
 
 
 def road_doubling(g, dc, engine, queries, walk) -> dict:
-    """The road shard's doubling tables: the wide path on the main path.
+    """The road shard's doubling tables: K5's team tier on the main path.
     Worker 0's rows are doubled through the sharded layer that
     ``CPDOracle.prepare_weights`` calls (``sharded.build_tables_sharded``,
     ``ROAD_TABLE_CHUNK`` rows a call, the records in the oracle's
     Z-order) and answered by ``sharded.query_tables_sharded``: an oracle
     of this graph would hold every worker's rows (a 69.7 GB fm, 557 GB of
     tables), so one worker's shard (17.4 GB of tables) is what one card
-    serves. The doubling counts are zeroed just before and read just
-    after: no on-chip launch, one sweep launch a sweep. Checks: the
-    answers equal the engine's free-flow walk (``walk``: cost, plen,
-    finished); then the wide sweep on the first chunk equals the plain
-    sweep, sweep by sweep, each timed beside ``torch.gather`` and the
-    plain sweep."""
+    serves. A row (264,000 nodes x 16 bytes) is past the largest cluster,
+    so the shape rule gives a team a row. The doubling counts are zeroed
+    just before and read just after: one team launch a chunk (and one a
+    chunk whose live rows are rerun), no on-chip cluster launch and no
+    sweep launch. Checks: the answers equal the engine's free-flow walk
+    (``walk``: cost, plen, finished); then, on the first chunk, the team
+    tier's whole doubling equals the plain ``double_rows`` (records,
+    settled, live) and the records of the old wide path's sweep loop
+    (each of its sweeps equal to the plain sweep); the whole doubling is
+    timed (CUDA events, the records restored before each launch) beside
+    the sweep loop's sweeps summed, ``torch.gather`` of each sweep's
+    records summed, the plain ``double_rows`` and the bound."""
     tag = "[road-tables]"
     dev = engine.device
     r, n = engine.fm.shape
     plan = cd.rows_plan(n, 1, dev)
-    if plan[0] != 0:
-        raise AssertionError(f"{tag} a row of {n} nodes fits a cluster "
-                             f"{plan}: expected the wide path")
+    if cd.plan_tier(plan) != "team":
+        raise AssertionError(f"{tag} a row of {n} nodes: plan {plan}, "
+                             "expected the team tier")
     targets = np.asarray(dc.owned(WID), np.int32)[None]
     order = pd.record_order(g, dev)
     w_pad = engine.dg.w_pad
@@ -3643,6 +3671,7 @@ def road_doubling(g, dc, engine, queries, walk) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cd.doubling_rows.launches = 0
+    cd.doubling_team.launches = 0
     cd.doubling_sweep.launches = 0
     before = pd.doubled_tables_multi.sweeps
     t0 = time.perf_counter()
@@ -3663,20 +3692,25 @@ def road_doubling(g, dc, engine, queries, walk) -> dict:
                            np.int32).reshape(shape),
         queries[:, 0].astype(np.int32).reshape(shape), np.ones(shape, bool))]
     look_s = time.perf_counter() - t0
-    launches = (cd.doubling_rows.launches, cd.doubling_sweep.launches)
+    launches = (cd.doubling_rows.launches, cd.doubling_team.launches,
+                cd.doubling_sweep.launches)
     sweeps = pd.doubled_tables_multi.sweeps - before
     chunks = -(-r // ROAD_TABLE_CHUNK)
     t_bytes = sum(x.numel() * x.element_size() for x in tables)
-    log(f"{tag} worker {WID}'s {r} rows x {n} nodes in {chunks} chunks: "
-        f"prepare {prep_s:.4f} s, {sweeps} sweeps, launches: on-chip "
-        f"{launches[0]}, wide sweep {launches[1]}; tables {t_bytes} B, peak "
-        f"device memory {peak / 2**30:.2f} GiB; {len(queries)} lookups "
-        f"{look_s:.4f} s")
-    if launches[0] != 0 or launches[1] != sweeps or sweeps < chunks:
+    log(f"{tag} worker {WID}'s {r} rows x {n} nodes in {chunks} chunks, "
+        f"the team tier ({plan[0]} blocks of {plan[2]} nodes a row, "
+        f"{plan[1]} threads and {plan[3]} shared bytes a block, {plan[4]} "
+        f"teams): prepare {prep_s:.4f} s, {sweeps} sweeps, launches: "
+        f"team {launches[1]}, on-chip cluster {launches[0]}, wide sweep "
+        f"{launches[2]}; tables {t_bytes} B, peak device memory "
+        f"{peak / 2**30:.2f} GiB; {len(queries)} lookups {look_s:.4f} s")
+    if (launches[0] or launches[2] or not chunks <= launches[1] <= 2 * chunks
+            or sweeps < chunks):
         raise AssertionError(f"{tag} the road shard's doubling did not take "
-                             f"the wide path: {launches[0]} on-chip "
-                             f"launches, {launches[1]} sweep launches for "
-                             f"{sweeps} sweeps over {chunks} chunks")
+                             f"the team tier: {launches[1]} team launches, "
+                             f"{launches[0]} on-chip cluster launches, "
+                             f"{launches[2]} sweep launches for {chunks} "
+                             "chunks")
     for a, b, what in zip(got, walk[:3], ("cost", "plen", "finished")):
         if not np.array_equal(a.astype(b.dtype), b):
             raise AssertionError(f"{tag} the tables' {what} differs from "
@@ -3685,32 +3719,78 @@ def road_doubling(g, dc, engine, queries, walk) -> dict:
     del tables
     gc.collect()
     torch.cuda.empty_cache()
-    rec = pd.initial_records(engine.dg, engine.fm[:ROAD_TABLE_CHUNK],
-                             w_pad[None], order)
-    rows = rec.shape[0]
-    loop = sweep_loop(rec, pd.n_sweeps(n), tag, f"D=1, {rows} rows", True)
-    del rec
+    rec0 = pd.initial_records(engine.dg, engine.fm[:ROAD_TABLE_CHUNK],
+                              w_pad[None], order)
+    rows = rec0.shape[0]
+    limit = pd.n_sweeps(n)
+    # the whole doubling of the chunk against the plain double_rows
+    work = rec0.clone()
+    settled, live = cd.doubling_team(work, 1, limit)
+    want = rec0.clone()
+    s_want, l_want = pd.double_rows(want, 1, limit)
+    torch.cuda.synchronize()
+    if not (torch.equal(work, want) and torch.equal(settled, s_want)
+            and torch.equal(live, l_want)):
+        raise AssertionError(f"{tag} K5's team tier differs from the plain "
+                             "double_rows on the first chunk")
+    err = max_abs_diff(work, want)
+    del want
+    k = int(settled.max())
+    if bool(live.any()) or not 1 <= k <= limit:
+        raise AssertionError(f"{tag} the free-flow chunk has live rows or "
+                             f"settles at {k}")
+    torch.cuda.empty_cache()
+    spare = torch.empty_like(rec0)
+    team_ms = time_restored(lambda: spare.copy_(rec0),
+                            lambda: cd.launch_team(spare, 1, limit, False,
+                                                   settled, live),
+                            KERNEL_REPS)
+    del spare
+    torch.cuda.empty_cache()
+    plain_ms = time_cuda(lambda: pd.double_rows(rec0.clone(), 1, limit),
+                         PLAIN_REPS)
+    torch.cuda.empty_cache()
+    # the old wide path's sweep loop on the same records (consumed)
+    loop = sweep_loop(rec0, limit, tag, f"D=1, {rows} rows", True)
+    del rec0
+    if loop["sweeps"] != k or not torch.equal(loop["records"], work):
+        raise AssertionError(f"{tag} the sweep loop ran {loop['sweeps']} "
+                             f"sweeps (the team tier {k}) or its records "
+                             "differ from the team tier's")
+    del loop["records"], work
     gc.collect()
     torch.cuda.empty_cache()
-    k = loop["sweeps"]
     ms, gather_ms = loop["ms_by_sweep"], loop["gather_ms_by_sweep"]
-    # a sweep's compact records read once and written once
+    # a sweep's (and the whole doubling's) compact records read once and
+    # written once; a compare and two adds an entry a sweep
     nbytes = 2 * rows * n * 3 * 4
-    bound_ms, bound_by = bound(nbytes, rows * n * 3)
+    bound_ms, bound_by = bound(nbytes, k * rows * n * 3)
+    sweep_bound = bound(nbytes, rows * n * 3)
     res = {"rows": r, "n": n, "chunks": chunks, "prepare_s": prep_s,
            "peak_bytes": peak, "table_bytes": t_bytes, "lookup_s": look_s,
-           "sweeps": sweeps, "launches": launches[1],
-           "timed_rows": rows, "timed_sweeps": k, "ms": sum(ms) / k,
-           "plain_ms": sum(loop["plain_ms_by_sweep"]) / k,
-           "library_ms": sum(gather_ms) / k, "bound_ms": bound_ms,
-           "bound_by": bound_by, "bytes": nbytes, "ms_by_sweep": ms,
-           "gather_ms_by_sweep": gather_ms,
-           "max_abs_err": loop["max_abs_err"]}
-    log(f"{tag} the wide sweep on the first {rows} rows equals the plain "
-        f"sweep, sweep by sweep: {k} sweeps, a sweep {res['ms']:.4f} ms "
-        "(" + ", ".join(f"{x:.4f}" for x in ms) + f"), torch.gather "
-        f"{res['library_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
-        f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B)")
+           "sweeps": sweeps, "plan": dict(zip(
+               ("blocks", "threads", "nodes", "smem", "teams"), plan)),
+           "launches": launches[1], "sweep_launches": launches[2],
+           "timed_rows": rows, "timed_sweeps": k, "ms": team_ms,
+           "plain_ms": plain_ms, "library_ms": sum(gather_ms),
+           "sweep_loop_ms": sum(ms), "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes,
+           "max_abs_err": max(err, loop["max_abs_err"]),
+           "sweep": {"ms": sum(ms) / k,
+                     "plain_ms": sum(loop["plain_ms_by_sweep"]) / k,
+                     "library_ms": sum(gather_ms) / k,
+                     "bound_ms": sweep_bound[0], "bound_by": sweep_bound[1],
+                     "ms_by_sweep": ms, "gather_ms_by_sweep": gather_ms,
+                     "max_abs_err": loop["max_abs_err"]}}
+    log(f"{tag} K5 on the first {rows} rows, {k} sweeps, the same Z-order "
+        f"records for each: the team tier's whole doubling {team_ms:.4f} ms "
+        f"(equal to double_rows and to the sweep loop's records); the old "
+        f"sweep loop {sum(ms):.4f} ms (a sweep {sum(ms) / k:.4f} ms: "
+        + ", ".join(f"{x:.4f}" for x in ms) + f"; each equal to the plain "
+        f"sweep, plain {res['sweep']['plain_ms']:.4f} ms a sweep); "
+        f"torch.gather of each sweep's records {sum(gather_ms):.4f} ms in "
+        f"all; plain double_rows {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
+        f"by {bound_by} ({nbytes} B)")
     return res
 
 
@@ -4230,11 +4310,12 @@ def tables_vs_plain(dg, fm_rows, targets, w_pads, max_len: int, tag: str,
                     ) -> dict:
     """``pd.doubled_tables_multi`` with the records in ``order`` (the
     wrapper's rule: the on-chip doubling and the rerun of live rows, or
-    with ``wide`` the wide path's sweep loop) against the JAX loop on
-    plain sweeps, equal or raise; the launches it made."""
+    with ``wide`` the wide path's sweep loop; past the largest cluster the
+    team tier) against the JAX loop on plain sweeps, equal or raise; the
+    launches it made."""
     n, d = fm_rows.shape[1], w_pads.shape[0]
     before = (cd.doubling_rows.launches, cd.doubling_sweep.launches,
-              pd.doubled_tables_multi.sweeps)
+              pd.doubled_tables_multi.sweeps, cd.doubling_team.launches)
     if wide:
         with WidePath():
             got = pd.doubled_tables_multi(dg, fm_rows, targets, w_pads,
@@ -4244,7 +4325,8 @@ def tables_vs_plain(dg, fm_rows, targets, w_pads, max_len: int, tag: str,
                                       max_len=max_len, order=order)
     torch.cuda.synchronize()
     launched = (cd.doubling_rows.launches - before[0],
-                cd.doubling_sweep.launches - before[1])
+                cd.doubling_sweep.launches - before[1],
+                cd.doubling_team.launches - before[3])
     sweeps = pd.doubled_tables_multi.sweeps - before[2]
     rec, k = plain_chunk(pd.initial_records(dg, fm_rows, w_pads, order),
                          pd.n_sweeps(n, max_len))
@@ -4260,10 +4342,12 @@ def tables_vs_plain(dg, fm_rows, targets, w_pads, max_len: int, tag: str,
     err = int((got[0].long() - want[0].long()).abs().max())
     log(f"{tag} K5 {what} (D={d}, {fm_rows.shape[0]} rows, max_len "
         f"{max_len}): tables equal the JAX loop on plain sweeps, {k} sweeps; "
-        f"launches: on-chip {launched[0]}, wide sweep {launched[1]}")
+        f"launches: on-chip {launched[0]}, team {launched[2]}, wide sweep "
+        f"{launched[1]}")
     return {"what": what, "d": d, "rows": fm_rows.shape[0],
             "max_len": max_len, "sweeps": k, "rows_launches": launched[0],
-            "sweep_launches": launched[1], "max_abs_err": err}
+            "team_launches": launched[2], "sweep_launches": launched[1],
+            "max_abs_err": err}
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor, rows: int = 256) -> int:
@@ -4281,7 +4365,7 @@ def sweep_loop(rec: torch.Tensor, limit: int, tag: str, what: str,
     its flag to the plain one, or raise; each sweep's bare launch timed
     by CUDA events beside ``torch.gather`` of its records (the one
     PyTorch call that computes a sweep's gather) and, with ``plain``,
-    the plain sweep."""
+    the plain sweep. The final records come back under ``records``."""
     out = torch.empty_like(rec)
     flag = torch.zeros(1, dtype=torch.int32, device=rec.device)
     ms, plain_ms, gather_ms = [], [], []
@@ -4307,8 +4391,10 @@ def sweep_loop(rec: torch.Tensor, limit: int, tag: str, what: str,
         del idx
         rec, out = out, rec
         i += 1
+    del out
     return {"sweeps": i, "ms_by_sweep": ms, "plain_ms_by_sweep": plain_ms,
-            "gather_ms_by_sweep": gather_ms, "max_abs_err": err}
+            "gather_ms_by_sweep": gather_ms, "max_abs_err": err,
+            "records": rec}
 
 
 def doubling_vs_plain(g, dg, fm_rows: torch.Tensor, targets: torch.Tensor,
@@ -4321,8 +4407,10 @@ def doubling_vs_plain(g, dg, fm_rows: torch.Tensor, targets: torch.Tensor,
     fixed count); the wrapper's tables against the JAX loop on plain
     sweeps at convergence, and on a corrupted copy of the rows (a
     2-cycle, a 3-cycle) at max_len 0 and a cut, on chip and on the wide
-    path. A shape the rule sends to the wide path is compared there
-    only. ``timed``: the whole on-chip doubling of the chunk (CUDA
+    path. A shape past the largest cluster is held the same way on the
+    team tier (``doubling_team``); a shape the rule sends to the wide
+    path is compared there only. ``timed`` (a cluster shape): the whole
+    on-chip doubling of the chunk (CUDA
     events, the records restored before each launch), beside the wide
     path's sweep loop (each sweep's launch, summed), the plain
     ``double_rows``, and ``torch.gather`` of each sweep's records
@@ -4334,36 +4422,38 @@ def doubling_vs_plain(g, dg, fm_rows: torch.Tensor, targets: torch.Tensor,
     d = w_pads.shape[0]
     limit = pd.n_sweeps(n)
     plan = cd.rows_plan(n, d, fm_rows.device)
-    res = {"rows": r, "d": d, "plan": {"blocks": plan[0],
-                                       "threads": plan[1],
-                                       "nodes": plan[2],
-                                       "smem": plan[3]}}
+    tier = cd.plan_tier(plan)
+    res = {"rows": r, "d": d, "tier": tier,
+           "plan": dict(zip(("blocks", "threads", "nodes", "smem", "teams"),
+                            plan))}
     err = 0
     rec0 = pd.initial_records(dg, fm_rows, w_pads, order)
-    if plan[0]:
+    if tier != "sweep":
+        double = cd.doubling_team if tier == "team" else cd.doubling_rows
         caps = []
         for cap, fixed in ([(c, False) for c in K5_CAPS]
                            + [(limit, False), (K5_CAPS[-1], True)]):
             got = rec0.clone()
-            settled, live = cd.doubling_rows(got, d, cap, fixed)
+            settled, live = double(got, d, cap, fixed)
             want = rec0.clone()
             s_want, l_want = pd.double_rows(want, d, cap, fixed)
             torch.cuda.synchronize()
             if not (torch.equal(got, want) and torch.equal(settled, s_want)
                     and torch.equal(live, l_want)):
                 raise AssertionError(
-                    f"{tag} K5 D={d} cap {cap} fixed={fixed}: the on-chip "
-                    "doubling differs from the plain double_rows")
+                    f"{tag} K5 D={d} cap {cap} fixed={fixed}: the {tier} "
+                    "tier's doubling differs from the plain double_rows")
             err = max(err, max_abs_diff(got, want))
             caps.append({"cap": cap, "fixed": fixed,
                          "max_settled": int(settled.max()),
                          "live_rows": int(live.sum())})
             del got, want
         res["caps"] = caps
-        log(f"{tag} K5 D={d} on {r} rows x {n} nodes, {plan[0]} block(s) a "
-            f"row ({plan[1]} threads, {plan[2]} nodes, {plan[3]} shared "
-            f"bytes a block): the on-chip doubling equals double_rows at "
-            f"caps {[c['cap'] for c in caps]} (fixed at the last)")
+        log(f"{tag} K5 D={d} on {r} rows x {n} nodes, the {tier} tier, "
+            f"{plan[0]} block(s) a row ({plan[1]} threads, {plan[2]} nodes, "
+            f"{plan[3]} shared bytes a block, {plan[4]} teams): its doubling "
+            f"equals double_rows at caps {[c['cap'] for c in caps]} (fixed "
+            "at the last)")
     else:
         log(f"{tag} K5 D={d} on {r} rows x {n} nodes: the shape rule takes "
             "the wide path")
@@ -4376,7 +4466,8 @@ def doubling_vs_plain(g, dg, fm_rows: torch.Tensor, targets: torch.Tensor,
     res["tables"].append(tables_vs_plain(dg, cyc, targets, w_pads, 0, tag,
                                          "cycles, wide path", order,
                                          wide=True))
-    if plan[0] and res["tables"][1]["rows_launches"] != 2:
+    cyc = res["tables"][1]
+    if tier != "sweep" and cyc["rows_launches"] + cyc["team_launches"] != 2:
         raise AssertionError(f"{tag} K5 D={d}: the live 2-cycle row was "
                              "not doubled again for the chunk's sweeps")
     res["max_abs_err"] = max([err] + [x["max_abs_err"]
@@ -4408,10 +4499,10 @@ def doubling_vs_plain(g, dg, fm_rows: torch.Tensor, targets: torch.Tensor,
     # the wide path's sweep loop and the gathers on the records the
     # kernel doubles, then on the records by node id
     z = sweep_loop(rec0, limit, tag, f"D={d}, {r} rows", plain=True)
-    del rec0
+    del rec0, z["records"]
     ids = sweep_loop(rec_ids, limit, tag, f"D={d}, {r} rows by node id",
                      plain=False)
-    del rec_ids
+    del rec_ids, ids["records"]
     if z["sweeps"] != ids["sweeps"]:
         raise AssertionError(f"{tag} K5 D={d}: {z['sweeps']} sweeps in "
                              f"Z-order, {ids['sweeps']} by node id")
@@ -4573,6 +4664,7 @@ def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
         launches = {"walk": cw.cuda_walk_batch.launches,
                     "multi": cw.cuda_walk_multi.launches,
                     "rows": cd.doubling_rows.launches,
+                    "team": cd.doubling_team.launches,
                     "sweep": cd.doubling_sweep.launches}
         build_counts = check_build_launches("serving", tag)
         del tables
@@ -4604,9 +4696,10 @@ def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
     if reruns < 0 or reruns > chunks:
         raise AssertionError(f"{tag} {launches['rows']} on-chip doubling "
                              f"launches for {chunks} chunks")
-    if launches["sweep"] != 0:
-        raise AssertionError(f"{tag} {launches['sweep']} wide sweep launches: "
-                             "the cell's rows fit a cluster")
+    if launches["sweep"] != 0 or launches["team"] != 0:
+        raise AssertionError(f"{tag} {launches['sweep']} wide sweep and "
+                             f"{launches['team']} team launches: the cell's "
+                             "rows fit a cluster")
 
     # every answer against the walk's
     def same(got, want, what):
@@ -4647,17 +4740,17 @@ def serving_path(oracle, ref: dict) -> tuple[dict, dict[str, int]]:
         "query_table (free flow, diff) equals query; query_table_multi "
         "equals query_multi")
 
-    # a shape past the largest cluster: the wide path's tables against
+    # a shape past the largest cluster: the team tier's tables against
     # the JAX loop on plain sweeps
     k5_main_wide = tables_vs_plain(oracle.dg, wide_fm, wide_targets,
                                    wide_pads, 0, tag,
                                    f"D={K5_WIDE_D} past the largest cluster",
                                    order)
-    if not (k5_main_wide["rows_launches"] == 0
-            and k5_main_wide["sweep_launches"] == k5_main_wide["sweeps"]
-            >= 1):
-        raise AssertionError(f"{tag} D={K5_WIDE_D} did not take the wide "
-                             f"path: {k5_main_wide}")
+    if not (k5_main_wide["rows_launches"] == k5_main_wide["sweep_launches"]
+            == 0 and k5_main_wide["team_launches"] >= 1
+            and k5_main_wide["sweeps"] >= 1):
+        raise AssertionError(f"{tag} D={K5_WIDE_D} did not take the team "
+                             f"tier: {k5_main_wide}")
     # K4 at D = 8, 9, 16, 17 on the D=2 call's lanes (comparisons, not
     # launches of the main path)
     extra = [(recorded[0][0][:5] + (pads(ws_all[:d]),), recorded[0][1])

@@ -1,6 +1,8 @@
 // Pointer doubling (K5): every sweep of a row's successor and cost tables
-// in one launch, the row held on chip (doubling_rows), and the one-sweep
-// kernel over device memory for rows too large for that (doubling_sweep).
+// in one launch, the row held on chip, by a cluster of blocks
+// (doubling_rows) or, for a row no cluster holds, by a team of
+// co-resident blocks (doubling_team); and the one-sweep kernel over device
+// memory for rows too large for any team of the card (doubling_sweep).
 //
 // Serves the JAX package's XLA stage ops/pointer_doubling.py
 // (doubled_tables / doubled_tables_multi, the while_loop; there is no
@@ -27,12 +29,18 @@
 // the remote share: the SM-to-SM network's rate for scattered 16-byte
 // reads sets the time (PERF.md, section 6).
 //
+// The shape rule (ops/cuda_doubling.py::shape_rule, from the card's
+// figures that doubling_card reports) picks the tier: the fewest blocks
+// whose shared memory holds the row at no more than 16 nodes a thread of
+// 512; a cluster when that is at most the largest cluster the card holds,
+// else a team when the card holds that many blocks at once, else the
+// sweep loop.
+//
 // What doubling_rows does about it:
 // * one block a row where the row fits one block's shared memory, else a
 //   cluster a row of the fewest blocks (up to 16: past 8 the non-portable
 //   size) that hold it, each block owning a contiguous range of positions;
-//   doubling_rows_plan picks the shape once a shape (blocks 0: no cluster
-//   launches the row) and doubling_rows launches the plan it is given;
+//   doubling_rows launches the plan the shape rule gives it;
 // * the caller lays a row out in a Z-order of the node coordinates
 //   (ops/pointer_doubling.py::record_order, which the oracle makes once
 //   and passes in), so a block's range is a compact region of the
@@ -60,6 +68,28 @@
 //   not zero past succ: a cycle of the first-move table);
 // * no block leaves while another block of its cluster may still read its
 //   shared memory: the kernel ends with a cluster barrier.
+//
+// The team tier, for a row past the largest cluster (a road row
+// of 264,000 nodes x 16 bytes, 4.2 MB, takes 33 blocks of 8,000 nodes):
+// * one cooperative launch of as many teams as the card holds at once
+//   (132 blocks: 4 teams of 33 on the H100); the teams stride over the
+//   rows, so a chunk is one launch with no host sync and no spare buffer
+//   the size of the records;
+// * each block keeps its window of the row in shared memory as above, and
+//   gathers a successor outside it from the row's copy in device memory
+//   (ld.global.cg: the copies change during the launch, so never through
+//   L1): a team's two copies (the row itself and one scratch row, 4.2 MB
+//   each) stay in the 50 MB L2, so a remote gather is an L2 hit, not an
+//   HBM sector;
+// * the copies alternate by sweep (Jacobi), so one team barrier a sweep
+//   (an arrival counter in device memory, release/acquire) separates a
+//   sweep's reads from the next sweep's writes; it also carries the OR
+//   "some successor moved" (three slots in turn), so each row stops at
+//   its own sweep count. The barrier is split: a block arrives after its
+//   stores and waits only after it has gathered the next sweep's
+//   successors in its own window, so the wait overlaps that work;
+// * a done node neither gathers nor publishes: both copies already hold
+//   its final record.
 //
 // Exactness. JAX runs the same number of sweeps K on every row of a chunk:
 // K = min(limit, max_r settled[r]). A settled row that is not live gains
@@ -373,22 +403,33 @@ RowsKernel rows_kernel(int npt) {
 }
 
 struct RowPlan {
-  int cluster;  // blocks a row; 0: no cluster of the card holds the row
+  int blocks;   // blocks a row: a cluster's, or a team's
   int threads;
   int nl;       // nodes a block
   int smem;     // dynamic shared memory bytes a block
+  int teams;    // 0: a cluster a row; > 0: the teams of co-resident blocks
 };
+
+// Whether `pl` holds a row of n nodes of g groups within the kernels'
+// limits (the card checks the rest when it launches).
+bool plan_holds(const RowPlan& pl, int n, int g) {
+  return pl.blocks >= 1 && pl.threads >= 32 && pl.threads <= kRowThreads &&
+         pl.threads % 32 == 0 &&
+         static_cast<long long>(pl.nl) * pl.blocks >= n &&
+         pl.nl <= kMaxNpt * pl.threads &&
+         pl.smem >= static_cast<long long>(pl.nl) * g * 16 + 16;
+}
 
 cudaLaunchConfig_t rows_config(const RowPlan& pl, long long rows,
                                cudaStream_t stream,
                                cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows * pl.cluster), 1, 1);
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * pl.blocks), 1, 1);
   cfg.blockDim = dim3(pl.threads, 1, 1);
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = pl.cluster;
+  attr->val.clusterDim.x = pl.blocks;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -396,60 +437,311 @@ cudaLaunchConfig_t rows_config(const RowPlan& pl, long long rows,
   return cfg;
 }
 
-// The shape rule: the fewest blocks c (1..16) whose shared memory holds
-// ceil(n / c) records of g 16-byte groups (plus an mbarrier and the
-// slots) at no more than kMaxNpt nodes a thread, and that the card can
-// make resident (occupancy > 0). Each kernel it tries may take up to the
-// card's opt-in shared memory (and a non-portable cluster past 8), so a
-// plan made once serves every later launch of that shape.
-cudaError_t plan_rows(int n, int g, RowPlan* out) {
-  *out = RowPlan{0, 0, 0, 0};
-  int dev = 0, max_smem = 0;
+// Lets `k` take the card's opt-in shared memory a block (and, with
+// `cluster` past 8, a non-portable cluster). The same values every call,
+// so threads that launch the kernel at once never race on them.
+cudaError_t ready_kernel(const void* k, int cluster, int* max_smem) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&max_smem,
+    err = cudaDeviceGetAttribute(max_smem,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  if (err != cudaSuccess) return err;
-  for (int c = 1; c <= kMaxCluster; ++c) {
-    const int nl = (n + c - 1) / c;
-    const long long bytes = static_cast<long long>(nl) * g * 16 + 16;
-    if (nl > kMaxNpt * kRowThreads || bytes > max_smem) continue;
-    RowPlan pl;
-    pl.cluster = c;
-    pl.nl = nl;
-    pl.threads = nl >= kRowThreads ? kRowThreads : ((nl + 31) / 32) * 32;
-    pl.smem = static_cast<int>(bytes);
-    const int npt = (nl + pl.threads - 1) / pl.threads;
-    const RowsKernel k = c == 1 ? rows_kernel<false>(npt)
-                                : rows_kernel<true>(npt);
+  if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               max_smem);
-    if (err == cudaSuccess && c > kPortableCluster) {
-      err = cudaFuncSetAttribute(
-          k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+                               *max_smem);
+  }
+  if (err == cudaSuccess && cluster > kPortableCluster) {
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  }
+  return err;
+}
+
+// ---------------------------------------------------- the team tier
+
+// a barrier that waits this long has lost a block: trap (a sticky error)
+// rather than hang the card
+constexpr long long kSpinCycles = 1LL << 32;
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The team's barrier, in two halves, with an OR of a flag over the
+// team's blocks. team_arrive publishes the block's OR and every store its
+// threads made before it; team_wait returns the team's OR once every
+// block has arrived, and every thread of the team then sees those stores.
+// A block may work on its own shared memory in between. `sync` is the
+// team's state in device memory: [0] its arrivals (monotonic over the
+// launch; the caller zeroes it), [1..3] the OR slots of three barriers in
+// turn. `epoch` counts the block's barriers (every block of a team passes
+// the same ones). Slot e % 3 is zeroed by the team's first block once
+// barrier e - 1's slot has been read by all (after barrier e), and is
+// next written after barrier e + 1.
+__device__ __forceinline__ void team_arrive(bool v, unsigned* sync,
+                                            unsigned epoch) {
+  const int mine = __syncthreads_or(v);
+  if (threadIdx.x == 0) {
+    if (mine) atomicOr(sync + 1 + epoch % 3, 1u);
+    __threadfence();
+    atomicAdd(sync, 1u);
+  }
+}
+
+__device__ __forceinline__ bool team_wait(unsigned* sync, unsigned& epoch,
+                                          unsigned csize, bool lead,
+                                          int* flag) {
+  if (threadIdx.x == 0) {
+    const unsigned target = (epoch + 1) * csize;
+    const long long t0 = clock64();
+    while (static_cast<int>(ld_acquire(sync) - target) < 0) {
+      if (clock64() - t0 > kSpinCycles) __trap();
     }
+    __threadfence();
+    *flag = ld_acquire(sync + 1 + epoch % 3) != 0;
+    if (lead) atomicExch(sync + 1 + (epoch + 2) % 3, 0u);
+  }
+  __syncthreads();
+  ++epoch;
+  return *flag != 0;
+}
+
+// Rows of `rec` (int32 [rows, n, 4 g]) doubled in place by teams of
+// `csize` co-resident blocks (a cooperative launch of teams x csize
+// blocks); team t doubles rows t, t + teams, ... Each block owns nodes
+// [rank * nl, rank * nl + nl) of the row and holds their records in
+// shared memory (as doubling_rows_kernel: TMA in, done bits, the row's
+// own stop); a successor outside the block's window is gathered from the
+// row's copy in device memory. Sweep i reads the copy of sweep i - 1 and
+// publishes its new records to the other copy: the row itself in `rec`
+// (odd sweeps read it) and the team's row of `scratch` (int32 [teams, n,
+// 4 g]); the copies alternate, so one team barrier a sweep (which also
+// carries the "some successor moved" OR) separates a sweep's reads from
+// the next sweep's writes; a block waits at it only after gathering the
+// next sweep's successors in its own window. A done node publishes
+// nothing: both copies already hold its record. The row goes back to
+// `rec` from shared memory at the end. Shared memory: the window, an
+// mbarrier, the OR's flag.
+template <int kNpt>
+__global__ void __launch_bounds__(kRowThreads, 1)
+doubling_team_kernel(int4* rec, int4* scratch, unsigned* sync,
+                     long long rows, int n, int g, int nl, int csize,
+                     int cap, int fixed, int* __restrict__ settled_out,
+                     uint8_t* __restrict__ live_out) {
+  extern __shared__ __align__(16) int4 recs[];
+  const int team = blockIdx.x / csize;
+  const int rank = blockIdx.x - team * csize;
+  const int teams = gridDim.x / csize;
+  const int x0 = rank * nl;
+  const int nh = n - x0 < nl ? (n - x0 > 0 ? n - x0 : 0) : nl;
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const bool lead = rank == 0;
+  const long long rlen = static_cast<long long>(n) * g;  // int4 a row
+  int4* const scr = scratch + team * rlen;
+  unsigned* const ts = sync + 4 * team;
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(recs + nl * g);
+  int* const flag = reinterpret_cast<int*>(bar + 1);
+  const unsigned bytes = static_cast<unsigned>(nh) * g * 16u;
+  const unsigned sbase = smem_u32(recs);
+  const unsigned rstride = static_cast<unsigned>(g) * 16u;
+  if (tid == 0) {
+    bar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  unsigned epoch = 0, phase = 0;
+  for (long long row = team; row < rows; row += teams) {
+    int4* const rowp = rec + row * rlen;
+    int4* const base = rowp + static_cast<long long>(x0) * g;
+    // the last row's accesses to the window come before the copy's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0 && bytes > 0) {
+      bar_expect(bar, bytes);
+      constexpr unsigned kPiece = 32768;
+      for (unsigned at = 0; at < bytes; at += kPiece) {
+        bulk_load(reinterpret_cast<char*>(recs) + at,
+                  reinterpret_cast<const char*>(base) + at,
+                  bytes - at < kPiece ? bytes - at : kPiece, bar);
+      }
+    }
+    if (bytes > 0) {
+      bar_wait(bar, phase);
+      phase ^= 1;
+    }
+    bool mv = false;
+    for (int x = tid; x < nh; x += T) mv |= recs[x * g].x != x0 + x;
+    team_arrive(mv, ts, epoch);
+    // an arrival is waited for at the next sweep, once the block has
+    // gathered the successors in its own window (the wait then costs less)
+    bool pending = true, moving = false;
+    int settled = 0;
+    unsigned done = 0;
+    for (int i = 1; i <= cap; ++i) {
+      const int4* const prev = (i & 1) ? rowp : scr;
+      int4* const next = (i & 1) ? scr : rowp;
+      // the successor's record: a shared address in the window (bit k of
+      // `local`: its group 0 gathered now) or its node id in the copy
+      unsigned addr[kNpt];
+      unsigned local = 0;
+      int4 nv[kNpt];
+#pragma unroll
+      for (int k = 0; k < kNpt; ++k) {
+        const int x = tid + k * T;
+        if (x < nh && !((done >> k) & 1u)) {
+          const unsigned s = static_cast<unsigned>(recs[x * g].x);
+          const unsigned o = s - static_cast<unsigned>(x0);
+          if (o < static_cast<unsigned>(nh)) {
+            local |= 1u << k;
+            addr[k] = sbase + o * rstride;
+            nv[k] = ld_shared4<false>(addr[k]);
+          } else {
+            addr[k] = s;
+          }
+        }
+      }
+      // the last barrier's OR: whether the row moved at all, or in the
+      // last sweep
+      const bool r = team_wait(ts, epoch, csize, lead, flag);
+      pending = false;
+      if (i == 1) {
+        moving = r;
+        if (!moving && !fixed) break;
+      } else if (!r && moving && settled == 0) {
+        settled = i - 1;
+        if (!fixed) break;
+      }
+      bool m = false;
+      unsigned zero = 0;  // bit k: the gathered record is zero past succ
+      for (int j = 0; j < g; ++j) {
+#pragma unroll
+        for (int k = 0; k < kNpt; ++k) {
+          const int x = tid + k * T;
+          if (x < nh && !((done >> k) & 1u)) {
+            if (!((local >> k) & 1u)) {
+              nv[k] = __ldcg(prev + static_cast<long long>(addr[k]) * g + j);
+            } else if (j > 0) {
+              nv[k] = ld_shared4<false>(addr[k] + j * 16u);
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kNpt; ++k) {
+          const int x = tid + k * T;
+          if (x < nh && !((done >> k) & 1u)) {
+            const int4 got = nv[k];
+            const int4 own = recs[x * g + j];
+            nv[k] = add4(own, got);
+            int rest = got.y | got.z | got.w;
+            if (j == 0) {
+              nv[k].x = got.x;
+              m |= got.x != own.x;
+              if (got.x == own.x && rest == 0) zero |= 1u << k;
+            } else {
+              rest |= got.x;
+              if (rest != 0) zero &= ~(1u << k);
+            }
+          }
+        }
+        // every read of the window's group j in this sweep comes first
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < kNpt; ++k) {
+          const int x = tid + k * T;
+          if (x < nh && !((done >> k) & 1u)) {
+            recs[x * g + j] = nv[k];
+            __stcg(next + static_cast<long long>(x0 + x) * g + j, nv[k]);
+          }
+        }
+      }
+      done |= zero;
+      team_arrive(m, ts, epoch);
+      pending = true;
+    }
+    if (pending) {
+      const bool r = team_wait(ts, epoch, csize, lead, flag);
+      if (cap == 0) moving = r;
+    }
+    if (moving && settled == 0) settled = cap;
+    bool lv = false;
+    for (int x = tid; x < nh; x += T) {
+      if (recs[x * g].x == x0 + x) {
+        int rest = recs[x * g].y | recs[x * g].z | recs[x * g].w;
+        for (int j = 1; j < g; ++j) {
+          const int4 q = recs[x * g + j];
+          rest |= q.x | q.y | q.z | q.w;
+        }
+        lv |= rest != 0;
+      }
+    }
+    // after it no block reads this row's copies
+    team_arrive(lv, ts, epoch);
+    const bool live = team_wait(ts, epoch, csize, lead, flag);
+    for (int idx = tid; idx < nh * g; idx += T) base[idx] = recs[idx];
+    if (lead && tid == 0) {
+      settled_out[row] = settled;
+      live_out[row] = live ? 1 : 0;
+    }
+  }
+}
+
+using TeamKernel = void (*)(int4*, int4*, unsigned*, long long, int, int, int,
+                            int, int, int, int*, uint8_t*);
+
+TeamKernel team_kernel(int npt) {
+  if (npt <= 1) return doubling_team_kernel<1>;
+  if (npt <= 2) return doubling_team_kernel<2>;
+  if (npt <= 4) return doubling_team_kernel<4>;
+  if (npt <= 8) return doubling_team_kernel<8>;
+  return doubling_team_kernel<kMaxNpt>;
+}
+
+// The card's figures for the shape rule (ops/cuda_doubling.py::
+// shape_rule): SMs, opt-in shared memory a block, the team kernel's
+// blocks an SM holds at that shared memory (its largest template) and the
+// largest cluster (1 to 16) of the row kernel at that shared memory the
+// card can make resident. Readies every kernel it asks about.
+cudaError_t card_figures(int* out) {
+  int dev = 0, sms = 0, max_smem = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const void* team = reinterpret_cast<const void*>(team_kernel(kMaxNpt));
+  if (err == cudaSuccess) err = ready_kernel(team, 0, &max_smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, team_kernel(kMaxNpt), kRowThreads, max_smem);
+  }
+  if (err != cudaSuccess) return err;
+  int largest = 1;
+  for (int c = kMaxCluster; c > 1; --c) {
+    const RowsKernel k = rows_kernel<true>(kMaxNpt);
+    err = ready_kernel(reinterpret_cast<const void*>(k), c, &max_smem);
     if (err != cudaSuccess) return err;
+    const RowPlan pl{c, kRowThreads, 0, max_smem, 0};
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = rows_config(pl, 1, nullptr, &attr);
     int fits = 0;
-    if (c == 1) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fits, k,
-                                                          pl.threads,
-                                                          pl.smem);
-    } else {
-      cudaLaunchAttribute attr;
-      cudaLaunchConfig_t cfg = rows_config(pl, 1, nullptr, &attr);
-      err = cudaOccupancyMaxActiveClusters(&fits, k, &cfg);
-    }
-    if (err != cudaSuccess) {
+    if (cudaOccupancyMaxActiveClusters(&fits, k, &cfg) != cudaSuccess) {
       // a cluster shape the card refuses: not an error of the call
       cudaGetLastError();
       continue;
     }
     if (fits > 0) {
-      *out = pl;
-      return cudaSuccess;
+      largest = c;
+      break;
     }
   }
+  out[0] = sms;
+  out[1] = max_smem;
+  out[2] = per_sm;
+  out[3] = largest;
   return cudaSuccess;
 }
 
@@ -517,56 +809,92 @@ cudaError_t launch(const void* cur, void* nxt, void* flag, int tiles,
 // Plain C entry points for ctypes. Each launches on `stream` without
 // synchronising and returns the launch's error or cudaGetLastError().
 
-// The on-chip shape of a row of n nodes and records of g 16-byte groups:
-// plan[0] the blocks a row (0: no cluster holds it — the caller takes the
-// wide path), plan[1] the threads a block, plan[2] the nodes a block,
-// plan[3] the shared-memory bytes a block.
-extern "C" int doubling_rows_plan(int n, int g, int* plan) {
-  RowPlan pl;
-  const cudaError_t err = plan_rows(n, g, &pl);
-  plan[0] = pl.cluster;
-  plan[1] = pl.threads;
-  plan[2] = pl.nl;
-  plan[3] = pl.smem;
-  return static_cast<int>(err);
+// The card's figures for the shape rule (ops/cuda_doubling.py::
+// shape_rule): out[0] SMs, out[1] opt-in shared memory bytes a block,
+// out[2] the team kernel's blocks an SM holds, out[3] the largest cluster
+// of the row kernel the card makes resident. Readies the kernels.
+extern "C" int doubling_card(int* out) {
+  return static_cast<int>(card_figures(out));
 }
 
 // Double `rows` rows of `rec` (int32 [rows, n, 4 g], records of g 16-byte
-// groups, 16-byte aligned, in place) on chip: up to `cap` sweeps a row,
-// stopping after its first sweep that moves no successor unless `fixed`
-// (exactly `cap`). Writes settled (int32 [rows]) and live (uint8 [rows]).
-// `plan` is doubling_rows_plan's answer for (n, g) on this device, made
-// before (it also sets the kernels' attributes); returns
-// cudaErrorInvalidValue for a plan that does not hold the row.
+// groups, 16-byte aligned, in place) on chip, a cluster a row: up to
+// `cap` sweeps a row, stopping after its first sweep that moves no
+// successor unless `fixed` (exactly `cap`). Writes settled (int32 [rows])
+// and live (uint8 [rows]). `plan` is the shape rule's cluster plan for
+// (n, g) on this device (blocks, threads, nodes a block, shared bytes);
+// returns cudaErrorInvalidValue for a plan that does not hold the row.
 extern "C" int doubling_rows(void* rec, long long rows, int n, int g,
                              const int* plan, int cap, int fixed,
                              void* settled, void* live, void* stream) {
   if (rows > 0 && n > 0) {
-    const RowPlan pl{plan[0], plan[1], plan[2], plan[3]};
-    if (pl.cluster < 1 || pl.cluster > kMaxCluster ||
-        rows * pl.cluster >= (1LL << 31) || pl.threads < 32 ||
-        pl.threads > kRowThreads || pl.threads % 32 ||
-        static_cast<long long>(pl.nl) * pl.cluster < n ||
-        pl.nl > kMaxNpt * pl.threads ||
-        pl.smem < static_cast<long long>(pl.nl) * g * 16 + 16) {
+    const RowPlan pl{plan[0], plan[1], plan[2], plan[3], 0};
+    if (!plan_holds(pl, n, g) || pl.blocks > kMaxCluster ||
+        rows * pl.blocks >= (1LL << 31)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int npt = (pl.nl + pl.threads - 1) / pl.threads;
+    const RowsKernel k = pl.blocks == 1 ? rows_kernel<false>(npt)
+                                        : rows_kernel<true>(npt);
+    int max_smem = 0;
+    cudaError_t err = ready_kernel(reinterpret_cast<const void*>(k),
+                                   pl.blocks, &max_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     int4* const r = static_cast<int4*>(rec);
     int* const so = static_cast<int*>(settled);
     uint8_t* const lo = static_cast<uint8_t*>(live);
-    if (pl.cluster == 1) {
-      rows_kernel<false>(npt)<<<static_cast<unsigned>(rows), pl.threads,
-                                pl.smem, st>>>(r, n, g, pl.nl, cap, fixed,
-                                               so, lo);
+    if (pl.blocks == 1) {
+      k<<<static_cast<unsigned>(rows), pl.threads, pl.smem, st>>>(
+          r, n, g, pl.nl, cap, fixed, so, lo);
     } else {
       cudaLaunchAttribute attr;
       cudaLaunchConfig_t cfg = rows_config(pl, rows, st, &attr);
-      const cudaError_t err = cudaLaunchKernelEx(
-          &cfg, rows_kernel<true>(npt), r, n, g, pl.nl, cap, fixed, so, lo);
+      err = cudaLaunchKernelEx(&cfg, k, r, n, g, pl.nl, cap, fixed, so, lo);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same doubling by teams of co-resident blocks, for rows no cluster
+// holds: `plan` is the shape rule's team plan (blocks a team, threads,
+// nodes a block, shared bytes, teams); min(teams, rows) teams launch
+// together (a cooperative launch: the card refuses a grid it cannot hold
+// at once). `scratch`: int32 [min(teams, rows), n, 4 g], the teams' row
+// copies; `sync`: uint32 [teams, 4], zero.
+extern "C" int doubling_team(void* rec, void* scratch, void* sync,
+                             long long rows, int n, int g, const int* plan,
+                             int cap, int fixed, void* settled, void* live,
+                             void* stream) {
+  if (rows > 0 && n > 0) {
+    const RowPlan pl{plan[0], plan[1], plan[2], plan[3], plan[4]};
+    const long long teams = rows < pl.teams ? rows : pl.teams;
+    if (!plan_holds(pl, n, g) || pl.teams < 1 ||
+        teams * pl.blocks >= (1LL << 31)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int npt = (pl.nl + pl.threads - 1) / pl.threads;
+    const TeamKernel k = team_kernel(npt);
+    int max_smem = 0;
+    cudaError_t err = ready_kernel(reinterpret_cast<const void*>(k), 0,
+                                   &max_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int4* r = static_cast<int4*>(rec);
+    int4* scr = static_cast<int4*>(scratch);
+    unsigned* sy = static_cast<unsigned*>(sync);
+    int nn = n, gg = g, nl = pl.nl, csize = pl.blocks, cp = cap, fx = fixed;
+    long long rr = rows;
+    int* so = static_cast<int*>(settled);
+    uint8_t* lo = static_cast<uint8_t*>(live);
+    void* args[] = {&r, &scr, &sy, &rr, &nn, &gg, &nl, &csize, &cp, &fx,
+                    &so, &lo};
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(k),
+        dim3(static_cast<unsigned>(teams * pl.blocks), 1, 1),
+        dim3(pl.threads, 1, 1), args, pl.smem,
+        static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,7 @@ from .table_search import (extract_paths, pick_buckets, table_search_batch,
 from .cuda_walk import cuda_walk_batch, cuda_walk_multi
 from .pointer_doubling import (doubled_tables, doubled_tables_multi,
                                lookup_tables, lookup_tables_multi)
-from .cuda_doubling import doubling_rows, doubling_sweep
+from .cuda_doubling import doubling_rows, doubling_sweep, doubling_team
 from .batched_astar import astar_batch, astar_batch_np, heuristic_table
 
 __all__ = [
@@ -14,6 +14,6 @@ __all__ = [
     "build_fm_columns", "table_search_batch", "table_search_multi",
     "extract_paths", "pick_buckets", "cuda_walk_batch", "cuda_walk_multi",
     "doubled_tables", "doubled_tables_multi", "lookup_tables",
-    "lookup_tables_multi", "doubling_rows", "doubling_sweep",
+    "lookup_tables_multi", "doubling_rows", "doubling_sweep", "doubling_team",
     "astar_batch", "astar_batch_np", "heuristic_table",
 ]

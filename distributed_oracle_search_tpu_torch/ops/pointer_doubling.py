@@ -44,10 +44,14 @@ K on every row of a chunk; a row may stop at its own count only where
 the extra sweeps change nothing, which fails exactly where a fixed point
 carries plen or cost (a cycle of a corrupted or zero-weight first-move
 table): those rows are doubled again from their first records for
-exactly K sweeps. A row no cluster of the card holds takes the wide
-path: one :func:`.cuda_doubling.doubling_sweep` launch a sweep over
-device memory, double-buffered, a flag read after each.
-:func:`.cuda_doubling.rows_plan` is the shape rule. Building the
+exactly K sweeps. A row no cluster of the card holds is doubled the
+same way by teams of co-resident blocks (:func:`.cuda_doubling.
+doubling_team`: each block's window of the row in shared memory, the
+rest gathered from the row's copies in device memory), the chunk in one
+launch; a row no team holds either takes the wide path: one
+:func:`.cuda_doubling.doubling_sweep` launch a sweep over device memory,
+double-buffered, a flag read after each. :func:`.cuda_doubling.
+rows_plan` is the shape rule. Building the
 first records (the slot gather) and the final sign-packing are plain
 torch.
 
@@ -265,37 +269,42 @@ def doubled_tables_multi(dg: DeviceGraph, fm: torch.Tensor,
     ``max_len``: path-length bound (0 = N). ``out``: ``(costs [R, N, D],
     plen_packed [R, N])`` to write into. ``order``: the records' layout
     (:func:`record_order`; None: node order). A chunk is one
-    ``doubling_rows`` call (plus one for the rows rerun) or, on the wide
-    path, one ``doubling_sweep`` a sweep; their counters count launches
-    and ``doubled_tables_multi.sweeps`` the sweeps (K a chunk).
+    ``doubling_rows`` call, or one ``doubling_team`` call past the
+    largest cluster (plus one for the rows rerun), or, on the wide path,
+    one ``doubling_sweep`` a sweep; their counters count launches and
+    ``doubled_tables_multi.sweeps`` the sweeps (K a chunk).
 
     Returns ``(costs [R, N, D] int32, plen_packed [R, N])`` — ``plen`` and
     ``finished`` ride one sign-packed array because the trajectory is
     shared. Rows with ``targets[r] < 0`` are all-unfinished padding."""
-    from .cuda_doubling import doubling_rows, rows_plan
+    from .cuda_doubling import (doubling_rows, doubling_team, plan_tier,
+                                rows_plan)
 
     n = fm.shape[1]
     d = w_pads.shape[0]
     limit = n_sweeps(n, max_len)
     plan = rows_plan(n, d, fm.device)
+    tier = plan_tier(plan)
     shape = (fm.device.type, n, d)
     if shape not in _logged:
         _logged.add(shape)
         log.info("doubling %d nodes x %d cost sets on %s: %s", n, d,
-                 fm.device.type, "the wide path (no cluster holds a row)"
-                 if plan[0] == 0 else
+                 fm.device.type, "the wide path (no team holds a row)"
+                 if tier == "sweep" else
                  f"on chip, {plan[0]} block(s) a row of {plan[2]} nodes, "
-                 f"{plan[1]} threads and {plan[3]} shared bytes a block")
-    if plan[0] == 0:
+                 f"{plan[1]} threads and {plan[3]} shared bytes a block"
+                 + (f", {plan[4]} teams" if tier == "team" else ""))
+    if tier == "sweep":
         rec, k = _double_wide(dg, fm, w_pads, limit, order)
     else:
+        double = doubling_team if tier == "team" else doubling_rows
         rec = initial_records(dg, fm, w_pads, order)
-        settled, live = doubling_rows(rec, d, limit)
+        settled, live = double(rec, d, limit)
         k = min(limit, int(settled.max())) if len(settled) else 0
         redo = (live & (settled < k)).nonzero().flatten()
         if redo.numel():
             sub = initial_records(dg, fm[redo], w_pads, order)
-            doubling_rows(sub, d, k, fixed=True)
+            double(sub, d, k, fixed=True)
             rec[redo] = sub
             del sub
     doubled_tables_multi.sweeps += k

@@ -3,7 +3,10 @@
 torch versions on the same blocks — one row, one column, one value, a
 change at every entry, runs as long as 65,535 rows, blocky blocks at
 widths no power of two divides and at a road block's 1,024 rows — each
-launch counted; ``fetch_fm`` of a CUDA block is the block, two launches
+launch counted; the encode's tiles (64 columns x 256 rows) at C = 1,
+31, 32, 33, 1,024 and 65,535 rows, N off the tile's multiple (rows of
+whole words and not), with an all-equal column, an alternating column
+and runs across tile edges; ``fetch_fm`` of a CUDA block is the block, two launches
 when it is coded and none when the gate or ``DOS_FETCH_RLE=0`` refuse
 it; a pipelined build with the gate patched low writes the blocks of a
 build with the fetch off, two launches a block; a kernel that fails to
@@ -80,6 +83,44 @@ def test_count_and_encode_equal_plain(dev, name):
     np.testing.assert_array_equal(
         rle.expand_runs(host[0].numpy(), host[1].numpy(), *fm.shape),
         BLOCKS[name])
+
+
+def _tiles(c: int, n: int, seed: int) -> np.ndarray:
+    """A [c, n] block (three 64-column tiles and a few columns): column
+    0 all one value, column 1 alternating, column 64 (a tile's first)
+    alternating in pairs, the rest runs of 1 to 600 rows (across the
+    256-row tiles)."""
+    rng = np.random.default_rng(seed)
+    fm = np.empty((c, n), np.int8)
+    for j in range(n):
+        lens = rng.integers(1, 600, c)
+        vals = rng.integers(-1, 8, c).astype(np.int8)
+        fm[:, j] = np.repeat(vals, lens)[:c]
+    i = np.arange(c)
+    fm[:, 0] = 6
+    fm[:, 1] = (i % 2) * 7 - 1
+    fm[:, 64] = (i // 2 % 2) * 3
+    return fm
+
+
+@pytest.mark.parametrize("n", [196, 197], ids=["words", "bytes"])
+@pytest.mark.parametrize("c", [1, 31, 32, 33, 1024, 65535])
+def test_encode_tiles_equal_plain(dev, c, n):
+    """Rows of whole 32-bit words (N % 4 == 0: the register loads) and
+    not (byte loads), N off the tile's 64 columns."""
+    fm = torch.from_numpy(_tiles(c, n, c)).to(dev)
+    offsets, total = rle.run_offsets(rle.fm_run_count(fm))
+    wire = torch.full((3 * total + 3,), 0x5A, dtype=torch.uint8,
+                      device=dev)
+    e0 = rle.fm_rle_encode.launches
+    rle.fm_rle_encode(fm, offsets, *rle.wire_views(wire, total))
+    torch.cuda.synchronize()
+    assert rle.fm_rle_encode.launches == e0 + 1
+    lens, vals = rle.wire_views(wire, total)
+    want_l, want_v = rle.fm_rle_encode_plain(fm)
+    assert torch.equal(lens, want_l) and torch.equal(vals, want_v)
+    # nothing past the runs is written
+    assert bool((wire[3 * total:] == 0x5A).all())
 
 
 @pytest.mark.parametrize("gate, flag, launches", [

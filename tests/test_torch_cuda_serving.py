@@ -8,11 +8,14 @@ refuses operands of the wrong shape or type; K5's on-chip doubling
 ``double_rows`` at sweep caps 1, 2, 3 and at convergence, on its own
 count and on a fixed one, at one to eight cost sets, on rows of one
 block and rows a cluster of blocks holds, random records (cycles and
-wrapping sums) included; a row no cluster holds is refused; the wide
+wrapping sums) included; a row no cluster holds is refused; the team
+tier (``doubling_team``) equals ``double_rows`` the same way on rows
+that span several blocks (teams that stride over more rows than they
+are, and a 140,000-node row the shape rule itself sends there); the wide
 path's sweep (``doubling_sweep``) equals the plain sweep sweep by sweep
 and refuses an in-place or unaligned sweep; the tables either path
-builds equal the CPU's, on corrupted rows with cycles too; and the
-oracle's serving methods on the card (``query_multi``, ``query_mat``,
+builds equal the CPU's (the team tier's too), on corrupted rows with
+cycles too; and the oracle's serving methods on the card (``query_multi``, ``query_mat``,
 ``query_dist``, ``query_table(_multi)``) answer as on the CPU. Each
 launch is counted.
 
@@ -36,7 +39,7 @@ from distributed_oracle_search_tpu_torch.data import (  # noqa: E402
 from distributed_oracle_search_tpu_torch.models.cpd import CPDOracle  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import (  # noqa: E402
     DeviceGraph, build_fm_columns, cuda_walk_multi, doubling_rows,
-    doubling_sweep, table_search_multi,
+    doubling_sweep, doubling_team, table_search_multi,
 )
 from distributed_oracle_search_tpu_torch.ops import cuda_doubling as tcd  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import pointer_doubling as tpd  # noqa: E402
@@ -173,6 +176,62 @@ def test_k5_rows_equal_plain(dev, n, d):
         assert torch.equal(settled, s_want) and torch.equal(live, l_want)
 
 
+def _team_plan(n: int, d: int, nl: int, dev):
+    """A team plan of ``nl`` nodes a block on this card: the shape rule
+    with the shared memory a block cut to ``nl`` records and no cluster,
+    so a small row spans several blocks."""
+    sms, _, resident, _ = tcd.card_figures(dev.index or 0)
+    smem = nl * tpd.record_width(d) * 4 + 16
+    plan = tcd.shape_rule(n, d, sms, smem, resident, clusters=1)
+    assert tcd.plan_tier(plan) == "team" and plan[2] == -(-n // plan[0])
+    return plan
+
+
+@pytest.mark.parametrize("n, nl, rows", [(20_000, 2_048, 6),
+                                         (20_000, 2_048, 40),
+                                         (9_001, 700, 5)],
+                         ids=["teams", "strided", "ragged"])
+@pytest.mark.parametrize("d", [1, 2, 5])
+def test_k5_team_equals_plain(dev, monkeypatch, n, nl, rows, d):
+    rec0 = _random_records(rows, n, d, 60 + d, dev)
+    limit = tpd.n_sweeps(n)
+    plan = _team_plan(n, d, nl, dev)
+    monkeypatch.setattr(tcd, "rows_plan", lambda n_, d_, device: plan)
+    for cap, fixed in ((1, False), (2, False), (3, False), (limit, False),
+                       (3, True), (limit, True)):
+        got = rec0.clone()
+        before = (doubling_team.launches, doubling_rows.launches)
+        settled, live = doubling_team(got, d, cap, fixed)
+        torch.cuda.synchronize()
+        assert (doubling_team.launches, doubling_rows.launches) == (
+            before[0] + 1, before[1])
+        want = rec0.clone()
+        s_want, l_want = tpd.double_rows(want, d, cap, fixed)
+        assert torch.equal(got, want), (cap, fixed)
+        assert torch.equal(settled, s_want) and torch.equal(live, l_want)
+    with pytest.raises(ValueError, match="team tier"):
+        doubling_rows(rec0.clone(), d, 3)
+
+
+def test_k5_team_by_the_shape_rule(dev):
+    """A 140,000-node row is past the largest cluster: the rule's own
+    team plan doubles it, and doubling_rows refuses it."""
+    n = 140_000
+    plan = tcd.rows_plan(n, 1, dev)
+    assert tcd.plan_tier(plan) == "team" and plan[0] > 16, plan
+    rec0 = _random_records(9, n, 1, 71, dev)
+    for cap, fixed in ((2, False), (tpd.n_sweeps(n), False), (3, True)):
+        got = rec0.clone()
+        settled, live = doubling_team(got, 1, cap, fixed)
+        want = rec0.clone()
+        s_want, l_want = tpd.double_rows(want, 1, cap, fixed)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (cap, fixed)
+        assert torch.equal(settled, s_want) and torch.equal(live, l_want)
+    with pytest.raises(ValueError, match="team tier"):
+        doubling_rows(rec0, 1, 3)
+
+
 def test_k5_rows_refuse(dev):
     rec = torch.zeros((2, 8, 3), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="record_width"):
@@ -187,7 +246,7 @@ def test_k5_rows_refuse(dev):
                                   device=dev), 1, 3)
 
 
-@pytest.mark.parametrize("path", ["rows", "wide"])
+@pytest.mark.parametrize("path", ["rows", "wide", "team"])
 @pytest.mark.parametrize("cyclic", [False, True], ids=["paths", "cycles"])
 @pytest.mark.parametrize("multi", [False, True])
 def test_tables_on_card_equal_cpu(dev, multi, cyclic, path, monkeypatch):
@@ -196,12 +255,18 @@ def test_tables_on_card_equal_cpu(dev, multi, cyclic, path, monkeypatch):
     fm[4] = -1
     if cyclic:
         plant_cycles(g, fm, 1, 2)
+    real = tcd.rows_plan
     if path == "wide":
-        real = tcd.rows_plan
         monkeypatch.setattr(
             tcd, "rows_plan", lambda n, d, device: (0, 0, 0, 0)
             if device.type == "cuda" else real(n, d, device))
-    before = (doubling_rows.launches, doubling_sweep.launches)
+    if path == "team":
+        plan = _team_plan(g.n, 3, 64, dev)
+        monkeypatch.setattr(
+            tcd, "rows_plan", lambda n, d, device: plan
+            if device.type == "cuda" else real(n, d, device))
+    before = (doubling_rows.launches, doubling_sweep.launches,
+              doubling_team.launches)
     out = []
     for device in ("cpu", dev):
         dg = DeviceGraph.from_graph(g, device=device)
@@ -215,11 +280,14 @@ def test_tables_on_card_equal_cpu(dev, multi, cyclic, path, monkeypatch):
     for a, b in zip(*out):
         assert a.dtype == b.dtype and torch.equal(a, b)
     launched = (doubling_rows.launches - before[0],
-                doubling_sweep.launches - before[1])
+                doubling_sweep.launches - before[1],
+                doubling_team.launches - before[2])
     if path == "wide":
-        assert launched[0] == 0 and launched[1] >= 1
+        assert launched[0] == launched[2] == 0 and launched[1] >= 1
+    elif path == "team":
+        assert launched[:2] == (0, 0) and launched[2] == (2 if cyclic else 1)
     else:
-        assert launched[1] == 0 and launched[0] == (2 if cyclic else 1)
+        assert launched[1:] == (0, 0) and launched[0] == (2 if cyclic else 1)
 
 
 def test_k5_refuses_in_place(dev):

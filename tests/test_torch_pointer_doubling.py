@@ -10,7 +10,11 @@ grid) and as int32 (a 32,768-node two-way path with a few rows), D = 1,
 first-move rows with a 2-cycle and a 3-cycle of non-zero weight (their
 cost and plen grow every sweep, so a row must run exactly the chunk's
 sweep count), on the on-chip path's rule (``double_rows`` a chunk, the
-live rows rerun) and on the wide path's sweep loop. ``double_rows``
+live rows rerun), on the team tier's (the same rule, the rows past the
+largest cluster) and on the wide path's sweep loop. The shape rule is
+held as a pure function of the card's figures (the H100's: which tier
+a road row, a campaign row and a row past the card's teams take).
+``double_rows``
 with a sweep cap equals a row-by-row Jacobi loop of ``sweep_records``,
 and its ``settled`` and ``live`` their definitions. The wrappers take
 the plain versions on CPU tensors and count them; the card cases (K5
@@ -32,6 +36,7 @@ from distributed_oracle_search_tpu_torch.data import (  # noqa: E402
 )
 from distributed_oracle_search_tpu_torch.ops import (  # noqa: E402
     DeviceGraph, build_fm_columns, doubling_rows, doubling_sweep,
+    doubling_team,
 )
 from distributed_oracle_search_tpu_torch.ops import cuda_doubling as tcd  # noqa: E402
 from distributed_oracle_search_tpu_torch.ops import pointer_doubling as tpd  # noqa: E402
@@ -122,6 +127,14 @@ def wide(monkeypatch):
     monkeypatch.setattr(tcd, "rows_plan", lambda n, d, device: (0, 0, 0, 0))
 
 
+@pytest.fixture
+def team(monkeypatch):
+    """Route the doubling to the team tier (the shape rule's answer for a
+    row past the largest cluster that a team of the card holds)."""
+    monkeypatch.setattr(tcd, "rows_plan",
+                        lambda n, d, device: (3, 512, -(-n // 3), 0, 2))
+
+
 @pytest.mark.parametrize("max_len", [0, 1, 2, 3])
 @pytest.mark.parametrize("cyclic", [False, True], ids=["paths", "cycles"])
 @pytest.mark.parametrize("multi, d", [(False, 1), (True, 1), (True, 2),
@@ -167,6 +180,80 @@ def test_wide_path_equals_jax(wide, cyclic, max_len):
     sweeps = tpd.doubled_tables_multi.sweeps - before[0]
     assert doubling_rows.plain == before[1]
     assert doubling_sweep.plain - before[2] == sweeps >= 1
+
+
+@pytest.mark.parametrize("max_len", [0, 2])
+@pytest.mark.parametrize("cyclic", [False, True], ids=["paths", "cycles"])
+@pytest.mark.parametrize("multi, d", [(False, 1), (True, 2)],
+                         ids=["single", "multi2"])
+def test_team_tier_equals_jax(team, multi, d, cyclic, max_len):
+    """The team tier takes the on-chip path's rule (one call a chunk, the
+    live rows rerun for the chunk's sweeps) and keeps the JAX tables."""
+    g, fm, targets, w_pads = _road_case(17 + d, d, cyclic)
+    before = (tpd.doubled_tables_multi.sweeps, doubling_rows.plain,
+              doubling_sweep.plain, doubling_team.plain)
+    got = _port(g, fm, targets, w_pads, max_len, multi)
+    _equal(got, _jax(g, fm, targets, w_pads, max_len, multi))
+    sweeps = tpd.doubled_tables_multi.sweeps - before[0]
+    calls = doubling_team.plain - before[3]
+    assert (doubling_rows.plain, doubling_sweep.plain) == before[1:3]
+    assert calls == 1 or (cyclic and calls == 2)
+    assert 1 <= sweeps <= tpd.n_sweeps(g.n, max_len)
+    if cyclic and max_len == 0:
+        assert calls == 2
+
+
+#: the H100's figures (132 SMs, 232,448 opt-in shared bytes a block, one
+#: team block an SM, clusters up to 16) and the shape the rule gives:
+#: (blocks a row, threads, nodes a block, shared bytes, teams)
+H100 = (132, 232_448, 1)
+
+
+@pytest.mark.parametrize("n, d, shape", [
+    (300, 1, (1, 320, 300, 4_816, 0)),
+    (65_536, 1, (8, 512, 8_192, 131_088, 0)),         # the campaign
+    (65_536, 5, (10, 512, 6_554, 209_744, 0)),
+    (65_536, 7, (14, 512, 4_682, 224_752, 0)),
+    (131_072, 1, (16, 512, 8_192, 131_088, 0)),       # the largest cluster
+    (131_073, 1, (17, 512, 7_711, 123_392, 7)),
+    (264_000, 1, (33, 512, 8_000, 128_016, 4)),       # a road row
+    (264_000, 2, (33, 512, 8_000, 128_016, 4)),
+    (65_536, 14, (19, 512, 3_450, 220_816, 6)),
+    (1_081_344, 1, (132, 512, 8_192, 131_088, 1)),    # the card's last team
+    (1_081_345, 1, (0, 0, 0, 0, 0)),                  # past it: the sweep
+    (1 << 22, 1, (0, 0, 0, 0, 0)),
+], ids=["block", "campaign", "campaign-d5", "campaign-d7", "cluster16",
+        "team17", "road", "road-d2", "campaign-d14", "team132",
+        "past-teams", "4M"])
+def test_shape_rule_on_the_h100(n, d, shape):
+    got = tcd.shape_rule(n, d, *H100)
+    assert got == shape
+    assert tcd.plan_tier(got) == ("sweep" if not shape[0] else
+                                  "team" if shape[4] else "cluster")
+    if shape[0]:
+        blocks, threads, nl, smem, teams = got
+        assert blocks * nl >= n > (blocks - 1) * nl
+        assert nl <= tcd.MAX_NPT * threads and smem <= H100[1]
+        assert teams * blocks <= H100[0] * H100[2]
+
+
+@pytest.mark.parametrize("clusters, resident, tier", [
+    (16, 1, "team"), (8, 1, "team"), (16, 2, "team"), (1, 1, "team"),
+    (16, 0, "sweep")])
+def test_shape_rule_follows_the_card(clusters, resident, tier):
+    """A row the card's largest cluster does not hold takes a team when
+    the card holds the team's blocks at once (more teams with two blocks
+    an SM), else the sweep; the CPU's plan is one block a row."""
+    got = tcd.shape_rule(140_000, 1, 132, 232_448, resident, clusters)
+    assert tcd.plan_tier(got) == tier
+    if tier == "team":
+        assert got[0] == 18 and got[4] == 132 * resident // 18
+    small = tcd.shape_rule(70_000, 1, 132, 232_448, resident, clusters)
+    assert tcd.plan_tier(small) == ("cluster" if clusters >= 9 else
+                                    "team" if resident else "sweep")
+    assert tcd.plan_tier(tcd.rows_plan(500, 1, torch.device("cpu"))) \
+        == "cluster"
+    assert tcd.plan_tier((0, 0, 0, 0)) == "sweep"
 
 
 @pytest.mark.parametrize("max_len", [0, 1, 2, 3])
