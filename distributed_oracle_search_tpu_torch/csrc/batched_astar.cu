@@ -93,8 +93,11 @@
 //   its first minimal slot);
 // * 8 blocks of 256 an SM (32 registers), to hide the dependent loads;
 // * the counts stay in registers and leave by one warp reduction, one
-//   block sum and five atomics a block; grid: the blocks the card holds
-//   resident, at most one a step of nodes.
+//   block sum and six atomics a block; grid: the blocks the card holds
+//   resident, at most one a step of nodes. The sixth count is the
+//   gathers: each lane adds the slots it is about to gather for its cell
+//   (the popcount of its mask), so a sweep's count is the in-edge slots
+//   the skip left, the unit of its work that depends on the data.
 // skip = 0 gathers every real slot; it is there to time and check the
 // skip against, and nothing selects it. Where most groups are dirty (the
 // middle of a loop) the groups' round trip costs more than the skip
@@ -118,6 +121,8 @@ constexpr unsigned kFull = 0xffffffffu;
 // sweep blocks an SM: holds the sweep to 32 registers, 64 warps an SM to
 // hide the latency of its dependent loads
 constexpr int kSweepBlocks = 8;
+// a sweep's counts: the five of the JAX loop's telemetry, then gathers
+constexpr int kCounts = 6;
 constexpr int kJinf = 1000000000;
 // the JAX stage's float32 constants: 1.0 - 4e-7 (rounded from double, as
 // a weakly typed Python float is) and the int32-range clamp
@@ -226,7 +231,9 @@ sweep_kernel(const int* __restrict__ in_nbr, const int* __restrict__ w_in,
       width == 32 ? 0xffffffffu : ((1u << width) - 1u) << (sub * width);
   const long long tiles = (static_cast<long long>(n) + span - 1) / span;
   const int row_tiles = (ng + gpb - 1) / gpb;
-  unsigned c_exp = 0, c_sur = 0, c_live = 0, c_ins = 0, c_upd = 0;
+  // live & ~changed is live - (live & changed): five registers hold the
+  // six counts (32 a thread, 8 blocks an SM)
+  unsigned c_exp = 0, c_live = 0, c_ins = 0, c_upd = 0, c_gat = 0;
   bool any_imp = false;
   for (int rt = blockIdx.y; rt < row_tiles; rt += gridDim.y) {
     const int grp = rt * gpb + wg;
@@ -274,6 +281,7 @@ sweep_kernel(const int* __restrict__ in_nbr, const int* __restrict__ w_in,
         const unsigned dirty =
             (__ballot_sync(kFull, dirty_l) & seg) >> (sub * width);
         unsigned mine = on ? (skip_q ? dirty : all) : 0u;
+        c_gat += __popc(mine);
         while (__any_sync(kFull, mine != 0)) {
           const int b = mine ? __ffs(mine) - 1 : 0;
           const int u = __shfl_sync(kFull, u_l, sub * width + b);
@@ -307,7 +315,6 @@ sweep_kernel(const int* __restrict__ in_nbr, const int* __restrict__ w_in,
         improved[ii] = imp;
         const bool ch = __ldg(changed + ii) != 0;
         c_exp += live && ch;
-        c_sur += live && !ch;
         c_live += live;
         c_ins += imp && gv >= kJinf;
         c_upd += imp && gv < kJinf;
@@ -319,22 +326,23 @@ sweep_kernel(const int* __restrict__ in_nbr, const int* __restrict__ w_in,
       }
     }
   }
-  unsigned c[5] = {c_exp, c_sur, c_live, c_ins, c_upd};
-  __shared__ unsigned part[kWarps][5];
+  unsigned c[kCounts] = {c_exp, c_live - c_exp, c_live, c_ins, c_upd,
+                         c_gat};
+  __shared__ unsigned part[kWarps][kCounts];
 #pragma unroll
-  for (int j = 0; j < 5; ++j) {
+  for (int j = 0; j < kCounts; ++j) {
     c[j] = __reduce_add_sync(0xffffffffu, c[j]);
     if (lane == 0) part[warp][j] = c[j];
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned sum[5] = {0, 0, 0, 0, 0};
+    unsigned sum[kCounts] = {0, 0, 0, 0, 0, 0};
     for (int w = 0; w < kWarps; ++w) {
 #pragma unroll
-      for (int j = 0; j < 5; ++j) sum[j] += part[w][j];
+      for (int j = 0; j < kCounts; ++j) sum[j] += part[w][j];
     }
 #pragma unroll
-    for (int j = 0; j < 5; ++j) {
+    for (int j = 0; j < kCounts; ++j) {
       if (sum[j]) atomicAdd(counts + j, static_cast<unsigned long long>(sum[j]));
     }
   }
@@ -404,8 +412,8 @@ extern "C" int astar_heuristic(const void* xs, const void* ys, const void* t,
 // improved uint8 [n, q] and groups_out uint8 [n, ceil(q / 32)] (distinct
 // buffers). skip != 0 skips the gathers that cannot improve a cell (see
 // the note). Runs only if flag_in[0] != 0; then sets flag_out[0] = 1 when
-// a node improved and adds the sweep's five counts into counts[0:5]
-// (uint64, zeroed by the caller).
+// a node improved and adds the sweep's five counts into counts[0:5] and
+// its gathers into counts[5] (uint64, zeroed by the caller).
 extern "C" int astar_sweep(const void* in_nbr, const void* w_in,
                            const void* deg, int n, int k, const void* h,
                            const void* t, const void* valid, int q,

@@ -69,6 +69,20 @@ books:
   (``cuda_walk_batch.launches``, ``cuda_walk_batch.launches_pack4``,
   ``cuda_walk_batch.plain``, ``astar_sweep.launches``, ...), mirrored
   into the registry by the worker's dumps (``metrics.mirror_counts``);
+  beside them the work the kernels did where it depends on the data:
+  ``relax_jacobi.active_pairs`` (the (node, column group) pairs K1
+  relaxed, in the build's dump), ``astar_sweep.gathers`` (the in-edge
+  slots K6 read a source's row for) and ``astar_batch_np.sweeps`` (the
+  batched A* loop's sweeps, in the worker's dump);
+* kernel-path spans (``trace``; recorded under ``--trace`` or while a
+  ``torch.profiler`` session records, then also in the profiler's trace,
+  with running totals in ``trace.span_seconds`` and
+  ``trace.span_count``) — the build's ``build.shard`` (a
+  ``build_fm_sharded`` call), ``build.csr`` (the CSR and its visit
+  order), ``build.relax`` (a relax loop) with ``build.step_launch`` and
+  ``build.flag_read`` a step in it, ``build.first_moves``; batched A*'s
+  ``astar.chunk`` (a chunk of ``astar_batch_np``) with
+  ``astar.flags_read`` (a group of K6 sweeps' flags read) in it;
 * RPC lane (``transport.frames`` / ``transport.rpc`` and the worker's
   accept loop) — ``rpc_frames_sent_total``,
   ``rpc_frames_received_total``, ``rpc_frames_torn_total``,

@@ -23,21 +23,34 @@ timeline without negotiation; **durations** come from the monotonic
 Cost discipline: tracing is off by default, and a disabled :func:`span`
 returns one shared no-op context manager — no allocation, no clock
 read — so instrumented hot paths are no-op-cheap unless ``--trace``
-turns collection on process-wide or an incoming ``trace_id`` opens a
-per-thread :class:`capture` for one batch.
+turns collection on process-wide, an incoming ``trace_id`` opens a
+per-thread :class:`capture` for one batch, or a ``torch.profiler``
+session records in the process.
 
-A copy of the JAX package's ``obs/trace.py``: events, sidecars and
-trace files have the same structure, so either package's head merges
-the other's sidecars.
+Inside a ``torch.profiler`` session a span also opens
+``torch.profiler.record_function(name)``, so it lands in the profiler's
+host timeline, on the clock of the device's kernel events (the benchmark
+reads that trace). Whatever turned it on, a recorded span adds its
+seconds and one to running totals by name, :data:`span_seconds` and
+:data:`span_count` (``getattr(span_seconds, "build.csr")``), which a
+reader takes the difference of over a window, as of a launch count.
+
+A copy of the JAX package's ``obs/trace.py``, with the profiler's
+annotations and the totals added: events, sidecars and trace files have
+the same structure, so either package's head merges the other's
+sidecars.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 import uuid
+
+from ..utils.counts import bump
 
 _lock = threading.Lock()
 _events: list[dict] = []
@@ -80,14 +93,50 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **args) -> None:
+        """Nothing: a span that does not record keeps no args."""
+
 
 _NULL_SPAN = _NullSpan()
 
 
+class _Totals:
+    """Running totals by span name, read as attributes; a name no span
+    has recorded reads 0."""
+
+    def __getattr__(self, name: str):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return 0
+
+
+#: the seconds and the number of the spans recorded, by name, since the
+#: process started (:func:`utils.counts.bump`: exact under threads)
+span_seconds = _Totals()
+span_count = _Totals()
+
+
+def _profiler():
+    """``torch.autograd.profiler`` while a ``torch.profiler`` session
+    records in this process, else None. Looked up, never imported: a
+    process that has not imported torch is not profiled."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return prof
+    return None
+
+
 def _active() -> bool:
-    """Spans record when tracing is on process-wide OR this thread is
-    inside a :class:`capture` block."""
-    return _enabled or getattr(_tls, "capture", None) is not None
+    """Spans record when tracing is on process-wide, this thread is
+    inside a :class:`capture` block, or a ``torch.profiler`` session
+    records."""
+    return (_enabled or getattr(_tls, "capture", None) is not None
+            or _profiler() is not None)
+
+
+def _add_total(name: str, seconds: float) -> None:
+    bump(span_seconds, name, seconds)
+    bump(span_count, name)
 
 
 def _emit(ev: dict) -> None:
@@ -118,27 +167,41 @@ def _make_event(name: str, ts_us: int, dur_us: int, args: dict) -> dict:
 
 
 class _Span:
-    __slots__ = ("name", "args", "_t0_wall_us", "_t0_perf")
+    __slots__ = ("name", "args", "_t0_wall_us", "_t0_perf", "_annotation")
 
     def __init__(self, name: str, args: dict):
         self.name = name
         self.args = args
 
+    def set(self, **args) -> None:
+        """Add ``args`` to the event's (what is known only at the end)."""
+        self.args.update(args)
+
     def __enter__(self):
+        prof = _profiler()
+        self._annotation = (None if prof is None
+                            else prof.record_function(self.name))
+        if self._annotation is not None:
+            self._annotation.__enter__()
         self._t0_wall_us = time.time_ns() // 1000
         self._t0_perf = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        dur_us = (time.perf_counter_ns() - self._t0_perf) // 1000
-        _emit(_make_event(self.name, self._t0_wall_us, dur_us, self.args))
+        dur_ns = time.perf_counter_ns() - self._t0_perf
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        _emit(_make_event(self.name, self._t0_wall_us, dur_ns // 1000,
+                          self.args))
+        _add_total(self.name, dur_ns / 1e9)
         return False
 
 
 def span(name: str, **args):
     """Context manager timing one phase. ``args`` land in the event's
     ``args`` dict (``trace_id`` defaults to the thread's current id).
-    Returns a shared no-op when tracing is disabled."""
+    Returns a shared no-op when tracing is disabled; either has
+    ``set(**args)``, which adds args known only at the span's end."""
     if not _active():
         return _NULL_SPAN
     return _Span(name, args)
@@ -149,12 +212,14 @@ def add_span(name: str, duration_s: float, **args) -> None:
 
     For code that times itself with ``perf_counter`` deltas (the engine's
     stats-field timers): the event's start is back-dated by the duration.
-    No-op when tracing is disabled."""
+    Host-side only: it opens no profiler annotation. No-op when tracing
+    is disabled."""
     if not _active():
         return
     dur_us = int(duration_s * 1e6)
     _emit(_make_event(name, time.time_ns() // 1000 - dur_us, dur_us,
                       args))
+    _add_total(name, duration_s)
 
 
 def events() -> list[dict]:

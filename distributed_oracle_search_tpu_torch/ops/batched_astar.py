@@ -42,14 +42,17 @@ The pieces, each bit-equal to the JAX stage:
   K6's sweep skips masked out (past a node's in-degree, or in range and
   in a query group of 32 that did not change at the source: the
   invariant is proved in ``csrc/batched_astar.cu``); the tests hold it
-  equal to :func:`sweep_plain` sweep by sweep. :func:`groups_plain` is
+  equal to :func:`sweep_plain` sweep by sweep; :func:`skip_gathers`
+  counts the slots it keeps, K6's gathers. :func:`groups_plain` is
   the dirty-group map a sweep hands the next.
 * :func:`astar_batch` — picks by the tensors' device: K6's loop
   (``ops.cuda_astar``) on the card, :func:`astar_batch_plain` on the
   CPU; on CUDA tensors it launches K6 or raises.
 * :func:`astar_batch_np` — numpy in and out, power-of-two chunks, the
   deadline checked between chunks (the first always runs), the graph and
-  each named weight set cached on the device in ``ctx``.
+  each named weight set cached on the device in ``ctx``; each chunk an
+  ``astar.chunk`` span (``obs.trace``), its sweeps added to
+  ``astar_batch_np.sweeps``.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ import numpy as np
 import torch
 
 from ..data.graph import INF
+from ..obs import trace as obs_trace
 from ..utils.counts import bump
 from ..utils.device import resolve_device
 
@@ -208,11 +212,19 @@ def sweep_skip_plain(in_nbr: torch.Tensor, w_in: torch.Tensor,
     (``groups``: :func:`groups_plain` of the ``changed`` the sweep before
     left). Equal to :func:`sweep_plain` on every state a loop reaches
     (tests only)."""
-    k = in_nbr.shape[1]
-    qgrp = torch.arange(g.shape[1], device=g.device) // GROUP
+    return _sweep(in_nbr, w_in, h, t, valid, g, hops, changed, fscale,
+                  _skip_keep(w_in, deg, groups, g.shape[1]))
+
+
+def _skip_keep(w_in: torch.Tensor, deg: torch.Tensor, groups: torch.Tensor,
+               q: int):
+    """``keep(thr, nbr)`` of :func:`_sweep`: bool ``[N, K, Q]``, the slots
+    K6's sweep gathers at ``skip=1`` (:func:`sweep_skip_plain`'s rule)."""
+    k = w_in.shape[1]
+    qgrp = torch.arange(q, device=w_in.device) // GROUP
 
     def keep(thr, nbr):
-        real = (torch.arange(k, device=g.device)[None, :]
+        real = (torch.arange(k, device=w_in.device)[None, :]
                 < deg.long()[:, None])
         fixed = (w_in < 0) | (w_in > SKIP_W_MAX)
         dirty = groups.bool()[nbr][:, :, qgrp]       # [N, K, Q]
@@ -220,8 +232,20 @@ def sweep_skip_plain(in_nbr: torch.Tensor, w_in: torch.Tensor,
                                    | (thr < THR_SAFE)[None, None, :]
                                    | dirty)
 
-    return _sweep(in_nbr, w_in, h, t, valid, g, hops, changed, fscale,
-                  keep)
+    return keep
+
+
+def skip_gathers(in_nbr: torch.Tensor, w_in: torch.Tensor,
+                 deg: torch.Tensor, t: torch.Tensor, g: torch.Tensor,
+                 groups: torch.Tensor, fscale: float) -> int:
+    """The gathers of a K6 sweep at ``skip=1`` from state ``g`` and the
+    dirty groups ``groups``: the (node, slot, query) triples
+    :func:`sweep_skip_plain` keeps, every query lane of the chunk, padded
+    lanes too (the kernel's ``counts[5]``)."""
+    qix = torch.arange(g.shape[1], device=g.device)
+    thr = threshold(g[t.long(), qix], fscale)
+    keep = _skip_keep(w_in, deg, groups, g.shape[1])
+    return int(keep(thr, in_nbr.long()).sum())
 
 
 def n_groups(q: int) -> int:
@@ -429,7 +453,9 @@ def astar_batch_np(graph, queries: np.ndarray, w: np.ndarray | None = None,
 
     Returns ``(cost, plen, finished, counters)``: int64/bool arrays and
     int counters. ``info`` receives per chunk ``sweeps`` and
-    ``launches`` (lists) and the exact int totals under ``exact``."""
+    ``launches`` (lists) and the exact int totals under ``exact``. Each
+    chunk is an ``astar.chunk`` span (args ``queries``, ``sweeps``) and
+    adds its sweeps to ``astar_batch_np.sweeps``."""
     from ..models.astar import min_cost_per_unit
 
     nq = len(queries)
@@ -461,14 +487,17 @@ def astar_batch_np(graph, queries: np.ndarray, w: np.ndarray | None = None,
         tq[:m] = part[:, 1]
         vq[:m] = True
         one: dict = {}
-        c, p, f, counters = astar_batch(
-            ctx["in_nbr"], ctx["in_eid"], w_pad, ctx["xs"], ctx["ys"],
-            torch.from_numpy(sq).to(dev), torch.from_numpy(tq).to(dev),
-            hscale, fscale, cpu, valid=torch.from_numpy(vq).to(dev),
-            w_in=w_in, deg=ctx["deg"], info=one)
-        cost[lo:lo + m] = c[:m].cpu().numpy()
-        plen[lo:lo + m] = p[:m].cpu().numpy()
-        fin[lo:lo + m] = f[:m].cpu().numpy()
+        with obs_trace.span("astar.chunk", queries=m) as span:
+            c, p, f, counters = astar_batch(
+                ctx["in_nbr"], ctx["in_eid"], w_pad, ctx["xs"], ctx["ys"],
+                torch.from_numpy(sq).to(dev), torch.from_numpy(tq).to(dev),
+                hscale, fscale, cpu, valid=torch.from_numpy(vq).to(dev),
+                w_in=w_in, deg=ctx["deg"], info=one)
+            cost[lo:lo + m] = c[:m].cpu().numpy()
+            plen[lo:lo + m] = p[:m].cpu().numpy()
+            fin[lo:lo + m] = f[:m].cpu().numpy()
+            span.set(sweeps=one["sweeps"])
+        bump(astar_batch_np, "sweeps", one["sweeps"])
         for key, val in counters.items():
             totals[key] += int(val)
         for key, val in one["exact"].items():
@@ -478,3 +507,6 @@ def astar_batch_np(graph, queries: np.ndarray, w: np.ndarray | None = None,
     if info is not None:
         info.update(sweeps=sweeps, launches=launches, exact=exact)
     return cost, plen, fin, totals
+
+
+astar_batch_np.sweeps = 0

@@ -7,7 +7,8 @@ Serves the JAX package's XLA stage ``ops/batched_astar.py::astar_batch``
 * :func:`astar_heuristic`: the ``[N, Q]`` int32 heuristic table, bit for
   bit the JAX stage's on the CPU (its fused multiply-adds spelled out);
 * :func:`astar_sweep`: one Jacobi sweep of the pruned min-plus fixed
-  point into second buffers, with the sweep's five exact counts, an
+  point into second buffers, with the sweep's five exact counts and its
+  gathers (the in-edge slots it read a source's row for), an
   any-improved flag and the dirty groups (any improved query a node in
   each group of 32) that let the next sweep skip the sources that cannot
   improve a cell; a sweep whose previous sweep changed nothing returns
@@ -16,7 +17,9 @@ Serves the JAX package's XLA stage ``ops/batched_astar.py::astar_batch``
 :func:`astar_loop` drives them: the JAX loop's stop (no node changed, or
 ``limit`` sweeps), with groups of sweeps queued between two host reads
 of the flags, and each sweep's counts folded into float32 totals in
-sweep order. See the note at the top of the source for the design and
+sweep order; it adds the sweeps' gathers to ``astar_sweep.gathers``
+and reads the flags in an ``astar.flags_read`` span (``obs.trace``).
+See the note at the top of the source for the design and
 what bounds it. The library is built with ``nvcc`` at first use
 (``utils.cuda_build``) and called through plain C entry points with
 ``ctypes``.
@@ -41,6 +44,7 @@ from .batched_astar import (
     init_state, n_groups,
 )
 from .cuda_walk import _check
+from ..obs import trace as obs_trace
 from ..utils.counts import bump
 
 #: the CUDA source (``csrc/<KERNEL_NAME>.cu``) and its entry points
@@ -52,8 +56,10 @@ ENTRY_SWEEP = "astar_sweep"
 #: many launches that return at once)
 GROUP_FIRST = 4
 GROUP_MAX = 64
-#: int64 slots a sweep's counts take (five used)
+#: int64 slots a sweep's counts take: the five of the JAX loop's
+#: telemetry, then the gathers (:data:`GATHERS`); the rest unused
 COUNT_SLOTS = 8
+GATHERS = 5
 
 _fns: dict[str, object] = {}
 
@@ -125,7 +131,9 @@ def astar_sweep(in_nbr: torch.Tensor, w_in: torch.Tensor,
     and uint8 ``[N, ceil(Q / 32)]``; distinct buffers), if ``flag_in[0]``
     (int32 [1]) is set: sets ``flag_out[0] = 1`` when a node improved and
     adds the sweep's counts (:func:`.batched_astar.sweep_plain`'s five)
-    into int64 ``counts[0:5]``. ``in_nbr``, ``w_in``: int32 ``[N, K]``;
+    into int64 ``counts[0:5]`` and its gathers (the slots it read a
+    source's row for: :func:`.batched_astar.skip_gathers` at ``skip``)
+    into ``counts[5]``. ``in_nbr``, ``w_in``: int32 ``[N, K]``;
     ``deg``: int32 [N] (:func:`.batched_astar.in_degree`); ``h``: int32
     ``[N, Q]``; ``t``: int32 [Q]; ``valid``: uint8 [Q]; ``groups_in``:
     :func:`.batched_astar.groups_plain` of ``changed``. ``skip`` (the
@@ -162,8 +170,8 @@ def astar_sweep(in_nbr: torch.Tensor, w_in: torch.Tensor,
             ("flag_out", flag_out, torch.int32, (1,)),
             ("counts", counts, torch.int64, (counts.shape[0],))):
         _check(name, x, dtype, shape, dev)
-    if counts.shape[0] < 5:
-        raise ValueError("counts needs 5 int64 slots")
+    if counts.shape[0] < GATHERS + 1:
+        raise ValueError(f"counts needs {GATHERS + 1} int64 slots")
     outs = {x.data_ptr() for x in (g_out, hops_out, improved, groups_out)}
     if outs & {x.data_ptr() for x in (g, hops, changed, groups_in)}:
         raise ValueError("the sweep is double-buffered: its outputs must "
@@ -187,6 +195,7 @@ def astar_sweep(in_nbr: torch.Tensor, w_in: torch.Tensor,
 
 astar_sweep.launches = 0
 astar_sweep.dense = 0
+astar_sweep.gathers = 0
 
 
 def astar_loop(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale, cpu,
@@ -200,8 +209,9 @@ def astar_loop(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale, cpu,
     :func:`.batched_astar.in_degree` of ``in_eid`` (None builds it).
     Returns ``(cost, plen, finished, counters)`` as
     :func:`.batched_astar.astar_batch_plain`; ``info`` receives
-    ``sweeps``, ``launches``, ``counts`` (int64 ``[S, 5]``) and
-    ``exact``."""
+    ``sweeps``, ``launches``, ``counts`` (int64 ``[S, 5]``), ``exact``
+    and ``gathers`` (int64 ``[S]``). The sweeps' gathers are added to
+    ``astar_sweep.gathers``."""
     n, k = in_nbr.shape
     q = s.shape[0]
     dev = in_nbr.device
@@ -236,19 +246,22 @@ def astar_loop(in_nbr, in_eid, w_pad, xs, ys, s, t, hscale, fscale, cpu,
                         *bufs[(i + j + 1) % 2], fscale, flags[j:j + 1],
                         flags[j + 1:j + 2], counts[j])
         launches += size
-        fl = flags.cpu().numpy()
+        with obs_trace.span("astar.flags_read"):
+            fl = flags.cpu().numpy()
         ran = int(np.argmin(fl[:size] != 0)) if (fl[:size] == 0).any() \
             else size
-        parts.append(counts[:ran, :5])
+        parts.append(counts[:ran, :GATHERS + 1])
         i += ran
         if ran < size or fl[size] == 0:
             break
         flag = flags[size:size + 1]
         group = min(2 * group, GROUP_MAX)
     g, hops = bufs[i % 2][:2]
-    counts_np = torch.cat(parts).cpu().numpy() if parts \
-        else np.zeros((0, 5), np.int64)
+    both = torch.cat(parts).cpu().numpy() if parts \
+        else np.zeros((0, GATHERS + 1), np.int64)
+    counts_np, gathers = both[:, :GATHERS], both[:, GATHERS]
+    bump(astar_sweep, "gathers", int(gathers.sum()))
     if info is not None:
         info.update(sweeps=i, launches=launches, counts=counts_np,
-                    exact=exact_totals(counts_np, k))
+                    exact=exact_totals(counts_np, k), gathers=gathers)
     return (*finish(g, hops, t, valid), fold_counts(counts_np, k))

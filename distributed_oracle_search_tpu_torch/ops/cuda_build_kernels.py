@@ -33,6 +33,14 @@ CPU tests run it), CUDA tensors launch the kernel or raise — no fallback
 from a failed build or launch. Each launch adds one to the wrapper's
 ``launches`` count, and nothing else does; each call on CPU tensors adds
 one to its ``plain`` count (``utils.counts.bump``: exact under threads).
+:func:`jacobi_dist` adds the (node, column group) pairs K1 relaxed to
+``relax_jacobi.active_pairs``, on the card and on the CPU alike.
+
+The build's host phases are ``obs.trace`` spans, recorded while a
+``torch.profiler`` session (or ``--trace``) is on: ``build.csr`` (the
+CSR and its visit order), ``build.relax`` (a loop, with its ``steps``),
+in it ``build.step_launch`` (the host's work from one flag read to the
+next launch) and ``build.flag_read`` a step, and ``build.first_moves``.
 
 :func:`jacobi_dist` and :func:`sweep_dist` are the host loops with the
 JAX ``while_loop`` semantics (``while changed and i < limit``), reading
@@ -54,6 +62,7 @@ import torch
 
 from .bellman_ford import first_move_from_dist, init_dist
 from .device_graph import DeviceGraph, TINF
+from ..obs import trace as obs_trace
 from ..utils.counts import bump
 
 #: the CUDA source (``csrc/<KERNEL_NAME>.cu``)
@@ -182,21 +191,22 @@ def csr_from_ell(dg: DeviceGraph) -> EdgeCSR:
     """The full out-edge CSR of ``dg``'s ELL tables, on its device, in
     ELL slot order (edge ``row_ptr[x] + k`` is slot ``k`` of node x, so
     the extraction's slot numbers are the ELL's), with its visit order
-    (computed on the host)."""
-    pad_eid = dg.w_pad.shape[0] - 1
-    real = dg.out_eid != pad_eid          # real slots come first in a row
-    col = dg.out_nbr[real].contiguous()
-    row_ptr = np.zeros(dg.n + 1, np.int64)
-    np.cumsum(real.sum(dim=1).cpu().numpy(), out=row_ptr[1:])
-    order = visit_order(row_ptr, col.cpu().numpy())
-    span = np.stack([row_ptr[order], row_ptr[order + 1]], axis=1)
+    (computed on the host). One ``build.csr`` span."""
+    with obs_trace.span("build.csr"):
+        pad_eid = dg.w_pad.shape[0] - 1
+        real = dg.out_eid != pad_eid      # real slots come first in a row
+        col = dg.out_nbr[real].contiguous()
+        row_ptr = np.zeros(dg.n + 1, np.int64)
+        np.cumsum(real.sum(dim=1).cpu().numpy(), out=row_ptr[1:])
+        order = visit_order(row_ptr, col.cpu().numpy())
+        span = np.stack([row_ptr[order], row_ptr[order + 1]], axis=1)
 
-    def up(a):
-        return torch.as_tensor(a.astype(np.int32), device=dg.device)
+        def up(a):
+            return torch.as_tensor(a.astype(np.int32), device=dg.device)
 
-    return EdgeCSR(row_ptr=up(row_ptr), col=col,
-                   wt=dg.w_pad[dg.out_eid[real].long()].contiguous(),
-                   order=up(order), span=up(span))
+        return EdgeCSR(row_ptr=up(row_ptr), col=col,
+                       wt=dg.w_pad[dg.out_eid[real].long()].contiguous(),
+                       order=up(order), span=up(span))
 
 
 def csr_from_edges(src, dst, w, n: int, device) -> EdgeCSR:
@@ -544,6 +554,7 @@ relax_jacobi.launches = 0
 first_moves.launches = 0
 grid_sweep.launches = 0
 relax_jacobi.plain = 0
+relax_jacobi.active_pairs = 0
 first_moves.plain = 0
 grid_sweep.plain = 0
 
@@ -565,7 +576,9 @@ def jacobi_dist(csr: EdgeCSR, targets: torch.Tensor, max_iters: int = 0,
     :func:`relax_vec`). ``stats``: a dict that receives ``steps``,
     ``vec``, ``groups`` (changed-map rows of ``32 * vec`` columns),
     ``active_pairs`` (the (node, group) pairs relaxed, summed over the
-    steps) and ``pairs_per_step`` (N x groups)."""
+    steps) and ``pairs_per_step`` (N x groups). The pairs are added to
+    ``relax_jacobi.active_pairs`` whether or not ``stats`` is given: one
+    reduction a call, read after the loop's last flag read."""
     n = csr.n
     limit = (n - 1) if max_iters == 0 else max_iters
     d = init_dist(n, targets)
@@ -582,18 +595,23 @@ def jacobi_dist(csr: EdgeCSR, targets: torch.Tensor, max_iters: int = 0,
     flag = torch.zeros(1, dtype=torch.int32, device=d.device)
     active = active_counter(d.device)
     i = 0
-    while i < limit:
-        flag.zero_()
-        relax_jacobi(csr, d, spare, flag, prev, cur, active, vec)
-        d, spare = spare, d
-        if skip:
-            prev, cur = cur, prev
-        i += 1
-        if not bool(flag.item()):
-            break
+    with obs_trace.span("build.relax") as relax:
+        while i < limit:
+            with obs_trace.span("build.step_launch"):
+                flag.zero_()
+                relax_jacobi(csr, d, spare, flag, prev, cur, active, vec)
+            d, spare = spare, d
+            if skip:
+                prev, cur = cur, prev
+            i += 1
+            with obs_trace.span("build.flag_read"):
+                if not bool(flag.item()):
+                    break
+        relax.set(steps=i)
+    pairs = int(active[:, 0].sum())
+    bump(relax_jacobi, "active_pairs", pairs)
     if stats is not None:
-        stats.update(steps=i, vec=vec, groups=groups,
-                     active_pairs=int(active[:, 0].sum()),
+        stats.update(steps=i, vec=vec, groups=groups, active_pairs=pairs,
                      pairs_per_step=n * groups)
     return d, i
 
@@ -646,4 +664,5 @@ def build_fm_jacobi(dg: DeviceGraph, targets: torch.Tensor,
         csr = csr_from_ell(dg)
     dist_nb, _ = jacobi_dist(csr, targets, max_iters)
     write_dists(dist_nb.T, dist_out)
-    return first_moves(dg, targets, dist_nb, csr=csr, out=out)
+    with obs_trace.span("build.first_moves"):
+        return first_moves(dg, targets, dist_nb, csr=csr, out=out)

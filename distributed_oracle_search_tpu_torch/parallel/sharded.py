@@ -60,6 +60,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs import trace as obs_trace
 from ..ops.bellman_ford import build_fm_columns
 from ..ops.cuda_build_kernels import csr_from_ell
 from ..ops.cuda_walk import cuda_walk_batch, cuda_walk_multi
@@ -136,21 +137,24 @@ def build_fm_sharded(dg: DeviceGraph, targets_wr: np.ndarray,
     ``[W, R, N]`` (4x the fm memory; INF where unreachable and in pad
     rows, the ``max_iters`` cut's iterate when cut): ``(fm, dists)``. On
     the card the relax loop works node-major, so each chunk's rows are a
-    transposed copy of its ``[N, B]`` table."""
+    transposed copy of its ``[N, B]`` table. One ``build.shard`` span
+    (``obs.trace``)."""
     w, r = targets_wr.shape
     chunk = r if chunk <= 0 or chunk >= r else chunk
     padded = np.full((w, -(-r // chunk) * chunk), -1, np.int32)
     padded[:, :r] = targets_wr
-    build = chunk_compute(dg, kernel, max_iters)
-    fm = torch.empty((w, r, dg.n), dtype=torch.int8, device=dg.device)
-    dists = (torch.empty((w, r, dg.n), dtype=torch.int32, device=dg.device)
-             if with_dists else None)
-    for wid in range(w):
-        for i in range(0, r, chunk):
-            cols = torch.from_numpy(padded[wid, i:i + chunk]).to(dg.device)
-            rows = slice(i, i + min(chunk, r - i))
-            build(cols, out=fm[wid, rows],
-                  dist_out=None if dists is None else dists[wid, rows])
+    with obs_trace.span("build.shard"):
+        build = chunk_compute(dg, kernel, max_iters)
+        fm = torch.empty((w, r, dg.n), dtype=torch.int8, device=dg.device)
+        dists = (torch.empty((w, r, dg.n), dtype=torch.int32,
+                             device=dg.device) if with_dists else None)
+        for wid in range(w):
+            for i in range(0, r, chunk):
+                cols = torch.from_numpy(padded[wid, i:i + chunk]).to(
+                    dg.device)
+                rows = slice(i, i + min(chunk, r - i))
+                build(cols, out=fm[wid, rows],
+                      dist_out=None if dists is None else dists[wid, rows])
     return (fm, dists) if with_dists else fm
 
 

@@ -169,6 +169,7 @@ def main(argv=None) -> int:
             {**{f"{fn.__name__}.launches": fn.launches
                 for fn in (cbk.relax_jacobi, cbk.first_moves,
                            cbk.grid_sweep)},
+             "relax_jacobi.active_pairs": cbk.relax_jacobi.active_pairs,
              **cpd.COUNTERS})
         atomic_write_json(args.metrics_dump, {
             **obs_metrics.REGISTRY.snapshot(),

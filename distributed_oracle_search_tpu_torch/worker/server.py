@@ -92,7 +92,7 @@ from ..obs import device as obs_device
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..obs.http import start_obs_server
-from ..ops.batched_astar import astar_batch
+from ..ops.batched_astar import astar_batch, astar_batch_np
 from ..ops.cuda_astar import astar_heuristic, astar_sweep
 from ..ops.cuda_walk import cuda_walk_batch, cuda_walk_multi
 from ..parallel import membership
@@ -204,8 +204,8 @@ _ENGINE_BOOKED = ("worker_batches_total", "worker_queries_total")
 def kernel_counts() -> dict:
     """The kernel wrappers' launch and plain-run counts by name: the
     walk's (raw, pack4, plain), K4's and the A* kernels' (K6: the
-    sweep, its launches without the skip, the heuristic; the plain batch
-    loop and heuristic)."""
+    sweep, its launches without the skip, its gathers, the heuristic;
+    the plain batch loop and heuristic; the batched search's sweeps)."""
     return {
         "cuda_walk_batch.launches": cuda_walk_batch.launches,
         "cuda_walk_batch.launches_pack4": cuda_walk_batch.launches_pack4,
@@ -214,6 +214,8 @@ def kernel_counts() -> dict:
         "cuda_walk_multi.plain": cuda_walk_multi.plain,
         "astar_sweep.launches": astar_sweep.launches,
         "astar_sweep.dense": astar_sweep.dense,
+        "astar_sweep.gathers": astar_sweep.gathers,
+        "astar_batch_np.sweeps": astar_batch_np.sweeps,
         "astar_batch.plain": astar_batch.plain,
         "astar_heuristic.launches": astar_heuristic.launches,
         "astar_heuristic.plain": astar_heuristic.plain,

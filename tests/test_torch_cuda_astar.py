@@ -12,7 +12,10 @@ convergence — cost, plen, finished, the sweep count and the five
 counters — over hscale and fscale, padded lanes and s == t;
 ``astar_batch_np`` on the card answers as on the CPU; an in-place sweep
 and aliased group buffers are refused. Each launch is counted, the
-launches without the skip also in ``astar_sweep.dense``.
+launches without the skip also in ``astar_sweep.dense``. A sweep's
+gathers (``counts[5]``) equal, sweep by sweep, the slots the plain
+skip keeps (``skip_gathers``; every real slot of every lane without the
+skip), and K6's loop adds its sweeps' to ``astar_sweep.gathers``.
 
 Needs an NVIDIA GPU and ``nvcc``; skips without them. This file imports
 the port only (no JAX), so it runs on a machine without JAX:
@@ -154,7 +157,8 @@ def _pad(nq):
 def test_sweeps_equal_plain_with_and_without_skip(dev, graph, nq, weights):
     """Sweeps 1-3 from the plain iterate, each launched at skip 1 and at
     skip 0 on the same state: g, hops, improved, the dirty groups, the
-    five counts and the flag equal ``sweep_plain``'s."""
+    five counts and the flag equal ``sweep_plain``'s, the gathers the
+    slots the plain skip keeps (at skip 0 every real slot)."""
     g = _graph(graph)
     w = _weights(g, weights)
     pad = _pad(nq)
@@ -188,6 +192,10 @@ def test_sweeps_equal_plain_with_and_without_skip(dev, graph, nq, weights):
             assert torch.equal(out[2].bool(), want[2]), tag
             assert torch.equal(out[3], tba.groups_plain(want[2])), tag
             assert torch.equal(counts[:5], want[3]), tag
+            assert int(counts[tca.GATHERS]) == (
+                tba.skip_gathers(args["in_nbr"], w_in, deg, args["t"], pg,
+                                 pgrp, 0.0) if skip
+                else int(deg.sum()) * q), tag
             assert bool(flag[0]) == bool(want[2].any()), tag
             assert (tca.astar_sweep.launches - before[0],
                     tca.astar_sweep.dense - before[1]) == (1, int(not skip))
@@ -262,6 +270,39 @@ def test_loop_equals_plain_with_and_without_skip(dev, graph, nq, weights,
     assert (tca.astar_sweep.launches - before[0],
             tca.astar_sweep.dense - before[1]) == (
                 launches, 0 if skip else launches)
+
+
+@pytest.mark.parametrize("weights", ["free", "heavy"])
+@pytest.mark.parametrize("nq", [8, 1024])
+@pytest.mark.parametrize("graph", ["city", "road"])
+def test_loop_gathers_equal_the_plain_count(dev, graph, nq, weights):
+    """K6's loop to convergence: each sweep's gathers (``info``) equal
+    ``skip_gathers`` on the plain iterate before it, and their sum is
+    what ``astar_sweep.gathers`` gained; no sweep gathers more than the
+    chunk's cells x the largest in-degree."""
+    g = _graph(graph)
+    pad = _pad(nq)
+    args, cpu = _case(g, nq - pad, 13, dev, pad=pad, w=_weights(g, weights))
+    info = {}
+    before = tca.astar_sweep.gathers
+    tca.astar_loop(**args, hscale=1.0, fscale=0.0, cpu=cpu, info=info)
+    torch.cuda.synchronize()
+    w_in = args["w_pad"][args["in_eid"].long()]
+    deg = tba.in_degree(args["in_eid"], g.m)
+    h = tca.astar_heuristic(args["xs"], args["ys"], args["t"], cpu, 1.0)
+    state, hops, changed, groups = tba.init_state(g.n, args["s"],
+                                                  args["valid"])
+    want = []
+    for _ in range(info["sweeps"]):
+        want.append(tba.skip_gathers(args["in_nbr"], w_in, deg, args["t"],
+                                     state, groups, 0.0))
+        state, hops, changed, _ = tba.sweep_plain(
+            args["in_nbr"], w_in, h, args["t"], args["valid"], state, hops,
+            changed, 0.0)
+        groups = tba.groups_plain(changed)
+    assert info["gathers"].tolist() == want
+    assert tca.astar_sweep.gathers - before == sum(want) > 0
+    assert max(want) <= g.n * nq * int(deg.max())
 
 
 def _sweep_buffers(dev, n=30, q=8):

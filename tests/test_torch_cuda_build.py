@@ -15,13 +15,20 @@ one a cycle with off-lattice edges, for every count of columns a block,
 rows split over several warps, and rows swept in pieces on a lattice
 6,000 cells wide. Every build method
 gives the CPU's table on the card, each launch is counted, and a kernel
-that fails to build or launch raises instead of falling back.
+that fails to build or launch raises instead of falling back. A shard
+build on the card adds the CPU loop's relaxed pairs to
+``relax_jacobi.active_pairs``, and under the benchmark's profiler each
+K1 kernel starts after its step's ``build.step_launch`` span began,
+while the trace's reduction names no span of the program as a kernel.
 
 Needs an NVIDIA GPU and ``nvcc``; skips without them. This file imports
 the port only (no JAX), so it runs on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_build.py
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -40,7 +47,7 @@ from distributed_oracle_search_tpu_torch.ops.ell_split import (  # noqa: E402
     dist_to_targets_split, ell_split_graph,
 )
 from distributed_oracle_search_tpu_torch.parallel import (  # noqa: E402
-    DistributionController,
+    DistributionController, sharded,
 )
 from distributed_oracle_search_tpu_torch.utils import cuda_build  # noqa: E402
 
@@ -567,3 +574,54 @@ def test_refused_launch_raises(dev):
         cbk.relax_jacobi(csr, buf[1:].view(g.n, 2),
                          torch.zeros((g.n, 2), dtype=torch.int32,
                                      device=dev), flag, vec=2)
+
+
+def _worker_build(dev):
+    """Worker 0's targets of a 4-worker road, its ``ellsplit`` kind and
+    its graph on ``dev``."""
+    g = GRAPHS["road"]()
+    dc = DistributionController("mod", 4, 4, g.n)
+    return (DeviceGraph.from_graph(g, device=dev),
+            sharded.pad_targets(dc)[[0]], cpd.pick_build_kernel(g, "ellsplit"))
+
+
+def test_shard_build_counts_the_cpu_loops_pairs(dev):
+    dg, targets, kernel = _worker_build(dev)
+    stats = {}
+    cbk.jacobi_dist(cbk.csr_from_ell(DeviceGraph.from_graph(
+        GRAPHS["road"](), device="cpu")), torch.from_numpy(targets[0]),
+        stats=stats)
+    before = cbk.relax_jacobi.active_pairs
+    sharded.build_fm_sharded(dg, targets, kernel=kernel)
+    torch.cuda.synchronize()
+    assert cbk.relax_jacobi.active_pairs - before == stats["active_pairs"]
+    assert stats["active_pairs"] <= stats["steps"] * stats["pairs_per_step"]
+
+
+def test_profiled_build_spans_lead_the_relax_kernels(dev):
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark"))
+    from harness import trace as htrace
+
+    dg, targets, kernel = _worker_build(dev)
+    sharded.build_fm_sharded(dg, targets, kernel=kernel)      # warm
+    torch.cuda.synchronize()
+    launches = cbk.relax_jacobi.launches
+    with htrace.profiled(True) as prof:
+        sharded.build_fm_sharded(dg, targets, kernel=kernel)
+        torch.cuda.synchronize()
+    launches = cbk.relax_jacobi.launches - launches
+    events = prof.profiler.kineto_results.events()
+    card = [("cuda" in str(ev.device_type()).lower(), ev) for ev in events]
+    steps = sorted(ev.start_ns() for on, ev in card
+                   if not on and ev.name() == "build.step_launch")
+    k1 = sorted(ev.start_ns() for on, ev in card
+                if on and htrace.base_name(ev.name()) == "relax_jacobi_kernel")
+    assert len(k1) == len(steps) == launches > 0
+    assert all(k > s for k, s in zip(k1, steps))
+    names = {ev.name() for ev in events if ev.is_user_annotation()}
+    assert {"build.shard", "build.csr", "build.relax", "build.step_launch",
+            "build.flag_read", "build.first_moves"} <= names
+    red = htrace.reduce(prof)
+    assert "relax_jacobi_kernel" in red["kernels"]
+    assert not set(red["kernels"]) & names

@@ -289,11 +289,12 @@ def test_make_cpds_host_subprocess_blocks_equal_jax(dataset, tmp_path):
         assert snap["blocks"] >= 1 and snap["seconds"] > 0
         assert snap["device"]["type"] == "cpu"
         # the registry's snapshot: the metrics a build process registers,
-        # with the build kernels' launches and the index counters
-        # mirrored into its counters
+        # with the build kernels' launches, K1's active pairs and the
+        # index counters mirrored into its counters
         assert set(snap["counters"]) == {
             *BUILD_REGISTRY_COUNTERS, "relax_jacobi.launches",
-            "first_moves.launches", "grid_sweep.launches", *cpd.COUNTERS}
+            "first_moves.launches", "grid_sweep.launches",
+            "relax_jacobi.active_pairs", *cpd.COUNTERS}
         assert set(snap["gauges"]) == set(BUILD_REGISTRY_GAUGES)
         assert set(snap["histograms"]) == set(BUILD_REGISTRY_HISTOGRAMS)
     jout = str(tmp_path / "jax-index")

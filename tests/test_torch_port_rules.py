@@ -322,13 +322,105 @@ COPIED_MODULES = (
     "utils/env.py", "utils/locks.py", "utils/timer.py")
 
 
+#: the port's code differences from a copied module, beyond the
+#: package's name, as :data:`TOOL_DIFFERENCES`: ``obs/trace.py`` records
+#: while a ``torch.profiler`` session does, annotates the profiler's
+#: trace with each span, keeps running totals by span name and lets a
+#: span take args at its end
+COPY_DIFFERENCES = {
+    "obs/trace.py": {
+        "import os\n": "import os\nimport sys\n",
+        "import uuid\n": "import uuid\n\nfrom ..utils.counts import bump\n",
+        """    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+""": """    def __exit__(self, *exc):
+        return False
+
+    def set(self, **args) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Totals:
+    def __getattr__(self, name: str):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return 0
+
+
+span_seconds = _Totals()
+span_count = _Totals()
+
+
+def _profiler():
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return prof
+    return None
+""",
+        """    return _enabled or getattr(_tls, "capture", None) is not None
+""": """    return (_enabled or getattr(_tls, "capture", None) is not None
+            or _profiler() is not None)
+
+
+def _add_total(name: str, seconds: float) -> None:
+    bump(span_seconds, name, seconds)
+    bump(span_count, name)
+""",
+        """    __slots__ = ("name", "args", "_t0_wall_us", "_t0_perf")
+""": """    __slots__ = ("name", "args", "_t0_wall_us", "_t0_perf", "_annotation")
+""",
+        """    def __enter__(self):
+        self._t0_wall_us = time.time_ns() // 1000
+""": """    def set(self, **args) -> None:
+        self.args.update(args)
+
+    def __enter__(self):
+        prof = _profiler()
+        self._annotation = (None if prof is None
+                            else prof.record_function(self.name))
+        if self._annotation is not None:
+            self._annotation.__enter__()
+        self._t0_wall_us = time.time_ns() // 1000
+""",
+        """        dur_us = (time.perf_counter_ns() - self._t0_perf) // 1000
+        _emit(_make_event(self.name, self._t0_wall_us, dur_us, self.args))
+        return False
+""": """        dur_ns = time.perf_counter_ns() - self._t0_perf
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        _emit(_make_event(self.name, self._t0_wall_us, dur_ns // 1000,
+                          self.args))
+        _add_total(self.name, dur_ns / 1e9)
+        return False
+""",
+        """    _emit(_make_event(name, time.time_ns() // 1000 - dur_us, dur_us,
+                      args))
+""": """    _emit(_make_event(name, time.time_ns() // 1000 - dur_us, dur_us,
+                      args))
+    _add_total(name, duration_s)
+""",
+    },
+}
+
+
 def _same_code_as_jax(rel: str) -> bool:
     """The port's ``rel`` runs the JAX package's code, the package's name
-    replaced (docstrings and comments may differ)."""
+    replaced and :data:`COPY_DIFFERENCES` applied (docstrings and
+    comments may differ)."""
     with open(os.path.join(PORT, rel)) as f, \
             open(os.path.join(JAX_DIR, rel)) as g:
-        return code_of(f.read()) == code_of(_JAX_NAME.sub(
-            "distributed_oracle_search_tpu_torch", g.read()))
+        port, jax_src = f.read(), g.read()
+    for old, new in COPY_DIFFERENCES.get(rel, {}).items():
+        assert jax_src.count(old) == 1, (rel, old)
+        jax_src = jax_src.replace(old, new)
+    return code_of(port) == code_of(_JAX_NAME.sub(
+        "distributed_oracle_search_tpu_torch", jax_src))
 
 
 @pytest.mark.parametrize("rel", COPIED_MODULES)
